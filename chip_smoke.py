@@ -1,4 +1,5 @@
-"""Drive paddle_tpu_torch's serving path on one NVIDIA GPU and check it.
+"""Drive paddle_tpu_torch's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,14 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                (CUDA events over raw launches), plain ms, the one-call
                PyTorch yardstick where there is one (library_ms), and the
                least time the card could take (bound_ms, from bytes at
-               3.35 TB/s and fp32 flops at 67 TFLOP/s).
+               3.35 TB/s and flops at 67 TFLOP/s for fp32 inputs, 989
+               TFLOP/s, the dense bf16 tensor-core peak, for bf16 inputs).
+               The training kernels at ERNIE-large's shapes: flash forward
+               with dropout (and its keep mask read back bit for bit) and
+               flash backward, compared and timed at the step's own B = 40,
+               S = 512 and compared at S = 128 and 200; AdamW; each in bf16
+               and fp32. A bf16 kernel is held against the plain version run
+               in fp32 on the same values and rounded to bf16.
 3. serve_fp32, serve_int8 — the decoder LM at the README's full width
                (vocab 32000, d_model 1024, 12 layers, 16 heads, d_inner
                4096, max_seq_len 2048), random weights from seed 0, through
@@ -31,10 +39,31 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                and on the CPU (plain versions): logits within rtol = atol
                = 1e-4 (12 layers of fp32 summed in different orders) and
                the same 5 top ids, in order, at every step.
+5. train_parity — ERNIE at full width (hidden 1024, 16 heads, FFN 4096,
+               vocab 18000, seq 512), batch 2, the same steps on the card
+               and on the CPU from one scope_from_numpy state and on one
+               batch: the same dropout masks bit for bit and the losses
+               within rtol = atol = 1e-4 for fp32 at 2 layers (3 steps) and
+               at all 24 layers (4 steps), within 1e-2 for bf16 at 2 layers
+               (6 steps).
+6. train_ernie — ERNIE-large as the reference's benchmark trains it (24
+               layers, bf16 params, packed flash attention with probs
+               dropout 0.1, hidden dropout 0.1, 80 masked predictions, NSP,
+               AdamW lr 1e-4 / decay 0.01) through build_pretraining_program
+               and Executor: startup on the card, one warm-up step, 8 timed
+               steps on one synthetic batch (batch 40, or the largest of 32,
+               24, 16, 8 that fits). Finite loss, the last below the
+               warm-up's and the first step's (without a learning-rate
+               warm-up AdamW's first steps overshoot at this depth: the
+               24-layer train_parity leg shows the same rise on the CPU);
+               exactly 24 flash forward, 24 flash backward and 398 AdamW
+               launches a step; no NaN in any parameter. Its ms/step and
+               tokens/s are smoke figures of a host-driven eager step.
 Then one line with every ported kernel: ``launches_by_path`` gives each
-serve phase's own count, and ``launches`` is serve_int8's (the README's
-configuration, the path that runs all three kernels). Then the card's
-name and power limit, and last {"ok": true, "device": {...}}.
+phase's own count (set to 0 just before the phase, read just after), and
+``launches`` is serve_int8's for the serving kernels and train_ernie's
+for the training kernels. Then the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 
 TF32 is switched off: the fp32 projections stay torch.matmul in full
 fp32, as the JAX package left them to XLA.
@@ -52,6 +81,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, CUDA cores
+BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense tensor cores
 
 FULL = dict(vocab_size=32000, d_model=1024, n_head=16, n_layers=12,
             d_inner=4096, max_seq_len=2048)
@@ -60,7 +90,13 @@ REPLACES = {
                            "(_packed_fwd_kernel) + :311 (_fwd_kernel)",
     "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:74",
     "int8_gemm": "paddle_tpu/ops/pallas/int8_gemm.py:82",
+    "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:984 "
+                           "(_packed_bwd_kernel)",
+    "fused_adamw": "paddle_tpu/ops/pallas/fused_adam.py:22",
 }
+ERNIE = dict(vocab_size=18000, hidden_size=1024, num_attention_heads=16,
+             intermediate_size=4096)
+SEQ, MAX_PREDS = 512, 80
 SOURCES = {n: f"paddle_tpu_torch/csrc/{n}.cu" for n in REPLACES}
 
 
@@ -68,8 +104,8 @@ def emit(phase, **kw):
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def bound_ms(nbytes, flops):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def bound_ms(nbytes, flops, peak=FP32_FLOPS_PER_S):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -128,9 +164,11 @@ def check_flash(dev, results):
                                  f"lse err {e_lse}")
         o2, l2 = torch.empty_like(q), torch.empty_like(lse)
         stream = torch.cuda.current_stream().cuda_stream
+        # fp32 (dtype 0), no dropout (threshold 0)
         ms = events_ms(lambda i: lib.pt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o2.data_ptr(),
-            l2.data_ptr(), 1, s, s, n, hd, scale, 1, stream), 20)
+            l2.data_ptr(), 1, s, s, n, hd, scale, 1, 0, 0, 0, 1.0, stream),
+            20)
         plain = events_ms(lambda i: fa.plain_packed_flash_fwd(
             q, k, v, n, scale, True), 10)
         q4, k4, v4 = (t.reshape(1, s, n, hd).transpose(1, 2).contiguous()
@@ -256,6 +294,222 @@ def check_int8(dev, results):
                     bound_by=by))
 
 
+def _train_attn_inputs(dev, b, s, dtype, seed):
+    n, hd = ERNIE["num_attention_heads"], 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, s, n * hd, device=dev, generator=g)
+                   .to(dtype) for _ in range(4))
+    bias = torch.where(torch.rand(b, s, device=dev, generator=g) < 0.1,
+                       -1e4, 0.0)
+    return q, k, v, do, bias
+
+
+# fp32: the kernels sum in another order than the plain versions. bf16: the
+# kernels compute in fp32 from the bf16 inputs, so they are held against the
+# plain versions run in fp32 on the same values and rounded to bf16 once:
+# one bf16 ulp (2^-7 relative) plus 1e-3, about 2 % of a typical |out| or
+# |dq| at S = 512 with N(0, 1) inputs. dbias is fp32 in both, |dbias| ~ 1.
+TRAIN_TOL = {torch.float32: dict(rtol=1e-4, atol=2e-5),
+             torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
+DBIAS_TOL = dict(rtol=1e-3, atol=1e-3)
+RATE, ATTN_SEED = 0.1, 20261016
+
+
+def _sdpa_inputs(q, k, v, bias, n):
+    b, s, _ = q.shape
+    q4, k4, v4 = (t.reshape(b, s, n, -1).transpose(1, 2).contiguous()
+                  for t in (q, k, v))
+    return q4, k4, v4, bias.to(q.dtype).reshape(b, 1, 1, s).expand(
+        b, 1, s, s)
+
+
+def _compare_flash_train(fa, what, q, k, v, do, bias, n, scale):
+    """The forward with dropout and the backward against the plain
+    versions computed in fp32 from the same values; returns the kernel's
+    (out, lse) and the largest absolute errors of out and of dq/dk/dv."""
+    dtype = q.dtype
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    out, lse = fa.packed_flash_fwd(q, k, v, n, scale, False, bias, RATE,
+                                   ATTN_SEED)
+    r_out, r_lse = fa.plain_packed_flash_fwd(q32, k32, v32, n, scale, False,
+                                             bias, RATE, ATTN_SEED)
+    r_out = r_out.to(dtype)
+    torch.cuda.synchronize()
+    if not (torch.allclose(out.float(), r_out.float(), **TRAIN_TOL[dtype])
+            and torch.allclose(lse, r_lse, rtol=1e-5, atol=1e-4)):
+        raise AssertionError(f"flash forward+dropout {what}: "
+                             f"{errors(out, r_out)} {errors(lse, r_lse)}")
+    e_fwd = errors(out, r_out)[0]
+    # both backwards start from the same saved (out, lse)
+    got = fa.packed_flash_bwd(q, k, v, r_out, r_lse, do, n, scale, False,
+                              bias, RATE, ATTN_SEED)
+    ref = fa.plain_packed_flash_bwd(q32, k32, v32, r_out.float(), r_lse, do32,
+                                    n, scale, False, bias, RATE, ATTN_SEED)
+    torch.cuda.synchronize()
+    e_bwd = 0.0
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        if name == "dbias":
+            tol = DBIAS_TOL
+        else:
+            tol, r = TRAIN_TOL[dtype], r.to(dtype)
+            e_bwd = max(e_bwd, errors(a, r)[0])
+        if not torch.allclose(a.float(), r.float(), **tol):
+            raise AssertionError(f"flash backward {what} {name}: "
+                                 f"{errors(a, r)}")
+    return out, lse, e_fwd, e_bwd
+
+
+def check_flash_train(dev, results):
+    """Flash forward with dropout and flash backward, compared and timed at
+    the training step's attention shape (B = 40, S = 512, 16 heads of 64,
+    key bias, rate 0.1), and compared at S = 128 and at S = 200 (not a
+    multiple of the 64-row tile) with B = 4."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    n, hd = ERNIE["num_attention_heads"], 64
+    scale = hd ** -0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        small = {}
+        for s in (128, 200):
+            q, k, v, do, bias = _train_attn_inputs(dev, 4, s, dtype, s)
+            small[f"S={s}"] = _compare_flash_train(
+                fa, f"{name} B=4 S={s}", q, k, v, do, bias, n, scale)[2:]
+
+        b, s = 40, SEQ
+        q, k, v, do, bias = _train_attn_inputs(dev, b, s, dtype, 1)
+        out, lse, e_fwd, e_bwd = _compare_flash_train(
+            fa, f"{name} B={b} S={s}", q, k, v, do, bias, n, scale)
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else FP32_FLOPS_PER_S
+        esz = q.element_size()
+        heads = b * n
+        q4, k4, v4, m4 = _sdpa_inputs(q, k, v, bias, n)
+        fwd_ms = events_ms(lambda i: fa.packed_flash_fwd(
+            q, k, v, n, scale, False, bias, RATE, ATTN_SEED), 10)
+        fwd_plain = events_ms(lambda i: fa.plain_packed_flash_fwd(
+            q, k, v, n, scale, False, bias, RATE, ATTN_SEED), 3)
+        fwd_lib = events_ms(lambda i: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=m4, dropout_p=RATE, scale=scale), 10)
+        bms, by = bound_ms(4 * q.numel() * esz + bias.numel() * 4
+                           + lse.numel() * 4, heads * 2 * 2 * s * s * hd,
+                           peak)
+        results.append(dict(
+            name="flash_attention_fwd",
+            shape=f"B={b} S={s} n=16 hd=64 bias dropout={RATE} {name}",
+            max_abs_err=e_fwd, max_rel_err=None,
+            max_abs_err_at_b4={k_: e[0] for k_, e in small.items()},
+            ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib, bound_ms=bms,
+            bound_by=by))
+        bwd_ms = events_ms(lambda i: fa.packed_flash_bwd(
+            q, k, v, out, lse, do, n, scale, False, bias, RATE, ATTN_SEED),
+            10)
+        bwd_plain = events_ms(lambda i: fa.plain_packed_flash_bwd(
+            q, k, v, out, lse, do, n, scale, False, bias, RATE, ATTN_SEED),
+            3)
+        q4, k4, v4 = (t.requires_grad_(True) for t in (q4, k4, v4))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                            dropout_p=RATE, scale=scale)
+        do4 = do.reshape(b, s, n, hd).transpose(1, 2).contiguous()
+        bwd_lib = events_ms(lambda i: torch.autograd.grad(
+            o4, (q4, k4, v4), do4, retain_graph=True), 10)
+        bms, by = bound_ms(8 * q.numel() * esz + lse.numel() * 4
+                           + 2 * bias.numel() * 4,
+                           heads * 5 * 2 * s * s * hd, peak)
+        results.append(dict(
+            name="flash_attention_bwd",
+            shape=f"B={b} S={s} n=16 hd=64 bias dropout={RATE} {name}",
+            max_abs_err=e_bwd, max_rel_err=None,
+            max_abs_err_at_b4={k_: e[1] for k_, e in small.items()},
+            ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib, bound_ms=bms,
+            bound_by=by))
+        del q4, k4, v4, o4, do4, m4, out, lse
+
+    # the kernel's keep mask, read back exactly: q = 0 makes every
+    # probability 1/S, and v one-hot over a 64-key chunk makes
+    # out[q, d] = keep(q, chunk + d) / ((1 - rate) S)
+    b, s = 2, SEQ
+    q = torch.zeros(b, s, n * hd, device=dev)
+    want = rng.attn_keep(ATTN_SEED, RATE, b, n, s, s, dev)
+    for c in range(s // hd):
+        v = torch.zeros(b, s, n, hd, device=dev)
+        v[:, c * hd:(c + 1) * hd] = torch.eye(hd, device=dev)[None, :, None]
+        out, _ = fa.packed_flash_fwd(q, q, v.reshape(b, s, n * hd), n, 1.0,
+                                     False, None, RATE, ATTN_SEED)
+        got = out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0
+        if not torch.equal(got, want[..., c * hd:(c + 1) * hd]):
+            raise AssertionError("flash forward: the kernel's dropout keep "
+                                 "mask differs from the plain mask")
+    return dict(mask_bits_checked=int(want.numel()),
+                keep_fraction=float(want.float().mean()))
+
+
+def check_adamw(dev, results):
+    from paddle_tpu_torch.kernels import fused_adam as fad
+
+    lr = torch.tensor([1e-4], device=dev)
+    b1p, b2p = (torch.tensor([x], device=dev) for x in (0.9 ** 3, 0.999 ** 3))
+    hyper = (0.9, 0.999, 1e-8, 0.01)
+    for shape in ((1024, 4096), (18000, 1024)):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = "bf16" if dtype == torch.bfloat16 else "fp32"
+            g = torch.Generator(device=dev).manual_seed(shape[0])
+            # several copies, > 50 MB L2 in all: a step reads each
+            # parameter cold
+            reps = 4
+            ps = [(torch.randn(shape, device=dev, generator=g) * 0.02)
+                  .to(dtype) for _ in range(reps)]
+            gr = (torch.randn(shape, device=dev, generator=g) * 1e-2) \
+                .to(dtype)
+            ms_ = [torch.randn(shape, device=dev, generator=g) * 1e-3
+                   for _ in range(reps)]
+            vs = [torch.rand(shape, device=dev, generator=g) * 1e-5
+                  for _ in range(reps)]
+            want = fad.plain_fused_adamw(ps[0], gr, ms_[0], vs[0], lr, *hyper,
+                                         b1p, b2p)
+            p0, m0, v0 = ps[0].clone(), ms_[0].clone(), vs[0].clone()
+            fad.fused_adamw_(p0, gr, m0, v0, lr, *hyper, b1p, b2p)
+            torch.cuda.synchronize()
+            # fp32: nvcc contracts a * b + c into one fma where the plain
+            # version rounds twice; bf16 params: one bf16 ulp (2^-8)
+            ptol = dict(rtol=1e-6, atol=1e-7) if dtype == torch.float32 \
+                else dict(rtol=8e-3, atol=1e-7)
+            if not (torch.allclose(p0.float(), want[0].float(), **ptol)
+                    and torch.allclose(m0, want[1], rtol=1e-6, atol=1e-9)
+                    and torch.allclose(v0, want[2], rtol=1e-6, atol=1e-12)):
+                raise AssertionError(f"AdamW {shape} {name}: "
+                                     f"{errors(p0, want[0])}")
+            e_abs = max(errors(p0, want[0])[0], errors(m0, want[1])[0],
+                        errors(v0, want[2])[0])
+            ms = events_ms(lambda i: fad.fused_adamw_(
+                ps[i % reps], gr, ms_[i % reps], vs[i % reps], lr, *hyper,
+                b1p, b2p), 20)
+            plain = events_ms(lambda i: fad.plain_fused_adamw(
+                ps[i % reps], gr, ms_[i % reps], vs[i % reps], lr, *hyper,
+                b1p, b2p), 5)
+            library = None
+            if dtype == torch.float32:
+                # the library's fused update wants one dtype throughout,
+                # so it is a yardstick for the fp32 rows only
+                steps = [torch.tensor(3.0, device=dev) for _ in range(reps)]
+                library = events_ms(lambda i: torch._fused_adamw_(
+                    [ps[i % reps]], [gr], [ms_[i % reps]], [vs[i % reps]],
+                    [], [steps[i % reps]], lr=1e-4, beta1=0.9, beta2=0.999,
+                    weight_decay=0.01, eps=1e-8, amsgrad=False,
+                    maximize=False), 20)
+            esz = ps[0].element_size()
+            numel = ps[0].numel()
+            bms, by = bound_ms(numel * (3 * esz + 16), numel * 12,
+                               FP32_FLOPS_PER_S)
+            results.append(dict(
+                name="fused_adamw", shape=f"{list(shape)} {name}",
+                max_abs_err=e_abs, max_rel_err=None, ms=ms, plain_ms=plain,
+                library_ms=library, bound_ms=bms, bound_by=by))
+
+
 # ---------------------------------------------------------------------------
 # 3. serving at full width
 # ---------------------------------------------------------------------------
@@ -367,6 +621,160 @@ def cpu_parity(cfg, params, dev):
         raise AssertionError("card and CPU disagree at full width")
 
 
+# ---------------------------------------------------------------------------
+# 5, 6. training at full width
+# ---------------------------------------------------------------------------
+
+def _ernie_programs(layers, dtype):
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(num_hidden_layers=layers, dtype=dtype,
+                          use_flash_attention=True, **ERNIE)
+    with unique_name.guard():
+        main_prog, startup, _, fetches = bert.build_pretraining_program(
+            cfg, seq_len=SEQ, optimizer_name="adamw",
+            max_predictions_per_seq=MAX_PREDS)
+    return cfg, main_prog, startup, fetches
+
+
+def _state_arrays(scope):
+    """A scope's state as scope_from_numpy takes it (bf16 as uint16 bits)."""
+    out = {}
+    for name, val in scope.items():
+        if isinstance(val, torch.Tensor) and val.dtype == torch.bfloat16:
+            val = (val.view(torch.int16).numpy().view(np.uint16), "bfloat16")
+        elif isinstance(val, torch.Tensor):
+            val = val.numpy()
+        out[name] = val
+    return out
+
+
+def train_parity(dev, layers, dtype, steps, tol):
+    """``steps`` steps of ERNIE at full width, ``layers`` deep, batch 2, on
+    the card and on the CPU from one state and on one batch: the same
+    dropout masks bit for bit, losses within rtol = atol = ``tol``."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import bert
+
+    cfg, main_prog, startup, fetches = _ernie_programs(layers, dtype)
+    scope = Scope()
+    Executor(device="cpu").run(startup, scope=scope)
+    state = _state_arrays(scope)
+    batch = bert.synthetic_pretraining_batch(
+        cfg, 2, SEQ, seed=2, max_predictions_per_seq=MAX_PREDS)
+    ops = main_prog.global_block().ops
+    masks = [o.outputs["Mask"][0] for o in ops if o.type == "dropout"]
+    runs, counts, seconds = {}, {}, {}
+    for device in (dev, torch.device("cpu")):
+        sc = bert.scope_from_numpy(state, device)
+        exe = Executor(device=device)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[device.type] = [exe.run(main_prog, feed=batch, scope=sc,
+                                     fetch_list=[fetches["loss"]] + masks)
+                             for _ in range(steps)]
+        seconds[device.type] = time.perf_counter() - t0
+        counts[device.type] = kernels.launch_counts()
+    loss_gpu = [float(r[0].reshape(-1)[0]) for r in runs["cuda"]]
+    loss_cpu = [float(r[0].reshape(-1)[0]) for r in runs["cpu"]]
+    masks_equal = all(np.array_equal(x, y)
+                      for a, b in zip(runs["cuda"], runs["cpu"])
+                      for x, y in zip(a[1:], b[1:]))
+    ok = masks_equal and np.allclose(loss_gpu, loss_cpu, rtol=tol, atol=tol)
+    per_step = {k: v / steps for k, v in counts["cuda"].items() if v}
+    emit("train_parity", layers=layers, batch=2, seq=SEQ, dtype=dtype,
+         steps=steps, loss_gpu=loss_gpu, loss_cpu=loss_cpu,
+         dropout_masks=len(masks), masks_bitwise_equal=masks_equal,
+         tolerance=f"rtol=atol={tol}", launches_per_step=per_step,
+         seconds=seconds, ok=bool(ok))
+    if not ok:
+        raise AssertionError("training: card and CPU disagree")
+    if any(counts["cpu"].values()):
+        raise AssertionError("a CPU run launched a kernel")
+    n_adamw = sum(o.type == "adamw" for o in ops)
+    if per_step != {"flash_attention_fwd": layers,
+                    "flash_attention_bwd": layers, "fused_adamw": n_adamw}:
+        raise AssertionError(f"train_parity: launches per step {per_step}")
+    return counts["cuda"]
+
+
+def train_ernie(dev, smi):
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import bert
+
+    layers, timed = 24, 8
+    cfg, main_prog, startup, fetches = _ernie_programs(layers, "bfloat16")
+    ops = main_prog.global_block().ops
+    n_adamw = sum(o.type == "adamw" for o in ops)
+    exe = Executor(device=dev)
+    tried = []
+    for batch_size in (40, 32, 24, 16, 8):
+        scope = Scope()
+        t0 = time.perf_counter()
+        exe.run(startup, scope=scope)
+        torch.cuda.synchronize()
+        startup_s = time.perf_counter() - t0
+        batch = bert.synthetic_pretraining_batch(
+            cfg, batch_size, SEQ, seed=0, max_predictions_per_seq=MAX_PREDS)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            warm = exe.run(main_prog, feed=batch, scope=scope,
+                           fetch_list=[fetches["loss"]])
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            # the one failure this phase answers: take the next batch size
+            tried.append(dict(batch=batch_size, why=str(e).split(".")[0]))
+            del scope
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"train_ernie: no batch size fits: {tried}")
+    kernels.reset_launch_counts()
+    losses, step_ms = [float(warm[0].reshape(-1)[0])], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        out = exe.run(main_prog, feed=batch, scope=scope,
+                      fetch_list=[fetches["loss"]])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0].reshape(-1)[0]))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: counts[k] / timed for k in
+                ("flash_attention_fwd", "flash_attention_bwd", "fused_adamw")}
+    params = [scope.find_var(p.name) for p in main_prog.all_parameters()]
+    finite = all(bool(torch.isfinite(p.float()).all()) for p in params)
+    p50 = float(np.median(step_ms))
+    emit("train_ernie", model="ernie_large", layers=layers, dtype="bfloat16",
+         seq=SEQ, max_predictions=MAX_PREDS, batch=batch_size,
+         batches_that_did_not_fit=tried, ops=len(ops),
+         op_types=len({o.type for o in ops}), parameters=len(params),
+         parameter_elements=int(sum(p.numel() for p in params)),
+         startup_s=startup_s, warmup_loss=losses[0], losses=losses[1:],
+         step_ms=step_ms, step_ms_p50=p50,
+         tokens_per_s=batch_size * SEQ / (p50 / 1e3),
+         max_memory_allocated=peak, launches_per_step=per_step,
+         params_finite=finite, nvidia_smi=smi,
+         note="smoke figures of a host-driven eager step, not a benchmark")
+    # one batch every step: the last loss lies below the first step's and
+    # below the warm-up's, which no update preceded
+    if not all(np.isfinite(losses)) or not losses[timed] < min(losses[:2]):
+        raise AssertionError(f"train_ernie: loss did not fall: {losses}")
+    if per_step != {"flash_attention_fwd": layers,
+                    "flash_attention_bwd": layers, "fused_adamw": n_adamw} \
+            or n_adamw != 398:
+        raise AssertionError(f"train_ernie: launches per step {per_step}, "
+                             f"{n_adamw} adamw ops")
+    if not finite:
+        raise AssertionError("train_ernie: a parameter is not finite")
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -397,7 +805,9 @@ def main():
     check_flash(dev, results)
     check_paged(dev, results)
     check_int8(dev, results)
-    emit("kernels", results=results)
+    mask_check = check_flash_train(dev, results)
+    check_adamw(dev, results)
+    emit("kernels", results=results, dropout_mask=mask_check)
 
     cfg = DecoderLMConfig(**FULL)
     t0 = time.perf_counter()
@@ -409,9 +819,19 @@ def main():
                for phase, quant in (("serve_fp32", "none"),
                                     ("serve_int8", "int8"))}
     cpu_parity(cfg, params, dev)
+    del params
+    by_path["train_parity"] = train_parity(dev, 2, "float32", 3, 1e-4)
+    by_path["train_parity_bf16"] = train_parity(dev, 2, "bfloat16", 6, 1e-2)
+    by_path["train_parity_24"] = train_parity(dev, 24, "float32", 4, 1e-4)
+    by_path["train_ernie"] = train_ernie(dev, smi)
 
     rep = {"flash_attention_fwd": "B=1 S=2048 n=16 hd=64 causal",
-           "int8_gemm": "M=8 K=1024 N=4096 bias=True act=relu"}
+           "int8_gemm": "M=8 K=1024 N=4096 bias=True act=relu",
+           "flash_attention_bwd": f"B=40 S={SEQ} n=16 hd=64 bias "
+                                  f"dropout={RATE} bf16",
+           "fused_adamw": "[1024, 4096] bf16"}
+    main_path = {"flash_attention_bwd": "train_ernie",
+                 "fused_adamw": "train_ernie"}
     line = []
     for name in kernels.MODULES:
         rows = [r for r in results if r["name"] == name]
@@ -420,12 +840,18 @@ def main():
         line.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
-            launches=by_path["serve_int8"][name],
+            launches=by_path[main_path.get(name, "serve_int8")][name],
             launches_by_path={p: c[name] for p, c in by_path.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"]))
+        if name == "flash_attention_fwd":
+            # the same kernel as the training step launches it
+            line[-1]["train_variant"] = next(
+                {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by", "max_abs_err")}
+                for r in rows if r["shape"].endswith("bf16"))
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from . import unique_name
-from .types import VarType, convert_dtype, to_torch_dtype
+from .types import (VarType, convert_dtype, dtype_name, to_torch_dtype,
+                    x64_off)
 
 
 class OpRole:
@@ -79,7 +80,7 @@ class VarDesc:
         return {
             "name": self.name,
             "shape": list(self.shape) if self.shape is not None else None,
-            "dtype": str(np.dtype(self.dtype)),
+            "dtype": dtype_name(self.dtype),
             "type": self.type.value,
             "persistable": self.persistable,
             "stop_gradient": self.stop_gradient,
@@ -122,8 +123,26 @@ class OpDesc:
         # build-site stack, for errors raised while the op runs
         self.callstack = traceback.format_stack(limit=6)[:-2]
 
+    def input_names(self) -> List[str]:
+        return [n for names in self.inputs.values() for n in names]
+
+    def output_names(self) -> List[str]:
+        return [n for names in self.outputs.values() for n in names]
+
     def output(self, slot: str) -> List[str]:
         return self.outputs.get(slot, [])
+
+    def _rename_output(self, old: str, new: str):
+        for slot in self.outputs:
+            self.outputs[slot] = [new if n == old else n
+                                  for n in self.outputs[slot]]
+
+    @property
+    def op_role(self) -> int:
+        return self.attrs.get("op_role", OpRole.Forward)
+
+    def is_optimize_op(self) -> bool:
+        return (self.op_role & 0xF) == OpRole.Optimize
 
     def to_dict(self) -> dict:
         return {
@@ -147,9 +166,10 @@ class OpDesc:
 class Variable:
     """Python handle to a VarDesc in a Block (reference: framework.py:924).
 
-    ``a + b`` and ``a * b`` inside a program build append
-    ``elementwise_add`` / ``elementwise_mul`` ops to the variable's
-    block."""
+    ``a + b``, ``a * b`` and ``a / b`` inside a program build append
+    ``elementwise_add`` / ``elementwise_mul`` / ``elementwise_div`` ops
+    to the variable's block; a Python scalar operand becomes a
+    ``fill_constant`` var."""
 
     def __init__(self, block: "Block", desc: VarDesc):
         self.block = block
@@ -179,10 +199,10 @@ class Variable:
     def stop_gradient(self, v: bool):
         self.desc.stop_gradient = v
 
-    def _binary(self, other, op):
+    def _binary(self, other, op, reverse=False):
         from .. import layers
 
-        return layers._elementwise_binary(self, other, op)
+        return layers._elementwise_binary(self, other, op, reverse)
 
     def __add__(self, other):
         return self._binary(other, "elementwise_add")
@@ -194,9 +214,15 @@ class Variable:
 
     __rmul__ = __mul__
 
+    def __truediv__(self, other):
+        return self._binary(other, "elementwise_div")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elementwise_div", reverse=True)
+
     def __repr__(self):
         return (f"Variable(name={self.name}, shape={self.shape}, "
-                f"dtype={np.dtype(self.dtype).name}, "
+                f"dtype={dtype_name(self.dtype)}, "
                 f"persistable={self.persistable})")
 
     __str__ = __repr__
@@ -255,6 +281,9 @@ class Block:
         self.vars[name] = param
         return param
 
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
     def var(self, name: str) -> Variable:
         v = self._find_var_recursive(name)
         if v is None:
@@ -301,6 +330,9 @@ class Block:
                     self._normalize_io(outputs), attrs)
         if "op_role" not in op.attrs:
             op.attrs["op_role"] = self.program._current_role
+        dev = current_device()
+        if dev is not None and "__device__" not in op.attrs:
+            op.attrs["__device__"] = dev   # pipeline-stage tag
         self.ops.append(op)
         if infer_shape:
             self._infer_op_shapes(op)
@@ -311,11 +343,12 @@ class Block:
         on meta tensors, at two sentinel substitutions of the dynamic
         dims. Best-effort, like the reference: a lowering that cannot
         run on meta leaves its outputs shapeless and warns once per op
-        type."""
+        type. Dtypes follow the reference's 64-bit-off rule (int64 ->
+        int32), so both packages record the same VarDescs."""
         from . import registry
 
         opdef = registry.lookup(op.type)
-        if opdef is None:
+        if opdef is None or opdef.forward is None or opdef.skip_infer_shape:
             return
         ins_a: Dict[str, List[Any]] = {}
         ins_b: Dict[str, List[Any]] = {}
@@ -327,7 +360,7 @@ class Block:
                 if v is None or v.shape is None:
                     return
                 has_dyn = has_dyn or -1 in v.shape
-                dt = to_torch_dtype(v.dtype)
+                dt = x64_off(to_torch_dtype(v.dtype))
                 lst_a.append(torch.empty(
                     [_DYN_SENTINEL if d == -1 else d for d in v.shape],
                     dtype=dt, device="meta"))
@@ -337,10 +370,12 @@ class Block:
             ins_a[slot] = lst_a
             ins_b[slot] = lst_b
         try:
-            out_a = registry.normalize_outputs(
-                opdef.forward(ins_a, dict(op.attrs)))
-            out_b = registry.normalize_outputs(
-                opdef.forward(ins_b, dict(op.attrs))) if has_dyn else out_a
+            with registry.creating_on("meta"):
+                out_a = registry.normalize_outputs(
+                    opdef.forward(ins_a, dict(op.attrs)))
+                out_b = registry.normalize_outputs(
+                    opdef.forward(ins_b, dict(op.attrs))) \
+                    if has_dyn else out_a
         except Exception as e:
             if op.type not in _INFER_WARNED:
                 _INFER_WARNED.add(op.type)
@@ -360,7 +395,7 @@ class Block:
                 v.desc.shape = tuple(
                     int(da) if da == db else -1
                     for da, db in zip(ta.shape, tb.shape))
-                v.desc.dtype = convert_dtype(ta.dtype)
+                v.desc.dtype = convert_dtype(x64_off(ta.dtype))
 
     def to_dict(self) -> dict:
         return {
@@ -395,6 +430,27 @@ class Program:
         self.current_block_idx = 0
         self.random_seed: int = 0
         self._current_role = OpRole.Forward
+        # filled by append_backward: var name -> grad var name
+        self.grad_var_map: Dict[str, str] = {}
+        self._seed_counter = 0
+
+    def next_op_seed(self) -> int:
+        """Per-op RNG seed assigned at build time; the run folds in the
+        global step, so random ops vary per run but stay reproducible."""
+        self._seed_counter += 1
+        return self.random_seed * 1000003 + self._seed_counter
+
+    @contextlib.contextmanager
+    def _role_guard(self, role: int):
+        old = self._current_role
+        self._current_role = role
+        try:
+            yield
+        finally:
+            self._current_role = old
+
+    def all_parameters(self) -> List[Parameter]:
+        return [p for blk in self.blocks for p in blk.all_parameters()]
 
     def global_block(self) -> Block:
         return self.blocks[0]
@@ -454,3 +510,23 @@ def program_guard(main_program: Program,
         yield
     finally:
         _main_program, _startup_program = old_main, old_startup
+
+
+# device_guard: pins the ops built inside it to a pipeline stage
+# (reference: framework.py:5591); the tag is part of the program's JSON
+_current_device: Optional[str] = None
+
+
+@contextlib.contextmanager
+def device_guard(device: Optional[str] = None):
+    global _current_device
+    old = _current_device
+    _current_device = device
+    try:
+        yield
+    finally:
+        _current_device = old
+
+
+def current_device() -> Optional[str]:
+    return _current_device

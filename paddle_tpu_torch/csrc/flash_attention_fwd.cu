@@ -1,17 +1,29 @@
-// Causal flash-attention forward over the packed layout, for Hopper
-// (sm_90a):
+// Flash-attention forward over the packed layout, for Hopper (sm_90a):
 //     out[b, s, h*HD + d] = sum_t softmax_t(q . k_t * scale + bias[b, t]) v_t[d]
 //     lse[b, h, s]        = m + log(max(l, 1e-30))
-// with q [B, Sq, n*HD], k/v [B, Sk, n*HD] fp32 read in place, an optional
-// key bias [B, Sk], and causal masking bottom-right aligned (query row r
-// sees keys t <= r + Sk - Sq).
+// with q [B, Sq, n*HD], k/v [B, Sk, n*HD] fp32 or bf16 read in place, an
+// optional fp32 key bias [B, Sk], and optional causal masking, bottom-right
+// aligned (query row r sees keys t <= r + Sk - Sq). The math is fp32
+// whatever the I/O type; out is written in the input type, lse in fp32.
+//
+// Attention-probs dropout (the DROP instances): the probabilities are
+// multiplied by keep / (1 - rate) before p v, while the row sum l and lse
+// stay unmasked. keep(b, h, q, k) is the reference's stateless hash, all in
+// uint32:
+//     seed2 = splitmix32((b * H + h) ^ seed * 0x9E3779B9)
+//     x     = splitmix32((q * Sk + k) ^ seed2 * 0x9E3779B9)
+//     keep  = x >= thresh,   thresh = min(int(rate * 2^32), 2^32 - 1)
+// thresh and 1 / (1 - rate) come from the host. With the online softmax
+// the mask multiplies the tile's rescaled probabilities, never l.
 //
 // Replaces two TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
 // that compute this one function: _packed_fwd_kernel (the packed
-// single-block route, prefill buckets up to 512) and the 2-pass
-// _fwd_kernel (buckets 1024 and 2048, after a transpose to [B,H,S,D]).
-// The TPU needed two because of VMEM budgets; shared memory tiles here
-// cover every length.
+// single-block route: prefill buckets up to 512, and the BERT/ERNIE
+// encoder in training, dropout included) and the 2-pass _fwd_kernel
+// (buckets 1024 and 2048, after a transpose to [B,H,S,D]). The TPU needed
+// two because of VMEM budgets; shared memory tiles here cover every length.
+// The reference rounds p to bf16 before p v for bf16 inputs; this kernel
+// keeps p in fp32.
 //
 // What bounds it on the H100 (fp32 on CUDA cores 67 TFLOP/s data sheet;
 // device memory 3.35 TB/s): 4 * HD flops per visible (query, key) pair,
@@ -30,10 +42,37 @@
 // keys get weight exactly 0; a row with no visible key ends with l == 0
 // and out 0. No atomics and no reduction across rows.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+__device__ __forceinline__ unsigned splitmix32(unsigned x) {
+  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
+  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
+  return x ^ (x >> 16);
+}
 
 constexpr int BQ = 64;
 constexpr int BK = 64;
@@ -50,12 +89,13 @@ struct Smem {
       sizeof(float) * ((size_t)QS + KS + VS + SS + 3 * BQ);
 };
 
-template <int HD>
+template <int HD, typename T, bool DROP>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ bias,
-                 float* __restrict__ out, float* __restrict__ lse, int Sq,
-                 int Sk, int H, float scale, int causal) {
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 T* __restrict__ out, float* __restrict__ lse, int Sq,
+                 int Sk, int H, float scale, int causal, unsigned seed,
+                 unsigned thresh, float inv_keep) {
   constexpr int DJ = HD / 16;        // output columns per thread
   constexpr int V4 = HD / 4;         // float4 per row
   extern __shared__ float smem[];
@@ -72,16 +112,20 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int ld = H * HD;
   const int shift = Sk - Sq;
-  const float* qb = q + (size_t)b * Sq * ld + (size_t)h * HD;
-  const float* kb = k + (size_t)b * Sk * ld + (size_t)h * HD;
-  const float* vb = v + (size_t)b * Sk * ld + (size_t)h * HD;
+  const T* qb = q + (size_t)b * Sq * ld + (size_t)h * HD;
+  const T* kb = k + (size_t)b * Sk * ld + (size_t)h * HD;
+  const T* vb = v + (size_t)b * Sk * ld + (size_t)h * HD;
+  unsigned seed2m = 0u;   // seed2 * golden, the per-(b, h) hash key
+  if (DROP)
+    seed2m = splitmix32((unsigned)(b * H + h) ^ (seed * 0x9E3779B9u)) *
+             0x9E3779B9u;
   const float* biasb = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
 
   for (int e = tid; e < BQ * V4; e += THREADS) {
     const int r = e / V4, c = (e % V4) * 4;
     float4 x4 = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < Sq)
-      x4 = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * ld + c);
+      x4 = load4(qb + (size_t)(q0 + r) * ld + c);
     float* dst = qs + r * (HD + 1) + c;
     dst[0] = x4.x; dst[1] = x4.y; dst[2] = x4.z; dst[3] = x4.w;
   }
@@ -113,8 +157,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = e / V4, c = (e % V4) * 4;
       float4 k4 = make_float4(0.f, 0.f, 0.f, 0.f), v4 = k4;
       if (k0 + r < Sk) {
-        k4 = *reinterpret_cast<const float4*>(kb + (size_t)(k0 + r) * ld + c);
-        v4 = *reinterpret_cast<const float4*>(vb + (size_t)(k0 + r) * ld + c);
+        k4 = load4(kb + (size_t)(k0 + r) * ld + c);
+        v4 = load4(vb + (size_t)(k0 + r) * ld + c);
       }
       float* kd = ks + r * (HD + 1) + c;
       kd[0] = k4.x; kd[1] = k4.y; kd[2] = k4.z; kd[3] = k4.w;
@@ -171,8 +215,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int gc = k0 + col;
         const bool ok = gc < Sk && (!causal || gc <= sgr + shift);
         const float p = ok ? expf(ss[srow * (BK + 1) + col] - m_new) : 0.f;
-        ss[srow * (BK + 1) + col] = p;
         lsum += p;
+        if (DROP) {
+          const unsigned lin = (unsigned)sgr * (unsigned)Sk + (unsigned)gc;
+          ss[srow * (BK + 1) + col] =
+              splitmix32(lin ^ seed2m) >= thresh ? p * inv_keep : 0.f;
+        } else {
+          ss[srow * (BK + 1) + col] = p;
+        }
       }
       lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
       lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
@@ -208,7 +258,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
 
-  float* ob = out + (size_t)b * Sq * ld + (size_t)h * HD;
+  T* ob = out + (size_t)b * Sq * ld + (size_t)h * HD;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -217,49 +267,77 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = l == 0.f ? 1.f : l;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      ob[(size_t)(q0 + r) * ld + tx + 16 * j] = o[i][j] / den;
+      store1(ob + (size_t)(q0 + r) * ld + tx + 16 * j, o[i][j] / den);
   }
   if (tid < BQ && q0 + tid < Sq)
     lse[((size_t)b * H + h) * Sq + q0 + tid] =
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-template <int HD>
-int launch(const float* q, const float* k, const float* v, const float* bias,
-           float* out, float* lse, int B, int Sq, int Sk, int H, float scale,
-           int causal, cudaStream_t stream) {
+template <int HD, typename T, bool DROP>
+int launch(const void* q, const void* k, const void* v, const float* bias,
+           void* out, float* lse, int B, int Sq, int Sk, int H, float scale,
+           int causal, unsigned seed, unsigned thresh, float inv_keep,
+           cudaStream_t stream) {
   const size_t smem = Smem<HD>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<HD, T, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      q, k, v, bias, out, lse, Sq, Sk, H, scale, causal);
+  flash_fwd_kernel<HD, T, DROP><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), bias, static_cast<T*>(out), lse, Sq, Sk, H,
+      scale, causal, seed, thresh, inv_keep);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int dispatch(const void* q, const void* k, const void* v, const float* bias,
+             void* out, float* lse, int B, int Sq, int Sk, int H, float scale,
+             int causal, int dtype, unsigned seed, unsigned thresh,
+             float inv_keep, cudaStream_t stream) {
+  const bool drop = thresh != 0u;
+  if (dtype == 0)
+    return drop ? launch<HD, float, true>(q, k, v, bias, out, lse, B, Sq, Sk,
+                                          H, scale, causal, seed, thresh,
+                                          inv_keep, stream)
+                : launch<HD, float, false>(q, k, v, bias, out, lse, B, Sq, Sk,
+                                           H, scale, causal, seed, thresh,
+                                           inv_keep, stream);
+  if (dtype == 1)
+    return drop ? launch<HD, bf16, true>(q, k, v, bias, out, lse, B, Sq, Sk,
+                                         H, scale, causal, seed, thresh,
+                                         inv_keep, stream)
+                : launch<HD, bf16, false>(q, k, v, bias, out, lse, B, Sq, Sk,
+                                          H, scale, causal, seed, thresh,
+                                          inv_keep, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Launch on `stream`; returns a CUDA error code (0 on success), or
-// cudaErrorInvalidValue for a head_dim without a template instance.
-// q/k/v/out must be contiguous and 16-byte aligned.
-extern "C" int pt_flash_attention_fwd(const float* q, const float* k,
-                                      const float* v, const float* bias,
-                                      float* out, float* lse, int B, int Sq,
-                                      int Sk, int H, int hd, float scale,
-                                      int causal, cudaStream_t stream) {
+// cudaErrorInvalidValue for a head_dim or dtype without a template
+// instance. dtype: 0 = fp32, 1 = bf16 (q/k/v/out; bias and lse are fp32).
+// thresh == 0 means no dropout. q/k/v/out must be contiguous and 16-byte
+// aligned.
+extern "C" int pt_flash_attention_fwd(
+    const void* q, const void* k, const void* v, const float* bias, void* out,
+    float* lse, int B, int Sq, int Sk, int H, int hd, float scale, int causal,
+    int dtype, unsigned seed, unsigned thresh, float inv_keep,
+    cudaStream_t stream) {
   if (B <= 0 || Sq <= 0) return 0;
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, bias, out, lse, B, Sq, Sk, H, scale, causal,
-                        stream);
+      return dispatch<32>(q, k, v, bias, out, lse, B, Sq, Sk, H, scale,
+                          causal, dtype, seed, thresh, inv_keep, stream);
     case 64:
-      return launch<64>(q, k, v, bias, out, lse, B, Sq, Sk, H, scale, causal,
-                        stream);
+      return dispatch<64>(q, k, v, bias, out, lse, B, Sq, Sk, H, scale,
+                          causal, dtype, seed, thresh, inv_keep, stream);
     case 128:
-      return launch<128>(q, k, v, bias, out, lse, B, Sq, Sk, H, scale,
-                         causal, stream);
+      return dispatch<128>(q, k, v, bias, out, lse, B, Sq, Sk, H, scale,
+                           causal, dtype, seed, thresh, inv_keep, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

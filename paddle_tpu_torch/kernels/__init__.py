@@ -5,24 +5,30 @@ Every wrapper takes its plain PyTorch version for CPU and ``meta``
 tensors (tests, shape inference) and, for a CUDA tensor, launches its
 kernel or raises: there is no fallback and no switch that turns a kernel
 off on the card. Each wrapper counts its kernel launches in a plain
-module-level integer, ``launches``.
+module-level integer (``launches``; the flash module's backward kernel
+counts in ``bwd_launches``).
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-from . import flash_attention, int8_gemm, paged_attention
+from . import flash_attention, fused_adam, int8_gemm, paged_attention
 
+# kernel (its csrc/<name>.cu) -> the module that wraps it
 MODULES = {"flash_attention_fwd": flash_attention,
            "paged_attention": paged_attention,
-           "int8_gemm": int8_gemm}
+           "int8_gemm": int8_gemm,
+           "flash_attention_bwd": flash_attention,
+           "fused_adamw": fused_adam}
+_COUNTER = {"flash_attention_bwd": "bwd_launches"}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: int(mod.launches) for name, mod in MODULES.items()}
+    return {name: int(getattr(mod, _COUNTER.get(name, "launches")))
+            for name, mod in MODULES.items()}
 
 
 def reset_launch_counts():
-    for mod in MODULES.values():
-        mod.launches = 0
+    for name, mod in MODULES.items():
+        setattr(mod, _COUNTER.get(name, "launches"), 0)

@@ -8,7 +8,7 @@ from typing import Optional
 from .core import unique_name
 from .core.ir import (Parameter, Variable, default_main_program,
                       default_startup_program)
-from .initializer import Constant
+from .initializer import Xavier, _default_bias_initializer
 from .param_attr import ParamAttr
 
 
@@ -28,25 +28,22 @@ class LayerHelper:
                          is_bias: bool = False,
                          default_initializer=None) -> Optional[Parameter]:
         """Main-program Parameter plus its init op in the startup
-        program. Biases default to Constant(0); weights must name their
-        initializer (the random ones come with the training slice)."""
+        program. Biases default to Constant(0), weights to Xavier."""
         attr = ParamAttr._to_attr(attr)
         if attr is None:
             return None
         name = attr.name or unique_name.generate(
             f"{self.name}.b" if is_bias else f"{self.name}.w")
         init = attr.initializer or default_initializer or (
-            Constant(0.0) if is_bias else None)
-        if init is None:
-            raise NotImplementedError(
-                f"parameter {name!r} needs an initializer; only Constant "
-                f"is in this slice of the port")
+            _default_bias_initializer() if is_bias else Xavier())
         block = self.main_program.global_block()
         if name in block.vars:
             return block.vars[name]
-        param = block.create_parameter(name=name, shape=shape, dtype=dtype)
+        param = block.create_parameter(name=name, shape=shape, dtype=dtype,
+                                       trainable=attr.trainable)
         sblock = self.startup_program.global_block()
-        svar = sblock.create_parameter(name=name, shape=shape, dtype=dtype)
+        svar = sblock.create_parameter(name=name, shape=shape, dtype=dtype,
+                                       trainable=attr.trainable)
         init(svar, sblock)
         return param
 
@@ -60,3 +57,11 @@ class LayerHelper:
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         return self.main_program.current_block().append_op(
             type, inputs, outputs, attrs)
+
+    def append_activation(self, out: Variable, act: Optional[str]
+                          ) -> Variable:
+        if act is None:
+            return out
+        act_out = self.create_variable_for_type_inference(out.dtype)
+        self.append_op(act, {"X": [out]}, {"Out": [act_out]}, {})
+        return act_out

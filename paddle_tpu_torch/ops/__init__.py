@@ -1,5 +1,6 @@
-"""Op lowerings; importing this package registers the 15 op types of
-the decoder LM's prefill and decode-step programs."""
+"""Op lowerings; importing this package registers every op type of the
+decoder LM's serving programs and of the BERT/ERNIE pre-training
+program."""
 
-from . import (attention_ops, math_ops, nn_ops, quant_ops,  # noqa: F401
-               tensor_ops)
+from . import (attention_ops, extra_ops, math_ops, nn_ops,  # noqa: F401
+               optimizer_ops, quant_ops, tensor_ops)

@@ -1,6 +1,7 @@
-"""Attention lowerings of the serving path (port of
-``paddle_tpu/ops/attention_ops.py``: flash_attention :37, kv_cache_write
-:167, cached_kv_attention :205).
+"""Attention lowerings (port of ``paddle_tpu/ops/attention_ops.py``:
+_attn_dropout :17, flash_attention :37, its grad maker :81,
+flash_attention_grad :112, kv_cache_write :167, cached_kv_attention
+:205).
 
 The two pool-writing ops update the pool tensors IN PLACE and return
 the same tensors as PoolKOut/PoolVOut — the counterpart of the jit
@@ -13,32 +14,33 @@ from __future__ import annotations
 
 import torch
 
-from ..core.registry import register_op
-from ..kernels.flash_attention import packed_flash_fwd
+from ..core import rng
+from ..core.ir import OpDesc
+from ..core.registry import (default_grad_maker, register_grad_maker,
+                             register_op)
+from ..kernels.flash_attention import packed_flash_bwd, packed_flash_fwd
 from ..kernels.paged_attention import paged_decode_attention
 
 
-@register_op("flash_attention")
-def flash_attention_op(ins, attrs):
-    """Out = softmax(Q K^T * scale + Bias) V, forward only, with the
-    log-sum-exp Lse [B,n,Sq] beside it.
-
-    Q/K/V packed [B,S,n*hd] (head_dim or num_heads attr); Bias, if
-    given, is a key bias broadcastable to [B,1,1,Sk]. Runs the flash
-    forward kernel (kernels/flash_attention.py). Not in this slice (they
-    raise): the [B,H,S,D] layout, and attention-probs dropout (a rate > 0
-    outside is_test), which belongs to the training slice."""
+def _attn_dropout(attrs):
+    """(rate, seed) of attention-probs dropout: seed is the uint32 that
+    folds the op's build-time seed and the runtime step, so every step
+    draws a fresh mask and the grad op recomputes the forward's."""
     rate = float(attrs.get("dropout_prob", 0.0) or 0.0)
-    if rate > 0.0 and not attrs.get("is_test", False):
-        raise NotImplementedError(
-            "flash_attention dropout belongs to the training slice of "
-            "the port")
+    if rate <= 0.0 or bool(attrs.get("is_test", False)):
+        return 0.0, 0
+    return rate, rng.op_seed(attrs)
+
+
+def _packed_args(ins, attrs):
+    """(q, k, v, key bias [B,Sk] or None, heads, scale, causal) of a
+    flash_attention op or its grad op."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     bias = ins["Bias"][0] if ins.get("Bias") else None
     if q.dim() != 3:
         raise NotImplementedError(
-            "flash_attention in this slice of the port takes the packed "
-            "[B,S,n*hd] layout only")
+            "flash_attention in the port takes the packed [B,S,n*hd] "
+            "layout only")
     if attrs.get("head_dim"):
         n = q.shape[-1] // int(attrs["head_dim"])
     else:
@@ -52,10 +54,70 @@ def flash_attention_op(ins, attrs):
         bias = bias.reshape(b, sk)
     scale = attrs.get("scale")
     scale = float(scale) if scale is not None else (q.shape[-1] // n) ** -0.5
-    out, lse = packed_flash_fwd(q.contiguous(), k.contiguous(),
-                                v.contiguous(), n, scale,
-                                bool(attrs.get("causal", False)), bias)
+    return (q.contiguous(), k.contiguous(), v.contiguous(), bias, n, scale,
+            bool(attrs.get("causal", False)))
+
+
+@register_op("flash_attention", non_diff_inputs=("Bias",))
+def flash_attention_op(ins, attrs):
+    """Out = softmax(Q K^T * scale + Bias) V, with the log-sum-exp Lse
+    [B,n,Sq] beside it for the saved-residual grad op.
+
+    Q/K/V packed [B,S,n*hd] (head_dim or num_heads attr); Bias, if
+    given, is a key bias broadcastable to [B,1,1,Sk]. Attrs: causal,
+    scale (default 1/sqrt(hd)), dropout_prob/is_test/seed
+    (attention-probs dropout). Runs the flash forward kernel
+    (kernels/flash_attention.py). The [B,H,S,D] layout raises."""
+    q, k, v, bias, n, scale, causal = _packed_args(ins, attrs)
+    rate, seed = _attn_dropout(attrs)
+    out, lse = packed_flash_fwd(q, k, v, n, scale, causal, bias, rate, seed)
     return {"Out": out, "Lse": lse}
+
+
+@register_grad_maker("flash_attention")
+def _flash_attention_grad_maker(op, out_grads, in_grads):
+    """Emit flash_attention_grad consuming the SAVED forward Out/Lse
+    instead of the generic __vjp_grad__, which would run the forward
+    kernel again. Descs without the Lse output take the generic maker."""
+    og = (out_grads.get("Out") or [None])[0]
+    if og is None or not op.outputs.get("Lse"):
+        return default_grad_maker(op, out_grads, in_grads)
+    grads = {s: (in_grads.get(s) or [None])[0]
+             for s in ("Q", "K", "V", "Bias")}
+    if all(g is None for g in grads.values()):
+        return []
+    inputs = {"Q": list(op.inputs["Q"]), "K": list(op.inputs["K"]),
+              "V": list(op.inputs["V"]), "Out": list(op.outputs["Out"]),
+              "Lse": list(op.outputs["Lse"]), "OutGrad": [og]}
+    if op.inputs.get("Bias"):
+        inputs["Bias"] = list(op.inputs["Bias"])
+    outputs = {s + "Grad": [g] for s, g in grads.items() if g is not None}
+    attrs = dict(op.attrs)
+    # drop the forward's role tags so that append_backward tags this op
+    # Backward
+    attrs.pop("op_role", None)
+    attrs.pop("op_role_var", None)
+    return [OpDesc("flash_attention_grad", inputs, outputs, attrs)]
+
+
+@register_op("flash_attention_grad",
+             non_diff_inputs=("Bias", "Out", "Lse", "OutGrad"),
+             skip_infer_shape=True)
+def flash_attention_grad_op(ins, attrs):
+    """d(Q,K,V,Bias) of flash_attention from the saved (Out, Lse),
+    through the flash backward kernel: the forward never runs again. The
+    port has this one route for every packed shape."""
+    q, k, v, bias, n, scale, causal = _packed_args(ins, attrs)
+    out, lse, do = ins["Out"][0], ins["Lse"][0], ins["OutGrad"][0]
+    rate, seed = _attn_dropout(attrs)
+    dq, dk, dv, dbias = packed_flash_bwd(
+        q, k, v, out.contiguous(), lse.contiguous(),
+        do.to(out.dtype).reshape(out.shape).contiguous(), n, scale, causal,
+        bias, rate, seed)
+    outs = {"QGrad": dq, "KGrad": dk, "VGrad": dv}
+    if dbias is not None:
+        outs["BiasGrad"] = dbias.reshape(ins["Bias"][0].shape)
+    return outs
 
 
 @register_op("kv_cache_write")

@@ -1,10 +1,11 @@
 """Neural-net lowerings (port of ``paddle_tpu/ops/nn_ops.py``:
-layer_norm :401)."""
+layer_norm :401, dropout :453)."""
 
 from __future__ import annotations
 
 import torch
 
+from ..core import rng
 from ..core.registry import register_op
 
 
@@ -27,3 +28,26 @@ def layer_norm(ins, attrs):
         None if bias is None else bias.reshape(norm_shape).float(), eps)
     return {"Y": y.to(x.dtype), "Mean": mean.reshape(lead),
             "Variance": (1.0 / (rstd * rstd) - eps).reshape(lead)}
+
+
+@register_op("dropout")
+def dropout(ins, attrs):
+    """Seed assigned at build; the run folds in the global step, so masks
+    differ per step but stay reproducible. The keep mask is the
+    reference's splitmix32 hash over the element lattice
+    (``core/rng.dropout_keep``), bit for bit. upscale_in_train divides
+    the kept values by 1 - p in x's dtype."""
+    x = ins["X"][0]
+    p = float(attrs.get("dropout_prob", 0.5))
+    impl = attrs.get("dropout_implementation", "upscale_in_train")
+    if bool(attrs.get("is_test", False)) or p == 0.0:
+        out = x if impl == "upscale_in_train" else x * (1.0 - p)
+        return {"Out": out, "Mask": torch.ones(x.shape, dtype=torch.uint8,
+                                               device=x.device)}
+    if x.device.type == "meta":
+        keep = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    else:
+        keep = rng.dropout_keep(x.shape, rng.op_seed(attrs), p, x.device)
+    kept = x / (1.0 - p) if impl == "upscale_in_train" else x
+    return {"Out": torch.where(keep, kept, torch.zeros_like(kept)),
+            "Mask": keep.to(torch.uint8)}

@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card, at edge shapes the serving path does not reach (ragged tiles,
-Sq != Sk, every head_dim instance, contexts past 48 KB of shared
-memory). Marked ``cuda``: they skip where torch.cuda is unavailable.
+card, at edge shapes the serving and training paths do not reach (ragged
+tiles, Sq != Sk, every head_dim instance, contexts past 48 KB of shared
+memory, bf16 and fp32, dropout on and off). Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
 card and no JAX it runs without the repo's conftest:
@@ -14,7 +14,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch import kernels
+from paddle_tpu_torch.core import rng
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import fused_adam as fad
 from paddle_tpu_torch.kernels import int8_gemm as ig
 from paddle_tpu_torch.kernels import paged_attention as pa
 
@@ -50,6 +52,137 @@ def test_flash_kernel_matches_plain(dev, b, sq, sk, n, hd, causal, bias):
     assert fa.launches == before + 1
     torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+
+
+def _qkv(dev, b, sq, sk, n, hd, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, sq, n * hd, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(b, sk, n * hd, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    kb = torch.where(torch.rand(b, sk, device=dev, generator=g) < 0.3,
+                     -1e4, 0.0)
+    return q, k, v, kb, g
+
+
+# fp32: sums in another order. bf16: the kernels compute in fp32 from the
+# bf16 inputs, so they are held against the plain version run in fp32 on the
+# same values and rounded to bf16 once: one bf16 ulp (2^-7 relative) plus
+# 1e-3, about 2 % of a typical |out| at S = 512 with N(0, 1) inputs.
+TOL = {torch.float32: dict(rtol=1e-4, atol=2e-5),
+       torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
+
+
+def _f32(*tensors):
+    return [None if t is None else t.float() for t in tensors]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,n,hd,causal,bias,rate", [
+    (2, 128, 128, 2, 64, False, True, 0.1), (1, 70, 70, 3, 64, True, True, 0.3),
+    (1, 200, 333, 2, 32, True, False, 0.1), (1, 129, 129, 2, 128, False, True, 0.0),
+    (2, 512, 512, 16, 64, False, True, 0.1)])
+def test_flash_dropout_bf16_forward_matches_plain(dev, dtype, b, sq, sk, n,
+                                                  hd, causal, bias, rate):
+    q, k, v, kb, _ = _qkv(dev, b, sq, sk, n, hd, dtype, sq + sk)
+    kb = kb if bias else None
+    before = fa.launches
+    out, lse = fa.packed_flash_fwd(q, k, v, n, hd ** -0.5, causal, kb, rate,
+                                   12345)
+    ref_out, ref_lse = fa.plain_packed_flash_fwd(*_f32(q, k, v), n,
+                                                 hd ** -0.5, causal, kb, rate,
+                                                 12345)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref_out.to(dtype).float(),
+                               **TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+
+
+def test_flash_forward_keep_mask_is_the_plain_mask_bitwise(dev):
+    """q = 0 makes every probability 1/Sk; v one-hot over a 64-key chunk
+    makes out[q, d] = keep(q, chunk + d) / ((1 - rate) Sk): the kernel's
+    mask, read exactly, against core/rng.attn_keep."""
+    b, s, n, hd, rate, seed = 2, 192, 3, 64, 0.25, 987654321
+    q = torch.zeros(b, s, n * hd, device=dev)
+    want = rng.attn_keep(seed, rate, b, n, s, s, dev)
+    for c in range(s // hd):
+        v = torch.zeros(b, s, n, hd, device=dev)
+        v[:, c * hd:(c + 1) * hd] = torch.eye(hd, device=dev)[None, :, None]
+        out, _ = fa.packed_flash_fwd(q, q, v.reshape(b, s, n * hd), n, 1.0,
+                                     False, None, rate, seed)
+        got = out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0
+        assert torch.equal(got, want[..., c * hd:(c + 1) * hd])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,n,hd,causal,bias,rate", [
+    (2, 128, 128, 2, 64, False, True, 0.1), (1, 70, 70, 3, 64, True, True, 0.3),
+    (1, 200, 333, 2, 32, True, False, 0.1), (1, 129, 129, 2, 128, False, True, 0.0),
+    (2, 64, 64, 4, 64, False, False, 0.0), (2, 512, 512, 16, 64, False, True, 0.1)])
+def test_flash_backward_matches_plain(dev, dtype, b, sq, sk, n, hd, causal,
+                                      bias, rate):
+    q, k, v, kb, g = _qkv(dev, b, sq, sk, n, hd, dtype, sq * sk)
+    kb = kb if bias else None
+    do = torch.randn(b, sq, n * hd, device=dev, generator=g).to(dtype)
+    scale = hd ** -0.5
+    out, lse = fa.plain_packed_flash_fwd(q, k, v, n, scale, causal, kb, rate,
+                                         77)
+    before = fa.bwd_launches
+    got = fa.packed_flash_bwd(q, k, v, out, lse, do, n, scale, causal, kb,
+                              rate, 77)
+    ref = fa.plain_packed_flash_bwd(*_f32(q, k, v, out), lse, do.float(), n,
+                                    scale, causal, kb, rate, 77)
+    torch.cuda.synchronize()
+    assert fa.bwd_launches == before + 1
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        if r is None:
+            assert a is None
+            continue
+        if name == "dbias":   # fp32 sums of n * sq terms, |dbias| ~ 1
+            tol = dict(rtol=1e-3, atol=1e-3)
+        else:
+            tol, r = TOL[dtype], r.to(dtype)
+        torch.testing.assert_close(a.float(), r.float(),
+                                   msg=lambda m: f"{name}: {m}", **tol)
+
+
+def test_flash_backward_agrees_with_autograd_of_plain_forward(dev):
+    b, s, n, hd = 2, 96, 2, 64
+    q, k, v, kb, g = _qkv(dev, b, s, s, n, hd, torch.float32, 5)
+    do = torch.randn(b, s, n * hd, device=dev, generator=g)
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = fa.plain_packed_flash_fwd(*qkv, n, 0.125, False, kb, 0.2, 9)
+    want = torch.autograd.grad(out, qkv, do)
+    got = fa.packed_flash_bwd(q, k, v, out.detach(), lse.detach(), do, n,
+                              0.125, False, kb, 0.2, 9)
+    for a, r in zip(got[:3], want):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1,), (1000, 33), (1024, 4096)])
+def test_adamw_kernel_matches_plain(dev, pdt, shape):
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    p = torch.randn(shape, device=dev, generator=g).to(pdt)
+    grad = (torch.randn(shape, device=dev, generator=g) * 0.1).to(pdt)
+    m = torch.randn(shape, device=dev, generator=g) * 0.01
+    v = torch.rand(shape, device=dev, generator=g) * 1e-3
+    lr = torch.tensor([1e-3], device=dev)
+    b1p, b2p = (torch.tensor([x], device=dev) for x in (0.9 ** 3, 0.999 ** 3))
+    want = fad.plain_fused_adamw(p, grad, m, v, lr, 0.9, 0.999, 1e-8, 0.01,
+                                 b1p, b2p)
+    before = fad.launches
+    got = fad.fused_adamw_(p, grad, m, v, lr, 0.9, 0.999, 1e-8, 0.01, b1p,
+                           b2p)
+    torch.cuda.synchronize()
+    assert fad.launches == before + 1 and got[0] is p
+    # fp32: the compiler contracts a * b + c into one fma, the plain
+    # version rounds twice; bf16 params: one bf16 ulp where they differ
+    ptol = dict(rtol=1e-6, atol=1e-6) if pdt == torch.float32 \
+        else dict(rtol=8e-3, atol=1e-6)
+    torch.testing.assert_close(got[0].float(), want[0].float(), **ptol)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=1e-9)
 
 
 @pytest.mark.parametrize("hd,page,mp,pos", [
@@ -105,6 +238,60 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     q = torch.randn(1, 8, 3 * 48, device=dev)   # head_dim 48: no instance
     with pytest.raises(ValueError):
         fa.packed_flash_fwd(q, q, q, 3, 0.1, True)
+    lse = torch.zeros(1, 3, 8, device=dev)
+    with pytest.raises(ValueError):
+        fa.packed_flash_bwd(q, q, q, q, lse, q, 3, 0.1, True)
+    p = torch.zeros(8, device=dev, dtype=torch.float16)
+    one = torch.ones(1, device=dev)
+    with pytest.raises(ValueError):
+        fad.fused_adamw_(p, p, p.float(), p.float(), one, 0.9, 0.999, 1e-8,
+                         0.01, one, one)
+    with pytest.raises(ValueError):   # grad must have param's dtype
+        fad.fused_adamw_(p.bfloat16(), p.float(), p.float(), p.float(), one,
+                         0.9, 0.999, 1e-8, 0.01, one, one)
+
+
+def test_ernie_tiny_trains_on_card_as_on_cpu(dev):
+    """ERNIE-tiny, fp32: 3 steps on the card and on the CPU from one
+    state: the same dropout masks bit for bit, losses within 1e-4, and
+    per step one flash forward + backward per layer and one AdamW launch
+    per parameter."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          intermediate_size=512, max_position_embeddings=64,
+                          use_flash_attention=True)
+    with unique_name.guard():
+        main, startup, _, fetches = bert.build_pretraining_program(
+            cfg, seq_len=64, max_predictions_per_seq=8)
+    scope = Scope()
+    Executor(device="cpu").run(startup, scope=scope)
+    state = {n: (v.numpy() if isinstance(v, torch.Tensor) else v)
+             for n, v in scope.items()}
+    batch = bert.synthetic_pretraining_batch(cfg, 4, 64, seed=1,
+                                             max_predictions_per_seq=8)
+    masks = [o.outputs["Mask"][0] for o in main.global_block().ops
+             if o.type == "dropout"]
+    n_params = len([o for o in main.global_block().ops if o.type == "adamw"])
+    runs = {}
+    for device in ("cuda:0", "cpu"):
+        sc = bert.scope_from_numpy(state, device)
+        exe = Executor(device=device)
+        kernels.reset_launch_counts()
+        runs[device] = [exe.run(main, feed=batch, scope=sc,
+                                fetch_list=[fetches["loss"]] + masks)
+                        for _ in range(3)]
+        counts = kernels.launch_counts()
+        want = (6, 6, 3 * n_params) if device != "cpu" else (0, 0, 0)
+        assert (counts["flash_attention_fwd"], counts["flash_attention_bwd"],
+                counts["fused_adamw"]) == want
+    for a, b in zip(runs["cuda:0"], runs["cpu"]):
+        np.testing.assert_allclose(a[0], b[0], rtol=1e-4, atol=1e-4)
+        assert all(np.array_equal(x, y) for x, y in zip(a[1:], b[1:]))
 
 
 def test_engine_on_card_uses_kernels_and_batches_bitwise(dev):
@@ -133,7 +320,8 @@ def test_engine_on_card_uses_kernels_and_batches_bitwise(dev):
             eng.close()
         assert all(np.array_equal(a, b) for a, b in zip(together, alone))
         counts = kernels.launch_counts()
-        assert all(c > 0 for c in counts.values()) == (device != "cpu")
+        serving = ("flash_attention_fwd", "paged_attention", "int8_gemm")
+        assert all(counts[k] > 0 for k in serving) == (device != "cpu")
         outs[device] = together
     for a, b in zip(outs["cuda:0"], outs["cpu"]):
         assert np.array_equal(a, b)

@@ -160,7 +160,8 @@ def test_engine_ids_match_reference_engine(quant):
     stats = eng.stats()
     assert stats["kv_cache"]["pages_free"] == PAGES - 1
     assert stats["kernels"] == {"flash_attention_fwd": 0,
-                                "paged_attention": 0, "int8_gemm": 0}
+                                "paged_attention": 0, "int8_gemm": 0,
+                                "flash_attention_bwd": 0, "fused_adamw": 0}
     assert stats["device"] == "cpu"
 
 

@@ -228,7 +228,8 @@ def test_wrappers_take_plain_route_on_cpu_and_meta(monkeypatch):
                               for _ in range(3)), 2, 0.1, True)
     assert meta[0].is_meta and meta[1].shape == (2, 2, 48)
     assert kernels.launch_counts() == {
-        "flash_attention_fwd": 0, "paged_attention": 0, "int8_gemm": 0}
+        "flash_attention_fwd": 0, "paged_attention": 0, "int8_gemm": 0,
+        "flash_attention_bwd": 0, "fused_adamw": 0}
 
 
 def test_kernel_sources_and_build_flags():
