@@ -59,10 +59,32 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                exactly 24 flash forward, 24 flash backward and 398 AdamW
                launches a step; no NaN in any parameter. Its ms/step and
                tokens/s are smoke figures of a host-driven eager step.
+The long-context and [B,H,S,D] slice adds, in the order they run:
+   kernels  — check_flash_long: both flash kernels at the long step's
+               shapes (packed, bias, dropout 0.1): bf16 B=4 S=2048 and B=2
+               S=4096, fp32 B=4 S=2048, compared and timed. check_flash_bnsd:
+               both in the [B,H,S,D] layout at the six bnsd TPU kernels'
+               shapes (B=40 at S=512, 256, 128; Sq=512 Sk=256; causal; B=4
+               S=2048; fp32), compared, the first three timed, and bit for
+               bit equal to the packed layout on the same values.
+7. train_parity_long — train_parity at seq 2048, batch 1, 2 layers, fp32,
+               3 steps (position table widened to the sequence).
+8. bnsd_ops  — a program with a 4-D layers.flash_attention ([40,16,512,64]
+               bf16 q/k/v parameters, [B,1,1,S] key bias, dropout 0.1),
+               append_backward, 3 Executor.run steps: one bnsd flash forward
+               and one bnsd backward launch a step, finite gradients.
+9. train_long_s2048, train_long_s4096 — train_ernie at the long-context
+               benchmark rows (tools/bench_models.py bench_long_context):
+               max_position_embeddings = seq, s2048 batch 4 with 307 masked
+               predictions and s4096 batch 2 with 614, 1 warm-up + 5 timed
+               steps; finite loss, the last timed loss below the warm-up's,
+               24 / 24 / 398 launches a step.
 Then one line with every ported kernel: ``launches_by_path`` gives each
-phase's own count (set to 0 just before the phase, read just after), and
+phase's own count (set to 0 just before the phase, read just after),
+``launches_by_layout`` the flash kernels' split by layout, and
 ``launches`` is serve_int8's for the serving kernels and train_ernie's
-for the training kernels. Then the card's name and power limit, and last
+for the training kernels; ``variants`` are the flash kernels' other timed
+shapes. Then the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
 TF32 is switched off: the fp32 projections stay torch.matmul in full
@@ -87,16 +109,32 @@ FULL = dict(vocab_size=32000, d_model=1024, n_head=16, n_layers=12,
             d_inner=4096, max_seq_len=2048)
 REPLACES = {
     "flash_attention_fwd": "paddle_tpu/ops/pallas/flash_attention.py:948 "
-                           "(_packed_fwd_kernel) + :311 (_fwd_kernel)",
+                           "(_packed_fwd_kernel) + :311 (_fwd_kernel) + :377 "
+                           "(_fused_fwd_kernel) + :822 (_fused_fwd_kernel_g)",
     "paged_attention": "paddle_tpu/ops/pallas/paged_attention.py:74",
     "int8_gemm": "paddle_tpu/ops/pallas/int8_gemm.py:82",
     "flash_attention_bwd": "paddle_tpu/ops/pallas/flash_attention.py:984 "
-                           "(_packed_bwd_kernel)",
+                           "(_packed_bwd_kernel) + :748 (_fused_bwd_kernel) "
+                           "+ :860 (_fused_bwd_kernel_g) + :634 (_dkv_kernel) "
+                           "+ :701 (_dq_kernel)",
     "fused_adamw": "paddle_tpu/ops/pallas/fused_adam.py:22",
 }
 ERNIE = dict(vocab_size=18000, hidden_size=1024, num_attention_heads=16,
              intermediate_size=4096)
 SEQ, MAX_PREDS = 512, 80
+# the long-context rows of tools/bench_models.py bench_long_context:
+# (seq, batch), max(80, seq * 15 // 100) masked predictions
+LONG = ((2048, 4), (4096, 2))
+# check_flash_bnsd: (B, Sq, Sk, causal, dtype, timed) at the shapes the six
+# bnsd TPU kernels take; bnsd_ops: the [B,H,S,D] of its program
+BNSD_CASES = ((40, 512, 512, False, torch.bfloat16, True),
+              (40, 256, 256, False, torch.bfloat16, True),
+              (40, 128, 128, False, torch.bfloat16, True),
+              (40, 512, 256, False, torch.bfloat16, False),
+              (40, 512, 512, True, torch.bfloat16, False),
+              (4, 2048, 2048, False, torch.bfloat16, False),
+              (40, 512, 512, False, torch.float32, False))
+BNSD_OPS = (40, 16, 512, 64)
 SOURCES = {n: f"paddle_tpu_torch/csrc/{n}.cu" for n in REPLACES}
 
 
@@ -164,11 +202,13 @@ def check_flash(dev, results):
                                  f"lse err {e_lse}")
         o2, l2 = torch.empty_like(q), torch.empty_like(lse)
         stream = torch.cuda.current_stream().cuda_stream
+        strides = fa._stride_array("flash forward", hd, "packed", (
+            ("q", q), ("k", k), ("v", v), ("out", o2)))
         # fp32 (dtype 0), no dropout (threshold 0)
         ms = events_ms(lambda i: lib.pt_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o2.data_ptr(),
-            l2.data_ptr(), 1, s, s, n, hd, scale, 1, 0, 0, 0, 1.0, stream),
-            20)
+            l2.data_ptr(), strides, 1, s, s, n, hd, scale, 1, 0, 0, 0, 1.0,
+            stream), 20)
         plain = events_ms(lambda i: fa.plain_packed_flash_fwd(
             q, k, v, n, scale, True), 10)
         q4, k4, v4 = (t.reshape(1, s, n, hd).transpose(1, 2).contiguous()
@@ -315,48 +355,104 @@ DBIAS_TOL = dict(rtol=1e-3, atol=1e-3)
 RATE, ATTN_SEED = 0.1, 20261016
 
 
-def _sdpa_inputs(q, k, v, bias, n):
-    b, s, _ = q.shape
-    q4, k4, v4 = (t.reshape(b, s, n, -1).transpose(1, 2).contiguous()
-                  for t in (q, k, v))
-    return q4, k4, v4, bias.to(q.dtype).reshape(b, 1, 1, s).expand(
-        b, 1, s, s)
-
-
-def _compare_flash_train(fa, what, q, k, v, do, bias, n, scale):
+def _compare_flash(fa, what, q, k, v, do, bias, n, scale, causal=False,
+                   layout="packed"):
     """The forward with dropout and the backward against the plain
     versions computed in fp32 from the same values; returns the kernel's
-    (out, lse) and the largest absolute errors of out and of dq/dk/dv."""
+    (out, lse) and the largest absolute error of each output."""
     dtype = q.dtype
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
-    out, lse = fa.packed_flash_fwd(q, k, v, n, scale, False, bias, RATE,
-                                   ATTN_SEED)
-    r_out, r_lse = fa.plain_packed_flash_fwd(q32, k32, v32, n, scale, False,
-                                             bias, RATE, ATTN_SEED)
+    out, lse = fa.flash_fwd(q, k, v, n, scale, causal, bias, RATE, ATTN_SEED,
+                            layout)
+    r_out, r_lse = fa.plain_flash_fwd(q32, k32, v32, n, scale, causal, bias,
+                                      RATE, ATTN_SEED, layout)
     r_out = r_out.to(dtype)
     torch.cuda.synchronize()
     if not (torch.allclose(out.float(), r_out.float(), **TRAIN_TOL[dtype])
             and torch.allclose(lse, r_lse, rtol=1e-5, atol=1e-4)):
         raise AssertionError(f"flash forward+dropout {what}: "
                              f"{errors(out, r_out)} {errors(lse, r_lse)}")
-    e_fwd = errors(out, r_out)[0]
+    err = {"out": errors(out, r_out)[0], "lse": errors(lse, r_lse)[0]}
     # both backwards start from the same saved (out, lse)
-    got = fa.packed_flash_bwd(q, k, v, r_out, r_lse, do, n, scale, False,
-                              bias, RATE, ATTN_SEED)
-    ref = fa.plain_packed_flash_bwd(q32, k32, v32, r_out.float(), r_lse, do32,
-                                    n, scale, False, bias, RATE, ATTN_SEED)
+    got = fa.flash_bwd(q, k, v, r_out, r_lse, do, n, scale, causal, bias,
+                       RATE, ATTN_SEED, layout)
+    ref = fa.plain_flash_bwd(q32, k32, v32, r_out.float(), r_lse, do32, n,
+                             scale, causal, bias, RATE, ATTN_SEED, layout)
     torch.cuda.synchronize()
-    e_bwd = 0.0
     for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        if r is None:
+            continue
         if name == "dbias":
             tol = DBIAS_TOL
         else:
             tol, r = TRAIN_TOL[dtype], r.to(dtype)
-            e_bwd = max(e_bwd, errors(a, r)[0])
+        err[name] = errors(a, r)[0]
         if not torch.allclose(a.float(), r.float(), **tol):
             raise AssertionError(f"flash backward {what} {name}: "
                                  f"{errors(a, r)}")
-    return out, lse, e_fwd, e_bwd
+    return out, lse, err
+
+
+def _time_flash(fa, q, k, v, do, bias, n, scale, out, lse, layout, peak,
+                plain_reps=3):
+    """(forward, backward) timings: kernel ms, plain ms, SDPA ms (its
+    forward; its backward through autograd) and the bound, for the
+    non-causal, key-bias, dropout call of the training step."""
+    import torch.nn.functional as F
+
+    esz = q.element_size()
+    nq, nk = q.numel(), k.numel()
+    b, sk = bias.shape
+    sq = lse.shape[-1]
+    heads, hd = b * n, q.shape[-1] if layout == "bnsd" else q.shape[-1] // n
+    q4, k4, v4, do4 = (fa._heads(t, n, layout).contiguous()
+                       for t in (q, k, v, do))
+    m4 = bias.to(q.dtype).reshape(b, 1, 1, sk).expand(b, 1, sq, sk)
+    fwd = dict(
+        ms=events_ms(lambda i: fa.flash_fwd(
+            q, k, v, n, scale, False, bias, RATE, ATTN_SEED, layout), 10),
+        plain_ms=events_ms(lambda i: fa.plain_flash_fwd(
+            q, k, v, n, scale, False, bias, RATE, ATTN_SEED, layout),
+            plain_reps),
+        library_ms=events_ms(lambda i: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=m4, dropout_p=RATE, scale=scale), 10))
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
+        (2 * nq + 2 * nk) * esz + bias.numel() * 4 + lse.numel() * 4,
+        heads * 2 * 2 * sq * sk * hd, peak)
+    bwd = dict(
+        ms=events_ms(lambda i: fa.flash_bwd(
+            q, k, v, out, lse, do, n, scale, False, bias, RATE, ATTN_SEED,
+            layout), 10),
+        plain_ms=events_ms(lambda i: fa.plain_flash_bwd(
+            q, k, v, out, lse, do, n, scale, False, bias, RATE, ATTN_SEED,
+            layout), plain_reps))
+    q4, k4, v4 = (t.requires_grad_(True) for t in (q4, k4, v4))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                        dropout_p=RATE, scale=scale)
+    bwd["library_ms"] = events_ms(lambda i: torch.autograd.grad(
+        o4, (q4, k4, v4), do4, retain_graph=True), 10)
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
+        (4 * nq + 4 * nk) * esz + lse.numel() * 4 + 2 * bias.numel() * 4,
+        heads * 5 * 2 * sq * sk * hd, peak)
+    return fwd, bwd
+
+
+def _flash_rows(results, shape, err, timing):
+    """Append and return one result row per flash kernel; err from
+    _compare_flash, timing from _time_flash (or None: compared only)."""
+    rows = []
+    for i, (name, keys) in enumerate((
+            ("flash_attention_fwd", ("out", "lse")),
+            ("flash_attention_bwd", ("dq", "dk", "dv", "dbias")))):
+        row = dict(name=name, shape=shape, max_rel_err=None,
+                   max_abs_err=max(err[k_] for k_ in keys if k_ != "dbias"),
+                   errors={k_: err[k_] for k_ in keys if k_ in err})
+        row.update(timing[i] if timing else dict(
+            ms=None, plain_ms=None, library_ms=None, bound_ms=None,
+            bound_by=None))
+        rows.append(row)
+    results.extend(rows)
+    return rows
 
 
 def check_flash_train(dev, results):
@@ -364,8 +460,6 @@ def check_flash_train(dev, results):
     the training step's attention shape (B = 40, S = 512, 16 heads of 64,
     key bias, rate 0.1), and compared at S = 128 and at S = 200 (not a
     multiple of the 64-row tile) with B = 4."""
-    import torch.nn.functional as F
-
     from paddle_tpu_torch.core import rng
     from paddle_tpu_torch.kernels import flash_attention as fa
 
@@ -376,57 +470,23 @@ def check_flash_train(dev, results):
         small = {}
         for s in (128, 200):
             q, k, v, do, bias = _train_attn_inputs(dev, 4, s, dtype, s)
-            small[f"S={s}"] = _compare_flash_train(
-                fa, f"{name} B=4 S={s}", q, k, v, do, bias, n, scale)[2:]
-
+            small[f"S={s}"] = _compare_flash(
+                fa, f"{name} B=4 S={s}", q, k, v, do, bias, n, scale)[2]
         b, s = 40, SEQ
         q, k, v, do, bias = _train_attn_inputs(dev, b, s, dtype, 1)
-        out, lse, e_fwd, e_bwd = _compare_flash_train(
-            fa, f"{name} B={b} S={s}", q, k, v, do, bias, n, scale)
+        out, lse, err = _compare_flash(fa, f"{name} B={b} S={s}", q, k, v,
+                                       do, bias, n, scale)
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
             else FP32_FLOPS_PER_S
-        esz = q.element_size()
-        heads = b * n
-        q4, k4, v4, m4 = _sdpa_inputs(q, k, v, bias, n)
-        fwd_ms = events_ms(lambda i: fa.packed_flash_fwd(
-            q, k, v, n, scale, False, bias, RATE, ATTN_SEED), 10)
-        fwd_plain = events_ms(lambda i: fa.plain_packed_flash_fwd(
-            q, k, v, n, scale, False, bias, RATE, ATTN_SEED), 3)
-        fwd_lib = events_ms(lambda i: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=m4, dropout_p=RATE, scale=scale), 10)
-        bms, by = bound_ms(4 * q.numel() * esz + bias.numel() * 4
-                           + lse.numel() * 4, heads * 2 * 2 * s * s * hd,
-                           peak)
-        results.append(dict(
-            name="flash_attention_fwd",
-            shape=f"B={b} S={s} n=16 hd=64 bias dropout={RATE} {name}",
-            max_abs_err=e_fwd, max_rel_err=None,
-            max_abs_err_at_b4={k_: e[0] for k_, e in small.items()},
-            ms=fwd_ms, plain_ms=fwd_plain, library_ms=fwd_lib, bound_ms=bms,
-            bound_by=by))
-        bwd_ms = events_ms(lambda i: fa.packed_flash_bwd(
-            q, k, v, out, lse, do, n, scale, False, bias, RATE, ATTN_SEED),
-            10)
-        bwd_plain = events_ms(lambda i: fa.plain_packed_flash_bwd(
-            q, k, v, out, lse, do, n, scale, False, bias, RATE, ATTN_SEED),
-            3)
-        q4, k4, v4 = (t.requires_grad_(True) for t in (q4, k4, v4))
-        o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
-                                            dropout_p=RATE, scale=scale)
-        do4 = do.reshape(b, s, n, hd).transpose(1, 2).contiguous()
-        bwd_lib = events_ms(lambda i: torch.autograd.grad(
-            o4, (q4, k4, v4), do4, retain_graph=True), 10)
-        bms, by = bound_ms(8 * q.numel() * esz + lse.numel() * 4
-                           + 2 * bias.numel() * 4,
-                           heads * 5 * 2 * s * s * hd, peak)
-        results.append(dict(
-            name="flash_attention_bwd",
-            shape=f"B={b} S={s} n=16 hd=64 bias dropout={RATE} {name}",
-            max_abs_err=e_bwd, max_rel_err=None,
-            max_abs_err_at_b4={k_: e[1] for k_, e in small.items()},
-            ms=bwd_ms, plain_ms=bwd_plain, library_ms=bwd_lib, bound_ms=bms,
-            bound_by=by))
-        del q4, k4, v4, o4, do4, m4, out, lse
+        timing = _time_flash(fa, q, k, v, do, bias, n, scale, out, lse,
+                             "packed", peak)
+        fwd, bwd = _flash_rows(
+            results, f"B={b} S={s} n=16 hd=64 bias dropout={RATE} {name}",
+            err, timing)
+        fwd["max_abs_err_at_b4"] = {k_: e["out"] for k_, e in small.items()}
+        bwd["max_abs_err_at_b4"] = {k_: max(e["dq"], e["dk"], e["dv"])
+                                    for k_, e in small.items()}
+        del out, lse
 
     # the kernel's keep mask, read back exactly: q = 0 makes every
     # probability 1/S, and v one-hot over a 64-key chunk makes
@@ -445,6 +505,96 @@ def check_flash_train(dev, results):
                                  "mask differs from the plain mask")
     return dict(mask_bits_checked=int(want.numel()),
                 keep_fraction=float(want.float().mean()))
+
+
+def check_flash_long(dev, results):
+    """Both flash kernels at the long-context step's own attention shapes
+    (packed [B,S,16*64] projections read in place, key bias, dropout 0.1):
+    bf16 at B = 4, S = 2048 and B = 2, S = 4096, fp32 at B = 4, S = 2048.
+    Compared with the plain version run in fp32 on the same values (its
+    [B,16,S,S] temporaries, 2 GiB each at S = 4096, fit the card) and
+    timed."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    n, hd = ERNIE["num_attention_heads"], 64
+    for (s, b), dtype in ((LONG[0], torch.bfloat16),
+                          (LONG[1], torch.bfloat16),
+                          (LONG[0], torch.float32)):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v, do, bias = _train_attn_inputs(dev, b, s, dtype, s + b)
+        out, lse, err = _compare_flash(fa, f"long {name} B={b} S={s}", q, k,
+                                       v, do, bias, n, hd ** -0.5)
+        torch.cuda.empty_cache()
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else FP32_FLOPS_PER_S
+        timing = _time_flash(fa, q, k, v, do, bias, n, hd ** -0.5, out, lse,
+                             "packed", peak, plain_reps=2)
+        _flash_rows(results, f"B={b} S={s} n=16 hd=64 bias dropout={RATE} "
+                             f"{name} long", err, timing)
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+
+
+def _bnsd_inputs(dev, b, sq, sk, dtype, seed):
+    n, hd = ERNIE["num_attention_heads"], 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, n, sq, hd, device=dev, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, n, sk, hd, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    bias = torch.where(torch.rand(b, sk, device=dev, generator=g) < 0.1,
+                       -1e4, 0.0)
+    return q, k, v, do, bias
+
+
+def check_flash_bnsd(dev, results):
+    """Both flash kernels in the [B,H,S,D] layout at the shapes the six
+    bnsd TPU kernels take, 16 heads of 64, key bias and dropout 0.1, bf16:
+    B = 40 at S = 512 and 256 (rows 5, 6, 9) and 128 (rows 6, 7), timed;
+    cross-attention Sq = 512, Sk = 256; causal at S = 512; B = 4 at S =
+    2048 (rows 10, 11, 2); fp32 at S = 512. Each against its plain version,
+    and against the packed layout on the same values, bit for bit: the
+    same arithmetic through other strides."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    n, hd = ERNIE["num_attention_heads"], 64
+    scale = hd ** -0.5
+    same_bits = 0
+    for b, sq, sk, causal, dtype, timed in BNSD_CASES:
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        shape = (f"B={b} Sq={sq} Sk={sk} n=16 hd=64 bias dropout={RATE}"
+                 f"{' causal' if causal else ''} {name} bnsd")
+        q, k, v, do, bias = _bnsd_inputs(dev, b, sq, sk, dtype, sq + sk + b)
+        out, lse, err = _compare_flash(fa, shape, q, k, v, do, bias, n,
+                                       scale, causal, "bnsd")
+        # the same values through the packed layout: the same bits
+        runs = {}
+        for layout in ("bnsd", "packed"):
+            args = [t if layout == "bnsd" else
+                    t.transpose(1, 2).reshape(b, t.shape[2], n * hd)
+                    .contiguous() for t in (q, k, v, do)]
+            o, l_ = fa.flash_fwd(*args[:3], n, scale, causal, bias, RATE,
+                                 ATTN_SEED, layout)
+            g = fa.flash_bwd(*args[:3], o, l_, args[3], n, scale, causal,
+                             bias, RATE, ATTN_SEED, layout)
+            runs[layout] = [fa._heads(t, n, layout) for t in (o, *g[:3])] + \
+                [l_, g[3]]
+        torch.cuda.synchronize()
+        for what, x, y in zip(("out", "dq", "dk", "dv", "lse", "dbias"),
+                              runs["bnsd"], runs["packed"]):
+            if not torch.equal(x, y):
+                raise AssertionError(f"flash {shape}: {what} differs between "
+                                     f"the bnsd and packed layouts")
+        same_bits += sum(t.numel() for t in runs["bnsd"])
+        del runs
+        timing = None
+        if timed:
+            timing = _time_flash(fa, q, k, v, do, bias, n, scale, out, lse,
+                                 "bnsd", BF16_FLOPS_PER_S)
+        _flash_rows(results, shape, err, timing)
+        del q, k, v, do, out, lse
+    torch.cuda.empty_cache()
+    return dict(bnsd_equals_packed_bitwise=True, elements_compared=same_bits)
 
 
 def check_adamw(dev, results):
@@ -541,6 +691,7 @@ def serve(phase, cfg, params, quant, dev):
         together = [np.asarray(h.result(timeout=600)) for h in handles]
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
+        layouts = kernels.layout_counts()
         stats = eng.stats()
         alone = [np.asarray(eng.generate(timeout=600, **r)) for r in reqs]
     finally:
@@ -560,8 +711,9 @@ def serve(phase, cfg, params, quant, dev):
          step_ms_p50=stats["step_ms"]["p50"],
          steps=stats.get("steps"), programs_built=built, warmup_s=warm_s,
          continuous_equals_sequential=True, launches=launches,
+         flash_launches_by_layout=layouts,
          kv_high_water_pages=stats["kv_cache"]["high_water_pages"])
-    return launches
+    return launches, layouts
 
 
 # ---------------------------------------------------------------------------
@@ -625,16 +777,23 @@ def cpu_parity(cfg, params, dev):
 # 5, 6. training at full width
 # ---------------------------------------------------------------------------
 
-def _ernie_programs(layers, dtype):
+def _preds(seq):
+    return MAX_PREDS if seq == SEQ else max(80, seq * 15 // 100)
+
+
+def _ernie_programs(layers, dtype, seq=SEQ):
+    """ERNIE at full width; above 512 with the position table widened to
+    the sequence, as the long-context benchmark configures it."""
     from paddle_tpu_torch.core import unique_name
     from paddle_tpu_torch.models import bert
 
     cfg = bert.BertConfig(num_hidden_layers=layers, dtype=dtype,
-                          use_flash_attention=True, **ERNIE)
+                          use_flash_attention=True,
+                          max_position_embeddings=max(512, seq), **ERNIE)
     with unique_name.guard():
         main_prog, startup, _, fetches = bert.build_pretraining_program(
-            cfg, seq_len=SEQ, optimizer_name="adamw",
-            max_predictions_per_seq=MAX_PREDS)
+            cfg, seq_len=seq, optimizer_name="adamw",
+            max_predictions_per_seq=_preds(seq))
     return cfg, main_prog, startup, fetches
 
 
@@ -650,24 +809,24 @@ def _state_arrays(scope):
     return out
 
 
-def train_parity(dev, layers, dtype, steps, tol):
-    """``steps`` steps of ERNIE at full width, ``layers`` deep, batch 2, on
-    the card and on the CPU from one state and on one batch: the same
-    dropout masks bit for bit, losses within rtol = atol = ``tol``."""
+def train_parity(dev, layers, dtype, steps, tol, seq=SEQ, batch_size=2):
+    """``steps`` steps of ERNIE at full width, ``layers`` deep, on the card
+    and on the CPU from one state and on one batch: the same dropout masks
+    bit for bit, losses within rtol = atol = ``tol``."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.core.executor import Executor
     from paddle_tpu_torch.core.scope import Scope
     from paddle_tpu_torch.models import bert
 
-    cfg, main_prog, startup, fetches = _ernie_programs(layers, dtype)
+    cfg, main_prog, startup, fetches = _ernie_programs(layers, dtype, seq)
     scope = Scope()
     Executor(device="cpu").run(startup, scope=scope)
     state = _state_arrays(scope)
     batch = bert.synthetic_pretraining_batch(
-        cfg, 2, SEQ, seed=2, max_predictions_per_seq=MAX_PREDS)
+        cfg, batch_size, seq, seed=2, max_predictions_per_seq=_preds(seq))
     ops = main_prog.global_block().ops
     masks = [o.outputs["Mask"][0] for o in ops if o.type == "dropout"]
-    runs, counts, seconds = {}, {}, {}
+    runs, counts, layouts, seconds = {}, {}, {}, {}
     for device in (dev, torch.device("cpu")):
         sc = bert.scope_from_numpy(state, device)
         exe = Executor(device=device)
@@ -678,6 +837,7 @@ def train_parity(dev, layers, dtype, steps, tol):
                              for _ in range(steps)]
         seconds[device.type] = time.perf_counter() - t0
         counts[device.type] = kernels.launch_counts()
+        layouts[device.type] = kernels.layout_counts()
     loss_gpu = [float(r[0].reshape(-1)[0]) for r in runs["cuda"]]
     loss_cpu = [float(r[0].reshape(-1)[0]) for r in runs["cpu"]]
     masks_equal = all(np.array_equal(x, y)
@@ -685,7 +845,8 @@ def train_parity(dev, layers, dtype, steps, tol):
                       for x, y in zip(a[1:], b[1:]))
     ok = masks_equal and np.allclose(loss_gpu, loss_cpu, rtol=tol, atol=tol)
     per_step = {k: v / steps for k, v in counts["cuda"].items() if v}
-    emit("train_parity", layers=layers, batch=2, seq=SEQ, dtype=dtype,
+    emit("train_parity", layers=layers, batch=batch_size, seq=seq,
+         dtype=dtype,
          steps=steps, loss_gpu=loss_gpu, loss_cpu=loss_cpu,
          dropout_masks=len(masks), masks_bitwise_equal=masks_equal,
          tolerance=f"rtol=atol={tol}", launches_per_step=per_step,
@@ -698,29 +859,35 @@ def train_parity(dev, layers, dtype, steps, tol):
     if per_step != {"flash_attention_fwd": layers,
                     "flash_attention_bwd": layers, "fused_adamw": n_adamw}:
         raise AssertionError(f"train_parity: launches per step {per_step}")
-    return counts["cuda"]
+    return counts["cuda"], layouts["cuda"]
 
 
-def train_ernie(dev, smi):
+def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
+                batches=(40, 32, 24, 16, 8), timed=8):
+    """ERNIE-large, 24 layers, bf16: startup, one warm-up step and
+    ``timed`` timed steps on one batch, at the first batch size of
+    ``batches`` that fits."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.core.executor import Executor
     from paddle_tpu_torch.core.scope import Scope
     from paddle_tpu_torch.models import bert
 
-    layers, timed = 24, 8
-    cfg, main_prog, startup, fetches = _ernie_programs(layers, "bfloat16")
+    layers = 24
+    cfg, main_prog, startup, fetches = _ernie_programs(layers, "bfloat16",
+                                                       seq)
     ops = main_prog.global_block().ops
     n_adamw = sum(o.type == "adamw" for o in ops)
     exe = Executor(device=dev)
     tried = []
-    for batch_size in (40, 32, 24, 16, 8):
+    for batch_size in batches:
         scope = Scope()
         t0 = time.perf_counter()
         exe.run(startup, scope=scope)
         torch.cuda.synchronize()
         startup_s = time.perf_counter() - t0
         batch = bert.synthetic_pretraining_batch(
-            cfg, batch_size, SEQ, seed=0, max_predictions_per_seq=MAX_PREDS)
+            cfg, batch_size, seq, seed=0,
+            max_predictions_per_seq=_preds(seq))
         torch.cuda.reset_peak_memory_stats()
         try:
             warm = exe.run(main_prog, feed=batch, scope=scope,
@@ -733,7 +900,7 @@ def train_ernie(dev, smi):
             del scope
             torch.cuda.empty_cache()
     else:
-        raise AssertionError(f"train_ernie: no batch size fits: {tried}")
+        raise AssertionError(f"{phase}: no batch size fits: {tried}")
     kernels.reset_launch_counts()
     losses, step_ms = [float(warm[0].reshape(-1)[0])], []
     for _ in range(timed):
@@ -744,35 +911,97 @@ def train_ernie(dev, smi):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(out[0].reshape(-1)[0]))
     counts = kernels.launch_counts()
+    layouts = kernels.layout_counts()
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: counts[k] / timed for k in
                 ("flash_attention_fwd", "flash_attention_bwd", "fused_adamw")}
     params = [scope.find_var(p.name) for p in main_prog.all_parameters()]
     finite = all(bool(torch.isfinite(p.float()).all()) for p in params)
     p50 = float(np.median(step_ms))
-    emit("train_ernie", model="ernie_large", layers=layers, dtype="bfloat16",
-         seq=SEQ, max_predictions=MAX_PREDS, batch=batch_size,
+    emit(phase, model="ernie_large", layers=layers, dtype="bfloat16",
+         seq=seq, max_predictions=_preds(seq), batch=batch_size,
          batches_that_did_not_fit=tried, ops=len(ops),
          op_types=len({o.type for o in ops}), parameters=len(params),
          parameter_elements=int(sum(p.numel() for p in params)),
          startup_s=startup_s, warmup_loss=losses[0], losses=losses[1:],
          step_ms=step_ms, step_ms_p50=p50,
-         tokens_per_s=batch_size * SEQ / (p50 / 1e3),
+         step_ms_range=[min(step_ms), max(step_ms)],
+         tokens_per_s=batch_size * seq / (p50 / 1e3),
          max_memory_allocated=peak, launches_per_step=per_step,
+         flash_launches_by_layout=layouts,
          params_finite=finite, nvidia_smi=smi,
          note="smoke figures of a host-driven eager step, not a benchmark")
-    # one batch every step: the last loss lies below the first step's and
-    # below the warm-up's, which no update preceded
-    if not all(np.isfinite(losses)) or not losses[timed] < min(losses[:2]):
-        raise AssertionError(f"train_ernie: loss did not fall: {losses}")
+    # one batch every step: the last loss lies below the warm-up's, which
+    # no update preceded, and at S = 512 (8 timed steps) below the first
+    # step's too
+    first = losses[:2] if seq == SEQ else losses[:1]
+    if not all(np.isfinite(losses)) or not losses[timed] < min(first):
+        raise AssertionError(f"{phase}: loss did not fall: {losses}")
     if per_step != {"flash_attention_fwd": layers,
                     "flash_attention_bwd": layers, "fused_adamw": n_adamw} \
             or n_adamw != 398:
-        raise AssertionError(f"train_ernie: launches per step {per_step}, "
+        raise AssertionError(f"{phase}: launches per step {per_step}, "
                              f"{n_adamw} adamw ops")
     if not finite:
-        raise AssertionError("train_ernie: a parameter is not finite")
-    return counts
+        raise AssertionError(f"{phase}: a parameter is not finite")
+    return counts, layouts
+
+
+def bnsd_ops(dev):
+    """The 4-D branch of the flash_attention op through the program path: a
+    program built with layers.flash_attention on [40,16,512,64] bf16 q/k/v
+    parameters with a [B,1,1,S] key bias from a fed mask and attention
+    dropout 0.1, append_backward, and 3 Executor.run steps on the card
+    fetching the loss and the three gradients. Each step must launch one
+    flash forward and one flash backward, both in the bnsd layout."""
+    from paddle_tpu_torch import kernels, layers
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.backward import append_backward
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.ir import Program, program_guard
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.initializer import TruncatedNormal
+
+    (b, n, s, hd), steps = BNSD_OPS, 3
+    main_prog, startup = Program(), Program()
+    with unique_name.guard(), program_guard(main_prog, startup):
+        q, k, v = (layers.create_parameter(
+            [b, n, s, hd], "bfloat16", name=f"attn_{c}",
+            default_initializer=TruncatedNormal(0.0, 1.0)) for c in "qkv")
+        mask = layers.static_data("mask", [b, s], "float32")
+        bias = layers.unsqueeze(layers.scale(
+            mask, scale=10000.0, bias=-1.0, bias_after_scale=False), [1, 2])
+        bias.stop_gradient = True
+        out = layers.flash_attention(q, k, v, bias=bias, dropout_rate=RATE)
+        loss = layers.mean(layers.elementwise_mul(out, out))
+        append_backward(loss)
+    exe = Executor(device=dev)
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    feed = {"mask": (np.random.RandomState(5).rand(b, s) > 0.1)
+            .astype(np.float32)}
+    fetch = [loss.name] + [f"attn_{c}@GRAD" for c in "qkv"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    runs = [exe.run(main_prog, feed=feed, fetch_list=fetch, scope=scope)
+            for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts, layouts = kernels.launch_counts(), kernels.layout_counts()
+    losses = [float(r[0].reshape(-1)[0]) for r in runs]
+    grads_ok = all(g.shape == (b, n, s, hd) and np.isfinite(
+        g.astype(np.float32)).all() and np.abs(g.astype(np.float32)).max()
+        > 0 for r in runs for g in r[1:])
+    want = {"flash_attention_fwd": {"packed": 0, "bnsd": steps},
+            "flash_attention_bwd": {"packed": 0, "bnsd": steps}}
+    emit("bnsd_ops", shape=[b, n, s, hd], dtype="bfloat16", steps=steps,
+         losses=losses, grads_finite_nonzero=grads_ok, seconds=seconds,
+         launches=counts, launches_by_layout=layouts,
+         ops=[o.type for o in main_prog.global_block().ops])
+    if layouts != want or not grads_ok or not np.isfinite(losses).all():
+        raise AssertionError(f"bnsd_ops: launches {layouts}, losses "
+                             f"{losses}, grads finite {grads_ok}")
+    return counts, layouts
 
 
 def main():
@@ -806,8 +1035,11 @@ def main():
     check_paged(dev, results)
     check_int8(dev, results)
     mask_check = check_flash_train(dev, results)
+    check_flash_long(dev, results)
+    bnsd_check = check_flash_bnsd(dev, results)
     check_adamw(dev, results)
-    emit("kernels", results=results, dropout_mask=mask_check)
+    emit("kernels", results=results, dropout_mask=mask_check,
+         bnsd_layout=bnsd_check)
 
     cfg = DecoderLMConfig(**FULL)
     t0 = time.perf_counter()
@@ -815,15 +1047,23 @@ def main():
     emit("params", seconds=time.perf_counter() - t0,
          tensors=len(params), elements=int(sum(v.size
                                                for v in params.values())))
-    by_path = {phase: serve(phase, cfg, params, quant, dev)
-               for phase, quant in (("serve_fp32", "none"),
-                                    ("serve_int8", "int8"))}
+    # each path's own launch counts, and the flash kernels' by layout
+    runs = {phase: serve(phase, cfg, params, quant, dev)
+            for phase, quant in (("serve_fp32", "none"),
+                                 ("serve_int8", "int8"))}
     cpu_parity(cfg, params, dev)
     del params
-    by_path["train_parity"] = train_parity(dev, 2, "float32", 3, 1e-4)
-    by_path["train_parity_bf16"] = train_parity(dev, 2, "bfloat16", 6, 1e-2)
-    by_path["train_parity_24"] = train_parity(dev, 24, "float32", 4, 1e-4)
-    by_path["train_ernie"] = train_ernie(dev, smi)
+    runs["train_parity"] = train_parity(dev, 2, "float32", 3, 1e-4)
+    runs["train_parity_bf16"] = train_parity(dev, 2, "bfloat16", 6, 1e-2)
+    runs["train_parity_24"] = train_parity(dev, 24, "float32", 4, 1e-4)
+    runs["train_parity_long"] = train_parity(dev, 2, "float32", 3, 1e-4,
+                                             seq=LONG[0][0], batch_size=1)
+    runs["train_ernie"] = train_ernie(dev, smi)
+    runs["bnsd_ops"] = bnsd_ops(dev)
+    for seq, batch_size in LONG:
+        torch.cuda.empty_cache()
+        runs[f"train_long_s{seq}"] = train_ernie(
+            dev, smi, f"train_long_s{seq}", seq, (batch_size,), timed=5)
 
     rep = {"flash_attention_fwd": "B=1 S=2048 n=16 hd=64 causal",
            "int8_gemm": "M=8 K=1024 N=4096 bias=True act=relu",
@@ -832,6 +1072,8 @@ def main():
            "fused_adamw": "[1024, 4096] bf16"}
     main_path = {"flash_attention_bwd": "train_ernie",
                  "fused_adamw": "train_ernie"}
+    timing = ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+              "bound_by", "max_abs_err")
     line = []
     for name in kernels.MODULES:
         rows = [r for r in results if r["name"] == name]
@@ -840,18 +1082,20 @@ def main():
         line.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
-            launches=by_path[main_path.get(name, "serve_int8")][name],
-            launches_by_path={p: c[name] for p, c in by_path.items()},
+            launches=runs[main_path.get(name, "serve_int8")][0][name],
+            launches_by_path={p: c[0][name] for p, c in runs.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"]))
-        if name == "flash_attention_fwd":
-            # the same kernel as the training step launches it
-            line[-1]["train_variant"] = next(
-                {k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by", "max_abs_err")}
-                for r in rows if r["shape"].endswith("bf16"))
+        if name.startswith("flash"):
+            # the same kernel at every timed shape (training, long context,
+            # the bnsd rows), and each path's launches by layout
+            line[-1]["variants"] = [{k_: r[k_] for k_ in timing}
+                                    for r in rows if r["ms"] is not None
+                                    and r is not main_row]
+            line[-1]["launches_by_layout"] = {p: c[1][name]
+                                              for p, c in runs.items()}
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ import numpy as np
 
 from . import registry, unique_name
 from .ir import Block, OpDesc, OpRole, Parameter, Program, Variable
+from .types import dtype_name
 
 GRAD_SUFFIX = "@GRAD"
 
@@ -158,7 +159,7 @@ def append_backward(loss: Variable, parameter_list: Optional[Sequence] = None,
         block.append_op(
             "fill_constant", {}, {"Out": [loss_grad]},
             {"shape": list(loss.shape or (1,)), "value": 1.0,
-             "dtype": str(np.dtype(loss.dtype)),
+             "dtype": dtype_name(loss.dtype),
              "op_role": OpRole.Backward | OpRole.Loss})
         acc.set_final(loss.name, loss_grad)
 

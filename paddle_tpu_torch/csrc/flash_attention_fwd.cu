@@ -1,10 +1,15 @@
-// Flash-attention forward over the packed layout, for Hopper (sm_90a):
-//     out[b, s, h*HD + d] = sum_t softmax_t(q . k_t * scale + bias[b, t]) v_t[d]
-//     lse[b, h, s]        = m + log(max(l, 1e-30))
-// with q [B, Sq, n*HD], k/v [B, Sk, n*HD] fp32 or bf16 read in place, an
-// optional fp32 key bias [B, Sk], and optional causal masking, bottom-right
-// aligned (query row r sees keys t <= r + Sk - Sq). The math is fp32
-// whatever the I/O type; out is written in the input type, lse in fp32.
+// Flash-attention forward for Hopper (sm_90a):
+//     out[b, h, s, :] = sum_t softmax_t(q . k_t * scale + bias[b, t]) v_t
+//     lse[b, h, s]    = m + log(max(l, 1e-30))
+// with q [Sq rows], k/v [Sk rows] of B batches and H heads of HD values,
+// fp32 or bf16, read in place through explicit element strides per
+// operand: (batch, row, head), head_dim contiguous. The packed layout
+// [B, S, H*HD] is the strides (S*H*HD, H*HD, HD); the [B, H, S, HD]
+// ("bnsd") layout is (H*S*HD, HD, S*HD). out is written through its own
+// strides, lse [B, H, Sq] stays contiguous. Optional fp32 key bias [B, Sk]
+// and causal masking, bottom-right aligned (query row r sees keys
+// t <= r + Sk - Sq). The math is fp32 whatever the I/O type; out is
+// written in the input type, lse in fp32.
 //
 // Attention-probs dropout (the DROP instances): the probabilities are
 // multiplied by keep / (1 - rate) before p v, while the row sum l and lse
@@ -16,19 +21,30 @@
 // thresh and 1 / (1 - rate) come from the host. With the online softmax
 // the mask multiplies the tile's rescaled probabilities, never l.
 //
-// Replaces two TPU kernels of paddle_tpu/ops/pallas/flash_attention.py
-// that compute this one function: _packed_fwd_kernel (the packed
-// single-block route: prefill buckets up to 512, and the BERT/ERNIE
-// encoder in training, dropout included) and the 2-pass _fwd_kernel
-// (buckets 1024 and 2048, after a transpose to [B,H,S,D]). The TPU needed
-// two because of VMEM budgets; shared memory tiles here cover every length.
-// The reference rounds p to bf16 before p v for bf16 inputs; this kernel
-// keeps p in fp32.
+// Replaces the forward kernels of paddle_tpu/ops/pallas/flash_attention.py,
+// which all compute this one function (out, lse):
+//   _packed_fwd_kernel :948   packed single-block route (prefill buckets up
+//                             to 512; the BERT/ERNIE encoder in training)
+//   _fwd_kernel :311          2-pass online softmax over [B*H, S, D], for
+//                             S >= 1024 (prefill buckets 1024 and 2048,
+//                             long-context training after a transpose)
+//   _fused_fwd_kernel :377    single-block [B*H, S, D], one (b, h) a cell
+//   _fused_fwd_kernel_g :822  the same with g heads a cell
+// The TPU needed four because of its VMEM budget: a whole S x S tile fits
+// at S <= 512 and not above, and grid cells had to be packed with heads to
+// amortise their overhead. Neither holds here. Shared-memory tiles of 64
+// rows stream any length, and one block per (64-row q tile, head, batch)
+// fills the card at every shape these routes take, so one tiled kernel
+// reading either layout through strides serves all four. The long-context
+// step runs it on the packed projections in place where the reference
+// transposes them to [B, H, S, D] first (_packed_to_bnsd :1576): the same
+// function without the copies. The reference rounds p to bf16 before p v
+// for bf16 inputs; this kernel keeps p in fp32.
 //
 // What bounds it on the H100 (fp32 on CUDA cores 67 TFLOP/s data sheet;
 // device memory 3.35 TB/s): 4 * HD flops per visible (query, key) pair,
 // about 2 * S^2 * HD per head under the causal mask, against 4 * S * HD
-// bytes of q/k/v/out per head: above 16 flops per byte from S = 64 up,
+// elements of q/k/v/out per head: above 16 flops per byte from S = 64 up,
 // so it is bound by operations. The design never writes the S x S scores
 // to device memory and stops each q tile's key loop at its causal limit,
 // which halves the work of a full S x S pass.
@@ -40,7 +56,9 @@
 // softmax (running max m, sum l, rescale alpha, all fp32), and each thread
 // owns a 4 x HD/16 patch of the output accumulator in registers. Masked
 // keys get weight exactly 0; a row with no visible key ends with l == 0
-// and out 0. No atomics and no reduction across rows.
+// and out 0. No atomics and no reduction across rows, so the result does
+// not depend on the layout: the packed and bnsd instances give the same
+// bits on the same values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +97,11 @@ constexpr int BK = 64;
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
+// element strides of one operand: batch, row (sequence position), head
+struct Layout {
+  long long b, r, h;
+};
+
 template <int HD>
 struct Smem {
   static constexpr int QS = BQ * (HD + 1);
@@ -93,9 +116,10 @@ template <int HD, typename T, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ out, float* __restrict__ lse, int Sq,
-                 int Sk, int H, float scale, int causal, unsigned seed,
-                 unsigned thresh, float inv_keep) {
+                 T* __restrict__ out, float* __restrict__ lse, Layout lq,
+                 Layout lk, Layout lv, Layout lo, int Sq, int Sk, int H,
+                 float scale, int causal, unsigned seed, unsigned thresh,
+                 float inv_keep) {
   constexpr int DJ = HD / 16;        // output columns per thread
   constexpr int V4 = HD / 4;         // float4 per row
   extern __shared__ float smem[];
@@ -110,11 +134,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int ld = H * HD;
   const int shift = Sk - Sq;
-  const T* qb = q + (size_t)b * Sq * ld + (size_t)h * HD;
-  const T* kb = k + (size_t)b * Sk * ld + (size_t)h * HD;
-  const T* vb = v + (size_t)b * Sk * ld + (size_t)h * HD;
+  const T* qb = q + b * lq.b + h * lq.h;
+  const T* kb = k + b * lk.b + h * lk.h;
+  const T* vb = v + b * lv.b + h * lv.h;
   unsigned seed2m = 0u;   // seed2 * golden, the per-(b, h) hash key
   if (DROP)
     seed2m = splitmix32((unsigned)(b * H + h) ^ (seed * 0x9E3779B9u)) *
@@ -125,7 +148,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = e / V4, c = (e % V4) * 4;
     float4 x4 = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < Sq)
-      x4 = load4(qb + (size_t)(q0 + r) * ld + c);
+      x4 = load4(qb + (q0 + r) * lq.r + c);
     float* dst = qs + r * (HD + 1) + c;
     dst[0] = x4.x; dst[1] = x4.y; dst[2] = x4.z; dst[3] = x4.w;
   }
@@ -157,8 +180,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / V4, c = (e % V4) * 4;
       float4 k4 = make_float4(0.f, 0.f, 0.f, 0.f), v4 = k4;
       if (k0 + r < Sk) {
-        k4 = load4(kb + (size_t)(k0 + r) * ld + c);
-        v4 = load4(vb + (size_t)(k0 + r) * ld + c);
+        k4 = load4(kb + (k0 + r) * lk.r + c);
+        v4 = load4(vb + (k0 + r) * lv.r + c);
       }
       float* kd = ks + r * (HD + 1) + c;
       kd[0] = k4.x; kd[1] = k4.y; kd[2] = k4.z; kd[3] = k4.w;
@@ -258,7 +281,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  T* ob = out + (size_t)b * Sq * ld + (size_t)h * HD;
+  T* ob = out + b * lo.b + h * lo.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -267,51 +290,51 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = l == 0.f ? 1.f : l;
 #pragma unroll
     for (int j = 0; j < DJ; ++j)
-      store1(ob + (size_t)(q0 + r) * ld + tx + 16 * j, o[i][j] / den);
+      store1(ob + (q0 + r) * lo.r + tx + 16 * j, o[i][j] / den);
   }
   if (tid < BQ && q0 + tid < Sq)
     lse[((size_t)b * H + h) * Sq + q0 + tid] =
         m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
+// what every instance's launch takes besides the pointers
+struct Args {
+  Layout lq, lk, lv, lo;
+  int B, Sq, Sk, H;
+  float scale;
+  int causal;
+  unsigned seed, thresh;
+  float inv_keep;
+};
+
 template <int HD, typename T, bool DROP>
 int launch(const void* q, const void* k, const void* v, const float* bias,
-           void* out, float* lse, int B, int Sq, int Sk, int H, float scale,
-           int causal, unsigned seed, unsigned thresh, float inv_keep,
-           cudaStream_t stream) {
+           void* out, float* lse, const Args& a, cudaStream_t stream) {
   const size_t smem = Smem<HD>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_kernel<HD, T, DROP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
   flash_fwd_kernel<HD, T, DROP><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), lse, Sq, Sk, H,
-      scale, causal, seed, thresh, inv_keep);
+      static_cast<const T*>(v), bias, static_cast<T*>(out), lse, a.lq, a.lk,
+      a.lv, a.lo, a.Sq, a.Sk, a.H, a.scale, a.causal, a.seed, a.thresh,
+      a.inv_keep);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int dispatch(const void* q, const void* k, const void* v, const float* bias,
-             void* out, float* lse, int B, int Sq, int Sk, int H, float scale,
-             int causal, int dtype, unsigned seed, unsigned thresh,
-             float inv_keep, cudaStream_t stream) {
-  const bool drop = thresh != 0u;
+             void* out, float* lse, int dtype, const Args& a,
+             cudaStream_t stream) {
+  const bool drop = a.thresh != 0u;
   if (dtype == 0)
-    return drop ? launch<HD, float, true>(q, k, v, bias, out, lse, B, Sq, Sk,
-                                          H, scale, causal, seed, thresh,
-                                          inv_keep, stream)
-                : launch<HD, float, false>(q, k, v, bias, out, lse, B, Sq, Sk,
-                                           H, scale, causal, seed, thresh,
-                                           inv_keep, stream);
+    return drop ? launch<HD, float, true>(q, k, v, bias, out, lse, a, stream)
+                : launch<HD, float, false>(q, k, v, bias, out, lse, a, stream);
   if (dtype == 1)
-    return drop ? launch<HD, bf16, true>(q, k, v, bias, out, lse, B, Sq, Sk,
-                                         H, scale, causal, seed, thresh,
-                                         inv_keep, stream)
-                : launch<HD, bf16, false>(q, k, v, bias, out, lse, B, Sq, Sk,
-                                          H, scale, causal, seed, thresh,
-                                          inv_keep, stream);
+    return drop ? launch<HD, bf16, true>(q, k, v, bias, out, lse, a, stream)
+                : launch<HD, bf16, false>(q, k, v, bias, out, lse, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -320,24 +343,28 @@ int dispatch(const void* q, const void* k, const void* v, const float* bias,
 // Launch on `stream`; returns a CUDA error code (0 on success), or
 // cudaErrorInvalidValue for a head_dim or dtype without a template
 // instance. dtype: 0 = fp32, 1 = bf16 (q/k/v/out; bias and lse are fp32).
-// thresh == 0 means no dropout. q/k/v/out must be contiguous and 16-byte
-// aligned.
+// thresh == 0 means no dropout. strides: 12 element strides, (batch, row,
+// head) of q, k, v and out in that order; head_dim is contiguous, and
+// every stride and pointer keeps the 16-byte (fp32) or 8-byte (bf16)
+// alignment of a 4-element vector load. lse [B, H, Sq] is contiguous.
 extern "C" int pt_flash_attention_fwd(
     const void* q, const void* k, const void* v, const float* bias, void* out,
-    float* lse, int B, int Sq, int Sk, int H, int hd, float scale, int causal,
-    int dtype, unsigned seed, unsigned thresh, float inv_keep,
-    cudaStream_t stream) {
+    float* lse, const long long* strides, int B, int Sq, int Sk, int H,
+    int hd, float scale, int causal, int dtype, unsigned seed,
+    unsigned thresh, float inv_keep, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0) return 0;
+  const Args a = {{strides[0], strides[1], strides[2]},
+                  {strides[3], strides[4], strides[5]},
+                  {strides[6], strides[7], strides[8]},
+                  {strides[9], strides[10], strides[11]},
+                  B, Sq, Sk, H, scale, causal, seed, thresh, inv_keep};
   switch (hd) {
     case 32:
-      return dispatch<32>(q, k, v, bias, out, lse, B, Sq, Sk, H, scale,
-                          causal, dtype, seed, thresh, inv_keep, stream);
+      return dispatch<32>(q, k, v, bias, out, lse, dtype, a, stream);
     case 64:
-      return dispatch<64>(q, k, v, bias, out, lse, B, Sq, Sk, H, scale,
-                          causal, dtype, seed, thresh, inv_keep, stream);
+      return dispatch<64>(q, k, v, bias, out, lse, dtype, a, stream);
     case 128:
-      return dispatch<128>(q, k, v, bias, out, lse, B, Sq, Sk, H, scale,
-                           causal, dtype, seed, thresh, inv_keep, stream);
+      return dispatch<128>(q, k, v, bias, out, lse, dtype, a, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

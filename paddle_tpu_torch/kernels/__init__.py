@@ -6,7 +6,8 @@ tensors (tests, shape inference) and, for a CUDA tensor, launches its
 kernel or raises: there is no fallback and no switch that turns a kernel
 off on the card. Each wrapper counts its kernel launches in a plain
 module-level integer (``launches``; the flash module's backward kernel
-counts in ``bwd_launches``).
+counts in ``bwd_launches``). The flash module also splits its two counts
+by the layout the kernel read (``layout_counts``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,14 @@ def launch_counts() -> Dict[str, int]:
             for name, mod in MODULES.items()}
 
 
+def layout_counts() -> Dict[str, Dict[str, int]]:
+    """Flash launches by layout: {kernel: {"packed": n, "bnsd": m}}."""
+    return {"flash_attention_fwd": dict(flash_attention.launches_by_layout),
+            "flash_attention_bwd":
+                dict(flash_attention.bwd_launches_by_layout)}
+
+
 def reset_launch_counts():
     for name, mod in MODULES.items():
         setattr(mod, _COUNTER.get(name, "launches"), 0)
+    flash_attention.reset_layout_counts()

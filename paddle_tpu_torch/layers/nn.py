@@ -324,11 +324,13 @@ def _attn_dropout_attrs(attrs, dropout_rate, is_test, seed):
 def flash_attention(q, k, v, bias=None, causal=False, scale=None,
                     dropout_rate=0.0, is_test=False, seed=None, name=None,
                     num_heads=None):
-    """Fused attention softmax(q k^T * scale + bias) v over the PACKED
-    [B,S,n*hd] layout (num_heads required), the form the decoder LM's
-    prefill and the BERT/ERNIE encoder emit. dropout_rate > 0 (and not
-    is_test) applies attention-probs dropout with a per-step,
-    position-keyed mask that the backward recomputes."""
+    """Fused attention softmax(q k^T * scale + bias) v. q [B,H,Sq,D] and
+    k/v [B,H,Sk,D]; or PACKED [B,S,n*hd] 3-D with num_heads set, the form
+    the decoder LM's prefill and the BERT/ERNIE encoder emit, which feeds
+    the projection outputs to the kernels with no head transposes in the
+    program. bias optional, a key bias [B,1,1,Sk] or [B,Sk]. dropout_rate
+    > 0 (and not is_test) applies attention-probs dropout with a
+    per-step, position-keyed mask that the backward recomputes."""
     helper = LayerHelper("flash_attention", name=name)
     out = helper.create_variable_for_type_inference(q.dtype)
     # saved log-sum-exp: the grad op runs the backward kernel from the
@@ -338,11 +340,12 @@ def flash_attention(q, k, v, bias=None, causal=False, scale=None,
     inputs = {"Q": [q], "K": [k], "V": [v]}
     if bias is not None:
         inputs["Bias"] = [bias]
-    if len(q.shape or ()) != 3 or not num_heads:
-        raise ValueError("flash_attention takes packed [B,S,n*hd] inputs "
-                         "and num_heads")
-    attrs = {"causal": causal, "num_heads": int(num_heads),
-             "head_dim": int(q.shape[-1]) // int(num_heads)}
+    attrs = {"causal": causal}
+    if len(q.shape or ()) == 3:
+        if not num_heads:
+            raise ValueError("packed (3-D) flash_attention needs num_heads")
+        attrs["num_heads"] = int(num_heads)
+        attrs["head_dim"] = int(q.shape[-1]) // int(num_heads)
     if scale is not None:
         attrs["scale"] = float(scale)
     _attn_dropout_attrs(attrs, dropout_rate, is_test, seed)

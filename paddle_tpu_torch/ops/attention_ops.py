@@ -18,7 +18,7 @@ from ..core import rng
 from ..core.ir import OpDesc
 from ..core.registry import (default_grad_maker, register_grad_maker,
                              register_op)
-from ..kernels.flash_attention import packed_flash_bwd, packed_flash_fwd
+from ..kernels.flash_attention import flash_bwd, flash_fwd
 from ..kernels.paged_attention import paged_decode_attention
 
 
@@ -32,30 +32,47 @@ def _attn_dropout(attrs):
     return rate, rng.op_seed(attrs)
 
 
-def _packed_args(ins, attrs):
-    """(q, k, v, key bias [B,Sk] or None, heads, scale, causal) of a
-    flash_attention op or its grad op."""
+def _key_bias(bias, b, sk):
+    """The [B,Sk] key-bias normal form of a flash_attention Bias, as the
+    reference's ``_dispatch_plan`` derives it: a 4-D bias [B|1,1,1,Sk|1]
+    broadcasts to [B,1,1,Sk], a 2-D one is a key bias. Any other bias takes
+    the reference's ``reference_general`` route (plain attention with a
+    full [B,H,Sq,Sk]-broadcast bias, not a kernel), which the port does
+    not carry."""
+    if bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[2] == 1:
+        return torch.broadcast_to(bias, (b, 1, 1, sk)).reshape(b, sk)
+    if bias.dim() == 2:
+        return torch.broadcast_to(bias, (b, sk))
+    raise NotImplementedError(
+        "flash_attention in the port takes a key bias ([B,1,1,Sk] or "
+        f"[B,Sk]); a {tuple(bias.shape)} bias takes the reference's "
+        "reference_general route, which is not ported")
+
+
+def _flash_args(ins, attrs):
+    """(q, k, v, key bias [B,Sk] or None, heads, scale, causal, layout) of
+    a flash_attention op or its grad op: packed [B,S,n*hd] q/k/v with a
+    head_dim or num_heads attr, or [B,H,S,D] ("bnsd") q/k/v."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     bias = ins["Bias"][0] if ins.get("Bias") else None
-    if q.dim() != 3:
-        raise NotImplementedError(
-            "flash_attention in the port takes the packed [B,S,n*hd] "
-            "layout only")
-    if attrs.get("head_dim"):
-        n = q.shape[-1] // int(attrs["head_dim"])
+    if q.dim() == 4:
+        layout, n, hd, sk = "bnsd", q.shape[1], q.shape[-1], k.shape[2]
+    elif q.dim() == 3:
+        layout, sk = "packed", k.shape[1]
+        if attrs.get("head_dim"):
+            n = q.shape[-1] // int(attrs["head_dim"])
+        else:
+            n = int(attrs["num_heads"])
+        hd = q.shape[-1] // n
     else:
-        n = int(attrs["num_heads"])
+        raise ValueError(f"flash_attention takes 3-D (packed) or 4-D "
+                         f"([B,H,S,D]) q, got {tuple(q.shape)}")
     if bias is not None:
-        b, sk = k.shape[0], k.shape[1]
-        if bias.numel() != b * sk:
-            raise NotImplementedError(
-                "flash_attention in the port takes a key bias "
-                "broadcastable to [B,1,1,Sk] only")
-        bias = bias.reshape(b, sk)
+        bias = _key_bias(bias, q.shape[0], sk)
     scale = attrs.get("scale")
-    scale = float(scale) if scale is not None else (q.shape[-1] // n) ** -0.5
+    scale = float(scale) if scale is not None else hd ** -0.5
     return (q.contiguous(), k.contiguous(), v.contiguous(), bias, n, scale,
-            bool(attrs.get("causal", False)))
+            bool(attrs.get("causal", False)), layout)
 
 
 @register_op("flash_attention", non_diff_inputs=("Bias",))
@@ -63,14 +80,14 @@ def flash_attention_op(ins, attrs):
     """Out = softmax(Q K^T * scale + Bias) V, with the log-sum-exp Lse
     [B,n,Sq] beside it for the saved-residual grad op.
 
-    Q/K/V packed [B,S,n*hd] (head_dim or num_heads attr); Bias, if
-    given, is a key bias broadcastable to [B,1,1,Sk]. Attrs: causal,
-    scale (default 1/sqrt(hd)), dropout_prob/is_test/seed
-    (attention-probs dropout). Runs the flash forward kernel
-    (kernels/flash_attention.py). The [B,H,S,D] layout raises."""
-    q, k, v, bias, n, scale, causal = _packed_args(ins, attrs)
+    Q/K/V packed [B,S,n*hd] (head_dim or num_heads attr), or Q [B,H,Sq,D]
+    and K/V [B,H,Sk,D]; Out comes in Q's layout. Bias, if given, is a key
+    bias [B,1,1,Sk] or [B,Sk]. Attrs: causal, scale (default 1/sqrt(hd)),
+    dropout_prob/is_test/seed (attention-probs dropout). Runs the flash
+    forward kernel (kernels/flash_attention.py) in either layout."""
+    q, k, v, bias, n, scale, causal, layout = _flash_args(ins, attrs)
     rate, seed = _attn_dropout(attrs)
-    out, lse = packed_flash_fwd(q, k, v, n, scale, causal, bias, rate, seed)
+    out, lse = flash_fwd(q, k, v, n, scale, causal, bias, rate, seed, layout)
     return {"Out": out, "Lse": lse}
 
 
@@ -106,18 +123,30 @@ def _flash_attention_grad_maker(op, out_grads, in_grads):
 def flash_attention_grad_op(ins, attrs):
     """d(Q,K,V,Bias) of flash_attention from the saved (Out, Lse),
     through the flash backward kernel: the forward never runs again. The
-    port has this one route for every packed shape."""
-    q, k, v, bias, n, scale, causal = _packed_args(ins, attrs)
+    port has this one route for every shape of either layout. BiasGrad
+    comes in the Bias's shape."""
+    q, k, v, bias, n, scale, causal, layout = _flash_args(ins, attrs)
     out, lse, do = ins["Out"][0], ins["Lse"][0], ins["OutGrad"][0]
     rate, seed = _attn_dropout(attrs)
-    dq, dk, dv, dbias = packed_flash_bwd(
+    dq, dk, dv, dbias = flash_bwd(
         q, k, v, out.contiguous(), lse.contiguous(),
         do.to(out.dtype).reshape(out.shape).contiguous(), n, scale, causal,
-        bias, rate, seed)
+        bias, rate, seed, layout)
     outs = {"QGrad": dq, "KGrad": dk, "VGrad": dv}
     if dbias is not None:
-        outs["BiasGrad"] = dbias.reshape(ins["Bias"][0].shape)
+        outs["BiasGrad"] = _sum_to(dbias, ins["Bias"][0])
     return outs
+
+
+def _sum_to(dbias, bias):
+    """The [B,Sk] key-bias gradient in ``bias``'s own shape, summed over
+    the dims the bias was broadcast along (what the reference's CPU route,
+    a vjp of plain attention, returns)."""
+    b, sk = dbias.shape
+    full = dbias.reshape((b, 1, 1, sk) if bias.dim() == 4 else (b, sk))
+    dims = [d for d, (f, s) in enumerate(zip(full.shape, bias.shape))
+            if s == 1 and f != 1]
+    return full.sum(dims, keepdim=True) if dims else full
 
 
 @register_op("kv_cache_write")

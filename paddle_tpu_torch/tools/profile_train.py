@@ -1,12 +1,15 @@
 """Where the ERNIE-large training step's time goes on the card.
 
-    python -m paddle_tpu_torch.tools.profile_train
+    python -m paddle_tpu_torch.tools.profile_train [--seq 512|2048|4096]
 
 Builds the pre-training program the reference's benchmark trains (ERNIE
-large: 24 layers, hidden 1024, 16 heads of 64, FFN 4096, vocab 18000, seq
-512, batch 40, bf16 params, packed flash attention with probs dropout 0.1,
-hidden dropout 0.1, 80 masked predictions, NSP, AdamW), runs its startup
-on cuda:0, and measures on one synthetic batch:
+large: 24 layers, hidden 1024, 16 heads of 64, FFN 4096, vocab 18000, bf16
+params, packed flash attention with probs dropout 0.1, hidden dropout 0.1,
+NSP, AdamW) at one of its three cells: seq 512 batch 40 with 80 masked
+predictions (the default), or the long-context rows, seq 2048 batch 4 and
+seq 4096 batch 2 with max(80, seq * 15 // 100) and the position table
+widened to the sequence. It runs the startup on cuda:0 and measures on one
+synthetic batch:
 
 * the step's host wall ms over 5 steps without the profiler (each ending
   in a synchronise), and the peak device memory;
@@ -32,6 +35,7 @@ CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -45,7 +49,10 @@ from torch.profiler import ProfilerActivity, profile
 
 ERNIE = dict(vocab_size=18000, hidden_size=1024, num_attention_heads=16,
              intermediate_size=4096)
-LAYERS, BATCH, SEQ, MAX_PREDS = 24, 40, 512, 80
+LAYERS = 24
+# seq -> (batch, masked predictions): tools/bench_models.py bench_ernie and
+# bench_long_context
+CELLS = {512: (40, 80), 2048: (4, 307), 4096: (2, 614)}
 
 
 def _traced(run, reps, top_n=14):
@@ -101,7 +108,12 @@ def _ms_by_op(executor_mod, run, sync):
     return {k: {"ms": ms[k], "calls": calls[k]} for k in order}
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seq", type=int, choices=sorted(CELLS),
+                        default=512)
+    seq = parser.parse_args(argv).seq
+    batch_size, preds = CELLS[seq]
     if not torch.cuda.is_available():
         print("profile_train: needs a CUDA card", file=sys.stderr)
         return 2
@@ -113,23 +125,24 @@ def main():
     from paddle_tpu_torch.models import bert
 
     cfg = bert.BertConfig(num_hidden_layers=LAYERS, dtype="bfloat16",
-                          use_flash_attention=True, **ERNIE)
+                          use_flash_attention=True,
+                          max_position_embeddings=max(512, seq), **ERNIE)
     with unique_name.guard():
         main_prog, startup, _, fetches = bert.build_pretraining_program(
-            cfg, seq_len=SEQ, optimizer_name="adamw",
-            max_predictions_per_seq=MAX_PREDS)
+            cfg, seq_len=seq, optimizer_name="adamw",
+            max_predictions_per_seq=preds)
     exe = executor_mod.Executor(device="cuda:0")
     scope = Scope()
     exe.run(startup, scope=scope)
 
-    def stepper(batch_size):
+    def stepper(b):
         batch = bert.synthetic_pretraining_batch(
-            cfg, batch_size, SEQ, seed=0, max_predictions_per_seq=MAX_PREDS)
+            cfg, b, seq, seed=0, max_predictions_per_seq=preds)
         feed = {k: torch.from_numpy(v).to("cuda:0") for k, v in batch.items()}
         return lambda: exe.run(main_prog, feed=feed, scope=scope,
                                fetch_list=[fetches["loss"]])
 
-    step = stepper(BATCH)
+    step = stepper(batch_size)
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -150,10 +163,10 @@ def main():
     by_op_host = _ms_by_op(executor_mod, small, sync=False)
     ops = main_prog.global_block().ops
     print(json.dumps({
-        "model": "ernie_large", "layers": LAYERS, "batch": BATCH,
-        "seq": SEQ, "dtype": "bfloat16", "ops": len(ops),
+        "model": "ernie_large", "layers": LAYERS, "batch": batch_size,
+        "seq": seq, "dtype": "bfloat16", "ops": len(ops),
         "wall_ms": walls, "wall_ms_p50": float(np.median(walls)),
-        "tokens_per_s": BATCH * SEQ / (float(np.median(walls)) / 1e3),
+        "tokens_per_s": batch_size * seq / (float(np.median(walls)) / 1e3),
         "max_memory_allocated": peak, "kernel_launches_per_step": launches,
         "traced_wall_ms": traced_wall, "device_busy_ms": busy,
         "device_idle_share": 1.0 - busy / traced_wall, "top_kernels": top,

@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at edge shapes the serving and training paths do not reach (ragged
 tiles, Sq != Sk, every head_dim instance, contexts past 48 KB of shared
-memory, bf16 and fp32, dropout on and off). Marked ``cuda``: they skip where torch.cuda is unavailable.
+memory, bf16 and fp32, dropout on and off), and the flash kernels in both
+layouts: [B,H,S,D] against its plain version at S = 128 to 2048, bit for
+bit equal to the packed layout on the same values, and refusing strides
+they cannot read instead of copying. Marked ``cuda``: they skip where
+torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
 card and no JAX it runs without the repo's conftest:
@@ -157,6 +161,148 @@ def test_flash_backward_agrees_with_autograd_of_plain_forward(dev):
                               0.125, False, kb, 0.2, 9)
     for a, r in zip(got[:3], want):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=2e-5)
+
+
+def _bnsd(dev, b, sq, sk, n, hd, dtype, seed):
+    """q, k, v, dout [B,n,S,hd] and a key bias [B,Sk]."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, n, sq, hd, device=dev, generator=g).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, n, sk, hd, device=dev, generator=g).to(dtype)
+            for _ in range(2))
+    kb = torch.where(torch.rand(b, sk, device=dev, generator=g) < 0.3,
+                     -1e4, 0.0)
+    return q, k, v, do, kb
+
+
+def _packed(t4):
+    b, n, s, hd = t4.shape
+    return t4.transpose(1, 2).reshape(b, s, n * hd)
+
+
+BNSD_CASES = [
+    (2, 128, 128, 4, 64, False, True, 0.1), (2, 128, 128, 4, 64, True, False,
+                                             0.0),
+    (1, 512, 512, 16, 64, False, True, 0.1), (1, 512, 512, 4, 64, True, True,
+                                              0.1),
+    (1, 2048, 2048, 2, 64, True, True, 0.1), (1, 2048, 2048, 2, 64, False,
+                                              True, 0.0),
+    (2, 512, 256, 4, 64, False, True, 0.1), (1, 256, 512, 2, 128, True, True,
+                                             0.1),
+    (1, 300, 100, 2, 32, True, False, 0.1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,n,hd,causal,bias,rate", BNSD_CASES)
+def test_flash_bnsd_matches_plain(dev, dtype, b, sq, sk, n, hd, causal, bias,
+                                  rate):
+    q, k, v, do, kb = _bnsd(dev, b, sq, sk, n, hd, dtype, sq + 7 * sk)
+    kb = kb if bias else None
+    scale = hd ** -0.5
+    kernels.reset_launch_counts()
+    out, lse = fa.flash_fwd(q, k, v, None, scale, causal, kb, rate, 31,
+                            layout="bnsd")
+    ref_out, ref_lse = fa.plain_flash_fwd(*_f32(q, k, v), None, scale, causal,
+                                          kb, rate, 31, layout="bnsd")
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref_out.to(dtype).float(),
+                               **TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    got = fa.flash_bwd(q, k, v, ref_out.to(dtype), ref_lse, do, None, scale,
+                       causal, kb, rate, 31, layout="bnsd")
+    ref = fa.plain_flash_bwd(*_f32(q, k, v, ref_out.to(dtype)), ref_lse,
+                             do.float(), None, scale, causal, kb, rate, 31,
+                             layout="bnsd")
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+        if r is None:
+            assert a is None
+            continue
+        if name == "dbias":
+            tol = dict(rtol=1e-3, atol=1e-3)
+        else:
+            assert a.shape == (q if name == "dq" else k).shape
+            tol, r = TOL[dtype], r.to(dtype)
+        torch.testing.assert_close(a.float(), r.float(),
+                                   msg=lambda m: f"{name}: {m}", **tol)
+    assert kernels.layout_counts() == {
+        "flash_attention_fwd": {"packed": 0, "bnsd": 1},
+        "flash_attention_bwd": {"packed": 0, "bnsd": 1}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,n,hd,causal,bias,rate", [
+    (2, 512, 512, 16, 64, False, True, 0.1), (1, 2048, 2048, 4, 64, True,
+                                              True, 0.1),
+    (1, 512, 256, 4, 64, False, True, 0.1), (2, 70, 200, 3, 128, True, True,
+                                             0.0)])
+def test_flash_layouts_agree_bit_for_bit(dev, dtype, b, sq, sk, n, hd, causal,
+                                         bias, rate):
+    """The same values in [B,H,S,D] and packed: the same bits out of both
+    kernels (the arithmetic does not depend on the strides), and the same
+    bits again on a second run (no atomics)."""
+    q, k, v, do, kb = _bnsd(dev, b, sq, sk, n, hd, dtype, 3 * sq + sk)
+    kb = kb if bias else None
+    scale = hd ** -0.5
+    runs = {}
+    for layout, conv in (("bnsd", lambda t: t),
+                         ("packed", lambda t: _packed(t).contiguous()),
+                         ("again", lambda t: t)):
+        lay = "bnsd" if layout == "again" else layout
+        q_, k_, v_, do_ = (conv(t) for t in (q, k, v, do))
+        out, lse = fa.flash_fwd(q_, k_, v_, n, scale, causal, kb, rate, 5,
+                                layout=lay)
+        grads = fa.flash_bwd(q_, k_, v_, out, lse, do_, n, scale, causal, kb,
+                             rate, 5, layout=lay)
+        back = (lambda t: t) if lay == "bnsd" else (
+            lambda t: t.reshape(t.shape[0], t.shape[1], n, hd)
+            .transpose(1, 2))
+        runs[layout] = [back(out), lse] + [back(g) for g in grads[:3]] + \
+            list(grads[3:])
+    torch.cuda.synchronize()
+    for other in ("packed", "again"):
+        for name, a, c in zip(("out", "lse", "dq", "dk", "dv", "dbias"),
+                              runs["bnsd"], runs[other]):
+            assert (a is None) == (c is None), name
+            if a is not None:
+                assert torch.equal(a, c), f"{name}: bnsd != {other}"
+
+
+def test_flash_kernels_read_views_in_place_and_refuse_what_they_cannot(dev):
+    b, s, n, hd = 2, 96, 4, 64
+    q, k, v, do, kb = _bnsd(dev, b, s, s, n, hd, torch.float32, 11)
+    qp, kp, vp = (_packed(t).contiguous() for t in (q, k, v))
+    want = fa.flash_fwd(qp, kp, vp, n, 0.125, True, kb)
+    # a [B,H,S,D] view of the packed tensors: strides (S*n*hd, hd, n*hd)
+    views = [t.reshape(b, s, n, hd).transpose(1, 2) for t in (qp, kp, vp)]
+    assert not views[0].is_contiguous()
+    got = fa.flash_fwd(*views, None, 0.125, True, kb, layout="bnsd")
+    assert torch.equal(_packed(got[0]), want[0]) and torch.equal(got[1],
+                                                                  want[1])
+    # packed q/k/v as column slices of one fused [B,S,3*n*hd] projection
+    fused = torch.cat([qp, kp, vp], dim=-1)
+    w = n * hd
+    got = fa.flash_fwd(fused[..., :w], fused[..., w:2 * w], fused[..., 2 * w:],
+                       n, 0.125, True, kb)
+    assert torch.equal(got[0], want[0])
+    lse = want[1]
+    bad = {
+        "head_dim not contiguous": q.transpose(2, 3).contiguous()
+        .transpose(2, 3),
+        "row stride off the alignment": torch.zeros(
+            b, n, s, hd + 2, device=dev)[..., :hd],
+        "address off the alignment": torch.zeros(
+            b * n * s * hd + 2, device=dev)[2:].reshape(b, n, s, hd),
+    }
+    for why, t in bad.items():
+        with pytest.raises(ValueError):
+            fa.flash_fwd(t, k, v, None, 0.125, True, kb, layout="bnsd")
+        with pytest.raises(ValueError):
+            fa.flash_bwd(t, k, v, q, lse, do, None, 0.125, True, kb,
+                         layout="bnsd")
+    with pytest.raises(ValueError):   # a packed q in the bnsd layout
+        fa.flash_fwd(qp, kp, vp, n, 0.125, True, layout="bnsd")
 
 
 @pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
