@@ -79,16 +79,45 @@ The long-context and [B,H,S,D] slice adds, in the order they run:
                predictions and s4096 batch 2 with 614, 1 warm-up + 5 timed
                steps; finite loss, the last timed loss below the warm-up's,
                24 / 24 / 398 launches a step.
+The ResNet-50 slice adds, in the order they run:
+   kernels  — check_layer_norm: the layer_norm kernel at ERNIE-large's LN
+               rows [20480, 1024] bf16 and fp32 and the decoder LM's [1500,
+               1024] fp32, timed with F.layer_norm as the library.
+               check_conv: the conv_bn_relu kernel at the conv tool's shape
+               (N=256, 14x14, 256 -> 256, NHWC bf16).
+10. exp_conv — paddle_tpu_torch/tools/exp_conv.py: the conv kernel, the
+               cuDNN route and the plain version, timed.
+11. fused_ln_ops — a program with fused_layer_norm at [40, 512, 1024] bf16,
+               append_backward, 3 steps: two layer_norm launches a step
+               (the op and its grad op's recomputed forward); Y and the
+               gradients equal those of the same program with layer_norm.
+12. resnet_parity — a tiny ResNet-50 (one bottleneck a stage, 32x32, 10
+               classes), batch 4, 3 Momentum steps, card against CPU from
+               one state: losses within 1e-4 (fp32) and 1e-2 (bf16 AMP);
+               parameters and running statistics after each step, the
+               card starting it from the CPU's state, within the same
+               times max(1, the tensor's largest magnitude).
+13. train_resnet50 — ResNet-50 as tools/bench_models.py bench_resnet50
+               trains it (224x224, batch 256, bf16 AMP, Momentum lr 0.1,
+               fuse_bn_act_pass), not cut: 1 warm-up + 5 timed steps on one
+               synthetic batch; finite losses, the last timed one below the
+               warm-up's; 616 ops of 17 types. No hand-written kernel runs
+               on this path (its convs are cuDNN's, as the reference's are
+               XLA's): its launch counts are all 0.
+14. check_conv_real_layer — the conv kernel on the input, filter and
+               folded BN running statistics of res4b_c2 from that step,
+               against the port's conv2d -> batch_norm(is_test) -> relu.
 Then one line with every ported kernel: ``launches_by_path`` gives each
 phase's own count (set to 0 just before the phase, read just after),
 ``launches_by_layout`` the flash kernels' split by layout, and
-``launches`` is serve_int8's for the serving kernels and train_ernie's
-for the training kernels; ``variants`` are the flash kernels' other timed
+``launches`` is serve_int8's for the serving kernels, train_ernie's
+for the training kernels, fused_ln_ops's for layer_norm and exp_conv's
+for conv_bn_relu; ``variants`` are the flash kernels' other timed
 shapes. Then the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
-TF32 is switched off: the fp32 projections stay torch.matmul in full
-fp32, as the JAX package left them to XLA.
+TF32 is switched off for matmuls and cuDNN convs: the fp32 projections
+stay torch.matmul in full fp32, as the JAX package left them to XLA.
 """
 
 from __future__ import annotations
@@ -118,6 +147,8 @@ REPLACES = {
                            "+ :860 (_fused_bwd_kernel_g) + :634 (_dkv_kernel) "
                            "+ :701 (_dq_kernel)",
     "fused_adamw": "paddle_tpu/ops/pallas/fused_adam.py:22",
+    "layer_norm": "paddle_tpu/ops/pallas/layer_norm.py:21",
+    "conv_bn_relu": "tools/exp_pallas_conv.py:31",
 }
 ERNIE = dict(vocab_size=18000, hidden_size=1024, num_attention_heads=16,
              intermediate_size=4096)
@@ -1004,6 +1035,431 @@ def bnsd_ops(dev):
     return counts, layouts
 
 
+# ---------------------------------------------------------------------------
+# the ResNet-50 slice: the last two TPU kernels and the ResNet-50 step
+# ---------------------------------------------------------------------------
+
+# check_layer_norm: (rows, h, dtype) -- ERNIE-large's [40*512, 1024] rows in
+# bf16 and fp32, and the decoder LM's 1500-token prefill in fp32
+LN_CASES = ((SEQ * 40, 1024, torch.bfloat16),
+            (SEQ * 40, 1024, torch.float32), (1500, 1024, torch.float32))
+LN_OPS = (40, SEQ, 1024)          # fused_ln_ops: X [B, S, H] bf16
+# a bf16 kernel against its plain version run in fp32 on the same values
+# and rounded once: one bf16 ulp (2^-7 relative) + 1e-3
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-3)
+RESNET_BATCH = 256                # tools/bench_models.py bench_resnet50
+RES4_CONV = "res4b_c2"            # a 3x3 stride-1 256 -> 256 conv at 14x14
+
+
+def check_layer_norm(dev, results):
+    """The layer_norm kernel against its plain version at ERNIE-large's
+    LN rows ([20480, 1024], bf16 and fp32) and the decoder LM's prefill
+    ([1500, 1024] fp32), with scale and bias; timed with F.layer_norm as
+    the library. Inputs are rotated through more than the 50 MB L2."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
+    for rows, h, dtype in LN_CASES:
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        g = torch.Generator(device=dev).manual_seed(rows + h)
+        esz = torch.finfo(dtype).bits // 8
+        reps = max(1, -(-(64 << 20) // (rows * h * esz)))
+        xs = [(torch.randn(rows, h, device=dev, generator=g) * 2 + 0.5)
+              .to(dtype) for _ in range(reps)]
+        sc = torch.rand(h, device=dev, generator=g) + 0.5
+        bi = torch.randn(h, device=dev, generator=g)
+        y, mean, rstd = ln.layer_norm_fwd(xs[0], sc, bi, 1e-5)
+        ry, rmean, rrstd = ln.plain_layer_norm(xs[0].float(), sc, bi, 1e-5)
+        ry = ry.to(dtype)
+        torch.cuda.synchronize()
+        tol = BF16_TOL if dtype == torch.bfloat16 \
+            else dict(rtol=1e-5, atol=1e-5)
+        if not (torch.allclose(y.float(), ry.float(), **tol)
+                and torch.allclose(mean, rmean, rtol=1e-5, atol=1e-5)
+                and torch.allclose(rstd, rrstd, rtol=1e-5, atol=1e-5)):
+            raise AssertionError(f"layer norm [{rows}, {h}] {name}: "
+                                 f"{errors(y, ry)} {errors(rstd, rrstd)}")
+        err = max(errors(y, ry)[0], errors(mean, rmean)[0],
+                  errors(rstd, rrstd)[0])
+        ms = events_ms(lambda i: ln.layer_norm_fwd(xs[i % reps], sc, bi,
+                                                   1e-5), 30)
+        plain = events_ms(lambda i: ln.plain_layer_norm(xs[i % reps], sc, bi,
+                                                        1e-5), 10)
+        library = events_ms(lambda i: F.layer_norm(
+            xs[i % reps], (h,), sc.to(dtype), bi.to(dtype), 1e-5), 30)
+        bms, by = bound_ms(2 * rows * h * esz + 2 * h * 4 + 2 * rows * 4,
+                           8 * rows * h, FP32_FLOPS_PER_S)
+        results.append(dict(name="layer_norm", shape=f"[{rows}, {h}] {name}",
+                            max_abs_err=err, max_rel_err=None, ms=ms,
+                            plain_ms=plain, library_ms=library, bound_ms=bms,
+                            bound_by=by))
+        del xs
+    torch.cuda.empty_cache()
+
+
+def check_conv(dev, results):
+    """The conv_bn_relu kernel against its plain version (the 9 products
+    of the bf16 values summed in fp32, the epilogue in fp32, rounded
+    once) at the tool's shape: N = 256, 14x14, 256 -> 256, NHWC bf16.
+    Timed in the exp_conv phase."""
+    from paddle_tpu_torch.kernels import conv_bn_relu as cbr
+    from paddle_tpu_torch.tools import exp_conv
+
+    _, xp, w, scale, shift = exp_conv.make_inputs(256, dev, seed=0)
+    out = cbr.conv_bn_relu(xp, w, scale, shift)
+    ref = cbr.plain_conv_bn_relu(xp, w, scale, shift)
+    torch.cuda.synchronize()
+    if not torch.allclose(out.float(), ref.float(), **BF16_TOL):
+        raise AssertionError(f"conv_bn_relu N=256: {errors(out, ref)}")
+    flops = 2.0 * 256 * 14 * 14 * 256 * 9 * 256
+    bms, by = bound_ms(xp.numel() * 2 + w.numel() * 2 + out.numel() * 2
+                       + 2 * 256 * 4, flops, BF16_FLOPS_PER_S)
+    results.append(dict(name="conv_bn_relu",
+                        shape="N=256 H=W=14 C=256 Co=256 3x3 NHWC bf16",
+                        max_abs_err=errors(out, ref)[0],
+                        max_rel_err=errors(out, ref)[1], ms=None,
+                        plain_ms=None, library_ms=None, bound_ms=bms,
+                        bound_by=by, relu_kept_share=float(
+                            (ref.float() > 0).float().mean())))
+
+
+def exp_conv_phase(dev, results):
+    """tools/exp_conv.py's three timings at its shape: the kernel, the
+    cuDNN route and the plain version; their times go into the
+    conv_bn_relu row of the kernels line. Launch counts: this phase's."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.tools import exp_conv
+
+    kernels.reset_launch_counts()
+    out = exp_conv.run(dev, batch=256, reps=20)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    emit("exp_conv", launches=counts["conv_bn_relu"], **out)
+    row = next(r for r in results if r["name"] == "conv_bn_relu")
+    row.update(ms=out["kernel_ms"], plain_ms=out["plain_ms"],
+               library_ms=out["library_ms"])
+    if counts["conv_bn_relu"] == 0:
+        raise AssertionError("exp_conv: the conv kernel never launched")
+    return counts, kernels.layout_counts()
+
+
+def _ln_program(op_type):
+    """[40, 512, 1024] bf16 X (a parameter), fp32 Scale and Bias, the
+    normalisation over the last axis by ``op_type`` (fused_layer_norm, or
+    layer_norm at begin_norm_axis 2), loss = sum(y * c) with c a fed bf16
+    tensor, append_backward. The loss's cotangent on Y is c itself, the
+    same in both programs whatever Y's rounding."""
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.backward import append_backward
+    from paddle_tpu_torch.core.ir import Program, program_guard
+    from paddle_tpu_torch.initializer import Normal, TruncatedNormal
+    from paddle_tpu_torch.layer_helper import LayerHelper
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    b, s, h = LN_OPS
+    main_prog, startup = Program(), Program()
+    with unique_name.guard(), program_guard(main_prog, startup):
+        x = layers.create_parameter([b, s, h], "bfloat16", name="ln_x",
+                                    default_initializer=TruncatedNormal(
+                                        0.5, 2.0))
+        sattr = ParamAttr(name="ln_scale", initializer=Normal(1.0, 0.2))
+        battr = ParamAttr(name="ln_bias", initializer=Normal(0.0, 0.2))
+        if op_type == "layer_norm":
+            y = layers.layer_norm(x, begin_norm_axis=2, param_attr=sattr,
+                                  bias_attr=battr)
+        else:
+            helper = LayerHelper("fused_layer_norm")
+            sc = helper.create_parameter(sattr, [h], "float32")
+            bi = helper.create_parameter(battr, [h], "float32", is_bias=True)
+            y = helper.create_variable_for_type_inference("bfloat16")
+            mean = helper.create_variable_for_type_inference("float32", True)
+            var = helper.create_variable_for_type_inference("float32", True)
+            helper.append_op("fused_layer_norm",
+                             {"X": [x], "Scale": [sc], "Bias": [bi]},
+                             {"Y": [y], "Mean": [mean], "Variance": [var]},
+                             {"epsilon": 1e-5})
+        c = layers.static_data("ln_c", [b, s, h], "bfloat16")
+        loss = layers.reduce_sum(layers.elementwise_mul(y, c))
+        append_backward(loss)
+    return main_prog, startup, [loss.name, y.name, "ln_x@GRAD",
+                                "ln_scale@GRAD", "ln_bias@GRAD"]
+
+
+def fused_ln_ops(dev):
+    """The fused_layer_norm op through the program path: [40, 512, 1024]
+    bf16, append_backward, 3 Executor.run steps on the card. Two layer_norm
+    kernel launches a step: the op's, and the one in its grad op, whose
+    ``__vjp_grad__`` re-runs the forward lowering (as the reference's
+    default grad maker does) to get mean and rstd. Y and the gradients of
+    X, Scale and Bias equal
+    those of the same program with layer_norm (begin_norm_axis 2, torch's
+    own layer norm) from one state: Y and dX within the bf16 tolerance,
+    dScale and dBias (fp32 sums over 20480 rows of bf16 cotangents) within
+    2^-7 relative + 1e-3 of their largest magnitude."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+
+    steps = 3
+    fused, startup, fetch = _ln_program("fused_layer_norm")
+    plain, _, pfetch = _ln_program("layer_norm")
+    exe = Executor(device=dev)
+    scope = Scope()
+    exe.run(startup, scope=scope)
+    twin = Scope()
+    for n, v in scope.items():
+        twin.set(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    g = torch.Generator(device=dev).manual_seed(6)
+    feed = {"ln_c": torch.randn(LN_OPS, device=dev, generator=g)
+            .to(torch.bfloat16)}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = [exe.run(fused, feed=feed, fetch_list=fetch, scope=scope,
+                   return_numpy=False) for _ in range(steps)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = [exe.run(plain, feed=feed, fetch_list=pfetch, scope=twin,
+                    return_numpy=False) for _ in range(steps)]
+    torch.cuda.synchronize()
+    err, ok = {}, True
+    for g_run, w_run in zip(got, want):
+        for name, g, w in zip(("Y", "dX", "dScale", "dBias"), g_run[1:],
+                              w_run[1:]):
+            g, w = g.float(), w.float()
+            if name in ("Y", "dX"):
+                close = torch.allclose(g, w, **BF16_TOL)
+            else:
+                close = float((g - w).abs().max()) <= \
+                    2 ** -7 * float(w.abs().max()) + 1e-3
+            ok = ok and close and bool(torch.isfinite(g).all())
+            err[name] = max(err.get(name, 0.0), float((g - w).abs().max()))
+    emit("fused_ln_ops", shape=list(LN_OPS), dtype="bfloat16", steps=steps,
+         seconds=seconds, launches=counts, max_abs_err_vs_layer_norm=err,
+         losses=[float(r[0].float().reshape(-1)[0]) for r in got],
+         ops=[o.type for o in fused.global_block().ops], ok=ok)
+    if counts["layer_norm"] != 2 * steps or not ok:
+        raise AssertionError(f"fused_ln_ops: launches {counts}, errors {err}")
+    return counts, kernels.layout_counts()
+
+
+def _resnet_programs(cfg, batch_size, amp, lr=0.1):
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import resnet
+
+    with unique_name.guard():
+        return resnet.build_classifier_program(cfg, batch_size=batch_size,
+                                               amp=amp, lr=lr)
+
+
+def resnet_parity(dev, amp, tol, steps=3):
+    """A tiny ResNet-50 (every stage's bottleneck once, 32x32 images, 10
+    classes), batch 4, Momentum lr 0.01: ``steps`` steps on the card and
+    on the CPU from one state and one batch, losses within rtol = atol =
+    ``tol``. Then every parameter and running statistic after each step,
+    the card starting that step from the CPU's state: batch norm over 4
+    images amplifies the order of fp32 sums (cuDNN's against the CPU's),
+    so two free runs drift apart over steps however right each step is.
+    Each tensor within tol * max(1, max |CPU's|). The velocities, each
+    step's raw gradient, are not held here: near a loss of 1e-2 the
+    gradient through batch norm over 4 values cancels to a few 1e-4 of
+    the velocity's scale on the card as on the CPU (tests/test_torch_resnet
+    holds them against the reference from one state)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_from_numpy
+    from paddle_tpu_torch.models import resnet
+
+    t0 = time.perf_counter()
+    cfg = resnet.ResNetConfig(50, 10, (3, 32, 32), stages=[1, 1, 1, 1])
+    main_prog, startup, _, fetches = _resnet_programs(cfg, 4, amp, lr=0.01)
+    scope = Scope()
+    Executor(device="cpu").run(startup, scope=scope)
+    state = _state_arrays(scope)
+    batch = resnet.synthetic_batch(cfg, 4, seed=1)
+    fetch = [fetches["loss"], fetches["acc1"]]
+    names = [v.name for v in main_prog.global_block().vars.values()
+             if v.persistable and not v.name.endswith("_velocity_0")]
+    card, cpu = Executor(device=dev), Executor(device="cpu")
+    free_card, free_cpu = (scope_from_numpy(state, d) for d in (dev, "cpu"))
+    kernels.reset_launch_counts()
+    losses, worst, bad = [], {}, []
+    for step in range(steps):
+        # a copy: the optimizer ops update the CPU tensors in place
+        before = scope_from_numpy(_state_arrays(free_cpu), "cpu")
+        want = cpu.run(main_prog, feed=batch, scope=free_cpu,
+                       fetch_list=fetch)
+        got = card.run(main_prog, feed=batch, scope=free_card,
+                       fetch_list=fetch)
+        losses.append((float(got[0].reshape(-1)[0]),
+                       float(want[0].reshape(-1)[0])))
+        synced = scope_from_numpy(_state_arrays(before), dev)
+        card.run(main_prog, feed=batch, scope=synced, fetch_list=fetch)
+        for n in names:
+            ref = free_cpu.find_var(n).float()
+            err = float((synced.find_var(n).float().cpu() - ref).abs().max())
+            worst[n] = max(worst.get(n, 0.0), err)
+            if err > tol * max(1.0, float(ref.abs().max())):
+                bad.append(f"step {step} {n}: {err}")
+    counts = kernels.launch_counts()
+    loss_gpu, loss_cpu = ([p[i] for p in losses] for i in (0, 1))
+    ok = np.allclose(loss_gpu, loss_cpu, rtol=tol, atol=tol) and not bad
+    top = sorted(worst, key=lambda n: -worst[n])[:3]
+    emit("resnet_parity", amp=amp, batch=4, steps=steps,
+         seconds=time.perf_counter() - t0, loss_gpu=loss_gpu,
+         loss_cpu=loss_cpu, state_vars=len(names),
+         largest_state_errors={n: worst[n] for n in top},
+         outside_tolerance=bad[:10], tolerance=f"{tol}", launches=counts,
+         ok=bool(ok))
+    if not ok:
+        raise AssertionError("resnet: card and CPU disagree")
+
+
+def train_resnet50(dev, smi, timed=5):
+    """ResNet-50 as the reference's benchmark trains it: 224x224, batch
+    256, bf16 AMP, Momentum lr 0.1, fuse_bn_act_pass; not cut. Startup on
+    the card, one warm-up step and ``timed`` timed steps on one synthetic
+    batch; then one more step fetching the input of RES4_CONV for the
+    real-layer conv check. Finite losses, the last timed one below the
+    warm-up's. No hand-written kernel is on this path: the reference runs
+    its convs through XLA, the port through cuDNN."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import resnet
+
+    cfg = resnet.resnet50()
+    t0 = time.perf_counter()
+    main_prog, startup, _, fetches = _resnet_programs(cfg, RESNET_BATCH,
+                                                      amp=True)
+    build_s = time.perf_counter() - t0
+    ops = main_prog.global_block().ops
+    exe = Executor(device=dev)
+    scope = Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    batch = resnet.synthetic_batch(cfg, RESNET_BATCH, seed=0)
+    feed = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    fetch = [fetches["loss"], fetches["acc1"]]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    warm = exe.run(main_prog, feed=feed, scope=scope, fetch_list=fetch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    losses, acc1, step_ms = [float(warm[0].reshape(-1)[0])], \
+        [float(warm[1].reshape(-1)[0])], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        out = exe.run(main_prog, feed=feed, scope=scope, fetch_list=fetch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[0].reshape(-1)[0]))
+        acc1.append(float(out[1].reshape(-1)[0]))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    conv_op = next(o for o in ops if o.type == "conv2d" and
+                   o.inputs["Filter"][0].startswith(RES4_CONV + "_w"))
+    layer_in = exe.run(main_prog, feed=feed, scope=scope,
+                       fetch_list=[conv_op.inputs["Input"][0]],
+                       return_numpy=False)[0]
+    params = [scope.find_var(p.name) for p in main_prog.all_parameters()]
+    finite = all(bool(torch.isfinite(p.float()).all()) for p in params)
+    p50 = float(np.median(step_ms))
+    types = {}
+    for o in ops:
+        types[o.type] = types.get(o.type, 0) + 1
+    emit("train_resnet50", model="resnet50", image=list(cfg.image_shape),
+         batch=RESNET_BATCH, amp="bf16", optimizer="momentum lr 0.1 mu 0.9",
+         fuse_bn_act=True, ops=len(ops), op_types=len(types),
+         op_counts=types, startup_ops=len(startup.global_block().ops),
+         parameters=len(params),
+         parameter_elements=int(sum(p.numel() for p in params)),
+         build_s=build_s, startup_s=startup_s, warmup_s=warm_s,
+         warmup_loss=losses[0], losses=losses[1:], acc1=acc1,
+         step_ms=step_ms, step_ms_p50=p50,
+         step_ms_range=[min(step_ms), max(step_ms)],
+         images_per_s=RESNET_BATCH / (p50 / 1e3),
+         max_memory_allocated=peak, launches=counts,
+         params_finite=finite, nvidia_smi=smi,
+         note="smoke figures of a host-driven eager step, not a benchmark")
+    if not all(np.isfinite(losses)) or not losses[timed] < losses[0]:
+        raise AssertionError(f"train_resnet50: loss did not fall: {losses}")
+    if not finite:
+        raise AssertionError("train_resnet50: a parameter is not finite")
+    if len(ops) != 616 or len(types) != 17:
+        raise AssertionError(f"train_resnet50: {len(ops)} ops of "
+                             f"{len(types)} types")
+    return (counts, kernels.layout_counts()), scope, layer_in
+
+
+def check_conv_real_layer(dev, scope, layer_in):
+    """The conv kernel at the shape and on the values of a real layer:
+    the input of RES4_CONV from the ResNet-50 step (bf16 NCHW [256, 256,
+    14, 14]), its filter in bf16, its BN running statistics folded into
+    scale = bn_scale / sqrt(var + eps) and shift = bn_bias - mean *
+    scale. Held against the port's own conv2d -> batch_norm(is_test) ->
+    relu lowerings on the same values, (a) run in fp32 and rounded once:
+    the bf16 tolerance; (b) run as the AMP program runs them, in bf16:
+    within the sum of their roundings, 2^-6 (|a| (|conv| + |mean|) +
+    |bias|) + 2^-7 |out| + 1e-3 elementwise, a = bn_scale / sqrt(var +
+    eps) (four roundings of at most 2^-9 relative each, doubled)."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.kernels import conv_bn_relu as cbr
+
+    name = RES4_CONV
+    w = scope.find_var(name + "_w")
+    gamma, beta = scope.find_var(name + "_bn_scale"), \
+        scope.find_var(name + "_bn_bias")
+    mean, var = scope.find_var(name + "_bn_mean"), \
+        scope.find_var(name + "_bn_var")
+    x = layer_in.to(torch.bfloat16)
+    wb = w.to(torch.bfloat16)
+    a = gamma / torch.sqrt(var + 1e-5)
+    shift = beta - mean * a
+    xp = torch.nn.functional.pad(x.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1)) \
+        .contiguous()
+    got = cbr.conv_bn_relu(xp, wb.permute(2, 3, 1, 0).contiguous(),
+                           a.contiguous(), shift.contiguous())
+    got = got.permute(0, 3, 1, 2)
+
+    def chain(xx, ww):
+        conv = registry.get("conv2d").forward(
+            {"Input": [xx], "Filter": [ww]},
+            {"strides": [1, 1], "paddings": [1, 1], "dilations": [1, 1],
+             "groups": 1})["Output"]
+        bn = registry.get("batch_norm").forward(
+            {"X": [conv], "Scale": [gamma], "Bias": [beta], "Mean": [mean],
+             "Variance": [var]}, {"is_test": True, "epsilon": 1e-5})["Y"]
+        return conv, registry.get("relu").forward({"X": [bn]}, {})["Out"]
+
+    with torch.no_grad():
+        conv32, ref32 = chain(x.float(), wb.float())
+        _, ref16 = chain(x, wb)
+    torch.cuda.synchronize()
+    ok32 = torch.allclose(got.float(), ref32.to(torch.bfloat16).float(),
+                          **BF16_TOL)
+    bshape = (1, -1, 1, 1)
+    bound = 2 ** -6 * (a.abs().reshape(bshape) * (
+        conv32.abs() + mean.abs().reshape(bshape))
+        + beta.abs().reshape(bshape)) + 2 ** -7 * ref32.abs() + 1e-3
+    diff16 = (got.float() - ref16.float()).abs()
+    ok16 = bool((diff16 <= bound).all())
+    emit("check_conv_real_layer", layer=name, input_shape=list(x.shape),
+         max_abs_err_vs_fp32_ops=errors(got, ref32.to(torch.bfloat16))[0],
+         max_abs_err_vs_bf16_ops=float(diff16.max()),
+         worst_share_of_bf16_bound=float((diff16 / bound).max()),
+         relu_kept_share=float((ref32 > 0).float().mean()),
+         ok=bool(ok32 and ok16))
+    if not (ok32 and ok16):
+        raise AssertionError(f"conv kernel on {name}: fp32 ops {ok32}, "
+                             f"bf16 ops {ok16}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -1038,6 +1494,8 @@ def main():
     check_flash_long(dev, results)
     bnsd_check = check_flash_bnsd(dev, results)
     check_adamw(dev, results)
+    check_layer_norm(dev, results)
+    check_conv(dev, results)
     emit("kernels", results=results, dropout_mask=mask_check,
          bnsd_layout=bnsd_check)
 
@@ -1064,14 +1522,25 @@ def main():
         torch.cuda.empty_cache()
         runs[f"train_long_s{seq}"] = train_ernie(
             dev, smi, f"train_long_s{seq}", seq, (batch_size,), timed=5)
+    torch.cuda.empty_cache()
+    runs["exp_conv"] = exp_conv_phase(dev, results)
+    runs["fused_ln_ops"] = fused_ln_ops(dev)
+    resnet_parity(dev, False, 1e-4)
+    resnet_parity(dev, True, 1e-2)
+    torch.cuda.empty_cache()
+    runs["train_resnet50"], scope, layer_in = train_resnet50(dev, smi)
+    check_conv_real_layer(dev, scope, layer_in)
+    del scope, layer_in
 
     rep = {"flash_attention_fwd": "B=1 S=2048 n=16 hd=64 causal",
            "int8_gemm": "M=8 K=1024 N=4096 bias=True act=relu",
            "flash_attention_bwd": f"B=40 S={SEQ} n=16 hd=64 bias "
                                   f"dropout={RATE} bf16",
-           "fused_adamw": "[1024, 4096] bf16"}
+           "fused_adamw": "[1024, 4096] bf16",
+           "layer_norm": "[20480, 1024] bf16"}
     main_path = {"flash_attention_bwd": "train_ernie",
-                 "fused_adamw": "train_ernie"}
+                 "fused_adamw": "train_ernie", "layer_norm": "fused_ln_ops",
+                 "conv_bn_relu": "exp_conv"}
     timing = ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
               "bound_by", "max_abs_err")
     line = []
@@ -1079,10 +1548,10 @@ def main():
         rows = [r for r in results if r["name"] == name]
         main_row = next((r for r in rows if r["shape"] == rep.get(name)),
                         rows[0])
+        path = main_path.get(name, "serve_int8")
         line.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name],
-            launches=runs[main_path.get(name, "serve_int8")][0][name],
+            replaces=REPLACES[name], path=path, launches=runs[path][0][name],
             launches_by_path={p: c[0][name] for p, c in runs.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],

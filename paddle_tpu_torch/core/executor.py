@@ -29,10 +29,8 @@ import torch
 from . import registry
 from .ir import Block, OpDesc, Program, Variable, default_main_program
 from .registry import EMPTY_VAR
-from .scope import Scope, global_scope
+from .scope import STEP_COUNTER, Scope, global_scope
 from .types import to_torch_dtype, x64_off
-
-STEP_COUNTER = "@STEP_COUNTER@"
 
 _MISSING = object()
 

@@ -10,6 +10,12 @@ from __future__ import annotations
 import contextlib
 from typing import Any, Dict, Iterator, Optional
 
+import numpy as np
+import torch
+
+# the executor's step counter: a host integer, not a tensor
+STEP_COUNTER = "@STEP_COUNTER@"
+
 
 class Scope:
     def __init__(self, parent: Optional["Scope"] = None):
@@ -64,3 +70,34 @@ def scope_guard(scope: Scope):
         yield scope
     finally:
         _global_scope = old
+
+
+def scope_from_numpy(arrays, device) -> Scope:
+    """A Scope on ``device`` holding the given state: the function that
+    carries training state across packages or devices. ``arrays`` maps
+    var names to numpy arrays (params, moments, beta pows, the learning
+    rate; a ``@STEP_COUNTER@`` entry stays a host integer). A bfloat16
+    tensor arrives either as an array of ``ml_dtypes.bfloat16`` (what
+    ``np.asarray`` of a bf16 jax array gives) or, where that package is
+    absent, as a ``(uint16 bits, "bfloat16")`` pair; both are
+    reinterpreted bit for bit. Every tensor is copied, so runs from one
+    state dict do not share storage."""
+    scope = Scope()
+    for name, val in arrays.items():
+        if name == STEP_COUNTER:
+            scope.set(name, np.int32(int(np.asarray(val))))
+            continue
+        is_bf16 = False
+        if isinstance(val, tuple):
+            val, tag = val
+            is_bf16 = tag == "bfloat16"
+        val = np.asarray(val)
+        if val.dtype.name == "bfloat16":
+            val, is_bf16 = val.view(np.uint16), True
+        if is_bf16:
+            t = torch.from_numpy(val.astype(np.uint16).view(np.int16).copy())
+            t = t.view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(val.copy())
+        scope.set(name, t.to(device))
+    return scope

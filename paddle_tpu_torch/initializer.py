@@ -1,7 +1,7 @@
 """Parameter initializers: each appends a creation op (fill_constant,
 uniform_random, gaussian_random, truncated_gaussian_random) to the var's
 startup block (port of ``paddle_tpu/initializer.py``: Constant, Uniform,
-Normal, TruncatedNormal, Xavier and the two defaults).
+Normal, TruncatedNormal, Xavier, MSRA and the two defaults).
 """
 
 from __future__ import annotations
@@ -92,6 +92,23 @@ class Xavier(Initializer):
             Uniform(-limit, limit, self.seed)(var, block)
         else:
             Normal(0.0, math.sqrt(2.0 / (fi + fo)), self.seed)(var, block)
+
+
+class MSRA(Initializer):
+    """Kaiming/He initializer (reference: initializer.py
+    MSRAInitializer), the conv2d default: Uniform(+-sqrt(6 / fan_in)) or
+    Normal(0, sqrt(2 / fan_in))."""
+
+    def __init__(self, uniform: bool = True, fan_in=None, seed: int = 0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fi = self.fan_in or _fan_in_out(var.shape)[0]
+        if self.uniform:
+            limit = math.sqrt(6.0 / fi)
+            Uniform(-limit, limit, self.seed)(var, block)
+        else:
+            Normal(0.0, math.sqrt(2.0 / fi), self.seed)(var, block)
 
 
 def _default_weight_initializer():

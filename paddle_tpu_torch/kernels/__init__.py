@@ -1,5 +1,6 @@
 """Hand-written Hopper kernels of the port, one module per TPU kernel
-file of ``paddle_tpu/ops/pallas``; sources in ``paddle_tpu_torch/csrc``.
+file of ``paddle_tpu/ops/pallas`` (and ``conv_bn_relu`` for the kernel
+of ``tools/exp_pallas_conv.py``); sources in ``paddle_tpu_torch/csrc``.
 
 Every wrapper takes its plain PyTorch version for CPU and ``meta``
 tensors (tests, shape inference) and, for a CUDA tensor, launches its
@@ -14,14 +15,17 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import flash_attention, fused_adam, int8_gemm, paged_attention
+from . import (conv_bn_relu, flash_attention, fused_adam, int8_gemm,
+               layer_norm, paged_attention)
 
 # kernel (its csrc/<name>.cu) -> the module that wraps it
 MODULES = {"flash_attention_fwd": flash_attention,
            "paged_attention": paged_attention,
            "int8_gemm": int8_gemm,
            "flash_attention_bwd": flash_attention,
-           "fused_adamw": fused_adam}
+           "fused_adamw": fused_adam,
+           "layer_norm": layer_norm,
+           "conv_bn_relu": conv_bn_relu}
 _COUNTER = {"flash_attention_bwd": "bwd_launches"}
 
 

@@ -26,7 +26,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("flash_attention_fwd", "paged_attention", "int8_gemm",
-           "flash_attention_bwd", "fused_adamw")
+           "flash_attention_bwd", "fused_adamw", "layer_norm",
+           "conv_bn_relu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

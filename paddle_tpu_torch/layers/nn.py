@@ -1,5 +1,6 @@
 """Op-emitting layer functions — the subset of ``paddle_tpu/layers/nn.py``
-the decoder LM's and the BERT/ERNIE pre-training programs are built from.
+the decoder LM's, the BERT/ERNIE pre-training and the ResNet classifier
+programs are built from.
 Each function creates output vars and appends ops with the same types,
 slots and attrs as the reference, so the two packages build the same
 program."""
@@ -13,7 +14,7 @@ import numpy as np
 from ..core import unique_name
 from ..core.ir import Variable, default_main_program
 from ..core.types import dtype_name
-from ..initializer import Constant, Xavier
+from ..initializer import MSRA, Constant, Xavier
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from ..parallel.api import set_logical_axes
@@ -24,7 +25,14 @@ __all__ = ["static_data", "create_parameter", "create_global_var",
            "gelu", "elementwise_add", "elementwise_mul",
            "elementwise_div", "reduce_sum", "matmul", "mul", "reshape",
            "squeeze", "unsqueeze", "slice", "gather", "scale",
-           "fill_constant", "take_along_axis", "flash_attention"]
+           "fill_constant", "take_along_axis", "flash_attention",
+           "conv2d", "pool2d", "batch_norm", "accuracy", "softmax", "cast"]
+
+
+def _pair(v):
+    if isinstance(v, (list, tuple)):
+        return list(v)
+    return [v, v]
 
 
 def static_data(name: str, shape: Sequence[int],
@@ -400,3 +408,118 @@ def _binary(op_type):
 elementwise_add = _binary("elementwise_add")
 elementwise_mul = _binary("elementwise_mul")
 elementwise_div = _binary("elementwise_div")
+
+
+def conv2d(input: Variable, num_filters: int, filter_size, stride=1,
+           padding=0, dilation=1, groups: int = 1, param_attr=None,
+           bias_attr=None, act: Optional[str] = None, use_cudnn: bool = True,
+           name=None, data_format: str = "NCHW") -> Variable:
+    """NCHW conv with an OIHW filter (MSRA normal by default), then an
+    optional bias on the channel axis and an activation."""
+    helper = LayerHelper("conv2d", name=name)
+    c_in = input.shape[1]
+    fsize = _pair(filter_size)
+    w = helper.create_parameter(
+        param_attr, [num_filters, c_in // groups, fsize[0], fsize[1]],
+        input.dtype, default_initializer=MSRA(uniform=False))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv2d", {"Input": [input], "Filter": [w]},
+                     {"Output": [out]},
+                     {"strides": _pair(stride), "paddings": _pair(padding),
+                      "dilations": _pair(dilation), "groups": groups,
+                      "data_format": data_format})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        pre = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", {"X": [out], "Y": [b]},
+                         {"Out": [pre]}, {"axis": 1})
+        out = pre
+    return helper.append_activation(out, act)
+
+
+def pool2d(input: Variable, pool_size=2, pool_type: str = "max",
+           pool_stride=None, pool_padding=0, global_pooling: bool = False,
+           ceil_mode: bool = False, exclusive: bool = True,
+           name=None) -> Variable:
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("pool2d", {"X": [input]}, {"Out": [out]},
+                     {"ksize": _pair(pool_size), "pooling_type": pool_type,
+                      "strides": _pair(pool_stride or pool_size),
+                      "paddings": _pair(pool_padding),
+                      "global_pooling": global_pooling,
+                      "ceil_mode": ceil_mode, "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input: Variable, act: Optional[str] = None,
+               is_test: bool = False, momentum: float = 0.9,
+               epsilon: float = 1e-5, param_attr=None, bias_attr=None,
+               data_layout: str = "NCHW", name=None, moving_mean_name=None,
+               moving_variance_name=None,
+               use_global_stats: bool = False) -> Variable:
+    """Scale (1) and bias (0) parameters, and the moving mean (0) and
+    variance (1) as non-trainable parameters that the op names as both
+    input and output."""
+    helper = LayerHelper("batch_norm", name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(param_attr, [c], "float32",
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [c], "float32", is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, initializer=Constant(0.0),
+                  trainable=False), [c], "float32")
+    variance = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, initializer=Constant(1.0),
+                  trainable=False), [c], "float32")
+    mean.stop_gradient = True
+    variance.stop_gradient = True
+    y = helper.create_variable_for_type_inference(input.dtype)
+    saved_mean = helper.create_variable_for_type_inference("float32", True)
+    saved_var = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(
+        "batch_norm",
+        {"X": [input], "Scale": [scale], "Bias": [bias], "Mean": [mean],
+         "Variance": [variance]},
+        {"Y": [y], "MeanOut": [mean], "VarianceOut": [variance],
+         "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        {"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+         "data_layout": data_layout, "use_global_stats": use_global_stats})
+    return helper.append_activation(y, act)
+
+
+def accuracy(input: Variable, label: Variable, k: int = 1) -> Variable:
+    """top_k + accuracy: the share of rows whose label is among their k
+    largest inputs."""
+    helper = LayerHelper("accuracy")
+    topk_out = helper.create_variable_for_type_inference(input.dtype, True)
+    topk_idx = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("top_k", {"X": [input]},
+                     {"Out": [topk_out], "Indices": [topk_idx]}, {"k": k})
+    acc = helper.create_variable_for_type_inference("float32", True)
+    correct = helper.create_variable_for_type_inference("int32", True)
+    total = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op("accuracy",
+                     {"Out": [topk_out], "Indices": [topk_idx],
+                      "Label": [label]},
+                     {"Accuracy": [acc], "Correct": [correct],
+                      "Total": [total]}, {})
+    return acc
+
+
+def softmax(input: Variable, axis: int = -1, use_cudnn: bool = False,
+            name=None) -> Variable:
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("softmax", {"X": [input]}, {"Out": [out]},
+                     {"axis": axis})
+    return out
+
+
+def cast(x: Variable, dtype) -> Variable:
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op("cast", {"X": [x]}, {"Out": [out]},
+                     {"out_dtype": dtype_name(dtype)})
+    return out

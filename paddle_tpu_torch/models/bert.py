@@ -16,12 +16,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
 
 from .. import layers
-from ..core.executor import STEP_COUNTER
 from ..core.ir import Program, program_guard
-from ..core.scope import Scope
+from ..core.scope import scope_from_numpy  # noqa: F401  (its old home)
 from ..initializer import TruncatedNormal
 from ..param_attr import ParamAttr
 from ..parallel.api import set_logical_axes, shard_tensor
@@ -316,34 +314,3 @@ def synthetic_pretraining_batch(cfg: BertConfig, batch_size: int, seq_len: int,
     nsp = rng.randint(0, 2, (batch_size, 1)).astype(np.int64)
     return dict(src_ids=src, sent_ids=sent, pos_ids=pos, input_mask=mask,
                 mask_labels=labels, mask_weight=weight, nsp_labels=nsp)
-
-
-def scope_from_numpy(arrays, device) -> Scope:
-    """A Scope on ``device`` holding the given state: the function that
-    carries training state across packages or devices. ``arrays`` maps
-    var names to numpy arrays (params, moments, beta pows, the learning
-    rate; a ``@STEP_COUNTER@`` entry stays a host integer). A bfloat16
-    tensor arrives either as an array of ``ml_dtypes.bfloat16`` (what
-    ``np.asarray`` of a bf16 jax array gives) or, where that package is
-    absent, as a ``(uint16 bits, "bfloat16")`` pair; both are
-    reinterpreted bit for bit. Every tensor is copied, so runs from one
-    state dict do not share storage."""
-    scope = Scope()
-    for name, val in arrays.items():
-        if name == STEP_COUNTER:
-            scope.set(name, np.int32(int(np.asarray(val))))
-            continue
-        is_bf16 = False
-        if isinstance(val, tuple):
-            val, tag = val
-            is_bf16 = tag == "bfloat16"
-        val = np.asarray(val)
-        if val.dtype.name == "bfloat16":
-            val, is_bf16 = val.view(np.uint16), True
-        if is_bf16:
-            t = torch.from_numpy(val.astype(np.uint16).view(np.int16).copy())
-            t = t.view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(val.copy())
-        scope.set(name, t.to(device))
-    return scope

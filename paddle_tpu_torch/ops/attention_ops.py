@@ -1,7 +1,7 @@
 """Attention lowerings (port of ``paddle_tpu/ops/attention_ops.py``:
 _attn_dropout :17, flash_attention :37, its grad maker :81,
 flash_attention_grad :112, kv_cache_write :167, cached_kv_attention
-:205).
+:205, fused_bn_add_act :357, fused_layer_norm :381).
 
 The two pool-writing ops update the pool tensors IN PLACE and return
 the same tensors as PoolKOut/PoolVOut — the counterpart of the jit
@@ -19,7 +19,9 @@ from ..core.ir import OpDesc
 from ..core.registry import (default_grad_maker, register_grad_maker,
                              register_op)
 from ..kernels.flash_attention import flash_bwd, flash_fwd
+from ..kernels.layer_norm import fused_layer_norm
 from ..kernels.paged_attention import paged_decode_attention
+from .bn_act import fused_batch_norm_act
 
 
 def _attn_dropout(attrs):
@@ -200,3 +202,34 @@ def cached_kv_attention_op(ins, attrs):
     _write_slots(pool_k, pool_v, phys * page + pos64 % page, k, v)
     out = paged_decode_attention(q, pool_k, pool_v, table, pos, n, hd, scale)
     return {"Out": out, "PoolKOut": pool_k, "PoolVOut": pool_v}
+
+
+@register_op("fused_bn_add_act", non_diff_inputs=("Mean", "Variance"))
+def fused_bn_add_act_op(ins, attrs):
+    """Training-time BatchNorm(+residual Z)+ReLU as one op (reference
+    :357) with the pinned-residual backward of ``ops/bn_act.py``; the
+    batch_norm contract plus the optional Z added before the
+    activation."""
+    x = ins["X"][0]
+    z = ins["Z"][0] if ins.get("Z") else None
+    y, mo, vo, sm, sv = fused_batch_norm_act(
+        x, ins["Scale"][0], ins["Bias"][0], ins["Mean"][0],
+        ins["Variance"][0], z, eps=float(attrs.get("epsilon", 1e-5)),
+        momentum=float(attrs.get("momentum", 0.9)),
+        c_axis=1 if attrs.get("data_layout", "NCHW") == "NCHW" else -1,
+        act=attrs.get("act", "relu"),
+        is_test=bool(attrs.get("is_test", False)))
+    return {"Y": y, "MeanOut": mo, "VarianceOut": vo, "SavedMean": sm,
+            "SavedVariance": sv}
+
+
+@register_op("fused_layer_norm")
+def fused_layer_norm_op(ins, attrs):
+    """Layer norm over the last axis through the layer_norm kernel
+    (reference :381); ``layer_norm`` stays the general begin_norm_axis
+    op. As there, Variance is the variance, 1 / rstd^2 - eps."""
+    scale = ins["Scale"][0] if ins.get("Scale") else None
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    eps = attrs.get("epsilon", 1e-5)
+    y, mean, rstd = fused_layer_norm(ins["X"][0], scale, bias, eps=eps)
+    return {"Y": y, "Mean": mean, "Variance": 1.0 / (rstd * rstd) - eps}

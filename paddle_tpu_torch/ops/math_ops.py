@@ -1,7 +1,7 @@
 """Math lowerings (port of ``paddle_tpu/ops/math_ops.py``: elementwise
 :38-46, relu :90, tanh :93, gelu :141, reduce_sum :231, mean :238, matmul
-:267, matmul_v2 :285, mul :297, softmax_with_cross_entropy :361, top_k
-:466).
+:267, matmul_v2 :285, mul :297, softmax :329, softmax_with_cross_entropy
+:361, accuracy :448, top_k :466).
 
 The matrix products stay ``torch.matmul``, as the JAX package left them
 to XLA; fp32 products run in full fp32 on the card (TF32 off), bf16
@@ -147,3 +147,26 @@ def top_k(ins, attrs):
     k = int(attrs.get("k", 1))
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return {"Out": vals[..., :k], "Indices": idx[..., :k].to(torch.int32)}
+
+
+@register_op("softmax")
+def softmax(ins, attrs):
+    return {"Out": torch.softmax(ins["X"][0], dim=int(attrs.get("axis", -1)))}
+
+
+@register_op("accuracy", non_diff_inputs=("Out", "Indices", "Label"))
+def accuracy(ins, attrs):
+    """Top-k accuracy from top_k's Indices: a row counts as correct when
+    any of its k indices equals its label. Accuracy is fp32 [1], Correct
+    and Total int32 [1]."""
+    indices, label = ins["Indices"][0], ins["Label"][0]
+    if label.dim() == indices.dim() and label.shape[-1] == 1:
+        correct = (indices == label).any(dim=-1)
+    else:
+        correct = (indices == label[..., None]).any(dim=-1)
+    total = correct.numel()
+    num = correct.to(torch.int32).sum(dtype=torch.int32)
+    return {"Accuracy": (num.float() / float(total)).reshape(1),
+            "Correct": num.reshape(1),
+            "Total": torch.full((1,), total, dtype=torch.int32,
+                                device=indices.device)}

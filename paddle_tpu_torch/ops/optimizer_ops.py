@@ -1,11 +1,13 @@
 """Optimizer op lowerings: state updates are ops in the program (port
-of ``paddle_tpu/ops/optimizer_ops.py``: adam :140, adamw :167).
+of ``paddle_tpu/ops/optimizer_ops.py``: sgd :48, momentum :63, adam :140,
+adamw :167).
 
 Each op names its parameter and state as both input and output. The
 port's lowerings update those tensors IN PLACE and return the same
 tensors: the counterpart of the reference's buffer donation, under which
 XLA reuses the donated buffers. Gradients are dense; the SelectedRows
-``lazy_mode`` branch is not in the port.
+branches (adam's ``lazy_mode``, sparse sgd and momentum) are not in the
+port.
 """
 
 from __future__ import annotations
@@ -16,7 +18,44 @@ from ..core.registry import register_op
 from ..kernels.fused_adam import fused_adamw_
 
 _OPT = dict(non_diff_inputs=("Param", "Grad", "LearningRate", "Moment1",
-                             "Moment2", "Beta1Pow", "Beta2Pow"))
+                             "Moment2", "Beta1Pow", "Beta2Pow", "Velocity"))
+
+
+def _dense(g, op):
+    if not isinstance(g, torch.Tensor):
+        raise NotImplementedError(
+            f"{op} with a SelectedRows gradient is not in the port")
+    return g
+
+
+@register_op("sgd", **_OPT)
+def sgd(ins, attrs):
+    """p -= lr * g (reference sgd_op.cc, dense branch)."""
+    p, lr = ins["Param"][0], ins["LearningRate"][0]
+    g = _dense(ins["Grad"][0], "sgd")
+    p.sub_(lr.to(p.dtype) * g.to(p.dtype))
+    return {"ParamOut": p}
+
+
+@register_op("momentum", **_OPT)
+def momentum(ins, attrs):
+    """MomentumFunctor (reference momentum_op.h), dense branch:
+    v' = mu v + g, then p -= lr v' or, with ``use_nesterov``,
+    p -= (g + mu v') lr; an ``l2_decay`` regularization adds
+    regularization_coeff * p to g first."""
+    p, v, lr = ins["Param"][0], ins["Velocity"][0], ins["LearningRate"][0]
+    g = _dense(ins["Grad"][0], "momentum").to(p.dtype)
+    lr = lr.to(p.dtype)
+    mu = float(attrs.get("mu", 0.9))
+    rd = float(attrs.get("regularization_coeff", 0.0))
+    if attrs.get("regularization_method", "") == "l2_decay" and rd:
+        g = g + rd * p
+    v.mul_(mu).add_(g)
+    if attrs.get("use_nesterov", False):
+        p.sub_((g + mu * v) * lr)
+    else:
+        p.sub_(lr * v)
+    return {"ParamOut": p, "VelocityOut": v}
 
 
 def _slots(ins, attrs):

@@ -1,7 +1,7 @@
 """Tensor creation and manipulation lowerings (port of
 ``paddle_tpu/ops/tensor_ops.py``: fill_constant :57, uniform_random :75,
-gaussian_random :87, truncated_gaussian_random :99, scale :146, reshape2
-:156, squeeze2 :233, unsqueeze2 :244, slice :283, gather :314,
+gaussian_random :87, truncated_gaussian_random :99, cast :138, scale :146,
+reshape2 :156, squeeze2 :233, unsqueeze2 :244, slice :283, gather :314,
 lookup_table_v2 :337, sum :423).
 
 The random initializers draw from a ``torch.Generator`` seeded with the
@@ -16,7 +16,7 @@ import torch
 
 from ..core import rng
 from ..core.registry import creation_device, register_op
-from ..core.types import to_torch_dtype
+from ..core.types import to_torch_dtype, x64_off
 
 
 def _shape_of(attrs):
@@ -69,6 +69,15 @@ def truncated_gaussian_random(ins, attrs):
     x = _std_normal(_uniform01(attrs), c, 1.0 - c).clamp(-2.0, 2.0)
     out = x * float(attrs.get("std", 1.0)) + float(attrs.get("mean", 0.0))
     return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "float32")))}
+
+
+@register_op("cast")
+def cast(ins, attrs):
+    """To ``out_dtype`` (or ``dtype``); 64-bit targets become 32-bit, as
+    in the reference with x64 off."""
+    dtype = to_torch_dtype(attrs.get("out_dtype", attrs.get("dtype",
+                                                            "float32")))
+    return {"Out": ins["X"][0].to(x64_off(dtype))}
 
 
 @register_op("scale")

@@ -1,7 +1,8 @@
 """Optimizer classes: emit optimizer ops into the program.
 
 The port of ``paddle_tpu/optimizer/__init__.py``: ``Optimizer`` (:33),
-``AdamOptimizer`` (:393) and ``AdamWOptimizer`` (:433). ``minimize(loss)``
+``SGDOptimizer`` (:311), ``MomentumOptimizer`` (:321), ``AdamOptimizer``
+(:393) and ``AdamWOptimizer`` (:433). ``minimize(loss)``
 is ``append_backward`` plus one update op per parameter; the update ops
 name the parameter and its moments as both input and output, and the
 port's lowerings update them in place.
@@ -99,6 +100,39 @@ class Optimizer:
         params_grads = self.backward(loss, startup_program, parameter_list,
                                      no_grad_set)
         return self.apply_gradients(params_grads), params_grads
+
+
+class SGDOptimizer(Optimizer):
+    type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "sgd", {"Param": [p], "Grad": [g], "LearningRate": [self._lr_var]},
+            {"ParamOut": [p]}, {})
+
+
+class MomentumOptimizer(Optimizer):
+    type = "momentum"
+
+    def __init__(self, learning_rate, momentum=0.9, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            {"Param": [p], "Grad": [g], "Velocity": [v],
+             "LearningRate": [self._lr_var]},
+            {"ParamOut": [p], "VelocityOut": [v]},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov})
 
 
 class AdamOptimizer(Optimizer):

@@ -19,9 +19,11 @@ import torch
 
 from paddle_tpu_torch import kernels
 from paddle_tpu_torch.core import rng
+from paddle_tpu_torch.kernels import conv_bn_relu as cbr
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_adam as fad
 from paddle_tpu_torch.kernels import int8_gemm as ig
+from paddle_tpu_torch.kernels import layer_norm as ln
 from paddle_tpu_torch.kernels import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -395,6 +397,70 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):   # grad must have param's dtype
         fad.fused_adamw_(p.bfloat16(), p.float(), p.float(), p.float(), one,
                          0.9, 0.999, 1e-8, 0.01, one, one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,h,affine", [
+    (1, 1, True), (7, 100, False), (513, 1024, True), (33, 384, True),
+    (64, 8192, True), (5, 3000, False)])
+def test_layer_norm_kernel_matches_plain(dev, dtype, rows, h, affine):
+    g = torch.Generator(device=dev).manual_seed(rows * h)
+    x = (torch.randn(rows, h, device=dev, generator=g) * 2 + 0.5).to(dtype)
+    sc = torch.rand(h, device=dev, generator=g) + 0.5 if affine else None
+    bi = torch.randn(h, device=dev, generator=g) if affine else None
+    before = ln.launches
+    y, mean, rstd = ln.layer_norm_fwd(x, sc, bi, 1e-5)
+    # bf16: against the plain version run in fp32 on the same values and
+    # rounded once (one bf16 ulp + 1e-3)
+    ry, rmean, rrstd = ln.plain_layer_norm(x.float(), sc, bi, 1e-5)
+    torch.cuda.synchronize()
+    assert ln.launches == before + 1 and y.dtype == dtype
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
+        else dict(rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(y.float(), ry.to(dtype).float(), **tol)
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (2, 14, 14, 256, 256), (3, 7, 9, 16, 4), (1, 5, 5, 32, 68),
+    (5, 3, 3, 48, 132)])
+def test_conv_bn_relu_kernel_matches_plain(dev, n, h, w, c, co):
+    g = torch.Generator(device=dev).manual_seed(n * h * c + co)
+    x = (torch.randn(n, h, w, c, device=dev, generator=g) * 0.5).bfloat16()
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1)).contiguous()
+    wt = (torch.randn(3, 3, c, co, device=dev, generator=g) * 0.05) \
+        .bfloat16()
+    sc = torch.randn(co, device=dev, generator=g) * 0.1 + 1.0
+    sh = torch.randn(co, device=dev, generator=g) * 0.1
+    before = cbr.launches
+    out = cbr.conv_bn_relu(xp, wt, sc, sh)
+    ref = cbr.plain_conv_bn_relu(xp, wt, sc, sh)
+    torch.cuda.synchronize()
+    assert cbr.launches == before + 1 and out.shape == (n, h, w, co)
+    # both sum the bf16 products in fp32 and round once
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2 ** -7,
+                               atol=1e-3)
+
+
+def test_new_kernels_refuse_what_they_cannot_read(dev):
+    with pytest.raises(ValueError):     # wider than the kernel's row
+        ln.layer_norm_fwd(torch.zeros(2, ln.MAX_H + 1, device=dev), None,
+                          None, 1e-5)
+    with pytest.raises(ValueError):     # fp16 has no instance
+        ln.layer_norm_fwd(torch.zeros(2, 8, device=dev).half(), None, None,
+                          1e-5)
+    xp = torch.zeros(1, 6, 6, 24, device=dev, dtype=torch.bfloat16)
+    one = torch.ones(8, device=dev)
+    with pytest.raises(ValueError):     # C not a multiple of 16
+        cbr.conv_bn_relu(xp, torch.zeros(3, 3, 24, 8, device=dev,
+                                         dtype=torch.bfloat16), one, one)
+    xp = torch.zeros(1, 6, 6, 32, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 32, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):     # a strided NHWC view
+        cbr.conv_bn_relu(xp.permute(0, 2, 1, 3), w, one, one)
+    with pytest.raises(ValueError):     # fp32 input
+        cbr.conv_bn_relu(xp.float(), w, one, one)
 
 
 def test_ernie_tiny_trains_on_card_as_on_cpu(dev):

@@ -31,7 +31,7 @@ jax_gemm = importlib.import_module("paddle_tpu.ops.pallas.int8_gemm")
 jax_paged = importlib.import_module("paddle_tpu.ops.pallas.paged_attention")
 
 from paddle_tpu_torch import kernels
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import _build, conv_bn_relu, layer_norm
 from paddle_tpu_torch.kernels.flash_attention import (packed_flash_fwd,
                                                       plain_packed_flash_fwd)
 from paddle_tpu_torch.kernels.int8_gemm import (int8_weight_only_gemm,
@@ -227,9 +227,17 @@ def test_wrappers_take_plain_route_on_cpu_and_meta(monkeypatch):
     meta = packed_flash_fwd(*(torch.empty(2, 48, 128, device="meta")
                               for _ in range(3)), 2, 0.1, True)
     assert meta[0].is_meta and meta[1].shape == (2, 2, 48)
+    y, mean, rstd = layer_norm.layer_norm_fwd(torch.randn(5, 64), None, None,
+                                              1e-5)
+    assert y.shape == (5, 64) and mean.shape == rstd.shape == (5,)
+    c = conv_bn_relu.conv_bn_relu(
+        torch.randn(1, 6, 6, 16).bfloat16(),
+        torch.randn(3, 3, 16, 8).bfloat16(), torch.ones(8), torch.zeros(8))
+    assert c.shape == (1, 4, 4, 8) and (c >= 0).all()
     assert kernels.launch_counts() == {
         "flash_attention_fwd": 0, "paged_attention": 0, "int8_gemm": 0,
-        "flash_attention_bwd": 0, "fused_adamw": 0}
+        "flash_attention_bwd": 0, "fused_adamw": 0, "layer_norm": 0,
+        "conv_bn_relu": 0}
 
 
 def test_kernel_sources_and_build_flags():
