@@ -10,7 +10,10 @@ prints one JSON line; any failure raises and the exit code is non-zero.
 1. build     — nvcc builds every kernel of paddle_tpu_torch/csrc for sm_90a
                (one nvcc per source, in parallel); the card's name and
                power limit from nvidia-smi; ptxas's register and spill
-               lines per source.
+               lines per source; the number of HGMMA (wgmma) instructions
+               in the SASS of the two flash libraries (cuobjdump -sass),
+               which must not be 0: their bf16 instances run on the
+               tensor cores.
 2. kernels   — each kernel against its plain PyTorch version on the card at
                the serving path's shapes: max abs/rel error, kernel ms
                (CUDA events over raw launches), plain ms, the one-call
@@ -19,11 +22,14 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                3.35 TB/s and flops at 67 TFLOP/s for fp32 inputs, 989
                TFLOP/s, the dense bf16 tensor-core peak, for bf16 inputs).
                The training kernels at ERNIE-large's shapes: flash forward
-               with dropout (and its keep mask read back bit for bit) and
-               flash backward, compared and timed at the step's own B = 40,
-               S = 512 and compared at S = 128 and 200; AdamW; each in bf16
-               and fp32. A bf16 kernel is held against the plain version run
-               in fp32 on the same values and rounded to bf16.
+               with dropout and flash backward (their keep masks read back
+               bit for bit in bf16 and fp32), compared and timed at the
+               step's own B = 40, S = 512 and compared at S = 128 and 200;
+               AdamW; each in bf16 and fp32. A bf16 kernel is held against
+               the plain version run in fp32 on the same values and rounded
+               to bf16; beside it, how many elements of the plain version
+               run on the bf16 values (rounding p and ds where the
+               reference does) fall outside that tolerance.
 3. serve_fp32, serve_int8 — the decoder LM at the README's full width
                (vocab 32000, d_model 1024, 12 layers, 16 heads, d_inner
                4096, max_seq_len 2048), random weights from seed 0, through
@@ -57,7 +63,8 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                warm-up AdamW's first steps overshoot at this depth: the
                24-layer train_parity leg shows the same rise on the CPU);
                exactly 24 flash forward, 24 flash backward and 398 AdamW
-               launches a step; no NaN in any parameter. Its ms/step and
+               launches a step, every flash launch on the bf16 tensor-core
+               instance; no NaN in any parameter. Its ms/step and
                tokens/s are smoke figures of a host-driven eager step.
 The long-context and [B,H,S,D] slice adds, in the order they run:
    kernels  — check_flash_long: both flash kernels at the long step's
@@ -65,14 +72,15 @@ The long-context and [B,H,S,D] slice adds, in the order they run:
                S=4096, fp32 B=4 S=2048, compared and timed. check_flash_bnsd:
                both in the [B,H,S,D] layout at the six bnsd TPU kernels'
                shapes (B=40 at S=512, 256, 128; Sq=512 Sk=256; causal; B=4
-               S=2048; fp32), compared, the first three timed, and bit for
+               S=2048; fp32), compared, the first four timed, and bit for
                bit equal to the packed layout on the same values.
 7. train_parity_long — train_parity at seq 2048, batch 1, 2 layers, fp32,
                3 steps (position table widened to the sequence).
 8. bnsd_ops  — a program with a 4-D layers.flash_attention ([40,16,512,64]
                bf16 q/k/v parameters, [B,1,1,S] key bias, dropout 0.1),
                append_backward, 3 Executor.run steps: one bnsd flash forward
-               and one bnsd backward launch a step, finite gradients.
+               and one bnsd backward launch a step, both on the bf16
+               tensor-core instance, finite gradients.
 9. train_long_s2048, train_long_s4096 — train_ernie at the long-context
                benchmark rows (tools/bench_models.py bench_long_context):
                max_position_embeddings = seq, s2048 batch 4 with 307 masked
@@ -109,7 +117,8 @@ The ResNet-50 slice adds, in the order they run:
                against the port's conv2d -> batch_norm(is_test) -> relu.
 Then one line with every ported kernel: ``launches_by_path`` gives each
 phase's own count (set to 0 just before the phase, read just after),
-``launches_by_layout`` the flash kernels' split by layout, and
+``launches_by_layout`` and ``launches_by_dtype`` the flash kernels'
+split by layout and by dtype instance, and
 ``launches`` is serve_int8's for the serving kernels, train_ernie's
 for the training kernels, fused_ln_ops's for layer_norm and exp_conv's
 for conv_bn_relu; ``variants`` are the flash kernels' other timed
@@ -126,6 +135,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -161,7 +171,7 @@ LONG = ((2048, 4), (4096, 2))
 BNSD_CASES = ((40, 512, 512, False, torch.bfloat16, True),
               (40, 256, 256, False, torch.bfloat16, True),
               (40, 128, 128, False, torch.bfloat16, True),
-              (40, 512, 256, False, torch.bfloat16, False),
+              (40, 512, 256, False, torch.bfloat16, True),
               (40, 512, 512, True, torch.bfloat16, False),
               (4, 2048, 2048, False, torch.bfloat16, False),
               (40, 512, 512, False, torch.float32, False))
@@ -197,6 +207,40 @@ def errors(got, ref):
     diff = (got.double() - ref.double()).abs()
     return float(diff.max()), float((diff / ref.double().abs().clamp_min(
         1e-6)).max())
+
+
+def sass_count(lib, opcode):
+    """How many instructions of ``opcode`` the SASS of a built library
+    holds (cuobjdump -sass, from the toolkit that built it)."""
+    from paddle_tpu_torch.kernels import _build
+
+    tool = str(Path(_build.nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return sum(opcode in ln for ln in sass.splitlines())
+
+
+def outside_tol(got, ref, tol):
+    """How many elements of got lie outside allclose(ref, **tol)."""
+    got, ref = got.double(), ref.double()
+    return int(((got - ref).abs() > tol["atol"] + tol["rtol"] * ref.abs())
+               .sum())
+
+
+def ptxas_by_kernel(log, marker):
+    """{kernel<head_dim,dropout>: its ptxas register and spill lines} for
+    the entry functions of a ptxas -v log whose name holds ``marker``."""
+    import re
+
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"([a-z_]+)ILi(\d+)ELb(\d)", ln)
+            name = (f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
+                    if m and marker in m.group(1) else None)
+        elif name and ("spill" in ln or "registers" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
 
 
 def nvidia_smi():
@@ -376,10 +420,15 @@ def _train_attn_inputs(dev, b, s, dtype, seed):
 
 
 # fp32: the kernels sum in another order than the plain versions. bf16: the
-# kernels compute in fp32 from the bf16 inputs, so they are held against the
-# plain versions run in fp32 on the same values and rounded to bf16 once:
-# one bf16 ulp (2^-7 relative) plus 1e-3, about 2 % of a typical |out| or
-# |dq| at S = 512 with N(0, 1) inputs. dbias is fp32 in both, |dbias| ~ 1.
+# tensor-core kernels multiply bf16 inputs with fp32 accumulation and carry
+# p, p * mask and ds * scale as bf16 hi + lo pairs (16 significant bits), so
+# they are held against the plain versions run in fp32 on the same values
+# and rounded to bf16 once: one bf16 ulp (2^-7 relative) plus 1e-3, about
+# 2 % of a typical |out| or |dq| at S = 512 with N(0, 1) inputs. The plain
+# versions on the bf16 values round those three to bf16 once, as the
+# reference does; how many of their elements fall outside this tolerance
+# is counted beside (reference_rounding_outside_tol). dbias is fp32 in
+# both, |dbias| ~ 1.
 TRAIN_TOL = {torch.float32: dict(rtol=1e-4, atol=2e-5),
              torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
 DBIAS_TOL = dict(rtol=1e-3, atol=1e-3)
@@ -404,23 +453,32 @@ def _compare_flash(fa, what, q, k, v, do, bias, n, scale, causal=False,
         raise AssertionError(f"flash forward+dropout {what}: "
                              f"{errors(out, r_out)} {errors(lse, r_lse)}")
     err = {"out": errors(out, r_out)[0], "lse": errors(lse, r_lse)[0]}
+    tol = TRAIN_TOL[dtype]
+    outside = {"out": outside_tol(
+        fa.plain_flash_fwd(q, k, v, n, scale, causal, bias, RATE, ATTN_SEED,
+                           layout)[0], r_out, tol)}
     # both backwards start from the same saved (out, lse)
     got = fa.flash_bwd(q, k, v, r_out, r_lse, do, n, scale, causal, bias,
                        RATE, ATTN_SEED, layout)
     ref = fa.plain_flash_bwd(q32, k32, v32, r_out.float(), r_lse, do32, n,
                              scale, causal, bias, RATE, ATTN_SEED, layout)
+    ref_rounded = fa.plain_flash_bwd(q, k, v, r_out, r_lse, do, n, scale,
+                                     causal, bias, RATE, ATTN_SEED, layout)
     torch.cuda.synchronize()
-    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+    for name, a, r, rr in zip(("dq", "dk", "dv", "dbias"), got, ref,
+                              ref_rounded):
         if r is None:
             continue
         if name == "dbias":
             tol = DBIAS_TOL
         else:
             tol, r = TRAIN_TOL[dtype], r.to(dtype)
+            outside[name] = outside_tol(rr, r, tol)
         err[name] = errors(a, r)[0]
         if not torch.allclose(a.float(), r.float(), **tol):
             raise AssertionError(f"flash backward {what} {name}: "
                                  f"{errors(a, r)}")
+    err["reference_rounding_outside_tol"] = outside
     return out, lse, err
 
 
@@ -477,7 +535,11 @@ def _flash_rows(results, shape, err, timing):
             ("flash_attention_bwd", ("dq", "dk", "dv", "dbias")))):
         row = dict(name=name, shape=shape, max_rel_err=None,
                    max_abs_err=max(err[k_] for k_ in keys if k_ != "dbias"),
-                   errors={k_: err[k_] for k_ in keys if k_ in err})
+                   errors={k_: err[k_] for k_ in keys if k_ in err},
+                   reference_rounding_outside_tol={
+                       k_: n_ for k_, n_ in
+                       err["reference_rounding_outside_tol"].items()
+                       if k_ in keys})
         row.update(timing[i] if timing else dict(
             ms=None, plain_ms=None, library_ms=None, bound_ms=None,
             bound_by=None))
@@ -519,22 +581,41 @@ def check_flash_train(dev, results):
                                     for k_, e in small.items()}
         del out, lse
 
-    # the kernel's keep mask, read back exactly: q = 0 makes every
-    # probability 1/S, and v one-hot over a 64-key chunk makes
-    # out[q, d] = keep(q, chunk + d) / ((1 - rate) S)
+    # the kernels' keep masks, read back exactly, in both dtypes. Forward:
+    # q = 0 makes every probability 1/S, and v one-hot over a 64-key chunk
+    # makes out[q, d] = keep(q, chunk + d) / ((1 - rate) S). Backward:
+    # q = k = v = 0 and lse = log S make p = 1/S and ds = 0, and do
+    # one-hot over a 64-row chunk makes dv[k, d] = keep(chunk + d, k) /
+    # ((1 - rate) S).
     b, s = 2, SEQ
-    q = torch.zeros(b, s, n * hd, device=dev)
     want = rng.attn_keep(ATTN_SEED, RATE, b, n, s, s, dev)
-    for c in range(s // hd):
-        v = torch.zeros(b, s, n, hd, device=dev)
-        v[:, c * hd:(c + 1) * hd] = torch.eye(hd, device=dev)[None, :, None]
-        out, _ = fa.packed_flash_fwd(q, q, v.reshape(b, s, n * hd), n, 1.0,
-                                     False, None, RATE, ATTN_SEED)
-        got = out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0
-        if not torch.equal(got, want[..., c * hd:(c + 1) * hd]):
-            raise AssertionError("flash forward: the kernel's dropout keep "
-                                 "mask differs from the plain mask")
-    return dict(mask_bits_checked=int(want.numel()),
+    eye = torch.eye(hd, device=dev)[None, :, None]
+    checked = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        zero = torch.zeros(b, s, n * hd, device=dev, dtype=dtype)
+        lse = torch.full((b, n, s), float(np.log(s)), device=dev)
+        for c in range(s // hd):
+            chunk = torch.zeros(b, s, n, hd, device=dev, dtype=dtype)
+            chunk[:, c * hd:(c + 1) * hd] = eye
+            chunk = chunk.reshape(b, s, n * hd)
+            out, _ = fa.packed_flash_fwd(zero, zero, chunk, n, 1.0, False,
+                                         None, RATE, ATTN_SEED)
+            got = out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0
+            if not torch.equal(got, want[..., c * hd:(c + 1) * hd]):
+                raise AssertionError(f"flash forward {name}: the kernel's "
+                                     f"dropout keep mask differs from the "
+                                     f"plain mask")
+            dv = fa.packed_flash_bwd(zero, zero, zero, zero, lse, chunk, n,
+                                     1.0, False, None, RATE, ATTN_SEED)[2]
+            got = dv.reshape(b, s, n, hd).permute(0, 2, 3, 1) != 0
+            if not torch.equal(got, want[:, :, c * hd:(c + 1) * hd]):
+                raise AssertionError(f"flash backward {name}: the kernel's "
+                                     f"dropout keep mask differs from the "
+                                     f"plain mask")
+        checked[name] = {"forward": int(want.numel()),
+                         "backward": int(want.numel())}
+    return dict(mask_bits_checked=checked,
                 keep_fraction=float(want.float().mean()))
 
 
@@ -943,6 +1024,7 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
         losses.append(float(out[0].reshape(-1)[0]))
     counts = kernels.launch_counts()
     layouts = kernels.layout_counts()
+    dtypes = kernels.dtype_counts()
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: counts[k] / timed for k in
                 ("flash_attention_fwd", "flash_attention_bwd", "fused_adamw")}
@@ -959,7 +1041,7 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
          step_ms_range=[min(step_ms), max(step_ms)],
          tokens_per_s=batch_size * seq / (p50 / 1e3),
          max_memory_allocated=peak, launches_per_step=per_step,
-         flash_launches_by_layout=layouts,
+         flash_launches_by_layout=layouts, flash_launches_by_dtype=dtypes,
          params_finite=finite, nvidia_smi=smi,
          note="smoke figures of a host-driven eager step, not a benchmark")
     # one batch every step: the last loss lies below the warm-up's, which
@@ -973,9 +1055,15 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
             or n_adamw != 398:
         raise AssertionError(f"{phase}: launches per step {per_step}, "
                              f"{n_adamw} adamw ops")
+    # every flash launch of the step ran the bf16 tensor-core instance
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        if dtypes[name] != {"fp32_cuda_cores": 0,
+                            "bf16_wgmma": counts[name]}:
+            raise AssertionError(f"{phase}: {name} launches by instance "
+                                 f"{dtypes[name]}")
     if not finite:
         raise AssertionError(f"{phase}: a parameter is not finite")
-    return counts, layouts
+    return counts, layouts, dtypes
 
 
 def bnsd_ops(dev):
@@ -1019,20 +1107,25 @@ def bnsd_ops(dev):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts, layouts = kernels.launch_counts(), kernels.layout_counts()
+    dtypes = kernels.dtype_counts()
     losses = [float(r[0].reshape(-1)[0]) for r in runs]
     grads_ok = all(g.shape == (b, n, s, hd) and np.isfinite(
         g.astype(np.float32)).all() and np.abs(g.astype(np.float32)).max()
         > 0 for r in runs for g in r[1:])
     want = {"flash_attention_fwd": {"packed": 0, "bnsd": steps},
             "flash_attention_bwd": {"packed": 0, "bnsd": steps}}
+    want_dtypes = {k_: {"fp32_cuda_cores": 0, "bf16_wgmma": steps}
+                   for k_ in want}
     emit("bnsd_ops", shape=[b, n, s, hd], dtype="bfloat16", steps=steps,
          losses=losses, grads_finite_nonzero=grads_ok, seconds=seconds,
          launches=counts, launches_by_layout=layouts,
+         launches_by_dtype=dtypes,
          ops=[o.type for o in main_prog.global_block().ops])
-    if layouts != want or not grads_ok or not np.isfinite(losses).all():
-        raise AssertionError(f"bnsd_ops: launches {layouts}, losses "
-                             f"{losses}, grads finite {grads_ok}")
-    return counts, layouts
+    if layouts != want or dtypes != want_dtypes or not grads_ok \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"bnsd_ops: launches {layouts} {dtypes}, "
+                             f"losses {losses}, grads finite {grads_ok}")
+    return counts, layouts, dtypes
 
 
 # ---------------------------------------------------------------------------
@@ -1482,9 +1575,17 @@ def main():
                  .splitlines() if "registers" in ln or "spill" in ln]
              for n in _build.SOURCES
              if (_build.BUILD_DIR / f"{n}.ptxas.txt").exists()}
+    flash = ("flash_attention_fwd", "flash_attention_bwd")
+    hgmma = {n: sass_count(_build.lib_path(n), "HGMMA") for n in flash}
+    tc_ptxas = {n: ptxas_by_kernel((_build.BUILD_DIR / f"{n}.ptxas.txt")
+                                   .read_text(), "_tc") for n in flash}
     emit("build", seconds=build_s, per_source_s=per_source, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
-         device=torch.cuda.get_device_name(0), ptxas=ptxas)
+         device=torch.cuda.get_device_name(0), ptxas=ptxas,
+         hgmma_instructions=hgmma, tensor_core_kernels_ptxas=tc_ptxas)
+    if not all(hgmma.values()):
+        raise AssertionError(f"build: a flash library has no HGMMA "
+                             f"instruction: {hgmma}")
 
     results = []
     check_flash(dev, results)
@@ -1565,6 +1666,9 @@ def main():
                                     and r is not main_row]
             line[-1]["launches_by_layout"] = {p: c[1][name]
                                               for p, c in runs.items()}
+            line[-1]["launches_by_dtype"] = {p: c[2][name]
+                                             for p, c in runs.items()
+                                             if len(c) > 2}
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

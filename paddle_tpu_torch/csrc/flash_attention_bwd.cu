@@ -25,41 +25,68 @@
 // The TPU's single-block kernels hold whole [S, D] blocks and the S x S
 // tile in VMEM and exist only where that fits; above it the TPU splits the
 // work into the dk/dv pass and the dq pass. Here the split is the design
-// at every length: dkv_kernel is the counterpart of _dkv_kernel and
-// dq_kernel of _dq_kernel, both tiled over both sequence axes, reading
-// either layout through strides. The long-context step runs them on the
-// packed projections in place where the reference transposes to [B, H, S,
-// D] first (_packed_to_bnsd :1576). The reference rounds p * mask and
-// ds * scale to bf16 before their products for bf16 inputs; these kernels
-// keep them in fp32.
+// at every length: a dkv pass (the counterpart of _dkv_kernel) and a dq
+// pass (of _dq_kernel), both tiled over both sequence axes, reading either
+// layout through strides. The long-context step runs them on the packed
+// projections in place where the reference transposes to [B, H, S, D]
+// first (_packed_to_bnsd :1576). Every output element is written once, by
+// the block that owns it, after a sum in a fixed order: no atomics, so
+// the result is the same from run to run and the same in either layout on
+// the same values. Computing s and dp in both passes (7 products for the
+// function's 5) is the price. Each dtype has its own instances; both run
+// delta_kernel (one warp per (b, h, q) row) first and dbias_kernel (the
+// per-head sums added over heads in order) last.
 //
-// What bounds it on the H100: the function needs 5 products of 2 * Sq *
-// Sk * HD flops a head (7 as computed here: s and dp are formed in both
-// passes) against 5 reads and 3 writes of S * HD elements: hundreds of
-// flops per byte at S = 512, so it is bound by operations. No S x S
-// matrix is written to device memory: p is recomputed tile by tile from
-// lse.
+// bf16: tensor cores (dkv_tc, dq_tc). The reference's kernels multiply in
+// the input dtype on the MXU with fp32 accumulation, rounding p * mask to
+// bf16 before dv (flash_attention.py:678, :787) and ds * scale before dq
+// and dk (:689, :740, :796). Here the products are wgmma.mma_async
+// m64nNk16 with bf16 operands and fp32 accumulators, and each of those
+// two enters its products as two bf16 terms, hi (the reference's operand)
+// and lo = bf16(x - hi): hi alone leaves dq, dk and dv up to 2 bf16 ulps
+// from the fp32 function (outside the one-ulp gate the kernel is held
+// to); hi + lo carries 16 significant bits. dq, dk and dv are rounded to
+// bf16 once, at the end.
+//  * Bound: the 5 products, 10 * Sq * Sk * HD flops a head, on the tensor
+//    cores (989 TFLOP/s dense bf16; 7 products as the two passes compute
+//    them, 10 with the lo terms): operations, not bytes. Beside them, per
+//    score and in both passes, one MUFU exp2 (log2 e folded into the scale
+//    and into lse) and, with dropout, one splitmix32 hash on the integer
+//    pipe; as in the forward, that CUDA-core work sets the pace (PERF.md,
+//    tools/profile_flash.py).
+//  * dkv_tc: one block, one warpgroup (128 threads), per (64-key tile,
+//    head, batch). k and v stay resident in shared memory; q, do, lse and
+//    delta tiles of BQ rows (64; 32 at HD = 128, for registers) stream
+//    through two cp.async stages. Per q tile: s^T = k q^T and dp^T = v
+//    do^T (A = k or v, B = q or do, all K-major); p^T = exp2(s^T - lse)
+//    on the accumulator fragment; dv += (p^T * mask) do and dk += (ds^T *
+//    scale) q with A from registers (the accumulator fragments as bf16 hi
+//    and lo) and B = do or q read MN-major with the transpose bit. dk and
+//    dv stay in registers over the whole q loop; the per-head dbias of
+//    each key is its thread's running row sum of ds^T, added across the
+//    quad of lanes at the end, in a fixed order.
+//  * dq_tc: one warpgroup a block per (64-row q tile, head, batch); q,
+//    do, lse and delta resident, k/v tiles of 64 keys (and their bias)
+//    streaming through two stages. s = q k^T, dp = do v^T, p, ds, then dq
+//    += (ds * scale) k over hi and lo with k read MN-major. Under the
+//    causal mask both passes skip tiles wholly above the diagonal and mask
+//    per element only on tiles that cross it or a ragged end.
+//  * One warpgroup a block, not two as in the forward: blocks on an SM
+//    then drift apart, so one block's exps run under another's products;
+//    two warpgroups a block meet at every tile's block barrier, and ran
+//    slower on the card (PERF.md).
 //
-// Design (simple first, fp32 on CUDA cores, no tensor cores):
-//  * delta_kernel: one warp per (b, h, q) row.
-//  * dkv_kernel: one block of 256 threads per (64-key tile, head, batch).
-//    The k and v tiles stay in shared memory, and the block OWNS dk, dv
-//    and the per-head dbias of its keys: it loops over the 64-row q tiles
-//    in order, accumulates in registers and writes each value once.
-//  * dq_kernel: one block per (64-row q tile, head, batch) owns dq of its
-//    rows and loops over the key tiles in order up to its causal limit,
-//    recomputing s and dp.
-//  * dbias_kernel: dbias[b, k] = the per-head sums added over heads in
-//    order.
-// Every output element is written once by one thread after a sum in a
-// fixed order: no atomics, so the result is the same from run to run and
-// the same in either layout on the same values. Computing s and dp twice
-// is the price; one pass with dq added by atomics across key tiles would
-// save it and give up both.
+// fp32: CUDA cores (dkv_kernel, dq_kernel). A tensor-core fp32 product
+// would be TF32, so fp32 stays on the FMA pipes: one block of 256 threads
+// per 64-key (dkv) or 64-row (dq) tile, each thread a 4 x 4 patch of the
+// score tile and a 4 x HD/16 patch of its accumulators, p and ds staged in
+// shared memory between the products, all in fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -88,9 +115,6 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
 }
 
 __device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(bf16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 __device__ __forceinline__ unsigned splitmix32(unsigned x) {
   x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
@@ -467,6 +491,332 @@ dbias_kernel(const float* __restrict__ dbias_h, float* __restrict__ dbias,
   dbias[e] = acc;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 128;   // one warpgroup a block
+constexpr int TC_KEYS = 64;    // dkv_tc: keys a block
+constexpr int TC_ROWS = 64;    // dq_tc: q rows a block
+constexpr int TC_BN = 64;      // dq_tc: keys a streamed tile
+
+template <int HD>
+struct TcDkv {
+  static constexpr int BQ = HD == 128 ? 32 : 64;  // q rows a streamed tile
+  static constexpr int KV = TC_KEYS * HD * 2;     // the k (or v) tile
+  static constexpr int T = BQ * HD * 2;           // a q (or do) tile
+  // a stage: the q tile, the do tile, lse * log2 e and delta (BQ each)
+  static constexpr int STAGE = 2 * T + 1024;
+  static constexpr size_t bytes = 1024 + 2 * KV + 2 * STAGE;  // + alignment
+};
+
+template <int HD>
+struct TcDq {
+  static constexpr int Q = TC_ROWS * HD * 2;   // the q (or do) tile
+  static constexpr int KV = TC_BN * HD * 2;    // a k (or v) tile
+  // a stage: the k tile, the v tile, the tile's key bias (times log2 e)
+  static constexpr int STAGE = 2 * KV + 1024;
+  static constexpr size_t bytes = 1024 + 2 * Q + 2 * STAGE;
+};
+
+// dk, dv and the per-head dbias of one 64-key tile
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+       const float* __restrict__ lse, const float* __restrict__ delta,
+       const float* __restrict__ bias, bf16* __restrict__ dk,
+       bf16* __restrict__ dv, float* __restrict__ dbias_h, tc::Strides lq,
+       tc::Strides lk, tc::Strides lv, tc::Strides ldo, tc::Strides ldk,
+       tc::Strides ldv, int Sq, int Sk, int H, float scale, int causal,
+       unsigned seed, unsigned thresh, float inv_keep) {
+  using namespace tc;
+  using SM = TcDkv<HD>;
+  constexpr int BQ = SM::BQ, BK = TC_KEYS, NT = TC_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // tiles 1024-aligned
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t sk = base, sv = base + SM::KV;
+  auto sq = [&](int st) { return base + 2 * SM::KV + st * SM::STAGE; };
+  auto sdo = [&](int st) { return sq(st) + SM::T; };
+  auto slse = [&](int st) {
+    return reinterpret_cast<float*>(gbase + 2 * SM::KV + st * SM::STAGE +
+                                    2 * SM::T);
+  };
+  auto sdl = [&](int st) { return slse(st) + BQ; };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int shift = Sk - Sq;
+  const bf16* qb = q + b * lq.b + h * lq.h;
+  const bf16* dob = dout + b * ldo.b + h * ldo.h;
+  const float* lseb = lse + ((size_t)b * H + h) * Sq;
+  const float* deltab = delta + ((size_t)b * H + h) * Sq;
+  const unsigned seed2m = DROP ? tc::mask_key(b, h, H, seed) : 0u;
+  // the keys of this thread's accumulator rows, and their bias * log2 e
+  const int kr[2] = {k0 + acc_row(lane, warp, 0), k0 + acc_row(lane, warp, 2)};
+  float kbias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    kbias[i] = bias != nullptr && kr[i] < Sk
+                   ? bias[(size_t)b * Sk + kr[i]] * LOG2E
+                   : 0.f;
+
+  // under the causal mask, rows r < k0 - shift see no key of this tile
+  int qstart = 0;
+  if (causal && k0 - shift > 0) qstart = ((k0 - shift) / BQ) * BQ;
+  const int ntiles = qstart < Sq ? (Sq - qstart + BQ - 1) / BQ : 0;
+
+  auto load_q = [&](int t, int st) {
+    const int q0 = qstart + t * BQ;
+    tc::load_tile<HD, BQ, NT>(sq(st), qb, lq.r, q0, Sq, tid);
+    tc::load_tile<HD, BQ, NT>(sdo(st), dob, ldo.r, q0, Sq, tid);
+    if (tid < BQ) {
+      const bool ok = q0 + tid < Sq;
+      slse(st)[tid] = ok ? lseb[q0 + tid] * LOG2E : 0.f;
+      sdl(st)[tid] = ok ? deltab[q0 + tid] : 0.f;
+    }
+  };
+
+  tc::load_tile<HD, BK, NT>(sk, k + b * lk.b + h * lk.h, lk.r, k0, Sk, tid);
+  tc::load_tile<HD, BK, NT>(sv, v + b * lv.b + h * lv.h, lv.r, k0, Sk, tid);
+  if (ntiles > 0) load_q(0, 0);
+  cp_async_commit();
+
+  float dka[HD / 2], dva[HD / 2], db[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) dka[e] = dva[e] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1, q0 = qstart + t * BQ;
+    if (t + 1 < ntiles) {
+      load_q(t + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // s^T = k q^T and dp^T = v do^T on the block's 64 keys
+    float sT[BQ / 2], dpT[BQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j)
+      wgmma_ss<BQ>(sT, desc_k<HD, BK>(sk, 0, j),
+                   desc_k<HD, BQ>(sq(st), 0, j), j);
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j)
+      wgmma_ss<BQ>(dpT, desc_k<HD, BK>(sv, 0, j),
+                   desc_k<HD, BQ>(sdo(st), 0, j), j);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<BQ / 2>(sT);
+    fence_acc<BQ / 2>(dpT);
+
+    const float* ls = slse(st);
+    const float* dl = sdl(st);
+    const bool full = q0 + BQ <= Sq && k0 + BK <= Sk &&
+                      (!causal || k0 + BK - 1 <= q0 + shift);
+#pragma unroll
+    for (int e = 0; e < BQ / 2; ++e) {
+      const int c = acc_col(lane, e), i = (e >> 1) & 1, qi = q0 + c;
+      float p = exp2f(fmaf(sT[e], sl2, kbias[i]) - ls[c]);
+      if (!full && (qi >= Sq || kr[i] >= Sk || (causal && kr[i] > qi + shift)))
+        p = 0.f;
+      float mult = 1.f;
+      if (DROP) mult = keep(seed2m, qi, kr[i], Sk, thresh) ? inv_keep : 0.f;
+      const float ds = p * (dpT[e] * mult - dl[c]);
+      db[i] += ds;
+      sT[e] = p * mult;
+      dpT[e] = ds * scale;
+    }
+    // bf16 hi + lo A fragments of p mask and ds scale
+    uint32_t ph[BQ / 16][4], pl[BQ / 16][4], dh[BQ / 16][4], dlo[BQ / 16][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) a_frag2(ph[j], pl[j], sT, j);
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) a_frag2(dh[j], dlo[j], dpT, j);
+
+    // dv += (p mask)^T do, dk += (ds scale)^T q, each over hi and lo
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      wgmma_rs<HD>(dva, ph[j], desc_mn<HD, BQ>(sdo(st), j));
+      wgmma_rs<HD>(dva, pl[j], desc_mn<HD, BQ>(sdo(st), j));
+    }
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      wgmma_rs<HD>(dka, dh[j], desc_mn<HD, BQ>(sq(st), j));
+      wgmma_rs<HD>(dka, dlo[j], desc_mn<HD, BQ>(sq(st), j));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<HD / 2>(dva);
+    fence_acc<HD / 2>(dka);
+    fence_frag<BQ / 4>(&ph[0][0]);
+    fence_frag<BQ / 4>(&pl[0][0]);
+    fence_frag<BQ / 4>(&dh[0][0]);
+    fence_frag<BQ / 4>(&dlo[0][0]);
+    __syncthreads();   // the stage is refilled at the top of the next tile
+  }
+  cp_async_wait<0>();
+
+  bf16* dkb = dk + b * ldk.b + h * ldk.h;
+  bf16* dvb = dv + b * ldv.b + h * ldv.h;
+#pragma unroll
+  for (int e = 0; e < HD / 2; e += 2) {
+    const int i = (e >> 1) & 1, c = acc_col(lane, e);
+    if (kr[i] < Sk) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + kr[i] * ldk.r + c) =
+          __floats2bfloat162_rn(dka[e], dka[e + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + kr[i] * ldv.r + c) =
+          __floats2bfloat162_rn(dva[e], dva[e + 1]);
+    }
+  }
+  if (dbias_h != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      db[i] += __shfl_xor_sync(0xffffffffu, db[i], 1);
+      db[i] += __shfl_xor_sync(0xffffffffu, db[i], 2);
+      if ((lane & 3) == 0 && kr[i] < Sk)
+        dbias_h[((size_t)b * H + h) * Sk + kr[i]] = db[i];
+    }
+  }
+}
+
+// dq of one 64-row q tile
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(TC_THREADS, HD == 128 ? 2 : 3)
+dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+      const float* __restrict__ lse, const float* __restrict__ delta,
+      const float* __restrict__ bias, bf16* __restrict__ dq, tc::Strides lq,
+      tc::Strides lk, tc::Strides lv, tc::Strides ldo, tc::Strides ldq,
+      int Sq, int Sk, int H, float scale, int causal, unsigned seed,
+      unsigned thresh, float inv_keep) {
+  using namespace tc;
+  using SM = TcDq<HD>;
+  constexpr int BM = TC_ROWS, BN = TC_BN, NT = TC_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t sq = base, sdo = base + SM::Q;
+  auto sk = [&](int st) { return base + 2 * SM::Q + st * SM::STAGE; };
+  auto sv = [&](int st) { return sk(st) + SM::KV; };
+  auto sb = [&](int st) {
+    return reinterpret_cast<float*>(gbase + 2 * SM::Q + st * SM::STAGE +
+                                    2 * SM::KV);
+  };
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int shift = Sk - Sq;
+  const bf16* kb = k + b * lk.b + h * lk.h;
+  const bf16* vb = v + b * lv.b + h * lv.h;
+  const float* biasb = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
+  const unsigned seed2m = DROP ? tc::mask_key(b, h, H, seed) : 0u;
+  const int row[2] = {q0 + acc_row(lane, warp, 0), q0 + acc_row(lane, warp, 2)};
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t at = ((size_t)b * H + h) * Sq + row[i];
+    lse2[i] = row[i] < Sq ? lse[at] * LOG2E : 0.f;
+    dl[i] = row[i] < Sq ? delta[at] : 0.f;
+  }
+
+  const int kend = key_end(q0, BM, Sq, Sk, causal);
+  const int ntiles = kend > 0 ? (kend + BN - 1) / BN : 0;
+  auto load_kv = [&](int t, int st) {
+    tc::load_kv<HD, BN, NT>(sk(st), sv(st), sb(st), kb, lk.r, vb, lv.r, biasb,
+                            t * BN, Sk, tid);
+  };
+
+  tc::load_tile<HD, BM, NT>(sq, q + b * lq.b + h * lq.h, lq.r, q0, Sq, tid);
+  tc::load_tile<HD, BM, NT>(sdo, dout + b * ldo.b + h * ldo.h, ldo.r, q0, Sq,
+                            tid);
+  if (ntiles > 0) load_kv(0, 0);
+  cp_async_commit();
+
+  float dqa[HD / 2];
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) dqa[e] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1, k0 = t * BN;
+    if (t + 1 < ntiles) {
+      load_kv(t + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // s = q k^T and dp = do v^T on the block's 64 rows
+    float s[BN / 2], dp[BN / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j)
+      wgmma_ss<BN>(s, desc_k<HD, BM>(sq, 0, j),
+                   desc_k<HD, BN>(sk(st), 0, j), j);
+#pragma unroll
+    for (int j = 0; j < HD / 16; ++j)
+      wgmma_ss<BN>(dp, desc_k<HD, BM>(sdo, 0, j),
+                   desc_k<HD, BN>(sv(st), 0, j), j);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<BN / 2>(s);
+    fence_acc<BN / 2>(dp);
+
+    const float* bt = sb(st);
+    const bool full = k0 + BN <= Sk && (!causal || k0 + BN - 1 <= q0 + shift);
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const int c = acc_col(lane, e), i = (e >> 1) & 1, kc = k0 + c;
+      float p = exp2f(fmaf(s[e], sl2, bt[c]) - lse2[i]);
+      if (!full && (kc >= Sk || (causal && kc > row[i] + shift))) p = 0.f;
+      float mult = 1.f;
+      if (DROP) mult = keep(seed2m, row[i], kc, Sk, thresh) ? inv_keep : 0.f;
+      s[e] = p * (dp[e] * mult - dl[i]) * scale;
+    }
+    uint32_t dh[BN / 16][4], dlo[BN / 16][4];   // ds scale as hi + lo
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) a_frag2(dh[j], dlo[j], s, j);
+
+    // dq += (ds scale) k over hi and lo
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) {
+      wgmma_rs<HD>(dqa, dh[j], desc_mn<HD, BN>(sk(st), j));
+      wgmma_rs<HD>(dqa, dlo[j], desc_mn<HD, BN>(sk(st), j));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<HD / 2>(dqa);
+    fence_frag<BN / 4>(&dh[0][0]);
+    fence_frag<BN / 4>(&dlo[0][0]);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  bf16* dqb = dq + b * ldq.b + h * ldq.h;
+#pragma unroll
+  for (int e = 0; e < HD / 2; e += 2) {
+    const int i = (e >> 1) & 1;
+    if (row[i] < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(dqb + row[i] * ldq.r +
+                                         acc_col(lane, e)) =
+          __floats2bfloat162_rn(dqa[e], dqa[e + 1]);
+  }
+}
+
 // what every instance's launch takes besides the pointers; layouts in
 // the order q, k, v, out, dout, dq, dk, dv
 struct Args {
@@ -524,6 +874,57 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   return (int)cudaGetLastError();
 }
 
+// the bf16 instance: delta, then the dkv and dq passes on tensor cores,
+// then dbias
+template <int HD, bool DROP>
+int launch_tc(const void* q, const void* k, const void* v, const void* out,
+              const void* dout, const float* lse, const float* bias,
+              float* delta, void* dq, void* dk, void* dv, float* dbias_h,
+              float* dbias, const Args& a, cudaStream_t stream) {
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  auto st = [](const Layout& l) { return tc::Strides{l.b, l.r, l.h}; };
+  const long long rows = (long long)a.B * a.H * a.Sq;
+  const int dblocks = (int)((rows * 32 + THREADS - 1) / THREADS);
+  delta_kernel<HD, bf16><<<dblocks, THREADS, 0, stream>>>(
+      dot, static_cast<const bf16*>(out), delta, a.ldo, a.lo, a.B, a.Sq,
+      a.H);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  e = cudaFuncSetAttribute(dkv_tc<HD, DROP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)TcDkv<HD>::bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 kgrid((a.Sk + TC_KEYS - 1) / TC_KEYS, a.H, a.B);
+  dkv_tc<HD, DROP><<<kgrid, TC_THREADS, TcDkv<HD>::bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, bias, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), dbias_h, st(a.lq), st(a.lk), st(a.lv),
+      st(a.ldo), st(a.ldk), st(a.ldv), a.Sq, a.Sk, a.H, a.scale, a.causal,
+      a.seed, a.thresh, a.inv_keep);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+
+  e = cudaFuncSetAttribute(dq_tc<HD, DROP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)TcDq<HD>::bytes);
+  if (e != cudaSuccess) return (int)e;
+  dim3 qgrid((a.Sq + TC_ROWS - 1) / TC_ROWS, a.H, a.B);
+  dq_tc<HD, DROP><<<qgrid, TC_THREADS, TcDq<HD>::bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, bias, static_cast<bf16*>(dq), st(a.lq),
+      st(a.lk), st(a.lv), st(a.ldo), st(a.ldq), a.Sq, a.Sk, a.H, a.scale,
+      a.causal, a.seed, a.thresh, a.inv_keep);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || dbias == nullptr) return (int)e;
+
+  const int bblocks = (a.B * a.Sk + THREADS - 1) / THREADS;
+  dbias_kernel<<<bblocks, THREADS, 0, stream>>>(dbias_h, dbias, a.B, a.Sk,
+                                                a.H);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int dispatch(const void* q, const void* k, const void* v, const void* out,
              const void* dout, const float* lse, const float* bias,
@@ -534,20 +935,24 @@ int dispatch(const void* q, const void* k, const void* v, const void* out,
   launch<HD, T, D>(q, k, v, out, dout, lse, bias, delta, dq, dk, dv,    \
                    dbias_h, dbias, a, stream)
   if (dtype == 0) return drop ? PT_BWD(float, true) : PT_BWD(float, false);
-  if (dtype == 1) return drop ? PT_BWD(bf16, true) : PT_BWD(bf16, false);
 #undef PT_BWD
+  if (dtype == 1)
+    return drop ? launch_tc<HD, true>(q, k, v, out, dout, lse, bias, delta,
+                                      dq, dk, dv, dbias_h, dbias, a, stream)
+                : launch_tc<HD, false>(q, k, v, out, dout, lse, bias, delta,
+                                       dq, dk, dv, dbias_h, dbias, a, stream);
   return (int)cudaErrorInvalidValue;
 }
-
 }  // namespace
 
 // Launch on `stream`; returns a CUDA error code (0 on success), or
 // cudaErrorInvalidValue for a head_dim or dtype without a template
 // instance. dtype: 0 = fp32, 1 = bf16 (q/k/v/out/dout/dq/dk/dv). strides:
 // 24 element strides, (batch, row, head) of q, k, v, out, dout, dq, dk, dv
-// in that order; head_dim is contiguous, and every stride and pointer
-// keeps the 16-byte (fp32) or 8-byte (bf16) alignment of a 4-element
-// vector load. delta [B, H, Sq] and, with a bias, dbias_h [B, H, Sk] are
+// in that order; head_dim is contiguous. fp32: every stride a multiple of
+// 4 elements and every pointer 16-byte aligned (float4 loads); bf16:
+// strides a multiple of 8 elements, pointers 16-byte aligned (16-byte
+// cp.async). delta [B, H, Sq] and, with a bias, dbias_h [B, H, Sk] are
 // fp32 scratch; dbias [B, Sk] fp32 (or null without a bias). Every output
 // is written in full, so none needs zeroing. thresh == 0 means no dropout.
 extern "C" int pt_flash_attention_bwd(

@@ -8,7 +8,9 @@ kernel or raises: there is no fallback and no switch that turns a kernel
 off on the card. Each wrapper counts its kernel launches in a plain
 module-level integer (``launches``; the flash module's backward kernel
 counts in ``bwd_launches``). The flash module also splits its two counts
-by the layout the kernel read (``layout_counts``).
+by the layout the kernel read (``layout_counts``) and by the dtype
+instance it ran (``dtype_counts``: bf16 on the tensor cores, fp32 on the
+CUDA cores).
 """
 
 from __future__ import annotations
@@ -39,6 +41,14 @@ def layout_counts() -> Dict[str, Dict[str, int]]:
     return {"flash_attention_fwd": dict(flash_attention.launches_by_layout),
             "flash_attention_bwd":
                 dict(flash_attention.bwd_launches_by_layout)}
+
+
+def dtype_counts() -> Dict[str, Dict[str, int]]:
+    """Flash launches by instance: {kernel: {"fp32_cuda_cores": n,
+    "bf16_wgmma": m}}."""
+    return {"flash_attention_fwd": dict(flash_attention.launches_by_dtype),
+            "flash_attention_bwd":
+                dict(flash_attention.bwd_launches_by_dtype)}
 
 
 def reset_launch_counts():

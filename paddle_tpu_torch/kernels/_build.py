@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc -gencode
 arch=compute_90a,code=sm_90a`` into its own shared library with a plain C
 interface, loaded through ``ctypes``. Libraries go to
 ``build/torch_kernels/`` at the repo root, named by a hash of their
-source, so an edited source never loads a stale build. ``build_all``
+source and the shared headers (``csrc/*.cuh``), so an edited source or
+header never loads a stale build. ``build_all``
 starts one ``nvcc`` per source at once; ``load`` builds on first use.
 
 Nothing here runs at import: the CPU tests import every module, and a
@@ -46,8 +47,13 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}.{digest[:12]}.so"
+    """The library's path, named by a hash of its source and of every
+    shared header (``csrc/*.cuh``) it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}.{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

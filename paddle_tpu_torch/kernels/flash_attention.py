@@ -13,20 +13,38 @@ and the BERT/ERNIE encoder in training), the 2-pass ``_fwd_kernel``
 (:311, launched at :614 via ``_fwd_pallas``; S >= 1024),
 ``_fused_fwd_kernel`` (:377, launched at :442) and
 ``_fused_fwd_kernel_g`` (:822, launched at :481), single-block over
-[B*H,S,D] with one or g heads a grid cell. The Hopper kernel,
-``csrc/flash_attention_fwd.cu``, reads q/k/v in place through explicit
-(batch, row, head) strides, runs one block per (batch, head, 64-row q
-tile) over k/v tiles with fp32 online-softmax stats, and takes any
-length. Inputs are fp32 or bf16, the math fp32.
+[B*H,S,D] with one or g heads a grid cell. The backward replaces the
+five backward kernels: ``_packed_bwd_kernel`` (:984, launched at
+:1115), ``_fused_bwd_kernel`` (:748, :1237), ``_fused_bwd_kernel_g``
+(:860, :540), and the 2-pass ``_dkv_kernel`` (:634, :1319) and
+``_dq_kernel`` (:701, :1353). ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu`` read every operand in place through
+explicit (batch, row, head) strides and take any length; the backward
+runs the 2-pass split at every length (one pass owns dk/dv/dbias of a
+key tile, one owns dq of a q tile, each recomputing p = exp(s - lse)
+tile by tile), with no atomics, so its results depend neither on the
+run nor on the layout.
 
-The backward replaces the five backward kernels: ``_packed_bwd_kernel``
-(:984, launched at :1115), ``_fused_bwd_kernel`` (:748, :1237),
-``_fused_bwd_kernel_g`` (:860, :540), and the 2-pass ``_dkv_kernel``
-(:634, :1319) and ``_dq_kernel`` (:701, :1353).
-``csrc/flash_attention_bwd.cu`` runs the same split at every length: one
-pass owns dk/dv/dbias of a key tile, one owns dq of a q tile, each
-recomputing p = exp(s - lse) tile by tile, with no atomics, so its
-results do not depend on the run or on the layout.
+Each dtype has its own instance, counted apart in
+``launches_by_dtype``:
+
+- bf16 runs on the tensor cores (``wgmma.mma_async`` m64nNk16, bf16
+  operands, fp32 accumulators): 64-row tiles streamed through two
+  cp.async stages into swizzled shared memory (``csrc/flash_tc.cuh``),
+  two consumer warpgroups a forward block and one a backward block, the
+  online softmax on the accumulator fragments. p, p * mask and ds *
+  scale, which the reference rounds to bf16 before their products
+  (``flash_attention.py`` :359, :406, :678, :689, :740, :787, :796),
+  enter those products from registers as bf16 hi + lo pairs: hi alone
+  leaves outputs up to two bf16 ulps from the fp32 function, hi + lo
+  keeps them within one. The exps (as exp2, log2 e folded into the
+  scale) and the dropout hash on the CUDA cores, not the products, set
+  its pace. It needs every bf16 stride a multiple of 8 elements and
+  every address 16-byte aligned (16-byte copies); anything else raises.
+- fp32 runs on the CUDA cores in fp32 (a tensor-core fp32 product would
+  be TF32, too coarse for the serving path's 1e-4 gate against the CPU):
+  one block per (batch, head, 64-row tile), 4 x 4 register patches,
+  strides a multiple of 4 elements.
 
 Attention-probs dropout (rate > 0) multiplies p by keep / (1 - rate)
 before p v; the row sum and lse stay unmasked. keep is the reference's
@@ -38,7 +56,7 @@ On a CPU or meta tensor the wrappers run the plain versions below; on a
 CUDA tensor they launch the kernels or raise. The kernels read the
 tensors they are given through their strides: nothing is copied to make
 it contiguous, and a tensor the kernels cannot read (head_dim not
-contiguous, a stride or address off the vector alignment) raises.
+contiguous, a stride or address off the alignment) raises.
 """
 
 from __future__ import annotations
@@ -56,17 +74,28 @@ LAYOUTS = ("packed", "bnsd")
 # the same launches split by the layout they read
 launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 bwd_launches_by_layout = dict.fromkeys(LAYOUTS, 0)
+# dtype -> (the dtype code of the C entry points, the instance it runs)
+DTYPES = {torch.float32: (0, "fp32_cuda_cores"),
+          torch.bfloat16: (1, "bf16_wgmma")}
+INSTANCES = tuple(name for _, name in DTYPES.values())
+# the same launches split by the instance they ran
+launches_by_dtype = dict.fromkeys(INSTANCES, 0)
+bwd_launches_by_dtype = dict.fromkeys(INSTANCES, 0)
+# the alignment every stride of a dtype keeps, in elements: 16 bytes for
+# the bf16 instance's copies, one float4 for the fp32 one
+STRIDE_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)   # template instances in the .cu source
-
-
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # template instances
+HEAD_DIMS = (32, 64, 128)   # template instances in the .cu sources
 
 
 def reset_layout_counts():
-    for counts in (launches_by_layout, bwd_launches_by_layout):
-        counts.update(dict.fromkeys(LAYOUTS, 0))
+    """Zero the launch splits by layout and by dtype instance."""
+    for counts, keys in ((launches_by_layout, LAYOUTS),
+                         (bwd_launches_by_layout, LAYOUTS),
+                         (launches_by_dtype, INSTANCES),
+                         (bwd_launches_by_dtype, INSTANCES)):
+        counts.update(dict.fromkeys(keys, 0))
 
 
 def _heads(t, n_heads, layout):
@@ -258,11 +287,13 @@ def _dropout_args(rate, seed):
 def _stride_array(what, hd, layout, named):
     """The (batch, row, head) element strides of each named tensor, as the
     kernels read them, in one C array; raises where they cannot: head_dim
-    not contiguous, or a stride or the address off the 4-element alignment
-    of the kernels' vector loads."""
+    not contiguous, the address not 16-byte aligned, or a stride off the
+    dtype's alignment (``STRIDE_ALIGN``: 8 elements, 16 bytes, for the
+    bf16 instance's cp.async copies; 4 for the fp32 one's float4 loads)."""
     arr = []
     for name, t in named:
         st = t.stride()
+        align = STRIDE_ALIGN.get(t.dtype, 4)
         if layout == "bnsd":
             sizes, lst, unit = (t.shape[0], t.shape[2], t.shape[1]), \
                 (st[0], st[2], st[1]), st[3]
@@ -270,12 +301,12 @@ def _stride_array(what, hd, layout, named):
             sizes, lst, unit = (t.shape[0], t.shape[1], t.shape[2] // hd), \
                 (st[0], st[1], hd * st[2]), st[2]
         if unit != 1 or t.data_ptr() % 16 or any(
-                x % 4 for x, size in zip(lst, sizes) if size > 1):
+                x % align for x, size in zip(lst, sizes) if size > 1):
             raise ValueError(
                 f"{what} kernel: {name} must have head_dim contiguous and "
-                f"every stride a multiple of 4 elements at a 16-byte aligned "
-                f"address, got strides {st} at {t.data_ptr() % 16} bytes "
-                f"past 16")
+                f"every stride a multiple of {align} elements at a 16-byte "
+                f"aligned address, got strides {st} at "
+                f"{t.data_ptr() % 16} bytes past 16")
         arr.extend(lst)
     return (ctypes.c_longlong * len(arr))(*arr)
 
@@ -298,11 +329,12 @@ def _launch(q, k, v, n_heads, scale, causal, bias, rate, seed, layout):
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         out.data_ptr(), lse.data_ptr(), strides, b, sq, sk, n, hd,
-        float(scale), int(causal), DTYPES[q.dtype], seed32, thresh, inv_keep,
-        torch.cuda.current_stream(dev).cuda_stream)
+        float(scale), int(causal), DTYPES[q.dtype][0], seed32, thresh,
+        inv_keep, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, what)
     launches += 1
     launches_by_layout[layout] += 1
+    launches_by_dtype[DTYPES[q.dtype][1]] += 1
     return out, lse
 
 
@@ -340,11 +372,12 @@ def _launch_bwd(q, k, v, out, lse, dout, n_heads, scale, causal, bias, rate,
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dbias_h.data_ptr() if dbias_h is not None else None,
         dbias.data_ptr() if dbias is not None else None, strides, b, sq, sk,
-        n, hd, float(scale), int(causal), DTYPES[q.dtype], seed32, thresh,
+        n, hd, float(scale), int(causal), DTYPES[q.dtype][0], seed32, thresh,
         inv_keep, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, what)
     bwd_launches += 1
     bwd_launches_by_layout[layout] += 1
+    bwd_launches_by_dtype[DTYPES[q.dtype][1]] += 1
     return dq, dk, dv, dbias
 
 

@@ -29,8 +29,8 @@ measures on one synthetic batch:
   card is never the bottleneck: what the interpreter and PyTorch's
   dispatch cost per op;
 * the traced device time by kernel class (convolutions, GEMMs,
-  reductions, elementwise, copies and the port's own kernels), read from
-  the kernels' names.
+  reductions, elementwise, copies, the port's flash-attention kernels and
+  its other kernels), read from the kernels' names.
 
 The idle share is printed as computed, unclamped. The traced wall
 includes the profiler's own host cost; the untraced wall beside it shows
@@ -63,8 +63,10 @@ CELLS = {512: (40, 80), 2048: (4, 307), 4096: (2, 614)}
 RESNET_BATCH = 256      # tools/bench_models.py bench_resnet50
 # kernel class -> name fragments, first match wins (the port's kernels by
 # their csrc names)
-CLASSES = (("port kernels", ("flash_", "adamw", "ln_kernel", "conv_bn_relu",
-                             "paged", "int8")),
+CLASSES = (("port flash attention", ("flash_", "dkv_", "dq_tc", "dq_kernel",
+                                     "delta_kernel", "dbias_kernel")),
+           ("port kernels", ("adamw", "ln_kernel", "conv_bn_relu", "paged",
+                             "int8")),
            ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit",
                                     "wgrad", "dgrad", "fprop", "winograd")),
            ("gemm", ("gemm", "cutlass", "cublas")),

@@ -4,7 +4,10 @@ tiles, Sq != Sk, every head_dim instance, contexts past 48 KB of shared
 memory, bf16 and fp32, dropout on and off), and the flash kernels in both
 layouts: [B,H,S,D] against its plain version at S = 128 to 2048, bit for
 bit equal to the packed layout on the same values, and refusing strides
-they cannot read instead of copying. Marked ``cuda``: they skip where
+they cannot read instead of copying. The flash kernels' bf16 instances run
+on the tensor cores: every head_dim, ragged and cross-attention shapes,
+causal, bias and dropout, their keep masks read back bit for bit, and
+their 8-element stride rule. Marked ``cuda``: they skip where
 torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -70,10 +73,11 @@ def _qkv(dev, b, sq, sk, n, hd, dtype, seed):
     return q, k, v, kb, g
 
 
-# fp32: sums in another order. bf16: the kernels compute in fp32 from the
-# bf16 inputs, so they are held against the plain version run in fp32 on the
-# same values and rounded to bf16 once: one bf16 ulp (2^-7 relative) plus
-# 1e-3, about 2 % of a typical |out| at S = 512 with N(0, 1) inputs.
+# fp32: sums in another order. bf16: the tensor-core kernels accumulate in
+# fp32 and carry p and ds as bf16 hi + lo pairs, so they are held against
+# the plain version run in fp32 on the same values and rounded to bf16 once:
+# one bf16 ulp (2^-7 relative) plus 1e-3, about 2 % of a typical |out| at
+# S = 512 with N(0, 1) inputs.
 TOL = {torch.float32: dict(rtol=1e-4, atol=2e-5),
        torch.bfloat16: dict(rtol=2 ** -7, atol=1e-3)}
 
@@ -305,6 +309,120 @@ def test_flash_kernels_read_views_in_place_and_refuse_what_they_cannot(dev):
                          layout="bnsd")
     with pytest.raises(ValueError):   # a packed q in the bnsd layout
         fa.flash_fwd(qp, kp, vp, n, 0.125, True, layout="bnsd")
+
+    # bf16, the tensor-core instance: 16-byte copies need every stride a
+    # multiple of 8 elements. A view with 8-element row strides is read in
+    # place (the same bits as the contiguous tensor); one with 4 raises
+    # rather than being copied or sent to another instance.
+    qb, kb16, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+    want = fa.flash_fwd(qb, kb16, vb, None, 0.125, True, kb, 0.1, 3,
+                        layout="bnsd")
+    wide = torch.zeros(b, n, s, hd + 8, device=dev, dtype=torch.bfloat16)
+    wide[..., :hd] = qb
+    got = fa.flash_fwd(wide[..., :hd], kb16, vb, None, 0.125, True, kb, 0.1,
+                       3, layout="bnsd")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    fused = torch.cat([_packed(t) for t in (qb, kb16, vb)], dim=-1)
+    got = fa.flash_fwd(fused[..., :w], fused[..., w:2 * w], fused[..., 2 * w:],
+                       n, 0.125, True, kb, 0.1, 3)
+    assert torch.equal(got[0], _packed(want[0]))
+    kernels.reset_launch_counts()
+    off = torch.zeros(b, n, s, hd + 4, device=dev,
+                      dtype=torch.bfloat16)[..., :hd]
+    with pytest.raises(ValueError):
+        fa.flash_fwd(off, kb16, vb, None, 0.125, True, kb, layout="bnsd")
+    with pytest.raises(ValueError):
+        fa.flash_bwd(off, kb16, vb, want[0], want[1], dob, None, 0.125, True,
+                     kb, layout="bnsd")
+    assert kernels.dtype_counts() == {
+        k_: dict.fromkeys(fa.INSTANCES, 0)
+        for k_ in ("flash_attention_fwd", "flash_attention_bwd")}
+
+
+# the bf16 tensor-core instances at every head_dim: self-attention at a
+# ragged S = 200, cross-attention Sq != Sk both ways, causal (bottom-right,
+# with rows that see no key when Sq > Sk), with and without bias and
+# dropout
+WGMMA_SHAPES = [(2, 200, 200, False), (1, 200, 333, False),
+                (1, 333, 200, False), (2, 200, 200, True),
+                (1, 300, 100, True)]
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("b,sq,sk,causal", WGMMA_SHAPES)
+@pytest.mark.parametrize("bias,rate", [(False, 0.0), (True, 0.1)])
+def test_flash_bf16_wgmma_matches_plain_in_both_layouts(dev, hd, b, sq, sk,
+                                                        causal, bias, rate):
+    n = 3
+    q, k, v, do, kb = _bnsd(dev, b, sq, sk, n, hd, torch.bfloat16,
+                            hd + sq + 3 * sk)
+    kb = kb if bias else None
+    scale = hd ** -0.5
+    ref_out, ref_lse = fa.plain_flash_fwd(*_f32(q, k, v), None, scale,
+                                          causal, kb, rate, 19, layout="bnsd")
+    ref = fa.plain_flash_bwd(*_f32(q, k, v), ref_out.bfloat16().float(),
+                             ref_lse, do.float(), None, scale, causal, kb,
+                             rate, 19, layout="bnsd")
+    kernels.reset_launch_counts()
+    runs = {}
+    for layout in ("bnsd", "packed"):
+        conv = (lambda t: t) if layout == "bnsd" else \
+            (lambda t: _packed(t).contiguous())
+        q_, k_, v_, do_ = (conv(t) for t in (q, k, v, do))
+        out, lse = fa.flash_fwd(q_, k_, v_, n, scale, causal, kb, rate, 19,
+                                layout=layout)
+        grads = fa.flash_bwd(q_, k_, v_, conv(ref_out.bfloat16()), ref_lse,
+                             do_, n, scale, causal, kb, rate, 19,
+                             layout=layout)
+        back = (lambda t: t) if layout == "bnsd" else \
+            (lambda t: fa._heads(t, n, "packed"))
+        runs[layout] = [back(out), lse] + [back(g) for g in grads[:3]] + \
+            [grads[3]]
+    torch.cuda.synchronize()
+    assert kernels.dtype_counts() == {
+        k_: {"fp32_cuda_cores": 0, "bf16_wgmma": 2}
+        for k_ in ("flash_attention_fwd", "flash_attention_bwd")}
+    out, lse, dq, dk, dv, dbias = runs["bnsd"]
+    torch.testing.assert_close(out.float(), ref_out.bfloat16().float(),
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref[:3]):
+        torch.testing.assert_close(a.float(), r.bfloat16().float(),
+                                   msg=lambda m: f"{name}: {m}",
+                                   **TOL[torch.bfloat16])
+    if bias:
+        torch.testing.assert_close(dbias, ref[3], rtol=1e-3, atol=1e-3)
+    else:
+        assert dbias is None
+    for name, x, y in zip(("out", "lse", "dq", "dk", "dv", "dbias"),
+                          runs["bnsd"], runs["packed"]):
+        assert (x is None) == (y is None) and (
+            x is None or torch.equal(x, y)), f"{name}: bnsd != packed"
+
+
+def test_flash_bf16_keep_masks_are_the_plain_mask_bitwise(dev):
+    """Both bf16 kernels' dropout masks, read exactly. Forward: q = 0 makes
+    every probability 1/Sk and v one-hot over a 64-key chunk makes
+    out[q, d] = keep(q, chunk + d) / ((1 - rate) Sk). Backward: q = k = v
+    = 0 and lse = log Sk make p = 1/Sk and ds = 0, and do one-hot over a
+    64-row chunk makes dv[k, d] = keep(chunk + d, k) / ((1 - rate) Sk)."""
+    b, s, n, hd, rate, seed = 2, 192, 3, 64, 0.25, 987654321
+    zero = torch.zeros(b, s, n * hd, device=dev, dtype=torch.bfloat16)
+    lse = torch.full((b, n, s), float(np.log(s)), device=dev)
+    want = rng.attn_keep(seed, rate, b, n, s, s, dev)
+    eye = torch.eye(hd, device=dev, dtype=torch.bfloat16)[None, :, None]
+    for c in range(s // hd):
+        chunk = torch.zeros(b, s, n, hd, device=dev, dtype=torch.bfloat16)
+        chunk[:, c * hd:(c + 1) * hd] = eye
+        chunk = chunk.reshape(b, s, n * hd)
+        out, _ = fa.packed_flash_fwd(zero, zero, chunk, n, 1.0, False, None,
+                                     rate, seed)
+        got = out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0
+        assert torch.equal(got, want[..., c * hd:(c + 1) * hd])
+        dv = fa.packed_flash_bwd(zero, zero, zero, zero, lse, chunk, n, 1.0,
+                                 False, None, rate, seed)[2]
+        got = dv.reshape(b, s, n, hd).permute(0, 2, 3, 1) != 0
+        assert torch.equal(got, want[:, :, c * hd:(c + 1) * hd])
 
 
 @pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
