@@ -20,7 +20,16 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                PyTorch yardstick where there is one (library_ms), and the
                least time the card could take (bound_ms, from bytes at
                3.35 TB/s and flops at 67 TFLOP/s for fp32 inputs, 989
-               TFLOP/s, the dense bf16 tensor-core peak, for bf16 inputs).
+               TFLOP/s, the dense bf16 tensor-core peak, for bf16 inputs,
+               and 165 TFLOP/s for the fp32 flash kernels, which run in
+               split TF32: three products at the 495 TFLOP/s dense TF32
+               rate for each fp32 one; their CUDA-core bound beside it as
+               bound_ms_cuda_cores). A row timed under 0.1 ms also gets
+               device_ms (and library_device_ms): the same calls
+               captured in a CUDA graph and replayed, the device alone
+               (the SDPA backward from torch.profiler: it does not
+               capture). The layer-norm rows give events and device-only
+               times twice.
                The training kernels at ERNIE-large's shapes: flash forward
                with dropout and flash backward (their keep masks read back
                bit for bit in bf16 and fp32), compared and timed at the
@@ -51,7 +60,8 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                batch: the same dropout masks bit for bit and the losses
                within rtol = atol = 1e-4 for fp32 at 2 layers (3 steps) and
                at all 24 layers (4 steps), within 1e-2 for bf16 at 2 layers
-               (6 steps).
+               (6 steps). Every flash launch of the fp32 legs runs the
+               split-TF32 instance, of the bf16 leg the bf16 one.
 6. train_ernie — ERNIE-large as the reference's benchmark trains it (24
                layers, bf16 params, packed flash attention with probs
                dropout 0.1, hidden dropout 0.1, 80 masked predictions, NSP,
@@ -66,6 +76,9 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                launches a step, every flash launch on the bf16 tensor-core
                instance; no NaN in any parameter. Its ms/step and
                tokens/s are smoke figures of a host-driven eager step.
+               Then layer_norm_variance_cost: 12 more steps alternating
+               the layer_norm lowering as it is and without its Variance
+               op (Variance recovered from rstd), the step ms of each.
 The long-context and [B,H,S,D] slice adds, in the order they run:
    kernels  — check_flash_long: both flash kernels at the long step's
                shapes (packed, bias, dropout 0.1): bf16 B=4 S=2048 and B=2
@@ -143,6 +156,10 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, CUDA cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense tensor cores
+# fp32 work in split TF32: three TF32 products for each fp32 one, at the
+# 495 TFLOP/s dense TF32 rate (H100 SXM data sheet)
+TF32X3_FLOPS_PER_S = 495e12 / 3
+DEVICE_MS_BELOW = 0.1          # rows timed under this also get device_ms
 
 FULL = dict(vocab_size=32000, d_model=1024, n_head=16, n_layers=12,
             d_inner=4096, max_seq_len=2048)
@@ -188,6 +205,37 @@ def bound_ms(nbytes, flops, peak=FP32_FLOPS_PER_S):
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
+def cur_stream():
+    """The current stream's handle, looked up at each launch, so a raw
+    launch lands in a CUDA-graph capture (device_ms) as well."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def profiled_device_ms(fn, reps):
+    """ms per call of fn on the device alone from torch.profiler: the
+    device time of every kernel over reps calls. For a call a CUDA graph
+    does not capture: autograd's backward runs on the forward's stream."""
+    from paddle_tpu_torch.tools.profile_flash import kernel_ms
+
+    return sum(kernel_ms(fn, reps).values())
+
+
+def with_device_ms(row, kernel, library=None, reps=30, library_graph=True):
+    """Add device_ms (and library_device_ms) to a timed row whose events
+    time is under DEVICE_MS_BELOW: reps calls captured once in a CUDA
+    graph and replayed between events, so the host's dispatch, which
+    events_ms reads where it exceeds the device time, drops out.
+    library_graph=False times the library call with the profiler."""
+    from paddle_tpu_torch.tools.profile_layer_norm import graph_ms
+
+    if row["ms"] is not None and row["ms"] < DEVICE_MS_BELOW:
+        row["device_ms"] = graph_ms(kernel, reps)
+        if library is not None:
+            row["library_device_ms"] = graph_ms(library, reps) \
+                if library_graph else profiled_device_ms(library, reps)
+    return row
+
+
 def events_ms(fn, reps):
     """Device ms per call of fn over reps back-to-back calls."""
     for i in range(3):
@@ -227,17 +275,18 @@ def outside_tol(got, ref, tol):
                .sum())
 
 
-def ptxas_by_kernel(log, marker):
+def ptxas_by_kernel(log, markers):
     """{kernel<head_dim,dropout>: its ptxas register and spill lines} for
-    the entry functions of a ptxas -v log whose name holds ``marker``."""
+    the entry functions of a ptxas -v log whose name holds one of
+    ``markers``."""
     import re
 
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"([a-z_]+)ILi(\d+)ELb(\d)", ln)
+            m = re.search(r"\d([a-z][a-z_0-9]*)ILi(\d+)ELb(\d)", ln)
             name = (f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
-                    if m and marker in m.group(1) else None)
+                    if m and any(k in m.group(1) for k in markers) else None)
         elif name and ("spill" in ln or "registers" in ln):
             out.setdefault(name, []).append(ln.strip())
     return out
@@ -276,28 +325,34 @@ def check_flash(dev, results):
             raise AssertionError(f"flash forward S={s}: out err {e_out}, "
                                  f"lse err {e_lse}")
         o2, l2 = torch.empty_like(q), torch.empty_like(lse)
-        stream = torch.cuda.current_stream().cuda_stream
         strides = fa._stride_array("flash forward", hd, "packed", (
             ("q", q), ("k", k), ("v", v), ("out", o2)))
-        # fp32 (dtype 0), no dropout (threshold 0)
-        ms = events_ms(lambda i: lib.pt_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o2.data_ptr(),
-            l2.data_ptr(), strides, 1, s, s, n, hd, scale, 1, 0, 0, 0, 1.0,
-            stream), 20)
+
+        def kernel(i):   # fp32 (dtype 0), no dropout (threshold 0)
+            return lib.pt_flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                o2.data_ptr(), l2.data_ptr(), strides, 1, s, s, n, hd, scale,
+                1, 0, 0, 0, 1.0, cur_stream())
+
+        ms = events_ms(kernel, 20)
         plain = events_ms(lambda i: fa.plain_packed_flash_fwd(
             q, k, v, n, scale, True), 10)
         q4, k4, v4 = (t.reshape(1, s, n, hd).transpose(1, 2).contiguous()
                       for t in (q, k, v))
-        library = events_ms(lambda i: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, scale=scale), 10)
+
+        def sdpa(i):
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                                  scale=scale)
+
+        library = events_ms(sdpa, 10)
         pairs = s * (s + 1) // 2
-        bms, by = bound_ms(4 * (4 * s * n * hd) + 4 * n * s,
-                           n * pairs * 4 * hd)
-        results.append(dict(name="flash_attention_fwd",
-                            shape=f"B=1 S={s} n=16 hd=64 causal",
-                            max_abs_err=max(e_out, e_lse), max_rel_err=r_out,
-                            ms=ms, plain_ms=plain, library_ms=library,
-                            bound_ms=bms, bound_by=by))
+        nbytes, flops = 4 * (4 * s * n * hd) + 4 * n * s, n * pairs * 4 * hd
+        bms, by = bound_ms(nbytes, flops, TF32X3_FLOPS_PER_S)
+        results.append(with_device_ms(dict(
+            name="flash_attention_fwd", shape=f"B=1 S={s} n=16 hd=64 causal",
+            max_abs_err=max(e_out, e_lse), max_rel_err=r_out, ms=ms,
+            plain_ms=plain, library_ms=library, bound_ms=bms, bound_by=by,
+            bound_ms_cuda_cores=bound_ms(nbytes, flops)[0]), kernel, sdpa))
 
 
 def check_paged(dev, results):
@@ -340,28 +395,30 @@ def check_paged(dev, results):
                              f"max |out| {float(out.abs().max())}")
     lib = pa._lib()
     o2 = torch.empty_like(out)
-    stream = torch.cuda.current_stream().cuda_stream
-    ms = events_ms(lambda i: lib.pt_paged_attention(
-        q.data_ptr(), copies[i % 3][0].data_ptr(),
-        copies[i % 3][1].data_ptr(), table.data_ptr(), pos.data_ptr(),
-        o2.data_ptr(), b, n, hd, page, mp, kvdim, scale, stream), 30)
+
+    def kernel(i):
+        return lib.pt_paged_attention(
+            q.data_ptr(), copies[i % 3][0].data_ptr(),
+            copies[i % 3][1].data_ptr(), table.data_ptr(), pos.data_ptr(),
+            o2.data_ptr(), b, n, hd, page, mp, kvdim, scale, cur_stream())
+
+    ms = events_ms(kernel, 30)
     plain = events_ms(lambda i: pa.plain_paged_attention(
         q, copies[i % 3][0], copies[i % 3][1], table, pos, n, hd, scale), 10)
     ctx = sum(p + 1 for p in pos_list)
     bms, by = bound_ms(2 * ctx * kvdim * 4 + 2 * b * kvdim * 4
                        + table.numel() * 4 + b * 4, 4 * ctx * kvdim)
-    results.append(dict(name="paged_attention",
-                        shape=f"B=8 P=16 MP=128 n=16 hd=64 pos={pos_list}",
-                        max_abs_err=e_abs, max_rel_err=e_rel, ms=ms,
-                        plain_ms=plain, library_ms=None, bound_ms=bms,
-                        bound_by=by))
+    results.append(with_device_ms(dict(
+        name="paged_attention",
+        shape=f"B=8 P=16 MP=128 n=16 hd=64 pos={pos_list}",
+        max_abs_err=e_abs, max_rel_err=e_rel, ms=ms, plain_ms=plain,
+        library_ms=None, bound_ms=bms, bound_by=by), kernel))
 
 
 def check_int8(dev, results):
     from paddle_tpu_torch.kernels import int8_gemm as ig
 
     lib = ig._lib()
-    stream = torch.cuda.current_stream().cuda_stream
     for m in (8, 512):
         for k, n in ((1024, 1024), (1024, 4096), (4096, 1024)):
             for with_bias, act in ((False, None), (True, "relu")):
@@ -389,24 +446,31 @@ def check_int8(dev, results):
                 relu = int(act == "relu")
                 ksplit, kc = ig.split_plan(m, n, k)
                 part = torch.empty(ksplit, m, n, device=dev)
-                ms = events_ms(lambda i: lib.pt_int8_gemm(
-                    x.data_ptr(), w8s[i % reps].data_ptr(), sc.data_ptr(),
-                    bp, o2.data_ptr(), part.data_ptr(), m, n, k, ksplit, kc,
-                    relu, stream), 30)
+
+                def kernel(i):
+                    return lib.pt_int8_gemm(
+                        x.data_ptr(), w8s[i % reps].data_ptr(),
+                        sc.data_ptr(), bp, o2.data_ptr(), part.data_ptr(), m,
+                        n, k, ksplit, kc, relu, cur_stream())
+
+                ms = events_ms(kernel, 30)
                 plain = events_ms(lambda i: ig.plain_int8_gemm(
                     x, w8s[i % reps], sc, bias, act), 10)
                 bb = bias if bias is not None else 0.0
-                library = events_ms(
-                    lambda i: x @ (w8s[i % reps].float() * sc) + bb, 10)
+
+                def matmul(i):
+                    return x @ (w8s[i % reps].float() * sc) + bb
+
+                library = events_ms(matmul, 10)
                 nbytes = m * k * 4 + k * n + n * 4 * (2 if with_bias else 1) \
                     + m * n * 4
                 bms, by = bound_ms(nbytes, 2 * m * k * n)
-                results.append(dict(
+                results.append(with_device_ms(dict(
                     name="int8_gemm", ksplit=ksplit,
                     shape=f"M={m} K={k} N={n} bias={with_bias} act={act}",
                     max_abs_err=e_abs, max_rel_err=e_rel, ms=ms,
                     plain_ms=plain, library_ms=library, bound_ms=bms,
-                    bound_by=by))
+                    bound_by=by), kernel, matmul))
 
 
 def _train_attn_inputs(dev, b, s, dtype, seed):
@@ -441,6 +505,9 @@ def _compare_flash(fa, what, q, k, v, do, bias, n, scale, causal=False,
     versions computed in fp32 from the same values; returns the kernel's
     (out, lse) and the largest absolute error of each output."""
     dtype = q.dtype
+    instance = fa.DTYPES[dtype][1]
+    before = (fa.launches_by_dtype[instance],
+              fa.bwd_launches_by_dtype[instance])
     q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
     out, lse = fa.flash_fwd(q, k, v, n, scale, causal, bias, RATE, ATTN_SEED,
                             layout)
@@ -479,14 +546,22 @@ def _compare_flash(fa, what, q, k, v, do, bias, n, scale, causal=False,
             raise AssertionError(f"flash backward {what} {name}: "
                                  f"{errors(a, r)}")
     err["reference_rounding_outside_tol"] = outside
+    # both calls ran the dtype's instance (fp32: split TF32)
+    if (fa.launches_by_dtype[instance], fa.bwd_launches_by_dtype[instance]) \
+            != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"flash {what}: not on the {instance} instance")
+    err["instance"] = instance
     return out, lse, err
 
 
-def _time_flash(fa, q, k, v, do, bias, n, scale, out, lse, layout, peak,
+def _time_flash(fa, q, k, v, do, bias, n, scale, out, lse, layout,
                 plain_reps=3):
     """(forward, backward) timings: kernel ms, plain ms, SDPA ms (its
     forward; its backward through autograd) and the bound, for the
-    non-causal, key-bias, dropout call of the training step."""
+    non-causal, key-bias, dropout call of the training step. The bound's
+    peak is the dense bf16 rate for bf16 and the split-TF32 rate for fp32
+    (beside it, for fp32, the CUDA-core bound); rows under DEVICE_MS_BELOW
+    also get their device-only times."""
     import torch.nn.functional as F
 
     esz = q.element_size()
@@ -497,32 +572,53 @@ def _time_flash(fa, q, k, v, do, bias, n, scale, out, lse, layout, peak,
     q4, k4, v4, do4 = (fa._heads(t, n, layout).contiguous()
                        for t in (q, k, v, do))
     m4 = bias.to(q.dtype).reshape(b, 1, 1, sk).expand(b, 1, sq, sk)
+    f32 = q.dtype == torch.float32
+    peak = TF32X3_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
+
+    def kfwd(i):
+        return fa.flash_fwd(q, k, v, n, scale, False, bias, RATE, ATTN_SEED,
+                            layout)
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
+                                              dropout_p=RATE, scale=scale)
+
     fwd = dict(
-        ms=events_ms(lambda i: fa.flash_fwd(
-            q, k, v, n, scale, False, bias, RATE, ATTN_SEED, layout), 10),
+        ms=events_ms(kfwd, 10),
         plain_ms=events_ms(lambda i: fa.plain_flash_fwd(
             q, k, v, n, scale, False, bias, RATE, ATTN_SEED, layout),
             plain_reps),
-        library_ms=events_ms(lambda i: F.scaled_dot_product_attention(
-            q4, k4, v4, attn_mask=m4, dropout_p=RATE, scale=scale), 10))
-    fwd["bound_ms"], fwd["bound_by"] = bound_ms(
-        (2 * nq + 2 * nk) * esz + bias.numel() * 4 + lse.numel() * 4,
-        heads * 2 * 2 * sq * sk * hd, peak)
+        library_ms=events_ms(sdpa, 10))
+    io, flops = ((2 * nq + 2 * nk) * esz + bias.numel() * 4 +
+                 lse.numel() * 4, heads * 2 * 2 * sq * sk * hd)
+    fwd["bound_ms"], fwd["bound_by"] = bound_ms(io, flops, peak)
+    if f32:
+        fwd["bound_ms_cuda_cores"] = bound_ms(io, flops)[0]
+    with_device_ms(fwd, kfwd, sdpa)
+
+    def kbwd(i):
+        return fa.flash_bwd(q, k, v, out, lse, do, n, scale, False, bias,
+                            RATE, ATTN_SEED, layout)
+
     bwd = dict(
-        ms=events_ms(lambda i: fa.flash_bwd(
-            q, k, v, out, lse, do, n, scale, False, bias, RATE, ATTN_SEED,
-            layout), 10),
+        ms=events_ms(kbwd, 10),
         plain_ms=events_ms(lambda i: fa.plain_flash_bwd(
             q, k, v, out, lse, do, n, scale, False, bias, RATE, ATTN_SEED,
             layout), plain_reps))
     q4, k4, v4 = (t.requires_grad_(True) for t in (q4, k4, v4))
     o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
                                         dropout_p=RATE, scale=scale)
-    bwd["library_ms"] = events_ms(lambda i: torch.autograd.grad(
-        o4, (q4, k4, v4), do4, retain_graph=True), 10)
-    bwd["bound_ms"], bwd["bound_by"] = bound_ms(
-        (4 * nq + 4 * nk) * esz + lse.numel() * 4 + 2 * bias.numel() * 4,
-        heads * 5 * 2 * sq * sk * hd, peak)
+
+    def sdpa_bwd(i):
+        return torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+    bwd["library_ms"] = events_ms(sdpa_bwd, 10)
+    io, flops = ((4 * nq + 4 * nk) * esz + lse.numel() * 4 +
+                 2 * bias.numel() * 4, heads * 5 * 2 * sq * sk * hd)
+    bwd["bound_ms"], bwd["bound_by"] = bound_ms(io, flops, peak)
+    if f32:
+        bwd["bound_ms_cuda_cores"] = bound_ms(io, flops)[0]
+    with_device_ms(bwd, kbwd, lambda: sdpa_bwd(0), library_graph=False)
     return fwd, bwd
 
 
@@ -534,6 +630,7 @@ def _flash_rows(results, shape, err, timing):
             ("flash_attention_fwd", ("out", "lse")),
             ("flash_attention_bwd", ("dq", "dk", "dv", "dbias")))):
         row = dict(name=name, shape=shape, max_rel_err=None,
+                   instance=err["instance"],
                    max_abs_err=max(err[k_] for k_ in keys if k_ != "dbias"),
                    errors={k_: err[k_] for k_ in keys if k_ in err},
                    reference_rounding_outside_tol={
@@ -569,10 +666,8 @@ def check_flash_train(dev, results):
         q, k, v, do, bias = _train_attn_inputs(dev, b, s, dtype, 1)
         out, lse, err = _compare_flash(fa, f"{name} B={b} S={s}", q, k, v,
                                        do, bias, n, scale)
-        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
-            else FP32_FLOPS_PER_S
         timing = _time_flash(fa, q, k, v, do, bias, n, scale, out, lse,
-                             "packed", peak)
+                             "packed")
         fwd, bwd = _flash_rows(
             results, f"B={b} S={s} n=16 hd=64 bias dropout={RATE} {name}",
             err, timing)
@@ -637,10 +732,8 @@ def check_flash_long(dev, results):
         out, lse, err = _compare_flash(fa, f"long {name} B={b} S={s}", q, k,
                                        v, do, bias, n, hd ** -0.5)
         torch.cuda.empty_cache()
-        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
-            else FP32_FLOPS_PER_S
         timing = _time_flash(fa, q, k, v, do, bias, n, hd ** -0.5, out, lse,
-                             "packed", peak, plain_reps=2)
+                             "packed", plain_reps=2)
         _flash_rows(results, f"B={b} S={s} n=16 hd=64 bias dropout={RATE} "
                              f"{name} long", err, timing)
         del q, k, v, do, out, lse
@@ -702,7 +795,7 @@ def check_flash_bnsd(dev, results):
         timing = None
         if timed:
             timing = _time_flash(fa, q, k, v, do, bias, n, scale, out, lse,
-                                 "bnsd", BF16_FLOPS_PER_S)
+                                 "bnsd")
         _flash_rows(results, shape, err, timing)
         del q, k, v, do, out, lse
     torch.cuda.empty_cache()
@@ -746,30 +839,37 @@ def check_adamw(dev, results):
                                      f"{errors(p0, want[0])}")
             e_abs = max(errors(p0, want[0])[0], errors(m0, want[1])[0],
                         errors(v0, want[2])[0])
-            ms = events_ms(lambda i: fad.fused_adamw_(
-                ps[i % reps], gr, ms_[i % reps], vs[i % reps], lr, *hyper,
-                b1p, b2p), 20)
+            def kernel(i):
+                return fad.fused_adamw_(ps[i % reps], gr, ms_[i % reps],
+                                        vs[i % reps], lr, *hyper, b1p, b2p)
+
+            ms = events_ms(kernel, 20)
             plain = events_ms(lambda i: fad.plain_fused_adamw(
                 ps[i % reps], gr, ms_[i % reps], vs[i % reps], lr, *hyper,
                 b1p, b2p), 5)
-            library = None
+            library = lib_call = None
             if dtype == torch.float32:
                 # the library's fused update wants one dtype throughout,
                 # so it is a yardstick for the fp32 rows only
                 steps = [torch.tensor(3.0, device=dev) for _ in range(reps)]
-                library = events_ms(lambda i: torch._fused_adamw_(
-                    [ps[i % reps]], [gr], [ms_[i % reps]], [vs[i % reps]],
-                    [], [steps[i % reps]], lr=1e-4, beta1=0.9, beta2=0.999,
-                    weight_decay=0.01, eps=1e-8, amsgrad=False,
-                    maximize=False), 20)
+
+                def lib_call(i):
+                    return torch._fused_adamw_(
+                        [ps[i % reps]], [gr], [ms_[i % reps]],
+                        [vs[i % reps]], [], [steps[i % reps]], lr=1e-4,
+                        beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
+                        amsgrad=False, maximize=False)
+
+                library = events_ms(lib_call, 20)
             esz = ps[0].element_size()
             numel = ps[0].numel()
             bms, by = bound_ms(numel * (3 * esz + 16), numel * 12,
                                FP32_FLOPS_PER_S)
-            results.append(dict(
+            results.append(with_device_ms(dict(
                 name="fused_adamw", shape=f"{list(shape)} {name}",
                 max_abs_err=e_abs, max_rel_err=None, ms=ms, plain_ms=plain,
-                library_ms=library, bound_ms=bms, bound_by=by))
+                library_ms=library, bound_ms=bms, bound_by=by), kernel,
+                lib_call))
 
 
 # ---------------------------------------------------------------------------
@@ -938,7 +1038,7 @@ def train_parity(dev, layers, dtype, steps, tol, seq=SEQ, batch_size=2):
         cfg, batch_size, seq, seed=2, max_predictions_per_seq=_preds(seq))
     ops = main_prog.global_block().ops
     masks = [o.outputs["Mask"][0] for o in ops if o.type == "dropout"]
-    runs, counts, layouts, seconds = {}, {}, {}, {}
+    runs, counts, layouts, dtypes, seconds = {}, {}, {}, {}, {}
     for device in (dev, torch.device("cpu")):
         sc = bert.scope_from_numpy(state, device)
         exe = Executor(device=device)
@@ -950,6 +1050,7 @@ def train_parity(dev, layers, dtype, steps, tol, seq=SEQ, batch_size=2):
         seconds[device.type] = time.perf_counter() - t0
         counts[device.type] = kernels.launch_counts()
         layouts[device.type] = kernels.layout_counts()
+        dtypes[device.type] = kernels.dtype_counts()
     loss_gpu = [float(r[0].reshape(-1)[0]) for r in runs["cuda"]]
     loss_cpu = [float(r[0].reshape(-1)[0]) for r in runs["cpu"]]
     masks_equal = all(np.array_equal(x, y)
@@ -962,7 +1063,8 @@ def train_parity(dev, layers, dtype, steps, tol, seq=SEQ, batch_size=2):
          steps=steps, loss_gpu=loss_gpu, loss_cpu=loss_cpu,
          dropout_masks=len(masks), masks_bitwise_equal=masks_equal,
          tolerance=f"rtol=atol={tol}", launches_per_step=per_step,
-         seconds=seconds, ok=bool(ok))
+         flash_launches_by_dtype=dtypes["cuda"], seconds=seconds,
+         ok=bool(ok))
     if not ok:
         raise AssertionError("training: card and CPU disagree")
     if any(counts["cpu"].values()):
@@ -971,7 +1073,55 @@ def train_parity(dev, layers, dtype, steps, tol, seq=SEQ, batch_size=2):
     if per_step != {"flash_attention_fwd": layers,
                     "flash_attention_bwd": layers, "fused_adamw": n_adamw}:
         raise AssertionError(f"train_parity: launches per step {per_step}")
-    return counts["cuda"], layouts["cuda"]
+    # every flash launch ran the dtype's instance (fp32: split TF32)
+    instance = "bf16_wgmma" if dtype == "bfloat16" else "fp32_tf32x3"
+    for name, split in dtypes["cuda"].items():
+        if split[instance] != counts["cuda"][name]:
+            raise AssertionError(f"train_parity: {name} by instance {split}")
+    return counts["cuda"], layouts["cuda"], dtypes["cuda"]
+
+
+def _ln_variance_cost(exe, main_prog, batch, scope, fetches, steps=6):
+    """Step ms of the ERNIE-large step with the layer_norm lowering as it
+    is (Variance as one torch.var over the normalised axes, the mean of
+    squared deviations the reference computes) and with Variance recovered
+    from native_layer_norm's rstd as 1 / rstd^2 - eps, one op fewer a
+    layer norm (about 100 a step, with the forwards __vjp_grad__ re-runs).
+    The steps alternate with, without, without, with, ... in one process
+    on one batch; medians of each."""
+    from paddle_tpu_torch.core import registry
+
+    od = registry.get("layer_norm")
+    with_var = od.forward
+
+    def without_var(ins, attrs):
+        x = ins["X"][0]
+        eps = attrs.get("epsilon", 1e-5)
+        axis = int(attrs.get("begin_norm_axis", 1))
+        norm_shape, lead = tuple(x.shape[axis:]), tuple(x.shape[:axis])
+        scale = ins["Scale"][0] if ins.get("Scale") else None
+        bias = ins["Bias"][0] if ins.get("Bias") else None
+        y, mean, rstd = torch.native_layer_norm(
+            x.float(), norm_shape,
+            None if scale is None else scale.reshape(norm_shape).float(),
+            None if bias is None else bias.reshape(norm_shape).float(), eps)
+        return {"Y": y.to(x.dtype), "Mean": mean.reshape(lead),
+                "Variance": (1.0 / (rstd * rstd) - eps).reshape(lead)}
+
+    ms = {"with_var": [], "without_var": []}
+    try:
+        for i in range(2 * steps):
+            key = "with_var" if i % 4 in (0, 3) else "without_var"
+            od.forward = with_var if key == "with_var" else without_var
+            t0 = time.perf_counter()
+            exe.run(main_prog, feed=batch, scope=scope,
+                    fetch_list=[fetches["loss"]])
+            torch.cuda.synchronize()
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        od.forward = with_var
+    return {k: dict(step_ms=v, step_ms_p50=float(np.median(v)))
+            for k, v in ms.items()}
 
 
 def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
@@ -1057,12 +1207,18 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
                              f"{n_adamw} adamw ops")
     # every flash launch of the step ran the bf16 tensor-core instance
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
-        if dtypes[name] != {"fp32_cuda_cores": 0,
-                            "bf16_wgmma": counts[name]}:
+        if dtypes[name] != {"fp32_tf32x3": 0, "bf16_wgmma": counts[name]}:
             raise AssertionError(f"{phase}: {name} launches by instance "
                                  f"{dtypes[name]}")
     if not finite:
         raise AssertionError(f"{phase}: a parameter is not finite")
+    if seq == SEQ:
+        emit("layer_norm_variance_cost", model="ernie_large", seq=seq,
+             batch=batch_size, layer_norm_ops=sum(
+                 o.type == "layer_norm" for o in ops),
+             **_ln_variance_cost(exe, main_prog, batch, scope, fetches),
+             nvidia_smi=smi,
+             note="host-clock step times; the host differs step to step")
     return counts, layouts, dtypes
 
 
@@ -1114,7 +1270,7 @@ def bnsd_ops(dev):
         > 0 for r in runs for g in r[1:])
     want = {"flash_attention_fwd": {"packed": 0, "bnsd": steps},
             "flash_attention_bwd": {"packed": 0, "bnsd": steps}}
-    want_dtypes = {k_: {"fp32_cuda_cores": 0, "bf16_wgmma": steps}
+    want_dtypes = {k_: {"fp32_tf32x3": 0, "bf16_wgmma": steps}
                    for k_ in want}
     emit("bnsd_ops", shape=[b, n, s, hd], dtype="bfloat16", steps=steps,
          losses=losses, grads_finite_nonzero=grads_ok, seconds=seconds,
@@ -1152,6 +1308,7 @@ def check_layer_norm(dev, results):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.tools.profile_layer_norm import graph_ms
 
     for rows, h, dtype in LN_CASES:
         name = "bf16" if dtype == torch.bfloat16 else "fp32"
@@ -1175,18 +1332,27 @@ def check_layer_norm(dev, results):
                                  f"{errors(y, ry)} {errors(rstd, rrstd)}")
         err = max(errors(y, ry)[0], errors(mean, rmean)[0],
                   errors(rstd, rrstd)[0])
-        ms = events_ms(lambda i: ln.layer_norm_fwd(xs[i % reps], sc, bi,
-                                                   1e-5), 30)
+        sc_t, bi_t = sc.to(dtype), bi.to(dtype)
+
+        def kernel(i):
+            return ln.layer_norm_fwd(xs[i % reps], sc, bi, 1e-5)
+
+        def library(i):
+            return F.layer_norm(xs[i % reps], (h,), sc_t, bi_t, 1e-5)
+
+        # events around 30 calls as Python issues them, and the same 30
+        # calls replayed from a CUDA graph (the device alone), twice
+        rounds = [dict(ms=events_ms(kernel, 30), device_ms=graph_ms(
+            kernel, 30), library_ms=events_ms(library, 30),
+            library_device_ms=graph_ms(library, 30)) for _ in range(2)]
         plain = events_ms(lambda i: ln.plain_layer_norm(xs[i % reps], sc, bi,
                                                         1e-5), 10)
-        library = events_ms(lambda i: F.layer_norm(
-            xs[i % reps], (h,), sc.to(dtype), bi.to(dtype), 1e-5), 30)
         bms, by = bound_ms(2 * rows * h * esz + 2 * h * 4 + 2 * rows * 4,
                            8 * rows * h, FP32_FLOPS_PER_S)
         results.append(dict(name="layer_norm", shape=f"[{rows}, {h}] {name}",
-                            max_abs_err=err, max_rel_err=None, ms=ms,
-                            plain_ms=plain, library_ms=library, bound_ms=bms,
-                            bound_by=by))
+                            max_abs_err=err, max_rel_err=None,
+                            **rounds[0], second_round=rounds[1],
+                            plain_ms=plain, bound_ms=bms, bound_by=by))
         del xs
     torch.cuda.empty_cache()
 
@@ -1578,7 +1744,8 @@ def main():
     flash = ("flash_attention_fwd", "flash_attention_bwd")
     hgmma = {n: sass_count(_build.lib_path(n), "HGMMA") for n in flash}
     tc_ptxas = {n: ptxas_by_kernel((_build.BUILD_DIR / f"{n}.ptxas.txt")
-                                   .read_text(), "_tc") for n in flash}
+                                   .read_text(), ("_tc", "_tf32"))
+                for n in flash}
     emit("build", seconds=build_s, per_source_s=per_source, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), ptxas=ptxas,
@@ -1642,8 +1809,9 @@ def main():
     main_path = {"flash_attention_bwd": "train_ernie",
                  "fused_adamw": "train_ernie", "layer_norm": "fused_ln_ops",
                  "conv_bn_relu": "exp_conv"}
-    timing = ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-              "bound_by", "max_abs_err")
+    timing = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
+              "library_device_ms", "bound_ms", "bound_ms_cuda_cores",
+              "bound_by", "max_abs_err", "instance")
     line = []
     for name in kernels.MODULES:
         rows = [r for r in results if r["name"] == name]
@@ -1657,11 +1825,14 @@ def main():
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-            library_ms=main_row["library_ms"], shape=main_row["shape"]))
+            library_ms=main_row["library_ms"], shape=main_row["shape"],
+            **{k_: main_row[k_] for k_ in (
+                "device_ms", "library_device_ms", "bound_ms_cuda_cores",
+                "second_round") if k_ in main_row}))
         if name.startswith("flash"):
             # the same kernel at every timed shape (training, long context,
             # the bnsd rows), and each path's launches by layout
-            line[-1]["variants"] = [{k_: r[k_] for k_ in timing}
+            line[-1]["variants"] = [{k_: r[k_] for k_ in timing if k_ in r}
                                     for r in rows if r["ms"] is not None
                                     and r is not main_row]
             line[-1]["launches_by_layout"] = {p: c[1][name]

@@ -109,6 +109,19 @@ def _last_readers(block: Block, keep: set) -> List[List[str]]:
     return dead
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A fetched tensor on the host; bf16 as ml_dtypes.bfloat16 bits, or
+    as float32 without ml_dtypes (numpy has no bfloat16 of its own)."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        return t.float().numpy()
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
 class Executor:
     """User-facing run loop (reference: ``Executor``,
     ``paddle_tpu/core/executor.py:276``): ``run(program, feed,
@@ -147,7 +160,10 @@ class Executor:
         declared dtypes (64-bit types to 32, as the reference does),
         persistable vars are read from and written back to ``scope``,
         and the scope's step counter goes up by one. ``use_compiled`` is
-        accepted and ignored: PyTorch runs eagerly."""
+        accepted and ignored: PyTorch runs eagerly. With ``return_numpy``
+        fetches come back as numpy arrays; a bf16 fetch comes back as an
+        ``ml_dtypes.bfloat16`` array, as the reference returns it, where
+        ``ml_dtypes`` imports, and as float32 where it does not."""
         if program is None:
             program = default_main_program()
         if scope is None:
@@ -186,7 +202,6 @@ class Executor:
                 raise ExecutionError(f"fetch target '{n}' was not produced")
             v = env[n]
             if return_numpy:
-                v = v.detach().float().cpu().numpy() \
-                    if v.dtype == torch.bfloat16 else v.detach().cpu().numpy()
+                v = _to_numpy(v)
             out.append(v)
         return out

@@ -76,30 +76,47 @@
 //    two warpgroups a block meet at every tile's block barrier, and ran
 //    slower on the card (PERF.md).
 //
-// fp32: CUDA cores (dkv_kernel, dq_kernel). A tensor-core fp32 product
-// would be TF32, so fp32 stays on the FMA pipes: one block of 256 threads
-// per 64-key (dkv) or 64-row (dq) tile, each thread a 4 x 4 patch of the
-// score tile and a 4 x HD/16 patch of its accumulators, p and ds staged in
-// shared memory between the products, all in fp32.
+// fp32: tensor cores in split TF32 (dkv_tf32, dq_tf32; flash_tf32.cuh).
+// Every one of the 7 products takes each fp32 operand as two TF32 terms,
+// hi (the low 13 mantissa bits cleared) and lo = x - hi, and sums a_lo b_hi
+// + a_hi b_lo + a_hi b_hi into one fp32 accumulator (wgmma.mma_async
+// m64nNk8 .tf32): about 2^-21 of each product from fp32, within the 1e-4
+// gates the fp32 path is held to, where one TF32 pass (2^-11) is not. The
+// first port ran fp32 on the FMA pipes, 3.6x its 67 TFLOP/s bound.
+//  * Bound: the 5 products, 10 * Sq * Sk * HD flops a head, at 165 TFLOP/s
+//    (3 passes of the 495 TFLOP/s dense TF32 rate).
+//  * The passes, blocks and order of the bf16 instance: dkv_tf32 keeps k
+//    and v (hi and lo, split once) resident and streams q, do, lse and
+//    delta tiles of BQ rows (32 at HD = 32, 16 at 64 and 128) through two
+//    cp.async stages; dq_tf32 keeps q and do and streams k, v and the key
+//    bias the same way. At HD = 64 that is 107 KB (dkv) and 99 KB (dq) of
+//    shared memory a block, two blocks an SM: one block's split pass and
+//    exps run under the other's products. Tiles twice as long (one block
+//    an SM) made the backward slower on the card (PERF.md).
+//  * A landed tile is its own hi operand; the block's threads split off
+//    its lo tile and, where its product reduces over sequence positions,
+//    write hi and lo tiles turned over (head_dim rows): q and do in the
+//    dkv pass (dk += ds^T q, dv += p^T do), k in the dq pass (dq += ds k).
+//    .tf32 operands are K-major only, so the transpose bit the bf16
+//    instance sets does not exist here.
+//    p^T mask, ds^T scale and ds scale enter those products from registers
+//    as TF32 hi and lo fragments, their columns in the fragment order
+//    (frag32), and the turned-over tiles' positions permuted alike (tperm).
+//    The sums keep a fixed order: runs repeat bit for bit, and the packed
+//    and bnsd layouts give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "flash_tc.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
-
-// element strides of one operand: batch, row (sequence position), head
-struct Layout {
-  long long b, r, h;
-};
+constexpr int THREADS = 256;   // delta_kernel, dbias_kernel
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -114,43 +131,12 @@ __device__ __forceinline__ float4 load4(const bf16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ unsigned splitmix32(unsigned x) {
-  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
-  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
-
-// the per-(b, h) hash key of the dropout mask, seed2 * golden
-__device__ __forceinline__ unsigned mask_key(int b, int h, int H,
-                                             unsigned seed) {
-  return splitmix32((unsigned)(b * H + h) ^ (seed * 0x9E3779B9u)) *
-         0x9E3779B9u;
-}
-
-// rows [0, BQ) of a tile starting at row r0 (zeros past `rows`) into
-// shared memory [BQ][HD + 1]
-template <int HD, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* base,
-                                          long long rstride, int r0,
-                                          int rows) {
-  constexpr int V4 = HD / 4;
-  for (int e = threadIdx.x; e < BQ * V4; e += THREADS) {
-    const int r = e / V4, c = (e % V4) * 4;
-    float4 x4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < rows) x4 = load4(base + (r0 + r) * rstride + c);
-    float* d = dst + r * (HD + 1) + c;
-    d[0] = x4.x; d[1] = x4.y; d[2] = x4.z; d[3] = x4.w;
-  }
-}
-
 // delta[b, h, q] = sum_d do[b, h, q, d] * o[b, h, q, d]
 template <int HD, typename T>
 __global__ void __launch_bounds__(THREADS)
 delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
-             float* __restrict__ delta, Layout ldo, Layout lo, int B, int Sq,
-             int H) {
+             float* __restrict__ delta, tc::Strides ldo, tc::Strides lo,
+             int B, int Sq, int H) {
   const int warp = (blockIdx.x * THREADS + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (warp >= B * H * Sq) return;
@@ -165,318 +151,6 @@ delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
   if (lane == 0) delta[((size_t)b * H + h) * Sq + qi] = acc;
-}
-
-template <int HD>
-struct Smem {
-  static constexpr int TILE = BQ * (HD + 1);      // BQ == BK
-  static constexpr int SS = BQ * (BK + 1);
-  static constexpr size_t dkv =
-      sizeof(float) * ((size_t)4 * TILE + 2 * SS + 2 * BQ + 16 * BK);
-  static constexpr size_t dq =
-      sizeof(float) * ((size_t)4 * TILE + SS + 2 * BQ);
-};
-
-// s = q k^T and dp = do v^T on a thread's 4 x 4 patch, rows ty + 16 i of
-// (qs, dos), cols tx + 16 j of (ks, vs)
-template <int HD>
-__device__ __forceinline__ void scores(const float* qs, const float* dos,
-                                       const float* ks, const float* vs,
-                                       int tx, int ty, float sacc[4][4],
-                                       float dpacc[4][4]) {
-  constexpr int LD = HD + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sacc[i][j] = dpacc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float a[4], g[4], bk[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = qs[(ty + 16 * i) * LD + d];
-      g[i] = dos[(ty + 16 * i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bk[j] = ks[(tx + 16 * j) * LD + d];
-      bv[j] = vs[(tx + 16 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sacc[i][j] = fmaf(a[i], bk[j], sacc[i][j]);
-        dpacc[i][j] = fmaf(g[i], bv[j], dpacc[i][j]);
-      }
-  }
-}
-
-// dk, dv and the per-head dbias of one 64-key tile
-template <int HD, typename T, bool DROP>
-__global__ void __launch_bounds__(THREADS)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           const float* __restrict__ bias, T* __restrict__ dk,
-           T* __restrict__ dv, float* __restrict__ dbias_h, Layout lq,
-           Layout lk, Layout lv, Layout ldo, Layout ldk, Layout ldv, int Sq,
-           int Sk, int H, float scale, int causal, unsigned seed,
-           unsigned thresh, float inv_keep) {
-  constexpr int DJ = HD / 16;   // head-dim columns per thread
-  constexpr int LD = HD + 1;
-  extern __shared__ float smem[];
-  float* ks = smem;                       // [BK][HD + 1]
-  float* vs = ks + Smem<HD>::TILE;        // [BK][HD + 1]
-  float* qs = vs + Smem<HD>::TILE;        // [BQ][HD + 1]
-  float* dos = qs + Smem<HD>::TILE;       // [BQ][HD + 1]
-  float* ps = dos + Smem<HD>::TILE;       // [BQ][BK + 1]  p * mask
-  float* dss = ps + Smem<HD>::SS;         // [BQ][BK + 1]  ds * scale
-  float* lse_s = dss + Smem<HD>::SS;      // [BQ]
-  float* dl_s = lse_s + BQ;               // [BQ]
-  float* db_s = dl_s + BQ;                // [16][BK] dbias partials
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const int shift = Sk - Sq;
-  const T* qb = q + b * lq.b + h * lq.h;
-  const T* dob = dout + b * ldo.b + h * ldo.h;
-  const float* lseb = lse + ((size_t)b * H + h) * Sq;
-  const float* deltab = delta + ((size_t)b * H + h) * Sq;
-  const unsigned seed2m = DROP ? mask_key(b, h, H, seed) : 0u;
-
-  load_tile<HD>(ks, k + b * lk.b + h * lk.h, lk.r, k0, Sk);
-  load_tile<HD>(vs, v + b * lv.b + h * lv.h, lv.r, k0, Sk);
-
-  // key biases of this thread's 4 columns (tx + 16 j)
-  float bcol[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int gc = k0 + tx + 16 * j;
-    bcol[j] = (bias != nullptr && gc < Sk) ? bias[(size_t)b * Sk + gc] : 0.f;
-  }
-
-  float dk_acc[4][DJ], dv_acc[4][DJ], db_acc[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    db_acc[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-  }
-
-  // under the causal mask, rows r < k0 - shift see no key of this tile
-  int qstart = 0;
-  if (causal && k0 - shift > 0) qstart = ((k0 - shift) / BQ) * BQ;
-
-  for (int q0 = qstart; q0 < Sq; q0 += BQ) {
-    __syncthreads();   // previous q tile fully consumed
-    load_tile<HD>(qs, qb, lq.r, q0, Sq);
-    load_tile<HD>(dos, dob, ldo.r, q0, Sq);
-    if (tid < BQ) {
-      const bool ok = q0 + tid < Sq;
-      lse_s[tid] = ok ? lseb[q0 + tid] : 0.f;
-      dl_s[tid] = ok ? deltab[q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    float sacc[4][4], dpacc[4][4];
-    scores<HD>(qs, dos, ks, vs, tx, ty, sacc, dpacc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
-      const int gr = q0 + row;
-      const float lse_r = lse_s[row], dl_r = dl_s[row];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const int gc = k0 + col;
-        const bool ok =
-            gr < Sq && gc < Sk && (!causal || gc <= gr + shift);
-        const float p =
-            ok ? expf(sacc[i][j] * scale + bcol[j] - lse_r) : 0.f;
-        float mult = 1.f;
-        if (DROP) {
-          const unsigned lin = (unsigned)gr * (unsigned)Sk + (unsigned)gc;
-          mult = splitmix32(lin ^ seed2m) >= thresh ? inv_keep : 0.f;
-        }
-        const float ds = p * (dpacc[i][j] * mult - dl_r);
-        db_acc[j] += ds;
-        ps[row * (BK + 1) + col] = p * mult;
-        dss[row * (BK + 1) + col] = ds * scale;
-      }
-    }
-    __syncthreads();
-
-    // dv += (p mask)^T do, dk += (ds scale)^T q : keys ty + 16 i, dims
-    // tx + 16 j
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float pv[4], dsv[4], dov[DJ], qv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = ps[qq * (BK + 1) + ty + 16 * i];
-        dsv[i] = dss[qq * (BK + 1) + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        dov[j] = dos[qq * LD + tx + 16 * j];
-        qv[j] = qs[qq * LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          dv_acc[i][j] = fmaf(pv[i], dov[j], dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(dsv[i], qv[j], dk_acc[i][j]);
-        }
-    }
-  }
-
-  T* dkb = dk + b * ldk.b + h * ldk.h;
-  T* dvb = dv + b * ldv.b + h * ldv.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gk = k0 + ty + 16 * i;
-    if (gk >= Sk) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      store1(dkb + gk * ldk.r + tx + 16 * j, dk_acc[i][j]);
-      store1(dvb + gk * ldv.r + tx + 16 * j, dv_acc[i][j]);
-    }
-  }
-
-  if (dbias_h != nullptr) {
-    // this thread's partial sums are of columns tx + 16 j over its rows;
-    // add the 16 row groups (ty) in order through shared memory
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 4; ++j) db_s[ty * BK + tx + 16 * j] = db_acc[j];
-    __syncthreads();
-    if (tid < BK && k0 + tid < Sk) {
-      float tot = 0.f;
-#pragma unroll
-      for (int r = 0; r < 16; ++r) tot += db_s[r * BK + tid];
-      dbias_h[((size_t)b * H + h) * Sk + k0 + tid] = tot;
-    }
-  }
-}
-
-// dq of one 64-row q tile
-template <int HD, typename T, bool DROP>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          const float* __restrict__ bias, T* __restrict__ dq, Layout lq,
-          Layout lk, Layout lv, Layout ldo, Layout ldq, int Sq, int Sk, int H,
-          float scale, int causal, unsigned seed, unsigned thresh,
-          float inv_keep) {
-  constexpr int DJ = HD / 16;
-  constexpr int LD = HD + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;                       // [BQ][HD + 1]
-  float* dos = qs + Smem<HD>::TILE;       // [BQ][HD + 1]
-  float* ks = dos + Smem<HD>::TILE;       // [BK][HD + 1]
-  float* vs = ks + Smem<HD>::TILE;        // [BK][HD + 1]
-  float* dss = vs + Smem<HD>::TILE;       // [BQ][BK + 1]  ds * scale
-  float* lse_s = dss + Smem<HD>::SS;      // [BQ]
-  float* dl_s = lse_s + BQ;               // [BQ]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int shift = Sk - Sq;
-  const T* kb = k + b * lk.b + h * lk.h;
-  const T* vb = v + b * lv.b + h * lv.h;
-  const unsigned seed2m = DROP ? mask_key(b, h, H, seed) : 0u;
-
-  load_tile<HD>(qs, q + b * lq.b + h * lq.h, lq.r, q0, Sq);
-  load_tile<HD>(dos, dout + b * ldo.b + h * ldo.h, ldo.r, q0, Sq);
-  if (tid < BQ) {
-    const bool ok = q0 + tid < Sq;
-    const size_t row = ((size_t)b * H + h) * Sq + q0 + tid;
-    lse_s[tid] = ok ? lse[row] : 0.f;
-    dl_s[tid] = ok ? delta[row] : 0.f;
-  }
-
-  float dq_acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) dq_acc[i][j] = 0.f;
-
-  // keys [0, kend) are visible to some row of this tile
-  const int last_row = (q0 + BQ < Sq ? q0 + BQ : Sq) - 1;
-  int kend = Sk;
-  if (causal) {
-    const int lim = last_row + shift + 1;
-    kend = lim < Sk ? lim : Sk;
-  }
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();   // previous key tile and dss fully consumed
-    load_tile<HD>(ks, kb, lk.r, k0, Sk);
-    load_tile<HD>(vs, vb, lv.r, k0, Sk);
-    __syncthreads();
-
-    float bcol[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = k0 + tx + 16 * j;
-      bcol[j] = (bias != nullptr && gc < Sk) ? bias[(size_t)b * Sk + gc]
-                                             : 0.f;
-    }
-    float sacc[4][4], dpacc[4][4];
-    scores<HD>(qs, dos, ks, vs, tx, ty, sacc, dpacc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
-      const int gr = q0 + row;
-      const float lse_r = lse_s[row], dl_r = dl_s[row];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const int gc = k0 + col;
-        const bool ok =
-            gr < Sq && gc < Sk && (!causal || gc <= gr + shift);
-        const float p =
-            ok ? expf(sacc[i][j] * scale + bcol[j] - lse_r) : 0.f;
-        float mult = 1.f;
-        if (DROP) {
-          const unsigned lin = (unsigned)gr * (unsigned)Sk + (unsigned)gc;
-          mult = splitmix32(lin ^ seed2m) >= thresh ? inv_keep : 0.f;
-        }
-        dss[row * (BK + 1) + col] = p * (dpacc[i][j] * mult - dl_r) * scale;
-      }
-    }
-    __syncthreads();
-
-    // dq += (ds scale) k : rows ty + 16 i, dims tx + 16 j
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float dsv[4], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty + 16 * i) * (BK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = ks[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j)
-          dq_acc[i][j] = fmaf(dsv[i], kv[j], dq_acc[i][j]);
-    }
-  }
-
-  T* dqb = dq + b * ldq.b + h * ldq.h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = q0 + ty + 16 * i;
-    if (gr >= Sq) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      store1(dqb + gr * ldq.r + tx + 16 * j, dq_acc[i][j]);
-  }
 }
 
 // dbias[b, k] = sum over h, in order, of dbias_h[b, h, k]
@@ -817,10 +491,354 @@ dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 on tensor cores, split TF32
+// ---------------------------------------------------------------------------
+
+// the streamed tiles of both fp32 passes: 32 rows at HD = 32, 16 at 64 and
+// 128 (4 KB; 8 KB at 128), so that two blocks share an SM at HD <= 64 and
+// one block's split pass runs under the other's products
+template <int HD>
+using TfTile = tc::Tf32Tile<HD, 4096>;
+
+template <int HD>
+struct TfDkv {
+  static constexpr int BQ = TfTile<HD>::N;         // q rows a streamed tile
+  static constexpr int KV = TC_KEYS * HD * 4;      // k or v (hi or lo)
+  static constexpr int T = TfTile<HD>::SIZE;       // a q or do tile
+  // a stage: the landed q and do tiles (each its own hi), lse and delta
+  // (BQ each)
+  static constexpr int STAGE = 2 * T + 1024;
+  // after the resident k, v (hi, lo) and both stages, one of each: q lo,
+  // do lo, q^T hi, q^T lo, do^T hi, do^T lo
+  static constexpr int SINGLE = 4 * KV + 2 * STAGE;
+  static constexpr size_t bytes = 1024 + SINGLE + 6 * T;  // + alignment
+};
+
+template <int HD>
+struct TfDq {
+  static constexpr int BN = TfTile<HD>::N;         // keys a streamed tile
+  static constexpr int Q = TC_ROWS * HD * 4;       // q or do (hi or lo)
+  static constexpr int T = TfTile<HD>::SIZE;       // a k or v tile
+  // a stage: the landed k and v tiles (each its own hi), the tile's key
+  // bias
+  static constexpr int STAGE = 2 * T + 1024;
+  // after the resident q, do (hi, lo) and both stages: k lo, v lo, k^T
+  // hi, k^T lo
+  static constexpr int SINGLE = 4 * Q + 2 * STAGE;
+  static constexpr size_t bytes = 1024 + SINGLE + 4 * T;
+};
+
+// dk, dv and the per-head dbias of one 64-key tile, fp32 in split TF32
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+         const float* __restrict__ v, const float* __restrict__ dout,
+         const float* __restrict__ lse, const float* __restrict__ delta,
+         const float* __restrict__ bias, float* __restrict__ dk,
+         float* __restrict__ dv, float* __restrict__ dbias_h, tc::Strides lq,
+         tc::Strides lk, tc::Strides lv, tc::Strides ldo, tc::Strides ldk,
+         tc::Strides ldv, int Sq, int Sk, int H, float scale, int causal,
+         unsigned seed, unsigned thresh, float inv_keep) {
+  using namespace tc;
+  using SM = TfDkv<HD>;
+  constexpr int BQ = SM::BQ, BK = TC_KEYS, NT = TC_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // tiles 1024-aligned
+  uint8_t* gbase = smem_raw + (base - raw);
+  auto gp = [&](uint32_t a) { return gbase + (a - base); };
+  const uint32_t skh = base, skl = base + SM::KV, svh = base + 2 * SM::KV,
+                 svl = base + 3 * SM::KV;
+  auto sq = [&](int st) { return base + 4 * SM::KV + st * SM::STAGE; };
+  auto sdo = [&](int st) { return sq(st) + SM::T; };
+  auto slse = [&](int st) {
+    return reinterpret_cast<float*>(gp(sq(st) + 2 * SM::T));
+  };
+  auto sdl = [&](int st) { return slse(st) + BQ; };
+  const uint32_t sql = base + SM::SINGLE, sdol = sql + SM::T,
+                 sqth = sdol + SM::T, sqtl = sqth + SM::T,
+                 sdoth = sqtl + SM::T, sdotl = sdoth + SM::T;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
+  const int shift = Sk - Sq;
+  const float* qb = q + b * lq.b + h * lq.h;
+  const float* dob = dout + b * ldo.b + h * ldo.h;
+  const float* lseb = lse + ((size_t)b * H + h) * Sq;
+  const float* deltab = delta + ((size_t)b * H + h) * Sq;
+  const unsigned seed2m = DROP ? mask_key(b, h, H, seed) : 0u;
+  // the keys of this thread's accumulator rows, and their bias
+  const int kr[2] = {k0 + acc_row(lane, warp, 0), k0 + acc_row(lane, warp, 2)};
+  float kbias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    kbias[i] =
+        bias != nullptr && kr[i] < Sk ? bias[(size_t)b * Sk + kr[i]] : 0.f;
+
+  // under the causal mask, rows r < k0 - shift see no key of this tile
+  int qstart = 0;
+  if (causal && k0 - shift > 0) qstart = ((k0 - shift) / BQ) * BQ;
+  const int ntiles = qstart < Sq ? (Sq - qstart + BQ - 1) / BQ : 0;
+
+  auto load_q = [&](int t, int st) {
+    const int q0 = qstart + t * BQ;
+    load_tile32<HD, BQ, NT>(sq(st), qb, lq.r, q0, Sq, tid);
+    load_tile32<HD, BQ, NT>(sdo(st), dob, ldo.r, q0, Sq, tid);
+    if (tid < BQ) {
+      const bool ok = q0 + tid < Sq;
+      slse(st)[tid] = ok ? lseb[q0 + tid] : 0.f;
+      sdl(st)[tid] = ok ? deltab[q0 + tid] : 0.f;
+    }
+  };
+
+  load_tile32<HD, BK, NT>(skh, k + b * lk.b + h * lk.h, lk.r, k0, Sk, tid);
+  load_tile32<HD, BK, NT>(svh, v + b * lv.b + h * lv.h, lv.r, k0, Sk, tid);
+  cp_async_commit();
+  if (ntiles > 0) load_q(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  split_tile<HD, BK, NT, true, false>(gp(skh), gp(skl), nullptr,
+                                            nullptr, tid);
+  split_tile<HD, BK, NT, true, false>(gp(svh), gp(svl), nullptr,
+                                            nullptr, tid);
+
+  float dka[HD / 2], dva[HD / 2], db[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) dka[e] = dva[e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1, q0 = qstart + t * BQ;
+    if (t + 1 < ntiles) {
+      load_q(t + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // q and do: lo, and hi and lo transposed
+    split_tile<HD, BQ, NT, true, true>(gp(sq(st)), gp(sql), gp(sqth),
+                                             gp(sqtl), tid);
+    split_tile<HD, BQ, NT, true, true>(gp(sdo(st)), gp(sdol),
+                                             gp(sdoth), gp(sdotl), tid);
+    fence_proxy_async();
+    __syncthreads();
+
+    // s^T = k q^T and dp^T = v do^T on the block's 64 keys
+    float sT[BQ / 2], dpT[BQ / 2];
+    wgmma_fence();
+    mma3_ss<HD, BK, BQ>(sT, skh, skl, 0, sq(st), sql, false);
+    mma3_ss<HD, BK, BQ>(dpT, svh, svl, 0, sdo(st), sdol, false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<BQ / 2>(sT);
+    fence_acc<BQ / 2>(dpT);
+
+    const float* ls = slse(st);
+    const float* dl = sdl(st);
+    const bool full = q0 + BQ <= Sq && k0 + BK <= Sk &&
+                      (!causal || k0 + BK - 1 <= q0 + shift);
+#pragma unroll
+    for (int e = 0; e < BQ / 2; ++e) {
+      const int c = acc_col(lane, e), i = (e >> 1) & 1, qi = q0 + c;
+      float p = expf(nat_exponent(sT[e], scale, kbias[i], ls[c]));
+      if (!full && (qi >= Sq || kr[i] >= Sk || (causal && kr[i] > qi + shift)))
+        p = 0.f;
+      float mult = 1.f;
+      if (DROP) mult = keep(seed2m, qi, kr[i], Sk, thresh) ? inv_keep : 0.f;
+      const float ds = p * (dpT[e] * mult - dl[c]);
+      db[i] += ds;
+      sT[e] = p * mult;
+      dpT[e] = ds * scale;
+    }
+    // TF32 hi + lo A fragments of p mask and ds scale
+    uint32_t ph[BQ / 8][4], pl[BQ / 8][4], dh[BQ / 8][4], dlo[BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) frag32(ph[j], pl[j], sT, j);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) frag32(dh[j], dlo[j], dpT, j);
+
+    // dv += (p mask)^T do, dk += (ds scale)^T q, each over hi and lo
+    wgmma_fence();
+    mma3_rs<HD, BQ>(dva, ph, pl, sdoth, sdotl);
+    mma3_rs<HD, BQ>(dka, dh, dlo, sqth, sqtl);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<HD / 2>(dva);
+    fence_acc<HD / 2>(dka);
+    fence_frag<BQ / 2>(&ph[0][0]);
+    fence_frag<BQ / 2>(&pl[0][0]);
+    fence_frag<BQ / 2>(&dh[0][0]);
+    fence_frag<BQ / 2>(&dlo[0][0]);
+    __syncthreads();   // the stage and the single tiles are rewritten next
+  }
+  cp_async_wait<0>();
+
+  float* dkb = dk + b * ldk.b + h * ldk.h;
+  float* dvb = dv + b * ldv.b + h * ldv.h;
+#pragma unroll
+  for (int e = 0; e < HD / 2; e += 2) {
+    const int i = (e >> 1) & 1, c = acc_col(lane, e);
+    if (kr[i] < Sk) {
+      *reinterpret_cast<float2*>(dkb + kr[i] * ldk.r + c) =
+          make_float2(dka[e], dka[e + 1]);
+      *reinterpret_cast<float2*>(dvb + kr[i] * ldv.r + c) =
+          make_float2(dva[e], dva[e + 1]);
+    }
+  }
+  if (dbias_h != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      db[i] += __shfl_xor_sync(0xffffffffu, db[i], 1);
+      db[i] += __shfl_xor_sync(0xffffffffu, db[i], 2);
+      if ((lane & 3) == 0 && kr[i] < Sk)
+        dbias_h[((size_t)b * H + h) * Sk + kr[i]] = db[i];
+    }
+  }
+}
+
+// dq of one 64-row q tile, fp32 in split TF32
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        const float* __restrict__ bias, float* __restrict__ dq,
+        tc::Strides lq, tc::Strides lk, tc::Strides lv, tc::Strides ldo,
+        tc::Strides ldq, int Sq, int Sk, int H, float scale, int causal,
+        unsigned seed, unsigned thresh, float inv_keep) {
+  using namespace tc;
+  using SM = TfDq<HD>;
+  constexpr int BM = TC_ROWS, BN = SM::BN, NT = TC_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  auto gp = [&](uint32_t a) { return gbase + (a - base); };
+  const uint32_t sqh = base, sql = base + SM::Q, sdoh = base + 2 * SM::Q,
+                 sdol = base + 3 * SM::Q;
+  auto sk = [&](int st) { return base + 4 * SM::Q + st * SM::STAGE; };
+  auto sv = [&](int st) { return sk(st) + SM::T; };
+  auto sb = [&](int st) {
+    return reinterpret_cast<float*>(gp(sk(st) + 2 * SM::T));
+  };
+  const uint32_t skl = base + SM::SINGLE, svl = skl + SM::T,
+                 skth = svl + SM::T, sktl = skth + SM::T;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
+  const int shift = Sk - Sq;
+  const float* kb = k + b * lk.b + h * lk.h;
+  const float* vb = v + b * lv.b + h * lv.h;
+  const float* biasb = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
+  const unsigned seed2m = DROP ? mask_key(b, h, H, seed) : 0u;
+  const int row[2] = {q0 + acc_row(lane, warp, 0), q0 + acc_row(lane, warp, 2)};
+  float lse_r[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const size_t at = ((size_t)b * H + h) * Sq + row[i];
+    lse_r[i] = row[i] < Sq ? lse[at] : 0.f;
+    dl[i] = row[i] < Sq ? delta[at] : 0.f;
+  }
+
+  const int kend = key_end(q0, BM, Sq, Sk, causal);
+  const int ntiles = kend > 0 ? (kend + BN - 1) / BN : 0;
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * BN;
+    load_tile32<HD, BN, NT>(sk(st), kb, lk.r, k0, Sk, tid);
+    load_tile32<HD, BN, NT>(sv(st), vb, lv.r, k0, Sk, tid);
+    if (tid < BN)
+      sb(st)[tid] = biasb != nullptr && k0 + tid < Sk ? biasb[k0 + tid] : 0.f;
+  };
+
+  load_tile32<HD, BM, NT>(sqh, q + b * lq.b + h * lq.h, lq.r, q0, Sq, tid);
+  load_tile32<HD, BM, NT>(sdoh, dout + b * ldo.b + h * ldo.h, ldo.r, q0, Sq,
+                          tid);
+  cp_async_commit();
+  if (ntiles > 0) load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  split_tile<HD, BM, NT, true, false>(gp(sqh), gp(sql), nullptr,
+                                            nullptr, tid);
+  split_tile<HD, BM, NT, true, false>(gp(sdoh), gp(sdol), nullptr,
+                                            nullptr, tid);
+
+  float dqa[HD / 2];
+#pragma unroll
+  for (int e = 0; e < HD / 2; ++e) dqa[e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1, k0 = t * BN;
+    if (t + 1 < ntiles) {
+      load_kv(t + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // k: lo, and hi and lo transposed; v: lo
+    split_tile<HD, BN, NT, true, true>(gp(sk(st)), gp(skl), gp(skth),
+                                             gp(sktl), tid);
+    split_tile<HD, BN, NT, true, false>(gp(sv(st)), gp(svl), nullptr,
+                                              nullptr, tid);
+    fence_proxy_async();
+    __syncthreads();
+
+    // s = q k^T and dp = do v^T on the block's 64 rows
+    float s[BN / 2], dp[BN / 2];
+    wgmma_fence();
+    mma3_ss<HD, BM, BN>(s, sqh, sql, 0, sk(st), skl, false);
+    mma3_ss<HD, BM, BN>(dp, sdoh, sdol, 0, sv(st), svl, false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<BN / 2>(s);
+    fence_acc<BN / 2>(dp);
+
+    const float* bt = sb(st);
+    const bool full = k0 + BN <= Sk && (!causal || k0 + BN - 1 <= q0 + shift);
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const int c = acc_col(lane, e), i = (e >> 1) & 1, kc = k0 + c;
+      float p = expf(nat_exponent(s[e], scale, bt[c], lse_r[i]));
+      if (!full && (kc >= Sk || (causal && kc > row[i] + shift))) p = 0.f;
+      float mult = 1.f;
+      if (DROP) mult = keep(seed2m, row[i], kc, Sk, thresh) ? inv_keep : 0.f;
+      s[e] = p * (dp[e] * mult - dl[i]) * scale;
+    }
+    uint32_t dh[BN / 8][4], dlo[BN / 8][4];   // ds scale as hi + lo
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) frag32(dh[j], dlo[j], s, j);
+
+    // dq += (ds scale) k over hi and lo
+    wgmma_fence();
+    mma3_rs<HD, BN>(dqa, dh, dlo, skth, sktl);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<HD / 2>(dqa);
+    fence_frag<BN / 2>(&dh[0][0]);
+    fence_frag<BN / 2>(&dlo[0][0]);
+    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  float* dqb = dq + b * ldq.b + h * ldq.h;
+#pragma unroll
+  for (int e = 0; e < HD / 2; e += 2) {
+    const int i = (e >> 1) & 1;
+    if (row[i] < Sq)
+      *reinterpret_cast<float2*>(dqb + row[i] * ldq.r + acc_col(lane, e)) =
+          make_float2(dqa[e], dqa[e + 1]);
+  }
+}
+
 // what every instance's launch takes besides the pointers; layouts in
 // the order q, k, v, out, dout, dq, dk, dv
 struct Args {
-  Layout lq, lk, lv, lo, ldo, ldq, ldk, ldv;
+  tc::Strides lq, lk, lv, lo, ldo, ldq, ldk, ldv;
   int B, Sq, Sk, H;
   float scale;
   int causal;
@@ -828,11 +846,14 @@ struct Args {
   float inv_keep;
 };
 
-template <int HD, typename T, bool DROP>
-int launch(const void* q, const void* k, const void* v, const void* out,
-           const void* dout, const float* lse, const float* bias,
-           float* delta, void* dq, void* dk, void* dv, float* dbias_h,
-           float* dbias, const Args& a, cudaStream_t stream) {
+// delta, then the dkv pass (a block per 64 keys) and the dq pass (a
+// block per 64 q rows), one warpgroup a block, then dbias
+template <int HD, typename T, typename Dkv, typename Dq>
+int run_passes(Dkv dkv, size_t dkv_bytes, Dq dqk, size_t dq_bytes,
+               const void* q, const void* k, const void* v, const void* out,
+               const void* dout, const float* lse, const float* bias,
+               float* delta, void* dq, void* dk, void* dv, float* dbias_h,
+               float* dbias, const Args& a, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -844,77 +865,25 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  e = cudaFuncSetAttribute(dkv_kernel<HD, T, DROP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)Smem<HD>::dkv);
-  if (e != cudaSuccess) return (int)e;
-  dim3 kgrid((a.Sk + BK - 1) / BK, a.H, a.B);
-  dkv_kernel<HD, T, DROP><<<kgrid, THREADS, Smem<HD>::dkv, stream>>>(
-      qt, kt, vt, dot, lse, delta, bias, static_cast<T*>(dk),
-      static_cast<T*>(dv), dbias_h, a.lq, a.lk, a.lv, a.ldo, a.ldk, a.ldv,
-      a.Sq, a.Sk, a.H, a.scale, a.causal, a.seed, a.thresh, a.inv_keep);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  e = cudaFuncSetAttribute(dq_kernel<HD, T, DROP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)Smem<HD>::dq);
-  if (e != cudaSuccess) return (int)e;
-  dim3 qgrid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  dq_kernel<HD, T, DROP><<<qgrid, THREADS, Smem<HD>::dq, stream>>>(
-      qt, kt, vt, dot, lse, delta, bias, static_cast<T*>(dq), a.lq, a.lk,
-      a.lv, a.ldo, a.ldq, a.Sq, a.Sk, a.H, a.scale, a.causal, a.seed,
-      a.thresh, a.inv_keep);
-  e = cudaGetLastError();
-  if (e != cudaSuccess || dbias == nullptr) return (int)e;
-
-  const int bblocks = (a.B * a.Sk + THREADS - 1) / THREADS;
-  dbias_kernel<<<bblocks, THREADS, 0, stream>>>(dbias_h, dbias, a.B, a.Sk,
-                                                a.H);
-  return (int)cudaGetLastError();
-}
-
-// the bf16 instance: delta, then the dkv and dq passes on tensor cores,
-// then dbias
-template <int HD, bool DROP>
-int launch_tc(const void* q, const void* k, const void* v, const void* out,
-              const void* dout, const float* lse, const float* bias,
-              float* delta, void* dq, void* dk, void* dv, float* dbias_h,
-              float* dbias, const Args& a, cudaStream_t stream) {
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* dot = static_cast<const bf16*>(dout);
-  auto st = [](const Layout& l) { return tc::Strides{l.b, l.r, l.h}; };
-  const long long rows = (long long)a.B * a.H * a.Sq;
-  const int dblocks = (int)((rows * 32 + THREADS - 1) / THREADS);
-  delta_kernel<HD, bf16><<<dblocks, THREADS, 0, stream>>>(
-      dot, static_cast<const bf16*>(out), delta, a.ldo, a.lo, a.B, a.Sq,
-      a.H);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-
-  e = cudaFuncSetAttribute(dkv_tc<HD, DROP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)TcDkv<HD>::bytes);
+  e = cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dkv_bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 kgrid((a.Sk + TC_KEYS - 1) / TC_KEYS, a.H, a.B);
-  dkv_tc<HD, DROP><<<kgrid, TC_THREADS, TcDkv<HD>::bytes, stream>>>(
-      qt, kt, vt, dot, lse, delta, bias, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), dbias_h, st(a.lq), st(a.lk), st(a.lv),
-      st(a.ldo), st(a.ldk), st(a.ldv), a.Sq, a.Sk, a.H, a.scale, a.causal,
-      a.seed, a.thresh, a.inv_keep);
+  dkv<<<kgrid, TC_THREADS, dkv_bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, bias, static_cast<T*>(dk),
+      static_cast<T*>(dv), dbias_h, a.lq, a.lk, a.lv, a.ldo,
+      a.ldk, a.ldv, a.Sq, a.Sk, a.H, a.scale, a.causal, a.seed,
+      a.thresh, a.inv_keep);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
 
-  e = cudaFuncSetAttribute(dq_tc<HD, DROP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)TcDq<HD>::bytes);
+  e = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dq_bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 qgrid((a.Sq + TC_ROWS - 1) / TC_ROWS, a.H, a.B);
-  dq_tc<HD, DROP><<<qgrid, TC_THREADS, TcDq<HD>::bytes, stream>>>(
-      qt, kt, vt, dot, lse, delta, bias, static_cast<bf16*>(dq), st(a.lq),
-      st(a.lk), st(a.lv), st(a.ldo), st(a.ldq), a.Sq, a.Sk, a.H, a.scale,
+  dqk<<<qgrid, TC_THREADS, dq_bytes, stream>>>(
+      qt, kt, vt, dot, lse, delta, bias, static_cast<T*>(dq), a.lq,
+      a.lk, a.lv, a.ldo, a.ldq, a.Sq, a.Sk, a.H, a.scale,
       a.causal, a.seed, a.thresh, a.inv_keep);
   e = cudaGetLastError();
   if (e != cudaSuccess || dbias == nullptr) return (int)e;
@@ -925,17 +894,42 @@ int launch_tc(const void* q, const void* k, const void* v, const void* out,
   return (int)cudaGetLastError();
 }
 
+// the fp32 instance: the passes in split TF32
+template <int HD, bool DROP>
+int launch_tf32(const void* q, const void* k, const void* v, const void* out,
+                const void* dout, const float* lse, const float* bias,
+                float* delta, void* dq, void* dk, void* dv, float* dbias_h,
+                float* dbias, const Args& a, cudaStream_t stream) {
+  return run_passes<HD, float>(dkv_tf32<HD, DROP>, TfDkv<HD>::bytes,
+                               dq_tf32<HD, DROP>, TfDq<HD>::bytes, q, k, v,
+                               out, dout, lse, bias, delta, dq, dk, dv,
+                               dbias_h, dbias, a, stream);
+}
+
+// the bf16 instance: the passes in bf16 with hi + lo p and ds
+template <int HD, bool DROP>
+int launch_tc(const void* q, const void* k, const void* v, const void* out,
+              const void* dout, const float* lse, const float* bias,
+              float* delta, void* dq, void* dk, void* dv, float* dbias_h,
+              float* dbias, const Args& a, cudaStream_t stream) {
+  return run_passes<HD, bf16>(dkv_tc<HD, DROP>, TcDkv<HD>::bytes,
+                              dq_tc<HD, DROP>, TcDq<HD>::bytes, q, k, v, out,
+                              dout, lse, bias, delta, dq, dk, dv, dbias_h,
+                              dbias, a, stream);
+}
+
 template <int HD>
 int dispatch(const void* q, const void* k, const void* v, const void* out,
              const void* dout, const float* lse, const float* bias,
              float* delta, void* dq, void* dk, void* dv, float* dbias_h,
              float* dbias, int dtype, const Args& a, cudaStream_t stream) {
   const bool drop = a.thresh != 0u;
-#define PT_BWD(T, D)                                                    \
-  launch<HD, T, D>(q, k, v, out, dout, lse, bias, delta, dq, dk, dv,    \
-                   dbias_h, dbias, a, stream)
-  if (dtype == 0) return drop ? PT_BWD(float, true) : PT_BWD(float, false);
-#undef PT_BWD
+  if (dtype == 0)
+    return drop ? launch_tf32<HD, true>(q, k, v, out, dout, lse, bias, delta,
+                                        dq, dk, dv, dbias_h, dbias, a, stream)
+                : launch_tf32<HD, false>(q, k, v, out, dout, lse, bias,
+                                         delta, dq, dk, dv, dbias_h, dbias, a,
+                                         stream);
   if (dtype == 1)
     return drop ? launch_tc<HD, true>(q, k, v, out, dout, lse, bias, delta,
                                       dq, dk, dv, dbias_h, dbias, a, stream)
@@ -963,7 +957,7 @@ extern "C" int pt_flash_attention_bwd(
     float scale, int causal, int dtype, unsigned seed, unsigned thresh,
     float inv_keep, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
-  Layout l[8];
+  tc::Strides l[8];
   for (int i = 0; i < 8; ++i)
     l[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const Args a = {l[0], l[1], l[2], l[3], l[4], l[5], l[6], l[7],

@@ -78,14 +78,30 @@
 //    layout plus the tile offsets, hashed with the per-(b, h) key: the
 //    same lattice as core/rng.attn_keep, bit for bit.
 //
-// fp32: CUDA cores (flash_fwd_kernel). A tensor-core fp32 product would be
-// TF32 and break the serving path's 1e-4 gate against the CPU, so fp32
-// stays on the FMA pipes (67 TFLOP/s): one block of 256 threads per (batch,
-// head, 64-row q tile); the q tile stays in shared memory, k and v tiles
-// of 64 rows stream through it; each thread computes a 4 x 4 patch of the
-// score tile, four threads share a row for the online softmax, and each
-// thread owns a 4 x HD/16 patch of the output accumulator. It is bound by
-// operations from S = 64 up and never writes the S x S scores out.
+// fp32: tensor cores in split TF32 (flash_fwd_tf32; flash_tf32.cuh). Each
+// fp32 operand is two TF32 terms, hi (the low 13 mantissa bits cleared)
+// and lo = x - hi, and each product a b is a_lo b_hi + a_hi b_lo + a_hi b_hi
+// (wgmma.mma_async m64nNk8 .tf32, fp32 accumulators): about 2^-21 of the
+// product from fp32, where one TF32 pass (2^-11) would break the serving
+// path's 1e-4 gate against the CPU. The first port kept fp32 on the FMA
+// pipes (67 TFLOP/s); the tensor cores' TF32 rate is 495 TFLOP/s dense,
+// 165 as three passes.
+//  * Bound: 4 * HD flops per visible pair at 165 TFLOP/s (3 passes of 495):
+//    operations from S = 128 up.
+//  * Design: the bf16 kernel's, at one warpgroup (64 q rows) a block: the
+//    q tile is loaded and split once; k/v tiles of BN keys (64 at HD = 32,
+//    32 at 64, 16 at 128: 8 KB a tile; 91 KB of shared memory a block at
+//    HD = 64, two blocks an SM) land through two cp.async stages,
+//    then the block's threads split them: k (its own hi) into a lo tile;
+//    v into hi and lo tiles turned over (head_dim rows, keys along
+//    the row), since .tf32 operands are K-major only and p v reduces over
+//    keys. s = q k^T as 3 HD / 8 wgmma from shared memory; the online
+//    softmax and dropout as in bf16, but with the exps in natural units in
+//    the plain version's rounding order (s * scale, + bias, - m; see
+//    nat_exponent in flash_tf32.cuh); p split into TF32 hi and lo A
+//    fragments in registers, then o += p v as 3 BN / 8 wgmma against the
+//    turned-over v tiles, whose keys are permuted within each group of 8
+//    to match the fragment's column order (flash_tf32.cuh, tperm).
 //
 // In both, masked keys get weight exactly 0 and a row with no visible key
 // ends with l == 0 and out 0. No atomics and no reduction across rows, so
@@ -97,226 +113,194 @@
 #include <math.h>
 
 #include "flash_tc.cuh"
+#include "flash_tf32.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
+// ---------------------------------------------------------------------------
+// fp32 on tensor cores, split TF32
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ unsigned splitmix32(unsigned x) {
-  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
-  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-  return x ^ (x >> 16);
-}
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
-constexpr float NEG_INF = -1e30f;
-
-// element strides of one operand: batch, row (sequence position), head
-struct Layout {
-  long long b, r, h;
-};
+constexpr int TF_BM = 64;        // q rows a block: one warpgroup
+constexpr int TF_THREADS = 128;
 
 template <int HD>
-struct Smem {
-  static constexpr int QS = BQ * (HD + 1);
-  static constexpr int KS = BK * (HD + 1);
-  static constexpr int VS = BK * HD;
-  static constexpr int SS = BQ * (BK + 1);
-  static constexpr size_t bytes =
-      sizeof(float) * ((size_t)QS + KS + VS + SS + 3 * BQ);
+struct TfSmem {
+  using Tile = tc::Tf32Tile<HD, 8192>;   // 64, 32, 16 keys at HD = 32-128
+  static constexpr int BN = Tile::N;               // keys a tile
+  static constexpr int Q = TF_BM * HD * 4;         // the q tile (hi or lo)
+  static constexpr int KV = Tile::SIZE;
+  // a stage: the landed k tile (its own hi), the landed v tile, the
+  // tile's key bias
+  static constexpr int STAGE = 2 * KV + 1024;
+  // after both stages, one of each: k lo, v^T hi, v^T lo
+  static constexpr int SINGLE = 2 * Q + 2 * STAGE;
+  static constexpr size_t bytes = 1024 + SINGLE + 3 * KV;  // + alignment
 };
 
-template <int HD, typename T, bool DROP>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ bias,
-                 T* __restrict__ out, float* __restrict__ lse, Layout lq,
-                 Layout lk, Layout lv, Layout lo, int Sq, int Sk, int H,
-                 float scale, int causal, unsigned seed, unsigned thresh,
-                 float inv_keep) {
-  constexpr int DJ = HD / 16;        // output columns per thread
-  constexpr int V4 = HD / 4;         // float4 per row
-  extern __shared__ float smem[];
-  float* qs = smem;                          // [BQ][HD + 1]
-  float* ks = qs + Smem<HD>::QS;             // [BK][HD + 1]
-  float* vs = ks + Smem<HD>::KS;             // [BK][HD]
-  float* ss = vs + Smem<HD>::VS;             // [BQ][BK + 1]
-  float* m_s = ss + Smem<HD>::SS;            // [BQ] running max
-  float* l_s = m_s + BQ;                     // [BQ] running sum
-  float* a_s = l_s + BQ;                     // [BQ] rescale of this tile
+template <int HD, bool DROP>
+__global__ void __launch_bounds__(TF_THREADS, HD == 128 ? 1 : 2)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ bias,
+               float* __restrict__ out, float* __restrict__ lse,
+               tc::Strides lq, tc::Strides lk, tc::Strides lv, tc::Strides lo,
+               int Sq, int Sk, int H, float scale, int causal, unsigned seed,
+               unsigned thresh, float inv_keep) {
+  using namespace tc;
+  using SM = TfSmem<HD>;
+  constexpr int BM = TF_BM, BN = SM::BN, NT = TF_THREADS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // tiles 1024-aligned
+  uint8_t* gbase = smem_raw + (base - raw);
+  auto gp = [&](uint32_t a) { return gbase + (a - base); };
+  const uint32_t sqh = base, sql = base + SM::Q;
+  auto sk = [&](int st) { return base + 2 * SM::Q + st * SM::STAGE; };
+  auto sv = [&](int st) { return sk(st) + SM::KV; };
+  auto sb = [&](int st) {
+    return reinterpret_cast<float*>(gp(sk(st) + 2 * SM::KV));
+  };
+  const uint32_t skl = base + SM::SINGLE, svth = skl + SM::KV,
+                 svtl = svth + SM::KV;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q0 = blockIdx.x * BM, h = blockIdx.y, b = blockIdx.z;
   const int shift = Sk - Sq;
-  const T* qb = q + b * lq.b + h * lq.h;
-  const T* kb = k + b * lk.b + h * lk.h;
-  const T* vb = v + b * lv.b + h * lv.h;
-  unsigned seed2m = 0u;   // seed2 * golden, the per-(b, h) hash key
-  if (DROP)
-    seed2m = splitmix32((unsigned)(b * H + h) ^ (seed * 0x9E3779B9u)) *
-             0x9E3779B9u;
+  const float* qb = q + b * lq.b + h * lq.h;
+  const float* kb = k + b * lk.b + h * lk.h;
+  const float* vb = v + b * lv.b + h * lv.h;
   const float* biasb = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
+  const unsigned seed2m = DROP ? mask_key(b, h, H, seed) : 0u;
+  const int row[2] = {q0 + acc_row(lane, warp, 0),
+                      q0 + acc_row(lane, warp, 2)};
 
-  for (int e = tid; e < BQ * V4; e += THREADS) {
-    const int r = e / V4, c = (e % V4) * 4;
-    float4 x4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Sq)
-      x4 = load4(qb + (q0 + r) * lq.r + c);
-    float* dst = qs + r * (HD + 1) + c;
-    dst[0] = x4.x; dst[1] = x4.y; dst[2] = x4.z; dst[3] = x4.w;
-  }
-  if (tid < BQ) {
-    m_s[tid] = NEG_INF;
-    l_s[tid] = 0.f;
-  }
+  const int kend = key_end(q0, BM, Sq, Sk, causal);
+  const int ntiles = kend > 0 ? (kend + BN - 1) / BN : 0;
+  auto load_kv = [&](int t, int st) {
+    const int k0 = t * BN;
+    load_tile32<HD, BN, NT>(sk(st), kb, lk.r, k0, Sk, tid);
+    load_tile32<HD, BN, NT>(sv(st), vb, lv.r, k0, Sk, tid);
+    if (tid < BN)
+      sb(st)[tid] = biasb != nullptr && k0 + tid < Sk ? biasb[k0 + tid] : 0.f;
+  };
 
-  float o[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) o[i][j] = 0.f;
-
-  // keys [0, kend) are visible to some row of this tile
-  const int last_row = (q0 + BQ < Sq ? q0 + BQ : Sq) - 1;
-  int kend = Sk;
-  if (causal) {
-    const int lim = last_row + shift + 1;
-    kend = lim < Sk ? lim : Sk;
-  }
-
-  const int srow = tid / 4, sub = tid % 4;   // softmax: 4 threads per row
-  const int sgr = q0 + srow;
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();   // previous tile's ks / vs / ss fully consumed
-    for (int e = tid; e < BK * V4; e += THREADS) {
-      const int r = e / V4, c = (e % V4) * 4;
-      float4 k4 = make_float4(0.f, 0.f, 0.f, 0.f), v4 = k4;
-      if (k0 + r < Sk) {
-        k4 = load4(kb + (k0 + r) * lk.r + c);
-        v4 = load4(vb + (k0 + r) * lv.r + c);
-      }
-      float* kd = ks + r * (HD + 1) + c;
-      kd[0] = k4.x; kd[1] = k4.y; kd[2] = k4.z; kd[3] = k4.w;
-      *reinterpret_cast<float4*>(vs + r * HD + c) = v4;
-    }
-    __syncthreads();
-
-    // scores: rows ty + 16 i, cols tx + 16 j
-    float sacc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sacc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * (HD + 1) + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = ks[(tx + 16 * j) * (HD + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sacc[i][j] = fmaf(a[i], bk[j], sacc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        float s = sacc[i][j] * scale;
-        if (biasb != nullptr && k0 + col < Sk) s += biasb[k0 + col];
-        ss[(ty + 16 * i) * (BK + 1) + col] = s;
-      }
-    __syncthreads();
-
-    // online softmax over this tile, row srow, columns sub + 4 c
-    {
-      float mloc = NEG_INF;
-#pragma unroll
-      for (int c = 0; c < BK / 4; ++c) {
-        const int gc = k0 + sub + 4 * c;
-        const bool ok = gc < Sk && (!causal || gc <= sgr + shift);
-        if (ok) mloc = fmaxf(mloc, ss[srow * (BK + 1) + sub + 4 * c]);
-      }
-      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 1));
-      mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, 2));
-      const float m_old = m_s[srow];
-      const float m_new = fmaxf(m_old, mloc);
-      float lsum = 0.f;
-#pragma unroll
-      for (int c = 0; c < BK / 4; ++c) {
-        const int col = sub + 4 * c;
-        const int gc = k0 + col;
-        const bool ok = gc < Sk && (!causal || gc <= sgr + shift);
-        const float p = ok ? expf(ss[srow * (BK + 1) + col] - m_new) : 0.f;
-        lsum += p;
-        if (DROP) {
-          const unsigned lin = (unsigned)sgr * (unsigned)Sk + (unsigned)gc;
-          ss[srow * (BK + 1) + col] =
-              splitmix32(lin ^ seed2m) >= thresh ? p * inv_keep : 0.f;
-        } else {
-          ss[srow * (BK + 1) + col] = p;
-        }
-      }
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-      __syncwarp();
-      if (sub == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[srow] = alpha;
-        l_s[srow] = l_s[srow] * alpha + lsum;
-        m_s[srow] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // o = o * alpha + p v
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float al = a_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) o[i][j] *= al;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ss[(ty + 16 * i) * (BK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = vs[kk * HD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) o[i][j] = fmaf(p[i], vv[j], o[i][j]);
-    }
-  }
+  load_tile32<HD, BM, NT>(sqh, qb, lq.r, q0, Sq, tid);
+  cp_async_commit();
+  if (ntiles > 0) load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
+  split_tile<HD, BM, NT, true, false>(gp(sqh), gp(sql), nullptr,
+                                            nullptr, tid);
 
-  T* ob = out + b * lo.b + h * lo.h;
+  float o[HD / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (q0 + r >= Sq) continue;
-    const float l = l_s[r];
-    const float den = l == 0.f ? 1.f : l;
+  for (int e = 0; e < HD / 2; ++e) o[e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int st = t & 1, k0 = t * BN;
+    if (t + 1 < ntiles) {
+      load_kv(t + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // k: lo beside the landed hi; v: hi and lo transposed
+    split_tile<HD, BN, NT, true, false>(gp(sk(st)), gp(skl), nullptr,
+                                              nullptr, tid);
+    split_tile<HD, BN, NT, false, true>(gp(sv(st)), nullptr,
+                                               gp(svth), gp(svtl), tid);
+    fence_proxy_async();
+    __syncthreads();
+
+    // s = q k^T over hi and lo
+    float s[BN / 2];
+    wgmma_fence();
+    mma3_ss<HD, BM, BN>(s, sqh, sql, 0, sk(st), skl, false);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<BN / 2>(s);
+
+    const float* bt = sb(st);
+    const bool full = k0 + BN <= Sk && (!causal || k0 + BN - 1 <= q0 + shift);
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      store1(ob + (q0 + r) * lo.r + tx + 16 * j, o[i][j] / den);
+    for (int e = 0; e < BN / 2; ++e) {
+      const int c = acc_col(lane, e), i = (e >> 1) & 1;
+      float x = __fadd_rn(__fmul_rn(s[e], scale), bt[c]);
+      if (!full && (k0 + c >= Sk || (causal && k0 + c > row[i] + shift)))
+        x = -INFINITY;
+      s[e] = x;
+      mx[i] = fmaxf(mx[i], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = expf(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const int i = (e >> 1) & 1;
+      float p = expf(s[e] - m[i]);
+      ls[i] += p;
+      if (DROP)
+        p = keep(seed2m, row[i], k0 + acc_col(lane, e), Sk, thresh)
+                ? p * inv_keep
+                : 0.f;
+      s[e] = p;
+    }
+    uint32_t ph[BN / 8][4], pl[BN / 8][4];   // p as TF32 hi + lo
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) frag32(ph[j], pl[j], s, j);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
+#pragma unroll
+    for (int e = 0; e < HD / 2; ++e) o[e] *= alpha[(e >> 1) & 1];
+
+    // o += p v over hi and lo
+    wgmma_fence();
+    mma3_rs<HD, BN>(o, ph, pl, svth, svtl);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc<HD / 2>(o);
+    fence_frag<BN / 2>(&ph[0][0]);
+    fence_frag<BN / 2>(&pl[0][0]);
+    __syncthreads();   // the stage and the single tiles are rewritten next
   }
-  if (tid < BQ && q0 + tid < Sq)
-    lse[((size_t)b * H + h) * Sq + q0 + tid] =
-        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+  cp_async_wait<0>();
+
+  // l summed over the quad's columns; out = o / l, lse = m + log l
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  float* ob = out + b * lo.b + h * lo.h;
+#pragma unroll
+  for (int e = 0; e < HD / 2; e += 2) {
+    const int i = (e >> 1) & 1;
+    if (row[i] < Sq) {
+      const float den = l[i] == 0.f ? 1.f : l[i];
+      *reinterpret_cast<float2*>(ob + row[i] * lo.r + acc_col(lane, e)) =
+          make_float2(o[e] / den, o[e + 1] / den);
+    }
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (row[i] < Sq)
+        lse[((size_t)b * H + h) * Sq + row[i]] =
+            l[i] == 0.f ? NEG_INF + logf(1e-30f) : m[i] + logf(l[i]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -496,7 +480,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // what every instance's launch takes besides the pointers
 struct Args {
-  Layout lq, lk, lv, lo;
+  tc::Strides lq, lk, lv, lo;
   int B, Sq, Sk, H;
   float scale;
   int causal;
@@ -504,20 +488,21 @@ struct Args {
   float inv_keep;
 };
 
-template <int HD, typename T, bool DROP>
-int launch(const void* q, const void* k, const void* v, const float* bias,
-           void* out, float* lse, const Args& a, cudaStream_t stream) {
-  const size_t smem = Smem<HD>::bytes;
+template <int HD, bool DROP>
+int launch_tf32(const void* q, const void* k, const void* v,
+                const float* bias, void* out, float* lse, const Args& a,
+                cudaStream_t stream) {
+  const size_t smem = TfSmem<HD>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD, T, DROP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_tf32<HD, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  flash_fwd_kernel<HD, T, DROP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(out), lse, a.lq, a.lk,
-      a.lv, a.lo, a.Sq, a.Sk, a.H, a.scale, a.causal, a.seed, a.thresh,
-      a.inv_keep);
+  dim3 grid((a.Sq + TF_BM - 1) / TF_BM, a.H, a.B);
+  flash_fwd_tf32<HD, DROP><<<grid, TF_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), bias, static_cast<float*>(out), lse,
+      a.lq, a.lk, a.lv, a.lo, a.Sq, a.Sk, a.H, a.scale,
+      a.causal, a.seed, a.thresh, a.inv_keep);
   return (int)cudaGetLastError();
 }
 
@@ -529,12 +514,11 @@ int launch_tc(const void* q, const void* k, const void* v, const float* bias,
       flash_fwd_tc<HD, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  auto st = [](const Layout& l) { return tc::Strides{l.b, l.r, l.h}; };
   dim3 grid((a.Sq + TC_BM - 1) / TC_BM, a.H, a.B);
   flash_fwd_tc<HD, DROP><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), lse,
-      st(a.lq), st(a.lk), st(a.lv), st(a.lo), a.Sq, a.Sk, a.H, a.scale,
+      a.lq, a.lk, a.lv, a.lo, a.Sq, a.Sk, a.H, a.scale,
       a.causal, a.seed, a.thresh, a.inv_keep);
   return (int)cudaGetLastError();
 }
@@ -545,8 +529,8 @@ int dispatch(const void* q, const void* k, const void* v, const float* bias,
              cudaStream_t stream) {
   const bool drop = a.thresh != 0u;
   if (dtype == 0)
-    return drop ? launch<HD, float, true>(q, k, v, bias, out, lse, a, stream)
-                : launch<HD, float, false>(q, k, v, bias, out, lse, a, stream);
+    return drop ? launch_tf32<HD, true>(q, k, v, bias, out, lse, a, stream)
+                : launch_tf32<HD, false>(q, k, v, bias, out, lse, a, stream);
   if (dtype == 1)
     return drop ? launch_tc<HD, true>(q, k, v, bias, out, lse, a, stream)
                 : launch_tc<HD, false>(q, k, v, bias, out, lse, a, stream);

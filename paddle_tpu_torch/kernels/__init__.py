@@ -10,7 +10,7 @@ module-level integer (``launches``; the flash module's backward kernel
 counts in ``bwd_launches``). The flash module also splits its two counts
 by the layout the kernel read (``layout_counts``) and by the dtype
 instance it ran (``dtype_counts``: bf16 on the tensor cores, fp32 on the
-CUDA cores).
+tensor cores in split TF32).
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ def layout_counts() -> Dict[str, Dict[str, int]]:
 
 
 def dtype_counts() -> Dict[str, Dict[str, int]]:
-    """Flash launches by instance: {kernel: {"fp32_cuda_cores": n,
+    """Flash launches by instance: {kernel: {"fp32_tf32x3": n,
     "bf16_wgmma": m}}."""
     return {"flash_attention_fwd": dict(flash_attention.launches_by_dtype),
             "flash_attention_bwd":

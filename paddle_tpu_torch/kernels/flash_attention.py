@@ -41,10 +41,17 @@ Each dtype has its own instance, counted apart in
   scale) and the dropout hash on the CUDA cores, not the products, set
   its pace. It needs every bf16 stride a multiple of 8 elements and
   every address 16-byte aligned (16-byte copies); anything else raises.
-- fp32 runs on the CUDA cores in fp32 (a tensor-core fp32 product would
-  be TF32, too coarse for the serving path's 1e-4 gate against the CPU):
-  one block per (batch, head, 64-row tile), 4 x 4 register patches,
-  strides a multiple of 4 elements.
+- fp32 runs on the tensor cores in split TF32 (``csrc/flash_tf32.cuh``):
+  each fp32 operand is two TF32 terms, hi (the low 13 mantissa bits
+  cleared) and lo = x - hi, and each product is lo*hi + hi*lo + hi*hi
+  (``wgmma.mma_async`` m64nNk8 .tf32, fp32 accumulators), about 2^-21 of
+  each product from fp32, where one TF32 pass (2^-11) would miss the
+  serving path's 1e-4 gate against the CPU and the training gates. One
+  warpgroup a block over 64 rows; the streamed tiles are split by the
+  block's threads after they land, and the operands whose reduction runs
+  over sequence positions (v in p v, q and do in the dkv pass, k in the
+  dq pass) are also written transposed, since .tf32 operands are K-major
+  only. Strides a multiple of 4 elements (16-byte copies).
 
 Attention-probs dropout (rate > 0) multiplies p by keep / (1 - rate)
 before p v; the row sum and lse stay unmasked. keep is the reference's
@@ -75,14 +82,14 @@ LAYOUTS = ("packed", "bnsd")
 launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 bwd_launches_by_layout = dict.fromkeys(LAYOUTS, 0)
 # dtype -> (the dtype code of the C entry points, the instance it runs)
-DTYPES = {torch.float32: (0, "fp32_cuda_cores"),
+DTYPES = {torch.float32: (0, "fp32_tf32x3"),
           torch.bfloat16: (1, "bf16_wgmma")}
 INSTANCES = tuple(name for _, name in DTYPES.values())
 # the same launches split by the instance they ran
 launches_by_dtype = dict.fromkeys(INSTANCES, 0)
 bwd_launches_by_dtype = dict.fromkeys(INSTANCES, 0)
 # the alignment every stride of a dtype keeps, in elements: 16 bytes for
-# the bf16 instance's copies, one float4 for the fp32 one
+# either instance's cp.async copies
 STRIDE_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
 
 NEG_INF = -1e30
@@ -288,8 +295,8 @@ def _stride_array(what, hd, layout, named):
     """The (batch, row, head) element strides of each named tensor, as the
     kernels read them, in one C array; raises where they cannot: head_dim
     not contiguous, the address not 16-byte aligned, or a stride off the
-    dtype's alignment (``STRIDE_ALIGN``: 8 elements, 16 bytes, for the
-    bf16 instance's cp.async copies; 4 for the fp32 one's float4 loads)."""
+    dtype's alignment (``STRIDE_ALIGN``: 16 bytes, 8 bf16 or 4 fp32
+    elements, for the instances' cp.async copies)."""
     arr = []
     for name, t in named:
         st = t.stride()

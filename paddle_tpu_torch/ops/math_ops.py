@@ -70,7 +70,11 @@ def reduce_sum(ins, attrs):
     dims = attrs.get("dim")
     if attrs.get("reduce_all", False) or dims is None:
         dims = list(range(x.dim()))
-    out = torch.sum(x, dim=tuple(dims), keepdim=keep)
+    if len(dims):
+        out = torch.sum(x, dim=tuple(dims), keepdim=keep)
+    else:   # dim=[] reduces no axis, as jnp.sum(axis=()); torch.sum
+        # would read it as every axis. A bool X sums to int32 there too.
+        out = x.to(torch.int32) if x.dtype == torch.bool else x.clone()
     if not x.is_floating_point() and x.dtype != torch.bool:
         out = out.to(x.dtype)   # jnp.sum keeps int32 (x64 off)
     return {"Out": out}

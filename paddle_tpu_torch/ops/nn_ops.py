@@ -15,9 +15,10 @@ from ..core.registry import register_op
 @register_op("layer_norm")
 def layer_norm(ins, attrs):
     """Normalise the trailing dims from begin_norm_axis, in fp32, then
-    scale and bias. One ``torch.native_layer_norm`` call, which also
-    returns the mean and 1/sqrt(var + eps); Variance is recovered from
-    the latter, as the reference's fused_layer_norm op does."""
+    scale and bias. Y and Mean come from one ``torch.native_layer_norm``
+    call; Variance is the mean of squared deviations over the same axes,
+    as the reference computes it (recovering it from the call's
+    1/sqrt(var + eps) would go negative on constant rows)."""
     x = ins["X"][0]
     scale = ins["Scale"][0] if ins.get("Scale") else None
     bias = ins["Bias"][0] if ins.get("Bias") else None
@@ -25,12 +26,14 @@ def layer_norm(ins, attrs):
     axis = int(attrs.get("begin_norm_axis", 1))
     norm_shape = tuple(x.shape[axis:])
     lead = tuple(x.shape[:axis])
-    y, mean, rstd = torch.native_layer_norm(
-        x.float(), norm_shape,
+    xf = x.float()
+    y, mean, _ = torch.native_layer_norm(
+        xf, norm_shape,
         None if scale is None else scale.reshape(norm_shape).float(),
         None if bias is None else bias.reshape(norm_shape).float(), eps)
+    var = torch.var(xf, dim=tuple(range(axis, x.dim())), correction=0)
     return {"Y": y.to(x.dtype), "Mean": mean.reshape(lead),
-            "Variance": (1.0 / (rstd * rstd) - eps).reshape(lead)}
+            "Variance": var.reshape(lead)}
 
 
 @register_op("dropout")

@@ -7,7 +7,9 @@ bit equal to the packed layout on the same values, and refusing strides
 they cannot read instead of copying. The flash kernels' bf16 instances run
 on the tensor cores: every head_dim, ragged and cross-attention shapes,
 causal, bias and dropout, their keep masks read back bit for bit, and
-their 8-element stride rule. Marked ``cuda``: they skip where
+their 8-element stride rule; so do the fp32 instances in split TF32, held
+at the fp32 gates and bit for bit from run to run. The layer-norm kernel
+at the path's widths and 1 to 20480 rows. Marked ``cuda``: they skip where
 torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -380,7 +382,7 @@ def test_flash_bf16_wgmma_matches_plain_in_both_layouts(dev, hd, b, sq, sk,
             [grads[3]]
     torch.cuda.synchronize()
     assert kernels.dtype_counts() == {
-        k_: {"fp32_cuda_cores": 0, "bf16_wgmma": 2}
+        k_: {"fp32_tf32x3": 0, "bf16_wgmma": 2}
         for k_ in ("flash_attention_fwd", "flash_attention_bwd")}
     out, lse, dq, dk, dv, dbias = runs["bnsd"]
     torch.testing.assert_close(out.float(), ref_out.bfloat16().float(),
@@ -398,6 +400,58 @@ def test_flash_bf16_wgmma_matches_plain_in_both_layouts(dev, hd, b, sq, sk,
                           runs["bnsd"], runs["packed"]):
         assert (x is None) == (y is None) and (
             x is None or torch.equal(x, y)), f"{name}: bnsd != packed"
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("b,sq,sk,causal", WGMMA_SHAPES)
+@pytest.mark.parametrize("bias,rate", [(False, 0.0), (True, 0.1)])
+def test_flash_fp32_tf32x3_matches_plain_in_both_layouts(dev, hd, b, sq, sk,
+                                                         causal, bias, rate):
+    """The fp32 instances, split TF32 on the tensor cores, against the
+    fp32 plain versions at the fp32 gates, in both layouts, bit for bit
+    from layout to layout and from run to run."""
+    n = 3
+    q, k, v, do, kb = _bnsd(dev, b, sq, sk, n, hd, torch.float32,
+                            hd + 2 * sq + sk)
+    kb = kb if bias else None
+    scale = hd ** -0.5
+    ref_out, ref_lse = fa.plain_flash_fwd(q, k, v, None, scale, causal, kb,
+                                          rate, 23, layout="bnsd")
+    ref = fa.plain_flash_bwd(q, k, v, ref_out, ref_lse, do, None, scale,
+                             causal, kb, rate, 23, layout="bnsd")
+    kernels.reset_launch_counts()
+    runs = {}
+    for layout, rep in (("bnsd", 0), ("packed", 0), ("bnsd", 1)):
+        conv = (lambda t: t) if layout == "bnsd" else \
+            (lambda t: _packed(t).contiguous())
+        q_, k_, v_, do_ = (conv(t) for t in (q, k, v, do))
+        out, lse = fa.flash_fwd(q_, k_, v_, n, scale, causal, kb, rate, 23,
+                                layout=layout)
+        grads = fa.flash_bwd(q_, k_, v_, conv(ref_out), ref_lse, do_, n,
+                             scale, causal, kb, rate, 23, layout=layout)
+        back = (lambda t: t) if layout == "bnsd" else \
+            (lambda t: fa._heads(t, n, "packed"))
+        runs[layout, rep] = [back(out), lse] + \
+            [back(g) for g in grads[:3]] + [grads[3]]
+    torch.cuda.synchronize()
+    assert kernels.dtype_counts() == {
+        k_: {"fp32_tf32x3": 3, "bf16_wgmma": 0}
+        for k_ in ("flash_attention_fwd", "flash_attention_bwd")}
+    out, lse, dq, dk, dv, dbias = runs["bnsd", 0]
+    torch.testing.assert_close(out, ref_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref[:3]):
+        torch.testing.assert_close(a, r, msg=lambda m: f"{name}: {m}",
+                                   **TOL[torch.float32])
+    if bias:
+        torch.testing.assert_close(dbias, ref[3], rtol=1e-3, atol=1e-3)
+    else:
+        assert dbias is None
+    for other in (("packed", 0), ("bnsd", 1)):
+        for name, x, y in zip(("out", "lse", "dq", "dk", "dv", "dbias"),
+                              runs["bnsd", 0], runs[other]):
+            assert (x is None) == (y is None) and (
+                x is None or torch.equal(x, y)), f"{name}: bnsd != {other}"
 
 
 def test_flash_bf16_keep_masks_are_the_plain_mask_bitwise(dev):
@@ -533,6 +587,29 @@ def test_layer_norm_kernel_matches_plain(dev, dtype, rows, h, affine):
     ry, rmean, rrstd = ln.plain_layer_norm(x.float(), sc, bi, 1e-5)
     torch.cuda.synchronize()
     assert ln.launches == before + 1 and y.dtype == dtype
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
+        else dict(rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(y.float(), ry.to(dtype).float(), **tol)
+    torch.testing.assert_close(mean, rmean, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1000, 1024, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 7, 1500, 20480])
+def test_layer_norm_kernel_at_the_path_widths(dev, dtype, rows, h):
+    """The widths of the port's layer norms (1024: ERNIE-large and the
+    decoder LM; 4096 and 8192: FFN-wide rows; 1000: not a multiple of
+    the 256-thread block) at 1 to 20480 rows, with scale and bias."""
+    g = torch.Generator(device=dev).manual_seed(rows + h)
+    x = (torch.randn(rows, h, device=dev, generator=g) * 2 + 0.5).to(dtype)
+    sc = torch.rand(h, device=dev, generator=g) + 0.5
+    bi = torch.randn(h, device=dev, generator=g)
+    before = ln.launches
+    y, mean, rstd = ln.layer_norm_fwd(x, sc, bi, 1e-5)
+    ry, rmean, rrstd = ln.plain_layer_norm(x.float(), sc, bi, 1e-5)
+    torch.cuda.synchronize()
+    assert ln.launches == before + 1
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32 \
         else dict(rtol=2 ** -7, atol=1e-3)
     torch.testing.assert_close(y.float(), ry.to(dtype).float(), **tol)

@@ -82,12 +82,12 @@ def test_bf16_packed_column_slices_and_addresses():
 
 
 def test_launches_are_split_by_dtype_instance_and_reset():
-    assert fa.INSTANCES == ("fp32_cuda_cores", "bf16_wgmma")
+    assert fa.INSTANCES == ("fp32_tf32x3", "bf16_wgmma")
     fa.launches_by_dtype["bf16_wgmma"] = 3
-    fa.bwd_launches_by_dtype["fp32_cuda_cores"] = 2
+    fa.bwd_launches_by_dtype["fp32_tf32x3"] = 2
     assert kernels.dtype_counts() == {
-        "flash_attention_fwd": {"fp32_cuda_cores": 0, "bf16_wgmma": 3},
-        "flash_attention_bwd": {"fp32_cuda_cores": 2, "bf16_wgmma": 0}}
+        "flash_attention_fwd": {"fp32_tf32x3": 0, "bf16_wgmma": 3},
+        "flash_attention_bwd": {"fp32_tf32x3": 2, "bf16_wgmma": 0}}
     kernels.reset_launch_counts()
     assert kernels.dtype_counts() == {
         k: dict.fromkeys(fa.INSTANCES, 0)
@@ -113,12 +113,21 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
 def test_sources_route_bf16_only_to_the_tensor_core_instances():
     header = (_build.CSRC / "flash_tc.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned" in header
-    for name, kernels_ in (("flash_attention_fwd", ("flash_fwd_tc",)),
-                           ("flash_attention_bwd", ("dkv_tc", "dq_tc"))):
+    assert ".f32.tf32.tf32" in (_build.CSRC / "flash_tf32.cuh").read_text()
+    for name, kernels_ in (
+            ("flash_attention_fwd", ("flash_fwd_tc", "flash_fwd_tf32")),
+            ("flash_attention_bwd", ("dkv_tc", "dq_tc", "dkv_tf32",
+                                     "dq_tf32"))):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert '#include "flash_tc.cuh"' in src
+        assert '#include "flash_tf32.cuh"' in src
         assert "launch<HD, bf16" not in src and "PT_BWD(bf16" not in src
         assert "launch_tc<HD, true>" in src and "launch_tc<HD, false>" in src
+        # fp32 goes to the split-TF32 instances; no CUDA-core one is left
+        assert "launch_tf32<HD, true>" in src and \
+            "launch_tf32<HD, false>" in src
+        for gone in ("flash_fwd_kernel", "dkv_kernel<", "dq_kernel<"):
+            assert gone not in src
         for k in kernels_:
             assert f"{k}<HD, DROP>" in src
 
