@@ -11,25 +11,32 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                (one nvcc per source, in parallel); the card's name and
                power limit from nvidia-smi; ptxas's register and spill
                lines per source; the number of HGMMA (wgmma) instructions
-               in the SASS of the two flash libraries (cuobjdump -sass),
-               which must not be 0: their bf16 instances run on the
-               tensor cores.
+               in the SASS (cuobjdump -sass) of the two flash libraries,
+               the conv and the int8 GEMM, which must not be 0: they run
+               on the tensor cores; and the int8 GEMM's I2F instructions,
+               which must be 0 (it converts its weight by byte permutes).
 2. kernels   — each kernel against its plain PyTorch version on the card at
                the serving path's shapes: max abs/rel error, kernel ms
-               (CUDA events over raw launches), plain ms, the one-call
-               PyTorch yardstick where there is one (library_ms), and the
-               least time the card could take (bound_ms, from bytes at
-               3.35 TB/s and flops at 67 TFLOP/s for fp32 inputs, 989
-               TFLOP/s, the dense bf16 tensor-core peak, for bf16 inputs,
-               and 165 TFLOP/s for the fp32 flash kernels, which run in
-               split TF32: three products at the 495 TFLOP/s dense TF32
-               rate for each fp32 one; their CUDA-core bound beside it as
-               bound_ms_cuda_cores). A row timed under 0.1 ms also gets
-               device_ms (and library_device_ms): the same calls
+               (CUDA events over back-to-back calls), plain ms, the
+               one-call PyTorch yardstick where there is one
+               (library_ms), and the least time the card could take
+               (bound_ms, from bytes at 3.35 TB/s and flops at 67
+               TFLOP/s for fp32 inputs, 989 TFLOP/s, the dense bf16
+               tensor-core peak, for bf16 inputs and for the int8 GEMM's
+               2MKN, and 165 TFLOP/s for the fp32 flash kernels, which
+               run in split TF32: three products at the 495 TFLOP/s
+               dense TF32 rate for each fp32 one; their CUDA-core bound
+               beside it as bound_ms_cuda_cores). Every timed row also
+               gets device_ms (and library_device_ms): the same calls
                captured in a CUDA graph and replayed, the device alone
                (the SDPA backward from torch.profiler: it does not
-               capture). The layer-norm rows give events and device-only
-               times twice.
+               capture). The layer-norm rows give both times twice. The
+               int8 GEMM at M = 8, 64, 512 and 2048 (decode and the
+               prefill buckets) and its three weight shapes, each row
+               with the instance its M picks (prefill, M > 16; decode,
+               M <= 16), and beside its bound the design's floor at three
+               bf16 products a fp32 one (bound_ms_three_pieces) and the
+               CUDA-core bound.
                The training kernels at ERNIE-large's shapes: flash forward
                with dropout and flash backward (their keep masks read back
                bit for bit in bf16 and fp32), compared and timed at the
@@ -49,11 +56,16 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                kernel of the phase must have launched. The launch counts
                are set to 0 just before the concurrent requests go in and
                read as soon as the last of them is answered, before the
-               one-at-a-time rerun.
+               one-at-a-time rerun. Every int8 launch is counted by
+               instance (serve_int8: the 8-token bucket and the decode
+               steps on decode, the other prefills on prefill).
 4. cpu_parity — one request at full width, prefill + 8 steps, on the card
                and on the CPU (plain versions): logits within rtol = atol
                = 1e-4 (12 layers of fp32 summed in different orders) and
-               the same 5 top ids, in order, at every step.
+               the same 5 top ids, in order, at every step. cpu_parity_int8
+               does the same with int8 weights: the int8 GEMM's prefill
+               instance (M = 128) and decode instance (M = 1) against the
+               CPU's fp32 matmul, 72 and 576 launches.
 5. train_parity — ERNIE at full width (hidden 1024, 16 heads, FFN 4096,
                vocab 18000, seq 512), batch 2, the same steps on the card
                and on the CPU from one scope_from_numpy state and on one
@@ -107,7 +119,8 @@ The ResNet-50 slice adds, in the order they run:
                check_conv: the conv_bn_relu kernel at the conv tool's shape
                (N=256, 14x14, 256 -> 256, NHWC bf16).
 10. exp_conv — paddle_tpu_torch/tools/exp_conv.py: the conv kernel, the
-               cuDNN route and the plain version, timed.
+               cuDNN route and the plain version, timed (the kernel and
+               cuDNN also on the device alone).
 11. fused_ln_ops — a program with fused_layer_norm at [40, 512, 1024] bf16,
                append_backward, 3 steps: two layer_norm launches a step
                (the op and its grad op's recomputed forward); Y and the
@@ -127,14 +140,17 @@ The ResNet-50 slice adds, in the order they run:
                XLA's): its launch counts are all 0.
 14. check_conv_real_layer — the conv kernel on the input, filter and
                folded BN running statistics of res4b_c2 from that step,
-               against the port's conv2d -> batch_norm(is_test) -> relu.
+               against the port's conv2d -> batch_norm(is_test) -> relu;
+               the kernel's and cuDNN's device-only times at that layer.
 Then one line with every ported kernel: ``launches_by_path`` gives each
 phase's own count (set to 0 just before the phase, read just after),
 ``launches_by_layout`` and ``launches_by_dtype`` the flash kernels'
-split by layout and by dtype instance, and
+split by layout and by dtype instance, ``launches_by_instance`` the int8
+GEMM's by instance in each serving phase, and
 ``launches`` is serve_int8's for the serving kernels, train_ernie's
 for the training kernels, fused_ln_ops's for layer_norm and exp_conv's
-for conv_bn_relu; ``variants`` are the flash kernels' other timed
+for conv_bn_relu; ``variants`` are the flash kernels' and the int8
+GEMM's other timed
 shapes. Then the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
@@ -159,7 +175,6 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM data sheet, dense tensor cores
 # fp32 work in split TF32: three TF32 products for each fp32 one, at the
 # 495 TFLOP/s dense TF32 rate (H100 SXM data sheet)
 TF32X3_FLOPS_PER_S = 495e12 / 3
-DEVICE_MS_BELOW = 0.1          # rows timed under this also get device_ms
 
 FULL = dict(vocab_size=32000, d_model=1024, n_head=16, n_layers=12,
             d_inner=4096, max_seq_len=2048)
@@ -221,14 +236,14 @@ def profiled_device_ms(fn, reps):
 
 
 def with_device_ms(row, kernel, library=None, reps=30, library_graph=True):
-    """Add device_ms (and library_device_ms) to a timed row whose events
-    time is under DEVICE_MS_BELOW: reps calls captured once in a CUDA
-    graph and replayed between events, so the host's dispatch, which
-    events_ms reads where it exceeds the device time, drops out.
-    library_graph=False times the library call with the profiler."""
+    """Add device_ms (and library_device_ms) to a timed row: reps calls
+    captured once in a CUDA graph and replayed between events, so the
+    host's dispatch, which events_ms reads where it exceeds the device
+    time, drops out. library_graph=False times the library call with the
+    profiler."""
     from paddle_tpu_torch.tools.profile_layer_norm import graph_ms
 
-    if row["ms"] is not None and row["ms"] < DEVICE_MS_BELOW:
+    if row["ms"] is not None:
         row["device_ms"] = graph_ms(kernel, reps)
         if library is not None:
             row["library_device_ms"] = graph_ms(library, reps) \
@@ -415,62 +430,73 @@ def check_paged(dev, results):
         library_ms=None, bound_ms=bms, bound_by=by), kernel))
 
 
+# check_int8: the serving ladder's M (decode: 8; prefill buckets 64, 512,
+# 2048) at the decoder LM's three weight shapes (K, N)
+INT8_M = (8, 64, 512, 2048)
+INT8_KN = ((1024, 1024), (1024, 4096), (4096, 1024))
+
+
 def check_int8(dev, results):
+    """The int8 GEMM against its plain version at INT8_M x INT8_KN, with
+    and without bias + relu, within rtol 1e-4 / atol 1e-5 max|ref| +
+    1e-5; the bias + relu rows timed: events and device ms (a CUDA-graph
+    replay) of the kernel and of the dequantise-and-matmul library call,
+    with the instance its M picks and its plan. The bound is the
+    function's: its bytes, and 2MKN operations at the dense bf16 rate.
+    Beside it, this design's floor at three bf16 products a fp32 one
+    (bound_ms_three_pieces) and the fp32 CUDA-core bound."""
     from paddle_tpu_torch.kernels import int8_gemm as ig
 
-    lib = ig._lib()
-    for m in (8, 512):
-        for k, n in ((1024, 1024), (1024, 4096), (4096, 1024)):
-            for with_bias, act in ((False, None), (True, "relu")):
-                g = torch.Generator(device=dev).manual_seed(m + k + n)
-                # weight copies rotated through, > 50 MB L2 in all: a
-                # decode step reads its 72 weights cold
-                reps = max(1, (64 << 20) // (k * n))
-                w8s = [torch.randint(-127, 128, (k, n), device=dev,
-                                     dtype=torch.int8, generator=g)
-                       for _ in range(reps)]
-                x = torch.randn(m, k, device=dev, generator=g)
-                sc = (torch.rand(n, device=dev, generator=g) + 0.5) / 127.0
-                bias = torch.randn(n, device=dev, generator=g) \
-                    if with_bias else None
-                out = ig.int8_weight_only_gemm(x, w8s[0], sc, bias, act)
-                ref = ig.plain_int8_gemm(x, w8s[0], sc, bias, act)
+    for m in INT8_M:
+        for k, n in INT8_KN:
+            g = torch.Generator(device=dev).manual_seed(m + k + n)
+            # weight copies rotated through, > 50 MB L2 in all: a decode
+            # step reads its 72 weights cold
+            reps = max(1, (64 << 20) // (k * n))
+            w8s = [torch.randint(-127, 128, (k, n), device=dev,
+                                 dtype=torch.int8, generator=g)
+                   for _ in range(reps)]
+            x = torch.randn(m, k, device=dev, generator=g)
+            sc = (torch.rand(n, device=dev, generator=g) + 0.5) / 127.0
+            bias = torch.randn(n, device=dev, generator=g)
+            err = (0.0, 0.0)
+            for bb, act in ((None, None), (bias, "relu")):
+                out = ig.int8_weight_only_gemm(x, w8s[0], sc, bb, act)
+                ref = ig.plain_int8_gemm(x, w8s[0], sc, bb, act)
                 torch.cuda.synchronize()
-                e_abs, e_rel = errors(out, ref)
+                e = errors(out, ref)
+                err = (max(err[0], e[0]), max(err[1], e[1]))
                 tol = 1e-5 * float(ref.abs().max()) + 1e-5
                 if not torch.allclose(out, ref, rtol=1e-4, atol=tol):
-                    raise AssertionError(f"int8 GEMM {m}x{k}x{n}: err "
-                                         f"{e_abs}")
-                o2 = torch.empty_like(out)
-                bp = bias.data_ptr() if bias is not None else None
-                relu = int(act == "relu")
-                ksplit, kc = ig.split_plan(m, n, k)
-                part = torch.empty(ksplit, m, n, device=dev)
+                    raise AssertionError(f"int8 GEMM {m}x{k}x{n} act={act}: "
+                                         f"err {e}")
 
-                def kernel(i):
-                    return lib.pt_int8_gemm(
-                        x.data_ptr(), w8s[i % reps].data_ptr(),
-                        sc.data_ptr(), bp, o2.data_ptr(), part.data_ptr(), m,
-                        n, k, ksplit, kc, relu, cur_stream())
+            def kernel(i):
+                return ig.int8_weight_only_gemm(x, w8s[i % reps], sc, bias,
+                                                "relu")
 
-                ms = events_ms(kernel, 30)
-                plain = events_ms(lambda i: ig.plain_int8_gemm(
-                    x, w8s[i % reps], sc, bias, act), 10)
-                bb = bias if bias is not None else 0.0
+            def matmul(i):
+                return x @ (w8s[i % reps].float() * sc) + bias
 
-                def matmul(i):
-                    return x @ (w8s[i % reps].float() * sc) + bb
-
-                library = events_ms(matmul, 10)
-                nbytes = m * k * 4 + k * n + n * 4 * (2 if with_bias else 1) \
-                    + m * n * 4
-                bms, by = bound_ms(nbytes, 2 * m * k * n)
-                results.append(with_device_ms(dict(
-                    name="int8_gemm", ksplit=ksplit,
-                    shape=f"M={m} K={k} N={n} bias={with_bias} act={act}",
-                    max_abs_err=e_abs, max_rel_err=e_rel, ms=ms,
-                    plain_ms=plain, library_ms=library, bound_ms=bms,
-                    bound_by=by), kernel, matmul))
+            ms = events_ms(kernel, 30)
+            plain = events_ms(lambda i: ig.plain_int8_gemm(
+                x, w8s[i % reps], sc, bias, "relu"), 10)
+            library = events_ms(matmul, 10)
+            nbytes = m * k * 4 + k * n + n * 4 * 2 + m * n * 4
+            flops = 2 * m * k * n
+            bms, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+            instance, tile, ksplit, kc = ig.plan(m, n, k)
+            results.append(with_device_ms(dict(
+                name="int8_gemm", instance=instance, tile=tile,
+                ksplit=ksplit, kc=kc,
+                shape=f"M={m} K={k} N={n} bias=True act=relu",
+                max_abs_err=err[0], max_rel_err=err[1], ms=ms,
+                plain_ms=plain, library_ms=library, bound_ms=bms,
+                bound_by=by, bound_ms_three_pieces=bound_ms(
+                    nbytes, 3 * flops, BF16_FLOPS_PER_S)[0],
+                bound_ms_cuda_cores=bound_ms(nbytes, flops)[0]),
+                kernel, matmul))
+            del w8s
 
 
 def _train_attn_inputs(dev, b, s, dtype, seed):
@@ -560,8 +586,8 @@ def _time_flash(fa, q, k, v, do, bias, n, scale, out, lse, layout,
     forward; its backward through autograd) and the bound, for the
     non-causal, key-bias, dropout call of the training step. The bound's
     peak is the dense bf16 rate for bf16 and the split-TF32 rate for fp32
-    (beside it, for fp32, the CUDA-core bound); rows under DEVICE_MS_BELOW
-    also get their device-only times."""
+    (beside it, for fp32, the CUDA-core bound), and the device-only
+    times."""
     import torch.nn.functional as F
 
     esz = q.element_size()
@@ -904,6 +930,7 @@ def serve(phase, cfg, params, quant, dev):
         wall = time.perf_counter() - t0
         launches = kernels.launch_counts()
         layouts = kernels.layout_counts()
+        int8_instances = kernels.int8_instance_counts()
         stats = eng.stats()
         alone = [np.asarray(eng.generate(timeout=600, **r)) for r in reqs]
     finally:
@@ -916,6 +943,14 @@ def serve(phase, cfg, params, quant, dev):
         (["int8_gemm"] if quant == "int8" else [])
     if any(launches[n] == 0 for n in need):
         raise AssertionError(f"{phase}: a kernel never launched: {launches}")
+    # every int8 launch on the instance its M picks: prefill buckets of 64
+    # tokens or more on "prefill", decode steps (M = 8 slots) and the
+    # 8-token bucket on "decode"
+    if sum(int8_instances.values()) != launches["int8_gemm"] or (
+            quant == "int8" and not all(int8_instances.values())):
+        raise AssertionError(f"{phase}: int8 launches by instance "
+                             f"{int8_instances}, {launches['int8_gemm']} "
+                             f"in all")
     tokens = sum(len(t) for t in together)
     emit(phase, requests=len(reqs), prompt_lengths=lengths + [300],
          tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
@@ -923,27 +958,39 @@ def serve(phase, cfg, params, quant, dev):
          step_ms_p50=stats["step_ms"]["p50"],
          steps=stats.get("steps"), programs_built=built, warmup_s=warm_s,
          continuous_equals_sequential=True, launches=launches,
+         int8_launches_by_instance=int8_instances,
          flash_launches_by_layout=layouts,
          kv_high_water_pages=stats["kv_cache"]["high_water_pages"])
-    return launches, layouts
+    return dict(launches=launches, layouts=layouts,
+                int8_instances=int8_instances)
 
 
 # ---------------------------------------------------------------------------
 # 4. card vs CPU at full width
 # ---------------------------------------------------------------------------
 
-def cpu_parity(cfg, params, dev):
+def cpu_parity(cfg, params, dev, quant="none"):
+    """One request at full width, prefill (bucket 128) + 8 steps, on the
+    card and on the CPU: logits within rtol = atol = 1e-4 and the same
+    top-5 ids at every step. quant="int8" quantizes the weights first (the
+    int8 GEMM's two instances on the card: prefill at M = 128, decode at
+    M = 1), the leg that shows the three bf16 pieces keep fp32 accuracy."""
+    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.core.executor import run_block
     from paddle_tpu_torch.models.decoder_lm import (build_prefill_program,
                                                     build_step_program,
-                                                    params_from_numpy)
+                                                    params_from_numpy,
+                                                    quantize_decoder_lm_params)
 
+    if quant == "int8":
+        params = quantize_decoder_lm_params(params, cfg)
     pages, page = 16, 16
     mp = cfg.max_seq_len // page
     prompt = np.random.RandomState(4).randint(3, cfg.vocab_size, 100)
     bucket = 128
-    prefill = build_prefill_program(cfg, 1, bucket, pages, page)[0]
-    step = build_step_program(cfg, 1, pages, page)[0]
+    prefill = build_prefill_program(cfg, 1, bucket, pages, page,
+                                    weight_quant=quant)[0]
+    step = build_step_program(cfg, 1, pages, page, weight_quant=quant)[0]
     table = np.zeros((1, mp), np.int32)
     table[0, :8] = np.arange(1, 9)
     tokens = np.zeros((1, bucket), np.int32)
@@ -965,6 +1012,7 @@ def cpu_parity(cfg, params, dev):
             pools.update({n: env[n + "_out"] for n in list(pools)})
             return env["logits"].cpu()
 
+        kernels.reset_launch_counts()
         logits = [run(prefill.global_block(),
                       {"tokens": tokens, "lengths": np.array([100], np.int32),
                        "last_onehot": oh, "page_table": table})]
@@ -974,15 +1022,21 @@ def cpu_parity(cfg, params, dev):
                 "positions": np.array([100 + i], np.int32),
                 "page_table": table}))
         lg = torch.stack(logits).reshape(9, -1)
-        runs[device.type] = (lg, lg.topk(5).indices.tolist())
-    (lg, top_gpu), (lc, top_cpu) = runs["cuda"], runs["cpu"]
+        runs[device.type] = (lg, lg.topk(5).indices.tolist(),
+                             kernels.int8_instance_counts())
+    (lg, top_gpu, inst), (lc, top_cpu, _) = runs["cuda"], runs["cpu"]
     err = float((lg - lc).abs().max())
     ok = torch.allclose(lg, lc, rtol=1e-4, atol=1e-4) and top_gpu == top_cpu
-    emit("cpu_parity", prompt_len=100, steps=8, max_abs_err=err,
+    if quant == "int8":   # 72 GEMMs a pass: 1 prefill, 8 steps
+        ok = ok and inst == {"prefill": 72, "decode": 8 * 72}
+    phase = "cpu_parity" if quant == "none" else f"cpu_parity_{quant}"
+    emit(phase, prompt_len=100, steps=8, max_abs_err=err,
          max_abs_logit=float(lc.abs().max()), tolerance="rtol=atol=1e-4",
-         top5_ids_gpu=top_gpu, top5_ids_cpu=top_cpu, ok=ok)
+         top5_ids_gpu=top_gpu, top5_ids_cpu=top_cpu,
+         int8_launches_by_instance=inst, ok=ok)
     if not ok:
-        raise AssertionError("card and CPU disagree at full width")
+        raise AssertionError(f"{phase}: card and CPU disagree at full "
+                             f"width")
 
 
 # ---------------------------------------------------------------------------
@@ -1078,7 +1132,8 @@ def train_parity(dev, layers, dtype, steps, tol, seq=SEQ, batch_size=2):
     for name, split in dtypes["cuda"].items():
         if split[instance] != counts["cuda"][name]:
             raise AssertionError(f"train_parity: {name} by instance {split}")
-    return counts["cuda"], layouts["cuda"], dtypes["cuda"]
+    return dict(launches=counts["cuda"], layouts=layouts["cuda"],
+                dtypes=dtypes["cuda"])
 
 
 def _ln_variance_cost(exe, main_prog, batch, scope, fetches, steps=6):
@@ -1219,7 +1274,7 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
              **_ln_variance_cost(exe, main_prog, batch, scope, fetches),
              nvidia_smi=smi,
              note="host-clock step times; the host differs step to step")
-    return counts, layouts, dtypes
+    return dict(launches=counts, layouts=layouts, dtypes=dtypes)
 
 
 def bnsd_ops(dev):
@@ -1281,7 +1336,7 @@ def bnsd_ops(dev):
             or not np.isfinite(losses).all():
         raise AssertionError(f"bnsd_ops: launches {layouts} {dtypes}, "
                              f"losses {losses}, grads finite {grads_ok}")
-    return counts, layouts, dtypes
+    return dict(launches=counts, layouts=layouts, dtypes=dtypes)
 
 
 # ---------------------------------------------------------------------------
@@ -1308,7 +1363,6 @@ def check_layer_norm(dev, results):
     import torch.nn.functional as F
 
     from paddle_tpu_torch.kernels import layer_norm as ln
-    from paddle_tpu_torch.tools.profile_layer_norm import graph_ms
 
     for rows, h, dtype in LN_CASES:
         name = "bf16" if dtype == torch.bfloat16 else "fp32"
@@ -1342,9 +1396,9 @@ def check_layer_norm(dev, results):
 
         # events around 30 calls as Python issues them, and the same 30
         # calls replayed from a CUDA graph (the device alone), twice
-        rounds = [dict(ms=events_ms(kernel, 30), device_ms=graph_ms(
-            kernel, 30), library_ms=events_ms(library, 30),
-            library_device_ms=graph_ms(library, 30)) for _ in range(2)]
+        rounds = [with_device_ms(dict(ms=events_ms(kernel, 30),
+                                      library_ms=events_ms(library, 30)),
+                                 kernel, library) for _ in range(2)]
         plain = events_ms(lambda i: ln.plain_layer_norm(xs[i % reps], sc, bi,
                                                         1e-5), 10)
         bms, by = bound_ms(2 * rows * h * esz + 2 * h * 4 + 2 * rows * 4,
@@ -1397,10 +1451,12 @@ def exp_conv_phase(dev, results):
     emit("exp_conv", launches=counts["conv_bn_relu"], **out)
     row = next(r for r in results if r["name"] == "conv_bn_relu")
     row.update(ms=out["kernel_ms"], plain_ms=out["plain_ms"],
-               library_ms=out["library_ms"])
+               library_ms=out["library_ms"],
+               device_ms=out["kernel_device_ms"],
+               library_device_ms=out["library_device_ms"])
     if counts["conv_bn_relu"] == 0:
         raise AssertionError("exp_conv: the conv kernel never launched")
-    return counts, kernels.layout_counts()
+    return dict(launches=counts, layouts=kernels.layout_counts())
 
 
 def _ln_program(op_type):
@@ -1501,7 +1557,7 @@ def fused_ln_ops(dev):
          ops=[o.type for o in fused.global_block().ops], ok=ok)
     if counts["layer_norm"] != 2 * steps or not ok:
         raise AssertionError(f"fused_ln_ops: launches {counts}, errors {err}")
-    return counts, kernels.layout_counts()
+    return dict(launches=counts, layouts=kernels.layout_counts())
 
 
 def _resnet_programs(cfg, batch_size, amp, lr=0.1):
@@ -1653,7 +1709,8 @@ def train_resnet50(dev, smi, timed=5):
     if len(ops) != 616 or len(types) != 17:
         raise AssertionError(f"train_resnet50: {len(ops)} ops of "
                              f"{len(types)} types")
-    return (counts, kernels.layout_counts()), scope, layer_in
+    return dict(launches=counts, layouts=kernels.layout_counts()), \
+        scope, layer_in
 
 
 def check_conv_real_layer(dev, scope, layer_in):
@@ -1669,6 +1726,8 @@ def check_conv_real_layer(dev, scope, layer_in):
     eps) (four roundings of at most 2^-9 relative each, doubled)."""
     from paddle_tpu_torch.core import registry
     from paddle_tpu_torch.kernels import conv_bn_relu as cbr
+    from paddle_tpu_torch.tools import exp_conv
+    from paddle_tpu_torch.tools.profile_layer_norm import graph_ms
 
     name = RES4_CONV
     w = scope.find_var(name + "_w")
@@ -1682,9 +1741,17 @@ def check_conv_real_layer(dev, scope, layer_in):
     shift = beta - mean * a
     xp = torch.nn.functional.pad(x.permute(0, 2, 3, 1), (0, 0, 1, 1, 1, 1)) \
         .contiguous()
-    got = cbr.conv_bn_relu(xp, wb.permute(2, 3, 1, 0).contiguous(),
-                           a.contiguous(), shift.contiguous())
+    w_hwio = wb.permute(2, 3, 1, 0).contiguous()
+    a, shift = a.contiguous(), shift.contiguous()
+    got = cbr.conv_bn_relu(xp, w_hwio, a, shift)
     got = got.permute(0, 3, 1, 2)
+    # the device alone (CUDA-graph replays): the kernel, and cuDNN's conv
+    # on the channels-last input with the same epilogue
+    x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+    device_ms = graph_ms(lambda i: cbr.conv_bn_relu(xp, w_hwio, a, shift),
+                         20)
+    library_device_ms = graph_ms(lambda i: exp_conv.library_conv_bn_relu(
+        x_nhwc, w_hwio, a, shift), 20)
 
     def chain(xx, ww):
         conv = registry.get("conv2d").forward(
@@ -1713,6 +1780,7 @@ def check_conv_real_layer(dev, scope, layer_in):
          max_abs_err_vs_bf16_ops=float(diff16.max()),
          worst_share_of_bf16_bound=float((diff16 / bound).max()),
          relu_kept_share=float((ref32 > 0).float().mean()),
+         device_ms=device_ms, library_device_ms=library_device_ms,
          ok=bool(ok32 and ok16))
     if not (ok32 and ok16):
         raise AssertionError(f"conv kernel on {name}: fp32 ops {ok32}, "
@@ -1742,17 +1810,23 @@ def main():
              for n in _build.SOURCES
              if (_build.BUILD_DIR / f"{n}.ptxas.txt").exists()}
     flash = ("flash_attention_fwd", "flash_attention_bwd")
-    hgmma = {n: sass_count(_build.lib_path(n), "HGMMA") for n in flash}
+    tensor_core = flash + ("conv_bn_relu", "int8_gemm")
+    hgmma = {n: sass_count(_build.lib_path(n), "HGMMA") for n in tensor_core}
+    # the int8 GEMM converts its weight by byte permutes and a subtract,
+    # with no int-to-float conversion instruction
+    i2f = sass_count(_build.lib_path("int8_gemm"), "I2F")
     tc_ptxas = {n: ptxas_by_kernel((_build.BUILD_DIR / f"{n}.ptxas.txt")
                                    .read_text(), ("_tc", "_tf32"))
                 for n in flash}
     emit("build", seconds=build_s, per_source_s=per_source, nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), ptxas=ptxas,
-         hgmma_instructions=hgmma, tensor_core_kernels_ptxas=tc_ptxas)
-    if not all(hgmma.values()):
-        raise AssertionError(f"build: a flash library has no HGMMA "
-                             f"instruction: {hgmma}")
+         hgmma_instructions=hgmma, int8_gemm_i2f_instructions=i2f,
+         tensor_core_kernels_ptxas=tc_ptxas)
+    if not all(hgmma.values()) or i2f:
+        raise AssertionError(f"build: a tensor-core library has no HGMMA "
+                             f"instruction ({hgmma}) or the int8 GEMM "
+                             f"converts with I2F ({i2f})")
 
     results = []
     check_flash(dev, results)
@@ -1778,6 +1852,7 @@ def main():
             for phase, quant in (("serve_fp32", "none"),
                                  ("serve_int8", "int8"))}
     cpu_parity(cfg, params, dev)
+    cpu_parity(cfg, params, dev, "int8")
     del params
     runs["train_parity"] = train_parity(dev, 2, "float32", 3, 1e-4)
     runs["train_parity_bf16"] = train_parity(dev, 2, "bfloat16", 6, 1e-2)
@@ -1810,8 +1885,8 @@ def main():
                  "fused_adamw": "train_ernie", "layer_norm": "fused_ln_ops",
                  "conv_bn_relu": "exp_conv"}
     timing = ("shape", "ms", "device_ms", "plain_ms", "library_ms",
-              "library_device_ms", "bound_ms", "bound_ms_cuda_cores",
-              "bound_by", "max_abs_err", "instance")
+              "library_device_ms", "bound_ms", "bound_ms_three_pieces",
+              "bound_ms_cuda_cores", "bound_by", "max_abs_err", "instance")
     line = []
     for name in kernels.MODULES:
         rows = [r for r in results if r["name"] == name]
@@ -1820,26 +1895,35 @@ def main():
         path = main_path.get(name, "serve_int8")
         line.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], path=path, launches=runs[path][0][name],
-            launches_by_path={p: c[0][name] for p, c in runs.items()},
+            replaces=REPLACES[name], path=path,
+            launches=runs[path]["launches"][name],
+            launches_by_path={p: c["launches"][name]
+                              for p, c in runs.items()},
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=main_row["ms"], plain_ms=main_row["plain_ms"],
             bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
             library_ms=main_row["library_ms"], shape=main_row["shape"],
             **{k_: main_row[k_] for k_ in (
-                "device_ms", "library_device_ms", "bound_ms_cuda_cores",
-                "second_round") if k_ in main_row}))
-        if name.startswith("flash"):
+                "device_ms", "library_device_ms", "bound_ms_three_pieces",
+                "bound_ms_cuda_cores", "second_round") if k_ in main_row}))
+        if name.startswith("flash") or name == "int8_gemm":
             # the same kernel at every timed shape (training, long context,
-            # the bnsd rows), and each path's launches by layout
+            # the bnsd rows; the int8 GEMM's M ladder)
             line[-1]["variants"] = [{k_: r[k_] for k_ in timing if k_ in r}
                                     for r in rows if r["ms"] is not None
                                     and r is not main_row]
-            line[-1]["launches_by_layout"] = {p: c[1][name]
+        if name.startswith("flash"):
+            # each path's launches by layout and by dtype instance
+            line[-1]["launches_by_layout"] = {p: c["layouts"][name]
                                               for p, c in runs.items()}
-            line[-1]["launches_by_dtype"] = {p: c[2][name]
-                                             for p, c in runs.items()
-                                             if len(c) > 2}
+            line[-1]["launches_by_dtype"] = {
+                p: c["dtypes"][name] for p, c in runs.items()
+                if name in c.get("dtypes", {})}
+        if name == "int8_gemm":
+            line[-1]["instance"] = main_row["instance"]
+            line[-1]["launches_by_instance"] = {
+                p: c["int8_instances"] for p, c in runs.items()
+                if "int8_instances" in c}
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ module-level integer (``launches``; the flash module's backward kernel
 counts in ``bwd_launches``). The flash module also splits its two counts
 by the layout the kernel read (``layout_counts``) and by the dtype
 instance it ran (``dtype_counts``: bf16 on the tensor cores, fp32 on the
-tensor cores in split TF32).
+tensor cores in split TF32); the int8 GEMM splits its count by the
+instance its M chose (``int8_instance_counts``: prefill, M > 16; decode,
+M <= 16).
 """
 
 from __future__ import annotations
@@ -51,7 +53,13 @@ def dtype_counts() -> Dict[str, Dict[str, int]]:
                 dict(flash_attention.bwd_launches_by_dtype)}
 
 
+def int8_instance_counts() -> Dict[str, int]:
+    """int8 GEMM launches by instance: {"prefill": n, "decode": m}."""
+    return dict(int8_gemm.launches_by_instance)
+
+
 def reset_launch_counts():
     for name, mod in MODULES.items():
         setattr(mod, _COUNTER.get(name, "launches"), 0)
     flash_attention.reset_layout_counts()
+    int8_gemm.reset_instance_counts()

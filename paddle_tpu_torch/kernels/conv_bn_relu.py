@@ -7,13 +7,15 @@ by ``pallas_conv_bn_relu`` :45 at :49): on an input padded once
 sums the 9 shifted [rows, C] x [C, Co] products in fp32, then writes
 ``relu(acc * scale + shift)`` ([Co] fp32 each) as bf16 [N, H, W, Co]. The
 Hopper kernel, ``csrc/conv_bn_relu.cu``, is an implicit GEMM over
-M = N*H*W pixels, Co channels and K = 9*C, on the CUDA cores in fp32. It
-computes what ``_conv_kernel`` computes, not its grid: the images a grid
-step takes there are VMEM geometry.
+M = N*H*W pixels, Co channels and K = 9*C on the bf16 tensor cores
+(wgmma, fp32 accumulators). It computes what ``_conv_kernel`` computes,
+not its grid: the images a grid step takes there are VMEM geometry.
 
 On a CPU or meta tensor ``conv_bn_relu`` runs ``plain_conv_bn_relu`` (the
 same 9 products, in plain PyTorch); on a CUDA tensor it launches the
-kernel or raises.
+kernel or raises. A weight whose Co is not a multiple of 8 is
+zero-padded to one for the kernel's 16-byte copies; the extra channels
+are never written.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from . import _build
 
 launches = 0   # kernel launches since the last reset (not plain calls)
 
-C_MULTIPLE, CO_MULTIPLE = 16, 4   # csrc/conv_bn_relu.cu: chunk, vector
+C_MULTIPLE, CO_MULTIPLE = 16, 4   # csrc/conv_bn_relu.cu accepts
+LDO_MULTIPLE = 8                  # w's row, in 16-byte copies
 
 
 def plain_conv_bn_relu(xp, w, scale, shift):
@@ -50,7 +53,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.pt_conv_bn_relu.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                        ci, vp]
+                                        ci, ci, vp]
         lib.pt_conv_bn_relu.restype = ctypes.c_int
         lib._typed = True
     return lib
@@ -78,11 +81,16 @@ def _launch(xp, w, scale, shift):
             raise ValueError(f"conv_bn_relu kernel: {name} must be a "
                              f"contiguous {dt} tensor on {xp.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    ldo = -(-co // LDO_MULTIPLE) * LDO_MULTIPLE
+    if ldo != co or w.data_ptr() % 16:
+        w = torch.nn.functional.pad(w, (0, ldo - co))
+    if xp.data_ptr() % 16:
+        xp = xp.clone()
     out = torch.empty(n, hp - 2, wp - 2, co, dtype=xp.dtype,
                       device=xp.device)
     rc = _lib().pt_conv_bn_relu(
         xp.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        out.data_ptr(), n, hp - 2, wp - 2, c, co,
+        out.data_ptr(), n, hp - 2, wp - 2, c, co, ldo,
         torch.cuda.current_stream(xp.device).cuda_stream)
     _build.check(rc, "conv_bn_relu")
     launches += 1

@@ -13,7 +13,9 @@ events over back-to-back calls:
   tensor, then the fp32 scale/shift and ReLU, rounded to bf16;
 * the plain version (the kernel's arithmetic in plain PyTorch);
 
-and reports each as ms and as a share of the card's dense bf16 peak
+and reports each as ms and as a share of the card's dense bf16 peak, the
+kernel and the library route also on the device alone (``*_device_ms``:
+the same calls captured in a CUDA graph and replayed)
 (989 TFLOP/s for 2 * N*H*W * Co * 9*C flops, 5.92e10 at batch 256), the
 kernel's largest difference from the plain version, and its launches. The
 reference's ``slope_time`` trick (chained steps timed on the host) is a
@@ -80,6 +82,7 @@ def run(device="cuda:0", batch=256, reps=20, seed=0):
     """The three timings (CUDA) or one pass of each route (CPU) as a
     dict. Raises without CUDA unless device="cpu"."""
     from ..kernels import conv_bn_relu as cbr
+    from .profile_layer_norm import graph_ms
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -112,6 +115,8 @@ def run(device="cuda:0", batch=256, reps=20, seed=0):
             out[f"{name}_ms"] = ms
             out[f"{name}_share_of_bf16_peak"] = flops / (ms * 1e-3) \
                 / BF16_FLOPS_PER_S
+            if name != "plain":   # the device alone: a CUDA-graph replay
+                out[f"{name}_device_ms"] = graph_ms(lambda i: fn(), reps)
     finally:
         torch.backends.cudnn.benchmark = benchmark
     out["device_name"] = torch.cuda.get_device_name(device)

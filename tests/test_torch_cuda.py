@@ -9,8 +9,10 @@ on the tensor cores: every head_dim, ragged and cross-attention shapes,
 causal, bias and dropout, their keep masks read back bit for bit, and
 their 8-element stride rule; so do the fp32 instances in split TF32, held
 at the fp32 gates and bit for bit from run to run. The layer-norm kernel
-at the path's widths and 1 to 20480 rows. Marked ``cuda``: they skip where
-torch.cuda is unavailable.
+at the path's widths and 1 to 20480 rows. The int8 GEMM at the serving
+ladder's M (8 to 2048) and weight shapes, on the instance its M picks,
+and bit for bit independent of the other rows. Marked ``cuda``: they skip
+where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
 card and no JAX it runs without the repo's conftest:
@@ -548,6 +550,58 @@ def test_int8_kernel_matches_plain(dev, m, k, n, bias, act):
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-4,
                                atol=1e-5 * float(ref.abs().max()) + 1e-5)
+
+
+# the serving path's GEMMs: decode (M = 8), the prefill buckets, and the
+# three weight shapes of the decoder LM (q/k/v/o, FFN in, FFN out)
+INT8_SERVE = [(m, k, n) for m in (8, 64, 512, 2048)
+              for k, n in ((1024, 1024), (1024, 4096), (4096, 1024))]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_SERVE)
+def test_int8_kernel_at_the_serve_shapes(dev, m, k, n):
+    """Both instances at the serving ladder, against the plain fp32
+    version at the card gate; the launch lands on the instance M picks."""
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn(m, k, device=dev, generator=g)
+    w8 = torch.randint(-127, 128, (k, n), device=dev, dtype=torch.int8,
+                       generator=g)
+    sc = (torch.rand(n, device=dev, generator=g) + 0.5) / 127.0
+    bb = torch.randn(n, device=dev, generator=g)
+    act = "relu" if m % 3 else None
+    kernels.reset_launch_counts()
+    out = ig.int8_weight_only_gemm(x, w8, sc, bb, act)
+    ref = ig.plain_int8_gemm(x, w8, sc, bb, act)
+    torch.cuda.synchronize()
+    inst = ig.plan(m, n, k)[0]
+    assert inst == ("decode" if m <= 16 else "prefill")
+    assert kernels.int8_instance_counts()[inst] == 1
+    torch.testing.assert_close(out, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()) + 1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 1024, 4096), (512, 1024, 4096),
+                                   (13, 4096, 1024), (100, 33, 70)])
+def test_int8_rows_do_not_depend_on_the_other_rows(dev, m, k, n):
+    """A row's output is the same bits whatever the other rows hold and
+    wherever the row sits: no sum runs across rows (serving's bitwise
+    continuous == sequential rests on it)."""
+    g = torch.Generator(device=dev).manual_seed(m * n)
+    x = torch.randn(m, k, device=dev, generator=g)
+    w8 = torch.randint(-127, 128, (k, n), device=dev, dtype=torch.int8,
+                       generator=g)
+    sc = (torch.rand(n, device=dev, generator=g) + 0.5) / 127.0
+    out = ig.int8_weight_only_gemm(x, w8, sc)
+    other = x.clone()
+    other[1:] = torch.randn(m - 1, k, device=dev, generator=g) * 100.0
+    perm = torch.randperm(m, device=dev, generator=g)
+    out_other = ig.int8_weight_only_gemm(other, w8, sc)
+    out_perm = ig.int8_weight_only_gemm(x[perm].contiguous(), w8, sc)
+    again = ig.int8_weight_only_gemm(x, w8, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(out_other[0], out[0])
+    assert torch.equal(out_perm, out[perm])
+    assert torch.equal(again, out)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

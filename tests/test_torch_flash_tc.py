@@ -111,7 +111,9 @@ def test_build_hash_covers_the_shared_header(tmp_path, monkeypatch):
 
 
 def test_sources_route_bf16_only_to_the_tensor_core_instances():
-    header = (_build.CSRC / "flash_tc.cuh").read_text()
+    # the wgmma wrappers live in the header the conv and int8 GEMM share
+    assert '#include "wgmma.cuh"' in (_build.CSRC / "flash_tc.cuh").read_text()
+    header = (_build.CSRC / "wgmma.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned" in header
     assert ".f32.tf32.tf32" in (_build.CSRC / "flash_tf32.cuh").read_text()
     for name, kernels_ in (
