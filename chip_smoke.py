@@ -408,14 +408,27 @@ def check_paged(dev, results):
             or float(out.abs().max()) > 100.0:
         raise AssertionError(f"paged attention: err {e_abs}, "
                              f"max |out| {float(out.abs().max())}")
+    # the plan of a row depends on its own pos: each row launched alone
+    # gives the bits of its row in the batch of 8
+    for i in range(b):
+        alone = pa.paged_decode_attention(q[i:i + 1], pk, pv, table[i:i + 1],
+                                          pos[i:i + 1], n, hd, scale)
+        if not torch.equal(alone[0], out[i]):
+            raise AssertionError(f"paged attention: row {i} (pos "
+                                 f"{pos_list[i]}) alone differs from the "
+                                 f"row in the batch")
     lib = pa._lib()
     o2 = torch.empty_like(out)
+    chunks = -(-mp * page // pa.CHUNK_TOKENS)
+    part = torch.empty(b * n * chunks * (hd + 2), device=dev)
+    tickets = torch.zeros(b * n, dtype=torch.int32, device=dev)
 
     def kernel(i):
         return lib.pt_paged_attention(
             q.data_ptr(), copies[i % 3][0].data_ptr(),
             copies[i % 3][1].data_ptr(), table.data_ptr(), pos.data_ptr(),
-            o2.data_ptr(), b, n, hd, page, mp, kvdim, scale, cur_stream())
+            o2.data_ptr(), part.data_ptr(), tickets.data_ptr(), b, n, hd,
+            page, mp, kvdim, scale, cur_stream())
 
     ms = events_ms(kernel, 30)
     plain = events_ms(lambda i: pa.plain_paged_attention(
@@ -427,7 +440,9 @@ def check_paged(dev, results):
         name="paged_attention",
         shape=f"B=8 P=16 MP=128 n=16 hd=64 pos={pos_list}",
         max_abs_err=e_abs, max_rel_err=e_rel, ms=ms, plain_ms=plain,
-        library_ms=None, bound_ms=bms, bound_by=by), kernel))
+        library_ms=None, bound_ms=bms, bound_by=by,
+        chunk_tokens=pa.CHUNK_TOKENS, rows_alone_equal_batch_bitwise=True),
+        kernel))
 
 
 # check_int8: the serving ladder's M (decode: 8; prefill buckets 64, 512,
@@ -852,41 +867,47 @@ def check_adamw(dev, results):
             want = fad.plain_fused_adamw(ps[0], gr, ms_[0], vs[0], lr, *hyper,
                                          b1p, b2p)
             p0, m0, v0 = ps[0].clone(), ms_[0].clone(), vs[0].clone()
-            fad.fused_adamw_(p0, gr, m0, v0, lr, *hyper, b1p, b2p)
+            pows = [b1p.clone(), b2p.clone()]
+            fad.fused_adamw_(p0, gr, m0, v0, lr, *hyper, *pows)
             torch.cuda.synchronize()
-            # fp32: nvcc contracts a * b + c into one fma where the plain
-            # version rounds twice; bf16 params: one bf16 ulp (2^-8)
-            ptol = dict(rtol=1e-6, atol=1e-7) if dtype == torch.float32 \
-                else dict(rtol=8e-3, atol=1e-7)
+            ptol = _adamw_tols(dtype)
             if not (torch.allclose(p0.float(), want[0].float(), **ptol)
                     and torch.allclose(m0, want[1], rtol=1e-6, atol=1e-9)
-                    and torch.allclose(v0, want[2], rtol=1e-6, atol=1e-12)):
+                    and torch.allclose(v0, want[2], rtol=1e-6, atol=1e-12)
+                    and _pows_advanced(pows, (b1p, b2p), hyper)):
                 raise AssertionError(f"AdamW {shape} {name}: "
-                                     f"{errors(p0, want[0])}")
+                                     f"{errors(p0, want[0])}, powers "
+                                     f"{pows}")
             e_abs = max(errors(p0, want[0])[0], errors(m0, want[1])[0],
                         errors(v0, want[2])[0])
-            def kernel(i):
-                return fad.fused_adamw_(ps[i % reps], gr, ms_[i % reps],
-                                        vs[i % reps], lr, *hyper, b1p, b2p)
+            # the launch the adamw op makes (the powers advanced, on the
+            # stream's ticket), without the wrapper, so a CUDA graph
+            # captures the kernel alone
+            kernel = _adamw_raw(fad, ps, gr, ms_, vs, lr, hyper, pows)
 
             ms = events_ms(kernel, 20)
             plain = events_ms(lambda i: fad.plain_fused_adamw(
                 ps[i % reps], gr, ms_[i % reps], vs[i % reps], lr, *hyper,
                 b1p, b2p), 5)
             library = lib_call = None
-            if dtype == torch.float32:
-                # the library's fused update wants one dtype throughout,
-                # so it is a yardstick for the fp32 rows only
-                steps = [torch.tensor(3.0, device=dev) for _ in range(reps)]
+            steps = [torch.tensor(3.0, device=dev) for _ in range(reps)]
 
-                def lib_call(i):
-                    return torch._fused_adamw_(
-                        [ps[i % reps]], [gr], [ms_[i % reps]],
-                        [vs[i % reps]], [], [steps[i % reps]], lr=1e-4,
-                        beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
-                        amsgrad=False, maximize=False)
+            def lib_call(i):
+                return torch._fused_adamw_(
+                    [ps[i % reps]], [gr], [ms_[i % reps]],
+                    [vs[i % reps]], [], [steps[i % reps]], lr=1e-4,
+                    beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8,
+                    amsgrad=False, maximize=False)
 
+            # the library's fused update is the fp32 rows' yardstick; for
+            # bf16 params with fp32 moments only if it takes them and
+            # computes this update
+            verdict = "fp32" if dtype == torch.float32 else \
+                _fused_adamw_takes_bf16(dev, lr, hyper, b1p, b2p)
+            if verdict in ("fp32", "accepts"):
                 library = events_ms(lib_call, 20)
+            else:
+                lib_call = None
             esz = ps[0].element_size()
             numel = ps[0].numel()
             bms, by = bound_ms(numel * (3 * esz + 16), numel * 12,
@@ -894,8 +915,192 @@ def check_adamw(dev, results):
             results.append(with_device_ms(dict(
                 name="fused_adamw", shape=f"{list(shape)} {name}",
                 max_abs_err=e_abs, max_rel_err=None, ms=ms, plain_ms=plain,
-                library_ms=library, bound_ms=bms, bound_by=by), kernel,
-                lib_call))
+                library_ms=library, library_verdict=verdict, bound_ms=bms,
+                bound_by=by), kernel, lib_call))
+    return dict(ragged_views=_adamw_ragged_views(dev, lr, hyper, b1p, b2p),
+                beta_powers=_adamw_beta_powers(dev, lr, hyper),
+                kernels_per_adamw_op=_adamw_op_kernels(dev))
+
+
+def _adamw_raw(fad, ps, gr, ms_, vs, lr, hyper, pows):
+    """fn(i): the AdamW kernel on state i % len(ps), launched as the
+    wrapper launches it, beta powers advanced on a ticket of its own."""
+    lib = fad._lib()
+    ticket = torch.zeros(1, dtype=torch.int32, device=gr.device)
+    b1, b2, eps, wd = hyper
+
+    def kernel(i):
+        k = i % len(ps)
+        head, nvec = fad.split(gr.numel(), gr.element_size(),
+                               fad.VEC[gr.dtype], ps[k].data_ptr(),
+                               gr.data_ptr(), ms_[k].data_ptr(),
+                               vs[k].data_ptr())
+        return lib.pt_fused_adamw(
+            ps[k].data_ptr(), gr.data_ptr(), ms_[k].data_ptr(),
+            vs[k].data_ptr(), lr.data_ptr(), pows[0].data_ptr(),
+            pows[1].data_ptr(), ticket.data_ptr(), gr.numel(), head, nvec,
+            b1, 1.0 - b1, b2, 1.0 - b2, eps, wd, fad.DTYPES[gr.dtype],
+            cur_stream())
+
+    return kernel
+
+
+def _pows_advanced(got, before, hyper):
+    """Whether the powers got equal before * (b1, b2) as the plain
+    route computes them on the CPU (one fp32 multiply each), bit for
+    bit."""
+    return all(torch.equal(g.cpu(), b.cpu() * f)
+               for g, b, f in zip(got, before, hyper[:2]))
+
+
+def _adamw_tols(dtype):
+    # fp32: nvcc contracts a * b + c into one fma where the plain version
+    # rounds twice; bf16 params: one bf16 ulp (2^-8)
+    return dict(rtol=1e-6, atol=1e-7) if dtype == torch.float32 \
+        else dict(rtol=8e-3, atol=1e-7)
+
+
+def _fused_adamw_takes_bf16(dev, lr, hyper, b1p, b2p):
+    """Whether torch._fused_adamw_ takes a bf16 param and grad with fp32
+    moments and computes this update at [1024, 4096], or what it says."""
+    g = torch.Generator(device=dev).manual_seed(1024)
+    shape = (1024, 4096)
+    p = (torch.randn(shape, device=dev, generator=g) * 0.02).bfloat16()
+    gr = (torch.randn(shape, device=dev, generator=g) * 1e-2).bfloat16()
+    m = torch.randn(shape, device=dev, generator=g) * 1e-3
+    v = torch.rand(shape, device=dev, generator=g) * 1e-5
+    from paddle_tpu_torch.kernels import fused_adam as fad
+
+    ref = fad.plain_fused_adamw(p, gr, m, v, lr, *hyper, b1p, b2p)
+    try:
+        torch._fused_adamw_([p], [gr], [m], [v], [],
+                            [torch.tensor(3.0, device=dev)], lr=1e-4,
+                            beta1=0.9, beta2=0.999, weight_decay=0.01,
+                            eps=1e-8, amsgrad=False, maximize=False)
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        return f"refuses: {str(e).splitlines()[0][:160]}"
+    # the library puts eps elsewhere (eps * sqrt(1 - b2^t)) and lerps the
+    # moments: a bf16 ulp on the param, 1e-5 on the first moment
+    same = torch.allclose(p.float(), ref[0].float(), rtol=2e-2, atol=1e-6) \
+        and torch.allclose(m, ref[1], rtol=1e-5, atol=1e-9)
+    return "accepts" if same else "accepts the call, computes another " \
+                                   "update"
+
+
+def _adamw_ragged_views(dev, lr, hyper, b1p, b2p):
+    """Views offset by one element of a length that is no whole number
+    of 16-byte vectors: the kernel's scalar head and tail."""
+    from paddle_tpu_torch.kernels import fused_adam as fad
+
+    numel = 1000 * 33 + 5
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(numel)
+        bases = [(torch.randn(numel + 1, device=dev, generator=g) * 0.02)
+                 .to(dtype),
+                 (torch.randn(numel + 1, device=dev, generator=g) * 1e-2)
+                 .to(dtype),
+                 torch.randn(numel + 1, device=dev, generator=g) * 1e-3,
+                 torch.rand(numel + 1, device=dev, generator=g) * 1e-5]
+        views = [t[1:] for t in bases]
+        heads = [t[:1].clone() for t in bases]
+        want = fad.plain_fused_adamw(*views, lr, *hyper, b1p, b2p)
+        pows = [b1p.clone(), b2p.clone()]
+        fad.fused_adamw_(*views, lr, *hyper, *pows)
+        torch.cuda.synchronize()
+        if not (torch.allclose(views[0].float(), want[0].float(),
+                               **_adamw_tols(dtype))
+                and torch.allclose(views[2], want[1], rtol=1e-6, atol=1e-9)
+                and torch.allclose(views[3], want[2], rtol=1e-6,
+                                   atol=1e-12)
+                and _pows_advanced(pows, (b1p, b2p), hyper)
+                and all(torch.equal(t[:1], h) for t, h in zip(bases,
+                                                              heads))):
+            raise AssertionError(f"AdamW on a view offset by one, "
+                                 f"{numel} elements, {dtype}: "
+                                 f"{errors(views[0], want[0])}")
+        errs[str(dtype)] = errors(views[0], want[0])[0]
+    return dict(numel=numel, offset_elements=1, max_abs_err=errs)
+
+
+def _adamw_beta_powers(dev, lr, hyper):
+    """Three launches that also advance b1^t and b2^t, at [1024, 4096]
+    (many blocks), beside the plain route on the CPU: the powers bit for
+    bit after each."""
+    from paddle_tpu_torch.kernels import fused_adam as fad
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=dev).manual_seed(3)
+        card = [(torch.randn(1024, 4096, device=dev, generator=g) * 0.02)
+                .to(dtype),
+                (torch.randn(1024, 4096, device=dev, generator=g) * 1e-2)
+                .to(dtype),
+                torch.randn(1024, 4096, device=dev, generator=g) * 1e-3,
+                torch.rand(1024, 4096, device=dev, generator=g) * 1e-5]
+        cpu = [t.cpu() for t in card]
+        pows = [torch.tensor([b], device=dev) for b in hyper[:2]]
+        cpu_pows = [t.cpu() for t in pows]
+        for step in range(3):
+            fad.fused_adamw_(*card, lr, *hyper, *pows)
+            fad.fused_adamw_(*cpu, lr.cpu(), *hyper, *cpu_pows)
+            torch.cuda.synchronize()
+            if any(a.cpu().numpy().tobytes() != b.numpy().tobytes()
+                   for a, b in zip(pows, cpu_pows)):
+                raise AssertionError(f"AdamW beta powers after launch "
+                                     f"{step + 1}: {pows} vs {cpu_pows}")
+            if not torch.allclose(card[0].cpu().float(), cpu[0].float(),
+                                  **_adamw_tols(dtype)):
+                raise AssertionError(f"AdamW with the powers advanced, "
+                                     f"launch {step + 1}: param differs")
+            for c, t in zip(card, cpu):   # one update compared at a time
+                c.copy_(t)
+        out[str(dtype)] = [float(t) for t in pows]
+    return dict(launches=3, bitwise=True, powers=out)
+
+
+def _adamw_op_kernels(dev):
+    """A tiny program (fc, mean, AdamW) on the card: torch.profiler's
+    count of CUDA kernels over one run of each adamw op, as the executor
+    runs it, after a warm-up step. Each must be one, the AdamW kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor, run_op
+    from paddle_tpu_torch.core.ir import Program, program_guard
+    from paddle_tpu_torch.core.scope import Scope
+
+    main_prog, startup = Program(), Program()
+    with unique_name.guard(), program_guard(main_prog, startup):
+        x = layers.static_data("x", [-1, 64])
+        h = layers.fc(x, 128, act="relu")
+        loss = layers.mean(layers.fc(h, 16))
+        optimizer.AdamWOptimizer(1e-3).minimize(loss)
+    scope, exe = Scope(), Executor(device=dev)
+    exe.run(startup, scope=scope)
+    feed = {"x": np.random.RandomState(0).randn(8, 64).astype(np.float32)}
+    exe.run(main_prog, feed=feed, scope=scope, fetch_list=[loss])
+    env = dict(scope.items())
+    counts = []
+    for op in (o for o in main_prog.global_block().ops if o.type == "adamw"):
+        param = env[op.inputs["Param"][0]]
+        env[op.inputs["Grad"][0]] = torch.full_like(param, 1e-3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_op(op, env)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if len(names) != 1 or "adamw" not in names[0]:
+            raise AssertionError(f"an adamw op launched {names}, not the "
+                                 f"AdamW kernel alone")
+        counts.append(len(names))
+    if not counts:
+        raise AssertionError("the AdamW program has no adamw op")
+    return dict(adamw_ops=len(counts), kernels_each=sorted(set(counts)))
 
 
 # ---------------------------------------------------------------------------
@@ -1835,11 +2040,11 @@ def main():
     mask_check = check_flash_train(dev, results)
     check_flash_long(dev, results)
     bnsd_check = check_flash_bnsd(dev, results)
-    check_adamw(dev, results)
+    adamw_check = check_adamw(dev, results)
     check_layer_norm(dev, results)
     check_conv(dev, results)
     emit("kernels", results=results, dropout_mask=mask_check,
-         bnsd_layout=bnsd_check)
+         bnsd_layout=bnsd_check, adamw=adamw_check)
 
     cfg = DecoderLMConfig(**FULL)
     t0 = time.perf_counter()
@@ -1905,7 +2110,8 @@ def main():
             library_ms=main_row["library_ms"], shape=main_row["shape"],
             **{k_: main_row[k_] for k_ in (
                 "device_ms", "library_device_ms", "bound_ms_three_pieces",
-                "bound_ms_cuda_cores", "second_round") if k_ in main_row}))
+                "bound_ms_cuda_cores", "second_round", "chunk_tokens",
+                "library_verdict") if k_ in main_row}))
         if name.startswith("flash") or name == "int8_gemm":
             # the same kernel at every timed shape (training, long context,
             # the bnsd rows; the int8 GEMM's M ladder)

@@ -93,11 +93,12 @@ def adam(ins, attrs):
 @register_op("adamw", **_OPT)
 def adamw(ins, attrs):
     """Adam with decoupled weight decay ``coeff``. With decay the update
-    is the one-pass AdamW kernel (``kernels/fused_adam.py``): on the
-    card there is no other route."""
+    and both beta-power updates are one launch of the AdamW kernel
+    (``kernels/fused_adam.py``): on the card there is no other route."""
     if not attrs.get("with_decay", True):
         return adam(ins, attrs)
     p, g, lr, m1, m2, b1p, b2p, b1, b2, eps = _slots(ins, attrs)
     fused_adamw_(p, g.contiguous(), m1, m2, lr, b1, b2, eps,
                  float(attrs.get("coeff", 0.01)), b1p, b2p)
-    return _outs(p, m1, m2, b1p, b2p, b1, b2)
+    return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
+            "Beta1PowOut": b1p, "Beta2PowOut": b2p}

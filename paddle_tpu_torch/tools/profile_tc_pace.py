@@ -54,13 +54,15 @@ VARIANTS = {
 }
 
 
-def build_variants():
-    """{(source, variant): loaded library}, every build started at once."""
+def build_variants(sources=None):
+    """{(source, variant): loaded library}, every build started at once:
+    ``sources`` maps a csrc name to {variant: [(old text, new text)]}
+    (VARIANTS by default)."""
     from ..kernels import _build
 
     root = _build.BUILD_DIR / "ablation"
     procs = {}
-    for name, variants in VARIANTS.items():
+    for name, variants in (sources or VARIANTS).items():
         for var, edits in variants.items():
             d = root / f"{name}.{var}"
             shutil.rmtree(d, ignore_errors=True)

@@ -9,10 +9,15 @@ on the tensor cores: every head_dim, ragged and cross-attention shapes,
 causal, bias and dropout, their keep masks read back bit for bit, and
 their 8-element stride rule; so do the fp32 instances in split TF32, held
 at the fp32 gates and bit for bit from run to run. The layer-norm kernel
-at the path's widths and 1 to 20480 rows. The int8 GEMM at the serving
-ladder's M (8 to 2048) and weight shapes, on the instance its M picks,
-and bit for bit independent of the other rows. Marked ``cuda``: they skip
-where torch.cuda is unavailable.
+at the path's widths and 1 to 20480 rows. Paged attention at every
+head_dim, each row alone bit for bit its row in the batch. AdamW on
+misaligned views and ragged lengths, its beta powers advanced in the same
+launch bit for bit as the plain route, one kernel an ``adamw`` op. Both
+in CUDA graphs replayed on two streams at once beside eager calls: a
+captured call owns its workspace and tickets. The
+int8 GEMM at the serving ladder's M (8 to 2048) and weight shapes, on the
+instance its M picks, and bit for bit independent of the other rows.
+Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
 card and no JAX it runs without the repo's conftest:
@@ -493,11 +498,12 @@ def test_adamw_kernel_matches_plain(dev, pdt, shape):
     b1p, b2p = (torch.tensor([x], device=dev) for x in (0.9 ** 3, 0.999 ** 3))
     want = fad.plain_fused_adamw(p, grad, m, v, lr, 0.9, 0.999, 1e-8, 0.01,
                                  b1p, b2p)
+    pows = [b1p.clone(), b2p.clone()]
     before = fad.launches
-    got = fad.fused_adamw_(p, grad, m, v, lr, 0.9, 0.999, 1e-8, 0.01, b1p,
-                           b2p)
+    got = fad.fused_adamw_(p, grad, m, v, lr, 0.9, 0.999, 1e-8, 0.01, *pows)
     torch.cuda.synchronize()
     assert fad.launches == before + 1 and got[0] is p
+    _assert_pows_advanced(pows, (b1p, b2p))
     # fp32: the compiler contracts a * b + c into one fma, the plain
     # version rounds twice; bf16 params: one bf16 ulp where they differ
     ptol = dict(rtol=1e-6, atol=1e-6) if pdt == torch.float32 \
@@ -507,14 +513,138 @@ def test_adamw_kernel_matches_plain(dev, pdt, shape):
     torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=1e-9)
 
 
-@pytest.mark.parametrize("hd,page,mp,pos", [
-    (64, 16, 128, [0, 1, 15, 16, 2047, 700]), (32, 8, 4, [31, 0, 9]),
-    (128, 16, 256, [4095, 2000])])
-def test_paged_kernel_matches_plain(dev, hd, page, mp, pos):
-    n = 4
+def _adamw_state(dev, pdt, numel, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.randn(numel, device=dev, generator=g).to(pdt)
+    grad = (torch.randn(numel, device=dev, generator=g) * 0.1).to(pdt)
+    m = torch.randn(numel, device=dev, generator=g) * 0.01
+    v = torch.rand(numel, device=dev, generator=g) * 1e-3
+    return p, grad, m, v
+
+
+def _assert_pows_advanced(got, before):
+    # the launch's b1^t * b1 and b2^t * b2: one fp32 multiply each, the
+    # bits of the plain route's mul_ on the CPU
+    for g, b, f in zip(got, before, (0.9, 0.999)):
+        assert torch.equal(g.cpu(), b.cpu() * f), (g, b)
+
+
+def _adamw_tol(pdt):
+    # as test_adamw_kernel_matches_plain: fp32 one fma contraction, bf16
+    # params one bf16 ulp
+    return dict(rtol=1e-6, atol=1e-6) if pdt == torch.float32 \
+        else dict(rtol=8e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("numel,offsets", [
+    (1, (0, 0, 0, 0)), (7, (1, 1, 1, 1)), (1000 * 33 + 5, (0, 0, 0, 0)),
+    (1000 * 33 + 5, (1, 1, 1, 1)), (1000 * 33 + 5, (3, 3, 1, 1)),
+    (1000 * 33 + 5, (1, 2, 3, 0)), (1 << 20, (7, 7, 3, 3))])
+def test_adamw_kernel_on_misaligned_views_and_ragged_lengths(
+        dev, pdt, numel, offsets):
+    """Views offset by a few elements in each stream (param, grad, m, v)
+    and lengths that are not a whole number of 16-byte vectors: the
+    scalar head and tail and the vector body update every element of the
+    view once, at the plain version's tolerances, and nothing outside."""
+    bases = _adamw_state(dev, pdt, numel + 8, numel)
+    views = [t[o:o + numel] for t, o in zip(bases, offsets)]
+    before = [t.clone() for t in bases]
+    lr = torch.tensor([1e-3], device=dev)
+    b1p, b2p = (torch.tensor([x], device=dev) for x in (0.9 ** 3, 0.999 ** 3))
+    want = fad.plain_fused_adamw(*views, lr, 0.9, 0.999, 1e-8, 0.01, b1p,
+                                 b2p)
+    pows = [b1p.clone(), b2p.clone()]
+    fad.fused_adamw_(*views, lr, 0.9, 0.999, 1e-8, 0.01, *pows)
+    torch.cuda.synchronize()
+    _assert_pows_advanced(pows, (b1p, b2p))
+    torch.testing.assert_close(views[0].float(), want[0].float(),
+                               **_adamw_tol(pdt))
+    torch.testing.assert_close(views[2], want[1], rtol=1e-6, atol=1e-7)
+    torch.testing.assert_close(views[3], want[2], rtol=1e-6, atol=1e-9)
+    for t, t0, o in zip(bases, before, offsets):
+        assert torch.equal(t[:o], t0[:o]) and torch.equal(
+            t[o + numel:], t0[o + numel:])
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+def test_adamw_beta_powers_advance_as_the_plain_route_bitwise(dev, pdt):
+    """Five launches with the beta powers folded in, at a size of many
+    blocks, beside the CPU route on the same state: after each, b1^t and
+    b2^t equal the plain route's bit for bit, and the update read the
+    powers from before the launch."""
+    numel = 1024 * 4096 + 3
+    card = list(_adamw_state(dev, pdt, numel, 5))
+    cpu = [t.cpu() for t in card]
+    lr = torch.tensor([1e-3], device=dev)
+    pows = [torch.tensor([x], device=dev) for x in (0.9, 0.999)]
+    cpu_pows = [t.cpu() for t in pows]
+    for step in range(5):
+        fad.fused_adamw_(*card, lr, 0.9, 0.999, 1e-8, 0.01, *pows)
+        fad.fused_adamw_(*cpu, lr.cpu(), 0.9, 0.999, 1e-8, 0.01, *cpu_pows)
+        torch.cuda.synchronize()
+        for got, want in zip(pows, cpu_pows):
+            assert got.cpu().numpy().tobytes() == want.numpy().tobytes(), \
+                step
+        torch.testing.assert_close(card[0].cpu().float(), cpu[0].float(),
+                                   **_adamw_tol(pdt))
+        card = [c.copy_(t) for c, t in zip(card, cpu)]   # one step each
+    assert float(pows[0]) == pytest.approx(0.9 ** 6, rel=1e-6)
+
+
+def test_adamw_graphs_replay_beside_eager_launches(dev):
+    """Launches captured into CUDA graphs own their beta-power tickets:
+    two graphs captured on one stream and replayed at once on two other
+    streams, beside an eager launch on the capture stream, advance every
+    power bit for bit as the plain route, step after step, and update
+    every state at the plain version's tolerance."""
+    numel = (1 << 20) + 3
+    states = [list(_adamw_state(dev, torch.float32, numel, 20 + i))
+              for i in range(3)]
+    pows = [[torch.tensor([x], device=dev) for x in (0.9, 0.999)]
+            for _ in range(3)]
+    lr = torch.tensor([1e-3], device=dev)
+    hyper = (0.9, 0.999, 1e-8, 0.01)
+    capture, s1, s2 = (torch.cuda.Stream() for _ in range(3))
+    capture.wait_stream(torch.cuda.current_stream())
+    graphs = [torch.cuda.CUDAGraph() for _ in range(2)]
+    with torch.cuda.stream(capture):
+        scratch = [t.clone() for t in states[2]]   # builds the kernel
+        fad.fused_adamw_(*scratch, lr, *hyper, *[t.clone() for t in pows[2]])
+        for i, graph in enumerate(graphs):
+            with torch.cuda.graph(graph, stream=capture):
+                fad.fused_adamw_(*states[i], lr, *hyper, *pows[i])
+    torch.cuda.synchronize()
+    cpu = [[t.cpu() for t in st] for st in states]
+    cpu_pows = [[t.cpu() for t in pw] for pw in pows]
+    for step in range(4):
+        for s in (capture, s1, s2):
+            s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s1):
+            graphs[0].replay()
+        with torch.cuda.stream(s2):
+            graphs[1].replay()
+        with torch.cuda.stream(capture):
+            fad.fused_adamw_(*states[2], lr, *hyper, *pows[2])
+        torch.cuda.synchronize()
+        for st, pw, c, cp in zip(states, pows, cpu, cpu_pows):
+            fad.fused_adamw_(*c, lr.cpu(), *hyper, *cp)
+            for got, want in zip(pw, cp):
+                assert got.cpu().numpy().tobytes() == \
+                    want.numpy().tobytes(), step
+            torch.testing.assert_close(st[0].cpu(), c[0], rtol=1e-6,
+                                       atol=1e-6)
+            for t, ct in zip(st, c):   # one update compared at a time
+                t.copy_(ct)
+    assert float(pows[0][0]) == pytest.approx(0.9 ** 5, rel=1e-6)
+
+
+def _paged_inputs(dev, hd, page, mp, pos, n=4, seed=0):
+    """Pools with each row's pages in order from page 1, the stale tail
+    of its last page poisoned (k 3e4, v 1e6); q, table and positions."""
     b = len(pos)
     num_pages = 1 + sum(p // page + 1 for p in pos)
-    g = torch.Generator(device=dev).manual_seed(hd + mp)
+    g = torch.Generator(device=dev).manual_seed(seed)
     pk = torch.randn(num_pages, page, n * hd, device=dev, generator=g)
     pv = torch.randn(num_pages, page, n * hd, device=dev, generator=g)
     table = torch.zeros(b, mp, dtype=torch.int32)
@@ -528,11 +658,92 @@ def test_paged_kernel_matches_plain(dev, hd, page, mp, pos):
     table = table.to(dev)
     posd = torch.tensor(pos, dtype=torch.int32, device=dev)
     q = torch.randn(b, n * hd, device=dev, generator=g)
+    return q, pk, pv, table, posd
+
+
+@pytest.mark.parametrize("hd,page,mp,pos", [
+    (64, 16, 128, [0, 1, 15, 16, 2047, 700]), (32, 8, 4, [31, 0, 9]),
+    (128, 16, 256, [4095, 2000])])
+def test_paged_kernel_matches_plain(dev, hd, page, mp, pos):
+    n = 4
+    q, pk, pv, table, posd = _paged_inputs(dev, hd, page, mp, pos, n,
+                                           seed=hd + mp)
     out = pa.paged_decode_attention(q, pk, pv, table, posd, n, hd, 0.1)
     ref = pa.plain_paged_attention(q, pk, pv, table, posd, n, hd, 0.1)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
     assert float(out.abs().max()) < 100.0
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_paged_rows_alone_are_the_rows_in_the_batch_bitwise(dev, hd):
+    """Contexts of one to ten chunks (page 16, 80 pages: 1280 tokens),
+    pos on chunk and page boundaries: each row launched alone, and in a
+    batch whose other rows are reordered, gives the same bits as in the
+    batch; a second launch gives the same bits again (the chunks combine
+    in chunk order, whatever order their blocks finish in)."""
+    n, page, mp = 4, 16, 80
+    pos = [1279, 0, 255, 256, 700, 15, 1024, 511]
+    q, pk, pv, table, posd = _paged_inputs(dev, hd, page, mp, pos, n,
+                                           seed=hd)
+    scale = hd ** -0.5
+    kernels.reset_launch_counts()
+    out = pa.paged_decode_attention(q, pk, pv, table, posd, n, hd, scale)
+    ref = pa.plain_paged_attention(q, pk, pv, table, posd, n, hd, scale)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    for i in range(len(pos)):
+        alone = pa.paged_decode_attention(q[i:i + 1], pk, pv,
+                                          table[i:i + 1], posd[i:i + 1], n,
+                                          hd, scale)
+        assert torch.equal(alone[0], out[i]), i
+    perm = torch.tensor([3, 7, 0, 5, 1, 6, 2, 4], device=dev)
+    shuffled = pa.paged_decode_attention(q[perm], pk, pv, table[perm],
+                                         posd[perm], n, hd, scale)
+    again = pa.paged_decode_attention(q, pk, pv, table, posd, n, hd, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(shuffled, out[perm]) and torch.equal(again, out)
+    assert kernels.launch_counts()["paged_attention"] == len(pos) + 3
+
+
+def test_paged_graphs_replay_beside_eager_calls(dev):
+    """Calls captured into CUDA graphs own their combine workspace: two
+    graphs captured on one stream and replayed at once on two other
+    streams, beside eager calls on the capture stream, each give the
+    bits of the same call made eagerly, replay after replay."""
+    n, hd, page, mp = 4, 64, 16, 80
+    pos = [1279, 0, 255, 256, 700, 15, 1024, 511]
+    q, pk, pv, table, posd = _paged_inputs(dev, hd, page, mp, pos, n,
+                                           seed=7)
+    qs = [q, q.flip(0).contiguous() * 2.0]
+
+    def call(x):
+        return pa.paged_decode_attention(x, pk, pv, table, posd, n, hd, 0.1)
+
+    want = [call(x) for x in qs]
+    torch.testing.assert_close(want[0], pa.plain_paged_attention(
+        q, pk, pv, table, posd, n, hd, 0.1), rtol=1e-4, atol=1e-5)
+    capture, s1, s2 = (torch.cuda.Stream() for _ in range(3))
+    capture.wait_stream(torch.cuda.current_stream())
+    graphs = [torch.cuda.CUDAGraph() for _ in range(2)]
+    outs = []
+    with torch.cuda.stream(capture):
+        call(q)   # the capture stream's own workspace, made outside
+        for x, graph in zip(qs, graphs):
+            with torch.cuda.graph(graph, stream=capture):
+                outs.append(call(x))
+    torch.cuda.synchronize()
+    for rep in range(4):
+        for s in (capture, s1, s2):
+            s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s1):
+            graphs[0].replay()
+        with torch.cuda.stream(s2):
+            graphs[1].replay()
+        with torch.cuda.stream(capture):
+            eager = [call(x) for x in qs]
+        torch.cuda.synchronize()
+        for got in (outs, eager):
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), rep
 
 
 @pytest.mark.parametrize("m,k,n,bias,act", [
@@ -753,6 +964,50 @@ def test_ernie_tiny_trains_on_card_as_on_cpu(dev):
     for a, b in zip(runs["cuda:0"], runs["cpu"]):
         np.testing.assert_allclose(a[0], b[0], rtol=1e-4, atol=1e-4)
         assert all(np.array_equal(x, y) for x, y in zip(a[1:], b[1:]))
+
+
+def test_each_adamw_op_of_an_ernie_step_is_one_kernel(dev):
+    """ERNIE-tiny on the card: each ``adamw`` op of the program, run as
+    the executor runs it, launches one CUDA kernel (torch.profiler's
+    count), the AdamW kernel, which also advances its Beta1Pow and
+    Beta2Pow."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor, run_op
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          intermediate_size=512, max_position_embeddings=64,
+                          use_flash_attention=True)
+    with unique_name.guard():
+        main, startup, _, fetches = bert.build_pretraining_program(
+            cfg, seq_len=64, max_predictions_per_seq=8)
+    scope = Scope()
+    exe = Executor(device="cuda:0")
+    exe.run(startup, scope=scope)
+    batch = bert.synthetic_pretraining_batch(cfg, 4, 64, seed=1,
+                                             max_predictions_per_seq=8)
+    exe.run(main, feed=batch, scope=scope, fetch_list=[fetches["loss"]])
+    ops = [o for o in main.global_block().ops if o.type == "adamw"]
+    assert ops
+    env = dict(scope.items())
+    for op in ops:
+        p = env[op.inputs["Param"][0]]
+        env[op.inputs["Grad"][0]] = torch.randn_like(p) * 1e-2
+        want = env[op.inputs["Beta1Pow"][0]].cpu() * float(op.attrs["beta1"])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_op(op, env)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and "adamw" in names[0], names
+        got = env[op.outputs["Beta1PowOut"][0]].cpu()
+        assert got.numpy().tobytes() == want.numpy().tobytes()
 
 
 def test_engine_on_card_uses_kernels_and_batches_bitwise(dev):
