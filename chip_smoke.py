@@ -49,7 +49,9 @@ prints one JSON line; any failure raises and the exit code is non-zero.
 3. serve_fp32, serve_int8 — the decoder LM at the README's full width
                (vocab 32000, d_model 1024, 12 layers, 16 heads, d_inner
                4096, max_seq_len 2048), random weights from seed 0, through
-               DecodeEngine: 9 concurrent requests, prompts of 5..1500
+               DecodeEngine, whose warm-up runs each (phase, bucket)
+               program once and captures it as a CUDA graph that every
+               later run replays: 9 concurrent requests, prompts of 5..1500
                tokens (both prefill lengths regimes), 32 new tokens, greedy
                plus one sampled at temperature 0.8. Continuous batching
                must equal one-at-a-time decode bit for bit, and every
@@ -79,15 +81,18 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                dropout 0.1, hidden dropout 0.1, 80 masked predictions, NSP,
                AdamW lr 1e-4 / decay 0.01) through build_pretraining_program
                and Executor: startup on the card, one warm-up step, 8 timed
-               steps on one synthetic batch (batch 40, or the largest of 32,
-               24, 16, 8 that fits). Finite loss, the last below the
-               warm-up's and the first step's (without a learning-rate
+               steps op by op and 8 compiled on one synthetic batch (batch
+               40, or the largest of 32, 24, 16, 8 that fits), each mode's
+               leg from the warm-up's state. In each leg finite losses,
+               the last below the leg's first two (without a learning-rate
                warm-up AdamW's first steps overshoot at this depth: the
                24-layer train_parity leg shows the same rise on the CPU);
-               exactly 24 flash forward, 24 flash backward and 398 AdamW
-               launches a step, every flash launch on the bf16 tensor-core
-               instance; no NaN in any parameter. Its ms/step and
-               tokens/s are smoke figures of a host-driven eager step.
+               the flash and AdamW kernels found by name in its traced
+               step as often as its launch counters say; exactly
+               24 flash forward, 24 flash backward and 398 AdamW launches
+               a step in either mode, every flash launch on the bf16
+               tensor-core instance; no NaN in any parameter. Its ms/step
+               and tokens/s are smoke figures of one synthetic batch.
                Then layer_norm_variance_cost: 12 more steps alternating
                the layer_norm lowering as it is and without its Variance
                op (Variance recovered from rstd), the step ms of each.
@@ -110,8 +115,42 @@ The long-context and [B,H,S,D] slice adds, in the order they run:
                benchmark rows (tools/bench_models.py bench_long_context):
                max_position_embeddings = seq, s2048 batch 4 with 307 masked
                predictions and s4096 batch 2 with 614, 1 warm-up + 5 timed
-               steps; finite loss, the last timed loss below the warm-up's,
-               24 / 24 / 398 launches a step.
+               steps in each mode; in each leg finite losses, the last
+               below the leg's first, 24 / 24 / 398 launches a step.
+The compiled-step slice (every Executor.run defaults to use_compiled:
+the first run of a key op by op, the second captures a CUDA graph, later
+runs replay it) adds, in the order they run:
+   kernels  — the dropout masks read back with the seed as an int and as
+               a device int64 (the kernels read it through a pointer);
+               check_flash_bert_base: both flash kernels at BERT-base's
+               s128 shape (B=384 S=128, 12 heads of 64, bf16, bias,
+               dropout), compared and timed beside SDPA.
+   compiled_parity — ERNIE-large at full width, 4 layers, s512 b40, bf16,
+               4 steps op by op twice and compiled once from one state:
+               masks bit for bit and fresh each step; losses and every
+               state tensor bit for bit where the two op-by-op runs agree,
+               else within twice their difference (the tensors that differ
+               and the ops that read them printed); launches a step equal.
+   train_ernie, train_long_s2048, train_long_s4096, train_resnet50 and the
+               two rows below print both modes (profile_train.timed_modes,
+               each leg from one state and step counter): step ms p50 on
+               the host clock, one traced step's device busy ms and idle
+               share, peak memory allocated (compiled: from the capture
+               on) and memory reserved; the launches a step of both modes
+               are gated, and so is each leg's own falling loss and its
+               traced step's flash and AdamW kernels, counted by name,
+               against its counters (a replay's counts are its capture's);
+               at s512 the compiled peak stays within 1.10 of the
+               op-by-op one.
+   train_bert_base — BERT-base as bench_bert_base trains it (12 layers,
+               hidden 768, s128, b384, 20 predictions, bf16, flash,
+               dropout 0.1, AdamW): 12 / 12 flash launches a step on the
+               bf16 packed instance, one AdamW launch an adamw op, a
+               falling loss; card against CPU at 2 layers, batch 2: masks
+               bit for bit, losses within 1e-2.
+   train_lenet — LeNet as bench_mnist builds it (b512, Adam at lr 1e-3):
+               a falling loss, no hand-written kernel; card against CPU at
+               batch 16, fp32: losses within 1e-4.
 The ResNet-50 slice adds, in the order they run:
    kernels  — check_layer_norm: the layer_norm kernel at ERNIE-large's LN
                rows [20480, 1024] bf16 and fp32 and the decoder LM's [1500,
@@ -133,9 +172,9 @@ The ResNet-50 slice adds, in the order they run:
                times max(1, the tensor's largest magnitude).
 13. train_resnet50 — ResNet-50 as tools/bench_models.py bench_resnet50
                trains it (224x224, batch 256, bf16 AMP, Momentum lr 0.1,
-               fuse_bn_act_pass), not cut: 1 warm-up + 5 timed steps on one
-               synthetic batch; finite losses, the last timed one below the
-               warm-up's; 616 ops of 17 types. No hand-written kernel runs
+               fuse_bn_act_pass), not cut: 1 warm-up + 5 timed steps a
+               mode on one synthetic batch; in each leg finite losses, the
+               last below the leg's first; 616 ops of 17 types. No hand-written kernel runs
                on this path (its convs are cuDNN's, as the reference's are
                XLA's): its launch counts are all 0.
 14. check_conv_real_layer — the conv kernel on the input, filter and
@@ -160,6 +199,7 @@ stay torch.matmul in full fp32, as the JAX package left them to XLA.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -195,6 +235,9 @@ REPLACES = {
 ERNIE = dict(vocab_size=18000, hidden_size=1024, num_attention_heads=16,
              intermediate_size=4096)
 SEQ, MAX_PREDS = 512, 80
+# tools/bench_models.py bench_bert_base and bench_mnist
+BERT_BASE_BATCH, BERT_BASE_SEQ, BERT_BASE_PREDS = 384, 128, 20
+LENET_BATCH = 512
 # the long-context rows of tools/bench_models.py bench_long_context:
 # (seq, batch), max(80, seq * 15 // 100) masked predictions
 LONG = ((2048, 4), (4096, 2))
@@ -514,8 +557,9 @@ def check_int8(dev, results):
             del w8s
 
 
-def _train_attn_inputs(dev, b, s, dtype, seed):
-    n, hd = ERNIE["num_attention_heads"], 64
+def _train_attn_inputs(dev, b, s, dtype, seed,
+                       n=ERNIE["num_attention_heads"]):
+    hd = 64
     g = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, do = (torch.randn(b, s, n * hd, device=dev, generator=g)
                    .to(dtype) for _ in range(4))
@@ -723,9 +767,13 @@ def check_flash_train(dev, results):
     # q = k = v = 0 and lse = log S make p = 1/S and ds = 0, and do
     # one-hot over a 64-row chunk makes dv[k, d] = keep(chunk + d, k) /
     # ((1 - rate) S).
+    # The kernels read the seed through a pointer: each mask is read with
+    # the seed as a Python int and as a device int64 (what the compiled
+    # step's seed table holds).
     b, s = 2, SEQ
     want = rng.attn_keep(ATTN_SEED, RATE, b, n, s, s, dev)
     eye = torch.eye(hd, device=dev)[None, :, None]
+    seed_t = torch.full((), ATTN_SEED, dtype=torch.int64, device=dev)
     checked = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = "bf16" if dtype == torch.bfloat16 else "fp32"
@@ -735,24 +783,44 @@ def check_flash_train(dev, results):
             chunk = torch.zeros(b, s, n, hd, device=dev, dtype=dtype)
             chunk[:, c * hd:(c + 1) * hd] = eye
             chunk = chunk.reshape(b, s, n * hd)
-            out, _ = fa.packed_flash_fwd(zero, zero, chunk, n, 1.0, False,
-                                         None, RATE, ATTN_SEED)
-            got = out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0
-            if not torch.equal(got, want[..., c * hd:(c + 1) * hd]):
-                raise AssertionError(f"flash forward {name}: the kernel's "
-                                     f"dropout keep mask differs from the "
-                                     f"plain mask")
-            dv = fa.packed_flash_bwd(zero, zero, zero, zero, lse, chunk, n,
-                                     1.0, False, None, RATE, ATTN_SEED)[2]
-            got = dv.reshape(b, s, n, hd).permute(0, 2, 3, 1) != 0
-            if not torch.equal(got, want[:, :, c * hd:(c + 1) * hd]):
-                raise AssertionError(f"flash backward {name}: the kernel's "
-                                     f"dropout keep mask differs from the "
-                                     f"plain mask")
+            for seed in (ATTN_SEED, seed_t):
+                out, _ = fa.packed_flash_fwd(zero, zero, chunk, n, 1.0,
+                                             False, None, RATE, seed)
+                got = out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0
+                if not torch.equal(got, want[..., c * hd:(c + 1) * hd]):
+                    raise AssertionError(
+                        f"flash forward {name}: the kernel's dropout keep "
+                        f"mask differs from the plain mask (seed "
+                        f"{type(seed).__name__})")
+                dv = fa.packed_flash_bwd(zero, zero, zero, zero, lse, chunk,
+                                         n, 1.0, False, None, RATE, seed)[2]
+                got = dv.reshape(b, s, n, hd).permute(0, 2, 3, 1) != 0
+                if not torch.equal(got, want[:, :, c * hd:(c + 1) * hd]):
+                    raise AssertionError(
+                        f"flash backward {name}: the kernel's dropout keep "
+                        f"mask differs from the plain mask (seed "
+                        f"{type(seed).__name__})")
         checked[name] = {"forward": int(want.numel()),
-                         "backward": int(want.numel())}
+                         "backward": int(want.numel()),
+                         "seeds": ["int", "device int64"]}
     return dict(mask_bits_checked=checked,
                 keep_fraction=float(want.float().mean()))
+
+
+def check_flash_bert_base(dev, results):
+    """Both flash kernels at BERT-base's attention shape in its s128 step
+    (B = 384, S = 128, 12 heads of 64, bf16, key bias, dropout 0.1):
+    compared with the plain version run in fp32, timed beside SDPA."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    b, s, n = BERT_BASE_BATCH, BERT_BASE_SEQ, 12
+    q, k, v, do, bias = _train_attn_inputs(dev, b, s, torch.bfloat16, 3, n)
+    out, lse, err = _compare_flash(fa, f"bf16 B={b} S={s}", q, k, v, do,
+                                   bias, n, 64 ** -0.5)
+    timing = _time_flash(fa, q, k, v, do, bias, n, 64 ** -0.5, out, lse,
+                         "packed")
+    _flash_rows(results, f"B={b} S={s} n={n} hd=64 bias dropout={RATE} "
+                f"bf16", err, timing)
 
 
 def check_flash_long(dev, results):
@@ -1084,23 +1152,32 @@ def _adamw_op_kernels(dev):
     feed = {"x": np.random.RandomState(0).randn(8, 64).astype(np.float32)}
     exe.run(main_prog, feed=feed, scope=scope, fetch_list=[loss])
     env = dict(scope.items())
-    counts = []
+    counts, empty_traces = [], 0
     for op in (o for o in main_prog.global_block().ops if o.type == "adamw"):
         param = env[op.inputs["Param"][0]]
         env[op.inputs["Grad"][0]] = torch.full_like(param, 1e-3)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run_op(op, env)
+        names = []
+        # a trace that recorded no device activity at all is the
+        # profiler's failure, not the op's (the op always launches): one
+        # more trace of the same call, counted in the output
+        for _ in range(2):
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run_op(op, env)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+            empty_traces += 1
         if len(names) != 1 or "adamw" not in names[0]:
             raise AssertionError(f"an adamw op launched {names}, not the "
                                  f"AdamW kernel alone")
         counts.append(len(names))
     if not counts:
         raise AssertionError("the AdamW program has no adamw op")
-    return dict(adamw_ops=len(counts), kernels_each=sorted(set(counts)))
+    return dict(adamw_ops=len(counts), kernels_each=sorted(set(counts)),
+                empty_traces=empty_traces)
 
 
 # ---------------------------------------------------------------------------
@@ -1116,8 +1193,9 @@ def serve(phase, cfg, params, quant, dev):
         max_slots=8, page_size=16, kv_pages=1024, weight_quant=quant,
         max_new_tokens=32), device=dev)
     t0 = time.perf_counter()
-    built = eng.warmup()
+    built = eng.warmup()      # runs each (phase, bucket) once, captures it
     warm_s = time.perf_counter() - t0
+    graphs = len(eng._graphs)
     rng = np.random.RandomState(3)
     lengths = [5, 37, 100, 250, 480, 700, 1100, 1500]
     reqs = [dict(prompt=rng.randint(3, cfg.vocab_size, n).astype(np.int32),
@@ -1144,6 +1222,9 @@ def serve(phase, cfg, params, quant, dev):
         raise AssertionError(f"{phase}: continuous != sequential")
     if any(len(t) != 32 for t in together):
         raise AssertionError(f"{phase}: short generation")
+    if graphs != built or len(eng._graphs) != built:
+        raise AssertionError(f"{phase}: {built} programs, {graphs} graphs "
+                             f"after the warm-up, {len(eng._graphs)} after")
     need = ["flash_attention_fwd", "paged_attention"] + \
         (["int8_gemm"] if quant == "int8" else [])
     if any(launches[n] == 0 for n in need):
@@ -1162,6 +1243,7 @@ def serve(phase, cfg, params, quant, dev):
          prefill_ms_p50=stats["prefill_ms"]["p50"],
          step_ms_p50=stats["step_ms"]["p50"],
          steps=stats.get("steps"), programs_built=built, warmup_s=warm_s,
+         graphs_captured=graphs,
          continuous_equals_sequential=True, launches=launches,
          int8_launches_by_instance=int8_instances,
          flash_launches_by_layout=layouts,
@@ -1348,7 +1430,8 @@ def _ln_variance_cost(exe, main_prog, batch, scope, fetches, steps=6):
     from native_layer_norm's rstd as 1 / rstd^2 - eps, one op fewer a
     layer norm (about 100 a step, with the forwards __vjp_grad__ re-runs).
     The steps alternate with, without, without, with, ... in one process
-    on one batch; medians of each."""
+    on one batch, op by op (a graph replay would not see the swap);
+    medians of each."""
     from paddle_tpu_torch.core import registry
 
     od = registry.get("layer_norm")
@@ -1375,7 +1458,7 @@ def _ln_variance_cost(exe, main_prog, batch, scope, fetches, steps=6):
             od.forward = with_var if key == "with_var" else without_var
             t0 = time.perf_counter()
             exe.run(main_prog, feed=batch, scope=scope,
-                    fetch_list=[fetches["loss"]])
+                    fetch_list=[fetches["loss"]], use_compiled=False)
             torch.cuda.synchronize()
             ms[key].append((time.perf_counter() - t0) * 1e3)
     finally:
@@ -1384,15 +1467,47 @@ def _ln_variance_cost(exe, main_prog, batch, scope, fetches, steps=6):
             for k, v in ms.items()}
 
 
+def _loss(out):
+    return float(np.asarray(out[0], np.float32).reshape(-1)[0])
+
+
+def _check_legs(phase, modes, first=1):
+    """Each leg of ``profile_train.timed_modes`` held to its own start
+    (both start from one state): finite losses, the last below the lowest
+    of the leg's first ``first``; and the port's flash and AdamW kernels
+    found by name in the leg's traced step as often as its launch
+    counters give for a step. A replay adds the counts its capture
+    recorded, so only the trace shows that a graph ran the kernels."""
+    for m, r in modes.items():
+        losses = r["losses"]
+        if not all(np.isfinite(losses)) or \
+                not losses[-1] < min(losses[:first]):
+            raise AssertionError(f"{phase} ({m}): loss did not fall: "
+                                 f"{losses}")
+        want = {k: r["launches_per_step"].get(k, 0)
+                for k in r["traced_launches"]}
+        if r["traced_launches"] != want:
+            raise AssertionError(f"{phase} ({m}): kernels in the traced "
+                                 f"step {r['traced_launches']}, launch "
+                                 f"counters {want}")
+
+
+def _per_mode(modes):
+    return {m: {k: v for k, v in r.items()
+                if k not in ("launches", "layouts", "dtypes")}
+            for m, r in modes.items()}
+
+
 def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
                 batches=(40, 32, 24, 16, 8), timed=8):
-    """ERNIE-large, 24 layers, bf16: startup, one warm-up step and
-    ``timed`` timed steps on one batch, at the first batch size of
-    ``batches`` that fits."""
-    from paddle_tpu_torch import kernels
+    """ERNIE-large, 24 layers, bf16: startup, one warm-up step, then
+    profile_train.timed_modes (``timed`` timed steps op by op and
+    ``timed`` compiled, each leg from the warm-up's state) on one batch,
+    at the first batch size of ``batches`` that fits."""
     from paddle_tpu_torch.core.executor import Executor
     from paddle_tpu_torch.core.scope import Scope
     from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.profile_train import timed_modes
 
     layers = 24
     cfg, main_prog, startup, fetches = _ernie_programs(layers, "bfloat16",
@@ -1410,10 +1525,9 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
         batch = bert.synthetic_pretraining_batch(
             cfg, batch_size, seq, seed=0,
             max_predictions_per_seq=_preds(seq))
-        torch.cuda.reset_peak_memory_stats()
         try:
             warm = exe.run(main_prog, feed=batch, scope=scope,
-                           fetch_list=[fetches["loss"]])
+                           fetch_list=[fetches["loss"]], use_compiled=False)
             torch.cuda.synchronize()
             break
         except torch.cuda.OutOfMemoryError as e:
@@ -1423,48 +1537,39 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
             torch.cuda.empty_cache()
     else:
         raise AssertionError(f"{phase}: no batch size fits: {tried}")
-    kernels.reset_launch_counts()
-    losses, step_ms = [float(warm[0].reshape(-1)[0])], []
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        out = exe.run(main_prog, feed=batch, scope=scope,
-                      fetch_list=[fetches["loss"]])
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(out[0].reshape(-1)[0]))
-    counts = kernels.launch_counts()
-    layouts = kernels.layout_counts()
-    dtypes = kernels.dtype_counts()
-    peak = torch.cuda.max_memory_allocated()
-    per_step = {k: counts[k] / timed for k in
-                ("flash_attention_fwd", "flash_attention_bwd", "fused_adamw")}
+    modes = timed_modes(exe, main_prog, batch, scope, [fetches["loss"]],
+                        timed)
+    comp = modes["compiled"]
+    counts, layouts, dtypes = comp["launches"], comp["layouts"], \
+        comp["dtypes"]
     params = [scope.find_var(p.name) for p in main_prog.all_parameters()]
     finite = all(bool(torch.isfinite(p.float()).all()) for p in params)
-    p50 = float(np.median(step_ms))
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
+            "fused_adamw": n_adamw}
+    peak_ratio = comp["max_memory_allocated"] / \
+        modes["eager"]["max_memory_allocated"]
     emit(phase, model="ernie_large", layers=layers, dtype="bfloat16",
          seq=seq, max_predictions=_preds(seq), batch=batch_size,
          batches_that_did_not_fit=tried, ops=len(ops),
          op_types=len({o.type for o in ops}), parameters=len(params),
          parameter_elements=int(sum(p.numel() for p in params)),
-         startup_s=startup_s, warmup_loss=losses[0], losses=losses[1:],
-         step_ms=step_ms, step_ms_p50=p50,
-         step_ms_range=[min(step_ms), max(step_ms)],
-         tokens_per_s=batch_size * seq / (p50 / 1e3),
-         max_memory_allocated=peak, launches_per_step=per_step,
+         startup_s=startup_s, warmup_loss=_loss(warm),
+         modes=_per_mode(modes), step_ms_p50=comp["step_ms_p50"],
+         tokens_per_s=batch_size * seq / (comp["step_ms_p50"] / 1e3),
+         compiled_over_eager_peak_memory=peak_ratio,
          flash_launches_by_layout=layouts, flash_launches_by_dtype=dtypes,
          params_finite=finite, nvidia_smi=smi,
-         note="smoke figures of a host-driven eager step, not a benchmark")
-    # one batch every step: the last loss lies below the warm-up's, which
-    # no update preceded, and at S = 512 (8 timed steps) below the first
-    # step's too
-    first = losses[:2] if seq == SEQ else losses[:1]
-    if not all(np.isfinite(losses)) or not losses[timed] < min(first):
-        raise AssertionError(f"{phase}: loss did not fall: {losses}")
-    if per_step != {"flash_attention_fwd": layers,
-                    "flash_attention_bwd": layers, "fused_adamw": n_adamw} \
-            or n_adamw != 398:
-        raise AssertionError(f"{phase}: launches per step {per_step}, "
-                             f"{n_adamw} adamw ops")
+         note="step ms on the host clock, one synthetic batch; smoke "
+              "figures, not a benchmark")
+    # one batch every step, each leg from the warm-up's state: its last
+    # loss lies below its first's, which no update of the leg preceded,
+    # and at S = 512 below its second's too
+    _check_legs(phase, modes, first=2 if seq == SEQ else 1)
+    for m, r in modes.items():
+        if r["launches_per_step"] != want or n_adamw != 398:
+            raise AssertionError(f"{phase} ({m}): launches per step "
+                                 f"{r['launches_per_step']}, {n_adamw} "
+                                 f"adamw ops")
     # every flash launch of the step ran the bf16 tensor-core instance
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         if dtypes[name] != {"fp32_tf32x3": 0, "bf16_wgmma": counts[name]}:
@@ -1472,6 +1577,9 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
                                  f"{dtypes[name]}")
     if not finite:
         raise AssertionError(f"{phase}: a parameter is not finite")
+    if seq == SEQ and peak_ratio > 1.10:
+        raise AssertionError(f"{phase}: the compiled step's peak memory is "
+                             f"{peak_ratio:.3f} of the op-by-op step's")
     if seq == SEQ:
         emit("layer_norm_variance_cost", model="ernie_large", seq=seq,
              batch=batch_size, layer_norm_ops=sum(
@@ -1479,7 +1587,197 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
              **_ln_variance_cost(exe, main_prog, batch, scope, fetches),
              nvidia_smi=smi,
              note="host-clock step times; the host differs step to step")
+    exe.close()
     return dict(launches=counts, layouts=layouts, dtypes=dtypes)
+
+
+def compiled_parity(dev, smi, layers=4, steps=4, batch_size=40):
+    """ERNIE-large at full width (hidden 1024, 16 heads, FFN 4096, vocab
+    18000, bf16, dropout, AdamW), s512 b40, ``layers`` deep, ``steps``
+    steps op by op twice and compiled once, each step from the same state
+    (tools/step_parity.compiled_parity). Gates: the losses and every
+    dropout mask bit for bit (the seed table's slots give op_seed's bits
+    to every random op, the flash kernels included), the masks new each
+    step; every state tensor after each step bit for bit where the two
+    op-by-op runs agree bit for bit, else within twice their largest
+    difference, the tensors that differ and the forward ops that read
+    them printed; the launches a step equal, by kernel, layout and
+    instance."""
+    from paddle_tpu_torch.tools.step_parity import compiled_parity as run
+
+    rec = run(dev, layers, SEQ, steps, batch_size)
+    last = rec.pop("last")
+    emit("compiled_parity", **rec, nvidia_smi=smi)
+    if not (rec["losses_and_masks_bitwise_equal"]
+            and rec["masks_new_each_step"]
+            and rec["state_within_twice_eager_spread"]
+            and rec["launch_counts_equal"]):
+        raise AssertionError(
+            "compiled_parity: losses and masks "
+            f"{rec['losses_and_masks_bitwise_equal']}, masks new each step "
+            f"{rec['masks_new_each_step']}, state "
+            f"{rec['state_within_twice_eager_spread']}, counts "
+            f"{rec['launch_counts_equal']}")
+    return last
+
+
+def train_lenet(dev, smi, batch_size=LENET_BATCH, timed=20, lr=1e-3):
+    """LeNet/MNIST as tools/bench_models.py bench_mnist builds it (b512,
+    two conv + pool stages, fc, softmax, cross entropy, Adam) at lr 1e-3:
+    at build_lenet_program's default 0.01 random normal images drive the
+    softmax to saturation and the loss rises, on the CPU as well. Startup, one
+    warm-up step, then profile_train.timed_modes on one batch; a falling
+    loss in each leg (_check_legs). No
+    hand-written kernel is on this path (its convs are cuDNN's). Then
+    card against CPU at batch 16, fp32, 4 steps from the initialised
+    state: losses within 1e-4."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import lenet
+    from paddle_tpu_torch.tools.profile_train import timed_modes
+
+    with unique_name.guard():
+        main_prog, startup, _, fetches = lenet.build_lenet_program(
+            batch_size, lr=lr)
+    r = np.random.RandomState(0)
+
+    def batch(b):
+        return {"img": r.randn(b, 1, 28, 28).astype(np.float32),
+                "label": r.randint(0, 10, (b, 1)).astype(np.int64)}
+
+    exe, scope = Executor(device=dev), Scope()
+    exe.run(startup, scope=scope)
+    # the parity legs start from the initialised state: after the timed
+    # steps the loss sits on a plateau (random labels), where Adam scales
+    # gradient noise up to full steps and any two devices part at once
+    state = {n: v.cpu() if isinstance(v, torch.Tensor) else v
+             for n, v in scope.items()}
+    feed = {k: torch.from_numpy(v).to(dev) for k, v in
+            batch(batch_size).items()}
+    fetch = [fetches["loss"]]
+    warm = _loss(exe.run(main_prog, feed=feed, scope=scope,
+                         fetch_list=fetch, use_compiled=False))
+    modes = timed_modes(exe, main_prog, feed, scope, fetch, timed)
+    exe.close()
+    small = batch(16)
+    parity = {}
+    for device in (dev, torch.device("cpu")):
+        sc = Scope()
+        for n, v in state.items():
+            sc.set(n, v.to(device) if isinstance(v, torch.Tensor) else v)
+        ex = Executor(device=device)
+        parity[device.type] = [_loss(ex.run(main_prog, feed=small, scope=sc,
+                                            fetch_list=fetch))
+                               for _ in range(4)]
+    ok = np.allclose(parity["cuda"], parity["cpu"], rtol=1e-4, atol=1e-4)
+    comp = modes["compiled"]
+    emit("train_lenet", model="lenet", batch=batch_size, lr=lr,
+         ops=len(main_prog.global_block().ops), warmup_loss=warm,
+         modes=_per_mode(modes), images_per_s=batch_size / (comp["step_ms_p50"] / 1e3),
+         parity_batch=16, parity_loss_gpu=parity["cuda"],
+         parity_loss_cpu=parity["cpu"], parity_tolerance="rtol=atol=1e-4",
+         nvidia_smi=smi)
+    _check_legs("train_lenet", modes)
+    if not ok:
+        raise AssertionError("train_lenet: card and CPU disagree")
+    return dict(launches=comp["launches"], layouts=comp["layouts"],
+                dtypes=comp["dtypes"])
+
+
+def _bert_base_programs(layers, batch_size):
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.bert_base()
+    cfg.num_hidden_layers = layers
+    cfg.dtype, cfg.use_flash_attention = "bfloat16", True
+    with unique_name.guard():
+        main_prog, startup, _, fetches = bert.build_pretraining_program(
+            cfg, seq_len=BERT_BASE_SEQ, optimizer_name="adamw",
+            max_predictions_per_seq=BERT_BASE_PREDS)
+    batch = bert.synthetic_pretraining_batch(
+        cfg, batch_size, BERT_BASE_SEQ, seed=0,
+        max_predictions_per_seq=BERT_BASE_PREDS)
+    return main_prog, startup, fetches, batch
+
+
+def train_bert_base(dev, smi, timed=8):
+    """BERT-base as tools/bench_models.py bench_bert_base trains it (12
+    layers, hidden 768, 12 heads of 64, vocab 30522, s128, b384, 20 masked
+    predictions, bf16, packed flash attention, dropout 0.1, AdamW):
+    startup, one warm-up step, profile_train.timed_modes on one batch; a
+    falling loss in each leg (_check_legs); 12 flash forward and 12 backward launches a step on the bf16
+    instance, packed, and one AdamW launch an adamw op. Then card against
+    CPU at 2 layers and batch 2, 4 steps from one state: the dropout masks
+    bit for bit, losses within 1e-2 (bf16)."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.profile_train import timed_modes
+
+    main_prog, startup, fetches, batch = _bert_base_programs(
+        12, BERT_BASE_BATCH)
+    ops = main_prog.global_block().ops
+    n_adamw = sum(o.type == "adamw" for o in ops)
+    exe, scope = Executor(device=dev), Scope()
+    exe.run(startup, scope=scope)
+    fetch = [fetches["loss"]]
+    warm = _loss(exe.run(main_prog, feed=batch, scope=scope,
+                         fetch_list=fetch, use_compiled=False))
+    modes = timed_modes(exe, main_prog, batch, scope, fetch, timed)
+    exe.close()
+    del scope
+    comp = modes["compiled"]
+    want = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
+            "fused_adamw": n_adamw}
+
+    pmain, pstart, pfetch, pbatch = _bert_base_programs(2, 2)
+    sc = Scope()
+    Executor(device="cpu").run(pstart, scope=sc)
+    state = _state_arrays(sc)
+    masks = [o.outputs["Mask"][0] for o in pmain.global_block().ops
+             if o.type == "dropout"]
+    parity = {}
+    for device in (dev, torch.device("cpu")):
+        s2 = bert.scope_from_numpy(state, device)
+        ex = Executor(device=device)
+        parity[device.type] = [ex.run(pmain, feed=pbatch, scope=s2,
+                                      fetch_list=[pfetch["loss"]] + masks)
+                               for _ in range(4)]
+    loss_gpu = [_loss(o) for o in parity["cuda"]]
+    loss_cpu = [_loss(o) for o in parity["cpu"]]
+    masks_equal = all(np.array_equal(x, y) for a, b in zip(
+        parity["cuda"], parity["cpu"]) for x, y in zip(a[1:], b[1:]))
+    ok = masks_equal and np.allclose(loss_gpu, loss_cpu, rtol=1e-2,
+                                     atol=1e-2)
+    emit("train_bert_base", model="bert_base", layers=12, seq=BERT_BASE_SEQ,
+         batch=BERT_BASE_BATCH, max_predictions=BERT_BASE_PREDS,
+         dtype="bfloat16", ops=len(ops), adamw_ops=n_adamw,
+         warmup_loss=warm, modes=_per_mode(modes),
+         tokens_per_s=BERT_BASE_BATCH * BERT_BASE_SEQ
+         / (comp["step_ms_p50"] / 1e3),
+         flash_launches_by_layout=comp["layouts"],
+         flash_launches_by_dtype=comp["dtypes"],
+         parity_layers=2, parity_batch=2, parity_loss_gpu=loss_gpu,
+         parity_loss_cpu=loss_cpu, parity_masks_bitwise_equal=masks_equal,
+         parity_tolerance="rtol=atol=1e-2", nvidia_smi=smi)
+    _check_legs("train_bert_base", modes)
+    for m, x in modes.items():
+        if x["launches_per_step"] != want:
+            raise AssertionError(f"train_bert_base ({m}): launches per step "
+                                 f"{x['launches_per_step']}")
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        n = comp["launches"][name]
+        if comp["dtypes"][name] != {"fp32_tf32x3": 0, "bf16_wgmma": n} or \
+                comp["layouts"][name] != {"packed": n, "bnsd": 0}:
+            raise AssertionError(f"train_bert_base: {name} by instance "
+                                 f"{comp['dtypes'][name]}, by layout "
+                                 f"{comp['layouts'][name]}")
+    if not ok:
+        raise AssertionError("train_bert_base: card and CPU disagree")
+    return dict(launches=comp["launches"], layouts=comp["layouts"],
+                dtypes=comp["dtypes"])
 
 
 def bnsd_ops(dev):
@@ -1840,15 +2138,17 @@ def resnet_parity(dev, amp, tol, steps=3):
 def train_resnet50(dev, smi, timed=5):
     """ResNet-50 as the reference's benchmark trains it: 224x224, batch
     256, bf16 AMP, Momentum lr 0.1, fuse_bn_act_pass; not cut. Startup on
-    the card, one warm-up step and ``timed`` timed steps on one synthetic
-    batch; then one more step fetching the input of RES4_CONV for the
-    real-layer conv check. Finite losses, the last timed one below the
-    warm-up's. No hand-written kernel is on this path: the reference runs
-    its convs through XLA, the port through cuDNN."""
-    from paddle_tpu_torch import kernels
+    the card, one warm-up step and profile_train.timed_modes (``timed``
+    steps op by op, ``timed`` compiled, each leg from the warm-up's state)
+    on one synthetic batch; then one more step, op by op, fetching the
+    input of RES4_CONV for the real-layer conv check. In each leg finite
+    losses, the last below the leg's first (_check_legs). No hand-written
+    kernel is on this path: the reference runs its convs through XLA, the
+    port through cuDNN."""
     from paddle_tpu_torch.core.executor import Executor
     from paddle_tpu_torch.core.scope import Scope
     from paddle_tpu_torch.models import resnet
+    from paddle_tpu_torch.tools.profile_train import timed_modes
 
     cfg = resnet.resnet50()
     t0 = time.perf_counter()
@@ -1864,32 +2164,23 @@ def train_resnet50(dev, smi, timed=5):
     startup_s = time.perf_counter() - t0
     batch = resnet.synthetic_batch(cfg, RESNET_BATCH, seed=0)
     feed = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    fetch = [fetches["loss"], fetches["acc1"]]
-    torch.cuda.reset_peak_memory_stats()
+    fetch = [fetches["loss"]]
     t0 = time.perf_counter()
-    warm = exe.run(main_prog, feed=feed, scope=scope, fetch_list=fetch)
+    warm = exe.run(main_prog, feed=feed, scope=scope, fetch_list=fetch,
+                   use_compiled=False)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    kernels.reset_launch_counts()
-    losses, acc1, step_ms = [float(warm[0].reshape(-1)[0])], \
-        [float(warm[1].reshape(-1)[0])], []
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        out = exe.run(main_prog, feed=feed, scope=scope, fetch_list=fetch)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(out[0].reshape(-1)[0]))
-        acc1.append(float(out[1].reshape(-1)[0]))
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
+    modes = timed_modes(exe, main_prog, feed, scope, fetch, timed)
+    counts = modes["compiled"]["launches"]
     conv_op = next(o for o in ops if o.type == "conv2d" and
                    o.inputs["Filter"][0].startswith(RES4_CONV + "_w"))
     layer_in = exe.run(main_prog, feed=feed, scope=scope,
                        fetch_list=[conv_op.inputs["Input"][0]],
-                       return_numpy=False)[0]
+                       return_numpy=False, use_compiled=False)[0]
+    exe.close()
     params = [scope.find_var(p.name) for p in main_prog.all_parameters()]
     finite = all(bool(torch.isfinite(p.float()).all()) for p in params)
-    p50 = float(np.median(step_ms))
+    p50 = modes["compiled"]["step_ms_p50"]
     types = {}
     for o in ops:
         types[o.type] = types.get(o.type, 0) + 1
@@ -1900,21 +2191,17 @@ def train_resnet50(dev, smi, timed=5):
          parameters=len(params),
          parameter_elements=int(sum(p.numel() for p in params)),
          build_s=build_s, startup_s=startup_s, warmup_s=warm_s,
-         warmup_loss=losses[0], losses=losses[1:], acc1=acc1,
-         step_ms=step_ms, step_ms_p50=p50,
-         step_ms_range=[min(step_ms), max(step_ms)],
-         images_per_s=RESNET_BATCH / (p50 / 1e3),
-         max_memory_allocated=peak, launches=counts,
-         params_finite=finite, nvidia_smi=smi,
-         note="smoke figures of a host-driven eager step, not a benchmark")
-    if not all(np.isfinite(losses)) or not losses[timed] < losses[0]:
-        raise AssertionError(f"train_resnet50: loss did not fall: {losses}")
+         warmup_loss=_loss(warm), modes=_per_mode(modes), step_ms_p50=p50, images_per_s=RESNET_BATCH / (p50 / 1e3),
+         launches=counts, params_finite=finite, nvidia_smi=smi,
+         note="step ms on the host clock, one synthetic batch; smoke "
+              "figures, not a benchmark")
+    _check_legs("train_resnet50", modes)
     if not finite:
         raise AssertionError("train_resnet50: a parameter is not finite")
     if len(ops) != 616 or len(types) != 17:
         raise AssertionError(f"train_resnet50: {len(ops)} ops of "
                              f"{len(types)} types")
-    return dict(launches=counts, layouts=kernels.layout_counts()), \
+    return dict(launches=counts, layouts=modes["compiled"]["layouts"]), \
         scope, layer_in
 
 
@@ -1992,6 +2279,13 @@ def check_conv_real_layer(dev, scope, layer_in):
                              f"bf16 ops {ok16}")
 
 
+def _release():
+    """Free what the last phase left: its graphs' pools go with their
+    executors, and cyclic garbage only with a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -2038,6 +2332,7 @@ def main():
     check_paged(dev, results)
     check_int8(dev, results)
     mask_check = check_flash_train(dev, results)
+    check_flash_bert_base(dev, results)
     check_flash_long(dev, results)
     bnsd_check = check_flash_bnsd(dev, results)
     adamw_check = check_adamw(dev, results)
@@ -2064,18 +2359,25 @@ def main():
     runs["train_parity_24"] = train_parity(dev, 24, "float32", 4, 1e-4)
     runs["train_parity_long"] = train_parity(dev, 2, "float32", 3, 1e-4,
                                              seq=LONG[0][0], batch_size=1)
+    runs["compiled_parity"] = compiled_parity(dev, smi)
+    _release()
     runs["train_ernie"] = train_ernie(dev, smi)
+    _release()
     runs["bnsd_ops"] = bnsd_ops(dev)
     for seq, batch_size in LONG:
-        torch.cuda.empty_cache()
+        _release()
         runs[f"train_long_s{seq}"] = train_ernie(
             dev, smi, f"train_long_s{seq}", seq, (batch_size,), timed=5)
-    torch.cuda.empty_cache()
+    _release()
+    runs["train_bert_base"] = train_bert_base(dev, smi)
+    _release()
+    runs["train_lenet"] = train_lenet(dev, smi)
+    _release()
     runs["exp_conv"] = exp_conv_phase(dev, results)
     runs["fused_ln_ops"] = fused_ln_ops(dev)
     resnet_parity(dev, False, 1e-4)
     resnet_parity(dev, True, 1e-2)
-    torch.cuda.empty_cache()
+    _release()
     runs["train_resnet50"], scope, layer_in = train_resnet50(dev, smi)
     check_conv_real_layer(dev, scope, layer_in)
     del scope, layer_in

@@ -1,11 +1,17 @@
-"""Op-by-op execution of a block on torch tensors.
+"""Execution of a block on torch tensors: op by op, or as a compiled
+step.
 
 The port of ``run_op``/``run_block`` (``paddle_tpu/core/executor.py``
-:101, :141) and of the ``Executor`` class's interpreting path
-(``_run_interpreted`` :528). PyTorch runs eagerly, so the interpreting
-path is the only path: the decode engine runs each program's block
-through ``run_block`` with its params, pools and feeds in one env dict,
-and training goes through ``Executor.run``. There is no compiled path.
+:101, :141) and of the ``Executor`` class's two paths: the interpreting
+path (``_run_interpreted`` :528), op by op, and the compiled one
+(``_run_compiled`` / ``_compile`` :1031, one jitted step with the state
+donated), which ``Executor.run`` takes by default as the reference does.
+The compiled step here is a CUDA graph (``core/graph.py``): the first run
+of a (program, scope, feed shapes and dtypes, fetch names) key runs op by
+op, which does the lazy work (kernel builds, library handles,
+workspaces); the second captures the step and replays it; every later run
+only replays it. The decode engine runs each program's block through
+``run_block`` with its params, pools and feeds in one env dict.
 
 Forward lowerings run under ``torch.no_grad()``, so no autograd graph
 outlives an op; ``__vjp_grad__`` re-enables grad inside its lowering.
@@ -15,7 +21,8 @@ compiler. An eager env that kept every var of a training step alive
 would hold all activations, all their gradients and every recompute
 temporary at once, so ``Executor.run`` computes each var's last reader
 once per program and drops a non-persistable, non-fetched var from the
-env right after it.
+env right after it, in either path: inside a capture the freed blocks
+return to the graph's pool and later ops of the step reuse them.
 """
 
 from __future__ import annotations
@@ -26,13 +33,15 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from . import registry
+from . import registry, rng
+from .graph import StepGraph
 from .ir import Block, OpDesc, Program, Variable, default_main_program
 from .registry import EMPTY_VAR
 from .scope import STEP_COUNTER, Scope, global_scope
 from .types import to_torch_dtype, x64_off
 
 _MISSING = object()
+_SEEN = object()   # a compiled-step key whose first run ran op by op
 
 
 class ExecutionError(RuntimeError):
@@ -57,10 +66,13 @@ def _resolve_inputs(op: OpDesc, env: Dict[str, Any]) -> Dict[str, List[Any]]:
     return ins
 
 
-def run_op(op: OpDesc, env: Dict[str, Any], step=None) -> Dict[str, Any]:
+def run_op(op: OpDesc, env: Dict[str, Any], step=None,
+           seed: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """Run one op's lowering against env and bind its outputs there.
     ``step`` (the global step counter) is handed to the lowering as the
-    ``__step__`` attr: random ops fold it into their seed."""
+    ``__step__`` attr: random ops fold it into their seed. ``seed``, a
+    random op's slot of a compiled step's seed table, goes in as the
+    ``__seed__`` attr, which ``rng.op_seed`` takes instead."""
     opdef = registry.get(op.type)
     if opdef.forward is None:
         raise ExecutionError(f"op '{op.type}' has no registered lowering")
@@ -68,6 +80,8 @@ def run_op(op: OpDesc, env: Dict[str, Any], step=None) -> Dict[str, Any]:
     attrs = dict(op.attrs)
     if step is not None:
         attrs["__step__"] = step
+    if seed is not None:
+        attrs["__seed__"] = seed
     try:
         with torch.no_grad():
             outs = registry.normalize_outputs(opdef.forward(ins, attrs))
@@ -122,10 +136,121 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
 
 
+def _host_tensor(value) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.from_numpy(np.ascontiguousarray(value))
+
+
+def _feed_spec(block: Block, name: str, value):
+    """(the feed as a host tensor, the dtype it is cast to: its declared
+    one, 64-bit types to 32 as the reference does)."""
+    t = _host_tensor(value)
+    dtype = block.var(name).dtype if block.has_var(name) else None
+    return t, x64_off(to_torch_dtype(dtype) if dtype is not None
+                      else t.dtype)
+
+
+class _CompiledStep:
+    """One key's compiled step: static feed buffers, the state tensors
+    the scope held when it was built, a seed table, and the step captured
+    (on a CUDA device) as a graph over them.
+
+    The seed table has one int64 slot per random op (``rng.seed_slots``);
+    before each step the host writes ``rng.seed_values`` at that step
+    into it (through a pinned buffer, one copy), and each random op reads
+    its slot as its ``__seed__``. Optimizer ops update their state in
+    place; a persistable that a lowering writes out of place (batch
+    norm's running statistics) is copied back into the tensor the scope
+    holds at the end of the step, so the scope keeps the tensors the
+    graph reads."""
+
+    def __init__(self, device, ops, dead, scope, feeds, fetch_names,
+                 persist):
+        for op in ops:
+            if not registry.get(op.type).capturable:
+                raise ExecutionError(
+                    f"op '{op.type}' cannot be replayed in a compiled "
+                    f"step (it draws through a host-seeded generator); "
+                    f"run this program with use_compiled=False")
+        unseeded = rng.unseeded_random_ops(ops)
+        if unseeded:
+            raise ExecutionError(
+                f"op '{ops[unseeded[0]].type}' draws random bits but "
+                f"carries no seed attr, so a compiled step would replay "
+                f"one mask every step; give it a seed or run this "
+                f"program with use_compiled=False")
+        self.device = device
+        self.ops, self.dead, self.fetch_names = ops, dead, fetch_names
+        outs = {n for op in ops for n in op.output_names()}
+        used = outs.union(*(op.input_names() for op in ops))
+        self.state = {n: v for n, v in scope.items()
+                      if n in used and isinstance(v, torch.Tensor)}
+        self.written = sorted(n for n in persist
+                              if n in self.state and n in outs)
+        self.feeds = {n: torch.empty(t.shape, dtype=dt, device=device)
+                      for n, (t, dt) in feeds.items()}
+        slots = rng.seed_slots(ops)
+        self.seed_attrs = [s for _, s in slots]
+        self.seeds = torch.zeros(len(slots), dtype=torch.int64,
+                                 device=device)
+        self.seed_of = {i: self.seeds[k] for k, (i, _) in enumerate(slots)}
+        cuda = device.type == "cuda"
+        self.seed_host = torch.zeros(len(slots), dtype=torch.int64,
+                                     pin_memory=cuda) if cuda else None
+        self.copied: Optional[torch.cuda.Event] = None
+        self.graph = StepGraph(self._step, device)
+
+    def _step(self) -> List[torch.Tensor]:
+        env: Dict[str, Any] = dict(self.state)
+        env.update(self.feeds)
+        with registry.creating_on(self.device):
+            for i, (op, drop) in enumerate(zip(self.ops, self.dead)):
+                run_op(op, env, seed=self.seed_of.get(i))
+                for n in drop:
+                    env.pop(n, None)
+        for n in self.written:
+            if env.get(n) is not self.state[n]:
+                self.state[n].copy_(env[n])
+        for n in self.fetch_names:
+            if n not in env:
+                raise ExecutionError(f"fetch target '{n}' was not produced")
+        return [env[n] for n in self.fetch_names]
+
+    def holds(self, scope: Scope) -> bool:
+        """Whether the scope still holds every tensor the step reads."""
+        now = dict(scope.items())
+        return all(now.get(n) is t for n, t in self.state.items())
+
+    def _fill_seeds(self, step: int):
+        if not self.seed_attrs:
+            return
+        values = rng.seed_values(self.seed_attrs, step)
+        if self.seed_host is None:
+            self.seeds.copy_(torch.tensor(values, dtype=torch.int64))
+            return
+        if self.copied is not None:   # the last step's copy has read it
+            self.copied.synchronize()
+        self.seed_host.numpy()[:] = values
+        self.seeds.copy_(self.seed_host, non_blocking=True)
+        self.copied = torch.cuda.Event()
+        self.copied.record()
+
+    def run(self, feeds: Dict[str, torch.Tensor], step: int
+            ) -> List[torch.Tensor]:
+        for n, buf in self.feeds.items():
+            buf.copy_(feeds[n])
+        self._fill_seeds(step)
+        if self.graph.graph is None:
+            self.graph.capture()
+        return self.graph.replay()
+
+
 class Executor:
     """User-facing run loop (reference: ``Executor``,
     ``paddle_tpu/core/executor.py:276``): ``run(program, feed,
-    fetch_list)`` executes block 0 op by op on ``device``.
+    fetch_list)`` executes block 0 on ``device``, as a compiled step
+    (the default) or op by op.
 
     ``device`` defaults to the card and raises without one; pass
     ``device="cpu"`` to run on the CPU, as the tests do."""
@@ -140,30 +265,43 @@ class Executor:
         self.device = torch.device(device)
         # program -> {(op count, fetch names): vars to drop after each op}
         self._dead = weakref.WeakKeyDictionary()
+        # program -> scope -> {key: _SEEN or its _CompiledStep}
+        self._compiled = weakref.WeakKeyDictionary()
 
     def close(self):
         self._dead.clear()
-
-    def _to_device(self, value, dtype=None):
-        if not isinstance(value, torch.Tensor):
-            value = torch.from_numpy(np.ascontiguousarray(value))
-        want = x64_off(to_torch_dtype(dtype) if dtype is not None
-                       else value.dtype)
-        return value.to(device=self.device, dtype=want)
+        self._compiled.clear()
 
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
             fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
             scope: Optional[Scope] = None, return_numpy: bool = True,
-            use_compiled: bool = False):
+            use_compiled: bool = True):
         """Run block 0 of ``program`` once. Feeds are cast to their
         declared dtypes (64-bit types to 32, as the reference does),
         persistable vars are read from and written back to ``scope``,
-        and the scope's step counter goes up by one. ``use_compiled`` is
-        accepted and ignored: PyTorch runs eagerly. With ``return_numpy``
-        fetches come back as numpy arrays; a bf16 fetch comes back as an
-        ``ml_dtypes.bfloat16`` array, as the reference returns it, where
-        ``ml_dtypes`` imports, and as float32 where it does not."""
+        and the scope's step counter goes up by one. With
+        ``return_numpy`` fetches come back as numpy arrays; a bf16 fetch
+        comes back as an ``ml_dtypes.bfloat16`` array, as the reference
+        returns it, where ``ml_dtypes`` imports, and as float32 where it
+        does not.
+
+        ``use_compiled`` (the default, as in the reference) runs a
+        compiled step: the first run of a (program, scope, feed shapes
+        and dtypes, fetch names) key runs op by op; the second builds the
+        step (static feed buffers, a seed table, the scope's tensors) and,
+        on a CUDA device, captures it into a CUDA graph and replays it;
+        later runs copy the feeds in and replay. A step whose scope
+        tensors were replaced since it was built is built again (an op by
+        op run, then a new capture). A program holding an op that cannot
+        be replayed (``registry`` ``capturable=False``: the random
+        initializers of a startup program) raises at that second run. On
+        the CPU there is no graph: the same step, with its static
+        buffers, seed table and write-back, is called on every run, which
+        gives the op-by-op path's results bit for bit. Fetches of a
+        compiled step come from its static outputs: copied to the host
+        with ``return_numpy``, cloned without it. ``use_compiled=False``
+        runs every step op by op."""
         if program is None:
             program = default_main_program()
         if scope is None:
@@ -171,21 +309,42 @@ class Executor:
         block = program.global_block()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
-
-        env: Dict[str, Any] = dict(scope.items())
-        for name, val in (feed or {}).items():
-            dtype = block.var(name).dtype if block.has_var(name) else None
-            env[name] = self._to_device(val, dtype)
         step = scope.find_var(STEP_COUNTER)
         step = 0 if step is None else int(step)
-
         persist = {v.name for v in block.vars.values() if v.persistable}
         plans = self._dead.setdefault(program, {})
-        key = (len(block.ops), tuple(fetch_names))
-        dead = plans.get(key)
+        plan_key = (len(block.ops), tuple(fetch_names))
+        dead = plans.get(plan_key)
         if dead is None:
-            dead = plans[key] = _last_readers(block,
-                                              persist | set(fetch_names))
+            dead = plans[plan_key] = _last_readers(block,
+                                                   persist | set(fetch_names))
+        feeds = {n: _feed_spec(block, n, v) for n, v in (feed or {}).items()}
+
+        compiled = None
+        if use_compiled:
+            steps = self._compiled.setdefault(
+                program, weakref.WeakKeyDictionary()).setdefault(scope, {})
+            key = (plan_key, tuple(sorted(
+                (n, tuple(t.shape), dt) for n, (t, dt) in feeds.items())))
+            compiled = steps.get(key)
+            if compiled is _SEEN:
+                compiled = steps[key] = _CompiledStep(
+                    self.device, list(block.ops), dead, scope, feeds,
+                    fetch_names, persist)
+            elif compiled is not None and not compiled.holds(scope):
+                compiled = None
+            if compiled is None:
+                steps[key] = _SEEN
+        if compiled is not None:
+            out = compiled.run({n: t for n, (t, _) in feeds.items()}, step)
+            scope.set(STEP_COUNTER, np.int32(step + 1))
+            return [_to_numpy(v) if return_numpy else v.clone()
+                    for v in out]
+
+        env: Dict[str, Any] = dict(scope.items())
+        env.update({n: t.to(device=self.device, dtype=dt)
+                    for n, (t, dt) in feeds.items()})
+        feeds.clear()   # the env holds the only reference to each feed
         with registry.creating_on(self.device):
             for op, drop in zip(block.ops, dead):
                 run_op(op, env, step=step)

@@ -48,6 +48,10 @@ class OpDef:
     non_diff_inputs: tuple = ()
     # attrs the lowering dereferences unconditionally
     required_attrs: tuple = ()
+    # False for a lowering a captured CUDA graph cannot replay as it ran
+    # (one that draws through a torch.Generator seeded on the host): a
+    # compiled step that holds it raises
+    capturable: bool = True
 
 
 _REGISTRY: Dict[str, OpDef] = {}
@@ -67,7 +71,7 @@ def _recorded(op_type: str, fn: LoweringFn) -> LoweringFn:
 
 def register_op(type: str, *, grad_maker: Optional[GradMakerFn] = None,
                 skip_infer_shape: bool = False, non_diff_inputs: tuple = (),
-                required_attrs: tuple = ()):
+                required_attrs: tuple = (), capturable: bool = True):
     """Decorator registering a forward lowering for ``type``."""
 
     def deco(fn: LoweringFn) -> LoweringFn:
@@ -76,6 +80,7 @@ def register_op(type: str, *, grad_maker: Optional[GradMakerFn] = None,
         od.skip_infer_shape = skip_infer_shape
         od.non_diff_inputs = tuple(non_diff_inputs)
         od.required_attrs = tuple(required_attrs)
+        od.capturable = capturable
         if grad_maker is not None:
             od.grad_maker = grad_maker
         return fn
@@ -187,15 +192,17 @@ def _vjp_grad_lowering(ins: Dict[str, List[Any]], attrs: Dict[str, Any]):
 
     The forward lowering is re-run on detached inputs (the floating-point
     ones of differentiable slots marked ``requires_grad``) with the
-    runtime ``__step__`` threaded into its attrs, so a stochastic forward
-    (dropout) recomputes the mask the forward op drew. Missing cotangents
+    runtime ``__step__`` (or, in a compiled step, the ``__seed__`` slot)
+    threaded into its attrs, so a stochastic forward (dropout) recomputes
+    the mask the forward op drew. Missing cotangents
     count as zeros, integer outputs are skipped, and an input the outputs
     do not depend on gets a zero gradient of its own shape and dtype
     (float32 for an integer input)."""
     fwd_def = get(attrs["fwd_type"])
     fwd_attrs = dict(attrs["fwd_attrs"])
-    if "__step__" in attrs:
-        fwd_attrs["__step__"] = attrs["__step__"]
+    for k in ("__step__", "__seed__"):
+        if k in attrs:
+            fwd_attrs[k] = attrs[k]
     non_diff = set(fwd_def.non_diff_inputs)
     fwd_ins: Dict[str, List[Any]] = {}
     leaves = []

@@ -19,11 +19,20 @@ same masks in either package:
 
 The CUDA kernels carry the same splitmix32 in uint32
 (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
+
+A compiled step (``core/executor.py``, a CUDA graph on the card) cannot
+take a new host integer each step, so the seed also has a device form:
+the executor keeps a **seed table**, one int64 slot per random op of the
+program (``seed_slots``), fills it before each step from ``op_seed`` with
+the step folded in (``seed_values``) and binds each op's slot, a 0-d
+tensor, as its ``__seed__`` attr. ``op_seed`` returns that tensor when it
+is bound; ``dropout_keep`` and ``attn_keep`` take the seed as an int or as
+such a tensor and draw the same bits from either.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 
@@ -61,15 +70,75 @@ def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
     return threefry2x32(key, (0, int(data) & M32))
 
 
-def op_seed(attrs) -> int:
+Seed = Union[int, torch.Tensor]
+
+
+def op_seed(attrs) -> Seed:
     """The uint32 seed of a random op in this run: the op's build-time
     ``seed`` attr, the runtime ``__step__`` folded in, reduced as the
-    reference's dropout ops reduce their key."""
+    reference's dropout ops reduce their key. Where the executor bound
+    the op's slot of its seed table (``__seed__``, a 0-d int64 tensor
+    holding that same value), the slot."""
+    bound = attrs.get("__seed__")
+    if bound is not None:
+        return bound
     key = prng_key(int(attrs.get("seed", 0) or 0))
     step = attrs.get("__step__")
     if step is not None:
         key = fold_in(key, int(step))
     return key[0] ^ key[1]
+
+
+def seed_slots(ops) -> List[Tuple[int, int]]:
+    """(op index, seed attr) of every random op of ``ops``: one slot of
+    the seed table each. An op draws random bits iff it carries a
+    ``seed`` attr (dropout, flash_attention with dropout,
+    flash_attention_grad, the random initializers), and a
+    ``__vjp_grad__`` op iff the forward it recomputes does."""
+    out = []
+    for i, op in enumerate(ops):
+        attrs = op.attrs.get("fwd_attrs") or {} \
+            if op.type == "__vjp_grad__" else op.attrs
+        if "seed" in attrs:
+            out.append((i, int(attrs["seed"] or 0)))
+    return out
+
+
+def unseeded_random_ops(ops) -> List[int]:
+    """Indices of the ops of ``ops`` that draw random bits but carry no
+    ``seed`` attr: a dropout, or an op with ``dropout_prob`` > 0, not in
+    test mode (or a ``__vjp_grad__`` recomputing one). Op by op such an
+    op still gets a new seed each step (the step folded into seed 0);
+    a compiled step has no slot for it and would replay one mask."""
+    out = []
+    for i, op in enumerate(ops):
+        grad = op.type == "__vjp_grad__"
+        attrs = op.attrs.get("fwd_attrs") or {} if grad else op.attrs
+        kind = op.attrs.get("fwd_type") if grad else op.type
+        if "seed" in attrs or attrs.get("is_test"):
+            continue
+        if kind == "dropout" or float(attrs.get("dropout_prob", 0.0)
+                                      or 0.0) > 0:
+            out.append(i)
+    return out
+
+
+def seed_values(seeds, step: int) -> List[int]:
+    """The seed table's values at ``step``: ``op_seed`` of each seed attr
+    with the step folded in (each distinct seed computed once)."""
+    done: Dict[int, int] = {}
+    for s in seeds:
+        if s not in done:
+            done[s] = op_seed({"seed": s, "__step__": step})
+    return [done[s] for s in seeds]
+
+
+def _golden(seed: Seed):
+    """seed * GOLDEN in uint32, for an int or an int tensor seed (an
+    int64 product that wraps keeps the right low 32 bits)."""
+    if isinstance(seed, torch.Tensor):
+        return (seed.long() * GOLDEN) & M32
+    return (int(seed) * GOLDEN) & M32
 
 
 def keep_threshold(rate: float) -> int:
@@ -86,10 +155,10 @@ def splitmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def dropout_keep(shape, seed: int, rate: float, device) -> torch.Tensor:
+def dropout_keep(shape, seed: Seed, rate: float, device) -> torch.Tensor:
     """bool keep mask of the ``dropout`` op over ``shape``: element i of
     the flattened tensor is kept iff splitmix32(i ^ seed * GOLDEN) >=
-    threshold."""
+    threshold. ``seed`` is an int or a 0-d int tensor on ``device``."""
     n = 1
     for d in shape:
         n *= int(d)
@@ -98,17 +167,18 @@ def dropout_keep(shape, seed: int, rate: float, device) -> torch.Tensor:
             "dropout over 2^32 or more elements takes the reference's "
             "threefry branch, which the port does not carry")
     lin = torch.arange(n, dtype=torch.int64, device=device)
-    h = splitmix32(lin ^ ((int(seed) * GOLDEN) & M32))
+    h = splitmix32(lin ^ _golden(seed))
     return (h >= keep_threshold(rate)).reshape(tuple(shape))
 
 
-def attn_keep(seed: int, rate: float, b: int, n: int, sq: int, sk: int,
+def attn_keep(seed: Seed, rate: float, b: int, n: int, sq: int, sk: int,
               device) -> torch.Tensor:
     """bool keep mask [b, n, sq, sk] of attention-probs dropout: keyed
     on (b * n + h, q, k) through a per-(b, h) seed and the q * Sk + k
-    lattice (``_attn_keep_scale``)."""
+    lattice (``_attn_keep_scale``). ``seed`` is an int or a 0-d int
+    tensor on ``device``."""
     bh = torch.arange(b * n, dtype=torch.int64, device=device)
-    seed2 = splitmix32(bh ^ ((int(seed) * GOLDEN) & M32))   # per (b, h)
+    seed2 = splitmix32(bh ^ _golden(seed))   # per (b, h)
     qi = torch.arange(sq, dtype=torch.int64, device=device)
     ki = torch.arange(sk, dtype=torch.int64, device=device)
     lin = (qi[:, None] * sk + ki[None, :]) & M32

@@ -203,7 +203,8 @@ dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
        bf16* __restrict__ dv, float* __restrict__ dbias_h, tc::Strides lq,
        tc::Strides lk, tc::Strides lv, tc::Strides ldo, tc::Strides ldk,
        tc::Strides ldv, int Sq, int Sk, int H, float scale, int causal,
-       unsigned seed, unsigned thresh, float inv_keep) {
+       const unsigned* __restrict__ seed, unsigned thresh,
+       float inv_keep) {
   using namespace tc;
   using SM = TcDkv<HD>;
   constexpr int BQ = SM::BQ, BK = TC_KEYS, NT = TC_THREADS;
@@ -227,7 +228,7 @@ dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* dob = dout + b * ldo.b + h * ldo.h;
   const float* lseb = lse + ((size_t)b * H + h) * Sq;
   const float* deltab = delta + ((size_t)b * H + h) * Sq;
-  const unsigned seed2m = DROP ? tc::mask_key(b, h, H, seed) : 0u;
+  const unsigned seed2m = DROP ? tc::mask_key(b, h, H, __ldg(seed)) : 0u;
   // the keys of this thread's accumulator rows, and their bias * log2 e
   const int kr[2] = {k0 + acc_row(lane, warp, 0), k0 + acc_row(lane, warp, 2)};
   float kbias[2];
@@ -370,7 +371,7 @@ dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float* __restrict__ lse, const float* __restrict__ delta,
       const float* __restrict__ bias, bf16* __restrict__ dq, tc::Strides lq,
       tc::Strides lk, tc::Strides lv, tc::Strides ldo, tc::Strides ldq,
-      int Sq, int Sk, int H, float scale, int causal, unsigned seed,
+      int Sq, int Sk, int H, float scale, int causal, const unsigned* seed,
       unsigned thresh, float inv_keep) {
   using namespace tc;
   using SM = TcDq<HD>;
@@ -393,7 +394,7 @@ dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * lk.b + h * lk.h;
   const bf16* vb = v + b * lv.b + h * lv.h;
   const float* biasb = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
-  const unsigned seed2m = DROP ? tc::mask_key(b, h, H, seed) : 0u;
+  const unsigned seed2m = DROP ? tc::mask_key(b, h, H, __ldg(seed)) : 0u;
   const int row[2] = {q0 + acc_row(lane, warp, 0), q0 + acc_row(lane, warp, 2)};
   float lse2[2], dl[2];
 #pragma unroll
@@ -539,7 +540,7 @@ dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
          float* __restrict__ dv, float* __restrict__ dbias_h, tc::Strides lq,
          tc::Strides lk, tc::Strides lv, tc::Strides ldo, tc::Strides ldk,
          tc::Strides ldv, int Sq, int Sk, int H, float scale, int causal,
-         unsigned seed, unsigned thresh, float inv_keep) {
+         const unsigned* seed, unsigned thresh, float inv_keep) {
   using namespace tc;
   using SM = TfDkv<HD>;
   constexpr int BQ = SM::BQ, BK = TC_KEYS, NT = TC_THREADS;
@@ -567,7 +568,7 @@ dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
   const float* dob = dout + b * ldo.b + h * ldo.h;
   const float* lseb = lse + ((size_t)b * H + h) * Sq;
   const float* deltab = delta + ((size_t)b * H + h) * Sq;
-  const unsigned seed2m = DROP ? mask_key(b, h, H, seed) : 0u;
+  const unsigned seed2m = DROP ? mask_key(b, h, H, __ldg(seed)) : 0u;
   // the keys of this thread's accumulator rows, and their bias
   const int kr[2] = {k0 + acc_row(lane, warp, 0), k0 + acc_row(lane, warp, 2)};
   float kbias[2];
@@ -708,7 +709,7 @@ dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
         const float* __restrict__ bias, float* __restrict__ dq,
         tc::Strides lq, tc::Strides lk, tc::Strides lv, tc::Strides ldo,
         tc::Strides ldq, int Sq, int Sk, int H, float scale, int causal,
-        unsigned seed, unsigned thresh, float inv_keep) {
+        const unsigned* seed, unsigned thresh, float inv_keep) {
   using namespace tc;
   using SM = TfDq<HD>;
   constexpr int BM = TC_ROWS, BN = SM::BN, NT = TC_THREADS;
@@ -733,7 +734,7 @@ dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * lk.b + h * lk.h;
   const float* vb = v + b * lv.b + h * lv.h;
   const float* biasb = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
-  const unsigned seed2m = DROP ? mask_key(b, h, H, seed) : 0u;
+  const unsigned seed2m = DROP ? mask_key(b, h, H, __ldg(seed)) : 0u;
   const int row[2] = {q0 + acc_row(lane, warp, 0), q0 + acc_row(lane, warp, 2)};
   float lse_r[2], dl[2];
 #pragma unroll
@@ -842,7 +843,8 @@ struct Args {
   int B, Sq, Sk, H;
   float scale;
   int causal;
-  unsigned seed, thresh;
+  const unsigned* seed;   // the dropout seed, read on the device
+  unsigned thresh;
   float inv_keep;
 };
 
@@ -948,14 +950,16 @@ int dispatch(const void* q, const void* k, const void* v, const void* out,
 // strides a multiple of 8 elements, pointers 16-byte aligned (16-byte
 // cp.async). delta [B, H, Sq] and, with a bias, dbias_h [B, H, Sk] are
 // fp32 scratch; dbias [B, Sk] fp32 (or null without a bias). Every output
-// is written in full, so none needs zeroing. thresh == 0 means no dropout.
+// is written in full, so none needs zeroing. thresh == 0 means no dropout;
+// otherwise seed points to the mask's uint32 seed on the device (the low
+// word of an int64 works), read once by every block of either pass.
 extern "C" int pt_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, const float* bias, float* delta,
     void* dq, void* dk, void* dv, float* dbias_h, float* dbias,
     const long long* strides, int B, int Sq, int Sk, int H, int hd,
-    float scale, int causal, int dtype, unsigned seed, unsigned thresh,
-    float inv_keep, cudaStream_t stream) {
+    float scale, int causal, int dtype, const unsigned* seed,
+    unsigned thresh, float inv_keep, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0) return 0;
   tc::Strides l[8];
   for (int i = 0; i < 8; ++i)

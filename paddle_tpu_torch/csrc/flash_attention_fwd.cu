@@ -146,8 +146,9 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ bias,
                float* __restrict__ out, float* __restrict__ lse,
                tc::Strides lq, tc::Strides lk, tc::Strides lv, tc::Strides lo,
-               int Sq, int Sk, int H, float scale, int causal, unsigned seed,
-               unsigned thresh, float inv_keep) {
+               int Sq, int Sk, int H, float scale, int causal,
+               const unsigned* __restrict__ seed, unsigned thresh,
+               float inv_keep) {
   using namespace tc;
   using SM = TfSmem<HD>;
   constexpr int BM = TF_BM, BN = SM::BN, NT = TF_THREADS;
@@ -172,7 +173,7 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * lk.b + h * lk.h;
   const float* vb = v + b * lv.b + h * lv.h;
   const float* biasb = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
-  const unsigned seed2m = DROP ? mask_key(b, h, H, seed) : 0u;
+  const unsigned seed2m = DROP ? mask_key(b, h, H, __ldg(seed)) : 0u;
   const int row[2] = {q0 + acc_row(lane, warp, 0),
                       q0 + acc_row(lane, warp, 2)};
 
@@ -326,7 +327,8 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const float* __restrict__ bias,
              bf16* __restrict__ out, float* __restrict__ lse, tc::Strides lq,
              tc::Strides lk, tc::Strides lv, tc::Strides lo, int Sq, int Sk,
-             int H, float scale, int causal, unsigned seed, unsigned thresh,
+             int H, float scale, int causal,
+             const unsigned* __restrict__ seed, unsigned thresh,
              float inv_keep) {
   using namespace tc;
   using SM = TcSmem<HD>;
@@ -351,7 +353,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * lk.b + h * lk.h;
   const bf16* vb = v + b * lv.b + h * lv.h;
   const float* biasb = bias != nullptr ? bias + (size_t)b * Sk : nullptr;
-  const unsigned seed2m = DROP ? mask_key(b, h, H, seed) : 0u;
+  const unsigned seed2m = DROP ? mask_key(b, h, H, __ldg(seed)) : 0u;
   // the rows of this thread's accumulator elements e: row[(e >> 1) & 1]
   const int row[2] = {q0 + 64 * wg + acc_row(lane, warp, 0),
                       q0 + 64 * wg + acc_row(lane, warp, 2)};
@@ -484,7 +486,8 @@ struct Args {
   int B, Sq, Sk, H;
   float scale;
   int causal;
-  unsigned seed, thresh;
+  const unsigned* seed;   // the dropout seed, read on the device
+  unsigned thresh;
   float inv_keep;
 };
 
@@ -541,7 +544,10 @@ int dispatch(const void* q, const void* k, const void* v, const float* bias,
 // Launch on `stream`; returns a CUDA error code (0 on success), or
 // cudaErrorInvalidValue for a head_dim or dtype without a template
 // instance. dtype: 0 = fp32, 1 = bf16 (q/k/v/out; bias and lse are fp32).
-// thresh == 0 means no dropout. strides: 12 element strides, (batch, row,
+// thresh == 0 means no dropout; otherwise seed points to the mask's
+// uint32 seed on the device (the low word of an int64 works), which every
+// block reads once, so a CUDA graph replays with the seed of the step.
+// strides: 12 element strides, (batch, row,
 // head) of q, k, v and out in that order; head_dim is contiguous. fp32:
 // every stride a multiple of 4 elements and every pointer 16-byte aligned
 // (float4 loads); bf16: strides a multiple of 8 elements, pointers 16-byte
@@ -549,7 +555,7 @@ int dispatch(const void* q, const void* k, const void* v, const float* bias,
 extern "C" int pt_flash_attention_fwd(
     const void* q, const void* k, const void* v, const float* bias, void* out,
     float* lse, const long long* strides, int B, int Sq, int Sk, int H,
-    int hd, float scale, int causal, int dtype, unsigned seed,
+    int hd, float scale, int causal, int dtype, const unsigned* seed,
     unsigned thresh, float inv_keep, cudaStream_t stream) {
   if (B <= 0 || Sq <= 0) return 0;
   const Args a = {{strides[0], strides[1], strides[2]},

@@ -13,6 +13,12 @@ instance it ran (``dtype_counts``: bf16 on the tensor cores, fp32 on the
 tensor cores in split TF32); the int8 GEMM splits its count by the
 instance its M chose (``int8_instance_counts``: prefill, M > 16; decode,
 M <= 16).
+
+A launch captured into a CUDA graph runs only when the graph replays:
+the code that captures and replays graphs (``core/graph.py``) takes the
+capture's counts back out (``snapshot_counts`` before and after,
+``add_counts``) and adds them on every replay, so a replayed step counts
+what the op-by-op step counts.
 """
 
 from __future__ import annotations
@@ -56,6 +62,41 @@ def dtype_counts() -> Dict[str, Dict[str, int]]:
 def int8_instance_counts() -> Dict[str, int]:
     """int8 GEMM launches by instance: {"prefill": n, "decode": m}."""
     return dict(int8_gemm.launches_by_instance)
+
+
+# the dict-valued launch splits, by the module that keeps them
+_SPLITS = {"launches_by_layout": flash_attention,
+           "bwd_launches_by_layout": flash_attention,
+           "launches_by_dtype": flash_attention,
+           "bwd_launches_by_dtype": flash_attention,
+           "launches_by_instance": int8_gemm}
+
+
+def snapshot_counts() -> Dict:
+    """Every launch counter, totals (by kernel name) and splits (by
+    (split, key)), in one flat dict."""
+    snap: Dict = dict(launch_counts())
+    for attr, mod in _SPLITS.items():
+        for key, n in getattr(mod, attr).items():
+            snap[(attr, key)] = n
+    return snap
+
+
+def count_delta(before: Dict, after: Dict) -> Dict:
+    """The launches between two snapshots, counters that moved only."""
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def add_counts(delta: Dict):
+    """Add a ``count_delta`` to the counters: the launches of a replayed
+    CUDA graph, which no wrapper sees."""
+    for k, n in delta.items():
+        if isinstance(k, tuple):
+            getattr(_SPLITS[k[0]], k[0])[k[1]] += n
+        else:
+            attr = _COUNTER.get(k, "launches")
+            setattr(MODULES[k], attr, getattr(MODULES[k], attr) + n)
 
 
 def reset_launch_counts():

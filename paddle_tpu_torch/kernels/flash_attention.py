@@ -57,7 +57,10 @@ Attention-probs dropout (rate > 0) multiplies p by keep / (1 - rate)
 before p v; the row sum and lse stay unmasked. keep is the reference's
 stateless hash of (seed, b * n + h, q, k) (``core/rng.attn_keep``), the
 same lattice in either layout, so the backward recomputes the forward's
-mask and never stores it.
+mask and never stores it. ``seed`` is a Python int or a 0-d int64/int32
+tensor on the inputs' device; the kernels read it through a pointer, so
+a CUDA graph that captured a launch draws the mask of whatever seed the
+tensor holds when it replays.
 
 On a CPU or meta tensor the wrappers run the plain versions below; on a
 CUDA tensor they launch the kernels or raise. The kernels read the
@@ -245,12 +248,12 @@ def _lib(name="flash_attention_fwd"):
         if name == "flash_attention_fwd":
             lib.pt_flash_attention_fwd.argtypes = [
                 vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, ci, ci,
-                cu, cu, cf, vp]
+                vp, cu, cf, vp]
             lib.pt_flash_attention_fwd.restype = ci
         else:
             lib.pt_flash_attention_bwd.argtypes = [
                 vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                ci, ci, ci, ci, cf, ci, ci, cu, cu, cf, vp]
+                ci, ci, ci, ci, cf, ci, ci, vp, cu, cf, vp]
             lib.pt_flash_attention_bwd.restype = ci
         lib._typed = True
     return lib
@@ -284,11 +287,26 @@ def _kernel_geometry(what, q, k, n_heads, layout):
     return b, n, sq, sk, hd, qshape, kshape
 
 
-def _dropout_args(rate, seed):
+def _dropout_args(rate, seed, dev):
+    """(the seed on the device or None, keep threshold, 1 / (1 - rate)).
+    The kernels read the seed through a pointer: a 0-d int64 or int32
+    tensor on ``dev`` (the executor's seed table) is passed as it is, a
+    Python int is written into a new device scalar by a fill kernel (no
+    copy from the host)."""
     rate = float(rate or 0.0)
     if rate <= 0.0:
-        return 0, 0, 1.0
-    return int(seed) & rng.M32, rng.keep_threshold(rate), 1.0 / (1.0 - rate)
+        return None, 0, 1.0
+    if isinstance(seed, torch.Tensor):
+        if seed.device != dev or seed.numel() != 1 \
+                or seed.dtype not in (torch.int64, torch.int32):
+            raise ValueError(f"flash kernels: a tensor seed must be one "
+                             f"int64 or int32 element on {dev}, got "
+                             f"{seed.dtype} {tuple(seed.shape)} on "
+                             f"{seed.device}")
+    else:
+        seed = torch.full((), int(seed) & rng.M32, dtype=torch.int64,
+                          device=dev)
+    return seed, rng.keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
 def _stride_array(what, hd, layout, named):
@@ -331,13 +349,14 @@ def _launch(q, k, v, n_heads, scale, causal, bias, rate, seed, layout):
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=dev)
     strides = _stride_array(what, hd, layout, (("q", q), ("k", k), ("v", v),
                                                ("out", out)))
-    seed32, thresh, inv_keep = _dropout_args(rate, seed)
+    seed_t, thresh, inv_keep = _dropout_args(rate, seed, dev)
     rc = _lib().pt_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr() if bias is not None else None,
         out.data_ptr(), lse.data_ptr(), strides, b, sq, sk, n, hd,
-        float(scale), int(causal), DTYPES[q.dtype][0], seed32, thresh,
-        inv_keep, torch.cuda.current_stream(dev).cuda_stream)
+        float(scale), int(causal), DTYPES[q.dtype][0],
+        None if seed_t is None else seed_t.data_ptr(), thresh, inv_keep,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, what)
     launches += 1
     launches_by_layout[layout] += 1
@@ -371,7 +390,7 @@ def _launch_bwd(q, k, v, out, lse, dout, n_heads, scale, causal, bias, rate,
     strides = _stride_array(what, hd, layout, (
         ("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout),
         ("dq", dq), ("dk", dk), ("dv", dv)))
-    seed32, thresh, inv_keep = _dropout_args(rate, seed)
+    seed_t, thresh, inv_keep = _dropout_args(rate, seed, dev)
     rc = _lib("flash_attention_bwd").pt_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(),
@@ -379,8 +398,9 @@ def _launch_bwd(q, k, v, out, lse, dout, n_heads, scale, causal, bias, rate,
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dbias_h.data_ptr() if dbias_h is not None else None,
         dbias.data_ptr() if dbias is not None else None, strides, b, sq, sk,
-        n, hd, float(scale), int(causal), DTYPES[q.dtype][0], seed32, thresh,
-        inv_keep, torch.cuda.current_stream(dev).cuda_stream)
+        n, hd, float(scale), int(causal), DTYPES[q.dtype][0],
+        None if seed_t is None else seed_t.data_ptr(), thresh, inv_keep,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, what)
     bwd_launches += 1
     bwd_launches_by_layout[layout] += 1

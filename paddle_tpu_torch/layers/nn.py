@@ -1,6 +1,6 @@
 """Op-emitting layer functions — the subset of ``paddle_tpu/layers/nn.py``
-the decoder LM's, the BERT/ERNIE pre-training and the ResNet classifier
-programs are built from.
+the decoder LM's, the BERT/ERNIE pre-training, the ResNet classifier and
+the LeNet programs are built from.
 Each function creates output vars and appends ops with the same types,
 slots and attrs as the reference, so the two packages build the same
 program."""
@@ -19,10 +19,10 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from ..parallel.api import set_logical_axes
 
-__all__ = ["static_data", "create_parameter", "create_global_var",
+__all__ = ["data", "static_data", "create_parameter", "create_global_var",
            "fc", "linear", "embedding", "layer_norm", "dropout",
-           "softmax_with_cross_entropy", "topk", "mean", "relu", "tanh",
-           "gelu", "elementwise_add", "elementwise_mul",
+           "cross_entropy", "softmax_with_cross_entropy", "topk", "mean",
+           "relu", "tanh", "gelu", "elementwise_add", "elementwise_mul",
            "elementwise_div", "reduce_sum", "matmul", "mul", "reshape",
            "squeeze", "unsqueeze", "slice", "gather", "scale",
            "fill_constant", "take_along_axis", "flash_attention",
@@ -33,6 +33,20 @@ def _pair(v):
     if isinstance(v, (list, tuple)):
         return list(v)
     return [v, v]
+
+
+def data(name: str, shape: Sequence[int], dtype="float32",
+         append_batch_size: bool = True, lod_level: int = 0,
+         stop_gradient: bool = True) -> Variable:
+    """fluid.layers.data (reference ``paddle_tpu/layers/nn.py:30``): a var
+    fed at run time; -1 is prepended as the batch dim when
+    ``append_batch_size`` is set and the shape does not start with -1."""
+    shape = list(shape)
+    if append_batch_size and (not shape or shape[0] != -1):
+        shape = [-1] + shape
+    return default_main_program().global_block().create_var(
+        name=name, shape=shape, dtype=dtype, stop_gradient=stop_gradient,
+        lod_level=lod_level)
 
 
 def static_data(name: str, shape: Sequence[int],
@@ -154,6 +168,18 @@ def dropout(x: Variable, dropout_prob: float, is_test: bool = False,
                      {"dropout_prob": dropout_prob, "is_test": is_test,
                       "seed": seed or default_main_program().next_op_seed(),
                       "dropout_implementation": dropout_implementation})
+    return out
+
+
+def cross_entropy(input: Variable, label: Variable, soft_label: bool = False,
+                  ignore_index: int = -100) -> Variable:
+    """The cross_entropy op over probabilities ``input`` (reference
+    ``paddle_tpu/layers/nn.py:280``)."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("cross_entropy", {"X": [input], "Label": [label]},
+                     {"Y": [out]},
+                     {"soft_label": soft_label, "ignore_index": ignore_index})
     return out
 
 

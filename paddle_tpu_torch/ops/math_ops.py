@@ -1,7 +1,7 @@
 """Math lowerings (port of ``paddle_tpu/ops/math_ops.py``: elementwise
 :38-46, relu :90, tanh :93, gelu :141, reduce_sum :231, mean :238, matmul
-:267, matmul_v2 :285, mul :297, softmax :329, softmax_with_cross_entropy
-:361, accuracy :448, top_k :466).
+:267, matmul_v2 :285, mul :297, softmax :329, cross_entropy :343,
+softmax_with_cross_entropy :361, accuracy :448, top_k :466).
 
 The matrix products stay ``torch.matmul``, as the JAX package left them
 to XLA; fp32 products run in full fp32 on the card (TF32 off), bf16
@@ -114,6 +114,24 @@ def mul(ins, attrs):
     y2 = y.reshape(math.prod(y.shape[:yd]), -1)
     return {"Out": torch.matmul(x2, y2).reshape(
         tuple(x.shape[:xd]) + tuple(y.shape[yd:]))}
+
+
+@register_op("cross_entropy", non_diff_inputs=("Label",))
+def cross_entropy(ins, attrs):
+    """-log(p + 1e-8) of X's probability at the label (reference
+    operators/cross_entropy_op.cc): a hard label [N, 1] or [N] is squeezed
+    and gathered, a soft label dotted with log(X + 1e-8) over the last
+    axis. Y keeps a trailing 1. ``ignore_index`` is carried, unused, as
+    the reference's lowering leaves it. The gradient is the generic
+    ``__vjp_grad__`` of this lowering."""
+    x, label = ins["X"][0], ins["Label"][0]
+    eps = 1e-8
+    if attrs.get("soft_label", False):
+        return {"Y": -(label * torch.log(x + eps)).sum(dim=-1, keepdim=True)}
+    if label.dim() == x.dim() and label.shape[-1] == 1:
+        label = label.squeeze(-1)
+    p = torch.gather(x, -1, label.long().unsqueeze(-1))
+    return {"Y": -torch.log(p + eps)}
 
 
 @register_op("softmax_with_cross_entropy", non_diff_inputs=("Label",))

@@ -6,7 +6,9 @@ lookup_table_v2 :337, sum :423).
 
 The random initializers draw from a ``torch.Generator`` seeded with the
 op's seed as ``core/rng.op_seed`` derives it: the same distributions as
-the reference, reproducible per seed, not the reference's bits."""
+the reference, reproducible per seed, not the reference's bits. A CUDA
+graph would replay the first draw's generator state, so they are not
+``capturable``: they belong in a startup program, which runs once."""
 
 from __future__ import annotations
 
@@ -47,21 +49,21 @@ def _std_normal(u, lo=0.0, hi=1.0):
     return math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
 
 
-@register_op("uniform_random")
+@register_op("uniform_random", capturable=False)
 def uniform_random(ins, attrs):
     lo, hi = float(attrs.get("min", -1.0)), float(attrs.get("max", 1.0))
     out = lo + (hi - lo) * _uniform01(attrs)
     return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "float32")))}
 
 
-@register_op("gaussian_random")
+@register_op("gaussian_random", capturable=False)
 def gaussian_random(ins, attrs):
     x = _std_normal(_uniform01(attrs))
     out = x * float(attrs.get("std", 1.0)) + float(attrs.get("mean", 0.0))
     return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "float32")))}
 
 
-@register_op("truncated_gaussian_random")
+@register_op("truncated_gaussian_random", capturable=False)
 def truncated_gaussian_random(ins, attrs):
     """Normal(mean, std) truncated at two standard deviations, by the
     inverse CDF over [cdf(-2), cdf(2)]."""

@@ -18,9 +18,14 @@ paged KV cache, on PyTorch (port of ``paddle_tpu/serving/decode.py``).
   are stored int8 with per-output-channel scales and run through the
   int8 GEMM kernel.
 
-Each (phase, bucket) program is built once and run op by op through
-``core/executor.run_block`` (PyTorch is eager; no CUDA graph in this
-slice). One worker thread owns every program run and all CUDA work.
+Each (phase, bucket) program is built once, run op by op through
+``core/executor.run_block`` on its first use (``warmup`` makes that
+first use), then captured with static input buffers as a
+``core/graph.StepGraph``: a CUDA graph on the card, replayed for every
+later run of that (phase, bucket), as the reference jits each
+(phase, bucket) program. All graphs of one engine share one memory pool:
+they never run at once. On the CPU the same static-buffer step is called
+directly. One worker thread owns every program run and all CUDA work.
 Sampling is host-side per row (greedy argmax, or temperature sampling
 from a per-request ``np.random.RandomState``), so token choice is a pure
 function of the row's logits and the request's own seed.
@@ -45,6 +50,7 @@ from .. import kernels
 from ..core import flags as _flags
 from ..core import telemetry
 from ..core.executor import run_block
+from ..core.graph import StepGraph
 from ..core.flags import flag as _flag
 from ..models.decoder_lm import (DecoderLMConfig, build_prefill_program,
                                  build_step_program, load_decoder_lm,
@@ -231,6 +237,10 @@ class DecodeEngine:
                 min(8, model_cfg.max_seq_len), model_cfg.max_seq_len)
         self._active: List[GenerationRequest] = []
         self._blocks: Dict[Any, Any] = {}   # (phase, bucket) -> Block
+        # (phase, bucket) -> (its static feed buffers, its StepGraph)
+        self._graphs: Dict[Any, Any] = {}
+        self._graph_pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
         self._thread: Optional[threading.Thread] = None
         self.health = HealthState()
 
@@ -333,10 +343,11 @@ class DecodeEngine:
         return self
 
     def warmup(self) -> int:
-        """Build every step and prefill program and run each once on
-        zero feeds (writes land in scratch page 0 only), so no request
-        pays a program build or a kernel build mid-load. Call before
-        ``start()``. Returns the number of programs built."""
+        """Build every step and prefill program, run each once on zero
+        feeds (writes land in scratch page 0 only) and capture it, so no
+        request pays a program build, a kernel build or a capture
+        mid-load. Call before ``start()``. Returns the number of programs
+        built."""
         before = len(self._blocks)
         for b in self.config.buckets:
             self._run("step", b, self._zero_feed("step", b))
@@ -372,14 +383,49 @@ class DecodeEngine:
     def _run(self, phase: str, bucket: int, feed: Dict[str, np.ndarray]
              ) -> np.ndarray:
         """Run one (phase, bucket) program on the engine's params, pools
-        and ``feed``; the pools update in place. Returns host logits."""
-        env = dict(self._params)
-        env.update(self._pools)
-        env.update({n: torch.from_numpy(v).to(self.device)
-                    for n, v in feed.items()})
-        run_block(self._block(phase, bucket), env)
-        self._pools = {n: env[n + "_out"] for n in self._pools}
-        return env["logits"].cpu().numpy()
+        and ``feed``; the pools update in place. Returns host logits. The
+        first run of a (phase, bucket) goes op by op and captures the
+        program (``_capture``); later runs copy ``feed`` into the
+        captured step's buffers and replay it."""
+        key = (phase, bucket)
+        captured = self._graphs.get(key)
+        if captured is None:
+            captured, logits = self._capture(phase, bucket, feed)
+            self._graphs[key] = captured
+            return logits
+        bufs, graph = captured
+        for n, v in feed.items():
+            bufs[n].copy_(torch.from_numpy(v))
+        return graph.replay()[0].cpu().numpy()
+
+    def _capture(self, phase: str, bucket: int,
+                 feed: Dict[str, np.ndarray]):
+        """((static feed buffers, the program's StepGraph over them),
+        the host logits of ``feed``): the step runs once op by op on
+        buffers holding ``feed``, which is the first run's result, and is
+        then captured in the engine's shared graph pool. The pool ops
+        must write the engine's pools in place: they are the static
+        tensors every captured program reads."""
+        block = self._block(phase, bucket)
+        bufs = {n: torch.from_numpy(v).to(self.device)
+                for n, v in feed.items()}
+
+        def step():
+            env = dict(self._params)
+            env.update(self._pools)
+            env.update(bufs)
+            run_block(block, env)
+            for n, pool in self._pools.items():
+                if env[n + "_out"] is not pool:
+                    raise RuntimeError(f"decode: {n} was not written in "
+                                       f"place")
+            return [env["logits"]]
+
+        logits = step()[0].cpu().numpy()
+        graph = StepGraph(step, self.device, pool=self._graph_pool)
+        graph.capture()
+        telemetry.counter_add("decode.graph_captures", 1)
+        return (bufs, graph), logits
 
     def _zero_feed(self, phase: str, bucket: int) -> Dict[str, np.ndarray]:
         if phase == "step":

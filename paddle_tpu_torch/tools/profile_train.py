@@ -13,24 +13,33 @@ max(80, seq * 15 // 100) and the position table widened to the sequence.
 ``--model resnet50`` builds the reference benchmark's ResNet-50 row
 (``tools/bench_models.py:157``: 224x224 images, batch 256, bf16 AMP,
 Momentum lr 0.1, fuse_bn_act_pass). It runs the startup on cuda:0 and
-measures on one synthetic batch:
+measures on one synthetic batch, through ``timed_modes``, for the
+op-by-op step (``use_compiled=False``) and for the compiled step (a CUDA
+graph replay, ``Executor.run``'s default), each under ``eager`` and
+``compiled`` and each from the same state:
 
 * the step's host wall ms over 5 steps without the profiler (each ending
-  in a synchronise), and the peak device memory;
+  in a synchronise); the peak device memory allocated over the second
+  step (compiled: the capture) and those 5, and the memory the caching
+  allocator holds after them (compiled: with the graph's pool);
 * over 2 steps traced by torch.profiler: the wall ms per step, the device
   busy ms per step (the sum of kernel and copy times in the trace), the
-  device idle share 1 - busy / wall of those same traced steps, and the
-  top kernels by device time;
+  device idle share 1 - busy / wall of those same traced steps, the top
+  kernels by device time and by kernel class, and the launches of the
+  port's flash and AdamW kernels found in the trace by name;
+
+and, op by op (a graph replay dispatches no op from the host):
 * ms by op type over one step with a synchronise after every op (host
   launch plus device time of that op; the sum exceeds the step's wall by
   the overlap lost), ``__vjp_grad__`` split by the forward type it
   differentiates;
 * host ms by op type over one unsynchronised step at batch 1, where the
   card is never the bottleneck: what the interpreter and PyTorch's
-  dispatch cost per op;
-* the traced device time by kernel class (convolutions, GEMMs,
-  reductions, elementwise, copies, the port's flash-attention kernels and
-  its other kernels), read from the kernels' names.
+  dispatch cost per op.
+
+Kernel classes (convolutions, GEMMs, reductions, elementwise, copies, the
+port's flash-attention kernels and its other kernels) are read from the
+kernels' names.
 
 The idle share is printed as computed, unclamped. The traced wall
 includes the profiler's own host cost; the untraced wall beside it shows
@@ -43,6 +52,7 @@ CUDA card; exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -84,7 +94,21 @@ def _kernel_class(name):
     return "other"
 
 
-def _traced(run, reps, top_n=14):
+# the one device kernel (csrc name) that each counted launch of a port
+# wrapper runs, by launch counter: a trace's count of it is the count of
+# that wrapper's launches that really ran, captured or not
+MARKERS = {"flash_attention_fwd": ("flash_fwd_tc<", "flash_fwd_tf32<"),
+           "flash_attention_bwd": ("dq_tc<", "dq_tf32<"),
+           "fused_adamw": ("adamw_kernel<",)}
+
+
+def traced(run, reps, top_n=14):
+    """Over ``reps`` runs traced by torch.profiler, a run's wall ms,
+    device busy ms (kernels and copies), idle share 1 - busy / wall, top
+    kernels, device ms by kernel class, int32 fill kernels (ms and
+    count: a captured paged-attention or AdamW launch zeroes its own
+    ticket in the graph with such a fill, ``torch.zeros`` of one int32)
+    and the launches of each MARKERS counter seen in the trace."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -97,12 +121,88 @@ def _traced(run, reps, top_n=14):
             for e in prof.key_averages()
             if e.device_type != DeviceType.CPU and e.self_device_time_total]
     rows.sort(key=lambda r: -r[1])
-    top = [{"kernel": k[:70], "ms": ms, "calls": c}
-           for k, ms, c in rows[:top_n]]
     by_class = defaultdict(float)
     for k, ms, _ in rows:
         by_class[_kernel_class(k)] += ms
-    return wall, sum(r[1] for r in rows), top, dict(by_class)
+    fills = [r for r in rows if "FillFunctor<int>" in r[0]]
+    busy = sum(r[1] for r in rows)
+    return {"traced_wall_ms": wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / wall,
+            "top_kernels": [{"kernel": k[:70], "ms": ms, "calls": c}
+                            for k, ms, c in rows[:top_n]],
+            "device_ms_by_kernel_class": dict(by_class),
+            "int32_fills": {"ms": sum(r[1] for r in fills),
+                            "count": sum(r[2] for r in fills)},
+            "traced_launches": {
+                name: sum(c for k, _, c in rows if any(m in k for m in ms))
+                for name, ms in MARKERS.items()}}
+
+
+def _loss(out) -> float:
+    return float(np.asarray(out[0], np.float32).reshape(-1)[0])
+
+
+def timed_modes(exe, program, feed, scope, fetch, timed, traced_reps=1):
+    """One training program run in two legs on one scope and one batch:
+    ``eager`` (``use_compiled=False``), then ``compiled``. Each leg
+    starts from the state and step counter the scope held on entry (a
+    host copy of it is put back before the compiled leg), so each can be
+    held to its own start and both see the same dropout masks. A leg: a
+    first run (compiled: the key's first, op by op), a second (compiled:
+    the capture and a replay), ``timed`` runs on the host clock (each
+    ending in a synchronise; no profiler) and ``traced_reps`` runs traced
+    by ``traced``. For each mode: the loss (``fetch[0]``) of every run;
+    the step ms of the timed runs and their p50; the launch counts over
+    them (totals, by layout, by instance) and a step's; the peak device
+    memory allocated from the second run on and what the caching
+    allocator holds after the timed runs (compiled: with the graph's
+    pool); the seconds of the second run; and ``traced``'s figures."""
+    from paddle_tpu_torch import kernels
+
+    dev = exe.device
+    start = {n: v.to("cpu", copy=True) if isinstance(v, torch.Tensor)
+             else v for n, v in scope.items()}
+    modes = {}
+    for mode in ("eager", "compiled"):
+        if mode == "compiled":
+            for n, v in start.items():
+                scope.set(n, v.to(dev) if isinstance(v, torch.Tensor)
+                          else v)
+        losses = []
+
+        def step(comp=mode == "compiled"):
+            losses.append(_loss(exe.run(program, feed=feed, scope=scope,
+                                        fetch_list=fetch,
+                                        use_compiled=comp)))
+
+        step()                  # compiled: the key's first run, op by op
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        step()                  # compiled: the capture and a replay
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        step_ms = []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = kernels.launch_counts()
+        modes[mode] = dict(
+            losses=losses, step_ms=step_ms,
+            step_ms_p50=float(np.median(step_ms)),
+            step_ms_range=[min(step_ms), max(step_ms)], second_s=second_s,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            memory_reserved=torch.cuda.memory_reserved(),
+            launches_per_step={k: v / timed for k, v in counts.items()
+                               if v},
+            launches=counts, layouts=kernels.layout_counts(),
+            dtypes=kernels.dtype_counts(), **traced(step, traced_reps))
+    return modes
 
 
 def _op_label(op):
@@ -118,11 +218,11 @@ def _ms_by_op(executor_mod, run, sync):
     calls = defaultdict(int)
     inner = executor_mod.run_op
 
-    def timed(op, env, step=None):
+    def timed(op, env, step=None, seed=None):
         if sync:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner(op, env, step=step)
+        out = inner(op, env, step=step, seed=seed)
         if sync:
             torch.cuda.synchronize()
         label = _op_label(op)
@@ -140,14 +240,14 @@ def _ms_by_op(executor_mod, run, sync):
     return {k: {"ms": ms[k], "calls": calls[k]} for k in order}
 
 
-def _ernie(seq):
-    """(program, startup, stepper(batch), model fields) of the ERNIE cell
-    at ``seq``."""
+def _ernie(seq, layers=LAYERS):
+    """(program, startup, batch(size, seed), fetches, model fields,
+    tokens a step) of the ERNIE cell at ``seq``, ``layers`` deep."""
     from paddle_tpu_torch.core import unique_name
     from paddle_tpu_torch.models import bert
 
     batch_size, preds = CELLS[seq]
-    cfg = bert.BertConfig(num_hidden_layers=LAYERS, dtype="bfloat16",
+    cfg = bert.BertConfig(num_hidden_layers=layers, dtype="bfloat16",
                           use_flash_attention=True,
                           max_position_embeddings=max(512, seq), **ERNIE)
     with unique_name.guard():
@@ -155,11 +255,11 @@ def _ernie(seq):
             cfg, seq_len=seq, optimizer_name="adamw",
             max_predictions_per_seq=preds)
 
-    def batch(b):
+    def batch(b, seed=0):
         return bert.synthetic_pretraining_batch(
-            cfg, b, seq, seed=0, max_predictions_per_seq=preds)
+            cfg, b, seq, seed=seed, max_predictions_per_seq=preds)
 
-    info = {"model": "ernie_large", "layers": LAYERS, "batch": batch_size,
+    info = {"model": "ernie_large", "layers": layers, "batch": batch_size,
             "seq": seq, "dtype": "bfloat16"}
     return main_prog, startup, batch, [fetches["loss"]], info, \
         batch_size * seq
@@ -195,7 +295,6 @@ def main(argv=None):
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from paddle_tpu_torch import kernels
     from paddle_tpu_torch.core import executor as executor_mod
     from paddle_tpu_torch.core.scope import Scope
 
@@ -211,41 +310,29 @@ def main(argv=None):
     scope = Scope()
     exe.run(startup, scope=scope)
 
-    def stepper(b):
-        feed = {k: torch.from_numpy(v).to("cuda:0")
+    def feed_of(b):
+        return {k: torch.from_numpy(v).to("cuda:0")
                 for k, v in make_batch(b).items()}
-        return lambda: exe.run(main_prog, feed=feed, scope=scope,
-                               fetch_list=fetch)
 
+    def stepper(b):
+        feed = feed_of(b)
+        return lambda: exe.run(main_prog, feed=feed, scope=scope,
+                               fetch_list=fetch, use_compiled=False)
+
+    modes = timed_modes(exe, main_prog, feed_of(batch_size), scope, fetch, 5,
+                        traced_reps=2)
+    for r in modes.values():
+        r[rate_name] = per_step / (r["step_ms_p50"] / 1e3)
+    exe.close()
+    torch.cuda.empty_cache()
     step = stepper(batch_size)
-    for _ in range(2):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    launches = {k: v / 5 for k, v in kernels.launch_counts().items() if v}
-    peak = torch.cuda.max_memory_allocated()
-    traced_wall, busy, top, by_class = _traced(step, 2)
     by_op_sync = _ms_by_op(executor_mod, step, sync=True)
     small = stepper(1)
     small()
     by_op_host = _ms_by_op(executor_mod, small, sync=False)
     ops = main_prog.global_block().ops
-    p50 = float(np.median(walls))
     print(json.dumps({
-        **info, "ops": len(ops),
-        "wall_ms": walls, "wall_ms_p50": p50,
-        rate_name: per_step / (p50 / 1e3),
-        "max_memory_allocated": peak, "kernel_launches_per_step": launches,
-        "traced_wall_ms": traced_wall, "device_busy_ms": busy,
-        "device_idle_share": 1.0 - busy / traced_wall, "top_kernels": top,
-        "device_ms_by_kernel_class": by_class,
+        **info, "ops": len(ops), **modes,
         "synchronised_ms_by_op": by_op_sync,
         "synchronised_ms_total": sum(v["ms"] for v in by_op_sync.values()),
         "host_ms_by_op_at_batch_1": by_op_host,

@@ -1041,3 +1041,259 @@ def test_engine_on_card_uses_kernels_and_batches_bitwise(dev):
         outs[device] = together
     for a, b in zip(outs["cuda:0"], outs["cpu"]):
         assert np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the compiled step: the seed on the device, CUDA graphs of whole steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_seed_by_pointer_gives_the_int_seeds_masks(dev, dtype):
+    """The flash kernels read the seed through a pointer: a 0-d int64
+    tensor gives the int seed's output bit for bit, and one forward and
+    one backward captured into a CUDA graph draw, on each replay, the
+    mask of the seed the tensor holds then (q = k = v = 0 and one-hot v
+    or do read the mask exactly, as in the tests above)."""
+    b, s, n, hd, rate = 2, 128, 2, 64, 0.25
+    zero = torch.zeros(b, s, n * hd, device=dev, dtype=dtype)
+    lse = torch.full((b, n, s), float(np.log(s)), device=dev)
+    eye = torch.zeros(b, s, n, hd, device=dev, dtype=dtype)
+    eye[:, :hd] = torch.eye(hd, device=dev, dtype=dtype)[None, :, None]
+    eye = eye.reshape(b, s, n * hd)
+    seed_t = torch.zeros((), dtype=torch.int64, device=dev)
+    for seed in (5, 2 ** 31 + 7, rng.M32):
+        seed_t.fill_(seed)
+        for tensor_seed in (seed_t, seed_t.to(torch.int32)):
+            a = fa.packed_flash_fwd(zero, zero, eye, n, 1.0, False, None,
+                                    rate, tensor_seed)[0]
+            b_ = fa.packed_flash_fwd(zero, zero, eye, n, 1.0, False, None,
+                                     rate, seed)[0]
+            assert torch.equal(a, b_)
+    capture = torch.cuda.Stream()
+    capture.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=capture):
+        out = fa.packed_flash_fwd(zero, zero, eye, n, 1.0, False, None,
+                                  rate, seed_t)[0]
+        dv = fa.packed_flash_bwd(zero, zero, zero, zero, lse, eye, n, 1.0,
+                                 False, None, rate, seed_t)[2]
+    for seed in (11, 987654321, 3735928559):
+        seed_t.fill_(seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = rng.attn_keep(seed, rate, b, n, s, s, dev)
+        got = out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0
+        assert torch.equal(got, want[..., :hd])
+        got = dv.reshape(b, s, n, hd).permute(0, 2, 3, 1) != 0
+        assert torch.equal(got, want[:, :, :hd])
+
+
+def _tiny_ernie(dtype="float32"):
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          intermediate_size=512, max_position_embeddings=64,
+                          use_flash_attention=True, dtype=dtype)
+    with unique_name.guard():
+        main, startup, _, fetches = bert.build_pretraining_program(
+            cfg, seq_len=64, max_predictions_per_seq=8)
+    scope = Scope()
+    Executor(device="cpu").run(startup, scope=scope)
+    state = {n: (v.numpy() if isinstance(v, torch.Tensor)
+                 and v.dtype != torch.bfloat16 else
+                 (v.view(torch.int16).numpy().view(np.uint16), "bfloat16")
+                 if isinstance(v, torch.Tensor) else v)
+             for n, v in scope.items()}
+    batch = bert.synthetic_pretraining_batch(cfg, 4, 64, seed=1,
+                                             max_predictions_per_seq=8)
+    masks = [o.outputs["Mask"][0] for o in main.global_block().ops
+             if o.type == "dropout"]
+    return main, state, batch, [fetches["loss"].name] + masks
+
+
+def _ernie_steps(main, state, batch, fetch, use_compiled, steps=4):
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.models import bert
+
+    scope = bert.scope_from_numpy(state, "cuda:0")
+    exe = Executor(device="cuda:0")
+    kernels.reset_launch_counts()
+    outs = [exe.run(main, feed=batch, scope=scope, fetch_list=fetch,
+                    use_compiled=use_compiled) for _ in range(steps)]
+    return outs, kernels.snapshot_counts()
+
+
+def _ernie_layer_program(dtype):
+    """Two ERNIE encoder layers (hidden 128, 2 heads of 64, FFN 512,
+    packed flash attention with dropout 0.1, hidden dropout 0.1, layer
+    norms) on a fed [4, 64, 128] input and key mask, loss mean(y^2),
+    AdamW: an ERNIE layer step without the embedding lookups, whose
+    gradients are the step's only sums in a run-dependent order
+    (``index_add_``'s atomics)."""
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.ir import Program, program_guard
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(hidden_size=128, num_attention_heads=2,
+                          intermediate_size=512, use_flash_attention=True,
+                          dtype=dtype)
+    main, startup = Program(), Program()
+    with unique_name.guard(), program_guard(main, startup):
+        x = layers.static_data("x", [4, 64, 128], dtype)
+        mask = layers.static_data("mask", [4, 64], "float32")
+        bias = bert._attn_bias_from_mask(mask)
+        y = x
+        for i in range(2):
+            y = bert._encoder_layer(y, bias, cfg, f"layer_{i}")
+        y = layers.cast(y, "float32")
+        loss = layers.mean(layers.elementwise_mul(y, y))
+        optimizer.AdamWOptimizer(1e-3, weight_decay=0.01).minimize(loss)
+    scope = Scope()
+    Executor(device="cpu").run(startup, scope=scope)
+    r = np.random.RandomState(0)
+    feed = {"x": r.randn(4, 64, 128).astype(np.float32),
+            "mask": (r.rand(4, 64) > 0.2).astype(np.float32)}
+    masks = [o.outputs["Mask"][0] for o in main.global_block().ops
+             if o.type == "dropout"]
+    return main, dict(scope.items()), feed, [loss.name] + masks
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_ernie_layer_step_replays_to_the_eager_bits(dev, dtype):
+    """Two ERNIE layers on the card, 5 steps op by op and 5 compiled (the
+    second run captures, the later ones replay) from one state: the
+    losses, the dropout masks and every parameter, moment and beta power
+    after the steps bit for bit, the masks new each step, and the same
+    launches, by kernel, layout and instance."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+
+    main, state, feed, fetch = _ernie_layer_program(dtype)
+    runs = {}
+    for comp in (False, True):
+        scope = Scope()
+        for n, v in state.items():
+            scope.set(n, v.to(dev) if isinstance(v, torch.Tensor) else v)
+        exe = Executor(device=dev)
+        kernels.reset_launch_counts()
+        outs = [exe.run(main, feed=feed, scope=scope, fetch_list=fetch,
+                        use_compiled=comp) for _ in range(5)]
+        runs[comp] = (outs, scope, kernels.snapshot_counts())
+    (eager, es, ec), (comp, cs, cc) = runs[False], runs[True]
+    assert cc == ec and ec["flash_attention_fwd"] == 10
+    for a, b in zip(eager, comp):
+        assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    assert not np.array_equal(comp[2][1], comp[3][1])
+    names = [n for n, v in state.items() if isinstance(v, torch.Tensor)]
+    assert len(names) > 40
+    for n in names:
+        assert torch.equal(cs.find_var(n), es.find_var(n)), n
+
+
+def test_compiled_launch_counts_per_replay(dev):
+    """Each replay adds the captured step's launches: 5 compiled steps
+    count 5 times one op-by-op step, by kernel, layout and instance."""
+    main, state, batch, fetch = _tiny_ernie()
+    _, one = _ernie_steps(main, state, batch, fetch, False, 1)
+    _, five = _ernie_steps(main, state, batch, fetch, True, 5)
+    assert five == {k: 5 * v for k, v in one.items()}
+    assert five["flash_attention_fwd"] == five["flash_attention_bwd"] == 10
+    assert five[("launches_by_layout", "packed")] == 10
+    assert five[("bwd_launches_by_dtype", "fp32_tf32x3")] == 10
+
+
+def test_batch_norm_state_is_written_back_on_the_card(dev):
+    """Tiny ResNet-50 compiled on the card: the running statistics,
+    written out of place by the lowering, land in the tensors the scope
+    held when the step was captured, step after step, at the op-by-op
+    values (within 1e-4 of the largest magnitude: cuDNN's backward sums
+    in its own order)."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import resnet
+
+    cfg = resnet.ResNetConfig(50, 10, (3, 32, 32), stages=[1, 1, 1, 1])
+    with unique_name.guard():
+        main, startup, _, fetches = resnet.build_classifier_program(
+            cfg, batch_size=4, amp=False, lr=0.01)
+    batch = resnet.synthetic_batch(cfg, 4, seed=2)
+    sc = Scope()
+    Executor(device="cpu").run(startup, scope=sc)
+    state = {n: v for n, v in sc.items()}
+    stats = [o.outputs["MeanOut"][0] for o in main.global_block().ops
+             if o.type in ("batch_norm", "fused_bn_add_act")]
+    scopes = {}
+    for comp in (False, True):
+        scope = Scope()
+        for n, v in state.items():
+            scope.set(n, v.to(dev) if isinstance(v, torch.Tensor) else v)
+        exe = Executor(device=dev)
+        exe.run(main, feed=batch, fetch_list=[fetches["loss"]], scope=scope,
+                use_compiled=comp)
+        held = {n: scope.find_var(n) for n in stats}
+        for _ in range(3):
+            before = {n: t.clone() for n, t in held.items()}
+            exe.run(main, feed=batch, fetch_list=[fetches["loss"]],
+                    scope=scope, use_compiled=comp)
+            if comp:
+                for n, t in held.items():
+                    assert scope.find_var(n) is t
+                    assert not torch.equal(t, before[n]), n
+        scopes[comp] = scope
+    for n in stats:
+        a, b = scopes[False].find_var(n), scopes[True].find_var(n)
+        tol = 1e-4 * max(1.0, float(a.abs().max()))
+        assert float((a - b).abs().max()) <= tol, n
+
+
+def test_decode_graphs_replay_beside_eager_calls(dev):
+    """The engine's captured prefill and step programs, replayed between
+    op-by-op runs of the same programs on a copy of the pools: the same
+    logits bit for bit, and the launches of a replay counted."""
+    from paddle_tpu_torch.core.executor import run_block
+    from paddle_tpu_torch.models.decoder_lm import (DecoderLMConfig,
+                                                    decoder_lm_params)
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    cfg = DecoderLMConfig(vocab_size=256, d_model=128, n_head=2, n_layers=2,
+                          d_inner=256, max_seq_len=64)
+    eng = DecodeEngine(cfg, decoder_lm_params(cfg, 3), DecodeConfig(
+        max_slots=2, page_size=8, kv_pages=24, prefill_buckets=[32]),
+        device=dev)
+    assert eng.warmup() == 2
+    pools = {n: t.clone() for n, t in eng._pools.items()}
+    r = np.random.RandomState(2)
+    table = np.zeros((1, eng._mp), np.int32)
+    table[0, :3] = [1, 2, 3]
+    tokens = np.zeros((1, 32), np.int32)
+    tokens[0, :20] = r.randint(3, 256, 20)
+    oh = np.zeros((1, 32), np.float32)
+    oh[0, 19] = 1.0
+    feeds = [("prefill", 32, {"tokens": tokens, "lengths":
+                              np.array([20], np.int32), "last_onehot": oh,
+                              "page_table": table})]
+    for pos in (20, 21, 22):
+        t2 = np.zeros((2, eng._mp), np.int32)
+        t2[0] = table[0]
+        feeds.append(("step", 2, {
+            "tokens": np.array([r.randint(3, 256), 0], np.int32),
+            "positions": np.array([pos, 0], np.int32), "page_table": t2}))
+    for phase, bucket, feed in feeds:
+        kernels.reset_launch_counts()
+        got = eng._run(phase, bucket, feed)
+        counts = kernels.launch_counts()
+        env = dict(eng._params, **pools)
+        env.update({n: torch.from_numpy(v).to(dev) for n, v in feed.items()})
+        kernels.reset_launch_counts()
+        run_block(eng._block(phase, bucket), env)
+        assert kernels.launch_counts() == counts
+        assert np.array_equal(got, env["logits"].cpu().numpy())
+    eng.close()
