@@ -128,9 +128,9 @@ runs replay it) adds, in the order they run:
    compiled_parity — ERNIE-large at full width, 4 layers, s512 b40, bf16,
                4 steps op by op twice and compiled once from one state:
                masks bit for bit and fresh each step; losses and every
-               state tensor bit for bit where the two op-by-op runs agree,
-               else within twice their difference (the tensors that differ
-               and the ops that read them printed); launches a step equal.
+               state tensor bit for bit in all three runs (the embedding
+               gradients sum in a fixed order; any tensor that differs is
+               printed with the ops that read it); launches a step equal.
    train_ernie, train_long_s2048, train_long_s4096, train_resnet50 and the
                two rows below print both modes (profile_train.timed_modes,
                each leg from one state and step counter): step ms p50 on
@@ -181,6 +181,28 @@ The ResNet-50 slice adds, in the order they run:
                folded BN running statistics of res4b_c2 from that step,
                against the port's conv2d -> batch_norm(is_test) -> relu;
                the kernel's and cuDNN's device-only times at that layer.
+The Transformer-big slice adds, in the order they run:
+   kernels  — check_flash_transformer_big: both flash kernels at
+               Transformer-big's attention shape (B=48 S=256, 16 heads of
+               64, bf16, dropout 0.1) in the decoder's causal form with
+               no bias and the cross-attention form (q distinct from k and
+               v) under the source key bias ((mask - 1) * 1e9, 128 to 256
+               live keys a row), compared, their keep masks read back bit
+               for bit where a key is seen, timed beside SDPA.
+15. train_transformer_big — Transformer-big as bench_transformer_big
+               trains it (WMT14 En-De, d_model 1024, 16 heads, d_inner
+               4096, 6+6 layers, vocab 32000 shared, label smoothing 0.1,
+               dropout 0.1, b48 s256, bf16 AMP, Adam under noam decay)
+               with noam's warm-up at 200 steps (WMT_WARMUP says why):
+               startup, one warm-up step, 5 timed steps a mode; in each
+               leg a falling loss; 18 flash forward and 18 backward
+               launches a step (6 encoder with the key bias, 6 decoder
+               causal, 6 cross with the key bias) on the bf16 packed
+               instance, no AdamW launch; one compiled step built; the
+               fetched rate equal to the noam formula at every run, after
+               every replay. Then compiled_parity at 2+2 layers (b48, 3
+               steps) and card against CPU at 2+2 layers, batch 2, 4
+               steps: masks bit for bit, losses within 1e-2, equal rates.
 Then one line with every ported kernel: ``launches_by_path`` gives each
 phase's own count (set to 0 just before the phase, read just after),
 ``launches_by_layout`` and ``launches_by_dtype`` the flash kernels'
@@ -238,6 +260,14 @@ SEQ, MAX_PREDS = 512, 80
 # tools/bench_models.py bench_bert_base and bench_mnist
 BERT_BASE_BATCH, BERT_BASE_SEQ, BERT_BASE_PREDS = 384, 128, 20
 LENET_BATCH = 512
+# tools/bench_models.py bench_transformer_big: b48 s256, 16 heads of 64.
+# The phase trains under noam with a warm-up of 200 steps, not the
+# published 4000: at 4000 the rate is 2.5e-7 at step 1 and no loss can be
+# seen to fall in the phase's few steps; at 200 it climbs from 4.4e-5 at
+# step 1 to 2e-4 at step 8, the scale of the ERNIE and BERT rows' 1e-4.
+# The schedule is one op's attrs: the step does the same work.
+WMT_BATCH, WMT_SEQ, WMT_HEADS, WMT_WARMUP = 48, 256, 16, 200
+WMT_COUNTER = "@LR_DECAY_COUNTER@"
 # the long-context rows of tools/bench_models.py bench_long_context:
 # (seq, batch), max(80, seq * 15 // 100) masked predictions
 LONG = ((2048, 4), (4096, 2))
@@ -640,66 +670,74 @@ def _compare_flash(fa, what, q, k, v, do, bias, n, scale, causal=False,
 
 
 def _time_flash(fa, q, k, v, do, bias, n, scale, out, lse, layout,
-                plain_reps=3):
+                plain_reps=3, causal=False):
     """(forward, backward) timings: kernel ms, plain ms, SDPA ms (its
     forward; its backward through autograd) and the bound, for the
-    non-causal, key-bias, dropout call of the training step. The bound's
-    peak is the dense bf16 rate for bf16 and the split-TF32 rate for fp32
-    (beside it, for fp32, the CUDA-core bound), and the device-only
-    times."""
+    dropout call of the training step: with the key bias, or causal with
+    none. The bound's peak is the dense bf16 rate for bf16 and the
+    split-TF32 rate for fp32 (beside it, for fp32, the CUDA-core bound),
+    and the device-only times. A causal call's products count only the
+    query-key pairs on or below the diagonal (Sq = Sk: S (S + 1) / 2 of
+    them)."""
     import torch.nn.functional as F
 
     esz = q.element_size()
     nq, nk = q.numel(), k.numel()
-    b, sk = bias.shape
+    b = q.shape[0]
     sq = lse.shape[-1]
+    sk = k.shape[2] if layout == "bnsd" else k.shape[1]
     heads, hd = b * n, q.shape[-1] if layout == "bnsd" else q.shape[-1] // n
     q4, k4, v4, do4 = (fa._heads(t, n, layout).contiguous()
                        for t in (q, k, v, do))
-    m4 = bias.to(q.dtype).reshape(b, 1, 1, sk).expand(b, 1, sq, sk)
+    m4 = None if bias is None else \
+        bias.to(q.dtype).reshape(b, 1, 1, sk).expand(b, 1, sq, sk)
+    bias_bytes = 0 if bias is None else bias.numel() * 4
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
     f32 = q.dtype == torch.float32
     peak = TF32X3_FLOPS_PER_S if f32 else BF16_FLOPS_PER_S
 
     def kfwd(i):
-        return fa.flash_fwd(q, k, v, n, scale, False, bias, RATE, ATTN_SEED,
-                            layout)
+        return fa.flash_fwd(q, k, v, n, scale, causal, bias, RATE,
+                            ATTN_SEED, layout)
 
     def sdpa(i):
         return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
-                                              dropout_p=RATE, scale=scale)
+                                              dropout_p=RATE, scale=scale,
+                                              is_causal=causal)
 
     fwd = dict(
         ms=events_ms(kfwd, 10),
         plain_ms=events_ms(lambda i: fa.plain_flash_fwd(
-            q, k, v, n, scale, False, bias, RATE, ATTN_SEED, layout),
+            q, k, v, n, scale, causal, bias, RATE, ATTN_SEED, layout),
             plain_reps),
         library_ms=events_ms(sdpa, 10))
-    io, flops = ((2 * nq + 2 * nk) * esz + bias.numel() * 4 +
-                 lse.numel() * 4, heads * 2 * 2 * sq * sk * hd)
+    io, flops = ((2 * nq + 2 * nk) * esz + bias_bytes + lse.numel() * 4,
+                 heads * 2 * 2 * pairs * hd)
     fwd["bound_ms"], fwd["bound_by"] = bound_ms(io, flops, peak)
     if f32:
         fwd["bound_ms_cuda_cores"] = bound_ms(io, flops)[0]
     with_device_ms(fwd, kfwd, sdpa)
 
     def kbwd(i):
-        return fa.flash_bwd(q, k, v, out, lse, do, n, scale, False, bias,
+        return fa.flash_bwd(q, k, v, out, lse, do, n, scale, causal, bias,
                             RATE, ATTN_SEED, layout)
 
     bwd = dict(
         ms=events_ms(kbwd, 10),
         plain_ms=events_ms(lambda i: fa.plain_flash_bwd(
-            q, k, v, out, lse, do, n, scale, False, bias, RATE, ATTN_SEED,
+            q, k, v, out, lse, do, n, scale, causal, bias, RATE, ATTN_SEED,
             layout), plain_reps))
     q4, k4, v4 = (t.requires_grad_(True) for t in (q4, k4, v4))
     o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4,
-                                        dropout_p=RATE, scale=scale)
+                                        dropout_p=RATE, scale=scale,
+                                        is_causal=causal)
 
     def sdpa_bwd(i):
         return torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
 
     bwd["library_ms"] = events_ms(sdpa_bwd, 10)
     io, flops = ((4 * nq + 4 * nk) * esz + lse.numel() * 4 +
-                 2 * bias.numel() * 4, heads * 5 * 2 * sq * sk * hd)
+                 2 * bias_bytes, heads * 5 * 2 * pairs * hd)
     bwd["bound_ms"], bwd["bound_by"] = bound_ms(io, flops, peak)
     if f32:
         bwd["bound_ms_cuda_cores"] = bound_ms(io, flops)[0]
@@ -761,50 +799,66 @@ def check_flash_train(dev, results):
                                     for k_, e in small.items()}
         del out, lse
 
-    # the kernels' keep masks, read back exactly, in both dtypes. Forward:
-    # q = 0 makes every probability 1/S, and v one-hot over a 64-key chunk
-    # makes out[q, d] = keep(q, chunk + d) / ((1 - rate) S). Backward:
-    # q = k = v = 0 and lse = log S make p = 1/S and ds = 0, and do
-    # one-hot over a 64-row chunk makes dv[k, d] = keep(chunk + d, k) /
-    # ((1 - rate) S).
-    # The kernels read the seed through a pointer: each mask is read with
-    # the seed as a Python int and as a device int64 (what the compiled
-    # step's seed table holds).
-    b, s = 2, SEQ
-    want = rng.attn_keep(ATTN_SEED, RATE, b, n, s, s, dev)
-    eye = torch.eye(hd, device=dev)[None, :, None]
-    seed_t = torch.full((), ATTN_SEED, dtype=torch.int64, device=dev)
-    checked = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = "bf16" if dtype == torch.bfloat16 else "fp32"
-        zero = torch.zeros(b, s, n * hd, device=dev, dtype=dtype)
-        lse = torch.full((b, n, s), float(np.log(s)), device=dev)
-        for c in range(s // hd):
-            chunk = torch.zeros(b, s, n, hd, device=dev, dtype=dtype)
-            chunk[:, c * hd:(c + 1) * hd] = eye
-            chunk = chunk.reshape(b, s, n * hd)
-            for seed in (ATTN_SEED, seed_t):
-                out, _ = fa.packed_flash_fwd(zero, zero, chunk, n, 1.0,
-                                             False, None, RATE, seed)
-                got = out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0
-                if not torch.equal(got, want[..., c * hd:(c + 1) * hd]):
-                    raise AssertionError(
-                        f"flash forward {name}: the kernel's dropout keep "
-                        f"mask differs from the plain mask (seed "
-                        f"{type(seed).__name__})")
-                dv = fa.packed_flash_bwd(zero, zero, zero, zero, lse, chunk,
-                                         n, 1.0, False, None, RATE, seed)[2]
-                got = dv.reshape(b, s, n, hd).permute(0, 2, 3, 1) != 0
-                if not torch.equal(got, want[:, :, c * hd:(c + 1) * hd]):
-                    raise AssertionError(
-                        f"flash backward {name}: the kernel's dropout keep "
-                        f"mask differs from the plain mask (seed "
-                        f"{type(seed).__name__})")
-        checked[name] = {"forward": int(want.numel()),
-                         "backward": int(want.numel()),
-                         "seeds": ["int", "device int64"]}
+    # the kernels' keep masks, read back exactly, in both dtypes
+    checked = {"bf16" if dtype == torch.bfloat16 else "fp32":
+               _mask_readback(fa, dev, dtype, 2, SEQ, n)
+               for dtype in (torch.bfloat16, torch.float32)}
+    want = rng.attn_keep(ATTN_SEED, RATE, 2, n, SEQ, SEQ, dev)
     return dict(mask_bits_checked=checked,
                 keep_fraction=float(want.float().mean()))
+
+
+def _mask_readback(fa, dev, dtype, b, s, n, causal=False, bias=None):
+    """Both flash kernels' dropout keep masks, read back exactly and held
+    bit for bit against the plain mask where a key is seen (on or below
+    the diagonal if causal, where the key bias is 0). Forward: q = k = 0
+    makes every seen probability positive, and v one-hot over a 64-key
+    chunk makes out[q, d] nonzero exactly where keep(q, chunk + d).
+    Backward: q = k = v = 0 and out = 0 make ds = 0, and do one-hot over a
+    64-row chunk makes dv[k, d] nonzero exactly where keep(chunk + d, k).
+    The kernels read the seed through a pointer: each mask is read with
+    the seed as a Python int and as a device int64 (what the compiled
+    step's seed table holds). Returns the mask bits checked."""
+    from paddle_tpu_torch.core import rng
+
+    hd = 64
+    seen = torch.ones(s, s, dtype=torch.bool, device=dev)
+    if causal:
+        seen = torch.tril(seen)
+    seen = seen[None, None]
+    if bias is not None:
+        seen = seen & (bias == 0)[:, None, None, :]
+    want = rng.attn_keep(ATTN_SEED, RATE, b, n, s, s, dev) & seen
+    eye = torch.eye(hd, device=dev)[None, :, None]
+    seed_t = torch.full((), ATTN_SEED, dtype=torch.int64, device=dev)
+    name = "bf16" if dtype == torch.bfloat16 else "fp32"
+    zero = torch.zeros(b, s, n * hd, device=dev, dtype=dtype)
+    lse = torch.full((b, n, s), float(np.log(s)), device=dev)
+    for c in range(s // hd):
+        chunk = torch.zeros(b, s, n, hd, device=dev, dtype=dtype)
+        chunk[:, c * hd:(c + 1) * hd] = eye
+        chunk = chunk.reshape(b, s, n * hd)
+        for seed in (ATTN_SEED, seed_t):
+            out, _ = fa.packed_flash_fwd(zero, zero, chunk, n, 1.0, causal,
+                                         bias, RATE, seed)
+            got = out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0
+            if not torch.equal(got, want[..., c * hd:(c + 1) * hd]):
+                raise AssertionError(
+                    f"flash forward {name}: the kernel's dropout keep "
+                    f"mask differs from the plain mask (seed "
+                    f"{type(seed).__name__}, causal {causal}, bias "
+                    f"{bias is not None})")
+            dv = fa.packed_flash_bwd(zero, zero, zero, zero, lse, chunk, n,
+                                     1.0, causal, bias, RATE, seed)[2]
+            got = dv.reshape(b, s, n, hd).permute(0, 2, 3, 1) != 0
+            if not torch.equal(got, want[:, :, c * hd:(c + 1) * hd]):
+                raise AssertionError(
+                    f"flash backward {name}: the kernel's dropout keep "
+                    f"mask differs from the plain mask (seed "
+                    f"{type(seed).__name__}, causal {causal}, bias "
+                    f"{bias is not None})")
+    return {"forward": int(want.numel()), "backward": int(want.numel()),
+            "seeds": ["int", "device int64"]}
 
 
 def check_flash_bert_base(dev, results):
@@ -821,6 +875,50 @@ def check_flash_bert_base(dev, results):
                          "packed")
     _flash_rows(results, f"B={b} S={s} n={n} hd=64 bias dropout={RATE} "
                 f"bf16", err, timing)
+
+
+def _wmt_attn_inputs(dev, cross):
+    """q, k, v, dout [48, 256, 16*64] bf16 at Transformer-big's attention
+    shape, and for cross-attention the source key-padding bias (mask - 1)
+    * 1e9 with 128 to 256 live keys a row, as
+    models.transformer.synthetic_batch makes the source mask."""
+    b, s, n = WMT_BATCH, WMT_SEQ, WMT_HEADS
+    g = torch.Generator(device=dev).manual_seed(10 + cross)
+    q, k, v, do = (torch.randn(b, s, n * 64, device=dev, generator=g)
+                   .bfloat16() for _ in range(4))
+    bias = None
+    if cross:
+        lens = torch.randint(s // 2, s + 1, (b,), device=dev, generator=g)
+        live = torch.arange(s, device=dev)[None, :] < lens[:, None]
+        bias = (live.float() - 1.0) * 1e9
+    return q, k, v, do, bias
+
+
+def check_flash_transformer_big(dev, results):
+    """Both flash kernels at Transformer-big's attention shape (B = 48,
+    S = 256, 16 heads of 64, bf16, dropout 0.1) in the step's two new
+    forms: the decoder's causal self-attention with no bias, and
+    cross-attention (q distinct from k and v) under the source key bias.
+    Each compared with the plain version run in fp32 (one bf16 ulp +
+    1e-3), its keep masks read back bit for bit, timed beside SDPA."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    b, s, n = WMT_BATCH, WMT_SEQ, WMT_HEADS
+    masks = {}
+    for form in ("causal", "cross"):
+        causal, cross = form == "causal", form == "cross"
+        q, k, v, do, bias = _wmt_attn_inputs(dev, cross)
+        out, lse, err = _compare_flash(fa, f"bf16 B={b} S={s} {form}", q, k,
+                                       v, do, bias, n, 64 ** -0.5, causal)
+        timing = _time_flash(fa, q, k, v, do, bias, n, 64 ** -0.5, out, lse,
+                             "packed", causal=causal)
+        what = "causal" if causal else "cross key-bias"
+        _flash_rows(results, f"B={b} S={s} n={n} hd=64 {what} "
+                    f"dropout={RATE} bf16", err, timing)
+        masks[form] = _mask_readback(fa, dev, torch.bfloat16, b, s, n,
+                                     causal, bias)
+        del q, k, v, do, out, lse
+    return masks
 
 
 def check_flash_long(dev, results):
@@ -1598,11 +1696,10 @@ def compiled_parity(dev, smi, layers=4, steps=4, batch_size=40):
     (tools/step_parity.compiled_parity). Gates: the losses and every
     dropout mask bit for bit (the seed table's slots give op_seed's bits
     to every random op, the flash kernels included), the masks new each
-    step; every state tensor after each step bit for bit where the two
-    op-by-op runs agree bit for bit, else within twice their largest
-    difference, the tensors that differ and the forward ops that read
-    them printed; the launches a step equal, by kernel, layout and
-    instance."""
+    step; every state tensor after each step bit for bit in all three
+    runs (lookup_table_v2's gradient sums each row in the ids' order), the
+    tensors that differ and the forward ops that read them printed; the
+    launches a step equal, by kernel, layout and instance."""
     from paddle_tpu_torch.tools.step_parity import compiled_parity as run
 
     rec = run(dev, layers, SEQ, steps, batch_size)
@@ -1610,13 +1707,13 @@ def compiled_parity(dev, smi, layers=4, steps=4, batch_size=40):
     emit("compiled_parity", **rec, nvidia_smi=smi)
     if not (rec["losses_and_masks_bitwise_equal"]
             and rec["masks_new_each_step"]
-            and rec["state_within_twice_eager_spread"]
+            and rec["state_bitwise_equal_in_all_runs"]
             and rec["launch_counts_equal"]):
         raise AssertionError(
             "compiled_parity: losses and masks "
             f"{rec['losses_and_masks_bitwise_equal']}, masks new each step "
-            f"{rec['masks_new_each_step']}, state "
-            f"{rec['state_within_twice_eager_spread']}, counts "
+            f"{rec['masks_new_each_step']}, state differs in "
+            f"{rec['runs_differ_in']}, counts "
             f"{rec['launch_counts_equal']}")
     return last
 
@@ -1776,6 +1873,149 @@ def train_bert_base(dev, smi, timed=8):
                                  f"{comp['layouts'][name]}")
     if not ok:
         raise AssertionError("train_bert_base: card and CPU disagree")
+    return dict(launches=comp["launches"], layouts=comp["layouts"],
+                dtypes=comp["dtypes"])
+
+
+def _noam(step, d_model=1024, warmup=WMT_WARMUP, scale=2.0):
+    """The noam rate at ``step`` in float32, as the lr_schedule op forms
+    it: scale * d^-0.5 * min(s^-0.5, s * warmup^-1.5), s = step + 1."""
+    s = np.float32(step + 1)
+    return float(np.float32(scale * d_model ** -0.5) * min(
+        s ** np.float32(-0.5), s * np.float32(warmup ** -1.5)))
+
+
+def train_transformer_big(dev, smi, timed=5, parity_steps=4):
+    """Transformer-big as tools/bench_models.py bench_transformer_big
+    trains it (WMT14 En-De, d_model 1024, 16 heads, d_inner 4096, 6+6
+    layers, vocab 32000 shared, label smoothing 0.1, dropout 0.1, b48
+    s256, bf16 AMP, Adam with beta2 0.997 and epsilon 1e-9 under noam
+    decay at lr scale 2), with noam's warm-up at WMT_WARMUP steps (why:
+    beside the constant): startup, one warm-up step, then
+    profile_train.timed_modes on one batch. Gates: a falling loss in each
+    leg and the traced step's kernels, by name, as its counters
+    (_check_legs); 18 flash forward and 18 backward launches a step (6
+    encoder self-attention with the key bias, 6 decoder causal, 6 cross
+    with the key bias), all packed on the bf16 instance, and no AdamW
+    launch (the reference's adam op reaches no kernel); one compiled
+    step built for both legs; the rate fetched at each run the noam
+    formula at the counter's step, op by op and after every replay. Then
+    compiled_parity at 2+2 layers (b48, 3 steps, op by op twice and
+    compiled from one state: losses, masks and every state tensor bit
+    for bit), and card
+    against CPU at full width, 2+2 layers, batch 2, ``parity_steps``
+    steps from one state: masks bit for bit, losses within 1e-2 (bf16
+    AMP), the same rates."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_from_numpy
+    from paddle_tpu_torch.models.transformer import transformer_big
+    from paddle_tpu_torch.tools.profile_train import (
+        _transformer_big, add_rates, timed_modes, transformer_big_flops)
+    from paddle_tpu_torch.tools.step_parity import compiled_parity
+
+    main_prog, startup, make_batch, fetch, info, tokens = _transformer_big(
+        warmup_steps=WMT_WARMUP)
+    flops = transformer_big_flops(transformer_big(), WMT_BATCH, WMT_SEQ)
+    ops = main_prog.global_block().ops
+    exe, scope = Executor(device=dev), Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    startup_s = time.perf_counter() - t0
+    params = [scope.find_var(p.name) for p in main_prog.all_parameters()]
+    feed = {k: torch.from_numpy(v).to(dev)
+            for k, v in make_batch(WMT_BATCH).items()}
+    warm = exe.run(main_prog, feed=feed, scope=scope, fetch_list=fetch,
+                   use_compiled=False)
+    step0 = float(scope.find_var(WMT_COUNTER)[0])
+    builds = exe.compiled_builds
+    modes = timed_modes(exe, main_prog, feed, scope, fetch, timed)
+    builds = exe.compiled_builds - builds
+    exe.close()
+    del exe, scope, feed
+    comp = modes["compiled"]
+    rates = {m: [f[0] for f in r["fetched"]] for m, r in modes.items()}
+    want_rates = [_noam(step0 + j) for j in range(1, len(rates["eager"])
+                                                  + 1)]
+    rates_ok = all(np.allclose(r, want_rates, rtol=1e-6, atol=0)
+                   for r in rates.values())
+    _release()
+
+    rec = compiled_parity(dev, 2, WMT_SEQ, 3, WMT_BATCH,
+                          model="transformer_big", warmup_steps=WMT_WARMUP)
+    rec.pop("last")
+    _release()
+
+    pmain, pstart, pbatch, pfetch, _, _ = _transformer_big(
+        2, warmup_steps=WMT_WARMUP)
+    sc = Scope()
+    Executor(device="cpu").run(pstart, scope=sc)
+    state = _state_arrays(sc)
+    masks = [o.outputs["Mask"][0] for o in pmain.global_block().ops
+             if o.type == "dropout"]
+    small = pbatch(2, seed=3)
+    parity, seconds = {}, {}
+    for device in (dev, torch.device("cpu")):
+        s2 = scope_from_numpy(state, device)
+        ex = Executor(device=device)
+        t0 = time.perf_counter()
+        parity[device.type] = [ex.run(pmain, feed=small, scope=s2,
+                                      fetch_list=pfetch + masks)
+                               for _ in range(parity_steps)]
+        seconds[device.type] = time.perf_counter() - t0
+    loss_gpu = [_loss(o) for o in parity["cuda"]]
+    loss_cpu = [_loss(o) for o in parity["cpu"]]
+    rate_gpu = [float(o[1][0]) for o in parity["cuda"]]
+    rate_cpu = [float(o[1][0]) for o in parity["cpu"]]
+    masks_equal = all(np.array_equal(x, y) for a, b in zip(
+        parity["cuda"], parity["cpu"]) for x, y in zip(a[2:], b[2:]))
+    parity_ok = masks_equal and np.allclose(
+        loss_gpu, loss_cpu, rtol=1e-2, atol=1e-2) and np.allclose(
+        rate_gpu, rate_cpu, rtol=1e-6, atol=0)
+    add_rates(modes, tokens, "tokens_per_s", flops)
+    emit("train_transformer_big", **info, model_flops=flops, ops=len(ops),
+         op_types=len({o.type for o in ops}),
+         parameters=len(params),
+         parameter_elements=int(sum(p.numel() for p in params)),
+         startup_s=startup_s, warmup_loss=_loss(warm),
+         modes=_per_mode(modes), step_ms_p50=comp["step_ms_p50"],
+         compiled_steps_built=builds, rates_match_noam=bool(rates_ok),
+         flash_launches_by_layout=comp["layouts"],
+         flash_launches_by_dtype=comp["dtypes"],
+         compiled_parity_2_layers=rec,
+         parity_layers=2, parity_batch=2, parity_loss_gpu=loss_gpu,
+         parity_loss_cpu=loss_cpu, parity_rates_gpu=rate_gpu,
+         parity_rates_cpu=rate_cpu, parity_masks=len(masks),
+         parity_masks_bitwise_equal=masks_equal,
+         parity_tolerance="rtol=atol=1e-2", parity_seconds=seconds,
+         nvidia_smi=smi,
+         note="step ms on the host clock, one synthetic batch; smoke "
+              "figures, not a benchmark")
+    _check_legs("train_transformer_big", modes)
+    want = {"flash_attention_fwd": 18, "flash_attention_bwd": 18}
+    for m, r in modes.items():
+        if r["launches_per_step"] != want:
+            raise AssertionError(f"train_transformer_big ({m}): launches "
+                                 f"per step {r['launches_per_step']}")
+    for name in want:
+        n = comp["launches"][name]
+        if comp["dtypes"][name] != {"fp32_tf32x3": 0, "bf16_wgmma": n} or \
+                comp["layouts"][name] != {"packed": n, "bnsd": 0}:
+            raise AssertionError(f"train_transformer_big: {name} by "
+                                 f"instance {comp['dtypes'][name]}, by "
+                                 f"layout {comp['layouts'][name]}")
+    if builds != 1 or not rates_ok:
+        raise AssertionError(f"train_transformer_big: {builds} compiled "
+                             f"steps built; rates {rates} against noam "
+                             f"{want_rates}")
+    if not (rec["losses_and_masks_bitwise_equal"]
+            and rec["masks_new_each_step"]
+            and rec["state_bitwise_equal_in_all_runs"]
+            and rec["launch_counts_equal"]):
+        raise AssertionError(f"train_transformer_big: compiled parity "
+                             f"{rec}")
+    if not parity_ok:
+        raise AssertionError("train_transformer_big: card and CPU disagree")
     return dict(launches=comp["launches"], layouts=comp["layouts"],
                 dtypes=comp["dtypes"])
 
@@ -2333,13 +2573,15 @@ def main():
     check_int8(dev, results)
     mask_check = check_flash_train(dev, results)
     check_flash_bert_base(dev, results)
+    wmt_masks = check_flash_transformer_big(dev, results)
     check_flash_long(dev, results)
     bnsd_check = check_flash_bnsd(dev, results)
     adamw_check = check_adamw(dev, results)
     check_layer_norm(dev, results)
     check_conv(dev, results)
     emit("kernels", results=results, dropout_mask=mask_check,
-         bnsd_layout=bnsd_check, adamw=adamw_check)
+         dropout_mask_transformer_big=wmt_masks, bnsd_layout=bnsd_check,
+         adamw=adamw_check)
 
     cfg = DecoderLMConfig(**FULL)
     t0 = time.perf_counter()
@@ -2372,6 +2614,8 @@ def main():
     runs["train_bert_base"] = train_bert_base(dev, smi)
     _release()
     runs["train_lenet"] = train_lenet(dev, smi)
+    _release()
+    runs["train_transformer_big"] = train_transformer_big(dev, smi)
     _release()
     runs["exp_conv"] = exp_conv_phase(dev, results)
     runs["fused_ln_ops"] = fused_ln_ops(dev)

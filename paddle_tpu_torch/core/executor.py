@@ -125,8 +125,11 @@ def _last_readers(block: Block, keep: set) -> List[List[str]]:
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """A fetched tensor on the host; bf16 as ml_dtypes.bfloat16 bits, or
-    as float32 without ml_dtypes (numpy has no bfloat16 of its own)."""
-    t = t.detach().cpu()
+    as float32 without ml_dtypes (numpy has no bfloat16 of its own).
+    Always a copy: a CPU tensor's ``numpy()`` is a view, and a fetched
+    persistable is the scope's tensor, which later steps update in place
+    (optimizer ops, a compiled step's write-back)."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype != torch.bfloat16:
         return t.numpy()
     try:
@@ -267,6 +270,8 @@ class Executor:
         self._dead = weakref.WeakKeyDictionary()
         # program -> scope -> {key: _SEEN or its _CompiledStep}
         self._compiled = weakref.WeakKeyDictionary()
+        # compiled steps built (on a CUDA device: graphs captured)
+        self.compiled_builds = 0
 
     def close(self):
         self._dead.clear()
@@ -331,6 +336,7 @@ class Executor:
                 compiled = steps[key] = _CompiledStep(
                     self.device, list(block.ops), dead, scope, feeds,
                     fetch_names, persist)
+                self.compiled_builds += 1
             elif compiled is not None and not compiled.holds(scope):
                 compiled = None
             if compiled is None:

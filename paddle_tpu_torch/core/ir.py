@@ -34,6 +34,7 @@ class OpRole:
     Forward = 0
     Backward = 1
     Optimize = 2
+    LRSched = 16
     Loss = 0x100
 
 

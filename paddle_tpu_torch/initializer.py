@@ -1,7 +1,8 @@
 """Parameter initializers: each appends a creation op (fill_constant,
-uniform_random, gaussian_random, truncated_gaussian_random) to the var's
-startup block (port of ``paddle_tpu/initializer.py``: Constant, Uniform,
-Normal, TruncatedNormal, Xavier, MSRA and the two defaults).
+uniform_random, gaussian_random, truncated_gaussian_random, assign_value)
+to the var's startup block (port of ``paddle_tpu/initializer.py``:
+Constant, Uniform, Normal, TruncatedNormal, Xavier, MSRA,
+NumpyArrayInitializer :147 and the two defaults).
 """
 
 from __future__ import annotations
@@ -109,6 +110,20 @@ class MSRA(Initializer):
             Uniform(-limit, limit, self.seed)(var, block)
         else:
             Normal(0.0, math.sqrt(2.0 / fi), self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    """The var takes the given array's values: one ``assign_value`` op
+    holding them as a flat list."""
+
+    def __init__(self, value: np.ndarray):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        block.append_op("assign_value", {}, {"Out": [var.name]},
+                        {"shape": list(self.value.shape),
+                         "values": self.value.flatten().tolist(),
+                         "dtype": str(self.value.dtype)})
 
 
 def _default_weight_initializer():

@@ -1,6 +1,6 @@
 """Op-emitting layer functions — the subset of ``paddle_tpu/layers/nn.py``
-the decoder LM's, the BERT/ERNIE pre-training, the ResNet classifier and
-the LeNet programs are built from.
+the decoder LM's, the BERT/ERNIE pre-training, the ResNet classifier, the
+LeNet and the WMT Transformer programs are built from.
 Each function creates output vars and appends ops with the same types,
 slots and attrs as the reference, so the two packages build the same
 program."""
@@ -26,7 +26,8 @@ __all__ = ["data", "static_data", "create_parameter", "create_global_var",
            "elementwise_div", "reduce_sum", "matmul", "mul", "reshape",
            "squeeze", "unsqueeze", "slice", "gather", "scale",
            "fill_constant", "take_along_axis", "flash_attention",
-           "conv2d", "pool2d", "batch_norm", "accuracy", "softmax", "cast"]
+           "conv2d", "pool2d", "batch_norm", "accuracy", "softmax", "cast",
+           "one_hot", "label_smooth"]
 
 
 def _pair(v):
@@ -548,4 +549,24 @@ def cast(x: Variable, dtype) -> Variable:
     out = helper.create_variable_for_type_inference(dtype)
     helper.append_op("cast", {"X": [x]}, {"Out": [out]},
                      {"out_dtype": dtype_name(dtype)})
+    return out
+
+
+def one_hot(input: Variable, depth: int, name=None) -> Variable:
+    """float32 one-hot rows of ``depth`` (reference
+    ``paddle_tpu/layers/nn.py:676``)."""
+    helper = LayerHelper("one_hot", name=name)
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op("one_hot", {"X": [input]}, {"Out": [out]},
+                     {"depth": depth})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """label * (1 - epsilon) + epsilon / classes (reference
+    ``paddle_tpu/layers/nn.py:789``; the prior is uniform)."""
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(label.dtype)
+    helper.append_op("label_smooth", {"X": [label]}, {"Out": [out]},
+                     {"epsilon": epsilon})
     return out

@@ -1,5 +1,6 @@
 """Neural-net lowerings (port of ``paddle_tpu/ops/nn_ops.py``: conv2d
-:32, pool2d :93, batch_norm :378, layer_norm :401, dropout :453)."""
+:32, pool2d :93, batch_norm :378, layer_norm :401, dropout :453,
+label_smooth :543)."""
 
 from __future__ import annotations
 
@@ -57,6 +58,15 @@ def dropout(ins, attrs):
     kept = x / (1.0 - p) if impl == "upscale_in_train" else x
     return {"Out": torch.where(keep, kept, torch.zeros_like(kept)),
             "Mask": keep.to(torch.uint8)}
+
+
+@register_op("label_smooth", non_diff_inputs=("PriorDist",))
+def label_smooth(ins, attrs):
+    """x * (1 - eps) + eps / k over the last axis's k classes (the
+    uniform prior; PriorDist is read by neither package)."""
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 0.1)
+    return {"Out": x * (1.0 - eps) + eps / x.shape[-1]}
 
 
 # ---------------------------------------------------------------------------

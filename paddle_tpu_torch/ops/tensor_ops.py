@@ -2,18 +2,21 @@
 ``paddle_tpu/ops/tensor_ops.py``: fill_constant :57, uniform_random :75,
 gaussian_random :87, truncated_gaussian_random :99, cast :138, scale :146,
 reshape2 :156, squeeze2 :233, unsqueeze2 :244, slice :283, gather :314,
-lookup_table_v2 :337, sum :423).
+lookup_table_v2 :337, sum :423; and for the WMT Transformer assign_value
+:66, one_hot :402, one_hot_v2 :415, increment :550).
 
 The random initializers draw from a ``torch.Generator`` seeded with the
 op's seed as ``core/rng.op_seed`` derives it: the same distributions as
 the reference, reproducible per seed, not the reference's bits. A CUDA
 graph would replay the first draw's generator state, so they are not
-``capturable``: they belong in a startup program, which runs once."""
+``capturable``: they belong in a startup program, which runs once.
+Neither is ``assign_value``, which copies its values from the host."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..core import rng
@@ -31,6 +34,18 @@ def fill_constant(ins, attrs):
         _shape_of(attrs), attrs.get("value", 0.0),
         dtype=to_torch_dtype(attrs.get("dtype", "float32")),
         device=creation_device())}
+
+
+@register_op("assign_value", capturable=False)
+def assign_value(ins, attrs):
+    """A tensor of the given shape holding ``values``, in ``dtype``
+    (64-bit types as 32, as the reference holds them)."""
+    dtype = x64_off(to_torch_dtype(attrs.get("dtype", "float32")))
+    dev = creation_device()
+    if dev.type == "meta":
+        return {"Out": torch.empty(_shape_of(attrs), dtype=dtype, device=dev)}
+    vals = np.asarray(attrs["values"]).reshape(_shape_of(attrs))
+    return {"Out": torch.from_numpy(vals).to(device=dev, dtype=dtype)}
 
 
 def _uniform01(attrs):
@@ -151,12 +166,40 @@ def gather(ins, attrs):
                                 + tuple(x.shape[axis + 1:]))}
 
 
+class _Lookup(torch.autograd.Function):
+    """Rows of ``w`` gathered by the flat int64 ``ids``, with a gradient
+    that sums each row's cotangents in a fixed order: the ids sorted
+    stably, then one float32 segment sum a row (``segment_reduce``), cast
+    to the table's dtype. Two runs, op by op or replayed from a CUDA
+    graph, give the same bits. The gradient autograd derives from a
+    gather (``index_add_``) and ``F.embedding``'s both sum with atomics on
+    the card when rows repeat, in a run-dependent order; no step of this
+    one reads the device from the host, so it can be captured."""
+
+    @staticmethod
+    def forward(ctx, w, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = w.shape[0]
+        return torch.index_select(w, 0, ids)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (ids,) = ctx.saved_tensors
+        order = torch.sort(ids, stable=True)[1]
+        counts = torch.zeros(ctx.rows, dtype=torch.int64,
+                             device=ids.device).index_add_(
+            0, ids, torch.ones_like(ids))
+        dw = torch.segment_reduce(dy.float().index_select(0, order), "sum",
+                                  lengths=counts, unsafe=True)
+        return dw.to(dy.dtype), None
+
+
 @register_op("lookup_table_v2", non_diff_inputs=("Ids",))
 def lookup_table_v2(ins, attrs):
     """Embedding lookup; rows of padding_idx come out as zeros. The
-    gradient is the scatter-add that autograd derives from the gather."""
+    gradient sums each row in the ids' order (``_Lookup``)."""
     w, ids = ins["W"][0], ins["Ids"][0]
-    out = torch.index_select(w, 0, ids.reshape(-1).long()).reshape(
+    out = _Lookup.apply(w, ids.reshape(-1).long()).reshape(
         tuple(ids.shape) + tuple(w.shape[1:]))
     pad = int(attrs.get("padding_idx", -1))
     if pad >= 0:
@@ -172,3 +215,37 @@ def sum_op(ins, attrs):
     for x in xs[1:]:
         out = out + x
     return {"Out": out}
+
+
+def _one_hot(ids, depth):
+    """float32 one-hot rows of ``depth`` along a new last axis, as
+    ``jax.nn.one_hot`` gives them: an id outside [0, depth) gets a row of
+    zeros. The ids (int32, as feeds arrive) are widened and compared with
+    an arange: no bounds check reads the device, so the op stays
+    capturable."""
+    classes = torch.arange(depth, device=ids.device)
+    return (ids.long().unsqueeze(-1) == classes).to(torch.float32)
+
+
+@register_op("one_hot", non_diff_inputs=("X",))
+def one_hot(ins, attrs):
+    """The fluid 1.x op: a trailing dim of 1 is squeezed first."""
+    x = ins["X"][0]
+    if x.dim() >= 2 and x.shape[-1] == 1:
+        x = x.squeeze(-1)
+    return {"Out": _one_hot(x, int(attrs["depth"]))}
+
+
+@register_op("one_hot_v2", non_diff_inputs=("X",))
+def one_hot_v2(ins, attrs):
+    return {"Out": _one_hot(ins["X"][0], int(attrs["depth"]))}
+
+
+@register_op("increment")
+def increment(ins, attrs):
+    """X + step in X's dtype, out of place: the step counter the
+    learning-rate schedules read is a persistable that the executor
+    writes back."""
+    x = ins["X"][0]
+    step = float(attrs.get("step", 1.0))
+    return {"Out": x + (step if x.is_floating_point() else int(step))}

@@ -2,6 +2,7 @@
 
     python -m paddle_tpu_torch.tools.profile_train [--seq 512|2048|4096]
     python -m paddle_tpu_torch.tools.profile_train --model resnet50
+    python -m paddle_tpu_torch.tools.profile_train --model transformer_big
 
 ``--model ernie_large`` (the default) builds the pre-training program the
 reference's benchmark trains (ERNIE large: 24 layers, hidden 1024, 16
@@ -12,7 +13,15 @@ or the long-context rows, seq 2048 batch 4 and seq 4096 batch 2 with
 max(80, seq * 15 // 100) and the position table widened to the sequence.
 ``--model resnet50`` builds the reference benchmark's ResNet-50 row
 (``tools/bench_models.py:157``: 224x224 images, batch 256, bf16 AMP,
-Momentum lr 0.1, fuse_bn_act_pass). It runs the startup on cuda:0 and
+Momentum lr 0.1, fuse_bn_act_pass). ``--model transformer_big`` builds
+the reference benchmark's Transformer-big row (``tools/bench_models.py:243``:
+WMT14 En-De, d_model 1024, 16 heads, d_inner 4096, 6+6 layers, vocab
+32000 shared, label smoothing 0.1, dropout 0.1, b48 s256, bf16 AMP, Adam
+under noam decay with its published warm-up of 4000 steps); its line
+adds, for each mode, the model flops of a step counted with
+``bench_transformer_big``'s formula and their share of 989 TFLOP/s (the
+H100 SXM's dense bf16 rate) at the step's p50. It runs the startup on
+cuda:0 and
 measures on one synthetic batch, through ``timed_modes``, for the
 op-by-op step (``use_compiled=False``) and for the compiled step (a CUDA
 graph replay, ``Executor.run``'s default), each under ``eager`` and
@@ -71,6 +80,8 @@ LAYERS = 24
 # bench_long_context
 CELLS = {512: (40, 80), 2048: (4, 307), 4096: (2, 614)}
 RESNET_BATCH = 256      # tools/bench_models.py bench_resnet50
+WMT_BATCH, WMT_SEQ = 48, 256    # tools/bench_models.py bench_transformer_big
+BF16_FLOPS_PER_S = 989e12       # H100 SXM data sheet, dense tensor cores
 # kernel class -> name fragments, first match wins (the port's kernels by
 # their csrc names)
 CLASSES = (("port flash attention", ("flash_", "dkv_", "dq_tc", "dq_kernel",
@@ -156,7 +167,10 @@ def timed_modes(exe, program, feed, scope, fetch, timed, traced_reps=1):
     them (totals, by layout, by instance) and a step's; the peak device
     memory allocated from the second run on and what the caching
     allocator holds after the timed runs (compiled: with the graph's
-    pool); the seconds of the second run; and ``traced``'s figures."""
+    pool); the seconds of the second run; the compiled steps the leg
+    built (``compiled_builds``: 1 for the compiled leg, whose capture no
+    later run repeats); the later fetches of every run as floats
+    (``fetched``, one list a run); and ``traced``'s figures."""
     from paddle_tpu_torch import kernels
 
     dev = exe.device
@@ -168,12 +182,15 @@ def timed_modes(exe, program, feed, scope, fetch, timed, traced_reps=1):
             for n, v in start.items():
                 scope.set(n, v.to(dev) if isinstance(v, torch.Tensor)
                           else v)
-        losses = []
+        losses, fetched = [], []
+        builds = exe.compiled_builds
 
         def step(comp=mode == "compiled"):
-            losses.append(_loss(exe.run(program, feed=feed, scope=scope,
-                                        fetch_list=fetch,
-                                        use_compiled=comp)))
+            out = exe.run(program, feed=feed, scope=scope, fetch_list=fetch,
+                          use_compiled=comp)
+            losses.append(_loss(out))
+            fetched.append([float(np.asarray(o, np.float32).reshape(-1)[0])
+                            for o in out[1:]])
 
         step()                  # compiled: the key's first run, op by op
         torch.cuda.synchronize()
@@ -193,7 +210,8 @@ def timed_modes(exe, program, feed, scope, fetch, timed, traced_reps=1):
             step_ms.append((time.perf_counter() - t0) * 1e3)
         counts = kernels.launch_counts()
         modes[mode] = dict(
-            losses=losses, step_ms=step_ms,
+            losses=losses, fetched=fetched,
+            compiled_builds=exe.compiled_builds - builds, step_ms=step_ms,
             step_ms_p50=float(np.median(step_ms)),
             step_ms_range=[min(step_ms), max(step_ms)], second_s=second_s,
             max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -203,6 +221,18 @@ def timed_modes(exe, program, feed, scope, fetch, timed, traced_reps=1):
             launches=counts, layouts=kernels.layout_counts(),
             dtypes=kernels.dtype_counts(), **traced(step, traced_reps))
     return modes
+
+
+def add_rates(modes, per_step, rate_name, model_flops=None):
+    """Each mode's rate at its step's p50 (``per_step`` tokens or images
+    a step) and, given a step's model flops, their share of the dense
+    bf16 peak."""
+    for r in modes.values():
+        step_s = r["step_ms_p50"] / 1e3
+        r[rate_name] = per_step / step_s
+        if model_flops is not None:
+            r["model_flops_share_of_bf16_peak"] = \
+                model_flops / step_s / BF16_FLOPS_PER_S
 
 
 def _op_label(op):
@@ -283,9 +313,53 @@ def _resnet50():
         info, RESNET_BATCH
 
 
+def _transformer_big(layers=None, warmup_steps=4000):
+    """(program, startup, batch(size, seed), fetches [loss, learning
+    rate], model fields, tokens a step) of Transformer-big at b48 s256,
+    bf16 AMP, ``layers`` encoder and decoder layers each (6 by default),
+    noam over ``warmup_steps``."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.transformer_big()
+    if layers:
+        cfg.n_encoder_layers = cfg.n_decoder_layers = layers
+    with unique_name.guard():
+        main_prog, startup, _, fetches = transformer.build_wmt_program(
+            cfg, seq_len=WMT_SEQ, amp=True, warmup_steps=warmup_steps)
+    lr = next(o for o in main_prog.global_block().ops
+              if o.type == "lr_schedule").outputs["Out"][0]
+
+    def batch(b, seed=0):
+        return transformer.synthetic_batch(cfg, b, WMT_SEQ, seed=seed)
+
+    info = {"model": "transformer_big", "layers": [cfg.n_encoder_layers,
+                                                   cfg.n_decoder_layers],
+            "batch": WMT_BATCH, "seq": WMT_SEQ, "dtype": "bf16 AMP",
+            "warmup_steps": warmup_steps}
+    return main_prog, startup, batch, [fetches["loss"], lr], info, \
+        WMT_BATCH * WMT_SEQ
+
+
+def transformer_big_flops(cfg, batch, seq):
+    """A training step's model flops, as ``bench_transformer_big``
+    (``tools/bench_models.py:265-270``) counts them: 6 flops a weight a
+    token for the projections, FFNs and the tied output projection, and
+    the attention products (encoder self, decoder self and cross)."""
+    h, ff, v = cfg.d_model, cfg.d_inner, cfg.tgt_vocab_size
+    l_enc, l_dec = cfg.n_encoder_layers, cfg.n_decoder_layers
+    tokens = batch * seq
+    enc = l_enc * (4 * h * h + 2 * h * ff)
+    dec = l_dec * (8 * h * h + 2 * h * ff)
+    matmul = 6.0 * (enc + dec) * tokens + 6.0 * h * v * tokens
+    attn = 6.0 * 2 * (l_enc + 3 * l_dec) * batch * seq * seq * h
+    return matmul + attn
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--model", choices=("ernie_large", "resnet50"),
+    parser.add_argument("--model", choices=("ernie_large", "resnet50",
+                                            "transformer_big"),
                         default="ernie_large")
     parser.add_argument("--seq", type=int, choices=sorted(CELLS),
                         default=512)
@@ -298,9 +372,18 @@ def main(argv=None):
     from paddle_tpu_torch.core import executor as executor_mod
     from paddle_tpu_torch.core.scope import Scope
 
+    model_flops = None
     if args.model == "resnet50":
         main_prog, startup, make_batch, fetch, info, per_step = _resnet50()
         rate_name = "images_per_s"
+    elif args.model == "transformer_big":
+        from paddle_tpu_torch.models import transformer
+
+        main_prog, startup, make_batch, fetch, info, per_step = \
+            _transformer_big()
+        model_flops = transformer_big_flops(transformer.transformer_big(),
+                                            WMT_BATCH, WMT_SEQ)
+        rate_name = "tokens_per_s"
     else:
         main_prog, startup, make_batch, fetch, info, per_step = \
             _ernie(args.seq)
@@ -321,8 +404,7 @@ def main(argv=None):
 
     modes = timed_modes(exe, main_prog, feed_of(batch_size), scope, fetch, 5,
                         traced_reps=2)
-    for r in modes.values():
-        r[rate_name] = per_step / (r["step_ms_p50"] / 1e3)
+    add_rates(modes, per_step, rate_name, model_flops)
     exe.close()
     torch.cuda.empty_cache()
     step = stepper(batch_size)

@@ -17,6 +17,12 @@ in CUDA graphs replayed on two streams at once beside eager calls: a
 captured call owns its workspace and tickets. The
 int8 GEMM at the serving ladder's M (8 to 2048) and weight shapes, on the
 instance its M picks, and bit for bit independent of the other rows.
+Transformer-big's two new flash forms at B=48 S=256 (causal with no
+bias, cross-attention under the key-padding bias); ``increment``, every
+``lr_schedule`` branch and ``one_hot`` in one CUDA graph captured with
+no host sync; ``lookup_table_v2``'s gradient the same bits every run,
+eager and replayed; and a compiled WMT step whose rate follows noam
+replay by replay.
 Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -1131,9 +1137,7 @@ def _ernie_layer_program(dtype):
     """Two ERNIE encoder layers (hidden 128, 2 heads of 64, FFN 512,
     packed flash attention with dropout 0.1, hidden dropout 0.1, layer
     norms) on a fed [4, 64, 128] input and key mask, loss mean(y^2),
-    AdamW: an ERNIE layer step without the embedding lookups, whose
-    gradients are the step's only sums in a run-dependent order
-    (``index_add_``'s atomics)."""
+    AdamW: an ERNIE layer step without the embedding lookups."""
     from paddle_tpu_torch import layers, optimizer
     from paddle_tpu_torch.core import unique_name
     from paddle_tpu_torch.core.executor import Executor
@@ -1297,3 +1301,207 @@ def test_decode_graphs_replay_beside_eager_calls(dev):
         assert kernels.launch_counts() == counts
         assert np.array_equal(got, env["logits"].cpu().numpy())
     eng.close()
+
+
+# Transformer-big's attention (tools/bench_models.py bench_transformer_big:
+# b48 s256, 16 heads of 64, bf16, dropout 0.1): the decoder's causal
+# self-attention with no bias, and cross-attention (q from the decoder, k
+# and v from the encoder) under the source key-padding bias, (mask - 1) *
+# 1e9 with 128 to 256 live keys a row, as models.transformer's
+# synthetic_batch makes them
+def _wmt_attention(dev, cross):
+    b, s, n, hd = 48, 256, 16, 64
+    g = torch.Generator(device=dev).manual_seed(48 + cross)
+    q, k, v, do = (torch.randn(b, s, n * hd, device=dev, generator=g)
+                   .bfloat16() for _ in range(4))
+    bias = None
+    if cross:
+        lens = torch.randint(s // 2, s + 1, (b,), device=dev, generator=g)
+        live = torch.arange(s, device=dev)[None, :] < lens[:, None]
+        bias = (live.float() - 1.0) * 1e9
+    return q, k, v, do, bias, n, hd ** -0.5
+
+
+@pytest.mark.parametrize("cross", [False, True])
+def test_flash_at_the_transformer_big_shapes(dev, cross):
+    q, k, v, do, bias, n, scale = _wmt_attention(dev, cross)
+    causal = not cross
+    kernels.reset_launch_counts()
+    out, lse = fa.flash_fwd(q, k, v, n, scale, causal, bias, 0.1, 7)
+    ref_out, ref_lse = fa.plain_flash_fwd(*_f32(q, k, v), n, scale, causal,
+                                          bias, 0.1, 7)
+    saved = ref_out.bfloat16()
+    grads = fa.flash_bwd(q, k, v, saved, ref_lse, do, n, scale, causal, bias,
+                         0.1, 7)
+    ref = fa.plain_flash_bwd(*_f32(q, k, v), saved.float(), ref_lse,
+                             do.float(), n, scale, causal, bias, 0.1, 7)
+    torch.cuda.synchronize()
+    assert kernels.dtype_counts() == {
+        k_: {"fp32_tf32x3": 0, "bf16_wgmma": 1}
+        for k_ in ("flash_attention_fwd", "flash_attention_bwd")}
+    torch.testing.assert_close(out.float(), saved.float(),
+                               **TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    for name, a, r in zip(("dq", "dk", "dv"), grads[:3], ref[:3]):
+        torch.testing.assert_close(a.float(), r.bfloat16().float(),
+                                   msg=lambda m: f"{name}: {m}",
+                                   **TOL[torch.bfloat16])
+    if cross:
+        torch.testing.assert_close(grads[3], ref[3], rtol=1e-3, atol=1e-3)
+    else:
+        assert grads[3] is None
+
+
+SCHEDULE_ATTRS = (
+    {"schedule": "noam", "d_model": 1024, "warmup_steps": 4,
+     "learning_rate": 2.0},
+    {"schedule": "exponential", "learning_rate": 0.1, "decay_steps": 2,
+     "decay_rate": 0.5, "staircase": True},
+    {"schedule": "natural_exp", "learning_rate": 0.1, "decay_steps": 3,
+     "decay_rate": 0.3, "staircase": False},
+    {"schedule": "inverse_time", "learning_rate": 0.2, "decay_steps": 2,
+     "decay_rate": 0.5, "staircase": False},
+    {"schedule": "polynomial", "learning_rate": 0.1, "decay_steps": 3,
+     "end_learning_rate": 1e-4, "power": 2.0, "cycle": True},
+    {"schedule": "piecewise", "boundaries": [2.0, 4.0],
+     "values": [1.0, 0.5, 0.25]},
+    {"schedule": "cosine", "learning_rate": 0.1, "step_each_epoch": 2,
+     "epochs": 5},
+    {"schedule": "linear_warmup", "warmup_steps": 3, "start_lr": 0.0,
+     "end_lr": 0.1, "base_lr": 0.05})
+
+
+def test_lr_ops_capture_in_a_graph_without_a_host_sync(dev):
+    """increment, every lr_schedule branch and one_hot recorded into one
+    CUDA graph (a host sync or a host-to-device copy fails the capture)
+    and replayed: each replay advances the counter on the card and gives
+    the CPU lowerings' rates at that step and the same one-hot rows."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.graph import StepGraph
+
+    inc, sched, one_hot = (registry.get(t).forward for t in (
+        "increment", "lr_schedule", "one_hot"))
+    counter = torch.full((1,), -1.0, device=dev)
+    ids = torch.randint(0, 96, (2, 32, 1), dtype=torch.int32, device=dev)
+
+    def step():
+        counter.copy_(inc({"X": [counter]}, {"step": 1.0})["Out"])
+        rates = [sched({"Step": [counter]}, dict(a))["Out"]
+                 for a in SCHEDULE_ATTRS]
+        return rates + [one_hot({"X": [ids]}, {"depth": 96})["Out"]]
+
+    graph = StepGraph(step, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.capture()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(counter) == -1.0            # a capture runs nothing
+    want_hot = one_hot({"X": [ids.cpu()]}, {"depth": 96})["Out"]
+    for k in range(7):
+        outs = graph.replay()
+        torch.cuda.synchronize()
+        assert float(counter) == float(k)
+        step_k = torch.tensor([float(k)])
+        for a, got in zip(SCHEDULE_ATTRS, outs[:-1]):
+            want = sched({"Step": [step_k]}, dict(a))["Out"]
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0,
+                                       msg=lambda m: f"{a['schedule']}@{k}")
+        assert torch.equal(outs[-1].cpu(), want_hot)
+
+
+@pytest.mark.parametrize("shape,vocab,high,d,dtype", [
+    ((48, 256), 32000, 32000, 1024, torch.float32),
+    ((48, 256), 32000, 64, 1024, torch.float32),
+    ((40, 512), 512, 512, 1024, torch.bfloat16),
+    ((40, 512), 4, 2, 1024, torch.bfloat16),
+    ((2, 32), 96, 96, 128, torch.float32)])
+def test_lookup_table_gradient_is_the_same_bits_every_run(dev, shape, vocab,
+                                                          high, d, dtype):
+    """lookup_table_v2's gradient into its table at Transformer-big's
+    shape (12288 ids into [32000, 1024]) and with those ids crowded onto
+    64 rows, at ERNIE-large's position and sentence tables (20480 ids, bf16,
+    on 512 rows and on 2) and at the tiny tests' width: two eager runs and
+    two replays of a graph captured with no host sync give the same bits.
+    Against a float64 scatter-add of the same values on the CPU: rtol one
+    rounding of the table's dtype (1e-5 fp32, 2^-8 bf16), atol 2e-7 times
+    the most ids a row takes (fp32 sums of unit normals in another
+    order)."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.core.graph import StepGraph
+
+    lookup = registry.get("lookup_table_v2").forward
+    g = torch.Generator(device=dev).manual_seed(high)
+    w = torch.randn(vocab, d, device=dev, generator=g).to(dtype)
+    w.requires_grad_()
+    ids = torch.randint(0, high, shape, device=dev, generator=g,
+                        dtype=torch.int32)
+    dy = torch.randn(*shape, d, device=dev, generator=g).to(dtype)
+
+    def grad():
+        out = lookup({"W": [w], "Ids": [ids]}, {})["Out"]
+        return [torch.autograd.grad(out, w, dy)[0]]
+
+    eager = [grad()[0] for _ in range(2)]
+    graph = StepGraph(grad, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.capture()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    replays = [graph.replay()[0].clone() for _ in range(2)]
+    for got in eager[1:] + replays:
+        assert torch.equal(got, eager[0])
+    flat = ids.cpu().reshape(-1).long()
+    want = torch.zeros(vocab, d, dtype=torch.float64).index_add_(
+        0, flat, dy.cpu().reshape(-1, d).double())
+    most = int(torch.bincount(flat).max())
+    torch.testing.assert_close(
+        eager[0].cpu().double(), want, atol=2e-7 * most,
+        rtol=1e-5 if dtype == torch.float32 else 2 ** -8)
+
+
+def test_compiled_wmt_step_advances_the_learning_rate(dev):
+    """The WMT program at a tiny width (2+2 layers, d_model 128, 2 heads of
+    64, vocab 96, s32, batch 2, bf16 AMP, noam over 4000 steps) run 6
+    times through Executor: the first op by op, then one capture and
+    replays. The rate fetched at run k is the noam formula at step k: the
+    graph advances the device counter on every replay. One compiled step
+    is built, and each run launches 6 flash forwards and 6 backwards."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor, _CompiledStep
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import transformer
+
+    cfg = transformer.transformer_big()
+    for k_, v_ in dict(n_encoder_layers=2, n_decoder_layers=2, d_model=128,
+                       n_head=2, d_inner=256, src_vocab_size=96,
+                       tgt_vocab_size=96).items():
+        setattr(cfg, k_, v_)
+    with unique_name.guard():
+        main, startup, _, fetches = transformer.build_wmt_program(
+            cfg, seq_len=32, amp=True)
+    lr = next(o for o in main.global_block().ops
+              if o.type == "lr_schedule").outputs["Out"][0]
+    exe, scope = Executor(device=dev), Scope()
+    exe.run(startup, scope=scope)
+    batch = transformer.synthetic_batch(cfg, 2, 32, seed=1)
+    kernels.reset_launch_counts()
+    runs = [exe.run(main, feed=batch, scope=scope,
+                    fetch_list=[fetches["loss"], lr]) for _ in range(6)]
+    assert exe.compiled_builds == 1
+    (step,) = [s for per_scope in exe._compiled[main].values()
+               for s in per_scope.values() if isinstance(s, _CompiledStep)]
+    assert step.graph.graph is not None             # captured, replayed
+    for k, (loss, got) in enumerate(runs):
+        s = np.float32(k + 1)
+        want = np.float32(2.0 * 128 ** -0.5) * min(
+            s ** np.float32(-0.5), s * np.float32(4000 ** -1.5))
+        np.testing.assert_allclose(got, [want], rtol=1e-6)
+        assert np.isfinite(np.asarray(loss, np.float32)).all()
+    assert float(scope.find_var("@LR_DECAY_COUNTER@").cpu()[0]) == 5.0
+    counts = kernels.launch_counts()
+    assert (counts["flash_attention_fwd"],
+            counts["flash_attention_bwd"]) == (36, 36)
