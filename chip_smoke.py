@@ -518,9 +518,10 @@ def check_paged(dev, results):
         kernel))
 
 
-# check_int8: the serving ladder's M (decode: 8; prefill buckets 64, 512,
-# 2048) at the decoder LM's three weight shapes (K, N)
-INT8_M = (8, 64, 512, 2048)
+# check_int8: the serving ladder's M (decode: 8 slots, and 16, a prefix
+# chunk of one page and the decode instance's largest M; prefill buckets
+# 64, 512, 2048) at the decoder LM's three weight shapes (K, N)
+INT8_M = (8, 16, 64, 512, 2048)
 INT8_KN = ((1024, 1024), (1024, 4096), (4096, 1024))
 
 
@@ -947,6 +948,66 @@ def check_flash_long(dev, results):
         torch.cuda.empty_cache()
 
 
+def check_flash_empty_rows(dev, results):
+    """Causal flash attention with Sq > Sk (Sq = 256, Sk = 128, packed
+    [B,S,16*64], bottom-right aligned): the first 128 query rows see no
+    key. As in the reference (mask value -1e30), each is the uniform
+    softmax over all Sk keys: out the mean of the dropout-masked v, lse
+    -1e30; the backward gives those rows dq 0, nothing to dk, and
+    (1 / Sk) mask do to dv. Both kernels, bf16 and fp32, with dropout,
+    with and without the key bias, against the plain versions in fp32
+    (_compare_flash, every row); then the rows without a key apart: out
+    not 0 and within the tolerance of the plain mean, lse -1e30, dq 0.
+    No model path reaches this case."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    n, hd, sq, sk = 16, 64, 256, 128
+    empty = sq - sk
+    scale = hd ** -0.5
+    checked = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        for with_bias in (False, True):
+            g = torch.Generator(device=dev).manual_seed(sq + with_bias)
+            q, do = (torch.randn(1, sq, n * hd, device=dev, generator=g)
+                     .to(dtype) for _ in range(2))
+            k, v = (torch.randn(1, sk, n * hd, device=dev, generator=g)
+                    .to(dtype) for _ in range(2))
+            bias = torch.where(torch.rand(1, sk, device=dev, generator=g)
+                               < 0.25, -1e4, 0.0) if with_bias else None
+            what = f"empty rows {name} Sq={sq} Sk={sk}" + \
+                (" bias" if with_bias else "")
+            out, lse, err = _compare_flash(fa, what, q, k, v, do, bias, n,
+                                           scale, causal=True)
+            ref_out, _ = fa.plain_flash_fwd(q.float(), k.float(), v.float(),
+                                            n, scale, True, bias, RATE,
+                                            ATTN_SEED)
+            grads = fa.flash_bwd(q, k, v, out, lse, do, n, scale, True,
+                                 bias, RATE, ATTN_SEED)
+            torch.cuda.synchronize()
+            rows_out = out[:, :empty].float()
+            ok = (bool(rows_out.abs().max() > 0)
+                  and torch.allclose(rows_out,
+                                     ref_out[:, :empty].to(dtype).float(),
+                                     **TRAIN_TOL[dtype])
+                  and bool((lse[..., :empty] == fa.NEG_INF).all())
+                  and not bool(grads[0][:, :empty].float().any())
+                  and bool(grads[2].float().abs().max() > 0))
+            if not ok:
+                raise AssertionError(f"flash {what}: the rows that see no "
+                                     f"key disagree with the reference's "
+                                     f"uniform softmax")
+            checked[what] = dict(
+                out_rows_max_abs_err=errors(rows_out,
+                                            ref_out[:, :empty])[0],
+                out_rows_max_abs=float(rows_out.abs().max()))
+            _flash_rows(results, f"B=1 Sq={sq} Sk={sk} n=16 hd=64 causal "
+                                 f"dropout={RATE} {name}"
+                                 + (" bias" if with_bias else "")
+                                 + " (rows 0-127 see no key)", err, None)
+    return checked
+
+
 def _bnsd_inputs(dev, b, sq, sk, dtype, seed):
     n, hd = ERNIE["num_attention_heads"], 64
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1346,6 +1407,221 @@ def serve(phase, cfg, params, quant, dev):
          int8_launches_by_instance=int8_instances,
          flash_launches_by_layout=layouts,
          kv_high_water_pages=stats["kv_cache"]["high_water_pages"])
+    return dict(launches=launches, layouts=layouts,
+                int8_instances=int8_instances)
+
+
+# the prefix phases' traffic: one shared system prompt of 64 pages, nine
+# user suffixes (the last sampled), 32 new tokens each
+PREFIX_SYSTEM = 1024
+PREFIX_SUFFIXES = (5, 17, 40, 64, 100, 150, 220, 300, 120)
+
+
+def _first_divergence(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def serve_prefix(phase, cfg, params, quant, dev):
+    """The prefix-sharing path at full width: DecodeConfig(prefix_cache=
+    True, max_slots=8, page_size=16, kv_pages=1024, max_new_tokens=32).
+    One 1024-token system prompt, nine suffixes (PREFIX_SUFFIXES; the
+    last sampled at temperature 0.8, seed 7, journaled), 32 new tokens
+    each; the first request alone (cold), the other eight together (each
+    a hit on the 64 shared pages). Gates: kv.prefix_hits >= 8; the
+    prefill tokens are the nine prompts' less 8 * 1024; no flash forward,
+    paged attention launched, and in int8 every int8 GEMM on the decode
+    instance (chunks of 16 tokens and steps of 8 slots); warm-up builds
+    one graph more than the classic engine (the chunk program) and none
+    is captured after it. Then each request alone after evicting every
+    idle chain (cold again): its ids are the concurrent run's bit for bit
+    and the pool's audit is clean. The sampled request resumed from its
+    journal record at 16 tokens gives the same 32 ids. A classic engine
+    (prefix cache off) gives the greedy ids, and ships the 300-token
+    prompt's prefill: the shipment round-trips, a flipped byte is
+    rejected, the pool's free pages come back, the shipped logits' argmax
+    is that prompt's first greedy id."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine,
+                                          ShipmentCRCError, resume_args,
+                                          unpack_shipment)
+
+    t_phase = time.perf_counter()
+    conf = dict(max_slots=8, page_size=16, kv_pages=1024, weight_quant=quant,
+                max_new_tokens=32)
+    eng = DecodeEngine(cfg, params, DecodeConfig(prefix_cache=True, **conf),
+                       device=dev)
+    t0 = time.perf_counter()
+    built = eng.warmup()
+    warm_s = time.perf_counter() - t0
+    graphs = len(eng._graphs)
+    classic_programs = len(eng.config.buckets) + \
+        len(eng.config.prefill_buckets)
+    rng = np.random.RandomState(5)
+    system = rng.randint(3, cfg.vocab_size, PREFIX_SYSTEM)
+    reqs = []
+    for i, n in enumerate(PREFIX_SUFFIXES):
+        r = dict(prompt=np.concatenate(
+            [system, rng.randint(3, cfg.vocab_size, n)]).astype(np.int32),
+            max_new_tokens=32, stop_at_eos=False)
+        if i == len(PREFIX_SUFFIXES) - 1:
+            r.update(temperature=0.8, seed=7, request_id="sampled-120")
+        reqs.append(r)
+    journal = []
+    eng.journal_sink = journal.extend
+    kernels.reset_launch_counts()
+    telemetry.reset()
+    eng.start()
+    try:
+        t0 = time.perf_counter()
+        first = eng.submit(**reqs[0])
+        first.result(timeout=600)
+        handles = [first] + [eng.submit(**r) for r in reqs[1:]]
+        together = [np.asarray(h.result(timeout=600)) for h in handles]
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        layouts = kernels.layout_counts()
+        int8_instances = kernels.int8_instance_counts()
+        counters = telemetry.snapshot()["counters"]
+        stats = eng.stats()
+        hit_ms = [h.prefill_ms for h in handles[1:]]
+        graphs_after = len(eng._graphs)
+        eng.journal_sink = None
+        # each request alone and cold: every idle chain evicted first
+        alone, cold_ms = [], []
+        for r in reqs:
+            eng.prefix_store.reclaim(eng.config.kv_pages)
+            h = eng.submit(**{k_: v_ for k_, v_ in r.items()
+                              if k_ != "request_id"})
+            alone.append(np.asarray(h.result(timeout=600)))
+            cold_ms.append(h.prefill_ms)
+        audit = eng.pool.audit(owned=eng.prefix_store.owned_pages())
+        # the sampled session, resumed from its record at 16 tokens
+        record = next(rec for rec in journal
+                      if rec["request_id"] == "sampled-120"
+                      and len(rec["accepted"]) == 16)
+        args = resume_args(record)
+        tail = np.asarray(eng.submit(args.pop("prompt_ids"), **args)
+                          .result(timeout=600))
+        resumed = np.concatenate([np.asarray(record["accepted"]), tail])
+    finally:
+        eng.close(drain=True, timeout=60)
+    store_stats = eng.prefix_store.stats()
+    del eng
+    _release()
+
+    lens = [int(r["prompt"].size) for r in reqs]
+    problems = []
+    if any(len(t) != 32 for t in together):
+        problems.append("short generation")
+    if counters.get("kv.prefix_hits", 0) < 8:
+        problems.append(f"prefix hits {counters.get('kv.prefix_hits')}")
+    want_tokens = sum(lens) - 8 * PREFIX_SYSTEM
+    if counters.get("decode.prefill_tokens") != want_tokens:
+        problems.append(f"prefill tokens "
+                        f"{counters.get('decode.prefill_tokens')} != "
+                        f"{want_tokens}")
+    if launches["flash_attention_fwd"] != 0 or \
+            launches["paged_attention"] == 0:
+        problems.append(f"launches {launches}")
+    if quant == "int8" and not (
+            int8_instances["decode"] > 0
+            and int8_instances["decode"] == launches["int8_gemm"]):
+        problems.append(f"int8 launches by instance {int8_instances}")
+    if built != classic_programs + 1 or graphs != built or \
+            graphs_after != built:
+        problems.append(f"{built} programs built ({classic_programs} "
+                        f"classic), {graphs} graphs after the warm-up, "
+                        f"{graphs_after} after the traffic")
+    hit_eq_cold = [bool(np.array_equal(a, b))
+                   for a, b in zip(together, alone)]
+    if not all(hit_eq_cold):
+        problems.append(f"hit != cold: {hit_eq_cold}")
+    if audit:
+        problems.append(f"pool audit: {audit}")
+    session_ok = bool(np.array_equal(resumed, together[-1]))
+    if not session_ok:
+        problems.append("resumed session != uninterrupted")
+
+    # the classic engine: greedy ids, prefill times and the shipment
+    classic = DecodeEngine(cfg, params, DecodeConfig(**conf), device=dev)
+    classic.warmup()
+    classic.start()
+    try:
+        greedy = [dict(r) for r in reqs[:-1]]
+        hs = [classic.submit(**r) for r in greedy]
+        classic_ids = [np.asarray(h.result(timeout=600)) for h in hs]
+        classic_ms = [h.prefill_ms for h in hs]
+        free = classic.pool.free_pages()
+        ship_prompt = reqs[7]["prompt"]                  # the 300 suffix
+        blob = bytes(classic.submit_prefill(ship_prompt).result(timeout=600))
+        free_after = classic.pool.free_pages()
+        ship = unpack_shipment(blob)
+        bad = bytearray(blob)
+        bad[len(bad) // 2] ^= 0xFF
+        try:
+            unpack_shipment(bytes(bad))
+            rejected = False
+        except ShipmentCRCError:
+            rejected = True
+        divergences = {}
+        for i, (a, b) in enumerate(zip(together[:-1], classic_ids)):
+            step = _first_divergence(a, b)
+            if step is None:
+                continue
+            # the classic engine's top-2 logit gap where they part
+            seq = np.concatenate([reqs[i]["prompt"], b[:step]])
+            lg = unpack_shipment(bytes(classic.submit_prefill(seq).result(
+                timeout=600)))["logits"]
+            top = np.sort(lg.astype(np.float64))[-2:]
+            divergences[lens[i]] = dict(step=step,
+                                        top2_gap=float(top[1] - top[0]))
+    finally:
+        classic.close(drain=True, timeout=60)
+    del classic
+    _release()
+    if divergences:
+        problems.append(f"chunked != classic: {divergences}")
+    ship_ok = (rejected and free_after == free
+               and ship["tokens"] == [int(t) for t in ship_prompt]
+               and int(np.argmax(ship["logits"])) == int(together[7][0]))
+    if not ship_ok:
+        problems.append(f"shipment: rejected={rejected} free {free} -> "
+                        f"{free_after}, argmax "
+                        f"{int(np.argmax(ship['logits']))} vs "
+                        f"{int(together[7][0])}")
+
+    chunks = counters.get("decode.prefill_chunks", 0)
+    tokens = sum(len(t) for t in together)
+    cold_chunks = [-(-n // 16) for n in lens]
+    emit(phase, requests=len(reqs), system_prompt=PREFIX_SYSTEM,
+         suffixes=list(PREFIX_SUFFIXES), prompt_lengths=lens,
+         tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+         prefill_ms_hit_p50=float(np.median(hit_ms)),
+         prefill_ms_cold_first=handles[0].prefill_ms,
+         prefill_ms_cold_p50=float(np.median(cold_ms)),
+         prefill_ms_classic_p50=float(np.median(classic_ms)),
+         prefill_ms_hit=hit_ms, prefill_ms_cold=cold_ms,
+         prefill_ms_classic=classic_ms,
+         chunk_ms_cold=[ms / c for ms, c in zip(cold_ms, cold_chunks)],
+         chunks_per_prefill=chunks / len(reqs),
+         prefill_tokens=counters.get("decode.prefill_tokens"),
+         prefill_tokens_saved=sum(lens) - counters.get(
+             "decode.prefill_tokens", 0),
+         prefix_hits=counters.get("kv.prefix_hits"),
+         kv_bytes_saved=counters.get("kv.bytes_saved"),
+         step_ms_p50=stats["step_ms"]["p50"], steps=stats.get("steps"),
+         programs_built=built, graphs_captured=graphs, warmup_s=warm_s,
+         launches=launches, int8_launches_by_instance=int8_instances,
+         hit_equals_cold=hit_eq_cold, chunked_equals_classic=not divergences,
+         divergences=divergences, session_resume_equal=session_ok,
+         shipment=dict(bytes=len(blob), n_pages=ship["n_pages"],
+                       crc_rejected=rejected, free_pages=[free, free_after]),
+         prefix_store=store_stats, pool_audit=audit,
+         kv_high_water_pages=stats["kv_cache"]["high_water_pages"],
+         seconds=time.perf_counter() - t_phase)
+    if problems:
+        raise AssertionError(f"{phase}: {problems}")
     return dict(launches=launches, layouts=layouts,
                 int8_instances=int8_instances)
 
@@ -2575,13 +2851,14 @@ def main():
     check_flash_bert_base(dev, results)
     wmt_masks = check_flash_transformer_big(dev, results)
     check_flash_long(dev, results)
+    empty_rows = check_flash_empty_rows(dev, results)
     bnsd_check = check_flash_bnsd(dev, results)
     adamw_check = check_adamw(dev, results)
     check_layer_norm(dev, results)
     check_conv(dev, results)
     emit("kernels", results=results, dropout_mask=mask_check,
          dropout_mask_transformer_big=wmt_masks, bnsd_layout=bnsd_check,
-         adamw=adamw_check)
+         adamw=adamw_check, flash_rows_without_a_key=empty_rows)
 
     cfg = DecoderLMConfig(**FULL)
     t0 = time.perf_counter()
@@ -2593,6 +2870,9 @@ def main():
     runs = {phase: serve(phase, cfg, params, quant, dev)
             for phase, quant in (("serve_fp32", "none"),
                                  ("serve_int8", "int8"))}
+    for phase, quant in (("serve_prefix_fp32", "none"),
+                         ("serve_prefix_int8", "int8")):
+        runs[phase] = serve_prefix(phase, cfg, params, quant, dev)
     cpu_parity(cfg, params, dev)
     cpu_parity(cfg, params, dev, "int8")
     del params

@@ -123,11 +123,23 @@ define_flag("decode_weight_quant", "none",
             "'none' serves fp32 weights, 'int8' per-output-channel "
             "weight-only int8 through the int8 GEMM kernel")
 define_flag("decode_prefix_cache", False,
-            "content-addressed prefix sharing (not in this slice of the "
-            "port: True raises NotImplementedError)")
+            "content-addressed prefix sharing (serving/prefix_store.py): "
+            "every prefill runs page-sized chunks through the chunked "
+            "prefill program, and a prompt whose leading full pages are "
+            "cached replays only its suffix")
 define_flag("decode_role", "unified",
-            "disaggregated-serving role (only 'unified' in this slice of "
-            "the port)")
+            "disaggregated-serving role: 'unified', 'prefill' or "
+            "'decode'; validated and reported in stats(), it gates "
+            "nothing while fetching a shipment is not in the port "
+            "(DecodeEngine.submit_prefill ships under every role)")
 define_flag("disagg_prefill_urls", "",
-            "prefill-tier URLs for a decode-role replica (not in this "
-            "slice of the port)")
+            "prefill-tier URLs for a decode-role replica (fetching a "
+            "shipment over HTTP is not in the port yet: a non-empty value "
+            "raises NotImplementedError)")
+define_flag("decode_journal_stride", 1,
+            "session journaling: snapshot each journaled request every N "
+            "accepted tokens, at the step boundary, to the engine's "
+            "journal_sink (<= 0 disables)")
+define_flag("router_session_capacity", 4096,
+            "SessionJournal bound: the most session records kept, oldest "
+            "evicted first (session.evicted)")

@@ -124,6 +124,12 @@ def counter_add(name: str, delta=1):
     return _REG.counter_add(name, delta)
 
 
+def counter_get(name: str):
+    """A counter's cumulative value (0 if never added to)."""
+    with _REG._lock:
+        return _REG._counters.get(name, 0)
+
+
 def gauge_set(name: str, value):
     _REG.gauge_set(name, value)
 

@@ -13,7 +13,11 @@
 // [B, H, Sq] and bias [B, Sk] are fp32 and contiguous; dq/dk/dv are
 // written in the input type, dbias in fp32. The mask is recomputed from
 // (seed, b*H + h, q, k) exactly as the forward computes it
-// (flash_attention_fwd.cu), never stored.
+// (flash_attention_fwd.cu), never stored. A causal row that sees no key
+// (Sq > Sk) had the uniform softmax over all Sk keys in the forward, as
+// in the reference: it gets dq 0, gives dk nothing, and adds (1 / Sk)
+// mask do to every dv row, after the dkv pass's q loop (empty_rows_dv,
+// flash_tc.cuh).
 //
 // Replaces the backward kernels of paddle_tpu/ops/pallas/flash_attention.py,
 // which all compute this one function:
@@ -340,6 +344,10 @@ dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<0>();
 
+  // rows that see no key add (1 / Sk) mask do to dv (flash_tc.cuh)
+  if (causal && Sq > Sk)
+    empty_rows_dv<HD, DROP>(dva, kr, lane, dob, ldo.r, Sq, Sk, seed2m,
+                            thresh, inv_keep);
   bf16* dkb = dk + b * ldk.b + h * ldk.h;
   bf16* dvb = dv + b * ldv.b + h * ldv.h;
 #pragma unroll
@@ -677,6 +685,10 @@ dkv_tf32(const float* __restrict__ q, const float* __restrict__ k,
   }
   cp_async_wait<0>();
 
+  // rows that see no key add (1 / Sk) mask do to dv (flash_tc.cuh)
+  if (causal && Sq > Sk)
+    empty_rows_dv<HD, DROP>(dva, kr, lane, dob, ldo.r, Sq, Sk, seed2m,
+                            thresh, inv_keep);
   float* dkb = dk + b * ldk.b + h * ldk.h;
   float* dvb = dv + b * ldv.b + h * ldv.h;
 #pragma unroll

@@ -103,8 +103,12 @@
 //    turned-over v tiles, whose keys are permuted within each group of 8
 //    to match the fragment's column order (flash_tf32.cuh, tperm).
 //
-// In both, masked keys get weight exactly 0 and a row with no visible key
-// ends with l == 0 and out 0. No atomics and no reduction across rows, so
+// In both, masked keys get weight exactly 0. A row with no visible key
+// (causal, Sq > Sk) ends the key loop with l == 0; as in the reference,
+// whose mask value is the finite -1e30, its out is the uniform softmax
+// over all Sk keys, the mean of the masked v, added after the loop
+// (empty_row_mean, flash_tc.cuh), and its lse -1e30. No atomics and no
+// reduction across rows, so
 // the result does not depend on the layout: the packed and bnsd instances
 // give the same bits on the same values.
 
@@ -285,12 +289,17 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
+  // rows that see no key: the mean of the masked v (flash_tc.cuh)
+  float den0[2] = {1.f, 1.f};
+  if (causal && q0 + shift < 0)
+    empty_row_mean<HD, DROP>(o, den0, row, lane, vb, lv.r, Sq, Sk, seed2m,
+                             thresh, inv_keep);
   float* ob = out + b * lo.b + h * lo.h;
 #pragma unroll
   for (int e = 0; e < HD / 2; e += 2) {
     const int i = (e >> 1) & 1;
     if (row[i] < Sq) {
-      const float den = l[i] == 0.f ? 1.f : l[i];
+      const float den = l[i] == 0.f ? den0[i] : l[i];
       *reinterpret_cast<float2*>(ob + row[i] * lo.r + acc_col(lane, e)) =
           make_float2(o[e] / den, o[e + 1] / den);
     }
@@ -460,12 +469,17 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
+  // rows that see no key: the mean of the masked v (flash_tc.cuh)
+  float den0[2] = {1.f, 1.f};
+  if (causal && q0 + shift < 0)
+    empty_row_mean<HD, DROP>(o, den0, row, lane, vb, lv.r, Sq, Sk, seed2m,
+                             thresh, inv_keep);
   bf16* ob = out + b * lo.b + h * lo.h;
 #pragma unroll
   for (int e = 0; e < HD / 2; e += 2) {
     const int i = (e >> 1) & 1;
     if (row[i] < Sq) {
-      const float den = l[i] == 0.f ? 1.f : l[i];
+      const float den = l[i] == 0.f ? den0[i] : l[i];
       *reinterpret_cast<__nv_bfloat162*>(ob + row[i] * lo.r +
                                          acc_col(lane, e)) =
           __floats2bfloat162_rn(o[e] / den, o[e + 1] / den);

@@ -68,6 +68,88 @@ __device__ __forceinline__ bool keep(unsigned seed2m, int qi, int ki,
          thresh;
 }
 
+// the dropout multiplier of (qi, ki): inv_keep where keep() holds, else
+// 0; 1 without dropout
+template <bool DROP>
+__device__ __forceinline__ float drop_mult(unsigned seed2m, int qi, int ki,
+                                           int Sk, unsigned thresh,
+                                           float inv_keep) {
+  if (!DROP) return 1.f;
+  return keep(seed2m, qi, ki, Sk, thresh) ? inv_keep : 0.f;
+}
+
+// two adjacent elements of a row as fp32
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Rows that see no key. Under the causal mask (bottom-right aligned) a
+// query row r with r + Sk - Sq < 0 sees no key. The reference gives
+// masked scores the finite -1e30, so such a row's softmax is uniform over
+// all Sk keys: out_r = (1 / Sk) sum_k mask(r, k) v_k, lse_r = -1e30 (the
+// fp32 value of -1e30 + log Sk, and of NEG_INF + log 1e-30: the lse the
+// kernels write wherever l == 0). Its vjp gives dq_r = 0, nothing to dk,
+// and dv_k += (1 / Sk) mask(r, k) do_r. Both key loops skip or mask such
+// rows, so the forward adds the mean after its loop (empty_row_mean) and
+// the dkv pass adds the dv term after its loop (empty_rows_dv); the
+// backward tells them by position, and p = exp(-inf - lse) stays 0 there.
+
+// o (the accumulator of this thread's rows row[0], row[1], the two
+// columns of element pair e at acc_col(lane, e)) += the masked sum of v
+// over all Sk keys for each row that sees no key; den[i] = Sk for those
+template <int HD, bool DROP, typename T>
+__device__ __forceinline__ void empty_row_mean(
+    float* o, float* den, const int* row, int lane, const T* vb,
+    long long vrs, int Sq, int Sk, unsigned seed2m, unsigned thresh,
+    float inv_keep) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    den[i] = 1.f;
+    if (row[i] >= Sq || row[i] + Sk - Sq >= 0) continue;
+    den[i] = (float)Sk;
+    for (int kk = 0; kk < Sk; ++kk) {
+      const float w = drop_mult<DROP>(seed2m, row[i], kk, Sk, thresh,
+                                      inv_keep);
+      const T* vr = vb + kk * vrs;
+#pragma unroll
+      for (int e = 0; e < HD / 2; e += 2) {
+        if (((e >> 1) & 1) != i) continue;
+        const float2 x = ld2(vr + acc_col(lane, e));
+        o[e] = fmaf(w, x.x, o[e]);
+        o[e + 1] = fmaf(w, x.y, o[e + 1]);
+      }
+    }
+  }
+}
+
+// dv (the accumulator of this thread's keys kr[0], kr[1], as o above) +=
+// (1 / Sk) sum over the rows r < Sq - Sk that see no key of mask(r, k) do_r
+template <int HD, bool DROP, typename T>
+__device__ __forceinline__ void empty_rows_dv(
+    float* dv, const int* kr, int lane, const T* dob, long long dors,
+    int Sq, int Sk, unsigned seed2m, unsigned thresh, float inv_keep) {
+  const float inv_sk = 1.f / (float)Sk;
+  for (int r = 0; r < Sq - Sk; ++r) {
+    const T* dr = dob + r * dors;
+    float w[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      w[i] = kr[i] < Sk ? inv_sk * drop_mult<DROP>(seed2m, r, kr[i], Sk,
+                                                   thresh, inv_keep)
+                        : 0.f;
+#pragma unroll
+    for (int e = 0; e < HD / 2; e += 2) {
+      const int i = (e >> 1) & 1;
+      const float2 x = ld2(dr + acc_col(lane, e));
+      dv[e] = fmaf(w[i], x.x, dv[e]);
+      dv[e + 1] = fmaf(w[i], x.y, dv[e + 1]);
+    }
+  }
+}
+
 // one stage of a key loop: the k and v tiles of keys [k0, k0 + R) and
 // their key bias times log2 e (0 without a bias and past Sk)
 template <int HD, int R, int NT>

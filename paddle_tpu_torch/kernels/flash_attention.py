@@ -147,7 +147,9 @@ def _geometry(what, q, k, n_heads, layout):
 
 def _scores(qh, kh, scale, causal, bias):
     """fp32 scores [B,n,Sq,Sk] of [B,n,S,hd] heads with the key bias added
-    and causally hidden keys at -inf."""
+    and causally hidden keys at NEG_INF, the reference's finite mask
+    value: a masked key of a row that sees any key gets weight exactly 0,
+    and a row that sees none a uniform softmax over all Sk keys."""
     b, _, sq, _ = qh.shape
     sk = kh.shape[2]
     s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
@@ -156,8 +158,16 @@ def _scores(qh, kh, scale, causal, bias):
     if causal:
         rows = torch.arange(sq, device=qh.device)[:, None] + (sk - sq)
         cols = torch.arange(sk, device=qh.device)[None, :]
-        s = s.masked_fill(cols > rows, float("-inf"))
+        s = s.masked_fill(cols > rows, NEG_INF)
     return s
+
+
+def _empty_rows(sq, sk, causal, device):
+    """[Sq, 1] bool: the rows that see no key (causal with Sq > Sk,
+    bottom-right aligned: row r < Sq - Sk), or None where there are none."""
+    if not causal or sq <= sk:
+        return None
+    return (torch.arange(sq, device=device) < sq - sk)[:, None]
 
 
 def _keep_scale(b, n, sq, sk, rate, seed, device):
@@ -174,12 +184,14 @@ def plain_flash_fwd(q, k, v, n_heads, scale, causal, bias=None, rate=0.0,
     [B,Sk,n*hd] (packed), or q [B,n,Sq,hd] and k/v [B,n,Sk,hd] (bnsd,
     n_heads may be None); bias [B,Sk] or None. Causal masking is
     bottom-right aligned (query row r sees keys <= r + Sk - Sq). Masked
-    keys get weight exactly 0; a row with no visible key has out 0 and lse
-    NEG_INF + log(1e-30). With rate > 0 the probabilities are multiplied
-    by the dropout keep/(1-rate) mask after the row sum is taken. For
-    bf16 inputs the products accumulate in fp32 and p is rounded to bf16
-    before p v, as in the reference kernel. Returns (out in q's layout,
-    lse [B,n,Sq])."""
+    keys get weight exactly 0. A row with no visible key (r < Sq - Sk)
+    gets, as in the reference, whose mask value is the finite NEG_INF, the
+    uniform softmax over all Sk keys: out the mean of the (masked) v, lse
+    NEG_INF + log(Sk), which is NEG_INF in fp32. With rate > 0 the
+    probabilities are multiplied by the dropout keep/(1-rate) mask after
+    the row sum is taken. For bf16 inputs the products accumulate in fp32
+    and p is rounded to bf16 before p v, as in the reference kernel.
+    Returns (out in q's layout, lse [B,n,Sq])."""
     b, n, sq, sk, _ = _geometry("plain flash forward", q, k, n_heads, layout)
     qh, kh, vh = (_heads(t, n, layout) for t in (q, k, v))
     s = _scores(qh, kh, scale, causal, bias)
@@ -201,10 +213,13 @@ def plain_flash_bwd(q, k, v, out, lse, dout, n_heads, scale, causal,
     lse, step by step what the kernels compute: delta = sum(do * o),
     p = exp(s - lse), dv = (p * mask)^T do, dp = (do v^T) * mask,
     ds = p * (dp - delta), dbias = sum of ds over heads and query rows,
-    dq = ds * scale k, dk = (ds * scale)^T q. fp32 accumulation; for
-    bf16 inputs p * mask and ds * scale are rounded to bf16 before their
-    products, as in the reference kernel. dq/dk/dv come in q's dtype and
-    layout, dbias [B,Sk] in fp32 (None without a bias)."""
+    dq = ds * scale k, dk = (ds * scale)^T q. A row that sees no key (the
+    forward's uniform rows) has p = 1 / Sk and ds = 0: dq 0 there, nothing
+    to dk, (1 / Sk) mask do to dv, as the reference's vjp gives. fp32
+    accumulation; for bf16 inputs p * mask and ds * scale are rounded to
+    bf16 before their products, as in the reference kernel. dq/dk/dv
+    come in q's dtype and layout, dbias [B,Sk] in fp32 (None without a
+    bias)."""
     b, n, sq, sk, _ = _geometry("plain flash backward", q, k, n_heads,
                                 layout)
     qh, kh, vh = (_heads(t, n, layout).float() for t in (q, k, v))
@@ -212,6 +227,11 @@ def plain_flash_bwd(q, k, v, out, lse, dout, n_heads, scale, causal,
     delta = (doh * oh).sum(dim=-1, keepdim=True)
     s = _scores(qh, kh, scale, causal, bias)
     p = torch.exp(s - lse.unsqueeze(-1))
+    # a row that sees no key had weight 1 / Sk on every key, and its
+    # scores no gradient (the vjp of the reference's where): ds 0 there
+    empty = _empty_rows(sq, sk, causal, q.device)
+    if empty is not None:
+        p = torch.where(empty, 1.0 / sk, p)
     mult = _keep_scale(b, n, sq, sk, rate, seed, q.device)
     pd = p if mult is None else p * mult
     dv = torch.matmul(pd.to(q.dtype).float().transpose(-1, -2), doh)
@@ -219,6 +239,8 @@ def plain_flash_bwd(q, k, v, out, lse, dout, n_heads, scale, causal,
     if mult is not None:
         dp = dp * mult
     ds_nos = p * (dp - delta)
+    if empty is not None:
+        ds_nos = torch.where(empty, 0.0, ds_nos)
     dbias = ds_nos.sum(dim=(1, 2)) if bias is not None else None
     ds = (ds_nos * scale).to(q.dtype).float()
     dq = torch.matmul(ds, kh)

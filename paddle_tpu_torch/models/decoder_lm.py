@@ -8,7 +8,10 @@ attrs and var names) that ``serving/decode.py`` runs:
   that writes every token's K/V into the paged pool (``kv_cache_write``)
   and emits the last valid position's logits;
 * ``build_step_program`` — one token per slot at a fixed slot-array
-  shape, attending through ``cached_kv_attention``.
+  shape, attending through ``cached_kv_attention``;
+* ``build_chunk_prefill_program`` — one page-aligned chunk of a prompt
+  against the pool (``chunk_cached_attention``), the prefix store's
+  prefill (``serving/prefix_store.py``).
 
 Parameters are ``static_data`` feeds (or ``layer_norm`` parameters)
 resolved by name from the engine's param dict. Under
@@ -232,6 +235,67 @@ def build_step_program(cfg: DecoderLMConfig, batch: int, num_pages: int,
         _logits(x, emb)
     return main, ["tokens", "positions", "page_table"], \
         ["logits"] + pool_outs
+
+
+def build_chunk_prefill_program(cfg: DecoderLMConfig, batch: int,
+                                chunk_len: int, num_pages: int,
+                                page_size: int,
+                                weight_quant: str = "none"):
+    """PAGE-CHUNKED prefill: one pass over a [batch, chunk_len] slice of
+    the prompt starting at a page-aligned global position, attending over
+    the already-written pool prefix and the chunk causally
+    (``chunk_cached_attention``) and writing the chunk's K/V into the
+    row's pages. Running a prompt chunk by chunk through this one
+    fixed-shape program is the prefix store's prefill: a cache hit skips
+    the cached chunks and replays only the suffix, bit-identical to the
+    cold run, because each chunk's compute is a function of (chunk
+    tokens, prior pool bytes) at one fixed shape.
+
+    Feeds: tokens [B, C] int32 (right-padded chunk), positions [B, C]
+    int32 (global positions, for the position encoding), chunk_start [B]
+    int32, lengths [B] int32 (valid tokens in the chunk), last_onehot
+    [B, C] fp32 (one-hot of the last valid chunk position: the logits
+    read, meaningful on the prompt's final chunk), page_table [B, MP]
+    int32, and the kv pools. Fetches: ``logits`` and kv_*_out."""
+    quant = weight_quant == "int8"
+    mp = -(-cfg.max_seq_len // page_size)
+    main, startup = Program(), Program()
+    with program_guard(main, startup):
+        tokens = layers.static_data("tokens", [batch, chunk_len], "int32")
+        positions = layers.static_data("positions", [batch, chunk_len],
+                                       "int32")
+        start = layers.static_data("chunk_start", [batch], "int32")
+        lengths = layers.static_data("lengths", [batch], "int32")
+        last_oh = layers.static_data("last_onehot", [batch, chunk_len],
+                                     "float32")
+        table = layers.static_data("page_table", [batch, mp], "int32")
+        x, emb = _embed_step(tokens, positions, cfg)
+        pool_outs = []
+        for i in range(cfg.n_layers):
+            name = f"lm_l{i}"
+            q = _dense(x, f"{name}_q", cfg.d_model, cfg.d_model, quant)
+            k = _dense(x, f"{name}_k", cfg.d_model, cfg.d_model, quant)
+            v = _dense(x, f"{name}_v", cfg.d_model, cfg.d_model, quant)
+            pk, pv = _pool_vars(cfg, i, num_pages, page_size)
+            attn = _named_out(f"lm_l{i}_attn")
+            pk_out = _named_out(f"kv_k_{i}_out")
+            pv_out = _named_out(f"kv_v_{i}_out")
+            LayerHelper("chunk_cached_attention").append_op(
+                "chunk_cached_attention",
+                {"Q": [q], "K": [k], "V": [v], "PoolK": [pk], "PoolV": [pv],
+                 "PageTable": [table], "ChunkStart": [start],
+                 "Lengths": [lengths]},
+                {"Out": [attn], "PoolKOut": [pk_out], "PoolVOut": [pv_out]},
+                {"num_heads": cfg.n_head, "head_dim": cfg.head_dim,
+                 "scale": cfg.head_dim ** -0.5})
+            pool_outs += [pk_out.name, pv_out.name]
+            x = _block_tail(x, attn, name, cfg, quant)
+        h_last = layers.reduce_sum(x * layers.unsqueeze(last_oh, [2]),
+                                   dim=1)
+        _logits(h_last, emb)
+    feeds = ["tokens", "positions", "chunk_start", "lengths",
+             "last_onehot", "page_table"]
+    return main, feeds, ["logits"] + pool_outs
 
 
 def build_prefill_program(cfg: DecoderLMConfig, batch: int, prompt_len: int,

@@ -1,9 +1,10 @@
 """Attention lowerings (port of ``paddle_tpu/ops/attention_ops.py``:
 _attn_dropout :17, flash_attention :37, its grad maker :81,
 flash_attention_grad :112, kv_cache_write :167, cached_kv_attention
-:205, fused_bn_add_act :357, fused_layer_norm :381).
+:205, chunk_cached_attention :259, fused_bn_add_act :357,
+fused_layer_norm :381).
 
-The two pool-writing ops update the pool tensors IN PLACE and return
+The three pool-writing ops update the pool tensors IN PLACE and return
 the same tensors as PoolKOut/PoolVOut — the counterpart of the jit
 donation at ``paddle_tpu/serving/decode.py:552``, where XLA updates the
 donated pool buffers in place. Index tensors arrive as int32 (the
@@ -202,6 +203,70 @@ def cached_kv_attention_op(ins, attrs):
     _write_slots(pool_k, pool_v, phys * page + pos64 % page, k, v)
     out = paged_decode_attention(q, pool_k, pool_v, table, pos, n, hd, scale)
     return {"Out": out, "PoolKOut": pool_k, "PoolVOut": pool_v}
+
+
+@register_op("chunk_cached_attention",
+             required_attrs=("num_heads", "head_dim"),
+             non_diff_inputs=("K", "V", "PoolK", "PoolV", "PageTable",
+                              "ChunkStart", "Lengths"))
+def chunk_cached_attention_op(ins, attrs):
+    """One page-aligned PROMPT CHUNK of prefill against the paged KV pool,
+    the building block of the prefix-sharing chunked prefill
+    (serving/prefix_store.py). It writes the chunk's K/V into the row's
+    pages, in place, and attends each chunk query over (a) the pool
+    positions 0..ChunkStart-1, the already-prefilled (possibly shared)
+    prefix, and (b) the chunk's own keys causally. A chunk's output
+    depends only on the chunk's tokens and the prior positions' pool
+    bytes (invalid positions are masked to -1e9 before the softmax and
+    get exactly 0 weight), so replaying only the uncached suffix chunks
+    over cached prefix pages reproduces the cold prefill bit for bit.
+
+    Q, K, V [B, C, kvdim]; PoolK/PoolV [N, P, kvdim]; PageTable [B, MP];
+    ChunkStart [B] (page-aligned global position of chunk token 0);
+    Lengths [B] (valid tokens in this chunk, 1..C). Positions past a
+    row's length write to scratch page 0. The context is gathered from
+    the pools BEFORE the chunk's writes, as the reference's pre-write
+    pools give it. Plain PyTorch, as the reference's lowering is plain
+    jnp: one softmax in fp32 over the concatenated [ctx | chunk] scores.
+    No host read and no data-dependent shape, so it can be captured.
+    Outputs: Out [B, C, kvdim], PoolKOut, PoolVOut (the pools)."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    pool_k, pool_v = ins["PoolK"][0], ins["PoolV"][0]
+    table = ins["PageTable"][0].long()
+    start = ins["ChunkStart"][0].reshape(-1).long()
+    lengths = ins["Lengths"][0].reshape(-1).long()
+    b, c, kvdim = k.shape
+    n, hd = int(attrs["num_heads"]), int(attrs["head_dim"])
+    scale = float(attrs.get("scale") or hd ** -0.5)
+    page = int(pool_k.shape[1])
+    mp = int(table.shape[1])
+    s_ctx = mp * page
+    # the prior context, read from the pre-write pools (a gathered copy)
+    ctx_k = pool_k[table].reshape(b, s_ctx, n, hd)
+    ctx_v = pool_v[table].reshape(b, s_ctx, n, hd)
+    # -- write phase: kv_cache_write with a start offset ---------------------
+    pos = torch.arange(c, device=k.device)
+    g = start[:, None] + pos[None, :]                           # [B, C]
+    phys = table.gather(1, (g // page).clamp_max(mp - 1))
+    phys = torch.where(pos[None, :] < lengths[:, None], phys,
+                       torch.zeros_like(phys))
+    _write_slots(pool_k, pool_v, (phys * page + g % page).reshape(-1),
+                 k.reshape(b * c, kvdim), v.reshape(b * c, kvdim))
+    # -- attend phase: prior pool context + causal in-chunk ------------------
+    qh = q.reshape(b, c, n, hd)
+    sc_ctx = torch.einsum("bqnh,bsnh->bnqs", qh, ctx_k) * scale
+    seen = torch.arange(s_ctx, device=k.device)[None, None, None, :] < \
+        start[:, None, None, None]
+    sc_ctx = torch.where(seen, sc_ctx, -1e9)
+    kh, vh = k.reshape(b, c, n, hd), v.reshape(b, c, n, hd)
+    sc_chk = torch.einsum("bqnh,bsnh->bnqs", qh, kh) * scale
+    causal = pos[None, :] <= pos[:, None]                       # [Cq, Ck]
+    sc_chk = torch.where(causal[None, None], sc_chk, -1e9)
+    probs = torch.softmax(torch.cat([sc_ctx, sc_chk], -1), dim=-1)
+    out = torch.einsum("bnqs,bsnh->bqnh", probs[..., :s_ctx], ctx_v) + \
+        torch.einsum("bnqs,bsnh->bqnh", probs[..., s_ctx:], vh)
+    return {"Out": out.reshape(b, c, n * hd), "PoolKOut": pool_k,
+            "PoolVOut": pool_v}
 
 
 @register_op("fused_bn_add_act", non_diff_inputs=("Mean", "Variance"))

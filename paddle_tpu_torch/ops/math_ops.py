@@ -60,7 +60,12 @@ def gelu(ins, attrs):
 
 @register_op("mean")
 def mean(ins, attrs):
-    return {"Out": torch.mean(ins["X"][0])}
+    """Mean of every element; an integer or bool X averages in float32,
+    as ``jnp.mean`` does (int32 [0..4] gives 2.0)."""
+    x = ins["X"][0]
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    return {"Out": torch.mean(x)}
 
 
 @register_op("reduce_sum")
@@ -70,12 +75,14 @@ def reduce_sum(ins, attrs):
     dims = attrs.get("dim")
     if attrs.get("reduce_all", False) or dims is None:
         dims = list(range(x.dim()))
+    if x.dtype == torch.bool:   # jnp.sum of bool is int32 on any axes
+        x = x.to(torch.int32)
     if len(dims):
         out = torch.sum(x, dim=tuple(dims), keepdim=keep)
     else:   # dim=[] reduces no axis, as jnp.sum(axis=()); torch.sum
-        # would read it as every axis. A bool X sums to int32 there too.
-        out = x.to(torch.int32) if x.dtype == torch.bool else x.clone()
-    if not x.is_floating_point() and x.dtype != torch.bool:
+        # would read it as every axis
+        out = x.clone()
+    if not x.is_floating_point():
         out = out.to(x.dtype)   # jnp.sum keeps int32 (x64 off)
     return {"Out": out}
 
@@ -162,12 +169,21 @@ def softmax_with_cross_entropy(ins, attrs):
 @register_op("top_k", non_diff_inputs=("X",))
 def top_k(ins, attrs):
     """The k largest along the last axis, lowest index first among
-    equals (``jax.lax.top_k``'s order; ``torch.topk`` promises none, so
-    this is a stable descending sort). Indices are int32, as every
-    index of the reference is."""
+    equals and +0.0 before -0.0 (``jax.lax.top_k``'s order: [0, -0, 0]
+    gives [[0, 2, 1]]; ``torch.topk`` promises none). Two stable sorts:
+    the sign bit ascending, then the values descending, so equal values
+    keep the first sort's order. Indices are int32, as every index of the
+    reference is."""
     x = ins["X"][0]
     k = int(attrs.get("k", 1))
+    order = None
+    if x.is_floating_point():
+        order = torch.sort(torch.signbit(x).to(torch.uint8), dim=-1,
+                           stable=True)[1]
+        x = torch.gather(x, -1, order)
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    if order is not None:
+        idx = torch.gather(order, -1, idx)
     return {"Out": vals[..., :k], "Indices": idx[..., :k].to(torch.int32)}
 
 

@@ -28,19 +28,24 @@ def _shape_of(attrs):
     return tuple(int(d) for d in attrs["shape"])
 
 
+def _dtype_of(attrs):
+    """The op's ``dtype`` attr as the reference holds it (64-bit types as
+    32, x64 off)."""
+    return x64_off(to_torch_dtype(attrs.get("dtype", "float32")))
+
+
 @register_op("fill_constant")
 def fill_constant(ins, attrs):
-    return {"Out": torch.full(
-        _shape_of(attrs), attrs.get("value", 0.0),
-        dtype=to_torch_dtype(attrs.get("dtype", "float32")),
-        device=creation_device())}
+    return {"Out": torch.full(_shape_of(attrs), attrs.get("value", 0.0),
+                              dtype=_dtype_of(attrs),
+                              device=creation_device())}
 
 
 @register_op("assign_value", capturable=False)
 def assign_value(ins, attrs):
     """A tensor of the given shape holding ``values``, in ``dtype``
     (64-bit types as 32, as the reference holds them)."""
-    dtype = x64_off(to_torch_dtype(attrs.get("dtype", "float32")))
+    dtype = _dtype_of(attrs)
     dev = creation_device()
     if dev.type == "meta":
         return {"Out": torch.empty(_shape_of(attrs), dtype=dtype, device=dev)}
@@ -68,14 +73,14 @@ def _std_normal(u, lo=0.0, hi=1.0):
 def uniform_random(ins, attrs):
     lo, hi = float(attrs.get("min", -1.0)), float(attrs.get("max", 1.0))
     out = lo + (hi - lo) * _uniform01(attrs)
-    return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "float32")))}
+    return {"Out": out.to(_dtype_of(attrs))}
 
 
 @register_op("gaussian_random", capturable=False)
 def gaussian_random(ins, attrs):
     x = _std_normal(_uniform01(attrs))
     out = x * float(attrs.get("std", 1.0)) + float(attrs.get("mean", 0.0))
-    return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "float32")))}
+    return {"Out": out.to(_dtype_of(attrs))}
 
 
 @register_op("truncated_gaussian_random", capturable=False)
@@ -85,7 +90,7 @@ def truncated_gaussian_random(ins, attrs):
     c = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     x = _std_normal(_uniform01(attrs), c, 1.0 - c).clamp(-2.0, 2.0)
     out = x * float(attrs.get("std", 1.0)) + float(attrs.get("mean", 0.0))
-    return {"Out": out.to(to_torch_dtype(attrs.get("dtype", "float32")))}
+    return {"Out": out.to(_dtype_of(attrs))}
 
 
 @register_op("cast")
@@ -99,9 +104,15 @@ def cast(ins, attrs):
 
 @register_op("scale")
 def scale(ins, attrs):
+    """X * scale + bias (or (X + bias) * scale). The bias is first cast to
+    X's dtype, as the reference's ``np.asarray(bias, x.dtype)`` does: an
+    integer X truncates it (int32 [0..3], scale 0.5, bias 1.5 gives the
+    float32 [1, 1.5, 2, 2.5]). The cast is of a host scalar, so the op
+    stays capturable."""
     x = ins["X"][0]
     s = attrs.get("scale", 1.0)
-    b = attrs.get("bias", 0.0)
+    b = torch.tensor(float(attrs.get("bias", 0.0)),
+                     dtype=torch.float64).to(x.dtype).item()
     if attrs.get("bias_after_scale", True):
         return {"Out": x * s + b}
     return {"Out": (x + b) * s}
@@ -154,14 +165,47 @@ def slice_op(ins, attrs):
     return {"Out": out}
 
 
+def _take_index(index, n):
+    """(indices clamped into [0, n), which of them are in range) of a
+    ``jnp.take`` index over an axis of ``n``: a negative index in [-n, 0)
+    wraps to index + n, anything else outside [0, n) is out of range.
+    Index arrives int32 and is widened for torch's indexing. No host
+    read, so the ops stay capturable."""
+    idx = index.reshape(-1).long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    return idx.clamp(0, max(n - 1, 0)), valid
+
+
+def _take_fill(dtype):
+    """``jnp.take``'s fill for an out-of-range index: NaN for floats, the
+    least value of a signed integer type, the largest of an unsigned one,
+    True for bool."""
+    if dtype.is_floating_point:
+        return float("nan")
+    if dtype == torch.bool:
+        return True
+    return torch.iinfo(dtype).max if dtype == torch.uint8 \
+        else torch.iinfo(dtype).min
+
+
+def _fill_invalid(out, valid, axis):
+    """``out`` (the taken slices along ``axis``) with the slices of
+    out-of-range indices replaced by ``_take_fill``."""
+    shape = [1] * out.dim()
+    shape[axis] = -1
+    return torch.where(valid.reshape(shape), out, _take_fill(out.dtype))
+
+
 @register_op("gather", non_diff_inputs=("Index",))
 def gather(ins, attrs):
     """jnp.take(x, index, axis): out shape is x.shape[:axis] +
-    index.shape + x.shape[axis+1:]. Index arrives int32 and is widened
-    for torch's indexing."""
+    index.shape + x.shape[axis+1:]. As there, a negative index wraps and
+    an out-of-range one takes the fill value (``_take_fill``)."""
     x, index = ins["X"][0], ins["Index"][0]
     axis = int(attrs.get("axis", 0)) % x.dim()
-    flat = torch.index_select(x, axis, index.reshape(-1).long())
+    idx, valid = _take_index(index, x.shape[axis])
+    flat = _fill_invalid(torch.index_select(x, axis, idx), valid, axis)
     return {"Out": flat.reshape(tuple(x.shape[:axis]) + tuple(index.shape)
                                 + tuple(x.shape[axis + 1:]))}
 
@@ -177,29 +221,34 @@ class _Lookup(torch.autograd.Function):
     one reads the device from the host, so it can be captured."""
 
     @staticmethod
-    def forward(ctx, w, ids):
-        ctx.save_for_backward(ids)
+    def forward(ctx, w, ids, valid):
+        ctx.save_for_backward(ids, valid)
         ctx.rows = w.shape[0]
-        return torch.index_select(w, 0, ids)
+        return _fill_invalid(torch.index_select(w, 0, ids), valid, 0)
 
     @staticmethod
     def backward(ctx, dy):
-        (ids,) = ctx.saved_tensors
+        ids, valid = ctx.saved_tensors
+        dtype = dy.dtype
+        # an out-of-range id took the fill and gets no gradient
+        dy = torch.where(valid[:, None], dy.float(), 0.0)
         order = torch.sort(ids, stable=True)[1]
         counts = torch.zeros(ctx.rows, dtype=torch.int64,
                              device=ids.device).index_add_(
             0, ids, torch.ones_like(ids))
-        dw = torch.segment_reduce(dy.float().index_select(0, order), "sum",
+        dw = torch.segment_reduce(dy.index_select(0, order), "sum",
                                   lengths=counts, unsafe=True)
-        return dw.to(dy.dtype), None
+        return dw.to(dtype), None, None
 
 
 @register_op("lookup_table_v2", non_diff_inputs=("Ids",))
 def lookup_table_v2(ins, attrs):
-    """Embedding lookup; rows of padding_idx come out as zeros. The
-    gradient sums each row in the ids' order (``_Lookup``)."""
+    """Embedding lookup; rows of padding_idx come out as zeros. Ids index
+    as ``jnp.take`` does (``_take_index``: negative ids wrap, out-of-range
+    ids take the fill). The gradient sums each row in the ids' order
+    (``_Lookup``)."""
     w, ids = ins["W"][0], ins["Ids"][0]
-    out = _Lookup.apply(w, ids.reshape(-1).long()).reshape(
+    out = _Lookup.apply(w, *_take_index(ids, w.shape[0])).reshape(
         tuple(ids.shape) + tuple(w.shape[1:]))
     pad = int(attrs.get("padding_idx", -1))
     if pad >= 0:

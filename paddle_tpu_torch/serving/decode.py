@@ -30,11 +30,23 @@ Sampling is host-side per row (greedy argmax, or temperature sampling
 from a per-request ``np.random.RandomState``), so token choice is a pure
 function of the row's logits and the request's own seed.
 
+**Prefix sharing** (``prefix_cache=True``, ``serving/prefix_store.py``):
+every prefill runs page-sized chunks through the one chunked-prefill
+program (``build_chunk_prefill_program``); admission looks up the longest
+cached chain of the prompt's full pages, splices those shared pages into
+the page table and replays only the uncached chunks, bit for bit the
+cold run's. **Session journaling** (``journal_sink``,
+``serving/session.py``): every ``decode_journal_stride`` accepted tokens
+a journaled request's record goes to the sink, and ``submit`` with
+``prior_tokens`` and ``rng_state`` resumes it. **Shipments**
+(``submit_prefill``, ``serving/disagg.py``): a prefill whose KV pages
+come back as the wire format's bytes.
+
 Entry points run on the card: ``device=None`` means ``cuda:0`` and raises
 when CUDA is absent; tests pass ``device="cpu"``, where every kernel
-wrapper runs its plain PyTorch version. Not in this slice (they raise
-``NotImplementedError``): the prefix cache, the disaggregated roles and
-prefill tier, and session journaling.
+wrapper runs its plain PyTorch version. Not in the port yet (ROADMAP
+A5): fetching and installing a shipment from a prefill tier over HTTP
+(``prefill_urls`` raises ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -52,14 +64,18 @@ from ..core import telemetry
 from ..core.executor import run_block
 from ..core.graph import StepGraph
 from ..core.flags import flag as _flag
-from ..models.decoder_lm import (DecoderLMConfig, build_prefill_program,
-                                 build_step_program, load_decoder_lm,
-                                 params_from_numpy,
+from ..models.decoder_lm import (DecoderLMConfig,
+                                 build_chunk_prefill_program,
+                                 build_prefill_program, build_step_program,
+                                 load_decoder_lm, params_from_numpy,
                                  quantize_decoder_lm_params)
 from .admission import (AdmissionQueue, DeadlineExceededError,
-                        EngineClosedError, InferenceRequest, ServingError)
+                        EngineClosedError, InferenceRequest,
+                        KVCacheExhaustedError, ServingError)
 from .health import DRAINING, READY, STOPPED, HealthState
 from .kv_cache import KVPagePool
+from .prefix_store import PrefixStore, prefix_chain_hash
+from .session import pack_rng_state, unpack_rng_state
 
 
 def _pow2_ladder(lo: int, hi: int) -> List[int]:
@@ -126,27 +142,24 @@ class DecodeConfig:
                              f"'int8', got {self.weight_quant!r}")
         self.prefill_buckets = sorted(set(int(b) for b in prefill_buckets)) \
             if prefill_buckets else None   # None -> pow2 up to max_seq_len
-        prefix_cache = bool(_flag("decode_prefix_cache")
-                            if prefix_cache is None else prefix_cache)
-        role = str(_flag("decode_role") if role is None else role).lower()
+        # prefix sharing (serving/prefix_store.py) and the disaggregated
+        # role (serving/disagg.py)
+        self.prefix_cache = bool(_flag("decode_prefix_cache")
+                                 if prefix_cache is None else prefix_cache)
+        self.role = str(_flag("decode_role") if role is None
+                        else role).lower()
+        if self.role not in ("unified", "prefill", "decode"):
+            raise ValueError(f"decode role must be 'unified', 'prefill' "
+                             f"or 'decode', got {self.role!r}")
         if prefill_urls is None:
             prefill_urls = _flag("disagg_prefill_urls")
         if isinstance(prefill_urls, str):
             prefill_urls = [u for u in prefill_urls.split(",") if u.strip()]
-        if prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=True (the chunked-prefill prefix store) is "
-                "not in this slice of the port")
-        if role != "unified":
-            raise NotImplementedError(
-                f"decode role {role!r}: only 'unified' is in this slice of "
-                f"the port")
         if prefill_urls:
             raise NotImplementedError(
-                "prefill_urls (the disaggregated prefill tier) is not in "
-                "this slice of the port")
-        self.prefix_cache = False
-        self.role = role
+                "prefill_urls: fetching KV page shipments from a prefill "
+                "tier over HTTP, and installing them, is not in the port "
+                "yet (ROADMAP A5)")
 
     def bucket(self, active: int) -> int:
         for b in self.buckets:
@@ -158,28 +171,56 @@ class DecodeConfig:
 class GenerationRequest(InferenceRequest):
     """One queued/running generation: prompt + sampling params + the
     engine-side decode state. ``result()`` returns the generated token
-    ids as an int32 array."""
+    ids as an int32 array. ``ttft_ms`` / ``token_walls`` give the time to
+    the first token and each token's arrival; ``prefill_ms`` the wall
+    time of its prefill."""
 
-    __slots__ = ("prompt", "max_new_tokens", "temperature", "eos_id",
-                 "tokens", "t_submit", "pages", "table_row", "pos_next",
-                 "last_token", "_rng")
+    __slots__ = ("prompt", "max_new_tokens", "temperature", "seed",
+                 "eos_id", "stop_at_eos", "tokens", "token_walls",
+                 "t_submit", "t_first", "prefill_ms", "pages", "table_row",
+                 "pos_next", "last_token", "shared_blocks", "session_id",
+                 "prior", "seq", "_rng")
 
     def __init__(self, prompt: np.ndarray, max_new_tokens: int,
                  deadline: Optional[float], temperature: float = 0.0,
-                 seed: Optional[int] = None, eos_id: Optional[int] = None):
+                 seed: Optional[int] = None, eos_id: Optional[int] = None,
+                 session_id: Optional[str] = None,
+                 prior: Optional[np.ndarray] = None):
         super().__init__(deadline)
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
+        self.seed = seed
         self.eos_id = eos_id
+        self.stop_at_eos = eos_id is not None
         self.tokens: List[int] = []
+        self.token_walls: List[float] = []
         self.t_submit = time.monotonic()
+        self.t_first: Optional[float] = None
+        self.prefill_ms: Optional[float] = None
+        # session resumption (serving/session.py): ``prior`` holds the
+        # tokens accepted in an earlier life of the request; the engine
+        # prefills ``seq`` (prompt + prior) and generates the remainder
+        self.session_id = session_id
+        self.prior = (np.zeros(0, np.int32) if prior is None
+                      else np.asarray(prior, np.int32).reshape(-1))
+        self.seq = (prompt if self.prior.size == 0
+                    else np.concatenate([prompt, self.prior]))
         self.pages: List[int] = []
         self.table_row: Optional[np.ndarray] = None
         self.pos_next = 0
         self.last_token = 0
+        # prefix-store blocks this request holds a reference on, released
+        # at retirement
+        self.shared_blocks: List[str] = []
         self._rng = np.random.RandomState(seed) if seed is not None \
             else None
+
+    @property
+    def ttft_ms(self) -> Optional[float]:
+        if self.t_first is None:
+            return None
+        return (self.t_first - self.t_submit) * 1e3
 
     def sample(self, logits_row: np.ndarray) -> int:
         """Greedy when temperature <= 0 (argmax, lowest index on ties);
@@ -201,6 +242,45 @@ class GenerationRequest(InferenceRequest):
         return bool(self.tokens) and (
             len(self.tokens) >= self.max_new_tokens
             or (self.eos_id is not None and self.tokens[-1] == self.eos_id))
+
+    def journal_record(self, page_size: int,
+                       now: Optional[float] = None) -> Dict[str, Any]:
+        """Everything a resumption needs to continue this generation bit
+        for bit (serving/session.py): the prompt and its page-chain hash,
+        EVERY accepted token (earlier lives included), the sampler's RNG
+        state after those draws, and the deadline's remainder. Worker
+        thread only (reads the RNG)."""
+        rem = None
+        if self.deadline is not None:
+            rem = max(0.0, (self.deadline
+                            - (time.monotonic() if now is None else now))
+                      * 1e3)
+        return {
+            "request_id": self.session_id,
+            "prompt": [int(t) for t in self.prompt],
+            "prefix_hash": prefix_chain_hash(self.prompt, page_size),
+            "accepted": [int(t) for t in self.prior] + list(self.tokens),
+            "max_new_total": int(self.prior.size) + self.max_new_tokens,
+            "temperature": self.temperature,
+            "seed": self.seed,
+            "stop_at_eos": self.stop_at_eos,
+            "rng_state": pack_rng_state(self._rng)
+            if self.temperature > 0 else None,
+            "deadline_remaining_ms": rem,
+        }
+
+
+class ShipPrefillRequest(InferenceRequest):
+    """A prefill-and-ship work item (serving/disagg.py): the engine runs
+    the prompt's prefill, reads the finished KV pages back to the host
+    and resolves with the shipment's bytes. It rides the same queue as
+    generations, so every program run stays on the worker thread."""
+
+    __slots__ = ("prompt",)
+
+    def __init__(self, prompt: np.ndarray, deadline: Optional[float]):
+        super().__init__(deadline)
+        self.prompt = prompt
 
 
 class DecodeEngine:
@@ -241,49 +321,71 @@ class DecodeEngine:
         self._graphs: Dict[Any, Any] = {}
         self._graph_pool = torch.cuda.graph_pool_handle() \
             if self.device.type == "cuda" else None
+        # content-addressed prefix sharing: admission looks up the longest
+        # cached prefix and prefills only the suffix, chunk by chunk
+        self.prefix_store = PrefixStore(self.pool) \
+            if self.config.prefix_cache else None
         self._thread: Optional[threading.Thread] = None
         self.health = HealthState()
+        self._journal_sink = None
+        self._journal_stride = int(_flag("decode_journal_stride"))
 
     @property
     def journal_sink(self):
-        return None
+        """Session journaling (serving/session.py): a callable taking a
+        list of journal records, or None (the default: no journaling)."""
+        return self._journal_sink
 
     @journal_sink.setter
     def journal_sink(self, sink):
-        if sink is not None:
-            raise NotImplementedError(
-                "session journaling (journal_sink) is not in this slice of "
-                "the port")
+        self._journal_sink = sink
 
     # -- client surface ------------------------------------------------------
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                deadline_ms: Optional[float] = None,
                temperature: float = 0.0, seed: Optional[int] = None,
-               stop_at_eos: bool = True) -> GenerationRequest:
+               stop_at_eos: bool = True,
+               request_id: Optional[str] = None,
+               prior_tokens: Optional[Sequence[int]] = None,
+               rng_state: Optional[Any] = None) -> GenerationRequest:
         """Enqueue one generation (non-blocking). ``prompt`` is a 1-D int
         token-id array. Raises ValueError (malformed / over the model
         length), KVCacheExhaustedError (can never fit the KV pool),
-        ServerOverloadedError, EngineClosedError."""
+        ServerOverloadedError, EngineClosedError.
+
+        ``request_id`` opts the request into session journaling.
+        ``prior_tokens`` and ``rng_state`` resume a journaled session
+        (``session.resume_args``): the engine prefills prompt + prior,
+        restores the sampler's RNG and generates only the remaining
+        ``max_new_tokens``."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt needs at least one token")
+        prior = (np.zeros(0, np.int32) if prior_tokens is None
+                 else np.asarray(prior_tokens, np.int32).reshape(-1))
         if max_new_tokens is None:
             max_new_tokens = self.config.max_new_tokens
         max_new_tokens = int(max_new_tokens)
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")
-        total = int(prompt.size) + max_new_tokens
+        total = int(prompt.size) + int(prior.size) + max_new_tokens
         if total > self.model_cfg.max_seq_len:
             raise ValueError(
-                f"prompt ({prompt.size}) + max_new_tokens "
+                f"prompt ({prompt.size + prior.size}) + max_new_tokens "
                 f"({max_new_tokens}) exceeds the model's max_seq_len "
                 f"({self.model_cfg.max_seq_len})")
         self.pool.check_fits(total)
         req = GenerationRequest(
             prompt, max_new_tokens, self.queue.deadline_for(deadline_ms),
             temperature=temperature, seed=seed,
-            eos_id=self.model_cfg.eos_id if stop_at_eos else None)
+            eos_id=self.model_cfg.eos_id if stop_at_eos else None,
+            session_id=request_id, prior=prior)
+        if rng_state is not None:
+            req._rng = unpack_rng_state(rng_state)
+        if prior.size:
+            telemetry.counter_add("session.resumed", 1)
+            telemetry.counter_add("session.resumed_tokens", int(prior.size))
         self.queue.submit_request(req)
         return req
 
@@ -291,6 +393,24 @@ class DecodeEngine:
                  **kw) -> np.ndarray:
         """Blocking submit-and-wait; returns the generated int32 ids."""
         return self.submit(prompt, **kw).result(timeout)
+
+    def submit_prefill(self, prompt, deadline_ms: Optional[float] = None
+                       ) -> ShipPrefillRequest:
+        """Enqueue a prefill-and-ship work item (serving/disagg.py):
+        ``result()`` returns the prompt's KV page shipment as bytes. The
+        pages go back to the pool once they are read."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("prompt needs at least one token")
+        if int(prompt.size) > self.model_cfg.max_seq_len:
+            raise ValueError(
+                f"prompt ({prompt.size}) exceeds the model's max_seq_len "
+                f"({self.model_cfg.max_seq_len})")
+        self.pool.check_fits(int(prompt.size))
+        req = ShipPrefillRequest(prompt,
+                                 self.queue.deadline_for(deadline_ms))
+        self.queue.submit_request(req)
+        return req
 
     def stats(self) -> Dict[str, Any]:
         """decode.* counters, KV pool accounting, kernel launch counts,
@@ -303,6 +423,15 @@ class DecodeEngine:
         out["role"] = self.config.role
         out["device"] = str(self.device)
         out["kv_cache"] = self.pool.stats()
+        if self.prefix_store is not None:
+            out["prefix_store"] = self.prefix_store.stats()
+            out["prefix_store"].update(
+                {k.split(".", 1)[1]: v for k, v in snap["counters"].items()
+                 if k.startswith("kv.")})
+        disagg = {k.split(".", 1)[1]: v for k, v in snap["counters"].items()
+                  if k.startswith("disagg.")}
+        if disagg:
+            out["disagg"] = disagg
         # launches of each hand-written kernel (0 on the CPU, where the
         # wrappers run their plain versions)
         out["kernels"] = kernels.launch_counts()
@@ -353,6 +482,10 @@ class DecodeEngine:
             self._run("step", b, self._zero_feed("step", b))
         for b in self.config.prefill_buckets:
             self._run("prefill", b, self._zero_feed("prefill", b))
+        if self.prefix_store is not None:
+            # the one chunked-prefill program (chunk length = page size)
+            P = self.config.page_size
+            self._run("chunk", P, self._zero_feed("chunk", P))
         return len(self._blocks) - before
 
     def close(self, drain: bool = True, timeout: Optional[float] = None):
@@ -372,6 +505,10 @@ class DecodeEngine:
             if phase == "step":
                 program, _, _ = build_step_program(
                     cfg, bucket, cc.kv_pages, cc.page_size, cc.weight_quant)
+            elif phase == "chunk":   # one request's chunk per run
+                program, _, _ = build_chunk_prefill_program(
+                    cfg, 1, bucket, cc.kv_pages, cc.page_size,
+                    cc.weight_quant)
             else:   # one request per prefill run
                 program, _, _ = build_prefill_program(
                     cfg, 1, bucket, cc.kv_pages, cc.page_size,
@@ -380,11 +517,14 @@ class DecodeEngine:
             telemetry.counter_add("decode.program_builds", 1)
         return blk
 
-    def _run(self, phase: str, bucket: int, feed: Dict[str, np.ndarray]
-             ) -> np.ndarray:
+    def _run(self, phase: str, bucket: int, feed: Dict[str, Any],
+             fetch: bool = True) -> Optional[np.ndarray]:
         """Run one (phase, bucket) program on the engine's params, pools
-        and ``feed``; the pools update in place. Returns host logits. The
-        first run of a (phase, bucket) goes op by op and captures the
+        and ``feed`` (host arrays, or tensors already on the engine's
+        device, which are copied without a host sync); the pools update
+        in place. Returns host logits, or None when not ``fetch``: the
+        logits then stay on the device and nothing waits for the run.
+        The first run of a (phase, bucket) goes op by op and captures the
         program (``_capture``); later runs copy ``feed`` into the
         captured step's buffers and replay it."""
         key = (phase, bucket)
@@ -392,14 +532,14 @@ class DecodeEngine:
         if captured is None:
             captured, logits = self._capture(phase, bucket, feed)
             self._graphs[key] = captured
-            return logits
+            return logits if fetch else None
         bufs, graph = captured
         for n, v in feed.items():
-            bufs[n].copy_(torch.from_numpy(v))
-        return graph.replay()[0].cpu().numpy()
+            bufs[n].copy_(torch.as_tensor(v))
+        logits = graph.replay()[0]
+        return logits.cpu().numpy() if fetch else None
 
-    def _capture(self, phase: str, bucket: int,
-                 feed: Dict[str, np.ndarray]):
+    def _capture(self, phase: str, bucket: int, feed: Dict[str, Any]):
         """((static feed buffers, the program's StepGraph over them),
         the host logits of ``feed``): the step runs once op by op on
         buffers holding ``feed``, which is the first run's result, and is
@@ -407,7 +547,7 @@ class DecodeEngine:
         must write the engine's pools in place: they are the static
         tensors every captured program reads."""
         block = self._block(phase, bucket)
-        bufs = {n: torch.from_numpy(v).to(self.device)
+        bufs = {n: torch.as_tensor(v).to(self.device, copy=True)
                 for n, v in feed.items()}
 
         def step():
@@ -434,9 +574,13 @@ class DecodeEngine:
                     "page_table": np.zeros((bucket, self._mp), np.int32)}
         oh = np.zeros((1, bucket), np.float32)
         oh[0, 0] = 1.0
-        return {"tokens": np.zeros((1, bucket), np.int32),
+        feed = {"tokens": np.zeros((1, bucket), np.int32),
                 "lengths": np.ones(1, np.int32), "last_onehot": oh,
                 "page_table": np.zeros((1, self._mp), np.int32)}
+        if phase == "chunk":
+            feed.update(positions=np.zeros((1, bucket), np.int32),
+                        chunk_start=np.zeros(1, np.int32))
+        return feed
 
     # -- scheduler loop ------------------------------------------------------
     def _loop(self):
@@ -450,6 +594,7 @@ class DecodeEngine:
                 self._admit()
                 if self._active:
                     self._run_step()
+                    self._journal_tick()
             except BaseException as e:
                 # the loop outlives any failed step: its requests fail,
                 # their pages go back; interrupts and exits still end it
@@ -465,24 +610,48 @@ class DecodeEngine:
             telemetry.gauge_set("decode.active_slots", len(self._active))
 
     def _admit(self):
-        """Seat queued requests into free slots at the step boundary."""
+        """Seat queued requests into free slots at the step boundary. With
+        the prefix store on: look up the longest cached prefix, allocate
+        the rest, reclaim idle chains once if the pool is short, and
+        release the looked-up blocks on every failure."""
         free = self.config.max_slots - len(self._active)
         if free <= 0:
             return
         unseated: List[GenerationRequest] = []
         polled = self.queue.poll(free)
         for i, req in enumerate(polled):
+            if isinstance(req, ShipPrefillRequest):
+                self._ship_prefill(req)
+                continue
+            hashes: List[str] = []
+            shared: List[int] = []
+            if self.prefix_store is not None:
+                hashes, shared = self.prefix_store.lookup(req.seq)
             need = self.pool.pages_for_tokens(
-                int(req.prompt.size) + req.max_new_tokens)
+                int(req.seq.size) + req.max_new_tokens) - len(hashes)
             pages = self.pool.try_alloc(need)
+            if not pages and self.prefix_store is not None:
+                # pool pressure: evict idle chains LRU-first, retry once
+                short = need - self.pool.free_pages()
+                if short > 0 and self.prefix_store.reclaim(short):
+                    pages = self.pool.try_alloc(need)
             if not pages:
+                if hashes:
+                    self.prefix_store.release(hashes)
                 unseated.append(req)   # no headroom now — wait for frees
                 continue
             try:
-                self._prefill(req, pages)
+                if self.prefix_store is not None:
+                    self._prefill_chunked(req, pages, hashes, shared)
+                else:
+                    self._prefill(req, pages)
             except BaseException as e:
-                self.pool.free(req.pages or pages)
+                self.pool.free(req.pages if req.pages else pages)
                 req.pages = []
+                held = req.shared_blocks or hashes
+                if held:
+                    self.prefix_store.release(held)
+                req.shared_blocks = []
                 telemetry.counter_add("decode.errors", 1)
                 req.fail(e if isinstance(e, ServingError) else ServingError(
                     f"prefill failed: {e!r}"))
@@ -491,30 +660,160 @@ class DecodeEngine:
                     raise
         self.queue.requeue(unseated)
 
+    def _seat(self, req: GenerationRequest, logits_row: np.ndarray,
+              t0: float):
+        """After a prefill: the first token from its logits, then the
+        request rides the decode step (or retires at once).
+        ``req.prefill_ms`` is the prefill's wall time from ``t0``."""
+        req.prefill_ms = (time.perf_counter() - t0) * 1e3
+        telemetry.counter_add("decode.prefills", 1)
+        self._append_token(req, logits_row)
+        req.pos_next = int(req.seq.size)
+        if req.finished():
+            self._retire(req)
+        else:
+            self._active.append(req)
+
     def _prefill(self, req: GenerationRequest, pages: List[int]):
-        """PREFILL: one causal pass over the padded prompt."""
-        L = int(req.prompt.size)
+        """PREFILL: one causal pass over the padded prompt (+ prior)."""
+        t0 = time.perf_counter()
+        L = int(req.seq.size)
         bucket = next(b for b in self.config.prefill_buckets if b >= L)
         req.pages = pages
         row = np.zeros(self._mp, np.int32)
         row[:len(pages)] = pages
         req.table_row = row
-        tokens = np.zeros((1, bucket), np.int32)
-        tokens[0, :L] = req.prompt
-        oh = np.zeros((1, bucket), np.float32)
-        oh[0, L - 1] = 1.0
-        feed = {"tokens": tokens, "lengths": np.asarray([L], np.int32),
-                "last_onehot": oh, "page_table": row[None, :].copy()}
+        feed = self._prefill_feed(req.seq, bucket, row)
         with telemetry.timer("decode.prefill_ms"):
             logits = self._run("prefill", bucket, feed)
-        telemetry.counter_add("decode.prefills", 1)
         telemetry.counter_add("decode.prefill_tokens", L)
-        self._append_token(req, logits[0])
-        req.pos_next = L
-        if req.finished():
-            self._retire(req)
-        else:
-            self._active.append(req)
+        self._seat(req, logits[0], t0)
+
+    def _prefill_feed(self, seq: np.ndarray, bucket: int, row: np.ndarray
+                      ) -> Dict[str, np.ndarray]:
+        L = int(seq.size)
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, :L] = seq
+        oh = np.zeros((1, bucket), np.float32)
+        oh[0, L - 1] = 1.0
+        return {"tokens": tokens, "lengths": np.asarray([L], np.int32),
+                "last_onehot": oh, "page_table": row[None, :].copy()}
+
+    def _prefill_chunked(self, req: GenerationRequest, pages: List[int],
+                         hashes: List[str], shared: List[int]):
+        """Chunked prefill (prefix store on): the page table splices the
+        ``len(hashes)`` shared prefix pages in front of the private ones,
+        then each UNCACHED page-sized chunk runs through the one
+        fixed-shape chunk program. Writes land only in private pages (the
+        lookup's match cap keeps the final chunk, which yields the
+        first-token logits, always recomputed); afterwards the store
+        adopts this prompt's full pages, so the next request shares
+        them."""
+        t0 = time.perf_counter()
+        L = int(req.seq.size)
+        P = self.config.page_size
+        k = len(hashes)
+        req.pages = pages
+        req.shared_blocks = list(hashes)
+        row = np.zeros(self._mp, np.int32)
+        row[:k] = shared
+        row[k:k + len(pages)] = pages
+        req.table_row = row
+        n_chunks = -(-L // P)
+        feeds = self._chunk_feeds(req.seq, row, k)
+        with telemetry.timer("decode.prefill_ms"):
+            logits = self._run_chunks(feeds)
+        telemetry.counter_add("decode.prefill_tokens", L - k * P)
+        telemetry.counter_add("decode.prefill_chunks", n_chunks - k)
+        # the store adopts every FULL prompt page (strictly before the
+        # page receiving decode writes): repoint the table at the
+        # canonical pages and keep only the tail pages private
+        n_full = L // P
+        if n_full > k:
+            held, canon = self.prefix_store.insert(
+                req.seq, [int(p) for p in row[:n_full]], start_block=k)
+            row[k:n_full] = canon
+            req.shared_blocks.extend(held)
+            req.pages = pages[n_full - k:]
+        self._seat(req, logits[0], t0)
+
+    def _chunk_feeds(self, seq: np.ndarray, row: np.ndarray, first: int
+                     ) -> Dict[str, np.ndarray]:
+        """The chunk program's feeds for the page-sized chunks ``first``..
+        of ``seq``, stacked on a leading chunk axis; the last chunk's
+        one-hot marks the prompt's last token."""
+        L = int(seq.size)
+        P = self.config.page_size
+        n_chunks = -(-L // P)
+        lo = (first + np.arange(n_chunks - first, dtype=np.int32)) * P
+        padded = np.zeros(n_chunks * P, np.int32)
+        padded[:L] = seq
+        oh = np.zeros((lo.size, 1, P), np.float32)
+        oh[-1, 0, L - 1 - lo[-1]] = 1.0
+        return {"tokens": padded[first * P:].reshape(-1, 1, P),
+                "positions": np.clip(
+                    lo[:, None, None] + np.arange(P, dtype=np.int32), 0,
+                    self.model_cfg.max_seq_len - 1),
+                "chunk_start": lo[:, None],
+                "lengths": np.minimum(L - lo, P)[:, None],
+                "last_onehot": oh,
+                "page_table": np.repeat(row[None, None, :], lo.size, 0)}
+
+    def _run_chunks(self, feeds: Dict[str, np.ndarray]) -> np.ndarray:
+        """Run the chunk program once per chunk of ``feeds``
+        (``_chunk_feeds``), in order; returns the last chunk's host
+        logits. The feeds go to the device in one copy each; each run
+        takes its slice there, so nothing waits for the device before
+        the last chunk's logits are read."""
+        dev = {n: torch.from_numpy(v).to(self.device)
+               for n, v in feeds.items()}
+        last = len(feeds["tokens"]) - 1
+        logits = None
+        for ci in range(last + 1):
+            logits = self._run("chunk", self.config.page_size,
+                               {n: t[ci] for n, t in dev.items()},
+                               fetch=ci == last)
+        return logits
+
+    def _ship_prefill(self, req: ShipPrefillRequest):
+        """Prefill-and-ship (serving/disagg.py): run the prompt's classic
+        prefill, read its finished pages back to the host, pack the
+        shipment, free the pages and resolve with the bytes. A failure is
+        the request's own; the pool stays clean."""
+        from . import disagg
+
+        pages: List[int] = []
+        try:
+            L = int(req.prompt.size)
+            n_pages = self.pool.pages_for_tokens(L)
+            pages = self.pool.try_alloc(n_pages)
+            if not pages:
+                raise KVCacheExhaustedError(
+                    f"cannot seat {n_pages} pages for a shipment right now")
+            bucket = next(b for b in self.config.prefill_buckets if b >= L)
+            row = np.zeros(self._mp, np.int32)
+            row[:n_pages] = pages
+            with telemetry.timer("decode.prefill_ms"):
+                logits = self._run("prefill", bucket,
+                                   self._prefill_feed(req.prompt, bucket,
+                                                      row))
+            idx = torch.as_tensor(pages, dtype=torch.int64,
+                                  device=self.device)
+            layer_pages = {name: self._pools[name][idx].cpu().numpy()
+                           for name in sorted(self._pools)}
+            blob = disagg.pack_shipment(req.prompt, self.config.page_size,
+                                        layer_pages, logits[0])
+            self.pool.free(pages)
+            pages = []
+            telemetry.counter_add("disagg.ships", 1)
+            telemetry.counter_add("disagg.ship_bytes", len(blob))
+            req.resolve(blob)
+        except Exception as e:
+            if pages:
+                self.pool.free(pages)
+            telemetry.counter_add("decode.errors", 1)
+            req.fail(e if isinstance(e, ServingError) else ServingError(
+                f"prefill shipment failed: {e!r}"))
 
     def _run_step(self):
         """DECODE: one fixed-shape step over the padded slot array;
@@ -554,18 +853,49 @@ class DecodeEngine:
                 still.append(req)
         self._active = still
 
+    def _journal_tick(self):
+        """Hand the session records to the journal sink at the step
+        boundary (serving/session.py), every ``decode_journal_stride``
+        accepted tokens. Right after a step the record is a consistent
+        cut: every accepted token is in it and the RNG has consumed
+        exactly their draws. A failing sink costs replay depth, never the
+        generation (``session.journal_errors``)."""
+        sink = self._journal_sink
+        stride = self._journal_stride
+        if sink is None or stride <= 0:
+            return
+        now = time.monotonic()
+        records = [req.journal_record(self.config.page_size, now)
+                   for req in self._active
+                   if req.session_id is not None and req.tokens
+                   and (int(req.prior.size) + len(req.tokens)) % stride == 0]
+        if not records:
+            return
+        try:
+            sink(records)
+        except Exception:
+            telemetry.counter_add("session.journal_errors", 1)
+
     def _append_token(self, req: GenerationRequest, logits_row: np.ndarray):
         tok = req.sample(logits_row)
+        now = time.monotonic()
+        if req.t_first is None:
+            req.t_first = now
         req.tokens.append(tok)
+        req.token_walls.append(now)
         req.last_token = tok
 
     def _retire(self, req: GenerationRequest,
                 error: Optional[BaseException] = None):
-        """Free the request's pages and resolve or fail it — finished
-        sequences leave without draining the batch."""
+        """Free the request's private pages, drop its prefix-store
+        references (the shared pages stay cached) and resolve or fail it —
+        finished sequences leave without draining the batch."""
         if req.pages:
             self.pool.free(req.pages)
             req.pages = []
+        if req.shared_blocks:
+            self.prefix_store.release(req.shared_blocks)
+            req.shared_blocks = []
         telemetry.counter_add("decode.retired", 1)
         telemetry.observe("decode.request_ms",
                           (time.monotonic() - req.t_submit) * 1e3)

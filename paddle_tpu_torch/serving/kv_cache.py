@@ -38,6 +38,7 @@ class KVPagePool:
         self.kv_dim = int(kv_dim)
         self._lock = threading.Lock()
         self._free: List[int] = list(range(1, self.num_pages))
+        self._lent: set = set()   # pages handed out and not yet freed
         self._high_water_pages = 0
         # fp32 keys + values, every layer
         self.pool_bytes = (2 * self.n_layers * self.num_pages *
@@ -61,6 +62,10 @@ class KVPagePool:
     def pages_for_tokens(self, tokens: int) -> int:
         return -(-int(tokens) // self.page_size)
 
+    def free_pages(self) -> int:
+        with self._lock:
+            return len(self._free)
+
     def check_fits(self, tokens: int) -> int:
         """Typed admission-time refusal of a request whose worst-case
         page need exceeds the whole pool."""
@@ -81,6 +86,7 @@ class KVPagePool:
                 return []
             pages = self._free[:n]
             del self._free[:n]
+            self._lent.update(pages)
             used = self.capacity_pages - len(self._free)
             self._high_water_pages = max(self._high_water_pages, used)
         telemetry.counter_add("decode.kv_pages_allocated", n)
@@ -98,10 +104,53 @@ class KVPagePool:
                     f"KV pool corruption: freeing pages {sorted(dup)} "
                     f"already free (or the reserved page 0)")
             self._free.extend(pages)
+            self._lent.difference_update(pages)
             used = self.capacity_pages - len(self._free)
         telemetry.counter_add("decode.kv_pages_freed", len(pages))
         telemetry.gauge_set("mem.serving.kv_used_bytes",
                             used * self._page_bytes)
+
+    def audit(self, owned: List[int] = None) -> List[str]:
+        """Invariant check: the free list and the lent set must partition
+        pages 1..num_pages-1 (disjoint, no duplicates, page 0 never handed
+        out). With ``owned`` (every page id the callers believe they hold:
+        request-private pages and prefix-store pages), also lent == owned:
+        no leaked and no over-freed page. Returns the violations (empty =
+        clean) and counts a failing call as ``kv.audit_failures``."""
+        problems: List[str] = []
+        with self._lock:
+            free = list(self._free)
+            lent = set(self._lent)
+        if len(free) != len(set(free)):
+            problems.append("duplicate pages on the free list")
+        if 0 in free or 0 in lent:
+            problems.append("reserved page 0 entered circulation")
+        overlap = set(free) & lent
+        if overlap:
+            problems.append(f"pages both free and lent: {sorted(overlap)}")
+        universe = set(range(1, self.num_pages))
+        missing = universe - set(free) - lent
+        if missing:
+            problems.append(f"pages vanished from the pool: "
+                            f"{sorted(missing)}")
+        extra = (set(free) | lent) - universe
+        if extra:
+            problems.append(f"pages outside the pool: {sorted(extra)}")
+        if owned is not None:
+            owned_set = set(owned)
+            if len(owned) != len(owned_set):
+                problems.append("a page is owned twice")
+            leaked = lent - owned_set
+            if leaked:
+                problems.append(f"leaked pages (lent but unowned): "
+                                f"{sorted(leaked)}")
+            stale = owned_set - lent
+            if stale:
+                problems.append(f"over-freed pages (owned but not "
+                                f"lent): {sorted(stale)}")
+        if problems:
+            telemetry.counter_add("kv.audit_failures", 1)
+        return problems
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:

@@ -24,19 +24,36 @@ thread:
   submitted at once to the started engine, traced by torch.profiler
   from the first submission to the last result: the decode steps, the
   paged-attention kernel's device ms and calls, its ms a step, and each
-  step's slot positions as the engine fed them.
+  step's slot positions as the engine fed them;
+* the chunked prefill of the prefix cache (``prefix``): a hit prefill of
+  a 1024-token shared prompt plus a 150-token suffix (10 chunks of 16
+  tokens) at chip_smoke's prefix configuration. First the chunk loop
+  alone, before the engine's thread starts, two ways over the same
+  feeds, interleaved (per-chunk, per-chunk, stacked, stacked, per-chunk):
+  ``per_chunk`` copies each chunk's host feeds and reads its logits back
+  (a host round trip a chunk), ``stacked`` is the engine's
+  ``_run_chunks`` (the feeds sent once, only the last chunk's logits
+  read); wall ms a chunk over 5 prefills each, then ``stacked`` traced
+  over 3 prefills: traced wall and device busy ms a chunk, kernels a
+  chunk and the top kernels. Then through the started engine (one new
+  token, so no decode step runs): one cold prefill, then hits of fresh
+  suffixes, 3 untraced and 2 traced: each hit's wall ms (the request's
+  ``prefill_ms``), and over the traced ones the device busy ms.
 
 The idle share is printed as computed, unclamped: wall and busy come from
 the same traced runs, so busy > wall would be a fault of the measurement.
 The traced wall includes the profiler's own host cost; the untraced wall
 beside it shows how much that is.
 
-Prints two JSON lines per weight format (the step and prefill, then
-``serve``), then the card's name and power limit. Needs one CUDA card; exits non-zero without one.
+Prints three JSON lines per weight format (the step and prefill,
+``serve``, ``prefix``), then the card's name and power limit;
+``--parts`` picks a subset of ``engine,serve,prefix``. Needs one CUDA
+card; exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -53,12 +70,15 @@ FULL = dict(vocab_size=32000, d_model=1024, n_head=16, n_layers=12,
 STEPS = 20      # untraced decode steps timed, and op-by-op passes
 # chip_smoke.py's serve phases: eight greedy prompts and one sampled one
 SERVE_PROMPTS = (5, 37, 100, 250, 480, 700, 1100, 1500)
+# the prefix profile: chip_smoke's shared system prompt, a hit's suffix
+PREFIX_SYSTEM, PREFIX_SUFFIX = 1024, 150
 
 
-def _traced(run, reps):
+def _traced(run, reps, kernel_calls=None):
     """(wall ms per run, device busy ms per run, top kernels, the paged
     attention kernel's ms and calls per run) over the same reps runs,
-    traced by torch.profiler."""
+    traced by torch.profiler; ``kernel_calls`` (a list) receives the
+    device events per run."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -73,18 +93,20 @@ def _traced(run, reps):
             for e in prof.key_averages()
             if e.device_type != DeviceType.CPU and e.self_device_time_total]
     rows.sort(key=lambda r: -r[1])
+    if kernel_calls is not None:
+        kernel_calls.append(sum(r[2] for r in rows))
     top = [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:8]]
     paged = [r for r in rows if "paged_attention" in r[0]]
     return wall, sum(r[1] for r in rows), top, {
         "ms": sum(r[1] for r in paged), "calls": sum(r[2] for r in paged)}
 
 
-def _engine(quant, cfg, params):
+def _engine(quant, cfg, params, prefix_cache=False):
     from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
 
     eng = DecodeEngine(cfg, params, DecodeConfig(
         max_slots=8, page_size=16, kv_pages=1024, weight_quant=quant,
-        max_new_tokens=32), device="cuda:0")
+        max_new_tokens=32, prefix_cache=prefix_cache), device="cuda:0")
     eng.warmup()
     return eng
 
@@ -104,10 +126,10 @@ def serve(quant, cfg, params):
     positions = []
     run = eng._run
 
-    def recording(phase, bucket, feed):
+    def recording(phase, bucket, feed, fetch=True):
         if phase == "step":
             positions.append(feed["positions"].tolist())
-        return run(phase, bucket, feed)
+        return run(phase, bucket, feed, fetch)
 
     eng._run = recording
     eng.start()
@@ -128,6 +150,89 @@ def serve(quant, cfg, params):
     return {"weights": quant, "requests": len(reqs), "steps": steps,
             "paged_ms": ms, "paged_calls": sum(e.count for e in paged),
             "paged_ms_per_step": ms / steps, "positions": positions}
+
+
+def prefix(quant, cfg, params):
+    """The chunked prefill of a prefix hit: the chunk loop alone, per
+    chunk against stacked feeds, then hits through the started engine
+    (see the module docstring)."""
+    eng = _engine(quant, cfg, params, prefix_cache=True)
+    P = eng.config.page_size
+    rng = np.random.RandomState(5)
+    system = rng.randint(3, cfg.vocab_size, PREFIX_SYSTEM)
+
+    def prompt():
+        return np.concatenate([system, rng.randint(
+            3, cfg.vocab_size, PREFIX_SUFFIX)]).astype(np.int32)
+
+    seq = prompt()
+    first = PREFIX_SYSTEM // P
+    row = np.zeros(eng._mp, np.int32)
+    row[:-(-seq.size // P)] = 1 + np.arange(-(-seq.size // P))
+    feeds = eng._chunk_feeds(seq, row, first)
+    chunks = len(feeds["tokens"])
+
+    def per_chunk():
+        for ci in range(chunks):
+            eng._run("chunk", P, {n: v[ci] for n, v in feeds.items()})
+
+    def stacked():
+        eng._run_chunks(feeds)
+
+    def wall_ms(run, reps=5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps / chunks * 1e3
+
+    per_chunk(), stacked()
+    walls = {"per_chunk": [], "stacked": []}
+    for way in ("per_chunk", "per_chunk", "stacked", "stacked",
+                "per_chunk"):
+        walls[way].append(wall_ms(per_chunk if way == "per_chunk"
+                                  else stacked))
+    calls = []
+    t_wall, t_busy, top, _ = _traced(stacked, 3, calls)
+
+    hits, traced_hits = [], []
+    eng.start()
+    try:
+        cold = eng.submit(prompt(), max_new_tokens=1)
+        cold.result(timeout=600)
+        for _ in range(3):
+            h = eng.submit(prompt(), max_new_tokens=1)
+            h.result(timeout=600)
+            hits.append(h.prefill_ms)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                h = eng.submit(prompt(), max_new_tokens=1)
+                h.result(timeout=600)
+                traced_hits.append(h.prefill_ms)
+            torch.cuda.synchronize()
+        hit_busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type != DeviceType.CPU) / 2 / 1e3
+        stats = eng.stats()
+    finally:
+        eng.close(drain=True, timeout=60)
+    return {"weights": quant, "system": PREFIX_SYSTEM,
+            "suffix": PREFIX_SUFFIX, "chunks": chunks,
+            "chunk_wall_ms": walls,
+            "stacked_traced": {
+                "wall_ms_per_chunk": t_wall / chunks,
+                "device_busy_ms_per_chunk": t_busy / chunks,
+                "device_idle_share": 1.0 - t_busy / t_wall,
+                "kernels_per_chunk": calls[0] / chunks,
+                "top_kernels": top},
+            "engine": {"cold_prefill_ms": cold.prefill_ms,
+                       "hit_prefill_ms": hits,
+                       "traced_hit_prefill_ms": traced_hits,
+                       "traced_hit_device_busy_ms": hit_busy,
+                       "prefix_hits": stats["prefix_store"].get(
+                           "prefix_hits")}}
 
 
 def profile_engine(quant, cfg, params):
@@ -205,7 +310,13 @@ def profile_engine(quant, cfg, params):
                     "top_kernels": pre_top}}
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parts", default="engine,serve,prefix",
+                    help="comma-separated subset of engine,serve,prefix")
+    parts = set(ap.parse_args(argv).parts.split(","))
+    if not parts <= {"engine", "serve", "prefix"}:
+        ap.error(f"unknown parts {sorted(parts)}")
     if not torch.cuda.is_available():
         print("profile_decode: needs a CUDA card", file=sys.stderr)
         return 2
@@ -216,9 +327,15 @@ def main():
     cfg = DecoderLMConfig(**FULL)
     params = decoder_lm_params(cfg, seed=0)
     for quant in ("none", "int8"):
-        print(json.dumps(profile_engine(quant, cfg, params)),
-              flush=True)
-        print(json.dumps({"serve": serve(quant, cfg, params)}), flush=True)
+        if "engine" in parts:
+            print(json.dumps(profile_engine(quant, cfg, params)),
+                  flush=True)
+        if "serve" in parts:
+            print(json.dumps({"serve": serve(quant, cfg, params)}),
+                  flush=True)
+        if "prefix" in parts:
+            print(json.dumps({"prefix": prefix(quant, cfg, params)}),
+                  flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip(), flush=True)

@@ -22,7 +22,9 @@ bias, cross-attention under the key-padding bias); ``increment``, every
 ``lr_schedule`` branch and ``one_hot`` in one CUDA graph captured with
 no host sync; ``lookup_table_v2``'s gradient the same bits every run,
 eager and replayed; and a compiled WMT step whose rate follows noam
-replay by replay.
+replay by replay. The prefix-sharing decode path at a small width: a hit
+equals the cold run bit for bit, and the captured chunk program equals
+its op-by-op run.
 Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -769,9 +771,10 @@ def test_int8_kernel_matches_plain(dev, m, k, n, bias, act):
                                atol=1e-5 * float(ref.abs().max()) + 1e-5)
 
 
-# the serving path's GEMMs: decode (M = 8), the prefill buckets, and the
-# three weight shapes of the decoder LM (q/k/v/o, FFN in, FFN out)
-INT8_SERVE = [(m, k, n) for m in (8, 64, 512, 2048)
+# the serving path's GEMMs: decode (M = 8), a prefix chunk (M = 16, the
+# decode instance's largest), the prefill buckets, and the three weight
+# shapes of the decoder LM (q/k/v/o, FFN in, FFN out)
+INT8_SERVE = [(m, k, n) for m in (8, 16, 64, 512, 2048)
               for k, n in ((1024, 1024), (1024, 4096), (4096, 1024))]
 
 
@@ -1300,6 +1303,83 @@ def test_decode_graphs_replay_beside_eager_calls(dev):
         run_block(eng._block(phase, bucket), env)
         assert kernels.launch_counts() == counts
         assert np.array_equal(got, env["logits"].cpu().numpy())
+    eng.close()
+
+
+def test_prefix_hit_equals_cold_and_chunk_replay_equals_eager(dev):
+    """The prefix-sharing path at a small width on the card: a prefix hit
+    gives the cold run's ids bit for bit (greedy and sampled), and the
+    captured chunk program, replayed, gives an op-by-op run's logits and
+    pool writes bit for bit on a copy of the pools, as does the engine's
+    chunk loop over feeds already on the card."""
+    from paddle_tpu_torch.core.executor import run_block
+    from paddle_tpu_torch.models.decoder_lm import (DecoderLMConfig,
+                                                    decoder_lm_params)
+    from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
+
+    cfg = DecoderLMConfig(vocab_size=256, d_model=128, n_head=2, n_layers=2,
+                          d_inner=256, max_seq_len=64)
+
+    def engine():
+        eng = DecodeEngine(cfg, decoder_lm_params(cfg, 3), DecodeConfig(
+            prefix_cache=True, max_slots=2, page_size=8, kv_pages=24,
+            prefill_buckets=[32]), device=dev)
+        assert eng.warmup() == 3            # step, prefill 32, chunk 8
+        return eng
+
+    r = np.random.RandomState(6)
+    system = r.randint(3, 256, 17)
+    prompts = [np.concatenate([system, r.randint(3, 256, n)]).astype(
+        np.int32) for n in (3, 11)]
+    kw = [dict(max_new_tokens=8), dict(max_new_tokens=8, temperature=0.8,
+                                       seed=5, stop_at_eos=False)]
+    warm = engine().start()
+    try:
+        hits = [np.asarray(warm.generate(prompts[0], timeout=120, **kw[0]))]
+        hits += [np.asarray(warm.generate(p, timeout=120, **k_))
+                 for p, k_ in zip(prompts[1:], kw[1:])]
+        assert warm.stats()["prefix_store"]["prefix_hits"] >= 1
+        assert warm.pool.audit(owned=warm.prefix_store.owned_pages()) == []
+    finally:
+        warm.close()
+    for p, k_, hit in zip(prompts, kw, hits):
+        cold = engine().start()
+        try:
+            assert np.array_equal(
+                np.asarray(cold.generate(p, timeout=120, **k_)), hit)
+        finally:
+            cold.close()
+
+    eng = engine()
+    pools = {n: t.clone() for n, t in eng._pools.items()}
+    table = np.zeros((1, eng._mp), np.int32)
+    table[0, :3] = [4, 5, 6]
+    for lo, n in ((0, 8), (8, 8), (16, 3)):
+        tokens = np.zeros((1, 8), np.int32)
+        tokens[0, :n] = prompts[1][lo:lo + n]
+        oh = np.zeros((1, 8), np.float32)
+        oh[0, n - 1] = 1.0
+        feed = {"tokens": tokens,
+                "positions": (lo + np.arange(8, dtype=np.int32))[None, :],
+                "chunk_start": np.array([lo], np.int32),
+                "lengths": np.array([n], np.int32), "last_onehot": oh,
+                "page_table": table}
+        got = eng._run("chunk", 8, feed)
+        env = dict(eng._params, **pools)
+        env.update({k_: torch.from_numpy(v).to(dev) for k_, v in feed.items()})
+        run_block(eng._block("chunk", 8), env)
+        assert np.array_equal(got, env["logits"].cpu().numpy())
+        for name, pool in eng._pools.items():
+            assert torch.equal(pool, env[name + "_out"]), name
+    # the engine's own loop (the feeds sent once, sliced on the device,
+    # only the last logits read) gives the same logits and pools
+    again = engine()
+    last = again._run_chunks(again._chunk_feeds(prompts[1][:19], table[0],
+                                                0))
+    assert np.array_equal(last, got)
+    for name, pool in again._pools.items():
+        assert torch.equal(pool, eng._pools[name]), name
+    again.close()
     eng.close()
 
 

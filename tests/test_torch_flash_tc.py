@@ -169,7 +169,15 @@ def _tiled_forward_model(q, k, v, scale, causal, bias, rate, seed, bn=64):
         o = o * alpha + torch.matmul(p.bfloat16().float(),
                                      v[:, :, k0:k0 + bn].float())
         m = mx
-    out = (o / torch.where(l == 0, 1.0, l)).bfloat16()
+    # rows that see no key (causal, Sq > Sk) end the loop with l == 0; the
+    # epilogue adds the masked v over all keys and divides by Sk
+    den = torch.ones(b, n, sq, 1)
+    if causal and sq > sk:
+        empty = torch.arange(sq)[:, None] < sq - sk
+        w = torch.ones(b, n, sq, sk) if mult is None else mult
+        o = torch.where(empty, torch.matmul(w, v.float()), o)
+        den = torch.where(empty, float(sk), den)
+    out = (o / torch.where(l == 0, den, l)).bfloat16()
     lse = torch.where(l == 0, fa.NEG_INF + math.log(1e-30),
                       m * LN2 + torch.log(l.clamp_min(1e-30))).squeeze(-1)
     return out, lse
@@ -213,7 +221,10 @@ def test_tiled_model_matches_the_tpu_kernel_in_bf16(s, bias, causal, rate):
 
 def test_tiled_model_keeps_the_empty_row_sentinel():
     # causal with Sq > Sk, bottom-right aligned: the first Sq - Sk rows see
-    # no key; out 0 and lse NEG_INF + log(1e-30) in both versions
+    # no key. As in the reference (mask value -1e30), each is the uniform
+    # softmax over all Sk keys: out the mean of the dropout-masked v,
+    # rounded to bf16 once, and lse -1e30 (NEG_INF + log Sk in fp32), in
+    # both versions
     r = np.random.RandomState(3)
     q = torch.from_numpy(r.randn(1, 2, 150, HD).astype(np.float32)).bfloat16()
     k, v = (torch.from_numpy(r.randn(1, 2, 70, HD).astype(np.float32))
@@ -221,7 +232,11 @@ def test_tiled_model_keeps_the_empty_row_sentinel():
     out, lse = _tiled_forward_model(q, k, v, 0.125, True, None, 0.1, 5)
     plain_o, plain_lse = fa.plain_flash_fwd(q, k, v, None, 0.125, True, None,
                                             0.1, 5, layout="bnsd")
-    assert torch.equal(out[:, :, :80], torch.zeros_like(out[:, :, :80]))
+    keep = rng.attn_keep(5, 0.1, 1, 2, 150, 70, "cpu")[:, :, :80]
+    mean_v = (torch.matmul(keep.float() / 0.9, v.float()) / 70).bfloat16()
+    assert mean_v.abs().max() > 0.05
+    assert torch.equal(out[:, :, :80], mean_v)
+    assert torch.equal(lse[:, :, :80], torch.full((1, 2, 80), fa.NEG_INF))
     assert torch.equal(lse[:, :, :80], plain_lse[:, :, :80])
     torch.testing.assert_close(out.float(), plain_o.float(), rtol=2e-2,
                                atol=2e-2)

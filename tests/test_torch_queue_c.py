@@ -14,6 +14,18 @@ drifted from it.
 * A bf16 fetch of ``Executor.run`` comes back as an ``ml_dtypes.bfloat16``
   array, as the reference's does, with the same bits; without ml_dtypes,
   as float32.
+* C4: ``fill_constant`` and the random initializers hold 64-bit dtypes as
+  32-bit (x64 off): ``layers.fill_constant([2], "int64", 3)`` fetches
+  int32 in both packages, a float64 initializer yields float32.
+* C5: ``reduce_sum`` of a bool X is int32 over any axes.
+* C6: ``mean`` of an integer X is float32 (int32 [0..4] gives 2.0).
+* C7: ``gather`` and ``lookup_table_v2`` index as ``jnp.take``: -1 is the
+  last row, an index of n (or below -n) takes the fill (NaN for floats,
+  the int32 minimum for int32), and an out-of-range id gets no gradient.
+* C8: ``scale`` casts the bias to X's dtype first (int32 [0..3], scale
+  0.5, bias 1.5 gives float32 [1, 1.5, 2, 2.5]); ``top_k`` ranks +0.0
+  before -0.0 ([0, -0, 0] gives [[0, 2, 1]]).
+Each is exact against the reference: values, shapes and dtypes.
 """
 
 import sys
@@ -32,6 +44,7 @@ from paddle_tpu.core import registry as jax_registry
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch import layers as players
 from paddle_tpu_torch.core import registry as pt_registry
+from paddle_tpu_torch.core import rng as pt_rng
 from paddle_tpu_torch.core.executor import Executor
 
 torch.set_num_threads(2)
@@ -142,3 +155,206 @@ def test_bf16_fetch_without_ml_dtypes_is_float32(monkeypatch):
                    fetch_list=[py], scope=scope)
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got, np.full((2, 3), 3.0, np.float32))
+
+
+def _same(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype, \
+        (got.shape, got.dtype, want.shape, want.dtype)
+    np.testing.assert_array_equal(got, want)
+
+
+def _both_ops(op_type, ins, attrs):
+    want = {k: [np.asarray(v) for v in vs]
+            for k, vs in _jax_op(op_type, ins, attrs).items()}
+    got = {k: [v.numpy() for v in vs]
+           for k, vs in _pt_op(op_type, ins, attrs).items()}
+    return got, want
+
+
+def test_c4_fill_constant_int64_fetches_int32_as_in_the_reference():
+    jmain, jstart = pt.Program(), pt.Program()
+    with pt.program_guard(jmain, jstart):
+        jy = jlayers.fill_constant([2], "int64", 3)
+    pmain, pstart = ptt.Program(), ptt.Program()
+    with ptt.program_guard(pmain, pstart):
+        py = players.fill_constant([2], "int64", 3)
+    jexe = pt.Executor(pt.CPUPlace())
+    want, = jexe.run(jmain, fetch_list=[jy], use_compiled=False)
+    exe, scope = Executor(device="cpu"), ptt.Scope()
+    got, = exe.run(pmain, fetch_list=[py], scope=scope)
+    assert want.dtype == np.int32
+    _same(got, want)
+
+
+@pytest.mark.parametrize("op_type,dtype", [
+    ("fill_constant", "int64"), ("fill_constant", "float64"),
+    ("uniform_random", "float64"), ("gaussian_random", "float64"),
+    ("truncated_gaussian_random", "float64")])
+def test_c4_64_bit_dtypes_become_32_bit(op_type, dtype):
+    attrs = {"shape": [3, 2], "dtype": dtype, "value": 3.0, "seed": 7}
+    got, want = _both_ops(op_type, {}, attrs)
+    g, w = got["Out"][0], want["Out"][0]
+    assert g.shape == w.shape == (3, 2)
+    assert g.dtype == w.dtype == np.dtype(dtype.replace("64", "32"))
+    if op_type == "fill_constant":
+        _same(g, w)
+
+
+@pytest.mark.parametrize("attrs", [
+    {"dim": [1]}, {"dim": [0], "keep_dim": True}, {"dim": [0, 1]},
+    {"reduce_all": True}, {}, {"dim": []}])
+def test_c5_reduce_sum_of_bool_is_int32_on_every_axis_set(attrs):
+    x = np.random.RandomState(5).rand(3, 4) < 0.5
+    got, want = _both_ops("reduce_sum", {"X": x}, attrs)
+    assert want["Out"][0].dtype == np.int32
+    _same(got["Out"][0], want["Out"][0])
+
+
+@pytest.mark.parametrize("x", [np.arange(5, dtype=np.int32),
+                               np.array([[1, 2], [4, 8]], np.int32),
+                               np.array([True, False, True])])
+def test_c6_mean_of_an_integer_x_is_float32(x):
+    got, want = _both_ops("mean", {"X": x}, {})
+    assert want["Out"][0].dtype == np.float32
+    _same(got["Out"][0], want["Out"][0])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("index,axis", [
+    ([-1, 0, 2], 0), ([4, 1], 0), ([[-4, 3], [-5, 0]], 0), ([-1, 3], 1),
+    ([5, -6], 1)])
+def test_c7_gather_wraps_negatives_and_fills_out_of_range(dtype, index,
+                                                          axis):
+    x = (np.random.RandomState(7).randn(4, 5) * 10).astype(dtype)
+    ins = {"X": x, "Index": np.asarray(index, np.int32)}
+    got, want = _both_ops("gather", ins, {"axis": axis})
+    _same(got["Out"][0], want["Out"][0])
+
+
+@pytest.mark.parametrize("ids", [[[-1, 2], [0, -1]], [[4, 1], [-3, 5]]])
+def test_c7_lookup_table_v2_and_its_gradient_index_as_jnp_take(ids):
+    rng = np.random.RandomState(9)
+    ins = {"W": rng.randn(4, 3).astype(np.float32),
+           "Ids": np.asarray(ids, np.int32)}
+    got, want = _both_ops("lookup_table_v2", ins, {})
+    _same(got["Out"][0], want["Out"][0])
+    # the gradient: out-of-range ids add nothing, -1 adds to the last row
+    dout = rng.randn(2, 2, 3).astype(np.float32)
+    w = torch.from_numpy(ins["W"]).requires_grad_()
+    out = pt_registry.get("lookup_table_v2").forward(
+        {"W": [w], "Ids": [torch.from_numpy(ins["Ids"])]}, {})["Out"]
+    out.backward(torch.from_numpy(dout))
+    import jax
+
+    def f(wj):
+        return jax_registry.get("lookup_table_v2").forward(
+            {"W": [wj], "Ids": [jnp.asarray(ins["Ids"])]}, {})["Out"]
+
+    _, vjp = jax.vjp(f, jnp.asarray(ins["W"]))
+    want_dw = np.asarray(vjp(jnp.asarray(dout))[0])
+    np.testing.assert_allclose(w.grad.numpy(), want_dw, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("x,attrs", [
+    (np.arange(4, dtype=np.int32), {"scale": 0.5, "bias": 1.5}),
+    (np.arange(4, dtype=np.int32), {"scale": 0.5, "bias": -1.5,
+                                    "bias_after_scale": False}),
+    (np.arange(4, dtype=np.int32), {"scale": 3, "bias": 2.7}),
+    (np.arange(4, dtype=np.float32) * 0.3, {"scale": 0.5, "bias": 0.1})])
+def test_c8_scale_casts_the_bias_to_x_dtype(x, attrs):
+    got, want = _both_ops("scale", {"X": x}, attrs)
+    _same(got["Out"][0], want["Out"][0])
+
+
+@pytest.mark.parametrize("x,k", [
+    (np.array([[0.0, -0.0, 0.0]], np.float32), 3),
+    (np.array([[-0.0, 1.0, 0.0, -0.0, 1.0, 0.0]], np.float32), 4),
+    (np.array([[2.0, -0.0, 2.0, -1.0], [0.0, 0.0, -0.0, -0.0]], np.float32),
+     2),
+    (np.array([[3, 1, 3, 2]], np.int32), 3)])
+def test_c8_top_k_ranks_positive_zero_first(x, k):
+    got, want = _both_ops("top_k", {"X": x}, {"k": k})
+    _same(got["Out"][0], want["Out"][0])
+    np.testing.assert_array_equal(np.signbit(got["Out"][0]),
+                                  np.signbit(want["Out"][0]))
+    np.testing.assert_array_equal(got["Indices"][0], want["Indices"][0])
+
+
+# C9: causal flash attention with Sq > Sk. The first Sq - Sk rows see no
+# key; the reference's finite mask value (-1e30) gives them the uniform
+# softmax over all Sk keys (the mean of the masked v, lse -1e30), and its
+# vjp gives them dq = 0, no dk and dv += (1 / Sk) mask do.
+C9_SQ, C9_SK, C9_H, C9_HD = 256, 128, 2, 64
+
+
+def _c9_inputs(dtype, with_bias):
+    rng = np.random.RandomState(19)
+    q, do = (rng.randn(1, C9_H, C9_SQ, C9_HD).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.randn(1, C9_H, C9_SK, C9_HD).astype(np.float32)
+            for _ in range(2))
+    kb = np.where(rng.rand(1, C9_SK) < 0.25, -1e4, 0.0).astype(np.float32) \
+        if with_bias else None
+    jt = [jnp.asarray(x, dtype) for x in (q, k, v, do)]
+    tt = [torch.from_numpy(np.array(x.astype(jnp.float32)))
+          .to(torch.float32 if dtype == jnp.float32 else torch.bfloat16)
+          for x in jt]
+    return jt, tt, kb
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_c9_rows_without_a_visible_key_match_the_reference(dtype, with_bias,
+                                                           rate):
+    import importlib
+
+    import jax
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    jfa = importlib.import_module("paddle_tpu.ops.pallas.flash_attention")
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    (jq, jk, jv, jdo), (q, k, v, do), kb = _c9_inputs(jdt, with_bias)
+    seed, scale = 0x9E37, C9_HD ** -0.5
+    jb = None if kb is None else jnp.asarray(kb)
+    tb = None if kb is None else torch.from_numpy(kb)
+
+    def ref(q_, k_, v_):
+        return jfa.reference_attention(q_, k_, v_, jb, True, scale, rate,
+                                       jnp.uint32(seed))
+
+    want_o, vjp = jax.vjp(ref, jq, jk, jv)
+    want_g = vjp(jdo)
+    # the lse: the reference's fused kernel (Sq != Sk) in interpret mode
+    _, want_lse = jfa._fwd_pallas_fused(jq, jk, jv, jb, True, scale, True,
+                                        jnp.uint32(seed), rate)
+    out, lse = fa.plain_flash_fwd(q, k, v, None, scale, True, tb, rate, seed,
+                                  layout="bnsd")
+    grads = fa.plain_flash_bwd(q, k, v, out, lse, do, None, scale, True, tb,
+                               rate, seed, layout="bnsd")
+    tol = 1e-5 if dtype == "float32" else 2e-2
+
+    def f32(x):
+        return np.asarray(jnp.asarray(x, jnp.float32))
+
+    e = C9_SQ - C9_SK   # rows 0..e-1 see no key
+    np.testing.assert_allclose(out.float().numpy(), f32(want_o), rtol=tol,
+                               atol=tol)
+    np.testing.assert_array_equal(lse[..., :e].numpy(),
+                                  np.full((1, C9_H, e), -1e30, np.float32))
+    np.testing.assert_allclose(lse.numpy(), f32(want_lse), rtol=1e-5,
+                               atol=1e-5)
+    # the rows that see no key: the mean of the masked v, as in the reference
+    mult = 1.0
+    if rate:
+        keep = pt_rng.attn_keep(seed, rate, 1, C9_H, C9_SQ, C9_SK, "cpu")
+        mult = keep[..., :e, :].float() / (1.0 - rate)
+    mean_v = (mult * torch.ones(1, C9_H, e, C9_SK)) @ v.float() / C9_SK
+    np.testing.assert_allclose(out[..., :e, :].float().numpy(),
+                               mean_v.numpy(), rtol=tol, atol=tol)
+    for name, g, w in zip(("dq", "dk", "dv"), grads[:3], want_g):
+        np.testing.assert_allclose(g.float().numpy(), f32(w), rtol=tol,
+                                   atol=tol, err_msg=name)
+    assert not grads[0][..., :e, :].float().any()   # dq 0 on those rows
