@@ -203,6 +203,25 @@ The Transformer-big slice adds, in the order they run:
                every replay. Then compiled_parity at 2+2 layers (b48, 3
                steps) and card against CPU at 2+2 layers, batch 2, 4
                steps: masks bit for bit, losses within 1e-2, equal rates.
+The prefix-sharing and HTTP slices add, right after serve_int8:
+   serve_prefix_fp32, serve_prefix_int8 — one 1024-token system prompt,
+               nine suffixes, the prefix cache (serve_prefix says what
+               they hold).
+   serve_http_fp32, serve_http_int8 — the model written once as a
+               servable dir (save_decoder_lm, under build/torch_serving/,
+               removed at the end) and served by serve_decode over HTTP:
+               the serve phases' requests at once, ids bit for bit the
+               in-process ones, the health states, /metrics, a 429, the
+               request wall over HTTP beside the engine's times
+               (serve_http).
+   serve_cluster_decode2, serve_cluster_tiers — ClusterControllers of
+               replica processes on the card: prefix affinity, dedup, a
+               SIGKILLed replica's session resumed bit for bit and the
+               slot respawned; a prefill tier feeding a decode tier
+               through the router; a dead prefill URL's fallbacks
+               (serve_cluster). Their launch counts are the replicas'
+               /v1/stats counters read just before and just after the
+               traffic.
 Then one line with every ported kernel: ``launches_by_path`` gives each
 phase's own count (set to 0 just before the phase, read just after),
 ``launches_by_layout`` and ``launches_by_dtype`` the flash kernels'
@@ -225,6 +244,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -282,6 +302,8 @@ BNSD_CASES = ((40, 512, 512, False, torch.bfloat16, True),
               (40, 512, 512, False, torch.float32, False))
 BNSD_OPS = (40, 16, 512, 64)
 SOURCES = {n: f"paddle_tpu_torch/csrc/{n}.cu" for n in REPLACES}
+# the servable dir the HTTP phases write and remove (listed in .gitignore)
+SERVING_DIR = Path(__file__).resolve().parent / "build" / "torch_serving"
 
 
 def emit(phase, **kw):
@@ -1343,25 +1365,37 @@ def _adamw_op_kernels(dev):
 # 3. serving at full width
 # ---------------------------------------------------------------------------
 
+# the serve phases' engine and traffic: 9 prompts of 5..1500 tokens, 32 new
+# tokens each, the last sampled at temperature 0.8 with seed 7
+SERVE_CONF = dict(max_slots=8, page_size=16, kv_pages=1024,
+                  max_new_tokens=32)
+SERVE_LENGTHS = [5, 37, 100, 250, 480, 700, 1100, 1500]
+
+
+def _serve_requests(cfg):
+    rng = np.random.RandomState(3)
+    reqs = [dict(prompt=rng.randint(3, cfg.vocab_size, n).astype(np.int32),
+                 max_new_tokens=32, stop_at_eos=False)
+            for n in SERVE_LENGTHS]
+    reqs.append(dict(prompt=rng.randint(3, cfg.vocab_size, 300)
+                     .astype(np.int32), max_new_tokens=32, temperature=0.8,
+                     seed=7, stop_at_eos=False))
+    return reqs
+
+
 def serve(phase, cfg, params, quant, dev):
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.core import telemetry
     from paddle_tpu_torch.serving import DecodeConfig, DecodeEngine
 
-    eng = DecodeEngine(cfg, params, DecodeConfig(
-        max_slots=8, page_size=16, kv_pages=1024, weight_quant=quant,
-        max_new_tokens=32), device=dev)
+    eng = DecodeEngine(cfg, params, DecodeConfig(weight_quant=quant,
+                                                 **SERVE_CONF), device=dev)
     t0 = time.perf_counter()
     built = eng.warmup()      # runs each (phase, bucket) once, captures it
     warm_s = time.perf_counter() - t0
     graphs = len(eng._graphs)
-    rng = np.random.RandomState(3)
-    lengths = [5, 37, 100, 250, 480, 700, 1100, 1500]
-    reqs = [dict(prompt=rng.randint(3, cfg.vocab_size, n).astype(np.int32),
-                 max_new_tokens=32, stop_at_eos=False) for n in lengths]
-    reqs.append(dict(prompt=rng.randint(3, cfg.vocab_size, 300)
-                     .astype(np.int32), max_new_tokens=32, temperature=0.8,
-                     seed=7, stop_at_eos=False))
+    reqs = _serve_requests(cfg)
+    lengths = SERVE_LENGTHS
     kernels.reset_launch_counts()
     telemetry.reset()
     eng.start()
@@ -1408,13 +1442,28 @@ def serve(phase, cfg, params, quant, dev):
          flash_launches_by_layout=layouts,
          kv_high_water_pages=stats["kv_cache"]["high_water_pages"])
     return dict(launches=launches, layouts=layouts,
-                int8_instances=int8_instances)
+                int8_instances=int8_instances,
+                ids=[t.tolist() for t in together])
 
 
 # the prefix phases' traffic: one shared system prompt of 64 pages, nine
 # user suffixes (the last sampled), 32 new tokens each
 PREFIX_SYSTEM = 1024
 PREFIX_SUFFIXES = (5, 17, 40, 64, 100, 150, 220, 300, 120)
+
+
+def _prefix_requests(cfg):
+    rng = np.random.RandomState(5)
+    system = rng.randint(3, cfg.vocab_size, PREFIX_SYSTEM)
+    reqs = []
+    for i, n in enumerate(PREFIX_SUFFIXES):
+        r = dict(prompt=np.concatenate(
+            [system, rng.randint(3, cfg.vocab_size, n)]).astype(np.int32),
+            max_new_tokens=32, stop_at_eos=False)
+        if i == len(PREFIX_SUFFIXES) - 1:
+            r.update(temperature=0.8, seed=7, request_id="sampled-120")
+        reqs.append(r)
+    return reqs
 
 
 def _first_divergence(a, b):
@@ -1457,16 +1506,7 @@ def serve_prefix(phase, cfg, params, quant, dev):
     graphs = len(eng._graphs)
     classic_programs = len(eng.config.buckets) + \
         len(eng.config.prefill_buckets)
-    rng = np.random.RandomState(5)
-    system = rng.randint(3, cfg.vocab_size, PREFIX_SYSTEM)
-    reqs = []
-    for i, n in enumerate(PREFIX_SUFFIXES):
-        r = dict(prompt=np.concatenate(
-            [system, rng.randint(3, cfg.vocab_size, n)]).astype(np.int32),
-            max_new_tokens=32, stop_at_eos=False)
-        if i == len(PREFIX_SUFFIXES) - 1:
-            r.update(temperature=0.8, seed=7, request_id="sampled-120")
-        reqs.append(r)
+    reqs = _prefix_requests(cfg)
     journal = []
     eng.journal_sink = journal.extend
     kernels.reset_launch_counts()
@@ -1623,7 +1663,481 @@ def serve_prefix(phase, cfg, params, quant, dev):
     if problems:
         raise AssertionError(f"{phase}: {problems}")
     return dict(launches=launches, layouts=layouts,
+                int8_instances=int8_instances,
+                ids=[t.tolist() for t in together])
+
+
+# ---------------------------------------------------------------------------
+# the HTTP serving plane: serve_decode, the router, the cluster controller
+# ---------------------------------------------------------------------------
+
+def _http(method, url, path, body=None, headers=None, timeout=600):
+    """One HTTP exchange: (status, JSON doc or text). Raises OSError when
+    nothing answers."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlparse(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None
+                     else json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json",
+                              **(headers or {})})
+        resp = conn.getresponse()
+        raw = resp.read()
+    finally:
+        conn.close()
+    try:
+        return resp.status, json.loads(raw)
+    except ValueError:
+        return resp.status, raw.decode("utf-8", "replace")
+
+
+def _wire_body(r, **extra):
+    """A request dict of the serve phases -> a /v1/generate body."""
+    body = {"prompt_ids": [int(t) for t in r["prompt"]],
+            "max_new_tokens": r["max_new_tokens"],
+            "stop_at_eos": r["stop_at_eos"]}
+    if r.get("temperature"):
+        body.update(temperature=r["temperature"], seed=r["seed"])
+    body.update(extra)
+    return body
+
+
+def _post_all(url, bodies, headers=None):
+    """POST every body to /v1/generate at once, one thread each: the
+    (status, doc) of each and each request's wall ms."""
+    out = [None] * len(bodies)
+
+    def one(i):
+        t0 = time.perf_counter()
+        code, doc = _http("POST", url, "/v1/generate", bodies[i],
+                          headers=(headers or [None] * len(bodies))[i])
+        out[i] = (code, doc, (time.perf_counter() - t0) * 1e3)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if any(t.is_alive() for t in threads) or None in out:
+        raise AssertionError("an HTTP request never returned")
+    return out
+
+
+def _pct(values, q):
+    s = sorted(values)
+    return s[min(len(s) - 1, int(q * (len(s) - 1) + 0.5))]
+
+
+def serve_http(phase, cfg, quant, dev, model_dir, want_ids):
+    """serve_decode(model_dir, port=0) with the serve phases' DecodeConfig
+    on the card; the serve phases' 9 requests POSTed at once to
+    /v1/generate. Gates: every response's tokens are that serve phase's
+    in-process ids bit for bit; /healthz 200 once serve_decode returns,
+    503 (draining or stopped) once the engine is closed while the socket
+    still answers; /metrics carries the decode counters; /v1/stats shows
+    flash forward and paged attention launched (and in int8 the int8 GEMM,
+    each launch on the instance its M picks); after shutdown a request is
+    refused. A second server over the same dir with a pool of 64 pages
+    (63 usable: 1008 tokens; warm-up off, so it runs no program) answers a
+    1500-token prompt with 429 KVCacheExhaustedError. The request wall ms
+    over HTTP sit beside the engine's prefill_ms and step_ms."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import DecodeConfig, serve_decode
+
+    t_phase = time.perf_counter()
+    reqs = _serve_requests(cfg)
+    problems = []
+    t0 = time.perf_counter()
+    srv = serve_decode(model_dir, port=0, device=dev, config=DecodeConfig(
+        weight_quant=quant, **SERVE_CONF))
+    up_s = time.perf_counter() - t0
+    try:
+        health_up = _http("GET", srv.url, "/healthz")
+        if health_up[0] != 200 or health_up[1].get("status") != "ok":
+            problems.append(f"/healthz after serve_decode: {health_up}")
+        kernels.reset_launch_counts()
+        telemetry.reset()
+        t0 = time.perf_counter()
+        answers = _post_all(srv.url, [_wire_body(r) for r in reqs])
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        layouts = kernels.layout_counts()
+        int8_instances = kernels.int8_instance_counts()
+        code, stats = _http("GET", srv.url, "/v1/stats")
+        stats = stats["decode"]
+        code_m, metrics = _http("GET", srv.url, "/metrics")
+        srv.decode_engine.close(drain=True, timeout=60)
+        health_closed = _http("GET", srv.url, "/healthz")
+    finally:
+        srv.decode_engine.close(drain=False, timeout=60)
+        srv.shutdown()
+    try:
+        _http("POST", srv.url, "/v1/generate", _wire_body(reqs[0]),
+              timeout=10)
+        refused = False
+    except OSError:
+        refused = True
+    small = serve_decode(model_dir, port=0, device=dev, warmup=False,
+                         config=DecodeConfig(
+                             weight_quant=quant, max_slots=8, page_size=16,
+                             kv_pages=64, max_new_tokens=32))
+    try:
+        never_fits = _http("POST", small.url, "/v1/generate",
+                           _wire_body(reqs[SERVE_LENGTHS.index(1500)]))
+    finally:
+        small.decode_engine.close(drain=False, timeout=60)
+        small.shutdown()
+    del srv, small
+    _release()
+
+    codes = [a[0] for a in answers]
+    got = [a[1].get("tokens") if a[0] == 200 else None for a in answers]
+    if codes != [200] * len(reqs) or got != want_ids:
+        problems.append(f"ids over HTTP != in-process: codes {codes}, "
+                        f"equal {[g == w for g, w in zip(got, want_ids)]}")
+    if not (health_closed[0] == 503 and health_closed[1].get("status")
+            in ("draining", "stopped")):
+        problems.append(f"/healthz after close: {health_closed}")
+    need_metrics = ("pt_decode_requests_total", "pt_decode_prefills_total",
+                    "pt_decode_steps_total", "pt_decode_tokens_total")
+    if code_m != 200 or not all(m in metrics for m in need_metrics):
+        problems.append(f"/metrics lacks the decode counters ({code_m})")
+    if not (never_fits[0] == 429 and never_fits[1].get("error_type")
+            == "KVCacheExhaustedError"):
+        problems.append(f"a request that never fits: {never_fits}")
+    if not refused:
+        problems.append("a request after shutdown was answered")
+    need = ["flash_attention_fwd", "paged_attention"] + \
+        (["int8_gemm"] if quant == "int8" else [])
+    if stats["kernels"] != launches or any(launches[n] == 0 for n in need):
+        problems.append(f"/v1/stats kernels {stats['kernels']}, counters "
+                        f"{launches}")
+    if sum(int8_instances.values()) != launches["int8_gemm"] or (
+            quant == "int8" and not all(int8_instances.values())) or \
+            stats["int8_instances"] != int8_instances:
+        problems.append(f"int8 launches by instance {int8_instances} "
+                        f"(/v1/stats {stats['int8_instances']})")
+    ms = [a[2] for a in answers]
+    emit(phase, requests=len(reqs), codes=codes, ids_equal_in_process=
+         got == want_ids, wall_s=wall, serve_decode_s=up_s,
+         request_ms_p50=_pct(ms, 0.5), request_ms_p99=_pct(ms, 0.99),
+         request_ms=ms, prefill_ms_p50=stats["prefill_ms"]["p50"],
+         step_ms_p50=stats["step_ms"]["p50"],
+         request_ms_engine_p50=stats["request_ms"]["p50"],
+         healthz=[health_up[0], health_closed[0],
+                  health_closed[1].get("status")],
+         never_fits=[never_fits[0], never_fits[1].get("error_type")],
+         refused_after_shutdown=refused, launches=launches,
+         int8_launches_by_instance=int8_instances,
+         flash_launches_by_layout=layouts,
+         seconds=time.perf_counter() - t_phase)
+    if problems:
+        raise AssertionError(f"{phase}: {problems}")
+    return dict(launches=launches, layouts=layouts,
                 int8_instances=int8_instances)
+
+
+def _replica_counts(cluster):
+    """Each replica's launch counters from its /v1/stats: {name: (kernels,
+    flash layouts)}."""
+    out = {}
+    for r in cluster.replicas:
+        code, doc = _http("GET", r.url, "/v1/stats", timeout=60)
+        if code != 200:
+            raise AssertionError(f"/v1/stats of {r.name}: {code} {doc}")
+        d = doc["decode"]
+        out[r.name] = d
+    return out
+
+
+def _count_delta(before, after):
+    """Launches between two /v1/stats reads of each replica, summed:
+    (kernels, flash layouts)."""
+    from paddle_tpu_torch import kernels as _k
+
+    launches = {n: 0 for n in _k.MODULES}
+    layouts = {"flash_attention_fwd": {"packed": 0, "bnsd": 0},
+               "flash_attention_bwd": {"packed": 0, "bnsd": 0}}
+    for name, a in after.items():
+        b = before[name]
+        for n in launches:
+            launches[n] += a["kernels"][n] - b["kernels"][n]
+        for n, split in layouts.items():
+            for k in split:
+                split[k] += (a["kernel_layouts"][n].get(k, 0)
+                             - b["kernel_layouts"][n].get(k, 0))
+    return launches, layouts
+
+
+def _replica_env(**flags):
+    import os
+
+    env = dict(os.environ)
+    env.update({f"FLAGS_{k}": str(v) for k, v in flags.items()})
+    return env
+
+
+def serve_cluster(cfg, dev, model_dir, prefix_ids, serve_ids):
+    """Two ClusterControllers of process replicas (python -m
+    paddle_tpu_torch.serving.replica --device cuda), fp32, the serve
+    phases' DecodeConfig through FLAGS_decode_*.
+
+    decode2: {"decode": 2}, prefix cache on, 30 ms before each decode
+    step. serve_prefix's traffic through the router (the first request
+    alone, the other eight at once, then one more prompt: the system
+    prompt and 9 tokens): ids = serve_prefix_fp32's bit for bit. Affinity
+    is the reference's: the router hashes the chain of ALL of a prompt's
+    full pages, so the requests whose full pages are the system prompt's
+    alone (suffixes of 5 and 9 tokens) land on one replica, and the
+    others wherever their own chain hashes; every request lands where
+    pick_generate says, and on each replica every request after its
+    first hits the shared system pages (prefix hits >= requests - 1).
+    Dedup: the first request's X-Request-Id again replays (deduped,
+    router.dedup_hits + 1, no new prefill on either replica). Failover:
+    the sampled request under a new id, its replica SIGKILLed once the
+    journal holds 3 accepted tokens: the merged ids = the uninterrupted
+    ones, failed_over, session.failovers >= 1; the monitor respawns the
+    slot as a decode replica.
+
+    tiers: {"prefill": 1, "decode": 1}, the serve phases' 9 requests at
+    once: ids = serve_fp32's; router.prefill_forwards >= 9; between
+    /v1/stats reads before and after the traffic the decode replica
+    launches no flash forward and the prefill replica 12 a request. Then
+    an in-process decode-role engine whose prefill URL is dead: every
+    request falls back to a local prefill (disagg.fallback_prefills = 9),
+    ids = serve_fp32's."""
+    import signal
+
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import (ClusterController, DecodeConfig,
+                                          decode_engine_from_dir,
+                                          prefix_chain_hash)
+
+    runs, problems = {}, {}
+    flags = dict(decode_max_slots=SERVE_CONF["max_slots"],
+                 decode_page_size=SERVE_CONF["page_size"],
+                 decode_kv_pages=SERVE_CONF["kv_pages"],
+                 decode_max_new_tokens=SERVE_CONF["max_new_tokens"],
+                 decode_weight_quant="none")
+
+    # -- leg 1: two decode replicas, prefix cache, failover --------------
+    t_leg = time.perf_counter()
+    problems["serve_cluster_decode2"] = bad = []
+    preqs = _prefix_requests(cfg)
+    extra = dict(preqs[0], prompt=np.concatenate(
+        [preqs[0]["prompt"][:PREFIX_SYSTEM],
+         np.random.RandomState(6).randint(3, cfg.vocab_size, 9)]).astype(
+             np.int32))
+    telemetry.reset()
+    t0 = time.perf_counter()
+    cluster = ClusterController(
+        "", decode_model_dir=model_dir, role_counts={"decode": 2},
+        prefix_cache=True, device=dev.type, replica_ready_timeout_s=600,
+        replica_env=_replica_env(decode_step_delay_ms=30, **flags)).start(
+            ready_timeout_s=600)
+    up_s = time.perf_counter() - t0
+    try:
+        before = _replica_counts(cluster)
+        bodies = [_wire_body(r) for r in preqs]
+        rids = [f"prefix-{i}" for i in range(len(preqs))]
+        t0 = time.perf_counter()
+        first = _post_all(cluster.url, bodies[:1], [{"X-Request-Id":
+                                                     rids[0]}])
+        rest = _post_all(cluster.url, bodies[1:],
+                         [{"X-Request-Id": r} for r in rids[1:]])
+        wall = time.perf_counter() - t0
+        answers = first + rest + _post_all(cluster.url, [_wire_body(extra)])
+        after = _replica_counts(cluster)
+        launches, layouts = _count_delta(before, after)
+        replicas = [a[1].get("replica") for a in answers]
+        got = [a[1].get("tokens") for a in answers]
+        if got[:-1] != prefix_ids or len(got[-1] or ()) != 32:
+            bad.append(f"ids through the router != serve_prefix: "
+                       f"{[g == w for g, w in zip(got, prefix_ids)]}")
+        hits = {n: d.get("prefix_store", {}).get("prefix_hits", 0)
+                - before[n].get("prefix_store", {}).get("prefix_hits", 0)
+                for n, d in after.items()}
+        chains = [prefix_chain_hash(r["prompt"], SERVE_CONF["page_size"])
+                  for r in preqs + [extra]]
+        predicted = [cluster.router.pick_generate(r["prompt"]).name
+                     for r in preqs + [extra]]
+        system_only = {replicas[i] for i, c in enumerate(chains)
+                       if c == chains[-1]}
+        affinity_ok = (replicas == predicted and len(system_only) == 1
+                       and chains[0] == chains[-1]
+                       and all(hits.get(n, 0) >= replicas.count(n) - 1
+                               for n in set(replicas)))
+        if not affinity_ok:
+            bad.append(f"affinity: replicas {replicas}, predicted "
+                       f"{predicted}, hits {hits}")
+        # dedup: the first request's id again
+        dedup0 = telemetry.counter_get("router.dedup_hits")
+        prefills0 = sum(d.get("prefills", 0) for d in after.values())
+        code, again = _http("POST", cluster.url, "/v1/generate", bodies[0],
+                            headers={"X-Request-Id": rids[0]})
+        prefills1 = sum(d.get("prefills", 0) for d in
+                        _replica_counts(cluster).values())
+        dedup_ok = (code == 200 and again.get("deduped") is True
+                    and again.get("tokens") == got[0]
+                    and telemetry.counter_get("router.dedup_hits")
+                    - dedup0 == 1 and prefills1 == prefills0)
+        if not dedup_ok:
+            bad.append(f"dedup: {code}, prefills {prefills0} -> "
+                            f"{prefills1}")
+        # failover: the sampled request, its replica killed mid-generation
+        failovers0 = telemetry.counter_get("session.failovers")
+        result = {}
+        sampled = dict(bodies[-1], request_id="failover-1")
+        client = threading.Thread(target=lambda: result.update(
+            _http("POST", cluster.url, "/v1/generate", sampled)[1]))
+        client.start()
+        victim = None
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and client.is_alive():
+            rec = cluster.router.sessions.get("failover-1")
+            if rec and len(rec["accepted"]) >= 3:
+                handle = cluster.router.pick_generate(sampled["prompt_ids"])
+                victim = cluster.replica_named(handle.name)
+                killed_at = len(rec["accepted"])
+                victim.kill(signal.SIGKILL)
+                break
+            time.sleep(0.005)
+        client.join(timeout=600)
+        failover_ok = (victim is not None and not client.is_alive()
+                       and result.get("tokens") == prefix_ids[-1]
+                       and result.get("failed_over") is True
+                       and telemetry.counter_get("session.failovers")
+                       - failovers0 >= 1)
+        if not failover_ok:
+            bad.append(f"failover: victim {victim and victim.name}, "
+                            f"result {str(result)[:300]}")
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            members = cluster.tier_members("decode")
+            if victim not in members and all(r.alive() for r in members) \
+                    and all(h.ready for h in cluster.router.handles()):
+                break
+            time.sleep(0.1)
+            for h in cluster.router.handles():
+                cluster.router.probe(h)
+        respawn_s = time.perf_counter() - t0
+        members = cluster.tier_members("decode")
+        respawned = (victim not in members and len(members) == 2
+                     and {r.role for r in members} == {"decode"}
+                     and all(h.ready for h in cluster.router.handles()))
+        if not respawned:
+            bad.append(f"respawn: {[(r.name, r.role, r.alive())
+                                         for r in members]}")
+        rstats = cluster.router.stats()
+    finally:
+        cluster.close()
+    if launches["paged_attention"] == 0 or \
+            launches["flash_attention_fwd"] != 0:
+        bad.append(f"launches {launches}")
+    ms = [a[2] for a in answers]
+    emit("serve_cluster_decode2", replicas=2, start_s=up_s, wall_s=wall,
+         request_ms_p50=_pct(ms, 0.5), request_ms_p99=_pct(ms, 0.99),
+         request_ms=ms, ids_equal_serve_prefix=got[:-1] == prefix_ids,
+         replicas_used=replicas, replicas_predicted=predicted,
+         affinity=affinity_ok, prefix_hits=hits, dedup=dedup_ok,
+         failover=failover_ok, killed_at_tokens=victim and killed_at,
+         respawn_s=respawn_s, respawned=respawned,
+         router={k: rstats.get(k) for k in (
+             "requests", "retries", "dispatch_errors", "dedup_hits",
+             "replica_deaths", "replica_restarts", "affinity_remaps")},
+         session_failovers=telemetry.counter_get("session.failovers"),
+         launches=launches, flash_launches_by_layout=layouts,
+         seconds=time.perf_counter() - t_leg)
+    runs["serve_cluster_decode2"] = dict(launches=launches, layouts=layouts)
+    _release()
+
+    # -- leg 2: a prefill tier and a decode tier --------------------------
+    t_leg = time.perf_counter()
+    problems["serve_cluster_tiers"] = bad = []
+    sreqs = _serve_requests(cfg)
+    telemetry.reset()
+    t0 = time.perf_counter()
+    cluster = ClusterController(
+        "", decode_model_dir=model_dir,
+        role_counts={"prefill": 1, "decode": 1}, device=dev.type,
+        replica_ready_timeout_s=600,
+        replica_env=_replica_env(**flags)).start(ready_timeout_s=600)
+    up_s = time.perf_counter() - t0
+    try:
+        roles = {r.name: r.role for r in cluster.replicas}
+        before = _replica_counts(cluster)
+        t0 = time.perf_counter()
+        answers = _post_all(cluster.url, [_wire_body(r) for r in sreqs])
+        wall = time.perf_counter() - t0
+        after = _replica_counts(cluster)
+        forwards = telemetry.counter_get("router.prefill_forwards")
+    finally:
+        cluster.close()
+    launches, layouts = _count_delta(before, after)
+    flash = {roles[n]: after[n]["kernels"]["flash_attention_fwd"]
+             - before[n]["kernels"]["flash_attention_fwd"] for n in after}
+    installs = {roles[n]: after[n].get("disagg", {}).get("installs", 0)
+                - before[n].get("disagg", {}).get("installs", 0)
+                for n in after}
+    got = [a[1].get("tokens") for a in answers]
+    if got != serve_ids:
+        bad.append(f"ids behind a prefill tier != serve_fp32: "
+                        f"{[g == w for g, w in zip(got, serve_ids)]}")
+    if forwards < len(sreqs) or installs["decode"] != len(sreqs):
+        bad.append(f"prefill forwards {forwards}, installs {installs}")
+    if flash != {"decode": 0, "prefill": cfg.n_layers * len(sreqs)}:
+        bad.append(f"flash forward launches by tier {flash}")
+    if launches["paged_attention"] == 0:
+        bad.append(f"launches {launches}")
+    ms = [a[2] for a in answers]
+    tiers = dict(start_s=up_s, wall_s=wall, request_ms_p50=_pct(ms, 0.5),
+                 request_ms_p99=_pct(ms, 0.99), request_ms=ms,
+                 ids_equal_serve=got == serve_ids, prefill_forwards=forwards,
+                 installs=installs, flash_launches_by_tier=flash,
+                 decode_tier_prefill_ms_p50=next(
+                     after[n].get("prefill_ms", {}).get("p50")
+                     for n in after if roles[n] == "decode"),
+                 prefill_tier_prefill_ms_p50=next(
+                     after[n].get("prefill_ms", {}).get("p50")
+                     for n in after if roles[n] == "prefill"),
+                 launches=launches, flash_launches_by_layout=layouts)
+    runs["serve_cluster_tiers"] = dict(launches=launches, layouts=layouts)
+    _release()
+
+    # a dead prefill URL: every request falls back to a local prefill
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        dead = f"http://127.0.0.1:{sock.getsockname()[1]}"
+    eng = decode_engine_from_dir(model_dir, device=dev, config=DecodeConfig(
+        role="decode", prefill_urls=dead, **SERVE_CONF))
+    eng.start(warmup=True)
+    try:
+        fallbacks0 = telemetry.counter_get("disagg.fallback_prefills")
+        hs = [eng.submit(**r) for r in sreqs]
+        dead_ids = [h.result(timeout=600).tolist() for h in hs]
+        fallbacks = telemetry.counter_get("disagg.fallback_prefills") - \
+            fallbacks0
+    finally:
+        eng.close(drain=True, timeout=60)
+    del eng
+    _release()
+    if fallbacks != len(sreqs) or dead_ids != serve_ids:
+        bad.append(f"dead prefill URL: {fallbacks} fallbacks, ids "
+                        f"equal {dead_ids == serve_ids}")
+    emit("serve_cluster_tiers", **tiers, dead_url_fallbacks=fallbacks,
+         dead_url_ids_equal=dead_ids == serve_ids,
+         seconds=time.perf_counter() - t_leg)
+    if any(problems.values()):
+        raise AssertionError(f"serve_cluster: {problems}")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -2812,7 +3326,8 @@ def main():
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.models.decoder_lm import (DecoderLMConfig,
-                                                    decoder_lm_params)
+                                                    decoder_lm_params,
+                                                    save_decoder_lm)
 
     dev = torch.device("cuda:0")
     smi = nvidia_smi()
@@ -2873,6 +3388,27 @@ def main():
     for phase, quant in (("serve_prefix_fp32", "none"),
                          ("serve_prefix_int8", "int8")):
         runs[phase] = serve_prefix(phase, cfg, params, quant, dev)
+    # the HTTP plane serves the same weights from a servable dir
+    import shutil
+    import tempfile
+
+    SERVING_DIR.mkdir(parents=True, exist_ok=True)
+    model_dir = tempfile.mkdtemp(prefix="decoder_lm_full_",
+                                 dir=SERVING_DIR)
+    try:
+        t0 = time.perf_counter()
+        save_decoder_lm(model_dir, cfg, params)
+        emit("model_dir", seconds=time.perf_counter() - t0,
+             bytes=sum(p.stat().st_size for p in Path(model_dir).iterdir()))
+        for phase, quant, ref in (("serve_http_fp32", "none", "serve_fp32"),
+                                  ("serve_http_int8", "int8", "serve_int8")):
+            runs[phase] = serve_http(phase, cfg, quant, dev, model_dir,
+                                     runs[ref]["ids"])
+        runs.update(serve_cluster(cfg, dev, model_dir,
+                                  runs["serve_prefix_fp32"]["ids"],
+                                  runs["serve_fp32"]["ids"]))
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
     cpu_parity(cfg, params, dev)
     cpu_parity(cfg, params, dev, "int8")
     del params

@@ -1,15 +1,18 @@
 """FLAGS registry — env-settable runtime configuration.
 
-The port keeps the part of ``paddle_tpu/core/flags.py`` that this slice
-reads: the ``FLAGS_decode_*`` entries behind ``DecodeConfig`` and the
-typed bucket-list parser. Each flag has a default and is overridable via
-the environment (``FLAGS_<name>=...``) at import.
+The port keeps the part of ``paddle_tpu/core/flags.py`` that its serving
+plane reads: the ``FLAGS_decode_*`` entries behind ``DecodeConfig``, the
+``router_*`` and ``cluster_max_restarts`` entries of the router and the
+cluster controller, the fault-injection, tracing and metrics-window
+entries, the typed bucket-list parser and ``apply`` (a validated bulk
+override that returns the prior values). Each flag has a default and is
+overridable via the environment (``FLAGS_<name>=...``) at import.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 
 class ConfigError(ValueError):
@@ -56,10 +59,41 @@ def define_flag(name: str, default, doc: str = ""):
     return f
 
 
+def _resolve_key(name: str) -> str:
+    key = name[6:] if name.startswith("FLAGS_") else name
+    if key not in _REGISTRY:
+        raise UnknownFlagError(f"unknown flag '{name}' (no FLAGS_{key} "
+                               f"registered)")
+    return key
+
+
 def flag(name: str):
-    if name not in _REGISTRY:
-        raise UnknownFlagError(f"unknown flag '{name}'")
-    return _REGISTRY[name].value
+    return _REGISTRY[_resolve_key(name)].value
+
+
+def apply(overrides: Dict[str, Any]) -> Dict[str, Any]:
+    """Validated bulk override: every name is resolved and every value
+    coerced BEFORE any flag changes. Returns {bare_name: prior_value} of
+    the touched flags; ``apply`` it to roll back."""
+    resolved: Dict[str, Any] = {}
+    for n, v in overrides.items():
+        key = _resolve_key(n)
+        f = _REGISTRY[key]
+        try:
+            resolved[key] = _coerce(f, v)
+        except (TypeError, ValueError) as e:
+            raise ConfigError(
+                f"flag '{key}' cannot take value {v!r} "
+                f"({f.type.__name__} expected): {e}") from e
+    prior = {k: _REGISTRY[k].value for k in resolved}
+    for k, v in resolved.items():
+        _REGISTRY[k].value = v
+    return prior
+
+
+def set_flags(flags: Dict[str, Any]):
+    """paddle.set_flags."""
+    apply(flags)
 
 
 def parse_buckets(spec, name: str = "buckets",
@@ -128,18 +162,66 @@ define_flag("decode_prefix_cache", False,
             "prefill program, and a prompt whose leading full pages are "
             "cached replays only its suffix")
 define_flag("decode_role", "unified",
-            "disaggregated-serving role: 'unified', 'prefill' or "
-            "'decode'; validated and reported in stats(), it gates "
-            "nothing while fetching a shipment is not in the port "
-            "(DecodeEngine.submit_prefill ships under every role)")
+            "disaggregated-serving role: 'unified' prefills and decodes "
+            "locally, 'prefill' ships KV pages over POST /v1/prefill, "
+            "'decode' with disagg_prefill_urls installs shipped pages "
+            "instead of prefilling (serving/disagg.py)")
 define_flag("disagg_prefill_urls", "",
-            "prefill-tier URLs for a decode-role replica (fetching a "
-            "shipment over HTTP is not in the port yet: a non-empty value "
-            "raises NotImplementedError)")
+            "comma-separated prefill-tier URLs a decode-role replica "
+            "fetches KV page shipments from (POST /v1/prefill); usually "
+            "the router's URL, which forwards to a ready prefill-tier "
+            "replica. Empty: every prefill runs locally")
 define_flag("decode_journal_stride", 1,
             "session journaling: snapshot each journaled request every N "
             "accepted tokens, at the step boundary, to the engine's "
             "journal_sink (<= 0 disables)")
+define_flag("decode_step_delay_ms", 0.0,
+            "deliberate host-side delay before each decode step: a pacing "
+            "knob that keeps generations in flight long enough to kill a "
+            "replica mid-generation; 0 (the default) adds nothing")
+
+# -- router and cluster controller (serving/router.py, serving/cluster.py)
+
+define_flag("router_health_interval_s", 0.2,
+            "seconds between router probes of each replica (GET /healthz): "
+            "readiness gates routing, the scraped queue_depth drives "
+            "least-loaded balancing")
+define_flag("router_max_retries", 4,
+            "retry/failover attempts per routed request beyond the first "
+            "(router.retries / router.failovers count them)")
+define_flag("router_backoff", 0.02,
+            "base seconds of the router's exponential retry backoff "
+            "(core/retry.py: doubles per attempt, +/-50% jitter, capped at "
+            "1 s, clipped to the request deadline)")
+define_flag("router_timeout_s", 30.0,
+            "per-request budget in seconds when the client sends no "
+            "deadline_ms; <= 0 disables")
+define_flag("router_dispatch_timeout_s", 10.0,
+            "cap on one dispatch attempt's socket timeout")
+define_flag("router_dedup_capacity", 1024,
+            "bound on the router's request-id dedup cache: a retried "
+            "X-Request-Id already answered replays the cached response "
+            "(router.dedup_hits); <= 0 disables")
 define_flag("router_session_capacity", 4096,
             "SessionJournal bound: the most session records kept, oldest "
             "evicted first (session.evicted)")
+define_flag("cluster_max_restarts", 5,
+            "respawn budget per replica slot: a replica that dies is "
+            "relaunched (router.replica_restarts) up to this many times")
+
+# -- fault injection, tracing, live metrics (core/faults.py, core/trace.py,
+#    core/telemetry.py)
+
+define_flag("fault_spec", "",
+            "fault-injection spec (core/faults.py grammar: "
+            "'site:trigger[:Exc]' clauses); the PT_FAULT_SPEC env var is a "
+            "lower-precedence alias; empty disables injection")
+define_flag("fault_seed", 0,
+            "seed of probabilistic fault rules (PT_FAULT_SEED env alias "
+            "when 0)")
+define_flag("trace_sample_rate", 0.0,
+            "probability that a root span starts a sampled trace "
+            "(core/trace.py); 0 disables; an X-Request-Id forces one")
+define_flag("metrics_window_s", 60.0,
+            "rolling window of the live metrics (telemetry.windowed, "
+            "prometheus_text, /metrics), in seconds")

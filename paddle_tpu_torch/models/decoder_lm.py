@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import json
 import os
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Dict
 
 import numpy as np
@@ -149,6 +149,32 @@ def params_from_numpy(params: Dict[str, np.ndarray],
     device = torch.device(device)
     return {n: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for n, v in params.items()}
+
+
+def _atomic_write(path: str, write, mode: str = "wb"):
+    """Write through a temp file in the same dir, then rename it in."""
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        with open(tmp, mode) as f:
+            write(f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def save_decoder_lm(model_dir: str, cfg: DecoderLMConfig,
+                    params: Dict[str, np.ndarray]) -> str:
+    """Persist config + numpy params as a servable dir, in the reference's
+    format (``decoder_lm_config.json`` + ``decoder_lm_params.npz``, each
+    committed by an atomic rename), so either package's
+    ``load_decoder_lm`` reads it."""
+    os.makedirs(model_dir, exist_ok=True)
+    _atomic_write(os.path.join(model_dir, CONFIG_FILE),
+                  lambda f: json.dump(asdict(cfg), f), mode="w")
+    _atomic_write(os.path.join(model_dir, PARAMS_FILE),
+                  lambda f: np.savez(f, **params))
+    return model_dir
 
 
 def load_decoder_lm(model_dir: str):

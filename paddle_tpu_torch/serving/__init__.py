@@ -1,16 +1,40 @@
-"""Generative serving on PyTorch: the decode engine over a paged KV
-cache, prefix sharing, session journaling and KV page shipments (port of
-``paddle_tpu.serving``'s decode path)."""
+"""Generative serving on PyTorch (port of ``paddle_tpu.serving``'s decode
+plane and its cluster plane).
 
-from .admission import (DeadlineExceededError, EngineClosedError,  # noqa: F401
+* ``decode.DecodeEngine``: continuous-batching generation over a paged KV
+  cache (``kv_cache``), prefix sharing (``prefix_store``), session
+  journaling (``session``), KV page shipments between a prefill and a
+  decode tier (``disagg``);
+* ``server``: ``serve_decode`` and ``ServingHTTPServer``, the HTTP front
+  end (``/v1/generate``, ``/v1/prefill``, ``/healthz``, ``/livez``,
+  ``/v1/stats``, ``/metrics``) with the readiness machine of ``health``;
+* ``router``: prefix-affinity, failover, dedup and session resumption
+  over the replicas; ``RouterHTTPServer`` its front end;
+* ``cluster``: ``ClusterController`` launches decode replicas
+  (``replica``: ``python -m paddle_tpu_torch.serving.replica``) in tiers
+  behind a router and respawns the ones that die.
+
+Not in the port yet: the micro-batching ``ServingEngine`` with
+``serve``/``LocalClient`` (ROADMAP A5b).
+"""
+
+from .admission import (AdmissionQueue, DeadlineExceededError,  # noqa: F401
+                        EngineClosedError, InferenceRequest,
                         KVCacheExhaustedError, ServerOverloadedError,
                         ServingError)
+from .cluster import (ClusterController, ClusterError,  # noqa: F401
+                      InprocReplica, ReplicaProcess)
 from .decode import (DecodeConfig, DecodeEngine,  # noqa: F401
                      GenerationRequest, ShipPrefillRequest,
                      decode_engine_from_dir)
 from .disagg import (ShipmentCRCError, ShipmentError,  # noqa: F401
-                     pack_shipment, unpack_shipment)
+                     fetch_prefill, pack_shipment, unpack_shipment)
+from .health import HealthState  # noqa: F401
 from .kv_cache import KVPagePool  # noqa: F401
 from .prefix_store import PrefixStore, prefix_chain_hash  # noqa: F401
+from .router import (NoReplicaAvailableError, ReplicaHandle,  # noqa: F401
+                     Router, RouterHTTPServer)
+from .server import (LocalClient, ServingHTTPServer, serve,  # noqa: F401
+                     serve_decode)
 from .session import (SessionJournal, pack_rng_state,  # noqa: F401
                       resume_args, unpack_rng_state)

@@ -7,6 +7,14 @@ graceful drain (port of ``paddle_tpu/serving/admission.py``).
   ``DeadlineExceededError`` at dequeue instead of taking a slot;
 * ``close(drain=True)`` stops admission and lets the engine finish the
   backlog; ``drain=False`` fails the backlog with ``EngineClosedError``.
+
+The typed errors are what the HTTP server (serving/server.py) maps to
+status codes, as the reference does: ``ValueError`` 400,
+``KVCacheExhaustedError`` 429 (``error_type`` "KVCacheExhaustedError"),
+``ServerOverloadedError`` 429 (``Retry-After``), ``EngineClosedError``
+503, ``DeadlineExceededError`` 504, anything else 500. Not in the port
+yet (ROADMAP A5b): ``submit``/``take_batch``, the micro-batching
+``ServingEngine``'s shape-signature batch assembly.
 """
 
 from __future__ import annotations

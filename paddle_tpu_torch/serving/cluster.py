@@ -1,0 +1,475 @@
+"""Cluster serving control plane, the decode plane: replicated decode
+engines behind one router, with supervised respawn (port of
+``paddle_tpu/serving/cluster.py``).
+
+* N **replicas**, each a DecodeEngine behind the HTTP server
+  (serving/replica.py), with the health.py readiness machine;
+* a **router** (router.py) with prefix affinity, failover on the
+  core/retry.py schedule, request-id dedup and the session journal;
+* **tiers**: ``role_counts={"prefill": 1, "decode": 2}`` provisions each
+  slot with a role it keeps across respawns. Decode-role replicas pull
+  their prefill shipments THROUGH the router (``prefill_urls`` = the
+  router's URL, ``Router.forward_prefill``) and every replica but a
+  prefill one journals its sessions to the router;
+* a **monitor** thread: a death is counted (``router.replica_deaths``),
+  the handle is marked down (the router has failed over by then) and the
+  slot is respawned on a core/retry.py schedule, up to
+  ``FLAGS_cluster_max_restarts`` times (``router.replica_restarts``;
+  ``router.affinity_remaps`` when a tier member comes back).
+
+Two replica backends share every path:
+
+* ``inprocess=False`` (default): OS processes, ``python -m
+  paddle_tpu_torch.serving.replica --device <device>``;
+* ``inprocess=True``: engine + HTTP server threads in this process, the
+  same wire surface on real sockets (never respawned: a test kills one
+  on purpose).
+
+``device=None`` means the card (``cuda``; raising without CUDA), as in
+every entry point of the port; tests pass ``"cpu"``.
+
+Not in the port yet (ROADMAP A5b, with ``checkpoint.ModelWatcher``, the
+micro-batching ``ServingEngine`` and the scaler): the predictor fleet over
+a published-models root, the rolling swap (``roll_to``, ``_watch_loop``,
+``_swap_one``), ``scale_to`` / ``scale_tier``, ``retune_replica`` and the
+autoscaler; a controller without ``decode_model_dir`` raises. The
+fleet observatory and the ``replica_death`` incident record are ROADMAP
+A10.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+from ..core import retry, telemetry
+from ..core.flags import flag as _flag
+from .router import Router, RouterHTTPServer
+
+
+class ClusterError(RuntimeError):
+    """Control-plane failure (a replica never came up)."""
+
+
+def _device_arg(device) -> str:
+    """The --device of a replica process: None means the card."""
+    return "cuda" if device is None else str(device)
+
+
+# ---------------------------------------------------------------------------
+# replica backends
+# ---------------------------------------------------------------------------
+
+class ReplicaProcess:
+    """One supervised replica OS process."""
+
+    def __init__(self, name: str, decode_model_dir: str,
+                 env: Optional[Dict[str, str]] = None,
+                 ready_timeout_s: float = 120.0, role: str = "unified",
+                 prefill_urls: str = "", prefix_cache: bool = False,
+                 journal_url: str = "", device=None, **_ignored):
+        self.name = name
+        self.decode_model_dir = decode_model_dir
+        self.env = env
+        self.ready_timeout_s = ready_timeout_s
+        # disaggregated-serving tier: passed to the process and the
+        # router's affinity pick
+        self.role = str(role or "unified")
+        self.prefill_urls = prefill_urls
+        self.prefix_cache = bool(prefix_cache)
+        self.journal_url = journal_url
+        self.device = _device_arg(device)
+        self.proc: Optional[subprocess.Popen] = None
+        self.url: Optional[str] = None
+        self.version: Optional[int] = None
+        self.log_tail: "deque[str]" = deque(maxlen=200)
+        self._drain_thread: Optional[threading.Thread] = None
+
+    def spawn(self):
+        """Launch and block until the PT_REPLICA_READY announce line (or
+        ``ready_timeout_s``); a replica that exits or stays silent raises
+        ClusterError with the tail of its output."""
+        env = dict(os.environ if self.env is None else self.env)
+        repo_root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env["PYTHONPATH"] = repo_root + os.pathsep + \
+            env.get("PYTHONPATH", "")
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.serving.replica",
+               "--decode-model-dir", self.decode_model_dir, "--port", "0",
+               "--device", self.device]
+        if self.prefill_urls:
+            cmd += ["--prefill-urls", self.prefill_urls]
+        if self.prefix_cache:
+            cmd += ["--prefix-cache"]
+        if self.journal_url and self.role != "prefill":
+            cmd += ["--journal-url", self.journal_url]
+        if self.role != "unified":
+            cmd += ["--role", self.role]
+        self.proc = subprocess.Popen(
+            cmd, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, bufsize=1)
+        announce = self._await_announce()
+        if announce is None:
+            if self.proc.poll() is None:
+                self.proc.kill()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
+            raise ClusterError(
+                f"replica {self.name} never announced readiness "
+                f"(exit={self.proc.returncode}); last output:\n"
+                + "\n".join(list(self.log_tail)[-20:]))
+        self.url = announce["url"]
+        self.version = announce.get("version")
+        # keep draining stdout so the pipe never fills and wedges the child
+        self._drain_thread = threading.Thread(
+            target=self._drain, name=f"pt-torch-replica-log-{self.name}",
+            daemon=True)
+        self._drain_thread.start()
+        return self
+
+    def _await_announce(self) -> Optional[Dict[str, Any]]:
+        """Read the child's output until its announce line, its exit or
+        the deadline; a reader thread keeps the deadline in force while
+        the child prints nothing."""
+        found: Dict[str, Any] = {}
+        done = threading.Event()
+
+        def read():
+            try:
+                for line in self.proc.stdout:
+                    self.log_tail.append(line.rstrip())
+                    if line.startswith("PT_REPLICA_READY "):
+                        found.update(json.loads(
+                            line[len("PT_REPLICA_READY "):]))
+                        return
+            except (OSError, ValueError):
+                pass
+            finally:
+                done.set()
+
+        reader = threading.Thread(target=read, daemon=True,
+                                  name=f"pt-torch-replica-boot-{self.name}")
+        reader.start()
+        done.wait(self.ready_timeout_s)
+        return found or None
+
+    def _drain(self):
+        try:
+            for line in self.proc.stdout:
+                self.log_tail.append(line.rstrip())
+        except (OSError, ValueError):
+            pass
+
+    def alive(self) -> bool:
+        return self.proc is not None and self.proc.poll() is None
+
+    def kill(self, sig: int = signal.SIGKILL):
+        """The ungraceful death (tests, chaos)."""
+        if self.alive():
+            self.proc.send_signal(sig)
+
+    def stop(self, timeout: float = 30.0):
+        """Graceful stop: SIGTERM (the replica drains), then SIGKILL."""
+        if self.proc is None:
+            return
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=5)
+        if self._drain_thread is not None:
+            self._drain_thread.join(timeout=2)
+
+
+class InprocReplica:
+    """Engine + HTTP server threads in this process: the same wire surface
+    as ReplicaProcess at a fraction of the start-up cost."""
+
+    def __init__(self, name: str, decode_model_dir: str,
+                 role: str = "unified", prefill_urls: str = "",
+                 prefix_cache: bool = False, journal_sink=None,
+                 device=None, **_ignored):
+        self.name = name
+        self.decode_model_dir = decode_model_dir
+        self.role = str(role or "unified")
+        self.prefill_urls = prefill_urls
+        self.prefix_cache = bool(prefix_cache)
+        # in-process replicas journal straight into the router's
+        # SessionJournal: the same records, no HTTP hop
+        self.journal_sink = journal_sink
+        self.device = device
+        self.engine = None
+        self.server = None
+        self.url: Optional[str] = None
+        self.version: Optional[int] = None
+        self._stopped = False
+
+    def spawn(self):
+        from .decode import DecodeConfig, decode_engine_from_dir
+        from .server import ServingHTTPServer
+
+        config = DecodeConfig(role=self.role, prefill_urls=self.prefill_urls,
+                              prefix_cache=self.prefix_cache or None)
+        self.engine = decode_engine_from_dir(self.decode_model_dir,
+                                             config=config,
+                                             device=self.device)
+        if self.journal_sink is not None and self.role != "prefill":
+            self.engine.journal_sink = self.journal_sink
+        self.server = ServingHTTPServer(
+            None, decode_engine=self.engine).start()
+        self.url = self.server.url
+        self.version = self.engine.version
+        self.engine.start(warmup=True)
+        self._stopped = False
+        return self
+
+    def alive(self) -> bool:
+        return not self._stopped
+
+    def kill(self, sig: int = signal.SIGKILL):
+        """Abrupt death: tear the socket down and fail the backlog —
+        in-flight router dispatches see reset/refused, as after a
+        SIGKILL."""
+        self._stopped = True
+        if self.server is not None:
+            self.server.shutdown()
+        if self.engine is not None:
+            self.engine.close(drain=False, timeout=5)
+
+    def stop(self, timeout: float = 30.0):
+        if self._stopped:
+            return
+        self._stopped = True
+        if self.engine is not None:
+            self.engine.close(drain=True, timeout=timeout)
+        if self.server is not None:
+            self.server.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the controller
+# ---------------------------------------------------------------------------
+
+class ClusterController:
+    """Launch N decode replicas over a decoder-LM servable dir, front them
+    with a router and respawn the ones that die.
+
+        cluster = ClusterController("", decode_model_dir=d,
+                                    role_counts={"decode": 2}).start()
+        ... POST cluster.url + "/v1/generate" ...
+        cluster.close()
+    """
+
+    def __init__(self, model_root: str = "", replicas: int = 2,
+                 inprocess: bool = False,
+                 replica_env: Optional[Dict[str, str]] = None,
+                 host: str = "127.0.0.1", router_port: int = 0,
+                 max_restarts: Optional[int] = None,
+                 decode_model_dir: Optional[str] = None,
+                 role_counts: Optional[Dict[str, int]] = None,
+                 prefix_cache: bool = False, device=None,
+                 replica_ready_timeout_s: float = 120.0):
+        if not decode_model_dir:
+            raise NotImplementedError(
+                "ClusterController over a published-models root (the "
+                "predictor fleet, rolling swaps, scaling) is not in the "
+                "port yet (ROADMAP A5b): pass decode_model_dir")
+        self.model_root = os.path.abspath(model_root) if model_root else ""
+        self.n_replicas = int(replicas)
+        self.inprocess = bool(inprocess)
+        self.replica_env = replica_env
+        self.max_restarts = int(
+            _flag("cluster_max_restarts") if max_restarts is None
+            else max_restarts)
+        self.device = device
+        self.replica_ready_timeout_s = float(replica_ready_timeout_s)
+        self.decode_model_dir = os.path.abspath(decode_model_dir)
+        self.prefix_cache = bool(prefix_cache)
+        # role_counts is the tier view ({"prefill": 1, "decode": 2}): it
+        # fixes each slot's role, which the router's affinity pick reads;
+        # without it every replica is unified
+        self.roles: List[str] = []
+        for r in sorted(role_counts or {}):
+            self.roles.extend([str(r)] * int(role_counts[r]))
+        if self.roles:
+            self.n_replicas = len(self.roles)
+        # slot -> role: a respawn keeps the role its slot was provisioned
+        # with
+        self._slot_roles: Dict[int, str] = {}
+        self.router = Router()
+        self.router_server = RouterHTTPServer(self.router, host=host,
+                                              port=router_port)
+        self.replicas: List[Any] = []
+        self._handles: Dict[str, Any] = {}
+        self._restarts: Dict[str, int] = {}
+        self._next_index = 0
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._counted_dead: set = set()
+
+    # -- lifecycle -----------------------------------------------------------
+    @property
+    def url(self) -> str:
+        return self.router_server.url
+
+    def _make_replica(self, index: int, role: Optional[str] = None):
+        name = f"replica-{index}"
+        cls = InprocReplica if self.inprocess else ReplicaProcess
+        if role is None:
+            role = self._slot_roles.get(index)
+        if role is None:
+            role = self.roles[index % len(self.roles)] if self.roles \
+                else "unified"
+        self._slot_roles[index] = role
+        extra: Dict[str, Any] = {}
+        if role == "decode":
+            # pull shipments THROUGH the router (forward_prefill): the
+            # replica never tracks prefill-tier membership
+            extra["prefill_urls"] = self.url
+        if role != "prefill":
+            # RouterHTTPServer binds its port at construction, so the
+            # journal endpoint is known before any spawn
+            extra["journal_url"] = self.url + "/v1/session/journal"
+            extra["journal_sink"] = self.router.sessions.update
+        return cls(name, self.decode_model_dir, env=self.replica_env,
+                   role=role, prefix_cache=self.prefix_cache,
+                   device=self.device,
+                   ready_timeout_s=self.replica_ready_timeout_s, **extra)
+
+    def start(self, ready_timeout_s: float = 120.0) -> "ClusterController":
+        try:
+            for _ in range(self.n_replicas):
+                replica = self._make_replica(self._next_index)
+                self._next_index += 1
+                replica.spawn()
+                self.replicas.append(replica)
+                self._restarts[replica.name] = 0
+                self._handles[replica.name] = self.router.add_replica(
+                    replica.name, replica.url, role=replica.role)
+            self.router.start()
+            self.router_server.start()
+            self._wait_ready(ready_timeout_s)
+        except BaseException:
+            self.close()
+            raise
+        mon = threading.Thread(target=self._monitor_loop,
+                               name="pt-torch-cluster-monitor", daemon=True)
+        mon.start()
+        self._threads.append(mon)
+        return self
+
+    def _wait_ready(self, timeout_s: float):
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            for handle in self.router.handles():
+                self.router.probe(handle)
+            if all(h.ready for h in self.router.handles()):
+                return
+            dead = [r.name for r in self.replicas if not r.alive()]
+            if dead:
+                break
+            time.sleep(0.1)
+        not_ready = [h.name for h in self.router.handles() if not h.ready]
+        tails = {r.name: list(getattr(r, "log_tail", ()))[-20:]
+                 for r in self.replicas if r.name in not_ready}
+        raise ClusterError(f"replicas never became ready: {not_ready}; "
+                           f"last output: {tails}")
+
+    def close(self):
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=10)
+        self._threads = []
+        self.router_server.shutdown()
+        self.router.close()
+        for replica in self.replicas:
+            replica.stop()
+
+    # -- supervision ---------------------------------------------------------
+    def _monitor_loop(self):
+        while not self._stop.wait(0.25):
+            for replica in list(self.replicas):
+                if self._stop.is_set():
+                    return
+                if replica.alive():
+                    self._counted_dead.discard(id(replica))
+                    continue
+                handle = self._handles.get(replica.name)
+                if handle is not None:
+                    handle.mark_down("process_died")
+                if id(replica) not in self._counted_dead:
+                    self._counted_dead.add(id(replica))
+                    telemetry.counter_add("router.replica_deaths", 1,
+                                          replica=replica.name)
+                if self.inprocess:
+                    continue   # tests kill in-process replicas on purpose
+                if self._restarts[replica.name] >= self.max_restarts:
+                    telemetry.counter_add("router.replica_abandoned", 1,
+                                          replica=replica.name)
+                    continue
+                self._restarts[replica.name] += 1
+                telemetry.counter_add("router.replica_restarts", 1,
+                                      replica=replica.name)
+                self._respawn(replica, handle)
+
+    def _respawn(self, replica, handle):
+        """Relaunch a dead replica's slot (same name, same role) on a
+        core/retry.py schedule and point its router handle at the new
+        process."""
+        sched = retry.RetryPolicy(max_retries=3, backoff=0.2,
+                                  deadline=300.0).start()
+        while not self._stop.is_set():
+            try:
+                fresh = self._make_replica(
+                    int(replica.name.rsplit("-", 1)[-1]))
+                fresh.spawn()
+            except ClusterError:
+                outcome, delay = sched.note_failure()
+                if outcome != retry.RETRY:
+                    telemetry.counter_add("router.replica_abandoned", 1,
+                                          replica=replica.name)
+                    return
+                time.sleep(delay)
+                continue
+            slot = next((j for j, r in enumerate(self.replicas)
+                         if r is replica), None)
+            if slot is None or self._stop.is_set():
+                fresh.stop()
+                return
+            self.replicas[slot] = fresh
+            if handle is not None:
+                handle.rebind(fresh.url)
+                self.router.probe(handle)
+            if fresh.role in ("decode", "prefill"):
+                # tier membership changed: the affinity hash now maps some
+                # sessions elsewhere
+                telemetry.counter_add("router.affinity_remaps", 1,
+                                      role=fresh.role, reason="respawn")
+            return
+
+    # -- introspection -------------------------------------------------------
+    def replica_named(self, name: str):
+        return next((r for r in self.replicas if r.name == name), None)
+
+    def tier_members(self, role: str) -> List[Any]:
+        """Live replicas provisioned into ``role`` (slot order)."""
+        return [r for r in self.replicas
+                if getattr(r, "role", "unified") == str(role)]
+
+    def stats(self) -> Dict[str, Any]:
+        out = self.router.stats()
+        out["restarts"] = dict(self._restarts)
+        out["replica_backend"] = "inprocess" if self.inprocess \
+            else "process"
+        return out

@@ -40,13 +40,24 @@ cold run's. **Session journaling** (``journal_sink``,
 a journaled request's record goes to the sink, and ``submit`` with
 ``prior_tokens`` and ``rng_state`` resumes it. **Shipments**
 (``submit_prefill``, ``serving/disagg.py``): a prefill whose KV pages
-come back as the wire format's bytes.
+come back as the wire format's bytes. A ``decode``-role engine with
+``prefill_urls`` fetches each prompt's shipment from the prefill tier
+(``_admit_shipped``), checks its CRCs, installs its pages into the pool
+and samples the first token from the shipped logits; a fetch that fails
+or a shipment that is rejected falls back to a local prefill on the same
+device (``disagg.fallback_prefills``), as the reference does.
+
+Fault sites (core/faults.py), the reference's: ``decode.step`` fails the
+in-flight step (its requests get a per-request error, their pages go
+back), ``decode.kv_alloc`` one request's page allocation,
+``kv.prefix_lookup`` one request's prefix lookup and ``disagg.ship`` one
+shipment. ``FLAGS_decode_step_delay_ms`` sleeps before each step (a
+pacing knob: it keeps generations in flight long enough to kill a
+replica mid-generation).
 
 Entry points run on the card: ``device=None`` means ``cuda:0`` and raises
 when CUDA is absent; tests pass ``device="cpu"``, where every kernel
-wrapper runs its plain PyTorch version. Not in the port yet (ROADMAP
-A5): fetching and installing a shipment from a prefill tier over HTTP
-(``prefill_urls`` raises ``NotImplementedError``).
+wrapper runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -59,8 +70,8 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..core import faults, telemetry
 from ..core import flags as _flags
-from ..core import telemetry
 from ..core.executor import run_block
 from ..core.graph import StepGraph
 from ..core.flags import flag as _flag
@@ -154,12 +165,9 @@ class DecodeConfig:
         if prefill_urls is None:
             prefill_urls = _flag("disagg_prefill_urls")
         if isinstance(prefill_urls, str):
-            prefill_urls = [u for u in prefill_urls.split(",") if u.strip()]
-        if prefill_urls:
-            raise NotImplementedError(
-                "prefill_urls: fetching KV page shipments from a prefill "
-                "tier over HTTP, and installing them, is not in the port "
-                "yet (ROADMAP A5)")
+            prefill_urls = [u.strip() for u in prefill_urls.split(",")
+                            if u.strip()]
+        self.prefill_urls = [str(u) for u in prefill_urls]
 
     def bucket(self, active: int) -> int:
         for b in self.buckets:
@@ -290,12 +298,15 @@ class DecodeEngine:
     pools and every program run.
 
     ``params`` is the JAX package's numpy parameter dict (fp32, or its
-    int8 form), exactly what ``paddle_tpu``'s engine takes. ``device``
+    int8 form), exactly what ``paddle_tpu``'s engine takes. ``version`` is
+    the model version ``stats()`` and the HTTP surface report. ``device``
     defaults to cuda:0."""
 
     def __init__(self, model_cfg: DecoderLMConfig, params: Dict[str, Any],
-                 config: Optional[DecodeConfig] = None, device=None):
+                 config: Optional[DecodeConfig] = None, device=None,
+                 version: int = 0):
         self.device = resolve_device(device)
+        self.version = int(version)
         self.model_cfg = model_cfg
         self.config = config or DecodeConfig()
         params = {n: v.detach().cpu().numpy() if torch.is_tensor(v)
@@ -419,6 +430,7 @@ class DecodeEngine:
         out = {k.split(".", 1)[1]: v for k, v in snap["counters"].items()
                if k.startswith("decode.")}
         out["queue_depth"] = self.queue.depth()
+        out["model_version"] = self.version
         out["status"] = self.health.state
         out["role"] = self.config.role
         out["device"] = str(self.device)
@@ -435,6 +447,8 @@ class DecodeEngine:
         # launches of each hand-written kernel (0 on the CPU, where the
         # wrappers run their plain versions)
         out["kernels"] = kernels.launch_counts()
+        out["kernel_layouts"] = kernels.layout_counts()
+        out["int8_instances"] = kernels.int8_instance_counts()
         hists = snap["hists"]
         for key in ("decode.step_ms", "decode.prefill_ms",
                     "decode.request_ms"):
@@ -623,18 +637,37 @@ class DecodeEngine:
             if isinstance(req, ShipPrefillRequest):
                 self._ship_prefill(req)
                 continue
+            # disaggregated decode role: install a shipped prefill from
+            # the prefill tier; any failure falls back to a local prefill
+            if (self.config.role == "decode" and self.config.prefill_urls
+                    and self._admit_shipped(req)):
+                continue
             hashes: List[str] = []
             shared: List[int] = []
             if self.prefix_store is not None:
-                hashes, shared = self.prefix_store.lookup(req.seq)
+                try:
+                    hashes, shared = self.prefix_store.lookup(req.seq)
+                except Exception as e:   # injected kv.prefix_lookup fault
+                    telemetry.counter_add("decode.errors", 1)
+                    req.fail(e if isinstance(e, ServingError) else
+                             ServingError(f"prefix lookup failed: {e!r}"))
+                    continue
             need = self.pool.pages_for_tokens(
                 int(req.seq.size) + req.max_new_tokens) - len(hashes)
-            pages = self.pool.try_alloc(need)
-            if not pages and self.prefix_store is not None:
-                # pool pressure: evict idle chains LRU-first, retry once
-                short = need - self.pool.free_pages()
-                if short > 0 and self.prefix_store.reclaim(short):
-                    pages = self.pool.try_alloc(need)
+            try:
+                pages = self.pool.try_alloc(need)
+                if not pages and self.prefix_store is not None:
+                    # pool pressure: evict idle chains LRU-first, retry once
+                    short = need - self.pool.free_pages()
+                    if short > 0 and self.prefix_store.reclaim(short):
+                        pages = self.pool.try_alloc(need)
+            except Exception as e:   # injected decode.kv_alloc fault
+                if hashes:
+                    self.prefix_store.release(hashes)
+                telemetry.counter_add("decode.errors", 1)
+                req.fail(e if isinstance(e, ServingError) else ServingError(
+                    f"KV page allocation failed: {e!r}"))
+                continue
             if not pages:
                 if hashes:
                     self.prefix_store.release(hashes)
@@ -778,12 +811,14 @@ class DecodeEngine:
     def _ship_prefill(self, req: ShipPrefillRequest):
         """Prefill-and-ship (serving/disagg.py): run the prompt's classic
         prefill, read its finished pages back to the host, pack the
-        shipment, free the pages and resolve with the bytes. A failure is
-        the request's own; the pool stays clean."""
+        shipment, free the pages and resolve with the bytes. A failure
+        (``disagg.ship`` faults inject here) is the request's own; the pool
+        stays clean."""
         from . import disagg
 
         pages: List[int] = []
         try:
+            faults.maybe_fail("disagg.ship", tokens=int(req.prompt.size))
             L = int(req.prompt.size)
             n_pages = self.pool.pages_for_tokens(L)
             pages = self.pool.try_alloc(n_pages)
@@ -815,9 +850,67 @@ class DecodeEngine:
             req.fail(e if isinstance(e, ServingError) else ServingError(
                 f"prefill shipment failed: {e!r}"))
 
+    def _admit_shipped(self, req: GenerationRequest) -> bool:
+        """Decode-tier admission (serving/disagg.py): fetch the prompt's
+        KV page shipment from the prefill tier, check its CRCs, copy its
+        pages into the pool in place and seat the request with its first
+        token sampled from the shipped logits. Returns False on any
+        failure (connection, HTTP error, CRC reject, a shipment for
+        another prompt, no pool headroom), after which the caller runs
+        the prefill locally (``disagg.fallback_prefills``): a corrupt
+        shipment is prefilled again, never served."""
+        import zlib
+
+        from . import disagg
+
+        urls = self.config.prefill_urls
+        pages: List[int] = []
+        try:
+            url = urls[zlib.crc32(req.seq.tobytes()) % len(urls)]
+            blob = disagg.fetch_prefill(url, req.seq)
+            ship = disagg.unpack_shipment(blob)   # raises on a CRC reject
+            L = int(req.seq.size)
+            if (ship["page_size"] != self.config.page_size
+                    or ship["tokens"] != [int(t) for t in req.seq]
+                    or set(ship["layers"]) != set(self._pools)):
+                raise disagg.ShipmentError(
+                    "shipment does not match the request")
+            need = self.pool.pages_for_tokens(L + req.max_new_tokens)
+            pages = self.pool.try_alloc(need)
+            if not pages:
+                return False
+            idx = torch.as_tensor(pages[:ship["n_pages"]], dtype=torch.int64,
+                                  device=self.device)
+            for name, arr in ship["layers"].items():
+                pool = self._pools[name]
+                pool[idx] = torch.from_numpy(arr.copy()).to(self.device,
+                                                            pool.dtype)
+            req.pages = pages
+            pages = []
+            row = np.zeros(self._mp, np.int32)
+            row[:len(req.pages)] = req.pages
+            req.table_row = row
+            telemetry.counter_add("disagg.installs", 1)
+            telemetry.counter_add("decode.prefills", 1)
+            self._append_token(req, np.asarray(ship["logits"]))
+            req.pos_next = L
+            if req.finished():
+                self._retire(req)
+            else:
+                self._active.append(req)
+            return True
+        except Exception:
+            if pages:
+                self.pool.free(pages)
+            telemetry.counter_add("disagg.fallback_prefills", 1)
+            return False
+
     def _run_step(self):
         """DECODE: one fixed-shape step over the padded slot array;
         per-request deadlines are checked here, at step granularity."""
+        delay_ms = float(_flag("decode_step_delay_ms"))
+        if delay_ms > 0:   # pacing knob, off by default
+            time.sleep(delay_ms / 1e3)
         now = time.monotonic()
         for req in [r for r in self._active if r.expired(now)]:
             self._active.remove(req)
@@ -829,6 +922,7 @@ class DecodeEngine:
             return
         active = self._active
         bucket = self.config.bucket(len(active))
+        faults.maybe_fail("decode.step", active=len(active), bucket=bucket)
         tokens = np.zeros(bucket, np.int32)
         positions = np.zeros(bucket, np.int32)
         table = np.zeros((bucket, self._mp), np.int32)
@@ -907,8 +1001,8 @@ class DecodeEngine:
 
 def decode_engine_from_dir(model_dir: str,
                            config: Optional[DecodeConfig] = None,
-                           device=None) -> DecodeEngine:
-    """Servable dir (written by ``paddle_tpu``'s save_decoder_lm) ->
-    engine."""
+                           device=None, version: int = 0) -> DecodeEngine:
+    """Servable dir (``save_decoder_lm`` of either package) -> engine."""
     cfg, params = load_decoder_lm(model_dir)
-    return DecodeEngine(cfg, params, config=config, device=device)
+    return DecodeEngine(cfg, params, config=config, device=device,
+                        version=version)

@@ -14,8 +14,10 @@ layout (layer names in order, shapes), a CRC for each page of each layer
 and the CRC of the shipped first-token logits row. ``unpack_shipment``
 checks every CRC and raises ``ShipmentCRCError`` on any mismatch
 (``disagg.crc_rejects``): a corrupt shipment is rejected, never served.
-Fetching a shipment from a prefill tier over HTTP, and installing it in
-a decode engine, are not in the port yet.
+
+``fetch_prefill`` pulls a shipment over HTTP (``POST /v1/prefill``) from a
+prefill replica or from the cluster router, which forwards it to a ready
+prefill-tier member; ``DecodeEngine._admit_shipped`` installs it.
 """
 
 from __future__ import annotations
@@ -133,3 +135,39 @@ def unpack_shipment(blob: bytes) -> Dict[str, Any]:
     return {"page_size": int(header["page_size"]), "n_pages": n_pages,
             "tokens": [int(t) for t in header["tokens"]],
             "layers": layers, "logits": logits}
+
+
+def fetch_prefill(url: str, prompt: np.ndarray,
+                  timeout: float = 30.0) -> bytes:
+    """POST the prompt to ``/v1/prefill`` and return the raw shipment bytes
+    (an HTTP error status raises ShipmentError; a connection failure
+    raises OSError).
+
+    ``url`` may point at a prefill replica or at the cluster router, which
+    forwards to a live prefill-tier member (``router.prefill_forwards``),
+    so prefill-tier membership changes stay invisible to decode replicas.
+    A path in ``url`` is kept as a prefix (``http://router:8080/v1/prefill``
+    works); a bare host:port gets ``/v1/prefill`` appended."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlparse(url)
+    path = u.path.rstrip("/")
+    if not path.endswith("/v1/prefill"):
+        path = path + "/v1/prefill"
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    try:
+        body = json.dumps(
+            {"prompt": [int(t) for t in np.asarray(prompt).reshape(-1)]}
+        ).encode("utf-8")
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        if resp.status != 200:
+            raise ShipmentError(
+                f"prefill tier {url} answered {resp.status}: "
+                f"{data[:200]!r}")
+        return data
+    finally:
+        conn.close()

@@ -17,7 +17,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from ..core import telemetry
+from ..core import faults, telemetry
 from .admission import KVCacheExhaustedError
 
 
@@ -80,7 +80,9 @@ class KVPagePool:
         return need
 
     def try_alloc(self, n: int) -> List[int]:
-        """Pop n pages, or [] when the pool cannot seat them right now."""
+        """Pop n pages, or [] when the pool cannot seat them right now.
+        ``decode.kv_alloc`` faults inject here."""
+        faults.maybe_fail("decode.kv_alloc", pages=n)
         with self._lock:
             if n > len(self._free):
                 return []

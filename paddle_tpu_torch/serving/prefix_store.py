@@ -35,9 +35,10 @@ Lifecycle:
 The hashing is the reference's byte for byte (blake2b, 16-byte digest,
 over the parent hash, ``|`` and the comma-joined decimal tokens), so
 ``prefix_chain_hash`` gives the same affinity key in either package.
-The reference also books the saved bytes in its HBM ledger, injects
-faults at ``kv.prefix_lookup`` and takes its lock through the lock-order
-checker; the port has none of those modules yet and uses a plain lock.
+``kv.prefix_lookup`` faults inject at ``lookup`` (core/faults.py). The
+reference also books the saved bytes in its HBM ledger and takes its lock
+through the lock-order checker; the port has neither yet (ROADMAP A10)
+and uses a plain lock.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ import hashlib
 import threading
 from typing import Any, Dict, List, Sequence, Tuple
 
-from ..core import telemetry
+from ..core import faults, telemetry
 from .kv_cache import KVPagePool
 
 ROOT_HASH = "root"
@@ -129,7 +130,9 @@ class PrefixStore:
         pages), refcounts bumped; the caller must ``release`` the hashes
         at retirement. Matches at most ``floor((L-1)/P)`` blocks, so the
         final prompt chunk is always recomputed (it yields the
-        first-token logits)."""
+        first-token logits). ``kv.prefix_lookup`` faults inject here: a
+        failure is a per-request error, no refcount moves."""
+        faults.maybe_fail("kv.prefix_lookup", tokens=len(tokens))
         P = self.page_size
         max_blocks = max(0, (len(tokens) - 1) // P)
         hashes: List[str] = []

@@ -1,0 +1,301 @@
+"""HTTP front end of the generative decode plane (port of
+``paddle_tpu/serving/server.py``).
+
+Stdlib only (http.server + json), as the reference:
+
+    POST /v1/generate {"prompt_ids": [ints], "max_new_tokens"?,
+                      "temperature"?, "seed"?, "deadline_ms"?,
+                      "stop_at_eos"?, "request_id"?, "prior_tokens"?,
+                      "rng_state"?}
+             200 ->  {"tokens": [ints], "num_tokens", "ttft_ms",
+                      "model_version", "latency_ms"} (+ "request_id" when
+                     the body or an X-Request-Id header names one,
+                     "resumed" for a resumed session)
+             400 bad request (malformed JSON, no prompt, over max_seq_len)
+             429 ServerOverloadedError (Retry-After), or error_type
+                 "KVCacheExhaustedError": the pages can never fit
+             503 EngineClosedError (draining / shut down)
+             504 DeadlineExceededError
+             500 anything else (per request; the engine keeps serving)
+    POST /v1/prefill {"prompt": [ints]} -> the KV page shipment
+                     (application/octet-stream, serving/disagg.py), with
+                     the same error codes
+    GET  /healthz    READINESS (serving/health.py): 200 {"status": "ok"}
+                     only when the replica can serve now, else 503 with
+                     "starting" / "swapping" / "draining" / "stopped"
+    GET  /livez      LIVENESS: 200 in any state but stopped, else 503
+    GET  /v1/stats   {"decode": DecodeEngine.stats()}
+    GET  /metrics    Prometheus text of the live registry
+                     (telemetry.prometheus_text)
+
+Tracing: each /v1/generate and /v1/prefill request opens a root span
+(``serving.http_request``, core/trace.py); an ``X-Request-Id`` header
+forces sampling and pins the trace id, and a sampled request answers
+with an ``X-Trace-Id`` header.
+
+``serve_decode(model_dir)`` wires a servable dir -> warmed DecodeEngine
+-> started server in one call. ``device=None`` means ``cuda:0`` (raising
+without CUDA); tests pass ``device="cpu"``.
+
+Not in the port yet: the micro-batching ``ServingEngine`` and with it
+``serve()``, ``LocalClient``, ``/v1/infer`` and ``/v1/admin/swap``
+(ROADMAP A5b: ``/v1/infer`` answers 404 as the reference does with no
+``ServingEngine`` attached, ``/v1/admin/swap`` answers 404 naming A5b);
+the SLO watchdog (``incidents.start_watchdog``) and the ``health``
+section of ``/v1/stats`` (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from ..core import telemetry, trace
+from .admission import (DeadlineExceededError, EngineClosedError,
+                        KVCacheExhaustedError, ServerOverloadedError)
+
+_A5B = ("the micro-batching ServingEngine ({what}) is not in the port "
+        "yet (ROADMAP A5b)")
+
+
+class LocalClient:
+    """The reference's in-process client of the micro-batching
+    ServingEngine: not in the port yet (ROADMAP A5b)."""
+
+    def __init__(self, engine=None):
+        raise NotImplementedError(_A5B.format(what="LocalClient"))
+
+
+class _Handler(BaseHTTPRequestHandler):
+    # the decode engine is attached to the server object by
+    # ServingHTTPServer
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):   # no per-request stderr lines
+        pass
+
+    def _reply(self, code: int, payload: Dict[str, Any],
+               headers: Optional[Dict[str, str]] = None):
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _read_json(self) -> Dict[str, Any]:
+        length = int(self.headers.get("Content-Length") or 0)
+        doc = json.loads(self.rfile.read(length) or b"{}")
+        if not isinstance(doc, dict):
+            raise TypeError(f"expected a JSON object, got "
+                            f"{type(doc).__name__}")
+        return doc
+
+    def do_GET(self):
+        de = self.server.decode_engine
+        if self.path == "/healthz":
+            snap = de.health.snapshot(queue_depth=de.queue.depth(),
+                                      model_version=de.version)
+            self._reply(200 if snap["ready"] else 503, snap)
+        elif self.path == "/livez":
+            alive = de.health.is_alive()
+            self._reply(200 if alive else 503,
+                        {"status": "alive" if alive else "stopped"})
+        elif self.path == "/v1/stats":
+            self._reply(200, {"decode": de.stats()})
+        elif self.path == "/metrics":
+            body = telemetry.prometheus_text().encode()
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+        else:
+            self._reply(404, {"error": f"no route {self.path}"})
+
+    def _traced(self, handler):
+        """Run ``handler(headers)`` under the request's root span."""
+        rid = self.headers.get("X-Request-Id")
+        headers: Dict[str, str] = {}
+        with trace.root_span("serving.http_request", trace_id=rid,
+                             force=bool(rid), path=self.path) as tctx:
+            if tctx is not None:
+                headers["X-Trace-Id"] = tctx.trace_id
+            handler(headers)
+
+    def _reply_error(self, e: BaseException, headers: Dict[str, str]):
+        """The reference's status code and error_type for each typed
+        failure."""
+        if isinstance(e, ValueError):
+            self._reply(400, {"error": str(e)}, headers)
+        elif isinstance(e, KVCacheExhaustedError):
+            # typed would-OOM refusal: shrink, or retry on a bigger pool
+            self._reply(429, {"error": str(e),
+                              "error_type": "KVCacheExhaustedError"},
+                        headers)
+        elif isinstance(e, ServerOverloadedError):
+            self._reply(429, {"error": str(e)},
+                        dict(headers, **{"Retry-After": "0.05"}))
+        elif isinstance(e, EngineClosedError):
+            self._reply(503, {"error": str(e)}, headers)
+        elif isinstance(e, DeadlineExceededError):
+            self._reply(504, {"error": str(e)}, headers)
+        else:
+            self._reply(500, {"error": f"{type(e).__name__}: {e}"},
+                        headers)
+
+    def _handle_generate(self, headers: Dict[str, str]):
+        de = self.server.decode_engine
+        try:
+            doc = self._read_json()
+            prompt = doc["prompt_ids"]
+        except (ValueError, TypeError, KeyError) as e:
+            self._reply(400, {"error": f"bad generate request: {e!r}"},
+                        headers)
+            return
+        t0 = time.perf_counter()
+        # session identity: the body's request_id, else the X-Request-Id
+        # the router forwards; either opts the generation into journaling
+        request_id = (doc.get("request_id")
+                      or self.headers.get("X-Request-Id"))
+        try:
+            req = de.submit(prompt,
+                            max_new_tokens=doc.get("max_new_tokens"),
+                            deadline_ms=doc.get("deadline_ms"),
+                            temperature=float(doc.get("temperature", 0.0)),
+                            seed=doc.get("seed"),
+                            stop_at_eos=bool(doc.get("stop_at_eos", True)),
+                            request_id=request_id,
+                            prior_tokens=doc.get("prior_tokens"),
+                            rng_state=doc.get("rng_state"))
+            tokens = req.result()
+        except Exception as e:
+            self._reply_error(e, headers)
+            return
+        payload = {
+            "tokens": np.asarray(tokens).tolist(),
+            "num_tokens": int(np.asarray(tokens).size),
+            "ttft_ms": round(req.ttft_ms, 3)
+            if req.ttft_ms is not None else None,
+            "model_version": de.version,
+            "latency_ms": round((time.perf_counter() - t0) * 1e3, 3)}
+        if request_id is not None:
+            payload["request_id"] = request_id
+        if doc.get("prior_tokens"):
+            # a resumed session: the tokens are the TAIL only; the router
+            # joins them to the journaled prefix
+            payload["resumed"] = True
+        self._reply(200, payload, headers)
+
+    def _handle_prefill(self, headers: Dict[str, str]):
+        de = self.server.decode_engine
+        try:
+            doc = self._read_json()
+            prompt = doc["prompt"]
+        except (ValueError, TypeError, KeyError) as e:
+            self._reply(400, {"error": f"bad prefill request: {e!r}"},
+                        headers)
+            return
+        try:
+            blob = de.submit_prefill(
+                prompt, deadline_ms=doc.get("deadline_ms")).result()
+        except Exception as e:
+            self._reply_error(e, headers)
+            return
+        body = bytes(blob)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/octet-stream")
+        self.send_header("Content-Length", str(len(body)))
+        for k, v in headers.items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_POST(self):
+        if self.path == "/v1/generate":
+            self._traced(self._handle_generate)
+        elif self.path == "/v1/prefill":
+            self._traced(self._handle_prefill)
+        elif self.path == "/v1/infer":
+            self._reply(404, {"error": "no micro-batching engine "
+                                       "attached — this replica serves "
+                                       "/v1/generate only"})
+        elif self.path == "/v1/admin/swap":
+            self._reply(404, {"error": _A5B.format(
+                what="/v1/admin/swap, the model swap")})
+        else:
+            self._reply(404, {"error": f"no route {self.path}"})
+
+
+class ServingHTTPServer:
+    """Bound-but-not-yet-serving HTTP wrapper around a DecodeEngine;
+    start()/shutdown() own the acceptor thread. port=0 binds an ephemeral
+    port. ``engine`` (the micro-batching ServingEngine) must be None:
+    that engine is ROADMAP A5b."""
+
+    def __init__(self, engine=None, host: str = "127.0.0.1", port: int = 0,
+                 decode_engine=None):
+        if engine is not None:
+            raise NotImplementedError(_A5B.format(what="engine="))
+        if decode_engine is None:
+            raise ValueError("ServingHTTPServer needs a decode_engine")
+        self.engine = None
+        self.decode_engine = decode_engine
+        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self._httpd.daemon_threads = True
+        self._httpd.decode_engine = decode_engine
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def host(self) -> str:
+        return self._httpd.server_address[0]
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def start(self) -> "ServingHTTPServer":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._httpd.serve_forever,
+                name="pt-torch-serving-http", daemon=True)
+            self._thread.start()
+        return self
+
+    def shutdown(self):
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+
+def serve(model_dir: str, *args, **kw):
+    """The reference's predictor server: not in the port yet (ROADMAP
+    A5b)."""
+    raise NotImplementedError(_A5B.format(what="serve()"))
+
+
+def serve_decode(model_dir: str, host: str = "127.0.0.1", port: int = 0,
+                 config=None, warmup: bool = True,
+                 device=None) -> ServingHTTPServer:
+    """Decoder-LM servable dir -> started generative HTTP server (POST
+    /v1/generate) over a DecodeEngine on ``device`` (None: cuda:0)."""
+    from .decode import decode_engine_from_dir
+
+    de = decode_engine_from_dir(model_dir, config=config, device=device)
+    de.start(warmup=warmup)
+    return ServingHTTPServer(None, host=host, port=port,
+                             decode_engine=de).start()

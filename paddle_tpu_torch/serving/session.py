@@ -14,8 +14,9 @@ To resume, a caller submits ``resume_args(record)`` (its ``prompt_ids``
 as the prompt, the rest as keywords): prompt + accepted as the new
 prefill, the RNG state restored as it was, ``max_new_tokens``
 less the accepted count. The resumed tail follows the accepted tokens:
-the two together are the uninterrupted stream. The router that does this
-over HTTP is not in the port yet.
+the two together are the uninterrupted stream. The router does this over
+HTTP (serving/router.py ``route_generate``), with the records that decode
+replicas post to its ``/v1/session/journal``.
 
 The record's fields and ``pack_rng_state``'s list are the reference's,
 so a record written by either package resumes in the other.

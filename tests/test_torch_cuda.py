@@ -24,7 +24,9 @@ no host sync; ``lookup_table_v2``'s gradient the same bits every run,
 eager and replayed; and a compiled WMT step whose rate follows noam
 replay by replay. The prefix-sharing decode path at a small width: a hit
 equals the cold run bit for bit, and the captured chunk program equals
-its op-by-op run.
+its op-by-op run. ``serve_decode`` at a small width: ids over HTTP equal
+the in-process engine's, and a decode-role engine behind it installs the
+shipments it fetches.
 Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -33,12 +35,14 @@ card and no JAX it runs without the repo's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch import kernels
-from paddle_tpu_torch.core import rng
+from paddle_tpu_torch.core import rng, telemetry
 from paddle_tpu_torch.kernels import conv_bn_relu as cbr
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import fused_adam as fad
@@ -1381,6 +1385,82 @@ def test_prefix_hit_equals_cold_and_chunk_replay_equals_eager(dev):
         assert torch.equal(pool, eng._pools[name]), name
     again.close()
     eng.close()
+
+
+def test_serve_decode_over_http_equals_in_process(dev, tmp_path):
+    """serve_decode on the card at a small width: ids over HTTP (greedy
+    and sampled, at once) are the in-process engine's bit for bit, the
+    kernels launched, and a decode-role engine behind a prefill server
+    (the shipment fetched and installed) gives the same ids with no flash
+    forward launch of its own."""
+    import json
+    import urllib.request
+
+    from paddle_tpu_torch.models.decoder_lm import (DecoderLMConfig,
+                                                    decoder_lm_params,
+                                                    save_decoder_lm)
+    from paddle_tpu_torch.serving import (DecodeConfig, DecodeEngine,
+                                          serve_decode)
+
+    cfg = DecoderLMConfig(vocab_size=256, d_model=128, n_head=2, n_layers=2,
+                          d_inner=256, max_seq_len=64)
+    params = decoder_lm_params(cfg, 4)
+    save_decoder_lm(str(tmp_path), cfg, params)
+    conf = dict(max_slots=4, page_size=8, kv_pages=32)
+    rng = np.random.RandomState(2)
+    reqs = [dict(prompt=rng.randint(3, 250, n).astype(np.int32),
+                 max_new_tokens=8, stop_at_eos=False) for n in (3, 20, 40)]
+    reqs[1].update(temperature=0.8, seed=9)
+    eng = DecodeEngine(cfg, params, DecodeConfig(**conf), device=dev).start()
+    try:
+        want = [eng.generate(timeout=120, **r).tolist() for r in reqs]
+    finally:
+        eng.close()
+
+    def post(url, r):
+        body = dict(prompt_ids=r["prompt"].tolist(),
+                    **{k_: v for k_, v in r.items() if k_ != "prompt"})
+        req = urllib.request.Request(
+            url + "/v1/generate", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return json.loads(resp.read())["tokens"]
+
+    srv = serve_decode(str(tmp_path), config=DecodeConfig(**conf),
+                       device=dev)
+    try:
+        kernels.reset_launch_counts()
+        got = [None] * len(reqs)
+        threads = [threading.Thread(target=lambda i=i: got.__setitem__(
+            i, post(srv.url, reqs[i]))) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        counts = kernels.launch_counts()
+        assert got == want
+        assert counts["flash_attention_fwd"] > 0
+        assert counts["paged_attention"] > 0
+        decode = DecodeEngine(cfg, params, DecodeConfig(
+            role="decode", prefill_urls=srv.url, **conf), device=dev)
+        decode.start(warmup=True)
+        try:
+            installs0 = telemetry.counter_get("disagg.installs")
+            before = kernels.launch_counts()["flash_attention_fwd"]
+            hs = [decode.submit(**r) for r in reqs]
+            shipped = [h.result(timeout=120).tolist() for h in hs]
+            # the prefill server's flash launches count in this process
+            # too: one prefill of 2 layers a request, none of the engine's
+            assert kernels.launch_counts()["flash_attention_fwd"] - \
+                before == cfg.n_layers * len(reqs)
+            assert telemetry.counter_get("disagg.installs") - installs0 \
+                == len(reqs)
+        finally:
+            decode.close()
+        assert shipped == want
+    finally:
+        srv.decode_engine.close()
+        srv.shutdown()
 
 
 # Transformer-big's attention (tools/bench_models.py bench_transformer_big:

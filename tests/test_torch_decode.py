@@ -11,7 +11,8 @@ stock paged attention, stock int8 GEMM, reference attention).
 * inside the port, continuous batching equals one-at-a-time decode bit
   for bit;
 * entry points never fall back: no device means CUDA, which raises here;
-  ``prefill_urls`` (a prefill tier over HTTP) raises NotImplementedError;
+  the replica's ``--telemetry-log`` and ``Router.attach_fleet`` (ROADMAP
+  A10) refuse to run;
 * ``import paddle_tpu_torch`` loads neither jax nor paddle_tpu.
 """
 
@@ -246,12 +247,21 @@ def test_no_silent_cpu_fallback(monkeypatch):
         pt_decode.resolve_device("cuda:0")
 
 
-def test_paths_outside_the_slice_raise():
-    # fetching shipments from a prefill tier over HTTP is not ported yet;
-    # the prefix cache, the roles and the journal sink are
-    # (test_torch_prefix_store.py, test_torch_session.py)
-    with pytest.raises(NotImplementedError, match="A5"):
-        pt_decode.DecodeConfig(prefill_urls="http://h:1")
+def test_paths_outside_the_slice_raise(capsys):
+    # prefill tiers over HTTP are ported (test_torch_serving_http.py,
+    # test_torch_cluster.py): prefill_urls is kept, not refused
+    assert pt_decode.DecodeConfig(prefill_urls="http://h:1").prefill_urls \
+        == ["http://h:1"]
+    # the replica's JSONL run log and the router's fleet observatory are
+    # not (ROADMAP A10)
+    from paddle_tpu_torch.serving import replica, router
+
+    with pytest.raises(SystemExit):
+        replica.main(["--decode-model-dir", "lm", "--telemetry-log",
+                      "run.jsonl"])
+    assert "A10" in capsys.readouterr().err
+    with pytest.raises(NotImplementedError, match="A10"):
+        router.Router().attach_fleet(object())
 
 
 def test_import_loads_neither_jax_nor_paddle_tpu():
