@@ -73,7 +73,8 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                and on the CPU from one scope_from_numpy state and on one
                batch: the same dropout masks bit for bit and the losses
                within rtol = atol = 1e-4 for fp32 at 2 layers (3 steps) and
-               at all 24 layers (4 steps), within 1e-2 for bf16 at 2 layers
+               at all 24 layers (2 steps: its CPU leg is the slowest of
+               the script), within 1e-2 for bf16 at 2 layers
                (6 steps). Every flash launch of the fp32 legs runs the
                split-TF32 instance, of the bf16 leg the bf16 one.
 6. train_ernie — ERNIE-large as the reference's benchmark trains it (24
@@ -222,6 +223,38 @@ The prefix-sharing and HTTP slices add, right after serve_int8:
                (serve_cluster). Their launch counts are the replicas'
                /v1/stats counters read just before and just after the
                traffic.
+The micro-batching inference slice adds:
+   kernels  — check_flash_bert_infer: the flash forward as the inference
+               path runs it (BERT-base's bnsd heads, 12 of 64, S = 128,
+               fp32 split TF32, a ragged key bias, no dropout) at B = 8
+               and 32, against its plain version, timed beside SDPA.
+   then, right after the serve_cluster phases, BERT-base
+               (bert.bert_base(): vocab 30522, hidden 768, 12 layers, 12
+               heads of 64, FFN 3072, fp32) built by the port's startup
+               program on the card from seeds 0 and 1 and saved twice
+               with io.save_inference_model, pruned to its NSP logits at
+               s128 (under build/torch_serving/, removed at the end):
+   infer_bert_base — create_predictor (the seven passes: one bnsd
+               flash_attention a layer; every bucket one CUDA graph) under
+               a ServingEngine (max_batch_size 32, buckets 1..32, all
+               warmed at start()), 64 requests of 1-4 rows (real lengths
+               16-128 tokens) from 16 threads through LocalClient: each
+               response bit for bit the predictor's run of its rows padded
+               to a bucket and within 1e-5 of its unbatched run with the
+               same argmax (_served_check says why not bit for bit that
+               run); a CPU predictor within 1e-4 on 8 of them; 12 flash
+               forward launches a batch, bnsd, fp32, and nothing else; a
+               traced bucket-32 batch; the predictor's ms a bucket; where
+               the fc GEMM's bits change with M.
+   infer_http_bert_base — serve(dir) and the same 64 requests POSTed at
+               once to /v1/infer: the same gates, and against
+               infer_bert_base's logits within 1e-5 and the same ids.
+   infer_cluster_swap — a models root behind two replica processes and
+               the router; model-000002 published under closed-loop
+               traffic and rolled one replica at a time: no request
+               fails, every answer is its version's predictor output,
+               both replicas end on version 2.
+Every phase line ends with at_s, the seconds since the script started.
 Then one line with every ported kernel: ``launches_by_path`` gives each
 phase's own count (set to 0 just before the phase, read just after),
 ``launches_by_layout`` and ``launches_by_dtype`` the flash kernels'
@@ -306,8 +339,15 @@ SOURCES = {n: f"paddle_tpu_torch/csrc/{n}.cu" for n in REPLACES}
 SERVING_DIR = Path(__file__).resolve().parent / "build" / "torch_serving"
 
 
+# the script's start: each phase line carries the seconds since it
+# (at_s), so a run shows where its time limit goes
+T0 = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    print(json.dumps({"phase": phase, **kw,
+                      "at_s": round(time.perf_counter() - T0, 1)}),
+          flush=True)
 
 
 def bound_ms(nbytes, flops, peak=FP32_FLOPS_PER_S):
@@ -3309,6 +3349,691 @@ def check_conv_real_layer(dev, scope, layer_in):
                              f"bf16 ops {ok16}")
 
 
+# ---------------------------------------------------------------------------
+# the micro-batching inference plane: BERT-base behind the predictor
+# ---------------------------------------------------------------------------
+
+# BERT-base (models/bert.py bert_base(): vocab 30522, hidden 768, 12
+# layers, 12 heads of 64, FFN 3072, 512 positions, fp32) served as a
+# sentence classifier: its inference program pruned to the NSP logits, at
+# s128. The engine pads batches to BERT_INFER_BUCKETS rows.
+BERT_INFER_SEQ = 128
+BERT_INFER_BUCKETS = (1, 2, 4, 8, 16, 32)
+BERT_INFER_FEEDS = ("src_ids", "sent_ids", "pos_ids", "input_mask")
+BERT_INFER_FETCH = "fc_0.tmp_1"
+# 64 requests of 1-4 rows from 16 client threads; 8 of them also on the
+# CPU predictor; the cluster's closed loop runs 8 clients
+BERT_INFER_REQUESTS, BERT_INFER_CLIENTS, BERT_INFER_CPU = 64, 16, 8
+BERT_INFER_LOOP_CLIENTS = 8
+# after the burst the 16 clients send the requests round and round for
+# this long (closed loop): the engine's steady rate
+BERT_INFER_STEADY_S = 4.0
+# the reference's promise is each response bit for bit the unbatched run
+# of its rows; where the library's GEMMs differ by M it cannot hold, and
+# the gate is the run of the rows padded to the served bucket bit for bit
+# and the unbatched run within this, with the same argmax
+BATCH_INVARIANCE_TOL = 1e-5
+
+
+def _bert_infer_dir(dev, seed, path):
+    """BERT-base's inference dir, built by the port under a fresh name
+    generator: the startup program
+    on the card with the op seeds it would hold had it been built with
+    random_seed = seed (each is drawn at build time as random_seed *
+    1000003 + a counter), saved with io.save_inference_model. Returns
+    (config, seconds)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import bert
+
+    t0 = time.perf_counter()
+    cfg = bert.bert_base()
+    # a fresh name generator: the NSP logits are fc_0.tmp_1 in every dir
+    old = unique_name.switch()
+    try:
+        main, startup, _, _ = bert.build_pretraining_program(
+            cfg, seq_len=BERT_INFER_SEQ, with_optimizer=False, is_test=True)
+    finally:
+        unique_name.switch(old)
+    for op in startup.global_block().ops:
+        if op.attrs.get("seed"):
+            op.attrs["seed"] = int(op.attrs["seed"]) + seed * 1000003
+    scope = ptt.Scope()
+    ptt.Executor(dev).run(startup, scope=scope, use_compiled=False)
+    io.save_inference_model(path, list(BERT_INFER_FEEDS), [BERT_INFER_FETCH],
+                            main_program=main, scope=scope)
+    del scope
+    _release()
+    return cfg, time.perf_counter() - t0
+
+
+def _bert_infer_requests(cfg):
+    """64 requests of 1-4 rows; each row's real length 16-128 tokens
+    (input_mask 1 there, ids and segments 0 past it), from seed 0."""
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(BERT_INFER_REQUESTS):
+        n = int(rng.randint(1, 5))
+        mask = np.arange(BERT_INFER_SEQ)[None, :] < \
+            rng.randint(16, BERT_INFER_SEQ + 1, n)[:, None]
+        out.append({
+            "src_ids": (rng.randint(1, cfg.vocab_size, (n, BERT_INFER_SEQ))
+                        * mask).astype(np.int64),
+            "sent_ids": (rng.randint(0, 2, (n, BERT_INFER_SEQ)) * mask)
+            .astype(np.int64),
+            "pos_ids": np.tile(np.arange(BERT_INFER_SEQ), (n, 1))
+            .astype(np.int64),
+            "input_mask": mask.astype(np.float32)})
+    return out
+
+
+def _padded(feed, bucket):
+    rows = len(feed["input_mask"])
+    return {k: np.concatenate([v, np.zeros((bucket - rows,) + v.shape[1:],
+                                           v.dtype)]) for k, v in feed.items()}
+
+
+def _served_check(pred, feed, got, memo=None):
+    """Hold one response to the predictor: the smallest bucket whose run
+    of the request's rows padded with zero rows it equals bit for bit
+    (None: none does), whether it equals the unbatched run bit for bit,
+    its largest difference from that run and whether the argmax (the
+    predicted class) agrees. ``memo`` keeps the predictor's outputs for
+    a request sent many times ((predictor, request) -> {rows: output})."""
+    rows = len(feed["input_mask"])
+    runs = {} if memo is None else memo.setdefault((id(pred), id(feed)), {})
+
+    def run(b):
+        if b not in runs:
+            runs[b] = pred.run(feed if b == rows else _padded(feed, b))[0][
+                :rows]
+        return runs[b]
+
+    alone = run(rows)
+    bucket = next((b for b in BERT_INFER_BUCKETS if b >= rows and
+                   got.tobytes() == run(b).tobytes()), None)
+    return dict(bucket=bucket, bitwise_alone=got.tobytes() == alone.tobytes(),
+                max_abs_alone=float(np.abs(got - alone).max()),
+                argmax_same=bool((got.argmax(1) == alone.argmax(1)).all()))
+
+
+def _gate_served(phase, checks):
+    """Each response bit for bit a padded-bucket run of its rows, within
+    BATCH_INVARIANCE_TOL of the unbatched run with the same argmax; and
+    the counts that say whether the reference's stricter promise held."""
+    bad = [i for i, c in enumerate(checks) if c["bucket"] is None
+           or c["max_abs_alone"] > BATCH_INVARIANCE_TOL
+           or not c["argmax_same"]]
+    if bad:
+        raise AssertionError(f"{phase}: responses {bad} fail the batch "
+                             f"gate: {[checks[i] for i in bad[:4]]}")
+    return dict(responses=len(checks),
+                bitwise_equal_unbatched=sum(c["bitwise_alone"]
+                                            for c in checks),
+                max_abs_vs_unbatched=max(c["max_abs_alone"] for c in checks))
+
+
+def _batch_invariance_probe(pred):
+    """Where the engine's batch breaks the bit-for-bit promise: the fc
+    lowering with the first layer's Q projection ([768, 768] + bias) on
+    the same 128 rows at M = 128 * b (b a bucket), and the pooler's fc
+    (M = b), each against its own M = the one-row case; the largest
+    difference at each M."""
+    from paddle_tpu_torch.core import registry
+
+    fc = registry.get("fc").forward
+    out = {}
+    g = torch.Generator(device=pred.device).manual_seed(7)
+    for w, b, m1 in (("layer_0_attn_q_w", "layer_0_attn_q_b",
+                      BERT_INFER_SEQ), ("pooler_w", "pooler_b", 1)):
+        w_, b_ = pred._params[w], pred._params[b]
+        x = torch.randn(BERT_INFER_BUCKETS[-1] * m1, w_.shape[0],
+                        device=pred.device, generator=g)
+        one = fc({"Input": [x[:m1]], "W": [w_], "Bias": [b_]},
+                 {"in_num_col_dims": 1})["Out"]
+        out[w] = {}
+        for bk in BERT_INFER_BUCKETS:
+            many = fc({"Input": [x[:bk * m1]], "W": [w_], "Bias": [b_]},
+                      {"in_num_col_dims": 1})["Out"][:m1]
+            out[w][f"M={bk * m1}"] = float((many - one).abs().max())
+    return out
+
+
+def check_flash_bert_infer(dev, results):
+    """The flash forward as the inference path runs it: BERT-base's bnsd
+    heads (12 of 64, S = 128), fp32 (split TF32), the [B,S] key bias of
+    ragged lengths, no dropout; at B = 8 and 32 (the engine's buckets),
+    against its plain version, timed beside SDPA. The timed calls rotate
+    through copies of q, k, v and the bias, more than the 50 MB L2 in
+    all, so each call reads its inputs from HBM."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    n, hd, s = 12, 64, BERT_INFER_SEQ
+    scale = hd ** -0.5
+    for b in (8, 32):
+        g = torch.Generator(device=dev).manual_seed(b)
+        reps = max(2, -(-(64 << 20) // (3 * b * n * s * hd * 4)))
+        sets = []
+        for _ in range(reps):
+            q, k, v = (torch.randn(b, n, s, hd, device=dev, generator=g)
+                       for _ in range(3))
+            lens = torch.randint(16, s + 1, (b, 1), device=dev, generator=g)
+            bias = torch.where(torch.arange(s, device=dev)[None, :] < lens,
+                               0.0, -1e4)
+            sets.append((q, k, v, bias, bias[:, None, None, :]))
+        q, k, v, bias, _ = sets[0]
+        out, lse = fa.flash_fwd(q, k, v, n, scale, False, bias, 0.0, 0,
+                                "bnsd")
+        ref_out, ref_lse = fa.plain_flash_fwd(q, k, v, n, scale, False, bias,
+                                              0.0, 0, "bnsd")
+        torch.cuda.synchronize()
+        e_out, r_out = errors(out, ref_out)
+        e_lse, _ = errors(lse, ref_lse)
+        if not (torch.allclose(out, ref_out, rtol=1e-4, atol=1e-5)
+                and torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-4)):
+            raise AssertionError(f"flash forward BERT-base B={b}: out err "
+                                 f"{e_out}, lse err {e_lse}")
+
+        def kernel(i):
+            q_, k_, v_, bias_, _ = sets[i % reps]
+            return fa.flash_fwd(q_, k_, v_, n, scale, False, bias_, 0.0, 0,
+                                "bnsd")
+
+        def sdpa(i):
+            q_, k_, v_, _, mask_ = sets[i % reps]
+            return F.scaled_dot_product_attention(q_, k_, v_,
+                                                  attn_mask=mask_,
+                                                  scale=scale)
+
+        def plain(i):
+            q_, k_, v_, bias_, _ = sets[i % reps]
+            return fa.plain_flash_fwd(q_, k_, v_, n, scale, False, bias_,
+                                      0.0, 0, "bnsd")
+
+        nbytes = 4 * (4 * q.numel() + bias.numel() + lse.numel())
+        flops = b * n * 2 * 2 * s * s * hd
+        bms, by = bound_ms(nbytes, flops, TF32X3_FLOPS_PER_S)
+        results.append(with_device_ms(dict(
+            name="flash_attention_fwd",
+            shape=f"B={b} S={s} n={n} hd=64 bias fp32 bnsd (BERT-base "
+                  f"inference)", instance="fp32_tf32x3",
+            max_abs_err=max(e_out, e_lse), max_rel_err=r_out,
+            ms=events_ms(kernel, 20), plain_ms=events_ms(plain, 5),
+            library_ms=events_ms(sdpa, 20), bound_ms=bms, bound_by=by,
+            bound_ms_cuda_cores=bound_ms(nbytes, flops)[0],
+            input_copies=reps), kernel, sdpa))
+        del sets
+    torch.cuda.empty_cache()
+
+
+def _infer_counts():
+    """The launch counters a phase reports: every kernel, the flash
+    kernels by layout and by dtype instance."""
+    from paddle_tpu_torch import kernels
+
+    return dict(launches=kernels.launch_counts(),
+                layouts=kernels.layout_counts(),
+                dtypes=kernels.dtype_counts())
+
+
+def _gate_flash_per_batch(phase, counts, batches, layers):
+    """layers flash forward launches a batch, every one bnsd on the fp32
+    split-TF32 instance, and no other kernel."""
+    want = layers * batches
+    fwd = counts["launches"]["flash_attention_fwd"]
+    others = {k: n for k, n in counts["launches"].items()
+              if k != "flash_attention_fwd" and n}
+    if not batches or fwd != want or others or \
+            counts["layouts"]["flash_attention_fwd"]["bnsd"] != want or \
+            counts["dtypes"]["flash_attention_fwd"]["fp32_tf32x3"] != want:
+        raise AssertionError(f"{phase}: {batches} batches want {want} bnsd "
+                             f"fp32 flash forward launches, got {counts}")
+
+
+def infer_bert_base(dev, model_dir, cfg, reqs):
+    """create_predictor over BERT-base's dir on the card (the seven
+    passes: one bnsd flash_attention a layer), a ServingEngine with
+    max_batch_size 32 and every bucket warmed (captured) at start(), and
+    the 64 requests from 16 client threads through LocalClient. Gates:
+    each response bit for bit the predictor's run of its rows padded to a
+    bucket, within 1e-5 of its unbatched run with the same argmax; a CPU
+    predictor over the same dir within 1e-4 with the same argmax on 8 of
+    them; 12 flash forward launches a batch, bnsd, fp32, nothing else,
+    and a traced bucket-32 batch's flash kernels as many as its counters
+    add; every parameter on the card."""
+    import collections
+
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.serving import (LocalClient, ServingConfig,
+                                          ServingEngine)
+    from paddle_tpu_torch.tools.profile_train import traced
+
+    phase = "infer_bert_base"
+    t_phase = time.perf_counter()
+    layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    pred = create_predictor(AnalysisConfig(model_dir), device=dev)
+    load_s = time.perf_counter() - t0
+    ops = collections.Counter(o.type for o in pred.program.global_block().ops)
+    if ops["flash_attention"] != layers or ops["dropout"] or ops["softmax"]:
+        raise AssertionError(f"{phase}: passes left {dict(ops)}")
+    on_card = all(v.device == dev for v in pred._params.values()
+                  if isinstance(v, torch.Tensor))
+    engine = ServingEngine(pred, ServingConfig(
+        max_batch_size=BERT_INFER_BUCKETS[-1], buckets=BERT_INFER_BUCKETS))
+    t0 = time.perf_counter()
+    engine.start()
+    warmup_s = time.perf_counter() - t0
+    client = LocalClient(engine)
+    fetch = engine.fetch_names[0]
+    kernels.reset_launch_counts()
+    telemetry.reset()
+    outs, ms = [None] * len(reqs), [None] * len(reqs)
+
+    def worker(w):
+        for i in range(w, len(reqs), BERT_INFER_CLIENTS):
+            t = time.perf_counter()
+            outs[i] = client.infer(reqs[i], timeout=600)[fetch]
+            ms[i] = (time.perf_counter() - t) * 1e3
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(BERT_INFER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    counts = _infer_counts()
+    stats = engine.stats()
+    fill = telemetry.snapshot()["hists"]["serving.batch_fill"]
+    steady = _steady_loop(engine, client, reqs, outs)
+    engine.close(drain=True, timeout=60)
+    if any(o is None for o in outs):
+        raise AssertionError(f"{phase}: a request never returned")
+    batches = stats["batches"]
+    _gate_flash_per_batch(phase, counts, batches, layers)
+    checks = [_served_check(pred, r, o) for r, o in zip(reqs, outs)]
+    served = _gate_served(phase, checks)
+    # a replayed bucket-32 batch under torch.profiler
+    full = _padded(reqs[0], BERT_INFER_BUCKETS[-1])
+    kernels.reset_launch_counts()
+    trace = traced(lambda: pred.run(full), 1)
+    if trace["traced_launches"]["flash_attention_fwd"] != layers or \
+            kernels.launch_counts()["flash_attention_fwd"] != layers:
+        raise AssertionError(f"{phase}: traced batch ran "
+                             f"{trace['traced_launches']}, counters "
+                             f"{kernels.launch_counts()}")
+    # the predictor a bucket: host ms of run(), the graph's replay alone
+    per_bucket = {}
+    for b in BERT_INFER_BUCKETS:
+        feed = _padded(reqs[0], b)
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            pred.run(feed)
+            times.append((time.perf_counter() - t) * 1e3)
+        graph = next(e for s_, e in pred._cache.items()
+                     if s_[0][1][0] == b).graph.graph
+        per_bucket[b] = {"run_ms_p50": _pct(times, 0.5),
+                         "replay_ms": events_ms(lambda i: graph.replay(), 10)}
+    probe = _batch_invariance_probe(pred)
+    # the CPU predictor over the same dir
+    cpu = create_predictor(AnalysisConfig(model_dir), device="cpu")
+    cpu_err, cpu_argmax = 0.0, True
+    for r, o in list(zip(reqs, outs))[:BERT_INFER_CPU]:
+        c, = cpu.run(r)
+        cpu_err = max(cpu_err, float(np.abs(c - o).max()))
+        cpu_argmax = cpu_argmax and bool((c.argmax(1) == o.argmax(1)).all())
+    del cpu
+    rows = sum(len(r["input_mask"]) for r in reqs)
+    emit(phase, requests=len(reqs), rows=rows, clients=BERT_INFER_CLIENTS,
+         load_s=load_s, warmup_s=warmup_s, wall_s=wall,
+         burst_rows_per_s=rows / wall, steady=steady,
+         request_ms_p50=_pct(ms, 0.5), request_ms_p99=_pct(ms, 0.99),
+         engine_request_ms=stats.get("request_ms"),
+         batch_ms=stats.get("batch_ms"), batches=batches,
+         batch_fill_avg=fill["avg"], padded_rows=stats.get("padded_rows", 0),
+         predictor_by_bucket=per_bucket, served=served,
+         batch_invariance_fc=probe, cpu_max_abs=cpu_err,
+         cpu_argmax_same=cpu_argmax, params_on_card=on_card,
+         pass_op_counts=dict(ops), traced_bucket32={
+             k: trace[k] for k in ("traced_wall_ms", "device_busy_ms",
+                                   "device_idle_share", "traced_launches",
+                                   "device_ms_by_kernel_class")},
+         traced_bucket32_top_kernels=trace["top_kernels"][:6],
+         launches=counts["launches"],
+         flash_launches_by_layout=counts["layouts"],
+         seconds=time.perf_counter() - t_phase)
+    if not on_card or cpu_err > 1e-4 or not cpu_argmax:
+        raise AssertionError(f"{phase}: params on the card {on_card}, CPU "
+                             f"predictor max abs {cpu_err}, argmax same "
+                             f"{cpu_argmax}")
+    del engine, pred
+    _release()
+    return dict(counts, outs=outs)
+
+
+def _steady_loop(engine, client, reqs, want):
+    """BERT_INFER_CLIENTS clients send reqs round and round through
+    LocalClient for BERT_INFER_STEADY_S (closed loop). Each answer must be
+    within BATCH_INVARIANCE_TOL of the burst's answer to the same request
+    (want) with the same argmax. Returns the rows/s over the window, from
+    the first send to the last answer, and its request ms."""
+    fetch = engine.fetch_names[0]
+    batches0 = engine.stats()["batches"]
+    done, answers, bad = threading.Event(), [], []
+
+    def worker(w):
+        i = w
+        while not done.is_set():
+            t = time.perf_counter()
+            try:
+                got = client.infer(reqs[i], timeout=600)[fetch]
+            except Exception as e:  # noqa: BLE001 - the gate reports it
+                bad.append((i, repr(e)))
+                return
+            answers.append((i, t, time.perf_counter()))
+            if float(np.abs(got - want[i]).max()) > BATCH_INVARIANCE_TOL \
+                    or not (got.argmax(1) == want[i].argmax(1)).all():
+                bad.append(i)
+            i = (i + BERT_INFER_CLIENTS) % len(reqs)
+
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(BERT_INFER_CLIENTS)]
+    for t in threads:
+        t.start()
+    time.sleep(BERT_INFER_STEADY_S)
+    done.set()
+    for t in threads:
+        t.join(timeout=300)
+    if bad or any(t.is_alive() for t in threads):
+        raise AssertionError(f"steady loop: {len(bad)} answers off the "
+                             f"burst's, requests {bad[:5]}")
+    window = max(a[2] for a in answers) - min(a[1] for a in answers)
+    rows = sum(len(reqs[i]["input_mask"]) for i, _, _ in answers)
+    ms = [(t1 - t) * 1e3 for _, t, t1 in answers]
+    return dict(seconds=window, requests=len(answers), rows=rows,
+                rows_per_s=rows / window,
+                batches=engine.stats()["batches"] - batches0,
+                request_ms_p50=_pct(ms, 0.5), request_ms_p99=_pct(ms, 0.99))
+
+
+def infer_http_bert_base(dev, model_dir, cfg, reqs, want):
+    """serve(model_dir) on the card; the same 64 requests POSTed to
+    /v1/infer at once. Gates: every answer 200 with model_version 0; its
+    logits bit for bit the predictor's run of its rows padded to a
+    bucket, within 1e-5 of infer_bert_base's with the same argmax (the
+    count bit for bit equal to infer_bert_base's is printed); 12 flash
+    forward launches a batch. Prints the request wall over HTTP beside the
+    engine's serving.request_ms and serve()'s start."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import ServingConfig, serve
+
+    phase = "infer_http_bert_base"
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    srv = serve(model_dir, device=dev, config=ServingConfig(
+        max_batch_size=BERT_INFER_BUCKETS[-1], buckets=BERT_INFER_BUCKETS))
+    start_s = time.perf_counter() - t0
+    answers = [None] * len(reqs)
+    try:
+        kernels.reset_launch_counts()
+        telemetry.reset()
+
+        def one(i):
+            t = time.perf_counter()
+            body = {"inputs": {k: v.tolist() for k, v in reqs[i].items()}}
+            code, doc = _http("POST", srv.url, "/v1/infer", body)
+            answers[i] = (code, doc, (time.perf_counter() - t) * 1e3)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        counts = _infer_counts()
+        stats = srv.engine.stats()
+        pred = srv.engine.predictor
+    finally:
+        srv.shutdown()
+        srv.engine.close(drain=True, timeout=60)
+    if any(a is None for a in answers) or any(a[0] != 200 or a[1].get("model_version") != 0
+                              for a in answers):
+        raise AssertionError(f"{phase}: answers {[a and a[0] for a in answers]}")
+    fetch = srv.engine.fetch_names[0]
+    got = [np.asarray(a[1]["outputs"][fetch], np.float32) for a in answers]
+    checks = [_served_check(pred, r, g) for r, g in zip(reqs, got)]
+    served = _gate_served(phase, checks)
+    vs_inproc = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    same_ids = all((g.argmax(1) == w.argmax(1)).all()
+                   for g, w in zip(got, want))
+    _gate_flash_per_batch(phase, counts, stats["batches"],
+                          cfg.num_hidden_layers)
+    ms = [a[2] for a in answers]
+    emit(phase, requests=len(reqs), start_s=start_s, wall_s=wall,
+         request_ms_p50=_pct(ms, 0.5), request_ms_p99=_pct(ms, 0.99),
+         engine_request_ms=stats.get("request_ms"), batches=stats["batches"],
+         served=served, bitwise_equal_in_process=sum(
+             g.tobytes() == w.tobytes() for g, w in zip(got, want)),
+         max_abs_vs_in_process=vs_inproc, ids_equal_in_process=same_ids,
+         launches=counts["launches"], seconds=time.perf_counter() - t_phase)
+    if vs_inproc > BATCH_INVARIANCE_TOL or not same_ids:
+        raise AssertionError(f"{phase}: logits {vs_inproc} from "
+                             f"infer_bert_base's, ids equal {same_ids}")
+    del srv, pred
+    _release()
+    return counts
+
+
+def _replica_stats(cluster):
+    """{replica: its /v1/stats} of a predictor fleet."""
+    out = {}
+    for r in cluster.replicas:
+        code, doc = _http("GET", r.url, "/v1/stats", timeout=60)
+        if code != 200:
+            raise AssertionError(f"/v1/stats of {r.name}: {code} {doc}")
+        out[r.name] = doc
+    return out
+
+
+def infer_cluster_swap(dev, cfg, dirs, reqs):
+    """A models root with model-000001 (dirs[1]) behind two replica
+    processes (python -m paddle_tpu_torch.serving.replica --model-root
+    ROOT --device cuda) and the router; 8 clients send the 64 requests
+    round and round through the router (closed loop); after 2 s
+    model-000002 (dirs[2], another seed) is published and the watcher
+    rolls it onto the fleet; the clients go on 2 s past the roll. Gates:
+    no request fails; every answer names a version and is bit for bit a
+    padded-bucket run of that version's predictor (in this process), within
+    1e-5 of its unbatched run with the same argmax; both versions
+    answered; at most one replica not ready at any probe; both replicas
+    report version 2 afterwards; the replicas' flash forward launches
+    (their /v1/stats just before and after the traffic) are 12 a batch
+    plus 12 for each bucket each swap warmed."""
+    import collections
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import checkpoint
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.serving import ClusterController, ServingConfig
+
+    phase = "infer_cluster_swap"
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="models_", dir=SERVING_DIR)
+    refs = {v: create_predictor(AnalysisConfig(d), device=dev)
+            for v, d in dirs.items()}
+    checkpoint.publish_model(root, dirs[1])
+    cluster = ClusterController(
+        root, replicas=2, device=str(dev), model_poll_s=0.5,
+        serving_config=ServingConfig(max_batch_size=BERT_INFER_BUCKETS[-1]),
+        replica_env=_replica_env(serving_buckets=",".join(
+            map(str, BERT_INFER_BUCKETS))),
+        replica_ready_timeout_s=300)
+    t0 = time.perf_counter()
+    cluster.start(ready_timeout_s=300)
+    up_s = time.perf_counter() - t0
+    answers, not_ready, done = [], [], threading.Event()
+    t_pub = t_rolled = None
+    try:
+        before = _replica_stats(cluster)
+
+        def client(c):
+            i = c
+            while not done.is_set():
+                t = time.perf_counter()
+                body = {"inputs": {k: v.tolist()
+                                   for k, v in reqs[i].items()}}
+                try:
+                    code, doc = _http("POST", cluster.url, "/v1/infer", body,
+                                      timeout=120)
+                except OSError as e:
+                    code, doc = -1, {"error": repr(e)}
+                answers.append((i, code, doc, t, time.perf_counter()))
+                i = (i + BERT_INFER_LOOP_CLIENTS) % len(reqs)
+
+        def health():
+            while not done.is_set():
+                codes = []
+                for r in cluster.replicas:
+                    try:
+                        codes.append(_http("GET", r.url, "/healthz",
+                                           timeout=10)[0])
+                    except OSError:
+                        codes.append(-1)
+                not_ready.append(sum(c != 200 for c in codes))
+                time.sleep(0.05)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(BERT_INFER_LOOP_CLIENTS)]
+        threads.append(threading.Thread(target=health))
+        for t in threads:
+            t.start()
+        time.sleep(2.0)
+        t_pub = time.perf_counter()
+        checkpoint.publish_model(root, dirs[2])
+        publish_s = time.perf_counter() - t_pub
+        deadline = time.monotonic() + 300
+        while cluster.current_version != 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        t_rolled = time.perf_counter()
+        time.sleep(2.0)
+        done.set()
+        for t in threads:
+            t.join(timeout=300)
+        after = _replica_stats(cluster)
+    finally:
+        done.set()
+        cluster.close()
+        shutil.rmtree(root, ignore_errors=True)
+    failed = [(a[1], a[2]) for a in answers if a[1] != 200]
+    if failed or cluster.current_version != 2:
+        raise AssertionError(f"{phase}: {len(failed)} failed requests "
+                             f"{failed[:3]}, fleet at version "
+                             f"{cluster.current_version}")
+    fetch = refs[1].fetch_names[0]
+    checks, versions, memo = [], collections.Counter(), {}
+    for i, _, doc, _, _ in answers:
+        v = doc.get("model_version")
+        versions[v] += 1
+        if v not in refs:
+            raise AssertionError(f"{phase}: an answer names version {v}")
+        checks.append(_served_check(refs[v], reqs[i], np.asarray(
+            doc["outputs"][fetch], np.float32), memo))
+    served = _gate_served(phase, checks)
+    # the replicas' launches between the two reads, summed
+    delta = {k: {n: {} if isinstance(c, dict) else 0
+                 for n, c in before[next(iter(before))][k].items()}
+             for k in ("kernels", "kernel_layouts", "kernel_dtypes")}
+    for name, a in after.items():
+        for k, split in delta.items():
+            for n in split:
+                if isinstance(a[k][n], dict):
+                    for key, c in a[k][n].items():
+                        split[n][key] = split[n].get(key, 0) + c - \
+                            before[name][k][n].get(key, 0)
+                else:
+                    split[n] += a[k][n] - before[name][k][n]
+    counts = dict(launches=delta["kernels"], layouts=delta["kernel_layouts"],
+                  dtypes=delta["kernel_dtypes"])
+    batches = sum(a["batches"] - before[n].get("batches", 0)
+                  for n, a in after.items())
+    swaps = sum(a.get("swaps", 0) - before[n].get("swaps", 0)
+                for n, a in after.items())
+    during = [(t1 - t) * 1e3 for _, _, _, t, t1 in answers
+              if t1 >= t_pub and t <= t_rolled]
+    all_ms = [(t1 - t) * 1e3 for _, _, _, t, t1 in answers]
+    # the closed loop's rate through the router, first send to last answer
+    loop_s = max(a[4] for a in answers) - min(a[3] for a in answers)
+    loop_rows = sum(len(reqs[a[0]]["input_mask"]) for a in answers)
+    final_versions = sorted(d["model_version"] for d in after.values())
+    emit(phase, replicas=len(after), up_s=up_s, publish_s=publish_s,
+         roll_s=t_rolled - t_pub, requests=len(answers),
+         loop_s=loop_s, rows=loop_rows, rows_per_s=loop_rows / loop_s,
+         answers_by_version=dict(versions), served=served,
+         max_not_ready=max(not_ready), health_probes=len(not_ready),
+         request_ms_p50=_pct(all_ms, 0.5), request_ms_p99=_pct(all_ms, 0.99),
+         roll_request_ms_p50=_pct(during, 0.5) if during else None,
+         roll_request_ms_p99=_pct(during, 0.99) if during else None,
+         requests_during_roll=len(during), batches=batches, swaps=swaps,
+         launches=counts["launches"],
+         flash_launches_by_layout=counts["layouts"],
+         replica_versions=final_versions,
+         seconds=time.perf_counter() - t_phase)
+    if set(versions) != {1, 2} or max(not_ready) > 1 or \
+            final_versions != [2, 2] or swaps != 2:
+        for r in cluster.replicas:
+            print(f"--- {r.name} output tail:\n" + "\n".join(
+                list(r.log_tail)[-30:]), file=sys.stderr)
+        raise AssertionError(f"{phase}: swap errors {cluster.swap_errors}, "
+                             f"versions {dict(versions)}, most "
+                             f"replicas not ready at once {max(not_ready)}, "
+                             f"replicas at {final_versions}, swaps {swaps}")
+    # 12 a batch, and 12 for each bucket each swap warmed (its first,
+    # op-by-op run; the capture adds none)
+    _gate_flash_per_batch(phase, counts, batches + swaps * len(
+        BERT_INFER_BUCKETS), cfg.num_hidden_layers)
+    del refs
+    _release()
+    return counts
+
+
+def infer_phases(dev):
+    """The inference plane's three phases over two BERT-base dirs written
+    under SERVING_DIR (removed at the end): infer_bert_base,
+    infer_http_bert_base, infer_cluster_swap."""
+    import shutil
+    import tempfile
+
+    SERVING_DIR.mkdir(parents=True, exist_ok=True)
+    base = tempfile.mkdtemp(prefix="bert_base_", dir=SERVING_DIR)
+    runs = {}
+    try:
+        dirs = {v: str(Path(base) / f"v{v}") for v in (1, 2)}
+        cfg, s1 = _bert_infer_dir(dev, 0, dirs[1])
+        _, s2 = _bert_infer_dir(dev, 1, dirs[2])
+        emit("bert_base_dirs", seconds=[s1, s2], bytes=sum(
+            p.stat().st_size for p in Path(dirs[1]).iterdir()))
+        reqs = _bert_infer_requests(cfg)
+        runs["infer_bert_base"] = infer_bert_base(dev, dirs[1], cfg, reqs)
+        runs["infer_http_bert_base"] = infer_http_bert_base(
+            dev, dirs[1], cfg, reqs, runs["infer_bert_base"].pop("outs"))
+        runs["infer_cluster_swap"] = infer_cluster_swap(dev, cfg, dirs, reqs)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return runs
+
+
 def _release():
     """Free what the last phase left: its graphs' pools go with their
     executors, and cyclic garbage only with a collection."""
@@ -3371,6 +4096,7 @@ def main():
     adamw_check = check_adamw(dev, results)
     check_layer_norm(dev, results)
     check_conv(dev, results)
+    check_flash_bert_infer(dev, results)
     emit("kernels", results=results, dropout_mask=mask_check,
          dropout_mask_transformer_big=wmt_masks, bnsd_layout=bnsd_check,
          adamw=adamw_check, flash_rows_without_a_key=empty_rows)
@@ -3409,6 +4135,8 @@ def main():
                                   runs["serve_fp32"]["ids"]))
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
+    _release()
+    runs.update(infer_phases(dev))
     cpu_parity(cfg, params, dev)
     cpu_parity(cfg, params, dev, "int8")
     del params

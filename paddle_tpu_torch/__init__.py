@@ -8,11 +8,14 @@ for the TPU are CUDA C++ kernels for Hopper here (``kernels/`` +
 ``csrc/``); on a CPU or ``meta`` tensor every kernel wrapper takes its
 plain PyTorch version instead.
 
-Two paths are ported. Serving: ``serving.DecodeEngine`` over
-``models.decoder_lm``'s prefill and decode-step programs. Training:
-``models.bert.build_pretraining_program`` (IR build, ``append_backward``,
-AdamW ops) run step by step by ``core.executor.Executor`` over a
-``core.scope.Scope``.
+Three paths are ported. Generative serving: ``serving.DecodeEngine``
+over ``models.decoder_lm``'s prefill and decode-step programs. Inference
+serving: ``io.save_inference_model`` -> ``inference.create_predictor``
+(the seven passes, one CUDA graph per feed signature) ->
+``serving.ServingEngine`` (micro-batching) -> ``serving.serve`` and the
+cluster controller's rolling swap. Training: the models' programs (IR
+build, ``append_backward``, optimizer ops) run step by step by
+``core.executor.Executor`` over a ``core.scope.Scope``.
 """
 
 from __future__ import annotations

@@ -7,8 +7,10 @@ at the same places: ``decode.step`` (the decode engine's step,
 serving/decode.py), ``decode.kv_alloc`` (the KV page allocator,
 serving/kv_cache.py), ``kv.prefix_lookup`` (the prefix store's lookup,
 serving/prefix_store.py), ``disagg.ship`` (a prefill-tier shipment,
-serving/decode.py) and ``router.dispatch`` (each router attempt,
-serving/router.py). The spec grammar::
+serving/decode.py), ``router.dispatch`` (each router attempt,
+serving/router.py), ``serving.handler`` (each micro-batch,
+serving/engine.py) and ``replica.swap`` (a model swap,
+serving/engine.py). The spec grammar::
 
     FLAGS_fault_spec / PT_FAULT_SPEC =
         clause [ (','|';') clause ]*

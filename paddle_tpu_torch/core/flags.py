@@ -1,17 +1,21 @@
 """FLAGS registry — env-settable runtime configuration.
 
 The port keeps the part of ``paddle_tpu/core/flags.py`` that its serving
-plane reads: the ``FLAGS_decode_*`` entries behind ``DecodeConfig``, the
-``router_*`` and ``cluster_max_restarts`` entries of the router and the
-cluster controller, the fault-injection, tracing and metrics-window
-entries, the typed bucket-list parser and ``apply`` (a validated bulk
-override that returns the prior values). Each flag has a default and is
+and inference planes read: the ``FLAGS_decode_*`` entries behind
+``DecodeConfig``, the ``serving_*`` entries behind ``ServingConfig``,
+``predictor_cache_capacity``, ``verify_passes``, ``ckpt_verify``, the
+``router_*``, ``serving_model_poll_s`` and ``cluster_max_restarts``
+entries of the router and the cluster controller, the fault-injection,
+tracing and metrics-window entries, the typed bucket-list parser,
+``apply`` (a validated bulk override that returns the prior values) and
+``overrides`` (its scoped form). Each flag has a default and is
 overridable via the environment (``FLAGS_<name>=...``) at import.
 """
 
 from __future__ import annotations
 
 import os
+from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
 
@@ -91,6 +95,19 @@ def apply(overrides: Dict[str, Any]) -> Dict[str, Any]:
     return prior
 
 
+@contextmanager
+def overrides(mapping: Optional[Dict[str, Any]] = None, **kw):
+    """Scoped flag override: applies the (validated) overrides and
+    restores the prior values on exit, also when the body raises."""
+    ov: Dict[str, Any] = dict(mapping or {})
+    ov.update(kw)
+    prior = apply(ov)
+    try:
+        yield prior
+    finally:
+        apply(prior)
+
+
 def set_flags(flags: Dict[str, Any]):
     """paddle.set_flags."""
     apply(flags)
@@ -132,6 +149,46 @@ def parse_buckets(spec, name: str = "buckets",
                 f"{name}: bucket set {vals} does not cover {cover}")
     return vals
 
+
+# -- program passes and the inference predictor (core/passes.py,
+#    inference/predictor.py) ------------------------------------------------
+
+define_flag("verify_passes", True,
+            "verify the program after every pass applied through "
+            "core.passes.apply_passes: a pass that leaves a dangling "
+            "input, an unregistered op or a write hazard raises "
+            "ProgramVerifyError naming the pass; VarDescs a pass orphans "
+            "are pruned (verifier.pruned_vars)")
+define_flag("predictor_cache_capacity", 32,
+            "LRU bound on AnalysisPredictor's per-signature entries (a "
+            "CUDA graph each on the card): under shape churn the oldest "
+            "is evicted (predictor.cache_evictions); <= 0 disables the "
+            "bound")
+define_flag("ckpt_verify", True,
+            "verify a published model dir's files (size + sha256) against "
+            "its COMMIT manifest before it is served (checkpoint.py)")
+
+# -- micro-batching serving engine (serving/engine.py) -----------------------
+
+define_flag("serving_max_batch_size", 8,
+            "upper bound on coalesced rows per engine batch: requests "
+            "sharing a shape signature are merged up to this many rows "
+            "(a single oversized request still runs, in its own batch)")
+define_flag("serving_batch_timeout_ms", 5.0,
+            "how long the engine holds a partial batch open for more "
+            "same-signature rows before flushing it (from the head "
+            "request's enqueue); 0 dispatches immediately")
+define_flag("serving_max_queue_depth", 256,
+            "admission bound on queued requests: submits beyond it raise "
+            "ServerOverloadedError (serving.rejects)")
+define_flag("serving_default_deadline_ms", 0.0,
+            "per-request deadline when the caller gives none: a request "
+            "still queued past it fails with DeadlineExceededError at "
+            "dequeue; <= 0 means no deadline")
+define_flag("serving_buckets", "",
+            "comma-separated leading-dim bucket boundaries the engine pads "
+            "coalesced batches up to (one predictor entry each); empty = "
+            "powers of two up to serving_max_batch_size")
 
 # -- generative decode engine (serving/decode.py) ---------------------------
 
@@ -205,6 +262,10 @@ define_flag("router_dedup_capacity", 1024,
 define_flag("router_session_capacity", 4096,
             "SessionJournal bound: the most session records kept, oldest "
             "evicted first (session.evicted)")
+define_flag("serving_model_poll_s", 0.5,
+            "seconds between cluster-controller polls of the published-"
+            "models root (checkpoint.ModelWatcher): a new verified COMMIT "
+            "manifest triggers the rolling swap")
 define_flag("cluster_max_restarts", 5,
             "respawn budget per replica slot: a replica that dies is "
             "relaunched (router.replica_restarts) up to this many times")

@@ -15,6 +15,7 @@ at two different sentinel substitutions.
 from __future__ import annotations
 
 import contextlib
+import copy
 import traceback
 import warnings
 from dataclasses import dataclass, field
@@ -141,6 +142,9 @@ class OpDesc:
     @property
     def op_role(self) -> int:
         return self.attrs.get("op_role", OpRole.Forward)
+
+    def is_backward_op(self) -> bool:
+        return (self.op_role & 0xF) == OpRole.Backward
 
     def is_optimize_op(self) -> bool:
         return (self.op_role & 0xF) == OpRole.Optimize
@@ -453,6 +457,54 @@ class Program:
     def all_parameters(self) -> List[Parameter]:
         return [p for blk in self.blocks for p in blk.all_parameters()]
 
+    def list_vars(self):
+        for blk in self.blocks:
+            yield from blk.vars.values()
+
+    def clone(self, for_test: bool = False) -> "Program":
+        """A deep copy (reference: ``Program.clone``, ``core/ir.py:664``).
+        ``for_test`` keeps only the forward ops, sets every ``is_test``
+        attr and drops the non-persistable vars whose only producers went
+        with the backward and optimizer ops."""
+        p = Program()
+        p.random_seed = self.random_seed
+        p._seed_counter = self._seed_counter
+        p.blocks = []
+        for blk in self.blocks:
+            nb = Block(p, blk.idx, blk.parent_idx)
+            for name, var in blk.vars.items():
+                desc = copy.deepcopy(var.desc)
+                nb.vars[name] = Parameter(nb, desc, trainable=var.trainable) \
+                    if isinstance(var, Parameter) else Variable(nb, desc)
+            for op in blk.ops:
+                if for_test and (op.is_backward_op() or op.is_optimize_op()):
+                    continue
+                nop = OpDesc(op.type, op.inputs, op.outputs,
+                             copy.deepcopy(op.attrs))
+                if for_test and "is_test" in nop.attrs:
+                    nop.attrs["is_test"] = True
+                nb.ops.append(nop)
+            p.blocks.append(nb)
+        if not p.blocks:
+            p.blocks = [Block(p, 0, -1)]
+        if for_test:
+            produced = {n for blk in self.blocks for op in blk.ops
+                        for n in op.output_names()}
+            refs = set()
+            for nb in p.blocks:
+                for op in nb.ops:
+                    refs.update(op.input_names())
+                    refs.update(op.output_names())
+                    for val in op.attrs.values():
+                        _string_refs(val, refs)
+            for nb in p.blocks:
+                for name in [n for n, v in nb.vars.items()
+                             if n in produced and n not in refs
+                             and not v.desc.persistable]:
+                    del nb.vars[name]
+        p.grad_var_map = dict(self.grad_var_map)
+        return p
+
     def global_block(self) -> Block:
         return self.blocks[0]
 
@@ -484,6 +536,18 @@ class Program:
     def __repr__(self):
         nops = sum(len(b.ops) for b in self.blocks)
         return f"Program(blocks={len(self.blocks)}, ops={nops})"
+
+
+def _string_refs(val, out: set):
+    """Every string reachable through list/tuple/dict attr values."""
+    if isinstance(val, str):
+        out.add(val)
+    elif isinstance(val, dict):
+        for v in val.values():
+            _string_refs(v, out)
+    elif isinstance(val, (list, tuple)):
+        for v in val:
+            _string_refs(v, out)
 
 
 _main_program = Program()

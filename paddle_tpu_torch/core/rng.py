@@ -109,9 +109,19 @@ def unseeded_random_ops(ops) -> List[int]:
     ``seed`` attr: a dropout, or an op with ``dropout_prob`` > 0, not in
     test mode (or a ``__vjp_grad__`` recomputing one). Op by op such an
     op still gets a new seed each step (the step folded into seed 0);
-    a compiled step has no slot for it and would replay one mask."""
+    a compiled step has no slot for it and would replay one mask. A
+    ``fusion_group`` holding such a dropout counts too: its sub-ops'
+    seeds have no slot of their own."""
     out = []
     for i, op in enumerate(ops):
+        if op.type == "fusion_group":
+            if any(sub["type"] == "dropout"
+                   and not sub["attrs"].get("is_test")
+                   and float(sub["attrs"].get("dropout_prob", 0.0)
+                             or 0.0) > 0
+                   for sub in op.attrs.get("sub_ops") or ()):
+                out.append(i)
+            continue
         grad = op.type == "__vjp_grad__"
         attrs = op.attrs.get("fwd_attrs") or {} if grad else op.attrs
         kind = op.attrs.get("fwd_type") if grad else op.type

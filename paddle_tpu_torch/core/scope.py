@@ -43,6 +43,9 @@ class Scope:
     def items(self) -> Iterator[tuple[str, Any]]:
         return iter(self._vars.items())
 
+    def local_var_names(self) -> list:
+        return list(self._vars)
+
     def __contains__(self, name: str) -> bool:
         return self.has_var(name)
 

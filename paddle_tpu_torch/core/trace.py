@@ -25,7 +25,7 @@ incident pipeline's ring of recently active trace ids (ROADMAP A10), and
 the reference's cross-process header propagation (``inject`` /
 ``extract`` / ``span_from``) and retroactive ``record``, whose callers
 are the PS RPC transport (A9) and the micro-batching engine's batch
-worker (A5b).
+worker (its queue-wait and batch spans, A10).
 """
 
 from __future__ import annotations

@@ -22,10 +22,10 @@ from ..parallel.api import set_logical_axes
 __all__ = ["data", "static_data", "create_parameter", "create_global_var",
            "fc", "linear", "embedding", "layer_norm", "dropout",
            "cross_entropy", "softmax_with_cross_entropy", "topk", "mean",
-           "relu", "tanh", "gelu", "elementwise_add", "elementwise_mul",
-           "elementwise_div", "reduce_sum", "matmul", "mul", "reshape",
-           "squeeze", "unsqueeze", "slice", "gather", "scale",
-           "fill_constant", "take_along_axis", "flash_attention",
+           "relu", "tanh", "sigmoid", "gelu", "elementwise_add",
+           "elementwise_mul", "elementwise_div", "reduce_sum", "matmul", "mul",
+           "reshape", "transpose", "squeeze", "unsqueeze", "slice", "gather",
+           "scale", "fill_constant", "take_along_axis", "flash_attention",
            "conv2d", "pool2d", "batch_norm", "accuracy", "softmax", "cast",
            "one_hot", "label_smooth"]
 
@@ -231,6 +231,7 @@ def _unary(op_type):
 
 relu = _unary("relu")
 tanh = _unary("tanh")
+sigmoid = _unary("sigmoid")
 
 
 def gelu(x: Variable, approximate: bool = False, name=None) -> Variable:
@@ -280,6 +281,15 @@ def reshape(x: Variable, shape, name=None) -> Variable:
     helper.append_op("reshape2", {"X": [x]},
                      {"Out": [out], "XShape": [xshape]},
                      {"shape": list(shape)})
+    return out
+
+
+def transpose(x: Variable, perm, name=None) -> Variable:
+    helper = LayerHelper("transpose2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("transpose2", {"X": [x]},
+                     {"Out": [out], "XShape": [xshape]}, {"axis": list(perm)})
     return out
 
 

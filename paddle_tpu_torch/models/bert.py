@@ -3,11 +3,11 @@
 The port of ``paddle_tpu/models/bert.py``: the encoder is built as
 program IR through the layers API, op for op as the reference builds it
 (the two programs serialise to the same JSON), with the packed
-flash-attention op (``use_flash_attention``).
+flash-attention op (``use_flash_attention``) or the unfused attention
+chain (the default, which the inference passes fuse).
 The sharding annotations on the weights are recorded (they are part of
 the program) but nothing in the port reads them: it runs on one device.
-Not in the port, and raising: the unfused attention chain, ring
-attention / sequence parallelism, pipeline stages and data parallelism
+Not in the port, and raising: ring attention / sequence parallelism, pipeline stages and data parallelism
 above 1, and the ``lamb`` optimizer.
 """
 
@@ -92,32 +92,48 @@ def _dense(x, d_out, name, cfg, act=None, tp_spec=None):
 
 
 def _attention(x, attn_bias, cfg: BertConfig, name: str, is_test=False):
-    """Multi-head self-attention: three separate projections, then the
-    packed flash-attention op. QKV carry the column-parallel annotation,
-    the output projection the row-parallel one. The reference's other
-    branch, the matmul/softmax/dropout/matmul chain on [B,n,S,hd] heads,
-    is not in the port."""
+    """Multi-head self-attention: three separate projections, then either
+    the packed flash-attention op (``use_flash_attention``) or the
+    reference's unfused chain on [B,n,S,hd] heads (matmul q k^T * alpha,
+    + bias, softmax, dropout, matmul v), which the inference passes
+    rewrite into one bnsd flash_attention op. QKV carry the
+    column-parallel annotation, the output projection the row-parallel
+    one."""
     h = cfg.hidden_size
     n = cfg.num_attention_heads
     hd = h // n
     if cfg.use_ring_attention:
         raise NotImplementedError(
             "ring attention (sequence parallelism) is not in the port")
-    if not cfg.use_flash_attention:
-        raise NotImplementedError(
-            "the unfused attention branch (matmul/softmax/dropout/matmul "
-            "on [B,n,S,hd] heads) is not in the port: set "
-            "use_flash_attention")
-    # PACKED path: the projections' [B,S,H] outputs feed the fused
-    # kernels directly and ctx comes back [B,S,H], with no reshape or
-    # transpose op in the layer
-    q3 = _dense(x, h, f"{name}_q", cfg, tp_spec=(None, "mp"))
-    k3 = _dense(x, h, f"{name}_k", cfg, tp_spec=(None, "mp"))
-    v3 = _dense(x, h, f"{name}_v", cfg, tp_spec=(None, "mp"))
-    ctx = layers.flash_attention(
-        q3, k3, v3, bias=attn_bias, scale=1.0 / np.sqrt(hd),
-        num_heads=n, dropout_rate=cfg.attention_probs_dropout_prob,
-        is_test=is_test)
+    if cfg.use_flash_attention:
+        # PACKED path: the projections' [B,S,H] outputs feed the fused
+        # kernels directly and ctx comes back [B,S,H], with no reshape or
+        # transpose op in the layer
+        q3 = _dense(x, h, f"{name}_q", cfg, tp_spec=(None, "mp"))
+        k3 = _dense(x, h, f"{name}_k", cfg, tp_spec=(None, "mp"))
+        v3 = _dense(x, h, f"{name}_v", cfg, tp_spec=(None, "mp"))
+        ctx = layers.flash_attention(
+            q3, k3, v3, bias=attn_bias, scale=1.0 / np.sqrt(hd),
+            num_heads=n, dropout_rate=cfg.attention_probs_dropout_prob,
+            is_test=is_test)
+        return _dense(ctx, h, f"{name}_out", cfg, tp_spec=("mp", None))
+
+    def proj(suffix):
+        t = _dense(x, h, f"{name}_{suffix}", cfg, tp_spec=(None, "mp"))
+        t = layers.reshape(t, [0, 0, n, hd])
+        return layers.transpose(t, [0, 2, 1, 3])      # [B,n,S,hd]
+
+    q, k, v = proj("q"), proj("k"), proj("v")
+    scores = layers.matmul(q, k, transpose_y=True, alpha=1.0 / np.sqrt(hd))
+    if attn_bias is not None:
+        scores = scores + attn_bias
+    probs = layers.softmax(scores)
+    probs = layers.dropout(probs, cfg.attention_probs_dropout_prob,
+                           is_test=is_test,
+                           dropout_implementation="upscale_in_train")
+    ctx = layers.matmul(probs, v)                 # [B,n,S,hd]
+    ctx = layers.transpose(ctx, [0, 2, 1, 3])
+    ctx = layers.reshape(ctx, [0, 0, h])
     return _dense(ctx, h, f"{name}_out", cfg, tp_spec=("mp", None))
 
 

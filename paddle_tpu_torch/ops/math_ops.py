@@ -1,7 +1,7 @@
 """Math lowerings (port of ``paddle_tpu/ops/math_ops.py``: elementwise
-:38-46, relu :90, tanh :93, gelu :141, reduce_sum :231, mean :238, matmul
+:38-46, relu :90, tanh :93, sigmoid :92, gelu :141, reduce_sum :231, mean :238, matmul
 :267, matmul_v2 :285, mul :297, softmax :329, cross_entropy :343,
-softmax_with_cross_entropy :361, accuracy :448, top_k :466).
+softmax_with_cross_entropy :361, accuracy :448, top_k :466, fc :525).
 
 The matrix products stay ``torch.matmul``, as the JAX package left them
 to XLA; fp32 products run in full fp32 on the card (TF32 off), bf16
@@ -49,6 +49,11 @@ def relu(ins, attrs):
 @register_op("tanh")
 def tanh(ins, attrs):
     return {"Out": torch.tanh(ins["X"][0])}
+
+
+@register_op("sigmoid")
+def sigmoid(ins, attrs):
+    return {"Out": torch.sigmoid(ins["X"][0])}
 
 
 @register_op("gelu")
@@ -121,6 +126,21 @@ def mul(ins, attrs):
     y2 = y.reshape(math.prod(y.shape[:yd]), -1)
     return {"Out": torch.matmul(x2, y2).reshape(
         tuple(x.shape[:xd]) + tuple(y.shape[yd:]))}
+
+
+@register_op("fc")
+def fc(ins, attrs):
+    """Input @ W + Bias, the op ``fc_fuse_pass`` emits (reference:
+    ``ops/math_ops.py:525``); in_num_col_dims flattens the leading dims
+    as ``mul`` does. Bias is optional."""
+    x, w = ins["Input"][0], ins["W"][0]
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    ncol = int(attrs.get("in_num_col_dims", 1))
+    lead = tuple(x.shape[:ncol])
+    out = torch.matmul(x.reshape(math.prod(lead), -1), w)
+    if bias is not None:
+        out = out + bias
+    return {"Out": out.reshape(lead + (w.shape[-1],))}
 
 
 @register_op("cross_entropy", non_diff_inputs=("Label",))

@@ -1,7 +1,7 @@
 """Tensor creation and manipulation lowerings (port of
 ``paddle_tpu/ops/tensor_ops.py``: fill_constant :57, uniform_random :75,
 gaussian_random :87, truncated_gaussian_random :99, cast :138, scale :146,
-reshape2 :156, squeeze2 :233, unsqueeze2 :244, slice :283, gather :314,
+reshape2 :156, transpose2 :177, squeeze2 :233, unsqueeze2 :244, slice :283, gather :314,
 lookup_table_v2 :337, sum :423; and for the WMT Transformer assign_value
 :66, one_hot :402, one_hot_v2 :415, increment :550).
 
@@ -129,6 +129,16 @@ def reshape2(ins, attrs):
     shape = [x.shape[i] if d == 0 else d
              for i, d in enumerate(attrs["shape"])]
     return {"Out": x.reshape(shape), "XShape": _xshape(x)}
+
+
+@register_op("transpose2")
+def transpose2(ins, attrs):
+    """Out is a permuted view of X (no copy); a consumer that needs
+    contiguous memory makes it so. Its gradient is the generic
+    ``__vjp_grad__``, which permutes the cotangent back."""
+    x = ins["X"][0]
+    return {"Out": x.permute([int(a) for a in attrs["axis"]]),
+            "XShape": _xshape(x)}
 
 
 @register_op("squeeze2")

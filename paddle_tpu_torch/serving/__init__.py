@@ -1,21 +1,28 @@
-"""Generative serving on PyTorch (port of ``paddle_tpu.serving``'s decode
-plane and its cluster plane).
+"""Serving on PyTorch (port of ``paddle_tpu.serving``: the micro-batching
+plane, the generative decode plane and their cluster plane).
 
+* ``engine.ServingEngine``: dynamic micro-batching over an
+  ``inference.AnalysisPredictor`` behind the admission queue, padded to
+  buckets, with the zero-downtime ``swap_predictor``;
 * ``decode.DecodeEngine``: continuous-batching generation over a paged KV
   cache (``kv_cache``), prefix sharing (``prefix_store``), session
   journaling (``session``), KV page shipments between a prefill and a
   decode tier (``disagg``);
-* ``server``: ``serve_decode`` and ``ServingHTTPServer``, the HTTP front
-  end (``/v1/generate``, ``/v1/prefill``, ``/healthz``, ``/livez``,
-  ``/v1/stats``, ``/metrics``) with the readiness machine of ``health``;
+* ``server``: ``serve``, ``serve_decode``, ``LocalClient`` and
+  ``ServingHTTPServer``, the HTTP front end (``/v1/infer``,
+  ``/v1/admin/swap``, ``/v1/generate``, ``/v1/prefill``, ``/healthz``,
+  ``/livez``, ``/v1/stats``, ``/metrics``) with the readiness machine of
+  ``health``;
 * ``router``: prefix-affinity, failover, dedup and session resumption
   over the replicas; ``RouterHTTPServer`` its front end;
-* ``cluster``: ``ClusterController`` launches decode replicas
-  (``replica``: ``python -m paddle_tpu_torch.serving.replica``) in tiers
-  behind a router and respawns the ones that die.
+* ``cluster``: ``ClusterController`` launches predictor replicas over a
+  published-models root, rolling them onto each new version, or decode
+  replicas in tiers (``replica``: ``python -m
+  paddle_tpu_torch.serving.replica``), behind a router, and respawns the
+  ones that die.
 
-Not in the port yet: the micro-batching ``ServingEngine`` with
-``serve``/``LocalClient`` (ROADMAP A5b).
+Not in the port yet: scaling, the autoscaler and the router's trial
+split (ROADMAP A5c).
 """
 
 from .admission import (AdmissionQueue, DeadlineExceededError,  # noqa: F401
@@ -27,6 +34,7 @@ from .cluster import (ClusterController, ClusterError,  # noqa: F401
 from .decode import (DecodeConfig, DecodeEngine,  # noqa: F401
                      GenerationRequest, ShipPrefillRequest,
                      decode_engine_from_dir)
+from .engine import ServingConfig, ServingEngine  # noqa: F401
 from .disagg import (ShipmentCRCError, ShipmentError,  # noqa: F401
                      fetch_prefill, pack_shipment, unpack_shipment)
 from .health import HealthState  # noqa: F401

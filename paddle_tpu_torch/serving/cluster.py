@@ -1,9 +1,18 @@
-"""Cluster serving control plane, the decode plane: replicated decode
-engines behind one router, with supervised respawn (port of
+"""Cluster serving control plane: replicated engines behind one router,
+with supervised respawn and rolling model swaps (port of
 ``paddle_tpu/serving/cluster.py``).
 
-* N **replicas**, each a DecodeEngine behind the HTTP server
-  (serving/replica.py), with the health.py readiness machine;
+* N **replicas**, each a ServingEngine over a published-models root
+  (``/v1/infer``) or a DecodeEngine over a decoder-LM servable dir
+  (``/v1/generate``), behind the HTTP server (serving/replica.py), with
+  the health.py readiness machine;
+* a **model watcher** (``checkpoint.ModelWatcher``) polling the models
+  root every ``FLAGS_serving_model_poll_s``: a new verified version
+  starts the **rolling swap** (``roll_to``): one replica at a time, the
+  controller POSTs ``/v1/admin/swap``; the replica goes not-ready, warms
+  every bucket on the new predictor while the old one serves, flips, and
+  comes back ready before the next replica starts. The controller never
+  takes the last ready replica offline, so the router always has one;
 * a **router** (router.py) with prefix affinity, failover on the
   core/retry.py schedule, request-id dedup and the session journal;
 * **tiers**: ``role_counts={"prefill": 1, "decode": 2}`` provisions each
@@ -15,7 +24,9 @@ engines behind one router, with supervised respawn (port of
   the handle is marked down (the router has failed over by then) and the
   slot is respawned on a core/retry.py schedule, up to
   ``FLAGS_cluster_max_restarts`` times (``router.replica_restarts``;
-  ``router.affinity_remaps`` when a tier member comes back).
+  ``router.affinity_remaps`` when a tier member comes back); a predictor
+  replica that comes back on another version than the fleet's is swapped
+  onto it.
 
 Two replica backends share every path:
 
@@ -28,13 +39,9 @@ Two replica backends share every path:
 ``device=None`` means the card (``cuda``; raising without CUDA), as in
 every entry point of the port; tests pass ``"cpu"``.
 
-Not in the port yet (ROADMAP A5b, with ``checkpoint.ModelWatcher``, the
-micro-batching ``ServingEngine`` and the scaler): the predictor fleet over
-a published-models root, the rolling swap (``roll_to``, ``_watch_loop``,
-``_swap_one``), ``scale_to`` / ``scale_tier``, ``retune_replica`` and the
-autoscaler; a controller without ``decode_model_dir`` raises. The
-fleet observatory and the ``replica_death`` incident record are ROADMAP
-A10.
+Not in the port yet: ``scale_to`` / ``scale_tier``, ``retune_replica``
+and the autoscaler (ROADMAP A5c); the fleet observatory and the
+``replica_death`` incident record (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -49,13 +56,15 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+from .. import checkpoint as _ckpt
 from ..core import retry, telemetry
 from ..core.flags import flag as _flag
-from .router import Router, RouterHTTPServer
+from .router import Router, RouterHTTPServer, _http_json
 
 
 class ClusterError(RuntimeError):
-    """Control-plane failure (a replica never came up)."""
+    """Control-plane failure (a replica never came up, a swap never
+    took)."""
 
 
 def _device_arg(device) -> str:
@@ -70,12 +79,18 @@ def _device_arg(device) -> str:
 class ReplicaProcess:
     """One supervised replica OS process."""
 
-    def __init__(self, name: str, decode_model_dir: str,
+    def __init__(self, name: str, model_root: str,
                  env: Optional[Dict[str, str]] = None,
-                 ready_timeout_s: float = 120.0, role: str = "unified",
+                 serving_config=None, ready_timeout_s: float = 120.0,
+                 role: str = "unified",
+                 decode_model_dir: Optional[str] = None,
                  prefill_urls: str = "", prefix_cache: bool = False,
                  journal_url: str = "", device=None, **_ignored):
         self.name = name
+        self.model_root = model_root
+        self.serving_config = serving_config
+        # a generative replica serves this dir over /v1/generate; without
+        # it the replica runs a predictor over model_root (/v1/infer)
         self.decode_model_dir = decode_model_dir
         self.env = env
         self.ready_timeout_s = ready_timeout_s
@@ -102,14 +117,22 @@ class ReplicaProcess:
         env["PYTHONPATH"] = repo_root + os.pathsep + \
             env.get("PYTHONPATH", "")
         cmd = [sys.executable, "-m", "paddle_tpu_torch.serving.replica",
-               "--decode-model-dir", self.decode_model_dir, "--port", "0",
-               "--device", self.device]
-        if self.prefill_urls:
-            cmd += ["--prefill-urls", self.prefill_urls]
-        if self.prefix_cache:
-            cmd += ["--prefix-cache"]
-        if self.journal_url and self.role != "prefill":
-            cmd += ["--journal-url", self.journal_url]
+               "--port", "0", "--device", self.device]
+        if self.decode_model_dir:
+            cmd += ["--decode-model-dir", self.decode_model_dir]
+            if self.prefill_urls:
+                cmd += ["--prefill-urls", self.prefill_urls]
+            if self.prefix_cache:
+                cmd += ["--prefix-cache"]
+            if self.journal_url and self.role != "prefill":
+                cmd += ["--journal-url", self.journal_url]
+        else:
+            cmd += ["--model-root", self.model_root]
+            if self.serving_config is not None:
+                cmd += ["--max-batch-size",
+                        str(self.serving_config.max_batch_size),
+                        "--batch-timeout-ms",
+                        str(self.serving_config.batch_timeout_ms)]
         if self.role != "unified":
             cmd += ["--role", self.role]
         self.proc = subprocess.Popen(
@@ -150,6 +173,8 @@ class ReplicaProcess:
                     if line.startswith("PT_REPLICA_READY "):
                         found.update(json.loads(
                             line[len("PT_REPLICA_READY "):]))
+                        return
+                    if line.startswith("PT_REPLICA_FAIL"):
                         return
             except (OSError, ValueError):
                 pass
@@ -196,11 +221,14 @@ class InprocReplica:
     """Engine + HTTP server threads in this process: the same wire surface
     as ReplicaProcess at a fraction of the start-up cost."""
 
-    def __init__(self, name: str, decode_model_dir: str,
-                 role: str = "unified", prefill_urls: str = "",
-                 prefix_cache: bool = False, journal_sink=None,
-                 device=None, **_ignored):
+    def __init__(self, name: str, model_root: str, serving_config=None,
+                 role: str = "unified",
+                 decode_model_dir: Optional[str] = None,
+                 prefill_urls: str = "", prefix_cache: bool = False,
+                 journal_sink=None, device=None, **_ignored):
         self.name = name
+        self.model_root = model_root
+        self.serving_config = serving_config
         self.decode_model_dir = decode_model_dir
         self.role = str(role or "unified")
         self.prefill_urls = prefill_urls
@@ -216,6 +244,8 @@ class InprocReplica:
         self._stopped = False
 
     def spawn(self):
+        if not self.decode_model_dir:
+            return self._spawn_predictor()
         from .decode import DecodeConfig, decode_engine_from_dir
         from .server import ServingHTTPServer
 
@@ -230,6 +260,26 @@ class InprocReplica:
             None, decode_engine=self.engine).start()
         self.url = self.server.url
         self.version = self.engine.version
+        self.engine.start(warmup=True)
+        self._stopped = False
+        return self
+
+    def _spawn_predictor(self):
+        from ..inference import AnalysisConfig, create_predictor
+        from .engine import ServingEngine
+        from .server import ServingHTTPServer
+
+        newest = _ckpt.ModelWatcher(self.model_root).latest()
+        if newest is None:
+            raise ClusterError(f"no verified published model under "
+                               f"{self.model_root}")
+        version, model_dir = newest
+        self.engine = ServingEngine(
+            create_predictor(AnalysisConfig(model_dir), device=self.device),
+            config=self.serving_config, version=version)
+        self.server = ServingHTTPServer(self.engine).start()
+        self.url = self.server.url
+        self.version = version
         self.engine.start(warmup=True)
         self._stopped = False
         return self
@@ -262,39 +312,52 @@ class InprocReplica:
 # ---------------------------------------------------------------------------
 
 class ClusterController:
-    """Launch N decode replicas over a decoder-LM servable dir, front them
-    with a router and respawn the ones that die.
+    """Launch N replicas, front them with a router, respawn the ones that
+    die, and roll the fleet onto each newly published model version.
+
+        cluster = ClusterController(models_root, replicas=2).start()
+        ... POST cluster.url + "/v1/infer" ...
+        checkpoint.publish_model(models_root, new_dir)   # rolls the fleet
+        cluster.close()
+
+    With ``decode_model_dir`` the replicas are decode engines over that
+    servable dir instead (``role_counts`` provisions tiers) and nothing
+    is watched:
 
         cluster = ClusterController("", decode_model_dir=d,
                                     role_counts={"decode": 2}).start()
-        ... POST cluster.url + "/v1/generate" ...
-        cluster.close()
     """
 
     def __init__(self, model_root: str = "", replicas: int = 2,
-                 inprocess: bool = False,
+                 inprocess: bool = False, serving_config=None,
                  replica_env: Optional[Dict[str, str]] = None,
                  host: str = "127.0.0.1", router_port: int = 0,
+                 model_poll_s: Optional[float] = None,
                  max_restarts: Optional[int] = None,
+                 auto_swap: bool = True,
                  decode_model_dir: Optional[str] = None,
                  role_counts: Optional[Dict[str, int]] = None,
                  prefix_cache: bool = False, device=None,
                  replica_ready_timeout_s: float = 120.0):
-        if not decode_model_dir:
-            raise NotImplementedError(
-                "ClusterController over a published-models root (the "
-                "predictor fleet, rolling swaps, scaling) is not in the "
-                "port yet (ROADMAP A5b): pass decode_model_dir")
+        if not model_root and not decode_model_dir:
+            raise ValueError("ClusterController needs a published-models "
+                             "root or a decode_model_dir")
         self.model_root = os.path.abspath(model_root) if model_root else ""
         self.n_replicas = int(replicas)
         self.inprocess = bool(inprocess)
+        self.serving_config = serving_config
         self.replica_env = replica_env
+        self.model_poll_s = float(
+            _flag("serving_model_poll_s") if model_poll_s is None
+            else model_poll_s)
         self.max_restarts = int(
             _flag("cluster_max_restarts") if max_restarts is None
             else max_restarts)
+        self.auto_swap = bool(auto_swap) and not decode_model_dir
         self.device = device
         self.replica_ready_timeout_s = float(replica_ready_timeout_s)
-        self.decode_model_dir = os.path.abspath(decode_model_dir)
+        self.decode_model_dir = os.path.abspath(decode_model_dir) \
+            if decode_model_dir else None
         self.prefix_cache = bool(prefix_cache)
         # role_counts is the tier view ({"prefill": 1, "decode": 2}): it
         # fixes each slot's role, which the router's affinity pick reads;
@@ -317,6 +380,13 @@ class ClusterController:
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
         self._counted_dead: set = set()
+        self._watcher: Optional[_ckpt.ModelWatcher] = None
+        # serialises rolling swaps and guards current_version: held
+        # across a whole fleet roll, so swaps never overlap
+        self._swap_lock = threading.Lock()
+        self.current_version: Optional[int] = None
+        # replica -> (status, reply) of its last failed swap attempt
+        self.swap_errors: Dict[str, Any] = {}
 
     # -- lifecycle -----------------------------------------------------------
     @property
@@ -333,21 +403,33 @@ class ClusterController:
                 else "unified"
         self._slot_roles[index] = role
         extra: Dict[str, Any] = {}
-        if role == "decode":
-            # pull shipments THROUGH the router (forward_prefill): the
-            # replica never tracks prefill-tier membership
-            extra["prefill_urls"] = self.url
-        if role != "prefill":
-            # RouterHTTPServer binds its port at construction, so the
-            # journal endpoint is known before any spawn
-            extra["journal_url"] = self.url + "/v1/session/journal"
-            extra["journal_sink"] = self.router.sessions.update
-        return cls(name, self.decode_model_dir, env=self.replica_env,
-                   role=role, prefix_cache=self.prefix_cache,
+        if self.decode_model_dir:
+            extra["decode_model_dir"] = self.decode_model_dir
+            extra["prefix_cache"] = self.prefix_cache
+            if role == "decode":
+                # pull shipments THROUGH the router (forward_prefill): the
+                # replica never tracks prefill-tier membership
+                extra["prefill_urls"] = self.url
+            if role != "prefill":
+                # RouterHTTPServer binds its port at construction, so the
+                # journal endpoint is known before any spawn
+                extra["journal_url"] = self.url + "/v1/session/journal"
+                extra["journal_sink"] = self.router.sessions.update
+        return cls(name, self.model_root, env=self.replica_env,
+                   serving_config=self.serving_config, role=role,
                    device=self.device,
                    ready_timeout_s=self.replica_ready_timeout_s, **extra)
 
     def start(self, ready_timeout_s: float = 120.0) -> "ClusterController":
+        if not self.decode_model_dir:
+            self._watcher = _ckpt.ModelWatcher(self.model_root)
+            newest = self._watcher.poll()
+            if newest is None:
+                raise ClusterError(f"no verified published model under "
+                                   f"{self.model_root} — publish_model() "
+                                   f"one before starting the cluster")
+            with self._swap_lock:
+                self.current_version = newest[0]
         try:
             for _ in range(self.n_replicas):
                 replica = self._make_replica(self._next_index)
@@ -367,6 +449,12 @@ class ClusterController:
                                name="pt-torch-cluster-monitor", daemon=True)
         mon.start()
         self._threads.append(mon)
+        if self.auto_swap:
+            watch = threading.Thread(target=self._watch_loop,
+                                     name="pt-torch-cluster-modelwatch",
+                                     daemon=True)
+            watch.start()
+            self._threads.append(watch)
         return self
 
     def _wait_ready(self, timeout_s: float):
@@ -456,11 +544,108 @@ class ClusterController:
                 # sessions elsewhere
                 telemetry.counter_add("router.affinity_remaps", 1,
                                       role=fresh.role, reason="respawn")
+            # a respawn comes up on the newest published version: bring
+            # it to the fleet's if that is another
+            with self._swap_lock:
+                current = self.current_version
+            if current is not None and fresh.version != current:
+                path = self.current_model_path()
+                if path is not None:
+                    self._swap_one(fresh, current, path)
             return
+
+    # -- rolling model swap --------------------------------------------------
+    def _watch_loop(self):
+        while not self._stop.wait(self.model_poll_s):
+            newest = self._watcher.poll()
+            if newest is not None:
+                version, path = newest
+                try:
+                    self.roll_to(version, path)
+                except ClusterError as e:
+                    telemetry.counter_add("router.swap_errors", 1)
+                    print(f"[cluster] rolling swap to v{version} "
+                          f"failed: {e}", file=sys.stderr)
+
+    def _swap_one(self, replica, version: int, path: str) -> bool:
+        """Swap one replica (POST /v1/admin/swap), with retries. Returns
+        whether it took; on failure the replica serves its old
+        version."""
+        sched = retry.RetryPolicy(max_retries=2, backoff=0.1,
+                                  deadline=120.0).start()
+        while True:
+            try:
+                code, doc = _http_json(
+                    "POST", replica.url, "/v1/admin/swap",
+                    body=json.dumps({"model_dir": path,
+                                     "version": version}).encode(),
+                    timeout=sched.remaining(default=90.0) or 90.0)
+            except (ConnectionError, OSError) as e:
+                code, doc = -1, {"error": repr(e)}
+            if code == 200:
+                telemetry.counter_add("router.swaps", 1)
+                replica.version = version
+                return True
+            telemetry.counter_add("router.swap_errors", 1)
+            self.swap_errors[replica.name] = (code, doc)
+            outcome, delay = sched.note_failure()
+            if outcome != retry.RETRY:
+                return False
+            time.sleep(delay)
+
+    def _await_peer_ready(self, name: str, timeout_s: float):
+        """Wait until a replica other than ``name`` is ready (or the
+        timeout): the last ready replica is never taken offline."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline and not self._stop.is_set():
+            for handle in self.router.handles():
+                if handle.name != name:
+                    self.router.probe(handle)
+            if any(h.ready for h in self.router.handles()
+                   if h.name != name):
+                return
+            time.sleep(0.1)
+
+    def roll_to(self, version: int, path: str):
+        """The rolling swap: one replica at a time goes not-ready, warms
+        and flips, and the next starts only once it is ready again, so
+        N-1 replicas carry the traffic throughout."""
+        with self._swap_lock:
+            failed = []
+            for replica in list(self.replicas):
+                if not replica.alive():
+                    continue
+                self._await_peer_ready(replica.name, timeout_s=30.0)
+                if not self._swap_one(replica, version, path):
+                    failed.append(replica.name)
+                    continue
+                handle = self._handles.get(replica.name)
+                deadline = time.monotonic() + 60.0
+                while handle is not None and time.monotonic() < deadline:
+                    self.router.probe(handle)
+                    if handle.ready:
+                        break
+                    time.sleep(0.05)
+            self.current_version = version
+            if failed:
+                raise ClusterError(
+                    f"rolling swap to v{version}: replicas {failed} "
+                    f"failed to swap (still serving their old version): "
+                    f"{ {n: self.swap_errors.get(n) for n in failed} }")
 
     # -- introspection -------------------------------------------------------
     def replica_named(self, name: str):
         return next((r for r in self.replicas if r.name == name), None)
+
+    def current_model_path(self) -> Optional[str]:
+        """The path of the fleet's current model version (None when it
+        was unpublished behind the controller's back)."""
+        with self._swap_lock:
+            version = self.current_version
+        for v, path in _ckpt.list_model_versions(self.model_root):
+            if v == version:
+                return path
+        return None
 
     def tier_members(self, role: str) -> List[Any]:
         """Live replicas provisioned into ``role`` (slot order)."""
@@ -472,4 +657,5 @@ class ClusterController:
         out["restarts"] = dict(self._restarts)
         out["replica_backend"] = "inprocess" if self.inprocess \
             else "process"
+        out["current_version"] = self.current_version
         return out

@@ -194,7 +194,7 @@ class GenerationRequest(InferenceRequest):
                  seed: Optional[int] = None, eos_id: Optional[int] = None,
                  session_id: Optional[str] = None,
                  prior: Optional[np.ndarray] = None):
-        super().__init__(deadline)
+        super().__init__({"prompt": prompt}, 1, deadline)
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
@@ -287,7 +287,7 @@ class ShipPrefillRequest(InferenceRequest):
     __slots__ = ("prompt",)
 
     def __init__(self, prompt: np.ndarray, deadline: Optional[float]):
-        super().__init__(deadline)
+        super().__init__({"prompt": prompt}, 1, deadline)
         self.prompt = prompt
 
 
@@ -322,7 +322,8 @@ class DecodeEngine:
         self._pools = self.pool.make_arrays(self.device)
         self._mp = -(-model_cfg.max_seq_len // self.config.page_size)
         self.queue = AdmissionQueue(self.config.max_queue_depth,
-                                    self.config.default_deadline_ms)
+                                    self.config.default_deadline_ms,
+                                    metric_prefix="decode")
         if self.config.prefill_buckets is None:
             self.config.prefill_buckets = _pow2_ladder(
                 min(8, model_cfg.max_seq_len), model_cfg.max_seq_len)

@@ -1,34 +1,46 @@
-"""Replica runner: one generative serving process of a cluster (port of
-``paddle_tpu/serving/replica.py``'s decode replica).
+"""Replica runner: one serving process of a cluster (port of
+``paddle_tpu/serving/replica.py``).
 
+    python -m paddle_tpu_torch.serving.replica --model-root ROOT \
+        [--max-batch-size N] [--batch-timeout-ms MS] [--no-warmup] \
+        [--poll-s S] [--device cuda|cpu] [--host H] [--port P]
+    python -m paddle_tpu_torch.serving.replica --model-dir DIR ...
     python -m paddle_tpu_torch.serving.replica --decode-model-dir DIR \
         [--role unified|prefill|decode] [--prefill-urls URL[,URL]] \
-        [--prefix-cache] [--journal-url URL] [--device cuda|cpu] \
-        [--host H] [--port P]
+        [--prefix-cache] [--journal-url URL] [--device cuda|cpu] ...
 
-builds a DecodeEngine over a decoder-LM servable dir on ``--device``
-(default cuda, which raises without CUDA), binds the HTTP server first so
+The predictor replica (``run_replica``) serves the newest verified
+version under a published-models root (``checkpoint.publish_model``
+layout), or a bare inference-model dir as version 0, through a
+micro-batching ServingEngine over ``/v1/infer``, and swaps its model on
+``POST /v1/admin/swap`` (the cluster controller's rolling swap) or, with
+``--poll-s`` > 0, on its own when a newer version is published. The
+decode replica (``run_decode_replica``) builds a DecodeEngine over a
+decoder-LM servable dir (``/v1/generate``). Both run on ``--device``
+(default cuda, which raises without CUDA), bind the HTTP server first so
 a controller can watch ``/healthz`` go from ``starting`` to ``ok`` while
-the engine warms up, and serves until told to stop. On the card the
+the engine warms up, and serve until told to stop. On the card the
 engine loads the kernel libraries that ``kernels/_build.py`` built into
 ``build/torch_kernels/``, building any that is missing.
 
 The process announces itself on stdout with one machine-readable line::
 
     PT_REPLICA_READY {"url": ..., "port": ..., "pid": ..., "version": ...,
-                      "model_dir": ..., "decode": true, "role": ...}
+                      "model_dir": ..., "device": ...}
+
+(a decode replica adds ``"decode": true`` and its ``"role"``); a
+predictor replica with no verified model prints ``PT_REPLICA_FAIL`` and
+exits 2.
 
 which is the only contract serving/cluster.py parses. SIGTERM/SIGINT
 drain the queue and exit 0; SIGKILL is the crash the router's failover
 and session journal exist for. The process inherits FLAGS_* and
 PT_FAULT_SPEC / PT_FAULT_SEED from its environment, so a chaos run arms
-``decode.step`` / ``decode.kv_alloc`` in every replica without code
+``decode.step`` / ``replica.swap`` in every replica without code
 changes.
 
-Not in the port yet: the predictor replica (``--model-root`` /
-``--model-dir``, ``run_replica``; ROADMAP A5b) and the JSONL run log
-(``--telemetry-log``; ROADMAP A10): both options are refused with a
-message that names their item.
+Not in the port yet: the JSONL run log (``--telemetry-log``; ROADMAP
+A10), which is refused with a message that names its item.
 """
 
 from __future__ import annotations
@@ -105,18 +117,88 @@ def run_decode_replica(args) -> int:
     return 0
 
 
+def run_replica(args) -> int:
+    """One predictor replica: a ServingEngine over the newest verified
+    published version (``--model-root``) or a bare dir (``--model-dir``)
+    behind the HTTP server, with the PT_REPLICA_READY / SIGTERM-drain
+    contract."""
+    from .. import checkpoint as ckpt
+    from ..inference import AnalysisConfig, create_predictor
+    from .engine import ServingConfig, ServingEngine
+    from .server import ServingHTTPServer
+
+    version = 0
+    watcher = None
+    if args.model_root:
+        watcher = ckpt.ModelWatcher(args.model_root)
+        newest = watcher.poll()
+        if newest is None:
+            print(f"PT_REPLICA_FAIL no verified published model under "
+                  f"{args.model_root}", flush=True)
+            return 2
+        version, model_dir = newest
+    else:
+        model_dir = args.model_dir
+    cfg = ServingConfig(
+        max_batch_size=args.max_batch_size or None,
+        batch_timeout_ms=args.batch_timeout_ms
+        if args.batch_timeout_ms >= 0 else None)
+    engine = ServingEngine(create_predictor(AnalysisConfig(model_dir),
+                                            device=args.device),
+                           config=cfg, version=version)
+    server = ServingHTTPServer(engine, host=args.host,
+                               port=args.port).start()
+    # announce before the warm-up: the controller learns the port at once
+    # and watches /healthz flip from "starting" to "ok"
+    print("PT_REPLICA_READY " + json.dumps(
+        {"url": server.url, "port": server.port, "pid": os.getpid(),
+         "version": version, "model_dir": model_dir,
+         "device": str(engine.predictor.device)}), flush=True)
+
+    stop = threading.Event()
+
+    def _graceful(_sig, _frm):
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _graceful)
+    signal.signal(signal.SIGINT, _graceful)
+    engine.start(warmup=not args.no_warmup)
+    try:
+        while not stop.wait(args.poll_s if args.poll_s > 0 else 1.0):
+            if watcher is not None and args.poll_s > 0:
+                # self-watching (no controller): swap in place when a
+                # newer verified version lands
+                newest = watcher.poll()
+                if newest is not None:
+                    v, path = newest
+                    try:
+                        pred = create_predictor(AnalysisConfig(path),
+                                                device=args.device)
+                        engine.swap_predictor(pred, version=v)
+                        print(f"PT_REPLICA_SWAPPED {v}", flush=True)
+                    except Exception as e:
+                        print(f"PT_REPLICA_SWAP_FAIL {v} {e!r}", flush=True)
+    finally:
+        engine.close(drain=True, timeout=30)
+        server.shutdown()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="one generative serving replica process "
-                    "(serving/cluster.py launches these; standalone use "
-                    "works too)")
+        description="one serving replica process (serving/cluster.py "
+                    "launches these; standalone use works too)")
     src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--model-root",
+                     help="published-models root (checkpoint.publish_model "
+                          "layout): serves the newest verified version")
+    src.add_argument("--model-dir",
+                     help="bare inference-model dir (io.save_inference_"
+                          "model layout), served as version 0")
     src.add_argument("--decode-model-dir",
                      help="decoder-LM servable dir (save_decoder_lm "
                           "layout): POST /v1/generate through the "
                           "continuous-batching decode engine")
-    src.add_argument("--model-root", help=argparse.SUPPRESS)
-    src.add_argument("--model-dir", help=argparse.SUPPRESS)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=0,
                     help="0 binds an ephemeral port (announced on stdout)")
@@ -124,6 +206,16 @@ def main(argv=None) -> int:
                     help="torch device of the engine: 'cuda' (cuda:0, "
                          "the default; raises without CUDA) or 'cpu' "
                          "(the kernels' plain versions)")
+    ap.add_argument("--max-batch-size", type=int, default=0,
+                    help="0 = FLAGS_serving_max_batch_size")
+    ap.add_argument("--batch-timeout-ms", type=float, default=-1.0,
+                    help="< 0 = FLAGS_serving_batch_timeout_ms")
+    ap.add_argument("--no-warmup", action="store_true")
+    ap.add_argument("--poll-s", type=float, default=0.0,
+                    help="> 0 makes a --model-root replica watch the root "
+                         "itself and swap to each new version; the "
+                         "cluster controller leaves it 0 and swaps over "
+                         "/v1/admin/swap")
     ap.add_argument("--role", default="unified",
                     choices=("unified", "prefill", "decode"),
                     help="disaggregated-serving tier (serving/disagg.py): "
@@ -143,14 +235,12 @@ def main(argv=None) -> int:
                          "empty disables journaling")
     ap.add_argument("--telemetry-log", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.model_root or args.model_dir:
-        ap.error("--model-root / --model-dir serve the micro-batching "
-                 "predictor replica, which is not in the port yet "
-                 "(ROADMAP A5b)")
     if args.telemetry_log:
         ap.error("--telemetry-log: the JSONL run-log sink is not in the "
                  "port yet (ROADMAP A10)")
-    return run_decode_replica(args)
+    if args.decode_model_dir:
+        return run_decode_replica(args)
+    return run_replica(args)
 
 
 if __name__ == "__main__":

@@ -812,7 +812,7 @@ class Router:
 # HTTP front end — the address clients actually talk to
 # ---------------------------------------------------------------------------
 
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer  # noqa: E402
+from http.server import BaseHTTPRequestHandler  # noqa: E402
 
 
 class _RouterHandler(BaseHTTPRequestHandler):
@@ -941,8 +941,9 @@ class RouterHTTPServer:
     def __init__(self, router: Router, host: str = "127.0.0.1",
                  port: int = 0):
         self.router = router
-        self._httpd = ThreadingHTTPServer((host, port), _RouterHandler)
-        self._httpd.daemon_threads = True
+        from .server import BackloggedHTTPServer
+
+        self._httpd = BackloggedHTTPServer((host, port), _RouterHandler)
         self._httpd.router = router
         self._thread: Optional[threading.Thread] = None
 

@@ -1,8 +1,24 @@
-"""HTTP front end of the generative decode plane (port of
-``paddle_tpu/serving/server.py``).
+"""HTTP and in-process front ends of the serving engines (port of
+``paddle_tpu/serving/server.py:80-435``).
 
 Stdlib only (http.server + json), as the reference:
 
+    POST /v1/infer   {"inputs": {name: nested lists}, "deadline_ms"?}
+             200 ->  {"outputs": {fetch name: nested lists},
+                      "model_version", "latency_ms", "trace_id"} — the
+                     micro-batching ServingEngine (serving/engine.py)
+             400 bad request (missing or ragged inputs)
+             429 ServerOverloadedError (Retry-After)
+             503 EngineClosedError (draining / shut down)
+             504 DeadlineExceededError
+             500 anything else (per request; the engine keeps serving)
+    POST /v1/admin/swap {"model_dir": path, "version"?, "reload_config"?}
+                     the replica side of a rolling swap: verify the
+                     dir's COMMIT manifest when it has one, build the new
+                     predictor on the serving one's device, warm it on
+                     every bucket, flip (ServingEngine.swap_predictor);
+                     200 {"status": "ok", "model_version",
+                     "warmup_compiles"}, 500 with the old model serving
     POST /v1/generate {"prompt_ids": [ints], "max_new_tokens"?,
                       "temperature"?, "seed"?, "deadline_ms"?,
                       "stop_at_eos"?, "request_id"?, "prior_tokens"?,
@@ -10,13 +26,10 @@ Stdlib only (http.server + json), as the reference:
              200 ->  {"tokens": [ints], "num_tokens", "ttft_ms",
                       "model_version", "latency_ms"} (+ "request_id" when
                      the body or an X-Request-Id header names one,
-                     "resumed" for a resumed session)
-             400 bad request (malformed JSON, no prompt, over max_seq_len)
-             429 ServerOverloadedError (Retry-After), or error_type
-                 "KVCacheExhaustedError": the pages can never fit
-             503 EngineClosedError (draining / shut down)
-             504 DeadlineExceededError
-             500 anything else (per request; the engine keeps serving)
+                     "resumed" for a resumed session) — the generative
+                     DecodeEngine (serving/decode.py); 429 carries
+                     error_type "KVCacheExhaustedError" when the pages
+                     can never fit
     POST /v1/prefill {"prompt": [ints]} -> the KV page shipment
                      (application/octet-stream, serving/disagg.py), with
                      the same error codes
@@ -24,30 +37,30 @@ Stdlib only (http.server + json), as the reference:
                      only when the replica can serve now, else 503 with
                      "starting" / "swapping" / "draining" / "stopped"
     GET  /livez      LIVENESS: 200 in any state but stopped, else 503
-    GET  /v1/stats   {"decode": DecodeEngine.stats()}
+    GET  /v1/stats   ServingEngine.stats() (empty without one), plus
+                     {"decode": DecodeEngine.stats()} with a decode engine
     GET  /metrics    Prometheus text of the live registry
-                     (telemetry.prometheus_text)
 
-Tracing: each /v1/generate and /v1/prefill request opens a root span
+A route whose engine is not attached answers 404. Tracing: each
+/v1/infer, /v1/generate and /v1/prefill request opens a root span
 (``serving.http_request``, core/trace.py); an ``X-Request-Id`` header
 forces sampling and pins the trace id, and a sampled request answers
 with an ``X-Trace-Id`` header.
 
-``serve_decode(model_dir)`` wires a servable dir -> warmed DecodeEngine
--> started server in one call. ``device=None`` means ``cuda:0`` (raising
-without CUDA); tests pass ``device="cpu"``.
+``serve(model_dir)`` wires an inference-model dir -> predictor -> warmed
+ServingEngine -> started server in one call, ``serve_decode(model_dir)``
+a decoder-LM servable dir -> warmed DecodeEngine -> started server;
+``LocalClient`` is the in-process twin of /v1/infer. ``device=None``
+means ``cuda:0`` (raising without CUDA); tests pass ``device="cpu"``.
 
-Not in the port yet: the micro-batching ``ServingEngine`` and with it
-``serve()``, ``LocalClient``, ``/v1/infer`` and ``/v1/admin/swap``
-(ROADMAP A5b: ``/v1/infer`` answers 404 as the reference does with no
-``ServingEngine`` attached, ``/v1/admin/swap`` answers 404 naming A5b);
-the SLO watchdog (``incidents.start_watchdog``) and the ``health``
+Not in the port yet: the SLO watchdog (``incidents``) and the ``health``
 section of ``/v1/stats`` (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -58,22 +71,45 @@ import numpy as np
 from ..core import telemetry, trace
 from .admission import (DeadlineExceededError, EngineClosedError,
                         KVCacheExhaustedError, ServerOverloadedError)
-
-_A5B = ("the micro-batching ServingEngine ({what}) is not in the port "
-        "yet (ROADMAP A5b)")
+from .engine import ServingConfig, ServingEngine
 
 
 class LocalClient:
-    """The reference's in-process client of the micro-batching
-    ServingEngine: not in the port yet (ROADMAP A5b)."""
+    """In-process client: the /v1/infer request and response shape
+    (outputs keyed by fetch name) without the socket."""
 
-    def __init__(self, engine=None):
-        raise NotImplementedError(_A5B.format(what="LocalClient"))
+    def __init__(self, engine: ServingEngine):
+        self.engine = engine
+
+    def infer(self, inputs: Dict[str, Any],
+              deadline_ms: Optional[float] = None,
+              timeout: Optional[float] = None) -> Dict[str, np.ndarray]:
+        outs = self.engine.infer(inputs, deadline_ms=deadline_ms,
+                                 timeout=timeout)
+        return dict(zip(self.engine.fetch_names, outs))
+
+
+class BackloggedHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer with a listen backlog of 128 connections. The
+    stdlib's default of 5 drops the connects of a burst of clients beyond
+    it, and each retries its SYN after a second: 64 requests sent at once
+    put that second into the tail of the request wall."""
+
+    daemon_threads = True
+    request_queue_size = 128
+
+
+def _coerce_inputs(engine: ServingEngine,
+                   raw: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """JSON lists -> arrays of the feeds' declared dtypes."""
+    specs = engine.predictor.feed_specs()
+    return {name: np.asarray(value, dtype=np.dtype(
+                specs.get(name, ((), "float32"))[1]))
+            for name, value in raw.items()}
 
 
 class _Handler(BaseHTTPRequestHandler):
-    # the decode engine is attached to the server object by
-    # ServingHTTPServer
+    # the engines are attached to the server object by ServingHTTPServer
     protocol_version = "HTTP/1.1"
 
     def log_message(self, fmt, *args):   # no per-request stderr lines
@@ -99,17 +135,21 @@ class _Handler(BaseHTTPRequestHandler):
         return doc
 
     def do_GET(self):
-        de = self.server.decode_engine
+        engine = self.server.engine or self.server.decode_engine
         if self.path == "/healthz":
-            snap = de.health.snapshot(queue_depth=de.queue.depth(),
-                                      model_version=de.version)
+            snap = engine.health.snapshot(queue_depth=engine.queue.depth(),
+                                          model_version=engine.version)
             self._reply(200 if snap["ready"] else 503, snap)
         elif self.path == "/livez":
-            alive = de.health.is_alive()
+            alive = engine.health.is_alive()
             self._reply(200 if alive else 503,
                         {"status": "alive" if alive else "stopped"})
         elif self.path == "/v1/stats":
-            self._reply(200, {"decode": de.stats()})
+            stats = self.server.engine.stats() \
+                if self.server.engine is not None else {}
+            if self.server.decode_engine is not None:
+                stats["decode"] = self.server.decode_engine.stats()
+            self._reply(200, stats)
         elif self.path == "/metrics":
             body = telemetry.prometheus_text().encode()
             self.send_response(200)
@@ -151,6 +191,58 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self._reply(500, {"error": f"{type(e).__name__}: {e}"},
                         headers)
+
+    def _handle_infer(self, headers: Dict[str, str]):
+        engine = self.server.engine
+        t0 = time.perf_counter()
+        try:
+            doc = self._read_json()
+            feeds = _coerce_inputs(engine, doc.get("inputs") or {})
+        except (ValueError, TypeError) as e:
+            self._reply(400, {"error": f"bad request body: {e}"}, headers)
+            return
+        try:
+            req = engine.submit(feeds, deadline_ms=doc.get("deadline_ms"))
+            outs = req.result()
+        except Exception as e:
+            self._reply_error(e, headers)
+            return
+        self._reply(200, {
+            "outputs": {n: np.asarray(o).tolist()
+                        for n, o in zip(engine.fetch_names, outs)},
+            "model_version": req.served_version,
+            "latency_ms": round((time.perf_counter() - t0) * 1e3, 3),
+            "trace_id": headers.get("X-Trace-Id")}, headers)
+
+    def _handle_swap(self):
+        engine = self.server.engine
+        try:
+            doc = self._read_json()
+            model_dir = doc["model_dir"]
+        except (ValueError, TypeError, KeyError) as e:
+            self._reply(400, {"error": f"bad swap request: {e!r}"})
+            return
+        try:
+            from .. import checkpoint as _ckpt
+            from ..inference import AnalysisConfig, create_predictor
+
+            version = doc.get("version")
+            if os.path.exists(os.path.join(model_dir, _ckpt.MANIFEST_NAME)):
+                manifest = _ckpt.verify_model_dir(model_dir)
+                if version is None:
+                    version = manifest.get("version")
+            predictor = create_predictor(AnalysisConfig(model_dir),
+                                         device=engine.predictor.device)
+            # reload_config: a ServingConfig from the current flags,
+            # flipped with the predictor
+            config = ServingConfig() if doc.get("reload_config") else None
+            fresh = engine.swap_predictor(predictor, version=version,
+                                          config=config)
+        except Exception as e:   # the old predictor is still live
+            self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+            return
+        self._reply(200, {"status": "ok", "model_version": engine.version,
+                          "warmup_compiles": fresh})
 
     def _handle_generate(self, headers: Dict[str, str]):
         de = self.server.decode_engine
@@ -220,37 +312,42 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def do_POST(self):
-        if self.path == "/v1/generate":
+        srv = self.server
+        if self.path == "/v1/infer" and srv.engine is not None:
+            self._traced(self._handle_infer)
+        elif self.path == "/v1/admin/swap" and srv.engine is not None:
+            self._handle_swap()
+        elif self.path == "/v1/generate" and srv.decode_engine is not None:
             self._traced(self._handle_generate)
-        elif self.path == "/v1/prefill":
+        elif self.path == "/v1/prefill" and srv.decode_engine is not None:
             self._traced(self._handle_prefill)
-        elif self.path == "/v1/infer":
+        elif self.path in ("/v1/infer", "/v1/admin/swap"):
             self._reply(404, {"error": "no micro-batching engine "
                                        "attached — this replica serves "
                                        "/v1/generate only"})
-        elif self.path == "/v1/admin/swap":
-            self._reply(404, {"error": _A5B.format(
-                what="/v1/admin/swap, the model swap")})
+        elif self.path in ("/v1/generate", "/v1/prefill"):
+            self._reply(404, {"error": "no decode engine attached — "
+                                       "this replica serves /v1/infer "
+                                       "only"})
         else:
             self._reply(404, {"error": f"no route {self.path}"})
 
 
 class ServingHTTPServer:
-    """Bound-but-not-yet-serving HTTP wrapper around a DecodeEngine;
-    start()/shutdown() own the acceptor thread. port=0 binds an ephemeral
-    port. ``engine`` (the micro-batching ServingEngine) must be None:
-    that engine is ROADMAP A5b."""
+    """Bound-but-not-yet-serving HTTP wrapper around a ServingEngine
+    and/or a DecodeEngine; start()/shutdown() own the acceptor thread.
+    port=0 binds an ephemeral port."""
 
-    def __init__(self, engine=None, host: str = "127.0.0.1", port: int = 0,
+    def __init__(self, engine: Optional[ServingEngine] = None,
+                 host: str = "127.0.0.1", port: int = 0,
                  decode_engine=None):
-        if engine is not None:
-            raise NotImplementedError(_A5B.format(what="engine="))
-        if decode_engine is None:
-            raise ValueError("ServingHTTPServer needs a decode_engine")
-        self.engine = None
+        if engine is None and decode_engine is None:
+            raise ValueError("ServingHTTPServer needs an engine and/or a "
+                             "decode_engine")
+        self.engine = engine
         self.decode_engine = decode_engine
-        self._httpd = ThreadingHTTPServer((host, port), _Handler)
-        self._httpd.daemon_threads = True
+        self._httpd = BackloggedHTTPServer((host, port), _Handler)
+        self._httpd.engine = engine
         self._httpd.decode_engine = decode_engine
         self._thread: Optional[threading.Thread] = None
 
@@ -282,10 +379,17 @@ class ServingHTTPServer:
             self._thread = None
 
 
-def serve(model_dir: str, *args, **kw):
-    """The reference's predictor server: not in the port yet (ROADMAP
-    A5b)."""
-    raise NotImplementedError(_A5B.format(what="serve()"))
+def serve(model_dir: str, host: str = "127.0.0.1", port: int = 0,
+          config: Optional[ServingConfig] = None, warmup: bool = True,
+          device=None) -> ServingHTTPServer:
+    """Inference-model dir -> predictor on ``device`` (None: cuda:0) ->
+    warmed ServingEngine -> started HTTP server (POST /v1/infer)."""
+    from ..inference import AnalysisConfig, create_predictor
+
+    predictor = create_predictor(AnalysisConfig(model_dir), device=device)
+    engine = ServingEngine(predictor, config=config)
+    engine.start(warmup=warmup)
+    return ServingHTTPServer(engine, host=host, port=port).start()
 
 
 def serve_decode(model_dir: str, host: str = "127.0.0.1", port: int = 0,

@@ -17,9 +17,10 @@ CPU (``device="cpu"``).
   the survivor and the ids equal the reference's uninterrupted in-process
   run, ``failed_over`` is set, ``session.failovers`` counts it, and the
   monitor respawns the slot with its role.
-* The replica refuses ``--telemetry-log`` (ROADMAP A10) and
-  ``--model-dir`` (ROADMAP A5b); a controller with no decode model dir
-  raises naming A5b.
+* The replica refuses ``--telemetry-log`` (ROADMAP A10); its predictor
+  mode (ROADMAP A5b, ported since) refuses a decoder-LM dir, which is no
+  inference model, and a controller needs a models root or a decode model
+  dir (``tests/test_torch_model_swap.py`` holds the predictor fleet).
 
 Every wait carries its own deadline; every controller is closed in a
 ``finally``.
@@ -162,9 +163,8 @@ def test_replica_refuses_what_is_not_ported(lm_dir, capsys):
         pt_replica.main(["--decode-model-dir", lm_dir,
                          "--telemetry-log", "run.jsonl"])
     assert "A10" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        pt_replica.main(["--model-dir", lm_dir])
-    assert "A5b" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="A5b"):
-        pt_cluster.ClusterController("models")
+    with pytest.raises(FileNotFoundError, match="__model__.json"):
+        pt_replica.main(["--model-dir", lm_dir, "--device", "cpu"])
+    with pytest.raises(ValueError, match="models root"):
+        pt_cluster.ClusterController("")
 

@@ -26,7 +26,11 @@ replay by replay. The prefix-sharing decode path at a small width: a hit
 equals the cold run bit for bit, and the captured chunk program equals
 its op-by-op run. ``serve_decode`` at a small width: ids over HTTP equal
 the in-process engine's, and a decode-role engine behind it installs the
-shipments it fetches.
+shipments it fetches. The inference predictor: a replayed BERT batch runs
+one bnsd split-TF32 flash forward a layer, as the trace and the counters
+both show; BERT-base behind the micro-batching engine answers each
+request bit for bit as the predictor does on its rows padded to the
+served bucket, and within 1e-5 of the unbatched run.
 Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -1665,3 +1669,101 @@ def test_compiled_wmt_step_advances_the_learning_rate(dev):
     counts = kernels.launch_counts()
     assert (counts["flash_attention_fwd"],
             counts["flash_attention_bwd"]) == (36, 36)
+
+
+def _bert_infer_dir(tmp_path, **cfg_kw):
+    """A BERT inference dir (NSP logits) built and saved by the port, its
+    weights from the startup program on the card."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(**cfg_kw)
+    # a fresh name generator: the NSP logits are fc_0.tmp_1
+    old = unique_name.switch()
+    try:
+        main, startup, _, _ = bert.build_pretraining_program(
+            cfg, seq_len=128, with_optimizer=False, is_test=True)
+    finally:
+        unique_name.switch(old)
+    scope = ptt.Scope()
+    ptt.Executor(device="cuda:0").run(startup, scope=scope,
+                                      use_compiled=False)
+    path = str(tmp_path / "bert")
+    io.save_inference_model(path, ["src_ids", "sent_ids", "pos_ids",
+                                   "input_mask"], ["fc_0.tmp_1"],
+                            main_program=main, scope=scope)
+    return cfg, path
+
+
+def _bert_rows(cfg, n, seed):
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(16, 129, n)[:, None]
+    mask = np.arange(128)[None, :] < lens
+    return {"src_ids": (rng.randint(1, cfg.vocab_size, (n, 128)) * mask)
+            .astype(np.int64),
+            "sent_ids": (rng.randint(0, 2, (n, 128)) * mask).astype(np.int64),
+            "pos_ids": np.tile(np.arange(128), (n, 1)).astype(np.int64),
+            "input_mask": mask.astype(np.float32)}
+
+
+def test_predictor_bnsd_flash_launches_equal_the_traced_kernels(dev,
+                                                                tmp_path):
+    """The passes put one bnsd flash_attention op a layer on the path;
+    a replayed batch runs one split-TF32 flash forward kernel a layer, as
+    many as the launch counters add for it, and the graph's output equals
+    its op-by-op first run."""
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.tools.profile_train import traced
+
+    cfg, path = _bert_infer_dir(tmp_path, vocab_size=1000, hidden_size=128,
+                                num_hidden_layers=3, num_attention_heads=2,
+                                intermediate_size=256)
+    pred = create_predictor(AnalysisConfig(path))
+    feed = _bert_rows(cfg, 4, 0)
+    first, = pred.run(feed)                  # op by op, then captured
+    kernels.reset_launch_counts()
+    trace = traced(lambda: pred.run(feed), 1)
+    layers = cfg.num_hidden_layers
+    assert trace["traced_launches"]["flash_attention_fwd"] == layers
+    assert kernels.launch_counts()["flash_attention_fwd"] == layers
+    assert kernels.layout_counts()["flash_attention_fwd"]["bnsd"] == layers
+    assert kernels.dtype_counts()["flash_attention_fwd"][
+        "fp32_tf32x3"] == layers
+    again, = pred.run(feed)
+    assert again.tobytes() == first.tobytes()
+    cpu, = create_predictor(AnalysisConfig(path), device="cpu").run(feed)
+    np.testing.assert_allclose(again, cpu, rtol=0, atol=1e-4)
+
+
+def test_bert_base_engine_response_against_the_unbatched_run(dev, tmp_path):
+    """BERT-base behind the engine on the card: each response equals the
+    predictor's run of its rows padded to the bucket it was served at, bit
+    for bit, and its unbatched run within 1e-5 with the same argmax
+    (cuBLAS picks its GEMMs by M, so the reference's bit-for-bit promise
+    against the unbatched run does not hold here)."""
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg, path = _bert_infer_dir(tmp_path)
+    ref = create_predictor(AnalysisConfig(path))
+    engine = ServingEngine(create_predictor(AnalysisConfig(path)),
+                           ServingConfig(max_batch_size=8,
+                                         batch_timeout_ms=20.0))
+    feeds = [_bert_rows(cfg, n, i) for i, n in enumerate((1, 3, 2, 4, 1))]
+    reqs = [engine.submit(f) for f in feeds]
+    engine.start()
+    try:
+        for f, req in zip(feeds, reqs):
+            got, = req.result(timeout=120)
+            rows = len(got)
+            pad = {k: np.concatenate([v, np.zeros((req.served_bucket - rows,)
+                                                  + v.shape[1:], v.dtype)])
+                   for k, v in f.items()}
+            assert got.tobytes() == ref.run(pad)[0][:rows].tobytes()
+            alone, = ref.run(f)
+            np.testing.assert_allclose(got, alone, rtol=0, atol=1e-5)
+            assert (got.argmax(1) == alone.argmax(1)).all()
+    finally:
+        engine.close(drain=True, timeout=60)

@@ -16,6 +16,8 @@ predictions).
   norm and the log-softmax).
 * The port's own startup program runs, and its parameters pass the
   distribution checks.
+* The unfused attention branch builds the reference's program; ring
+  attention, pipeline stages and over-long sequences raise.
 """
 
 import json
@@ -251,10 +253,19 @@ def test_variants_outside_the_port_raise(kw):
 
 
 def test_other_attention_branches_and_long_sequences_raise():
-    for kw in (dict(use_ring_attention=True), dict(use_flash_attention=False)):
-        cfg = pbert.BertConfig(**kw, **TINY)
-        with pt_names.guard(), pytest.raises(NotImplementedError):
-            pbert.build_pretraining_program(cfg, seq_len=SEQ)
+    """Ring attention raises; the unfused branch (ported with the
+    inference passes, which fuse it) builds the reference's program."""
+    cfg = pbert.BertConfig(use_ring_attention=True, **TINY)
+    with pt_names.guard(), pytest.raises(NotImplementedError):
+        pbert.build_pretraining_program(cfg, seq_len=SEQ)
+    kw = dict(TINY, use_flash_attention=False)
+    with jax_names.guard(), pt_names.guard():
+        j = jbert.build_pretraining_program(jbert.BertConfig(**kw),
+                                            seq_len=SEQ)[0]
+        p = pbert.build_pretraining_program(pbert.BertConfig(**kw),
+                                            seq_len=SEQ)[0]
+    assert _json(p) == _json(j)
+    assert "transpose2" in [op.type for op in p.global_block().ops]
     with pt_names.guard(), pytest.raises(ValueError):
         pbert.build_pretraining_program(pbert.BertConfig(**TINY),
                                         seq_len=128)

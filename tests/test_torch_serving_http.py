@@ -21,9 +21,11 @@ its stock CPU route (``PT_PALLAS=off``), the port ``device="cpu"``.
   JAX server installs the shipments it fetches (``disagg.installs``) and
   gives the ids of its own local prefill; a dead prefill URL falls back
   to a local prefill (``disagg.fallback_prefills``).
-* ``serve()``, ``LocalClient`` and a ``ServingEngine`` argument raise
-  naming ROADMAP A5b; ``/v1/infer`` answers 404 as the reference's does
-  with no ServingEngine.
+* ROADMAP A5b's micro-batching surface, ported since: ``serve()`` over
+  a decoder-LM dir (not an inference model) raises, ``ServingHTTPServer``
+  needs an engine, and a decode-only server answers ``/v1/infer`` and
+  ``/v1/admin/swap`` 404 as the reference's does with no ServingEngine
+  (``tests/test_torch_serving_engine.py`` holds the surface itself).
 * The new modules import neither jax nor paddle_tpu.
 
 Every server binds port 0 and is shut down in a ``finally``; every socket
@@ -292,12 +294,27 @@ def test_decode_engine_installs_jax_shipments(lm_dir, jax_pallas_off):
 
 
 def test_micro_batching_surface_names_a5b(lm_dir):
-    with pytest.raises(NotImplementedError, match="A5b"):
-        pt_server.serve(lm_dir)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        pt_server.LocalClient(object())
-    with pytest.raises(NotImplementedError, match="A5b"):
-        pt_server.ServingHTTPServer(object())
+    """A5b's surface is ported: a decoder-LM servable dir is no inference
+    model, a server needs an engine, and a server with only a decode
+    engine answers the micro-batching routes 404."""
+    with pytest.raises(FileNotFoundError, match="__model__.json"):
+        pt_server.serve(lm_dir, device="cpu")
+    with pytest.raises(ValueError, match="needs an engine"):
+        pt_server.ServingHTTPServer(None)
+    srv = pt_server.serve_decode(lm_dir, device="cpu", warmup=False)
+    try:
+        for path in ("/v1/infer", "/v1/admin/swap"):
+            req = urllib.request.Request(
+                srv.url + path, data=b"{}",
+                headers={"Content-Type": "application/json"})
+            with pytest.raises(urllib.error.HTTPError) as ei:
+                urllib.request.urlopen(req, timeout=30)
+            assert ei.value.code == 404
+            assert "no micro-batching engine" in \
+                json.loads(ei.value.read())["error"]
+    finally:
+        srv.shutdown()
+        srv.decode_engine.close(drain=False, timeout=30)
 
 
 def test_new_modules_load_neither_jax_nor_paddle_tpu():
@@ -311,7 +328,13 @@ def test_new_modules_load_neither_jax_nor_paddle_tpu():
             "paddle_tpu_torch.serving.router",
             "paddle_tpu_torch.serving.replica",
             "paddle_tpu_torch.serving.cluster",
-            "paddle_tpu_torch.serving"]
+            "paddle_tpu_torch.serving.engine",
+            "paddle_tpu_torch.serving",
+            "paddle_tpu_torch.inference",
+            "paddle_tpu_torch.io",
+            "paddle_tpu_torch.checkpoint",
+            "paddle_tpu_torch.core.verify",
+            "paddle_tpu_torch.core.passes"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
