@@ -1712,16 +1712,17 @@ def serve_prefix(phase, cfg, params, quant, dev):
 # ---------------------------------------------------------------------------
 
 def _http(method, url, path, body=None, headers=None, timeout=600):
-    """One HTTP exchange: (status, JSON doc or text). Raises OSError when
-    nothing answers."""
+    """One HTTP exchange: (status, JSON doc or text); ``body`` a JSON
+    document or its encoded bytes. Raises OSError when nothing answers."""
     import http.client
     import urllib.parse
 
     u = urllib.parse.urlparse(url)
     conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
     try:
-        conn.request(method, path, body=None if body is None
-                     else json.dumps(body).encode(),
+        if body is not None and not isinstance(body, bytes):
+            body = json.dumps(body).encode()
+        conn.request(method, path, body=body,
                      headers={"Content-Type": "application/json",
                               **(headers or {})})
         resp = conn.getresponse()
@@ -3846,6 +3847,26 @@ def _replica_stats(cluster):
     return out
 
 
+def _stats_delta(before, after):
+    """The launches between two /v1/stats reads of each replica, summed
+    over the replicas: {launches, layouts, dtypes}."""
+    name0 = next(iter(after))
+    out = {k: {n: {} if isinstance(c, dict) else 0
+               for n, c in after[name0][k].items()}
+           for k in ("kernels", "kernel_layouts", "kernel_dtypes")}
+    for name, a in after.items():
+        for k, split in out.items():
+            for n in split:
+                if isinstance(a[k][n], dict):
+                    for key, c in a[k][n].items():
+                        split[n][key] = split[n].get(key, 0) + c - \
+                            before[name][k][n].get(key, 0)
+                else:
+                    split[n] += a[k][n] - before[name][k][n]
+    return dict(launches=out["kernels"], layouts=out["kernel_layouts"],
+                dtypes=out["kernel_dtypes"])
+
+
 def infer_cluster_swap(dev, cfg, dirs, reqs):
     """A models root with model-000001 (dirs[1]) behind two replica
     processes (python -m paddle_tpu_torch.serving.replica --model-root
@@ -3952,20 +3973,7 @@ def infer_cluster_swap(dev, cfg, dirs, reqs):
             doc["outputs"][fetch], np.float32), memo))
     served = _gate_served(phase, checks)
     # the replicas' launches between the two reads, summed
-    delta = {k: {n: {} if isinstance(c, dict) else 0
-                 for n, c in before[next(iter(before))][k].items()}
-             for k in ("kernels", "kernel_layouts", "kernel_dtypes")}
-    for name, a in after.items():
-        for k, split in delta.items():
-            for n in split:
-                if isinstance(a[k][n], dict):
-                    for key, c in a[k][n].items():
-                        split[n][key] = split[n].get(key, 0) + c - \
-                            before[name][k][n].get(key, 0)
-                else:
-                    split[n] += a[k][n] - before[name][k][n]
-    counts = dict(launches=delta["kernels"], layouts=delta["kernel_layouts"],
-                  dtypes=delta["kernel_dtypes"])
+    counts = _stats_delta(before, after)
     batches = sum(a["batches"] - before[n].get("batches", 0)
                   for n, a in after.items())
     swaps = sum(a.get("swaps", 0) - before[n].get("swaps", 0)
@@ -4008,10 +4016,841 @@ def infer_cluster_swap(dev, cfg, dirs, reqs):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the int8 serving path: PTQ, both int8_matmul modes, elastic scaling and
+# the autotuner's online trial (BERT-base, full width)
+# ---------------------------------------------------------------------------
+
+# BERT-base's int8 GEMMs at the int8 phases' buckets (M = B * 128): the
+# three projection shapes; then the pooler (M = B, 768 -> 768) and the
+# 2-wide NSP classifier
+INT8_INFER_BUCKETS = (8, 32)
+INT8_BERT_SHAPES = tuple((b * BERT_INFER_SEQ, k, n)
+                         for b in INT8_INFER_BUCKETS
+                         for k, n in ((768, 768), (768, 3072), (3072, 768))) \
+    + tuple((b, 768, n) for b in INT8_INFER_BUCKETS for n in (768, 2))
+INT8_TOPS = 1979e12            # H100 SXM data sheet, dense int8 tensor cores
+# PTQ calibration: INT8_CALIB_BATCHES seeded batches of 8 rows
+INT8_CALIB_BATCHES = 4
+# weight-only logits against the same program with plain_int8_gemm in
+# place of the kernel: the kernel carries fp32 activations as three bf16
+# pieces (error ~2^-24 of each product, as the fp32 one) and sums K in
+# another order; over 12 layers that stays far below 1e-3
+INT8_PLAIN_TOL = 1e-3
+# static logits, card against the CPU's exact path. Every static op is
+# held to the CPU's op on the card's own input bit for bit
+# (_static_vs_cpu); a control without activation quantisation fails that
+# gate (0 of 74 ops). The whole model cannot tell them apart: the fp32
+# ops between the int8 products (attention, layer norm, gelu) differ
+# from the CPU's in the last bits, an activation on a rounding boundary
+# moves one int8 step, and the steps compound over 12 layers (a fifth of
+# the codes differ by the last layer) to the size of the quantisation
+# error itself. H100 readings (seeded, the same in every run): the flash
+# path 0.0128, plain attention in its place 0.0172, the control 0.0141.
+# So this bound only holds both sound paths to that size, with room
+INT8_STATIC_CPU_TOL = 0.025
+# int8 against the fp32 served logits: |int8 - fp32| <= this share of
+# max |fp32|; weight-only quantises the weights (per channel, 127 steps),
+# static the activations too (per tensor, calibrated abs-max)
+INT8_VS_FP32_SHARE = {"weight_only": 0.05, "static": 0.1}
+# the cluster phase: the replicas' admission bound and max batch (one
+# bucket). Each request is a full bucket (SCALE_MAX_BATCH rows, one engine
+# batch of ~4 ms on the card), its JSON body encoded once; the busy
+# closed loop holds as many requests as the bound, so no submit meets a
+# full queue (two more, a 429 retried past the router's retries fails a
+# request), the quiet one two. Unpaced, 26 such clients filled one
+# replica's queue on one H100 host (peak 1.0) and not on another (0.21:
+# the requests waited in this process's router and the replica's HTTP
+# front end, not in its queue), so the phase writes the policy's signal
+# as the reference's TestClusterAutoscale does
+# (tests/test_elastic_resize.py:975-1000) and prints the measured one
+SCALE_QUEUE_BOUND, SCALE_MAX_BATCH, SCALE_REQUESTS = 24, 8, 32
+SCALE_CLIENTS, SCALE_QUIET_CLIENTS = SCALE_QUEUE_BOUND, 2
+SCALE_BUSY_FRAC, SCALE_QUIET_FRAC = 0.95, 0.02
+
+
+def check_int8_bert_base(dev, results):
+    """The int8 GEMM at BERT-base's inference shapes (INT8_BERT_SHAPES,
+    bias in the epilogue as a converted fc) against plain_int8_gemm at
+    the card gate; events and device ms of the kernel, of the plain
+    version and of the dequantise-and-matmul library call. Beside each,
+    the static-quant int8_matmul (quantise, torch._int_mm, epilogue) as
+    the op runs it, its torch._int_mm alone, and its bit-for-bit
+    agreement with the CPU's exact path. Bounds: the weight-only GEMM's
+    bytes (int8 weight, fp32 x, bias, scale, fp32 out) or 2MKN at the
+    bf16 rate; the static op's bytes (fp32 x, int8 weight, fp32 out) or
+    2MKN at the int8 rate. The static op and the product alone are timed
+    with the weight column-major, as the predictor lays it out, and the
+    product also row-major, as it is stored. Returns the _int_mm rows."""
+    from paddle_tpu_torch.kernels import int8_gemm as ig
+    from paddle_tpu_torch.ops import quant_ops as qo
+
+    static_rows = []
+    for m, k, n in INT8_BERT_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(m * 3 + k + n)
+        reps = max(1, (64 << 20) // (k * n))
+        w8s = [torch.randint(-127, 128, (k, n), device=dev, dtype=torch.int8,
+                             generator=g) for _ in range(reps)]
+        x = torch.randn(m, k, device=dev, generator=g)
+        sc = (torch.rand(n, device=dev, generator=g) + 0.5) / 127.0
+        bias = torch.randn(n, device=dev, generator=g)
+        out = ig.int8_weight_only_gemm(x, w8s[0], sc, bias)
+        ref = ig.plain_int8_gemm(x, w8s[0], sc, bias)
+        torch.cuda.synchronize()
+        err = errors(out, ref)
+        if not torch.allclose(out, ref, rtol=1e-4,
+                              atol=1e-5 * float(ref.abs().max()) + 1e-5):
+            raise AssertionError(f"int8 GEMM {m}x{k}x{n}: err {err}")
+
+        def kernel(i):
+            return ig.int8_weight_only_gemm(x, w8s[i % reps], sc, bias)
+
+        def matmul(i):
+            return x @ (w8s[i % reps].float() * sc) + bias
+
+        nbytes = m * k * 4 + k * n + n * 4 * 2 + m * n * 4
+        flops = 2 * m * k * n
+        bms, by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+        instance, tile, ksplit, kc = ig.plan(m, n, k)
+        results.append(with_device_ms(dict(
+            name="int8_gemm", instance=instance, tile=tile, ksplit=ksplit,
+            kc=kc, shape=f"BERT-base M={m} K={k} N={n} bias=True",
+            max_abs_err=err[0], max_rel_err=err[1],
+            ms=events_ms(kernel, 30),
+            plain_ms=events_ms(lambda i: ig.plain_int8_gemm(
+                x, w8s[i % reps], sc, bias), 10),
+            library_ms=events_ms(matmul, 10), bound_ms=bms, bound_by=by,
+            bound_ms_three_pieces=bound_ms(nbytes, 3 * flops,
+                                           BF16_FLOPS_PER_S)[0],
+            bound_ms_cuda_cores=bound_ms(nbytes, flops)[0]),
+            kernel, matmul))
+        # the static mode at the same shape: act_scale the input's abs-max
+        attrs = {"act_scale": float(x.abs().max())}
+
+        cols = [qo.column_major(w) for w in w8s]
+
+        def static(i):
+            return qo.int8_matmul({"X": [x], "Y": [cols[i % reps]],
+                                   "YScale": [sc]}, attrs)["Out"]
+
+        xq = torch.clamp(torch.round(x / (attrs["act_scale"] / 127.0)),
+                         -127, 127).to(torch.int8)
+
+        def int_mm(i):
+            return qo.int_mm_padded(xq, cols[i % reps])
+
+        # the same product with the weight row-major, as it is stored: the
+        # layout _int_mm is not given
+        kp, np_ = [-(-v // qo.INT_MM_MULTIPLE) * qo.INT_MM_MULTIPLE
+                   for v in (k, n)]
+        xqp = torch.nn.functional.pad(
+            xq, (0, kp - k, 0, max(m, qo.INT_MM_MIN_M) - m))
+        rows_major = [torch.nn.functional.pad(w, (0, np_ - n, 0, kp - k))
+                      for w in w8s]
+
+        def int_mm_row_major(i):
+            return torch._int_mm(xqp, rows_major[i % reps])
+
+        got = static(0)
+        cpu = qo.int8_matmul({"X": [x.cpu()], "Y": [w8s[0].cpu()],
+                              "YScale": [sc.cpu()]}, attrs)["Out"]
+        sbytes = m * k * 4 + k * n + n * 4 + m * n * 4
+        sms, sby = bound_ms(sbytes, flops, INT8_TOPS)
+        row = dict(name="torch._int_mm (static int8_matmul)",
+                   shape=f"BERT-base M={m} K={k} N={n}",
+                   bitwise_equal_cpu=bool(torch.equal(got.cpu(), cpu)),
+                   max_abs_err_vs_cpu=float((got.cpu() - cpu).abs().max()),
+                   ms=events_ms(static, 30), int_mm_ms=events_ms(int_mm, 30),
+                   bound_ms=sms, bound_by=sby,
+                   int_mm_bound_ms=bound_ms(m * k + k * n + m * n * 4, flops,
+                                            INT8_TOPS)[0])
+        row["device_ms"] = with_device_ms(dict(ms=row["ms"]), static)[
+            "device_ms"]
+        row["int_mm_device_ms"] = with_device_ms(dict(ms=row["ms"]),
+                                                 int_mm)["device_ms"]
+        row["int_mm_row_major_device_ms"] = with_device_ms(
+            dict(ms=row["ms"]), int_mm_row_major)["device_ms"]
+        del rows_major, cols
+        static_rows.append(row)
+        if not row["bitwise_equal_cpu"]:
+            raise AssertionError(f"static int8_matmul {m}x{k}x{n}: card "
+                                 f"differs from the CPU's exact path by "
+                                 f"{row['max_abs_err_vs_cpu']}")
+        del w8s
+    return static_rows
+
+
+def _int8_feeds(cfg, seed, batches, rows):
+    """``batches`` seeded feeds of ``rows`` rows (real lengths 16-128)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(batches):
+        mask = np.arange(BERT_INFER_SEQ)[None, :] < \
+            rng.randint(16, BERT_INFER_SEQ + 1, rows)[:, None]
+        out.append({
+            "src_ids": (rng.randint(1, cfg.vocab_size,
+                                    (rows, BERT_INFER_SEQ)) * mask)
+            .astype(np.int64),
+            "sent_ids": (rng.randint(0, 2, (rows, BERT_INFER_SEQ)) * mask)
+            .astype(np.int64),
+            "pos_ids": np.tile(np.arange(BERT_INFER_SEQ), (rows, 1))
+            .astype(np.int64),
+            "input_mask": mask.astype(np.float32)})
+    return out
+
+
+def _int8_dirs(dev, cfg, model_dir, base):
+    """PTQ-calibrate BERT-base's fp32 program on the card, then the two
+    converts (weight-only: act_scales None; static: the calibrated
+    scales), each saved under ``base``. Gate: both scopes' int8 arrays
+    and scales equal quantize_weights_int8 of the same weights on the
+    CPU, bit for bit. Returns ({mode: dir}, {mode: (ops without
+    act_scale, ops with it)}, figures)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.contrib import slim
+
+    t0 = time.perf_counter()
+    exe = ptt.Executor(dev)
+    fp32 = ptt.Scope()
+    prog, feeds, fetch = io.load_inference_model(model_dir, executor=exe,
+                                                 scope=fp32)
+    calib = _int8_feeds(cfg, 1, INT8_CALIB_BATCHES, 8)
+    ptq = slim.PostTrainingQuantization(exe, prog.clone(for_test=True),
+                                        feeds, fp32, calib)
+    ptq.quantize()
+    calib_s = time.perf_counter() - t0
+    cpu = ptt.Scope()
+    io.load_inference_model(model_dir, scope=cpu)
+    want = slim.quantize_weights_int8(prog, cpu)
+    dirs, ops, mismatched = {}, {}, []
+    for mode, scales in (("weight_only", None),
+                         ("static", ptq.calibrated_scales)):
+        scope = ptt.Scope()
+        for n, v in fp32.items():
+            scope.set(n, v)   # the convert replaces what it quantises
+        t = time.perf_counter()
+        q = slim.convert_to_int8_program(prog.clone(for_test=True), scope,
+                                         scales)
+        convert_s = time.perf_counter() - t
+        for name, pack in want.items():
+            got8 = scope.find_var(name).cpu().numpy()
+            gots = scope.find_var(name + "@int8_scale").cpu().numpy()
+            if got8.dtype != np.int8 or \
+                    got8.tobytes() != pack["int8"].tobytes() or \
+                    gots.tobytes() != np.asarray(
+                        pack["scale"], np.float32).reshape(-1).tobytes():
+                mismatched.append((mode, name))
+        mm = [o for o in q.global_block().ops if o.type == "int8_matmul"]
+        ops[mode] = (sum(not o.attrs.get("act_scale") for o in mm),
+                     sum(bool(o.attrs.get("act_scale")) for o in mm))
+        dirs[mode] = str(Path(base) / f"int8_{mode}")
+        t = time.perf_counter()
+        io.save_inference_model(dirs[mode], feeds, fetch, main_program=q,
+                                scope=scope)
+        ops[mode] += (convert_s, time.perf_counter() - t)
+        del scope
+    # six projections a layer, the pooler and the NSP classifier
+    n_weights = 6 * cfg.num_hidden_layers + 2
+    if mismatched or len(want) != n_weights:
+        raise AssertionError(f"int8 convert: {len(want)} weights quantised "
+                             f"(want {n_weights}), CPU mismatches "
+                             f"{mismatched[:4]}")
+    figures = dict(calibrate_s=calib_s, calibrated_activations=len(
+        ptq.calibrated_scales), quantised_weights=len(want))
+    del fp32, cpu
+    _release()
+    return dirs, ops, figures
+
+
+def _serve_bucketed(pred, reqs):
+    """A ServingEngine over ``pred`` with buckets INT8_INFER_BUCKETS, every
+    bucket warmed at start(); the requests from BERT_INFER_CLIENTS
+    threads through LocalClient. Returns (outputs, request ms, engine
+    stats, launch counts of the traffic and its batches by bucket)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.serving import (LocalClient, ServingConfig,
+                                          ServingEngine)
+
+    engine = ServingEngine(pred, ServingConfig(
+        max_batch_size=INT8_INFER_BUCKETS[-1], buckets=INT8_INFER_BUCKETS))
+    engine.start()
+    # the bucket of each batch the engine serves (start() warmed them all)
+    served_buckets = []
+    real_run = pred.run
+
+    def run(feed=None):
+        served_buckets.append(len(next(iter(feed.values()))))
+        return real_run(feed)
+
+    pred.run = run
+    client = LocalClient(engine)
+    fetch = engine.fetch_names[0]
+    kernels.reset_launch_counts()
+    telemetry.reset()   # the engine's counters: this traffic's alone
+    outs, ms = [None] * len(reqs), [None] * len(reqs)
+
+    def worker(w):
+        for i in range(w, len(reqs), BERT_INFER_CLIENTS):
+            t = time.perf_counter()
+            outs[i] = client.infer(reqs[i], timeout=600)[fetch]
+            ms[i] = (time.perf_counter() - t) * 1e3
+
+    threads = [threading.Thread(target=worker, args=(w,))
+               for w in range(BERT_INFER_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    counts = dict(_infer_counts(), int8_instances=dict(
+        kernels.int8_instance_counts()))
+    stats = engine.stats()
+    engine.close(drain=True, timeout=60)
+    del pred.run
+    if any(o is None for o in outs):
+        raise AssertionError("a request never returned")
+    if len(served_buckets) != stats["batches"]:
+        raise AssertionError(f"{len(served_buckets)} predictor runs for "
+                             f"{stats['batches']} engine batches")
+    counts["served_buckets"] = {b: served_buckets.count(b)
+                                for b in INT8_INFER_BUCKETS}
+    return outs, ms, stats, counts
+
+
+def _padded_checks(pred, reqs, outs, buckets):
+    """Each response against ``pred.run`` of its rows padded to the
+    smallest of ``buckets`` it equals bit for bit (None: none)."""
+    out = []
+    for r, o in zip(reqs, outs):
+        rows = len(r["input_mask"])
+        out.append(next((b for b in buckets if b >= rows and o.tobytes()
+                         == pred.run(_padded(r, b))[0][:rows].tobytes()),
+                        None))
+    return out
+
+
+def _static_records(pred, feed):
+    """``feed`` through ``pred`` with every static int8_matmul call
+    recorded as (x, w, sy, act_scale, out) on the CPU; calls made while a
+    CUDA graph is captured are left out, so a signature ``pred`` has not
+    seen is recorded once, from its op-by-op first run."""
+    from paddle_tpu_torch.ops import quant_ops as qo
+
+    real, recs = qo.static_int8_matmul, []
+
+    def record(x, w, sy, act_scale):
+        out = real(x, w, sy, act_scale)
+        if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+            recs.append((x.cpu(), w.cpu(), sy.cpu(), act_scale, out.cpu()))
+        return out
+
+    qo.static_int8_matmul = record
+    try:
+        pred.run(feed)
+    finally:
+        qo.static_int8_matmul = real
+    return recs
+
+
+def _ops_exact(recs):
+    """How many recorded ops equal the CPU's static op on the same input,
+    weight and scales, bit for bit."""
+    from paddle_tpu_torch.ops import quant_ops as qo
+
+    return sum(qo.static_int8_matmul(x, w, sy, a).numpy().tobytes()
+               == out.numpy().tobytes() for x, w, sy, a, out in recs)
+
+
+def _code_drift(card, cpu):
+    """The int8 activation codes of the same ops in two runs of one
+    request: the share that differ (in all, and op by op in program
+    order: a BERT layer's six projections, then the pooler and the
+    classifier), the largest difference, the first op where any
+    differs."""
+    from paddle_tpu_torch.ops import quant_ops as qo
+
+    differ = total = biggest = 0
+    first, per_op = None, []
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        d = (qo.quantize_activation(a[0], a[3]).int()
+             - qo.quantize_activation(b[0], b[3]).int()).abs()
+        n = int((d > 0).sum())
+        differ, total = differ + n, total + d.numel()
+        per_op.append(n / d.numel())
+        biggest = max(biggest, int(d.max()))
+        if n and first is None:
+            first = i
+    return dict(share=differ / max(total, 1), codes=total,
+                max_step=biggest, first_op=first, share_by_op=per_op)
+
+
+def _vs_cpu(pred, reqs, cpu_outs):
+    """A card predictor's logits against the CPU's, request by request."""
+    err, same, agree = 0.0, 0, 0
+    for r, c in zip(reqs, cpu_outs):
+        card, = pred.run(r)
+        err = max(err, float(np.abs(c - card).max()))
+        same += int(c.tobytes() == card.tobytes())
+        agree += int((c.argmax(1) == card.argmax(1)).all())
+    return dict(max_abs=err, bitwise_equal=same,
+                argmax_agree=agree / len(reqs))
+
+
+def _static_vs_cpu(dev, path, pred, reqs, n_static):
+    """The static leg (``pred``, served from ``path``) against a CPU
+    predictor over the same dir. Op by op, on the request with the
+    fewest rows: every static int8_matmul of the card's first run equals
+    the CPU's op on the card's own input, bit for bit (the gate that
+    holds the card's quantise, product and epilogue); the codes of the
+    CPU's own run beside the card's (the witness of drift from upstream
+    fp32 ops). Whole model, over ``reqs``: the card's logits (the flash
+    kernel), those of a card predictor with plain attention in the flash
+    kernel's place (the second witness) and those of a control without
+    activation quantisation, each against the CPU. Gates: the op-level
+    one; the control fails it; both sound paths within
+    INT8_STATIC_CPU_TOL (which the control does not exceed: see there).
+    Returns (figures, problems)."""
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops import attention_ops as ao
+    from paddle_tpu_torch.ops import quant_ops as qo
+
+    probe = min(reqs, key=lambda r: len(r["input_mask"]))
+    cpu = create_predictor(AnalysisConfig(path), device="cpu")
+    card_recs = _static_records(pred, probe)
+    cpu_recs = _static_records(cpu, probe)
+    cpu_outs = [cpu.run(r)[0] for r in reqs]
+    fig = dict(static_ops_recorded=len(card_recs),
+               static_ops_exact=_ops_exact(card_recs),
+               code_drift_vs_cpu=_code_drift(card_recs, cpu_recs),
+               vs_cpu=_vs_cpu(pred, reqs, cpu_outs))
+    del card_recs, cpu_recs, cpu
+    real_fa = ao.flash_fwd
+    ao.flash_fwd = fa.plain_flash_fwd
+    try:
+        fig["plain_attention_vs_cpu"] = _vs_cpu(
+            create_predictor(AnalysisConfig(path), device=dev), reqs,
+            cpu_outs)
+    finally:
+        ao.flash_fwd = real_fa
+    _release()
+    real_static = qo.static_int8_matmul
+
+    def no_act_quant(x, w, sy, act_scale):
+        return (x.to(torch.float32) @ w.to(torch.float32)) * sy
+
+    qo.static_int8_matmul = no_act_quant
+    try:
+        ctl = create_predictor(AnalysisConfig(path), device=dev)
+        ctl_recs = _static_records(ctl, probe)
+        fig["control_without_act_quant"] = dict(
+            _vs_cpu(ctl, reqs, cpu_outs), ops_exact=None)
+    finally:
+        qo.static_int8_matmul = real_static
+    fig["control_without_act_quant"]["ops_exact"] = _ops_exact(ctl_recs)
+    del ctl, ctl_recs
+    _release()
+    problems = []
+    if not fig["static_ops_recorded"] == fig["static_ops_exact"] == n_static:
+        problems.append(f"static ops: {fig['static_ops_exact']} of "
+                        f"{fig['static_ops_recorded']} recorded equal the "
+                        f"CPU's op (want {n_static})")
+    control = fig["control_without_act_quant"]
+    if control["ops_exact"] == n_static:
+        problems.append("the op-level gate passes a control without "
+                        "activation quantisation")
+    for key in ("vs_cpu", "plain_attention_vs_cpu"):
+        if fig[key]["max_abs"] > INT8_STATIC_CPU_TOL:
+            problems.append(f"static {key} {fig[key]['max_abs']} > "
+                            f"{INT8_STATIC_CPU_TOL}")
+    return fig, problems
+
+
+def _gemm_split(trace):
+    """(GEMM device ms, the rest) of a traced batch: kernels whose name
+    holds 'gemm' or 'xmma' (cuBLAS, CUTLASS, the int8 GEMM kernel)."""
+    gemm = sum(r["ms"] for r in trace["top_kernels"]
+               if "gemm" in r["kernel"].lower()
+               or "xmma" in r["kernel"].lower())
+    return gemm, trace["device_busy_ms"] - gemm
+
+
+def infer_int8_bert_base(dev, cfg, model_dir, reqs, base):
+    """BERT-base (model_dir, fp32) calibrated on the card, converted to int8
+    twice (weight-only: the int8 GEMM kernel; static: torch._int_mm),
+    saved, loaded by create_predictor (one CUDA graph a signature) and
+    served with the fp32 dir at buckets 8 and 32 through ServingEngine
+    (64 requests, 16 clients). Gates: the int8 arrays and scales equal the
+    CPU's quantize_weights_int8 bit for bit; each response equals its
+    predictor's run of its rows padded to a bucket bit for bit (C10's
+    gate); the int8 GEMM launches equal (ops without act_scale) x batches,
+    the 72 projections on the prefill instance, the pooler and classifier
+    on decode at bucket 8, and none in fp32 and static; weight-only
+    logits within INT8_PLAIN_TOL of the same predictor with
+    plain_int8_gemm in the kernel's place; static: each op equal to the
+    CPU's on its input bit for bit, the logits within INT8_STATIC_CPU_TOL
+    of a CPU predictor over the same dir, with two witnesses and a
+    control (_static_vs_cpu); both within INT8_VS_FP32_SHARE of the fp32
+    logits (argmax agreement printed).
+    Prints per-batch p50 (predictor.run) at B = 8 and 32, a traced
+    bucket-32 replay's device ms split into GEMMs and the rest, and the
+    weight bytes."""
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+    from paddle_tpu_torch.kernels import int8_gemm as ig
+    from paddle_tpu_torch.ops import quant_ops as qo
+    from paddle_tpu_torch.tools.profile_train import traced
+
+    phase = "infer_int8_bert_base"
+    t_phase = time.perf_counter()
+    dirs, ops, figures = _int8_dirs(dev, cfg, model_dir, base)
+    dirs = {"fp32": model_dir, **dirs}
+    served, per_batch, split, weight_bytes, runs = {}, {}, {}, {}, {}
+    outs_by, problems = {}, []
+    for mode, path in dirs.items():
+        pred = create_predictor(AnalysisConfig(path), device=dev)
+        weight_bytes[mode] = sum(
+            t.numel() * t.element_size() for t in pred._params.values()
+            if isinstance(t, torch.Tensor) and t.dim() >= 1)
+        calls = qo.static_int8_calls
+        outs, ms, stats, counts = _serve_bucketed(pred, reqs)
+        batches = stats["batches"]
+        buckets = _padded_checks(pred, reqs, outs, INT8_INFER_BUCKETS)
+        n_int8 = ops.get(mode, (0, 0))[0]
+        served[mode] = dict(batches=batches, padded_bucket_equal=sum(
+            b is not None for b in buckets), request_ms_p50=_pct(ms, 0.5),
+            request_ms_p99=_pct(ms, 0.99), int8_gemm=counts["launches"][
+                "int8_gemm"], int8_instances=counts["int8_instances"],
+            int_mm_calls_first_runs=qo.static_int8_calls - calls)
+        if None in buckets:
+            problems.append(f"{mode}: responses {buckets.count(None)} "
+                            f"match no padded bucket run")
+        # a batch at bucket B runs the 72 projections at M = 128 B on the
+        # prefill instance and the pooler and classifier at M = B, on
+        # decode at B = 8 (M <= 16) and on prefill at B = 32: decode takes
+        # 2 launches for each bucket-8 batch, prefill the rest
+        inst = counts["int8_instances"]
+        decode = 2 * counts["served_buckets"][8] if n_int8 else 0
+        served[mode]["batches_by_bucket"] = counts["served_buckets"]
+        if counts["launches"]["int8_gemm"] != n_int8 * batches or \
+                inst.get("decode", 0) != decode or \
+                inst.get("prefill", 0) != n_int8 * batches - decode:
+            problems.append(f"{mode}: {counts['served_buckets']} batches "
+                            f"by bucket want {n_int8 * batches - decode} "
+                            f"prefill and {decode} decode int8 launches, "
+                            f"got {inst}")
+        _gate_flash_per_batch(phase, dict(counts, launches={
+            k: v for k, v in counts["launches"].items() if k != "int8_gemm"}),
+            batches, cfg.num_hidden_layers)
+        runs[mode] = counts
+        per_batch[mode] = {}
+        for b in INT8_INFER_BUCKETS:
+            feed = _padded(reqs[0], b)
+            times = []
+            for _ in range(10):
+                t = time.perf_counter()
+                pred.run(feed)
+                times.append((time.perf_counter() - t) * 1e3)
+            per_batch[mode][b] = _pct(times, 0.5)
+        full = _padded(reqs[0], INT8_INFER_BUCKETS[-1])
+        trace = traced(lambda: pred.run(full), 1, top_n=400)
+        gemm, rest = _gemm_split(trace)
+        split[mode] = dict(gemm_ms=gemm, rest_ms=rest,
+                           busy_ms=trace["device_busy_ms"],
+                           idle_share=trace["device_idle_share"],
+                           top_kernels=trace["top_kernels"][:4])
+        outs_by[mode] = outs
+        if mode == "weight_only":
+            # the same predictor with plain_int8_gemm in the kernel's place
+            # (its first run is op by op; the capture is of the plain op)
+            plain = create_predictor(AnalysisConfig(path), device=dev)
+            real = qo.int8_weight_only_gemm
+
+            def plain_gemm(x, w8, scale, bias=None, act=None):
+                lead = tuple(x.shape[:-1])
+                return ig.plain_int8_gemm(
+                    x.reshape(-1, x.shape[-1]), w8, scale.reshape(-1),
+                    bias, act).reshape(lead + (w8.shape[-1],))
+
+            qo.int8_weight_only_gemm = plain_gemm
+            try:
+                err = max(float(np.abs(plain.run(_padded(r, 8))[0][
+                    :len(r["input_mask"])] - pred.run(_padded(r, 8))[0][
+                        :len(r["input_mask"])]).max()) for r in reqs[:8])
+            finally:
+                qo.int8_weight_only_gemm = real
+            served[mode]["max_abs_vs_plain_int8_gemm"] = err
+            if err > INT8_PLAIN_TOL:
+                problems.append(f"weight-only vs plain GEMM {err}")
+            del plain
+        if mode == "static":
+            fig, bad = _static_vs_cpu(dev, path, pred, reqs[:BERT_INFER_CPU],
+                                      ops[mode][1])
+            served[mode].update(fig)
+            problems += bad
+        del pred
+        _release()
+    ref = np.concatenate(outs_by["fp32"])
+    for mode in ("weight_only", "static"):
+        got = np.concatenate(outs_by[mode])
+        err = float(np.abs(got - ref).max())
+        served[mode].update(
+            max_abs_vs_fp32=err, fp32_max_abs=float(np.abs(ref).max()),
+            argmax_agree_fp32=float((got.argmax(1) == ref.argmax(1)).mean()))
+        if err > INT8_VS_FP32_SHARE[mode] * float(np.abs(ref).max()):
+            problems.append(f"{mode} vs fp32 logits {err}")
+    emit(phase, **figures, ops_without_and_with_act_scale={
+        m: o[:2] for m, o in ops.items()},
+         convert_s={m: o[2] for m, o in ops.items()},
+         save_s={m: o[3] for m, o in ops.items()}, served=served,
+         per_batch_ms_p50=per_batch, device_ms_bucket32=split,
+         weight_bytes=weight_bytes, launches={m: c["launches"]
+                                             for m, c in runs.items()},
+         seconds=time.perf_counter() - t_phase)
+    if problems:
+        raise AssertionError(f"{phase}: {problems}")
+    total = {k: sum(c["launches"][k] for c in runs.values())
+             for k in runs["fp32"]["launches"]}
+    layouts = {k: {s: sum(c["layouts"][k][s] for c in runs.values())
+                   for s in runs["fp32"]["layouts"][k]}
+               for k in runs["fp32"]["layouts"]}
+    dtypes = {k: {s: sum(c["dtypes"][k].get(s, 0) for c in runs.values())
+                  for s in runs["fp32"]["dtypes"][k]}
+              for k in runs["fp32"]["dtypes"]}
+    return dict(launches=total, layouts=layouts, dtypes=dtypes,
+                int8_instances=runs["weight_only"]["int8_instances"],
+                dir=dirs["weight_only"], n_int8=ops["weight_only"][0])
+
+
+def _queue_frac(cluster, seconds, bound):
+    """The fleet's queue saturation as the fleet observatory (ROADMAP A10)
+    would read it: every replica's /v1/stats queue_depth sampled every 50
+    ms for ``seconds``; the peak fleet average over the admission
+    bound."""
+    peak, samples = 0.0, 0
+    end = time.monotonic() + seconds
+    while time.monotonic() < end:
+        depths = [_http("GET", r.url, "/v1/stats", timeout=30)[1][
+            "queue_depth"] for r in list(cluster.replicas)]
+        peak = max(peak, sum(depths) / len(depths) / bound)
+        samples += 1
+        time.sleep(0.05)
+    return peak, samples
+
+
+def infer_int8_cluster_scale(dev, cfg, int8_dir, n_int8):
+    """The weight-only int8 BERT-base published behind one replica process
+    (the backend of infer_cluster_swap; FLAGS_serving_max_queue_depth
+    SCALE_QUEUE_BOUND, max batch SCALE_MAX_BATCH) with ScalerPolicy(1, 2)
+    attached. SCALE_CLIENTS clients in a closed loop through the router,
+    each request SCALE_MAX_BATCH seeded rows (SCALE_REQUESTS bodies,
+    encoded once), with no pacing of any kind: the phase measures the
+    queue fraction (_queue_frac, printed), writes fleet.queue_frac =
+    SCALE_BUSY_FRAC and autoscale_tick scales 1 -> 2. With two replicas,
+    an OnlineTrial of one serving config at fraction 0.25 runs to its
+    verdict, then one with an armed incidents.Rule tripped. Then the
+    loop drops to SCALE_QUIET_CLIENTS, the fraction is measured again,
+    fleet.queue_frac = SCALE_QUIET_FRAC is written and autoscale_tick
+    scales 2 -> 1. Gates: exactly one scale-up and one
+    scale-down (scaler, router and incident counters); no failed request
+    throughout; the retired replica not respawned (no death, no restart
+    counted); each replica's int8 GEMM launches between two /v1/stats
+    reads equal n_int8 x its batches; the trials: the flag snapshot
+    restored after a rollback (a promotion keeps the candidate, every
+    replica on it), the fleet's version unchanged, the tripped trial
+    rolled back for slo_trip in one evaluation tick."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import checkpoint
+    from paddle_tpu_torch.core import flags, incidents, telemetry, tuner
+    from paddle_tpu_torch.distributed.scaler import ScalerPolicy
+    from paddle_tpu_torch.serving import ClusterController, ServingConfig
+
+    phase = "infer_int8_cluster_scale"
+    t_phase = time.perf_counter()
+    fleet_flags = dict(serving_max_queue_depth=SCALE_QUEUE_BOUND,
+                       serving_max_batch_size=SCALE_MAX_BATCH,
+                       serving_buckets=str(SCALE_MAX_BATCH),
+                       serving_batch_timeout_ms=2.0)
+    root = tempfile.mkdtemp(prefix="models_int8_", dir=SERVING_DIR)
+    t0 = time.perf_counter()
+    checkpoint.publish_model(root, int8_dir)
+    publish_s = time.perf_counter() - t0
+    prior = flags.apply(fleet_flags)
+    telemetry.reset()
+    incidents.reset()
+    cluster = ClusterController(
+        root, replicas=1, device=str(dev), auto_swap=False,
+        serving_config=ServingConfig(max_batch_size=SCALE_MAX_BATCH,
+                                     batch_timeout_ms=2.0),
+        replica_env=_replica_env(**fleet_flags), replica_ready_timeout_s=300)
+    cluster.attach_scaler(ScalerPolicy(min_world=1, max_world=2,
+                                       cooldown_s=0.0, source="serving"))
+    bodies = [json.dumps({"inputs": {k: v.tolist() for k, v in r.items()}})
+              .encode() for r in _int8_feeds(cfg, 2, SCALE_REQUESTS,
+                                             SCALE_MAX_BATCH)]
+    answers, clients = [], []
+    stop, quiet = threading.Event(), threading.Event()
+    marks, fig = {}, {}
+    problems = []
+
+    def client(c):
+        i = c
+        while not stop.is_set() and (c < SCALE_QUIET_CLIENTS
+                                     or not quiet.is_set()):
+            t = time.perf_counter()
+            try:
+                code, doc = _http("POST", cluster.url, "/v1/infer",
+                                  bodies[i], timeout=120)
+            except OSError as e:
+                code, doc = -1, {"error": repr(e)}
+            answers.append((code, doc.get("replica") if isinstance(doc, dict)
+                            else None, t, time.perf_counter()))
+            i = (i + SCALE_CLIENTS) % len(bodies)
+
+    try:
+        t0 = time.perf_counter()
+        cluster.start(ready_timeout_s=300)
+        fig["up_s"] = time.perf_counter() - t0
+        before = dict(telemetry.counters())
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(SCALE_CLIENTS)]
+        for t in clients:
+            t.start()
+        t0 = time.perf_counter()
+        qf, n = _queue_frac(cluster, 1.5, SCALE_QUEUE_BOUND)
+        fig["busy_requests_per_s"] = sum(
+            t0 <= a[3] for a in list(answers)) / (time.perf_counter() - t0)
+        telemetry.gauge_set("fleet.queue_frac", SCALE_BUSY_FRAC)
+        t0 = time.perf_counter()
+        up = cluster.autoscale_tick()
+        fig.update(busy_queue_frac_measured=qf, busy_samples=n,
+                   scale_up_s=time.perf_counter() - t0,
+                   scale_up=up and dict(reason=up.reason, target=up.target))
+        s1 = _replica_stats(cluster)
+        time.sleep(2.0)
+        s2 = _replica_stats(cluster)
+        window = _stats_delta(s1, s2)
+        fig["replica_int8"] = {}
+        for name in s2:
+            la = s2[name]["kernels"]["int8_gemm"] - \
+                s1[name]["kernels"]["int8_gemm"]
+            nb = s2[name].get("batches", 0) - s1[name].get("batches", 0)
+            fig["replica_int8"][name] = dict(launches=la, batches=nb)
+            # a batch's launches and the batch itself are counted at two
+            # moments of its run: a read may fall between them, at each end
+            if la <= 0 or la % n_int8 or abs(la // n_int8 - nb) > 1:
+                problems.append(f"{name}: {la} int8 launches over {nb} "
+                                f"batches (want {n_int8} a batch)")
+        # the online trial on live traffic, two replicas
+        snap, version = flags.snapshot(), cluster.current_version
+        candidate = {"serving_buckets": f"4,{SCALE_MAX_BATCH}",
+                     "serving_batch_timeout_ms": 1.0}
+        t0 = time.perf_counter()
+        trial = tuner.OnlineTrial(cluster, candidate, fraction=0.25,
+                                  eval_interval_s=0.5, min_requests=8,
+                                  max_evals=10, label="chip_smoke")
+        verdict = trial.run()
+        fig["trial"] = dict(verdict.as_dict(), seconds=time.perf_counter()
+                            - t0, replica=trial.trial_replica)
+        configs = {n: s["serving_config"]["buckets"]
+                   for n, s in _replica_stats(cluster).items()}
+        fig["trial"]["replica_buckets_after"] = configs
+        if verdict.status == "promoted":
+            want = dict(snap, **{k: flags.all_flags()[k] for k in candidate})
+            if flags.snapshot() != want or any(
+                    b != [4, SCALE_MAX_BATCH] for b in configs.values()):
+                problems.append(f"promoted trial: flags or replicas off the "
+                                f"candidate {configs}")
+            flags.apply(snap)   # back to the incumbent for what follows
+            for r in list(cluster.replicas):
+                cluster.retune_replica(r.name)
+        elif flags.snapshot() != snap or any(
+                b != [SCALE_MAX_BATCH] for b in configs.values()):
+            problems.append(f"rolled-back trial left flags or replicas off "
+                            f"the incumbent {configs}")
+        # an SLO rule tripped mid-trial aborts it in one tick
+        wd = incidents.arm([incidents.Rule(
+            "chip_smoke_probe", "chip_smoke.slo_probe", kind="gauge",
+            threshold=5, direction="above", cooldown_s=0.0)])
+        trial2 = tuner.OnlineTrial(cluster, candidate, fraction=0.25,
+                                   min_requests=10 ** 6, max_evals=50,
+                                   label="chip_smoke_slo")
+        trial2.start()
+        telemetry.gauge_set("chip_smoke.slo_probe", 99)
+        wd.evaluate()
+        aborted = trial2.evaluate_once()
+        fig["slo_trial"] = aborted.as_dict()
+        if (aborted.status, aborted.reason, aborted.evals) != \
+                ("rolled_back", "slo_trip", 1) or flags.snapshot() != snap:
+            problems.append(f"SLO trial {aborted.as_dict()}")
+        if cluster.current_version != version or any(
+                s["model_version"] != version
+                for s in _replica_stats(cluster).values()):
+            problems.append("a trial moved the fleet's version")
+        # quiet: two clients go on; the rest stop after their request
+        quiet.set()
+        for t in clients[SCALE_QUIET_CLIENTS:]:
+            t.join(timeout=300)
+        qf, n = _queue_frac(cluster, 1.0, SCALE_QUEUE_BOUND)
+        telemetry.gauge_set("fleet.queue_frac", SCALE_QUIET_FRAC)
+        victim = cluster.replicas[-1]
+        t0 = time.perf_counter()
+        down = cluster.autoscale_tick()
+        fig.update(quiet_queue_frac_measured=qf, quiet_samples=n,
+                   scale_down_s=time.perf_counter() - t0,
+                   scale_down=down and dict(reason=down.reason,
+                                            target=down.target))
+        time.sleep(1.5)   # six monitor passes
+        marks["after"] = dict(telemetry.counters())
+        fig["victim_alive"] = victim.alive()
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(timeout=300)
+        cluster.close()
+        flags.apply(prior)
+        incidents.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    after = marks.get("after", {})
+
+    def delta(name):
+        return int(after.get(name, 0)) - int(before.get(name, 0))
+
+    counts = {k: delta(k) for k in (
+        "scaler.scale_up", "scaler.scale_down", "router.scale_events",
+        "incidents.scale_events", "router.replica_deaths",
+        "router.replica_restarts", "tuner.trials", "tuner.rollbacks",
+        "tuner.promotions", "tuner.slo_aborts")}
+    failed = [a[:2] for a in answers if a[0] != 200]
+    by_replica = {}
+    for a in answers:
+        by_replica[a[1]] = by_replica.get(a[1], 0) + 1
+    ms = [(a[3] - a[2]) * 1e3 for a in answers]
+    emit(phase, publish_s=publish_s, **fig, counters=counts,
+         requests=len(answers), failed=len(failed),
+         answers_by_replica=by_replica, request_ms_p50=_pct(ms, 0.5),
+         request_ms_p99=_pct(ms, 0.99), seconds=time.perf_counter() - t_phase)
+    if failed or counts["scaler.scale_up"] != 1 or \
+            counts["scaler.scale_down"] != 1 or \
+            counts["router.scale_events"] != 2 or \
+            counts["incidents.scale_events"] != 2 or \
+            counts["router.replica_deaths"] or \
+            counts["router.replica_restarts"] or fig.get("victim_alive") \
+            or len(by_replica) < 2 or problems:
+        raise AssertionError(f"{phase}: failed {failed[:3]}, counters "
+                             f"{counts}, answers {by_replica}, {problems}")
+    return window
+
+
 def infer_phases(dev):
-    """The inference plane's three phases over two BERT-base dirs written
-    under SERVING_DIR (removed at the end): infer_bert_base,
-    infer_http_bert_base, infer_cluster_swap."""
+    """The inference plane's phases over two BERT-base dirs written under
+    SERVING_DIR (removed at the end): infer_bert_base,
+    infer_http_bert_base, infer_cluster_swap, then the int8 serving path
+    over the first dir: infer_int8_bert_base (PTQ, both converts, their
+    dirs) and infer_int8_cluster_scale (the weight-only dir published,
+    scaled 1 -> 2 -> 1, two online trials)."""
     import shutil
     import tempfile
 
@@ -4029,6 +4868,10 @@ def infer_phases(dev):
         runs["infer_http_bert_base"] = infer_http_bert_base(
             dev, dirs[1], cfg, reqs, runs["infer_bert_base"].pop("outs"))
         runs["infer_cluster_swap"] = infer_cluster_swap(dev, cfg, dirs, reqs)
+        int8 = infer_int8_bert_base(dev, cfg, dirs[1], reqs, base)
+        runs["infer_int8_bert_base"] = int8
+        runs["infer_int8_cluster_scale"] = infer_int8_cluster_scale(
+            dev, cfg, int8.pop("dir"), int8.pop("n_int8"))
     finally:
         shutil.rmtree(base, ignore_errors=True)
     return runs
@@ -4097,7 +4940,9 @@ def main():
     check_layer_norm(dev, results)
     check_conv(dev, results)
     check_flash_bert_infer(dev, results)
+    static_int_mm = check_int8_bert_base(dev, results)
     emit("kernels", results=results, dropout_mask=mask_check,
+         int8_static_int_mm=static_int_mm,
          dropout_mask_transformer_big=wmt_masks, bnsd_layout=bnsd_check,
          adamw=adamw_check, flash_rows_without_a_key=empty_rows)
 
@@ -4216,6 +5061,9 @@ def main():
                 p: c["dtypes"][name] for p, c in runs.items()
                 if name in c.get("dtypes", {})}
         if name == "int8_gemm":
+            # the static-quant int8_matmul at BERT-base's shapes: a library
+            # call (torch._int_mm), not a kernel of the port
+            line[-1]["static_int_mm"] = static_int_mm
             line[-1]["instance"] = main_row["instance"]
             line[-1]["launches_by_instance"] = {
                 p: c["int8_instances"] for p, c in runs.items()

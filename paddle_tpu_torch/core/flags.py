@@ -6,10 +6,20 @@ and inference planes read: the ``FLAGS_decode_*`` entries behind
 ``predictor_cache_capacity``, ``verify_passes``, ``ckpt_verify``, the
 ``router_*``, ``serving_model_poll_s`` and ``cluster_max_restarts``
 entries of the router and the cluster controller, the fault-injection,
-tracing and metrics-window entries, the typed bucket-list parser,
-``apply`` (a validated bulk override that returns the prior values) and
+tracing and metrics-window entries, the SLO watchdog's and the incident
+records' entries (core/incidents.py), the ``scaler_*`` entries of the
+scale policy (distributed/scaler.py), the ``tuner_*`` entries of the
+autotuner (core/tuner.py), the typed bucket-list parser, ``snapshot``
+(every flag's value: ``apply(snapshot())`` restores exactly), ``apply``
+(a validated bulk override that returns the prior values) and
 ``overrides`` (its scoped form). Each flag has a default and is
 overridable via the environment (``FLAGS_<name>=...``) at import.
+
+``exec_steps_per_dispatch`` and ``pallas_kv_chunk_tokens`` keep the
+reference's names and defaults so that the tuner's search space is the
+reference's, but nothing in the port reads them: K-step fused dispatch
+is ROADMAP A6/A9, and the CUDA paged-attention kernel's chunk is fixed
+at 128 tokens. ``core/tuner.py`` refuses a profile that moves either.
 """
 
 from __future__ import annotations
@@ -73,6 +83,17 @@ def _resolve_key(name: str) -> str:
 
 def flag(name: str):
     return _REGISTRY[_resolve_key(name)].value
+
+
+def all_flags() -> Dict[str, Any]:
+    return {n: f.value for n, f in _REGISTRY.items()}
+
+
+def snapshot() -> Dict[str, Any]:
+    """Every flag's current value, keyed by bare name: the incumbent
+    config an autotune trial (core/tuner.py) or a test rolls back to.
+    ``apply(snapshot())`` is an exact restore."""
+    return {n: f.value for n, f in _REGISTRY.items()}
 
 
 def apply(overrides: Dict[str, Any]) -> Dict[str, Any]:
@@ -286,3 +307,88 @@ define_flag("trace_sample_rate", 0.0,
 define_flag("metrics_window_s", 60.0,
             "rolling window of the live metrics (telemetry.windowed, "
             "prometheus_text, /metrics), in seconds")
+
+
+# -- knobs of the reference's search space with no reader in the port
+#    (see the module docstring) -------------------------------------------
+
+define_flag("exec_steps_per_dispatch", 1,
+            "K-step fused execution in the reference (its executor's "
+            "run_steps); the port has no reader (ROADMAP A6/A9), so the "
+            "tuner refuses a profile that moves it off 1")
+define_flag("pallas_kv_chunk_tokens", 1024,
+            "KV tokens a chunk of the reference's Pallas paged-attention "
+            "kernel; the CUDA kernel's chunk is fixed at 128 tokens, so "
+            "the tuner refuses a profile that moves it off 1024")
+
+# -- SLO watchdog and incident records (core/incidents.py) -----------------
+
+define_flag("slo_watchdog", "auto",
+            "SLO rule engine arming: 'on' arms rule evaluation, 'off' "
+            "disarms it everywhere, 'auto' arms when the router starts or "
+            "incidents.arm() is called. Armed, incidents.tick() on the "
+            "router's probe cadence evaluates the rules at most every "
+            "slo_eval_s")
+define_flag("slo_eval_s", 5.0,
+            "min seconds between two SLO rule evaluations (inline tick() "
+            "or the pt-incidents-watchdog thread)")
+define_flag("slo_rules", "",
+            "declarative SLO rules: a JSON array of rule objects ({name, "
+            "metric, kind: counter|hist|gauge, stat, window_s, threshold "
+            "| ratio, direction, min_samples, cooldown_s}) or "
+            "@/path/to/rules.json; empty uses the built-in set")
+define_flag("incident_rate_limit_s", 30.0,
+            "global min spacing between two incident records (per-rule "
+            "cooldowns apply on top); a storm of trips counts "
+            "incidents.rate_limited instead")
+define_flag("incident_ring_records", 256,
+            "most recent telemetry events embedded in one incident record")
+
+# -- signal-driven scaling (distributed/scaler.py, serving/cluster.py) -----
+
+define_flag("scaler_min_world", 1,
+            "lower bound on the world size a ScalerPolicy may target: "
+            "ScaleDown decisions clamp here (scaler.clamped)")
+define_flag("scaler_max_world", 8,
+            "upper bound on the world size a ScalerPolicy may target: "
+            "ScaleUp decisions clamp here (scaler.clamped)")
+define_flag("scaler_cooldown_s", 30.0,
+            "minimum seconds between two ScalerPolicy decisions: one "
+            "inside the cooldown is suppressed (scaler.suppressed_"
+            "cooldown), so one saturated window cannot thrash the world")
+define_flag("scaler_window_s", 30.0,
+            "metrics window (seconds) a ScalerPolicy reads its signals "
+            "from (queue saturation, step-time p99, heartbeat verdicts)")
+define_flag("scaler_queue_high_frac", 0.85,
+            "queue fraction (depth / admission bound) at or above which "
+            "the policy scales up (reason queue_saturation)")
+define_flag("scaler_queue_low_frac", 0.10,
+            "queue fraction at or below which the policy scales down "
+            "(reason underutilized), only when the window carried "
+            "traffic evidence")
+define_flag("scaler_step_p99_high_ms", 0.0,
+            "step-time p99 (ms) over the scaler window above which the "
+            "policy scales up (reason step_time_p99); 0 disables the rule")
+
+# -- the autotuner (core/tuner.py, tools/autotune.py) ----------------------
+
+define_flag("tuner_traffic_fraction", 0.25,
+            "traffic slice the router steers onto the trial replica of an "
+            "online A/B trial: every ~1/fraction-th routed request; "
+            "clamped to (0, 0.5] so the control arm carries the majority")
+define_flag("tuner_eval_interval_s", 1.0,
+            "seconds between two online-trial evaluation ticks")
+define_flag("tuner_min_requests", 8,
+            "requests each arm must have served before a latency verdict "
+            "(an SLO trip aborts regardless)")
+define_flag("tuner_promote_ratio", 0.95,
+            "promotion gate: the trial arm's p99 <= control p99 * this")
+define_flag("tuner_abort_ratio", 1.25,
+            "abort gate: a trial arm whose p99 exceeds control p99 * this "
+            "rolls back at once")
+define_flag("tuner_max_evals", 10,
+            "evaluation ticks before an undecided trial rolls back")
+define_flag("tuner_hbm_capacity_bytes", 0,
+            "per-device memory capacity the offline tuner's headroom "
+            "constraint gates batch-size candidates against (rejected "
+            "above capacity * 0.92); 0: batch scaling is unprovable")

@@ -135,14 +135,15 @@ class _Registry:
                     "gauges": dict(self._gauges),
                     "hists": {n: h.summary() for n, h in self._hists.items()}}
 
-    def windowed(self, window_s: Optional[float] = None) -> Dict[str, Any]:
+    def windowed(self, window_s: Optional[float] = None,
+                 now: Optional[float] = None) -> Dict[str, Any]:
         """Counter deltas and per-second rates, current gauges and
         histogram count/rate/percentiles over the last window_s seconds
-        (default FLAGS_metrics_window_s; counter buckets are whole
-        seconds)."""
+        before ``now`` (default FLAGS_metrics_window_s before the present;
+        counter buckets are whole seconds)."""
         w = max(float(window_s if window_s is not None
                       else _flags.flag("metrics_window_s")), 1.0)
-        cut = time.time() - w
+        cut = (time.time() if now is None else float(now)) - w
         counters, hists = {}, {}
         with self._lock:
             for name, dq in self._win.items():
@@ -266,6 +267,11 @@ def gauge_set(name: str, value, **attrs):
     _REG.gauge_set(name, value)
 
 
+def gauges() -> Dict[str, Any]:
+    with _REG._lock:
+        return dict(_REG._gauges)
+
+
 def observe(name: str, value, kind: str = "hist", **attrs):
     _REG.observe(name, value)
 
@@ -296,8 +302,9 @@ def snapshot() -> Dict[str, Any]:
     return _REG.snapshot()
 
 
-def windowed(window_s: Optional[float] = None) -> Dict[str, Any]:
-    return _REG.windowed(window_s)
+def windowed(window_s: Optional[float] = None,
+             now: Optional[float] = None) -> Dict[str, Any]:
+    return _REG.windowed(window_s, now=now)
 
 
 def prometheus_text(window_s: Optional[float] = None) -> str:

@@ -1,2 +1,3 @@
-"""Distributed training (port of ``paddle_tpu/distributed``): only the
-AMP meta-optimizer of ``fleet/meta_optimizers.py`` so far."""
+"""Distributed (port of ``paddle_tpu/distributed``): the AMP
+meta-optimizer of ``fleet/meta_optimizers.py`` and the scale policy
+(``scaler``)."""

@@ -20,7 +20,9 @@ bounds them, with the reference's counters ``predictor.cache_hits`` /
 ``cache_misses`` / ``cache_evictions`` / ``compiles`` and the
 ``predictor.cache_size`` gauge.
 
-Parameters go to the device once, at construction. The predictor runs on
+Parameters go to the device once, at construction; on the card a
+static-quant ``int8_matmul``'s weight is laid out column-major there
+(``quant_ops.column_major``). The predictor runs on
 ``cuda:0`` unless ``AnalysisConfig(device=...)`` or ``device=`` asks for
 another device (``"cpu"``: the tests, and the card's CPU reference); with
 neither and no CUDA it raises. The reference's per-signature
@@ -46,6 +48,7 @@ from ..core.graph import StepGraph
 from ..core.ir import Program
 from ..core.passes import apply_passes
 from ..core.scope import Scope
+from ..ops import quant_ops
 
 _RUN_LOCK = threading.Lock()
 
@@ -213,9 +216,20 @@ class AnalysisPredictor:
         self._cache: "OrderedDict[tuple, _Entry]" = OrderedDict()
         self._pool = torch.cuda.graph_pool_handle() \
             if self.device.type == "cuda" else None
-        # the parameters go to the device once
+        # the parameters go to the device once (a numpy array in the
+        # scope as a tensor of its own dtype: an int8 weight stays int8)
         self._params = {n: (v.to(self.device) if isinstance(v, torch.Tensor)
-                            else v) for n, v in self.scope.items()}
+                            else torch.from_numpy(np.array(v)).to(
+                                self.device)
+                            if isinstance(v, np.ndarray) else v)
+                        for n, v in self.scope.items()}
+        if self.device.type == "cuda":
+            # a static-quant int8_matmul's weight, column-major once: the
+            # layout torch._int_mm runs fast (ops/quant_ops.py)
+            for op in self._ops:
+                if op.type == "int8_matmul" and op.attrs.get("act_scale"):
+                    y = op.inputs["Y"][0]
+                    self._params[y] = quant_ops.column_major(self._params[y])
 
     def _entry(self, sig) -> Tuple[_Entry, bool]:
         """(the signature's entry, whether it is new)."""

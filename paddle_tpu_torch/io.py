@@ -20,6 +20,13 @@ either case, which gives the same files. ``load_vars`` puts tensors into
 the scope on the executor's device when one is given, else on the CPU.
 The reference's 2.0 ``save``/``load``, ``get_program_state`` and its
 dataset re-exports are not ported.
+
+An int8 weight of a program that ``contrib/slim.convert_to_int8_program``
+rewrote keeps its VarDesc (float32, as in the reference's program JSON)
+and is stored as an int8 array beside its ``<name>@int8_scale`` vector;
+``load_vars`` keeps such an array int8 instead of casting it to the
+declared dtype (the reference casts it to fp32, so its int8 lowerings
+get fp32 weights after a load).
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ __all__ = [
 ]
 
 _MODEL_FILE = "__model__.json"
+# the scale vector of an int8 weight (contrib/slim.py)
+INT8_SCALE_SUFFIX = "@int8_scale"
 
 
 def _fsync_dir(path: str):
@@ -232,6 +241,8 @@ def load_vars(executor=None, dirname: str = "",
         with np.load(path) as z:
             stored = {_decode_name(k): z[k] for k in z.files}
     loaded = []
+    int8_weights = {n[:-len(INT8_SCALE_SUFFIX)] for blk in program.blocks
+                    for n in blk.vars if n.endswith(INT8_SCALE_SUFFIX)}
     for v in _select_vars(program, vars, predicate):
         if stored is not None:
             if v.name not in stored:
@@ -249,7 +260,9 @@ def load_vars(executor=None, dirname: str = "",
             raise RuntimeError(
                 f"load_vars: shape mismatch for '{v.name}': "
                 f"checkpoint {a.shape} vs program {tuple(v.shape)}")
-        scope.set(v.name, _to_tensor(a, v.dtype, device))
+        dtype = "int8" if v.name in int8_weights and a.dtype == np.int8 \
+            else v.dtype
+        scope.set(v.name, _to_tensor(a, dtype, device))
         loaded.append(v.name)
     return sorted(loaded)
 

@@ -56,6 +56,16 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.{h.hexdigest()[:12]}.so"
 
 
+def sources_fingerprint() -> str:
+    """A hash of every kernel source and shared header (``csrc/``): what a
+    tuned profile records as the kernels it was tuned against."""
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def _start(name: str):
     out = lib_path(name)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")

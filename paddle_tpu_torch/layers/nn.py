@@ -23,7 +23,8 @@ __all__ = ["data", "static_data", "create_parameter", "create_global_var",
            "fc", "linear", "embedding", "layer_norm", "dropout",
            "cross_entropy", "softmax_with_cross_entropy", "topk", "mean",
            "relu", "tanh", "sigmoid", "gelu", "elementwise_add",
-           "elementwise_mul", "elementwise_div", "reduce_sum", "matmul", "mul",
+           "elementwise_mul", "elementwise_div", "reduce_sum", "reduce_mean",
+           "matmul", "mul",
            "reshape", "transpose", "squeeze", "unsqueeze", "slice", "gather",
            "scale", "fill_constant", "take_along_axis", "flash_attention",
            "conv2d", "pool2d", "batch_norm", "accuracy", "softmax", "cast",
@@ -249,6 +250,18 @@ def reduce_sum(input: Variable, dim=None, keep_dim: bool = False,
     if dim is not None and not isinstance(dim, (list, tuple)):
         dim = [dim]
     helper.append_op("reduce_sum", {"X": [input]}, {"Out": [out]},
+                     {"dim": dim, "keep_dim": keep_dim,
+                      "reduce_all": dim is None})
+    return out
+
+
+def reduce_mean(input: Variable, dim=None, keep_dim: bool = False,
+                name=None) -> Variable:
+    helper = LayerHelper("reduce_mean", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    if dim is not None and not isinstance(dim, (list, tuple)):
+        dim = [dim]
+    helper.append_op("reduce_mean", {"X": [input]}, {"Out": [out]},
                      {"dim": dim, "keep_dim": keep_dim,
                       "reduce_all": dim is None})
     return out

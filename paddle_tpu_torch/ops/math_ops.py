@@ -1,5 +1,6 @@
 """Math lowerings (port of ``paddle_tpu/ops/math_ops.py``: elementwise
-:38-46, relu :90, tanh :93, sigmoid :92, gelu :141, reduce_sum :231, mean :238, matmul
+:38-46, relu :90, tanh :93, sigmoid :92, gelu :141, reduce_sum and
+reduce_mean :231, mean :238, matmul
 :267, matmul_v2 :285, mul :297, softmax :329, cross_entropy :343,
 softmax_with_cross_entropy :361, accuracy :448, top_k :466, fc :525).
 
@@ -90,6 +91,22 @@ def reduce_sum(ins, attrs):
     if not x.is_floating_point():
         out = out.to(x.dtype)   # jnp.sum keeps int32 (x64 off)
     return {"Out": out}
+
+
+@register_op("reduce_mean")
+def reduce_mean(ins, attrs):
+    """Mean over ``dim`` (every axis with reduce_all or no dim); an
+    integer or bool X averages in float32, as ``jnp.mean`` does."""
+    x = ins["X"][0]
+    keep = bool(attrs.get("keep_dim", False))
+    dims = attrs.get("dim")
+    if attrs.get("reduce_all", False) or dims is None:
+        dims = list(range(x.dim()))
+    if not x.is_floating_point():
+        x = x.to(torch.float32)
+    if not len(dims):
+        return {"Out": x.clone()}
+    return {"Out": torch.mean(x, dim=tuple(dims), keepdim=keep)}
 
 
 @register_op("matmul")

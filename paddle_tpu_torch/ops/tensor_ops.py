@@ -3,7 +3,8 @@
 gaussian_random :87, truncated_gaussian_random :99, cast :138, scale :146,
 reshape2 :156, transpose2 :177, squeeze2 :233, unsqueeze2 :244, slice :283, gather :314,
 lookup_table_v2 :337, sum :423; and for the WMT Transformer assign_value
-:66, one_hot :402, one_hot_v2 :415, increment :550).
+:66, one_hot :402, one_hot_v2 :415, increment :550; assign :124, the
+fake-quant ops' straight-through gradient).
 
 The random initializers draw from a ``torch.Generator`` seeded with the
 op's seed as ``core/rng.op_seed`` derives it: the same distributions as
@@ -51,6 +52,12 @@ def assign_value(ins, attrs):
         return {"Out": torch.empty(_shape_of(attrs), dtype=dtype, device=dev)}
     vals = np.asarray(attrs["values"]).reshape(_shape_of(attrs))
     return {"Out": torch.from_numpy(vals).to(device=dev, dtype=dtype)}
+
+
+@register_op("assign")
+def assign(ins, attrs):
+    """A copy of X (never an alias of the input's storage)."""
+    return {"Out": ins["X"][0].clone()}
 
 
 def _uniform01(attrs):

@@ -1,1 +1,2 @@
-"""Sharding annotations of program variables (no mesh in the port yet)."""
+"""Sharding annotations of program variables and the logical-axis rule
+table (``axis_rules``); no mesh in the port yet."""

@@ -13,16 +13,16 @@ plane, the generative decode plane and their cluster plane).
   ``/v1/admin/swap``, ``/v1/generate``, ``/v1/prefill``, ``/healthz``,
   ``/livez``, ``/v1/stats``, ``/metrics``) with the readiness machine of
   ``health``;
-* ``router``: prefix-affinity, failover, dedup and session resumption
-  over the replicas; ``RouterHTTPServer`` its front end;
+* ``router``: prefix-affinity, failover, dedup, session resumption and
+  an online trial's traffic split over the replicas;
+  ``RouterHTTPServer`` its front end;
 * ``cluster``: ``ClusterController`` launches predictor replicas over a
   published-models root, rolling them onto each new version, or decode
   replicas in tiers (``replica``: ``python -m
-  paddle_tpu_torch.serving.replica``), behind a router, and respawns the
-  ones that die.
-
-Not in the port yet: scaling, the autoscaler and the router's trial
-split (ROADMAP A5c).
+  paddle_tpu_torch.serving.replica``), behind a router, respawns the
+  ones that die, scales the fleet (``scale_to``, ``scale_tier``, the
+  autoscaler over a distributed/scaler.py policy) and retunes one
+  replica for an online trial (core/tuner.py).
 """
 
 from .admission import (AdmissionQueue, DeadlineExceededError,  # noqa: F401

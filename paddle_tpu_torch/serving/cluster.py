@@ -20,13 +20,33 @@ with supervised respawn and rolling model swaps (port of
   their prefill shipments THROUGH the router (``prefill_urls`` = the
   router's URL, ``Router.forward_prefill``) and every replica but a
   prefill one journals its sessions to the router;
-* a **monitor** thread: a death is counted (``router.replica_deaths``),
-  the handle is marked down (the router has failed over by then) and the
-  slot is respawned on a core/retry.py schedule, up to
+* a **monitor** thread: a death is counted (``router.replica_deaths``)
+  and filed as one ``replica_death`` incident (core/incidents.py, never
+  rate-limited), the handle is marked down (the router has failed over by
+  then) and the slot is respawned on a core/retry.py schedule, up to
   ``FLAGS_cluster_max_restarts`` times (``router.replica_restarts``;
   ``router.affinity_remaps`` when a tier member comes back); a predictor
   replica that comes back on another version than the fleet's is swapped
-  onto it.
+  onto it. A replica that ``scale_to`` / ``scale_tier`` retired is never
+  counted dead nor respawned (``_retired`` holds the replica objects
+  themselves: a set of ids, as the reference keeps, could take a later
+  replica that reuses a collected one's address for retired);
+* **elastic scaling**: ``scale_to(n)`` grows the fleet (a newcomer
+  converges on the fleet's version) or shrinks it (a ready peer must
+  exist before a victim leaves; the router drops the victim before
+  ``stop()`` drains it), ``scale_tier(role, n)`` one tier; each call is
+  one transition, one ``router.scale_events`` and one
+  ``incidents.scale_events``. ``attach_scaler(policy)`` /
+  ``autoscale_tick()`` / ``start_autoscaler()`` drive it from a
+  distributed/scaler.py policy;
+* **retune**: ``retune_replica(name)`` re-swaps one replica onto the
+  fleet's version with a ServingConfig built from this process's
+  ``serving_*`` flags (``/v1/admin/swap`` with ``reload_config`` and
+  ``serving_flags``): the lever of an online autotune trial
+  (core/tuner.py ``OnlineTrial``). The reference's replica builds that
+  config from its own flags, which only an in-process replica shares
+  with the controller; the port sends the values, so a process replica
+  takes the candidate too.
 
 Two replica backends share every path:
 
@@ -39,9 +59,9 @@ Two replica backends share every path:
 ``device=None`` means the card (``cuda``; raising without CUDA), as in
 every entry point of the port; tests pass ``"cpu"``.
 
-Not in the port yet: ``scale_to`` / ``scale_tier``, ``retune_replica``
-and the autoscaler (ROADMAP A5c); the fleet observatory and the
-``replica_death`` incident record (ROADMAP A10).
+Not in the port yet: the fleet observatory (ROADMAP A10), whose
+``fleet.queue_frac`` the reference's autoscaler reads; here the policy
+reads that gauge from telemetry and whoever drives the fleet writes it.
 """
 
 from __future__ import annotations
@@ -57,7 +77,7 @@ from collections import deque
 from typing import Any, Dict, List, Optional
 
 from .. import checkpoint as _ckpt
-from ..core import retry, telemetry
+from ..core import incidents, retry, telemetry
 from ..core.flags import flag as _flag
 from .router import Router, RouterHTTPServer, _http_json
 
@@ -65,6 +85,12 @@ from .router import Router, RouterHTTPServer, _http_json
 class ClusterError(RuntimeError):
     """Control-plane failure (a replica never came up, a swap never
     took)."""
+
+
+# the flags a ServingConfig reads (serving/engine.py): what a retune sends
+SERVING_CONFIG_FLAGS = ("serving_max_batch_size", "serving_batch_timeout_ms",
+                        "serving_max_queue_depth",
+                        "serving_default_deadline_ms", "serving_buckets")
 
 
 def _device_arg(device) -> str:
@@ -379,7 +405,13 @@ class ClusterController:
         self._next_index = 0
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
+        # both sets hold replica objects (hashed by identity), never ids:
+        # an object they hold stays alive, so no newcomer can share its id
         self._counted_dead: set = set()
+        # replicas scale_to / scale_tier stopped on purpose: the monitor
+        # never counts them dead nor respawns them
+        self._retired: set = set()
+        self._scaler = None
         self._watcher: Optional[_ckpt.ModelWatcher] = None
         # serialises rolling swaps and guards current_version: held
         # across a whole fleet roll, so swaps never overlap
@@ -487,29 +519,48 @@ class ClusterController:
     # -- supervision ---------------------------------------------------------
     def _monitor_loop(self):
         while not self._stop.wait(0.25):
-            for replica in list(self.replicas):
-                if self._stop.is_set():
-                    return
-                if replica.alive():
-                    self._counted_dead.discard(id(replica))
-                    continue
-                handle = self._handles.get(replica.name)
-                if handle is not None:
-                    handle.mark_down("process_died")
-                if id(replica) not in self._counted_dead:
-                    self._counted_dead.add(id(replica))
-                    telemetry.counter_add("router.replica_deaths", 1,
-                                          replica=replica.name)
-                if self.inprocess:
-                    continue   # tests kill in-process replicas on purpose
-                if self._restarts[replica.name] >= self.max_restarts:
-                    telemetry.counter_add("router.replica_abandoned", 1,
-                                          replica=replica.name)
-                    continue
-                self._restarts[replica.name] += 1
-                telemetry.counter_add("router.replica_restarts", 1,
+            self._supervise(list(self.replicas))
+
+    def _supervise(self, replicas):
+        """One monitor pass over ``replicas`` (a snapshot of the fleet,
+        which a scale transition may shrink meanwhile)."""
+        for replica in replicas:
+            if self._stop.is_set():
+                return
+            if replica in self._retired:
+                continue   # scale_to drained it on purpose
+            if replica.alive():
+                self._counted_dead.discard(replica)
+                continue
+            handle = self._handles.get(replica.name)
+            if handle is not None:
+                handle.mark_down("process_died")
+            if replica not in self._counted_dead:
+                self._counted_dead.add(replica)
+                telemetry.counter_add("router.replica_deaths", 1,
                                       replica=replica.name)
-                self._respawn(replica, handle)
+                # one incident per death, exempt from the rate limit:
+                # two replicas dying back to back both land
+                rc = getattr(getattr(replica, "proc", None), "returncode",
+                             None)
+                incidents.report_incident(
+                    "cluster", "replica_death", 1.0,
+                    context={"replica": replica.name,
+                             "role": getattr(replica, "role", "unified"),
+                             "exit_code": rc,
+                             "signal": -rc if isinstance(rc, int)
+                             and rc < 0 else None},
+                    rate_limit=False)
+            if self.inprocess:
+                continue   # tests kill in-process replicas on purpose
+            if self._restarts[replica.name] >= self.max_restarts:
+                telemetry.counter_add("router.replica_abandoned", 1,
+                                      replica=replica.name)
+                continue
+            self._restarts[replica.name] += 1
+            telemetry.counter_add("router.replica_restarts", 1,
+                                  replica=replica.name)
+            self._respawn(replica, handle)
 
     def _respawn(self, replica, handle):
         """Relaunch a dead replica's slot (same name, same role) on a
@@ -536,6 +587,7 @@ class ClusterController:
                 fresh.stop()
                 return
             self.replicas[slot] = fresh
+            self._counted_dead.discard(replica)
             if handle is not None:
                 handle.rebind(fresh.url)
                 self.router.probe(handle)
@@ -632,6 +684,175 @@ class ClusterController:
                     f"rolling swap to v{version}: replicas {failed} "
                     f"failed to swap (still serving their old version): "
                     f"{ {n: self.swap_errors.get(n) for n in failed} }")
+
+    # -- online autotune lever -----------------------------------------------
+    def retune_replica(self, name: str, timeout: float = 120.0) -> bool:
+        """Re-swap one replica onto the fleet's current model version with
+        a ServingConfig built from this process's ``serving_*`` flags
+        (``POST /v1/admin/swap {reload_config, serving_flags}``): the
+        warm-then-flip machinery of a model swap, on one replica. Returns
+        whether it took; on failure the replica keeps its old config."""
+        replica = self.replica_named(name)
+        if replica is None or not replica.alive():
+            return False
+        path = self.current_model_path()
+        if path is None:
+            return False
+        with self._swap_lock:
+            version = self.current_version
+        body = {"model_dir": path, "version": version,
+                "reload_config": True,
+                "serving_flags": {k: _flag(k) for k in SERVING_CONFIG_FLAGS}}
+        try:
+            code, doc = _http_json("POST", replica.url, "/v1/admin/swap",
+                                   body=json.dumps(body).encode(),
+                                   timeout=timeout)
+        except (ConnectionError, OSError) as e:
+            code, doc = -1, {"error": repr(e)}
+        ok = code == 200
+        telemetry.counter_add("router.swaps" if ok else "router.swap_errors",
+                              1, replica=name, version=version,
+                              reason="retune")
+        if not ok:
+            self.swap_errors[name] = (code, doc)
+            return False
+        # readiness back before the caller's next dispatch
+        handle = self._handles.get(name)
+        deadline = time.monotonic() + timeout
+        while handle is not None and time.monotonic() < deadline:
+            self.router.probe(handle)
+            if handle.ready:
+                break
+            time.sleep(0.05)
+        return True
+
+    # -- elastic replica scaling ---------------------------------------------
+    def _grow(self, count: int, role: Optional[str],
+              ready_timeout_s: float):
+        """Spawn ``count`` replicas (``role``: their tier, None the slot
+        default), register them with the router, converge each on the
+        fleet's version and wait for the fleet to be ready."""
+        for _ in range(count):
+            replica = self._make_replica(self._next_index, role=role)
+            self._next_index += 1
+            replica.spawn()
+            self.replicas.append(replica)
+            self._restarts[replica.name] = 0
+            self._handles[replica.name] = self.router.add_replica(
+                replica.name, replica.url, role=replica.role)
+            # a newcomer comes up on the newest published version: bring
+            # it to the fleet's if a roll moved past that
+            if self.current_version is not None and \
+                    replica.version != self.current_version:
+                for v, path in _ckpt.list_model_versions(self.model_root):
+                    if v == self.current_version:
+                        self._swap_one(replica, v, path)
+                        break
+        deadline = time.monotonic() + ready_timeout_s
+        while time.monotonic() < deadline:
+            for handle in self.router.handles():
+                if not handle.ready:
+                    self.router.probe(handle)
+            if all(h.ready for h in self.router.handles()):
+                break
+            time.sleep(0.05)
+
+    def _retire(self, victim):
+        """Take one replica out: a ready peer first, then the router drops
+        it (no new dispatch lands on it), then ``stop()`` drains it."""
+        self._await_peer_ready(victim.name, timeout_s=30.0)
+        self._retired.add(victim)
+        self.replicas.remove(victim)
+        self._handles.pop(victim.name, None)
+        self.router.remove_replica(victim.name)
+        victim.stop()
+
+    def scale_to(self, n: int, reason: str = "manual",
+                 ready_timeout_s: float = 60.0) -> int:
+        """Grow or shrink the fleet to exactly ``n`` replicas with no
+        dropped request: a shrink retires the most recently added
+        replicas. One call is one transition: one ``router.scale_events``
+        and one ``incidents.report_scale_event``. Returns the count."""
+        n = int(n)
+        if n < 1:
+            raise ClusterError("scale_to: need at least 1 replica")
+        with self._swap_lock:
+            old = len(self.replicas)
+            if n == old:
+                return old
+            if n > old:
+                self._grow(n - old, None, ready_timeout_s)
+            else:
+                for _ in range(old - n):
+                    self._retire(self.replicas[-1])
+            self.n_replicas = len(self.replicas)
+        telemetry.counter_add("router.scale_events", 1,
+                              direction="up" if n > old else "down",
+                              replicas=n)
+        incidents.report_scale_event("cluster", "resize", old, n,
+                                     reason=reason)
+        return n
+
+    def scale_tier(self, role: str, n: int, reason: str = "manual",
+                   ready_timeout_s: float = 60.0) -> int:
+        """Grow or shrink one role tier (prefill / decode / unified) to
+        exactly ``n`` replicas, the other tiers untouched; new slots keep
+        their role across respawns. Returns the tier's size."""
+        role = str(role)
+        n = int(n)
+        if n < 0:
+            raise ClusterError("scale_tier: need n >= 0")
+        with self._swap_lock:
+            old = len(self.tier_members(role))
+            if n == old:
+                return old
+            if n > old:
+                self._grow(n - old, role, ready_timeout_s)
+            else:
+                for _ in range(old - n):
+                    self._retire(self.tier_members(role)[-1])
+            self.n_replicas = len(self.replicas)
+        telemetry.counter_add("router.scale_events", 1,
+                              direction="up" if n > old else "down",
+                              tier=role, replicas=n)
+        if role in ("decode", "prefill"):
+            telemetry.counter_add("router.affinity_remaps", 1, role=role,
+                                  reason="scale_tier")
+        incidents.report_scale_event("cluster", f"resize_{role}", old, n,
+                                     reason=reason)
+        return n
+
+    def attach_scaler(self, policy) -> "ClusterController":
+        """Drive the replica count from a distributed/scaler.py
+        ScalerPolicy."""
+        self._scaler = policy
+        return self
+
+    def autoscale_tick(self, now: Optional[float] = None):
+        """One policy evaluation and at most one transition; returns the
+        executed ScaleDecision or None. The policy reads
+        ``fleet.queue_frac`` from telemetry (no fleet observatory)."""
+        if self._scaler is None:
+            return None
+        decision = self._scaler.decide(len(self.replicas), now=now)
+        if decision is None:
+            return None
+        self.scale_to(decision.target, reason=decision.reason)
+        return decision
+
+    def start_autoscaler(self, interval_s: float = 5.0):
+        """A background autoscale loop (tests call autoscale_tick)."""
+        def loop():
+            while not self._stop.wait(interval_s):
+                try:
+                    self.autoscale_tick()
+                except ClusterError:
+                    telemetry.counter_add("router.scale_errors", 1)
+        t = threading.Thread(target=loop, name="pt-torch-cluster-autoscale",
+                             daemon=True)
+        t.start()
+        self._threads.append(t)
+        return self
 
     # -- introspection -------------------------------------------------------
     def replica_named(self, name: str):

@@ -38,11 +38,24 @@ Telemetry: router.requests / retries / failovers / rejects / dedup_hits
 affinity_routes / affinity_fallbacks counters, router.request_ms and
 router.dispatch_ms timers, session.failovers.
 
+**Trial split** (an online autotune trial, core/tuner.py): with
+``set_trial(name, fraction)`` every ``round(1/fraction)``-th ``pick``
+goes to the trial replica and every other pick excludes it, so each
+arm's latency evidence is pure; when no control replica is routable the
+trial replica serves (availability beats arm purity). The order of the
+checks is the reference's: a request id's dedup replay first, then the
+pick; prefix-affinity picks (``pick_generate``) are not steered, as in
+the reference, and fall back to the steered ``pick`` only when no decode
+or unified replica is ready. Each handle keeps a ring of its successful
+``/v1/infer`` dispatches' ms (``record_dispatch``,
+``dispatch_latencies``): the per-arm evidence the trial compares.
+
+The router arms the SLO watchdog when it starts and its probe loop calls
+``incidents.tick()`` (core/incidents.py), as the reference's does.
+
 Locks are plain ``threading.Lock`` (lockdep is ROADMAP A10). Not in the
 port yet: the fleet observatory (``attach_fleet`` / ``fleet`` raise
-naming ROADMAP A10, and ``pick`` runs without straggler exclusion), the
-SLO watchdog hooks (A10), and the online autotune traffic split
-(``set_trial``), which comes with the controller's retune (A5b).
+naming ROADMAP A10, and ``pick`` runs without straggler exclusion).
 """
 
 from __future__ import annotations
@@ -52,10 +65,10 @@ import json
 import threading
 import time
 import zlib
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Tuple
 
-from ..core import faults, retry, telemetry, trace
+from ..core import faults, incidents, retry, telemetry, trace
 from ..core.flags import flag as _flag
 from .admission import ServingError
 
@@ -83,6 +96,11 @@ class ReplicaHandle:
         self.model_version: Optional[int] = None
         self.last_probe_t = 0.0
         self.consecutive_failures = 0
+        # bounded ring of (epoch_ts, ms) of successful dispatches: the
+        # per-arm latency evidence an online autotune trial compares
+        # (router-side, so it works for in-process replicas too, which
+        # share one telemetry registry)
+        self.dispatch_samples: "deque" = deque(maxlen=512)
 
     # -- state updates (probe thread + dispatch path) ------------------------
     def mark_probe(self, ready: bool, stats: Optional[Dict[str, Any]] = None):
@@ -126,6 +144,15 @@ class ReplicaHandle:
             self.queue_depth = 0
             self.inflight = 0
             self.consecutive_failures = 0
+
+    def record_dispatch(self, ms: float):
+        with self._lock:
+            self.dispatch_samples.append((time.time(), float(ms)))
+
+    def dispatch_latencies(self, since_ts: float = 0.0) -> List[float]:
+        with self._lock:
+            return [ms for ts, ms in self.dispatch_samples
+                    if ts >= since_ts]
 
     # -- balancing -----------------------------------------------------------
     def probe_age_s(self) -> Optional[float]:
@@ -218,6 +245,11 @@ class Router:
         self._dedup_cap = int(_flag("router_dedup_capacity"))
         self._ids = 0
         self._rr = 0   # rotating tie-break offset for equal load scores
+        # online A/B traffic split (core/tuner.py OnlineTrial): when set,
+        # every period-th pick steers to the trial replica and every
+        # other pick excludes it, so each arm's latency evidence is pure
+        self._trial: Optional[Tuple[str, float]] = None
+        self._trial_count = 0
         # decode-session journal (serving/session.py): replicas POST
         # per-request snapshots to /v1/session/journal; on a
         # decode-replica death route_generate re-admits the journaled
@@ -234,6 +266,10 @@ class Router:
             self._handles.append(handle)
         self.probe(handle)
         return handle
+
+    def remove_replica(self, name: str):
+        with self._lock:
+            self._handles = [h for h in self._handles if h.name != name]
 
     def handles(self) -> List[ReplicaHandle]:
         with self._lock:
@@ -256,9 +292,14 @@ class Router:
                 if self._stop.is_set():
                     return
                 self.probe(handle)
+            # the SLO watchdog's rules evaluate on the probe cadence
+            incidents.tick()
 
     def start(self) -> "Router":
         if self._probe_thread is None:
+            # the router is the cluster's always-on vantage point: arm
+            # the SLO watchdog, which the probe loop ticks
+            incidents.arm()
             self._probe_thread = threading.Thread(
                 target=self._probe_loop, name="pt-router-probe", daemon=True)
             self._probe_thread.start()
@@ -269,6 +310,30 @@ class Router:
         if self._probe_thread is not None:
             self._probe_thread.join(timeout=5)
             self._probe_thread = None
+        incidents.disarm()
+
+    # -- A/B traffic split (online autotune trials) --------------------------
+    def set_trial(self, replica_name: str, fraction: Optional[float] = None):
+        """Steer a bounded slice of traffic onto ``replica_name``: every
+        ~1/fraction-th routed request dispatches there, the rest stay on
+        the control fleet and skip the trial replica. The fraction clamps
+        to [0.01, 0.5]: the control arm always carries the majority."""
+        if fraction is None:
+            fraction = float(_flag("tuner_traffic_fraction"))
+        fraction = min(max(float(fraction), 0.01), 0.5)
+        with self._lock:
+            self._trial = (replica_name, fraction)
+            self._trial_count = 0
+        telemetry.counter_add("router.trial_split_set", 1,
+                              replica=replica_name, fraction=fraction)
+
+    def clear_trial(self):
+        with self._lock:
+            self._trial = None
+
+    def trial(self) -> Optional[Tuple[str, float]]:
+        with self._lock:
+            return self._trial
 
     # -- fleet observatory (ROADMAP A10) -------------------------------------
     def attach_fleet(self, aggregator):
@@ -289,13 +354,40 @@ class Router:
         """READY replica with the lowest load score, skipping `exclude`;
         None when nothing is routable. Equal scores round-robin (a
         rotating start offset), so an idle fleet shares work instead of
-        hammering the first replica."""
+        hammering the first replica.
+
+        With a trial split set (``set_trial``) the steering schedule
+        decides the arm first: a steered pick returns the trial replica
+        (when ready), any other pick excludes it, unless no control
+        replica is routable, where availability beats arm purity."""
         handles = self.handles()
         if not handles:
             return None
         with self._lock:
             self._rr += 1
             offset = self._rr
+            trial = self._trial
+            steer = False
+            if trial is not None:
+                self._trial_count += 1
+                period = max(2, int(round(1.0 / trial[1])))
+                steer = (self._trial_count % period) == 0
+        if trial is not None:
+            trial_handle = next((h for h in handles
+                                 if h.name == trial[0]), None)
+            if trial_handle is not None and trial_handle not in exclude:
+                if steer and trial_handle.ready:
+                    telemetry.counter_quiet("router.trial_dispatches")
+                    return trial_handle
+                if not steer:
+                    control = self._pick_from(handles, offset,
+                                              set(exclude) | {trial_handle})
+                    if control is not None:
+                        telemetry.counter_quiet(
+                            "router.trial_control_dispatches")
+                        return control
+                    # no control replica routable: the trial replica
+                    # carries the request
         return self._pick_from(handles, offset, exclude)
 
     def _pick_from(self, handles, offset, exclude) -> Optional[ReplicaHandle]:
@@ -478,11 +570,17 @@ class Router:
                     with handle._lock:
                         handle.inflight += 1
                     try:
+                        t_disp = time.perf_counter()
                         with telemetry.timer("router.dispatch_ms"):
                             code, payload = _http_json(
                                 "POST", handle.url, "/v1/infer",
                                 body=json.dumps(body_doc).encode(),
                                 headers=headers, timeout=attempt_timeout)
+                        if code == 200:
+                            # per-arm latency evidence of an online
+                            # autotune trial (core/tuner.py)
+                            handle.record_dispatch(
+                                (time.perf_counter() - t_disp) * 1e3)
                     finally:
                         with handle._lock:
                             handle.inflight -= 1

@@ -12,11 +12,14 @@ Stdlib only (http.server + json), as the reference:
              503 EngineClosedError (draining / shut down)
              504 DeadlineExceededError
              500 anything else (per request; the engine keeps serving)
-    POST /v1/admin/swap {"model_dir": path, "version"?, "reload_config"?}
+    POST /v1/admin/swap {"model_dir": path, "version"?, "reload_config"?,
+                         "serving_flags"?}
                      the replica side of a rolling swap: verify the
                      dir's COMMIT manifest when it has one, build the new
                      predictor on the serving one's device, warm it on
                      every bucket, flip (ServingEngine.swap_predictor);
+                     reload_config flips a ServingConfig built from the
+                     flags, serving_flags ({flag: value}) over them;
                      200 {"status": "ok", "model_version",
                      "warmup_compiles"}, 500 with the old model serving
     POST /v1/generate {"prompt_ids": [ints], "max_new_tokens"?,
@@ -68,6 +71,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from ..core import flags as _flags
 from ..core import telemetry, trace
 from .admission import (DeadlineExceededError, EngineClosedError,
                         KVCacheExhaustedError, ServerOverloadedError)
@@ -234,8 +238,12 @@ class _Handler(BaseHTTPRequestHandler):
             predictor = create_predictor(AnalysisConfig(model_dir),
                                          device=engine.predictor.device)
             # reload_config: a ServingConfig from the current flags,
-            # flipped with the predictor
-            config = ServingConfig() if doc.get("reload_config") else None
+            # overridden by the controller's serving_flags when it sends
+            # them (cluster.retune_replica), flipped with the predictor
+            config = None
+            if doc.get("reload_config"):
+                with _flags.overrides(doc.get("serving_flags") or {}):
+                    config = ServingConfig()
             fresh = engine.swap_predictor(predictor, version=version,
                                           config=config)
         except Exception as e:   # the old predictor is still live

@@ -30,7 +30,11 @@ shipments it fetches. The inference predictor: a replayed BERT batch runs
 one bnsd split-TF32 flash forward a layer, as the trace and the counters
 both show; BERT-base behind the micro-batching engine answers each
 request bit for bit as the predictor does on its rows padded to the
-served bucket, and within 1e-5 of the unbatched run.
+served bucket, and within 1e-5 of the unbatched run. The int8 serving
+path: the int8 GEMM at BERT-base's shapes, the static int8_matmul
+through ``torch._int_mm`` (M and N padded) bit for bit equal to the
+CPU's exact path, and a small int8 BERT (weight-only and static) through
+the predictor's CUDA graph.
 Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -830,6 +834,126 @@ def test_int8_rows_do_not_depend_on_the_other_rows(dev, m, k, n):
     assert torch.equal(out_other[0], out[0])
     assert torch.equal(out_perm, out[perm])
     assert torch.equal(again, out)
+
+
+# BERT-base's int8 GEMMs at the inference buckets 8 and 32 (M = B * 128):
+# the three projection shapes, the pooler (M = B) and the classifier
+INT8_BERT_BASE = [(b * 128, k, n) for b in (8, 32)
+                  for k, n in ((768, 768), (768, 3072), (3072, 768))] + \
+    [(b, 768, n) for b in (8, 32) for n in (768, 2)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_BERT_BASE)
+def test_int8_kernel_at_the_bert_base_shapes(dev, m, k, n):
+    """The weight-only int8 GEMM as an int8 BERT-base runs it (bias in
+    the epilogue, as a converted fc), against plain_int8_gemm at the card
+    gate, on the instance M picks."""
+    g = torch.Generator(device=dev).manual_seed(m * 7 + k + n)
+    x = torch.randn(m, k, device=dev, generator=g)
+    w8 = torch.randint(-127, 128, (k, n), device=dev, dtype=torch.int8,
+                       generator=g)
+    sc = (torch.rand(n, device=dev, generator=g) + 0.5) / 127.0
+    bb = torch.randn(n, device=dev, generator=g)
+    kernels.reset_launch_counts()
+    out = ig.int8_weight_only_gemm(x, w8, sc, bb)
+    ref = ig.plain_int8_gemm(x, w8, sc, bb)
+    torch.cuda.synchronize()
+    assert kernels.int8_instance_counts()[ig.plan(m, n, k)[0]] == 1
+    torch.testing.assert_close(out, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()) + 1e-5)
+
+
+# static-quant int8_matmul through torch._int_mm: M <= 16 rows and N, K
+# off the multiples of 8 are padded (the pooler at M = B, the 2-wide
+# classifier), and BERT-base's projection shapes
+INT8_STATIC = [(3, 768, 2), (8, 768, 768), (16, 100, 70), (17, 36, 9),
+               (1024, 768, 3072), (4096, 3072, 768)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_STATIC)
+def test_static_int8_matmul_through_int_mm_equals_the_plain_path(dev, m, k,
+                                                                n):
+    """The card's static int8_matmul (quantise, torch._int_mm, epilogue)
+    equals the CPU's plain exact path bit for bit, with the weight
+    row-major (copied column-major for the call) and column-major (as the
+    predictor lays it out): the quantisation divides by a 0-d tensor on
+    both, the integer product is exact."""
+    from paddle_tpu_torch.ops import quant_ops as qo
+
+    g = torch.Generator(device=dev).manual_seed(m + 31 * k + n)
+    x = torch.randn(2, m, k, device=dev, generator=g) * 2.0
+    w8 = torch.randint(-127, 128, (k, n), device=dev, dtype=torch.int8,
+                       generator=g)
+    sy = (torch.rand(n, device=dev, generator=g) + 0.5) / 127.0
+    attrs = {"act_scale": 6.5}
+    calls = qo.static_int8_calls
+    out = qo.int8_matmul({"X": [x], "Y": [w8], "YScale": [sy]},
+                         attrs)["Out"]
+    assert qo.static_int8_calls == calls + 1
+    cpu = qo.int8_matmul({"X": [x.cpu()], "Y": [w8.cpu()],
+                          "YScale": [sy.cpu()]}, attrs)["Out"]
+    assert out.shape == (2, m, n)
+    assert torch.equal(out.cpu(), cpu)
+    col = qo.column_major(w8)
+    assert col.stride() == (1, k) and torch.equal(col, w8)
+    assert qo.column_major(col).data_ptr() == col.data_ptr()   # no copy
+    again = qo.int8_matmul({"X": [x], "Y": [col], "YScale": [sy]},
+                           attrs)["Out"]
+    assert torch.equal(again, out)
+    with pytest.raises(ValueError, match="int8 tensor"):
+        qo.int8_matmul({"X": [x], "Y": [w8.float()], "YScale": [sy]}, attrs)
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_bert_predictor_replays_its_first_run(dev, tmp_path, static):
+    """A small BERT converted to int8 (weight-only, or static with the
+    PTQ scales of two batches on the card), saved and loaded: the int8
+    weights load int8 on the card, a replayed batch equals its op-by-op
+    first run bit for bit, a weight-only replay adds one int8 GEMM launch
+    per converted op, and the logits are within 2e-2 of the fp32 model's
+    (int8 weights; static: int8 activations too)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.contrib import slim
+    from paddle_tpu_torch.inference import AnalysisConfig, create_predictor
+
+    feeds = ["src_ids", "sent_ids", "pos_ids", "input_mask"]
+    cfg, path = _bert_infer_dir(tmp_path, vocab_size=1000, hidden_size=128,
+                                num_hidden_layers=2, num_attention_heads=2,
+                                intermediate_size=256)
+    scope = ptt.Scope()
+    prog, _, fetch = io.load_inference_model(
+        path, executor=ptt.Executor(device=dev), scope=scope)
+    act_scales = None
+    if static:
+        ptq = slim.PostTrainingQuantization(
+            ptt.Executor(device=dev), prog.clone(for_test=True), feeds,
+            scope, [_bert_rows(cfg, 4, s) for s in (1, 2)])
+        ptq.quantize()
+        act_scales = ptq.calibrated_scales
+    prog = slim.convert_to_int8_program(prog, scope, act_scales)
+    n_int8 = sum(op.type == "int8_matmul" and not op.attrs.get("act_scale")
+                 for op in prog.global_block().ops)
+    assert n_int8 == (0 if static else 6 * 2 + 2)
+    qpath = str(tmp_path / "int8")
+    io.save_inference_model(qpath, feeds, fetch, main_program=prog,
+                            scope=scope)
+    pred = create_predictor(AnalysisConfig(qpath))
+    int8 = [t for t in pred._params.values()
+            if isinstance(t, torch.Tensor) and t.dtype == torch.int8]
+    assert len(int8) == 6 * 2 + 2
+    # a static weight is laid out column-major once, a weight-only one
+    # stays as stored (the kernel reads it row-major)
+    assert all(t.stride() == ((1, t.shape[0]) if static else (t.shape[1], 1))
+               for t in int8)
+    feed = _bert_rows(cfg, 4, 0)
+    first, = pred.run(feed)
+    kernels.reset_launch_counts()
+    again, = pred.run(feed)
+    assert again.tobytes() == first.tobytes()
+    assert kernels.launch_counts()["int8_gemm"] == n_int8
+    fp32, = create_predictor(AnalysisConfig(path)).run(feed)
+    np.testing.assert_allclose(again, fp32, rtol=0, atol=2e-2)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

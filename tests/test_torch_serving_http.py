@@ -149,6 +149,10 @@ def scripts(lm_dir, jax_pallas_off):
     finally:
         jsrv.decode_engine.close(drain=False, timeout=10)
         jsrv.shutdown()
+    # the port's /metrics after this script alone: counters an earlier
+    # test file left in this worker's registry (a prefix-cache engine's
+    # decode.prefill_chunks) are not this engine's
+    pt_telemetry.reset()
     psrv = pt_server.serve_decode(lm_dir,
                                   config=pt_decode.DecodeConfig(**CONF),
                                   device="cpu")
