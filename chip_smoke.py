@@ -152,6 +152,34 @@ runs replay it) adds, in the order they run:
    train_lenet — LeNet as bench_mnist builds it (b512, Adam at lr 1e-3):
                a falling loss, no hand-written kernel; card against CPU at
                batch 16, fp32: losses within 1e-4.
+The fleet slice adds, right after train_ernie:
+   train_ernie_fleet — ERNIE-large at full width (24 layers, fp32
+               parameters, flash attention) built with
+               build_pretraining_program(with_optimizer=False) and trained
+               through fleet.distributed_optimizer: LambOptimizer (lr
+               1e-3, lamb_weight_decay 0.01, ClipGradByGlobalNorm(1.0)),
+               strategy.amp (the bf16 rewrite, dynamic loss scaling from
+               32768), strategy.recompute (one checkpoint per encoder
+               layer: 24 block_call segments) and strategy.lamb; b40 (or
+               the first of 32, 24, 16 that fits), one warm-up step, 4
+               timed steps a mode. Gates: 48 flash forward launches a step
+               (each segment's forward and its recompute) and 24 backward
+               (through FlashAttentionFunction), all bf16_wgmma, no AdamW,
+               398 lamb ops; each leg's loss falling, every parameter
+               finite; FlashAttentionFunction's dq, dk, dv at the step's
+               shapes bit for bit a direct backward call; the program
+               without recompute one step from the same state (at b40, or
+               the largest batch it fits, its out-of-memory errors
+               printed): its peak memory higher, gradients within 1e-3 of
+               each tensor's largest magnitude and parameters within 1e-5;
+               a loss-scaling overflow in a compiled step (the 24-layer
+               program at 2 of the batch's rows, the scale set to inf for
+               two steps, then 32768): (scale, good, bad) after every
+               step bit for bit the CPU's run of the 2-layer program on
+               the same rows; layer 0's attention keep mask read back from
+               the kernel for the forward's seed and the recompute's, op
+               by op and in the compiled step (one seed-table slot): equal
+               to each other and to the plain mask.
 The ResNet-50 slice adds, in the order they run:
    kernels  — check_layer_norm: the layer_norm kernel at ERNIE-large's LN
                rows [20480, 1024] bf16 and fp32 and the decoder LM's [1500,
@@ -2518,6 +2546,410 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
              note="host-clock step times; the host differs step to step")
     exe.close()
     return dict(launches=counts, layouts=layouts, dtypes=dtypes)
+
+
+# train_ernie_fleet: LAMB's rate (the trust ratio makes it each layer's
+# relative step), the loss scale the AMP strategy starts from, and the
+# tolerances of recompute against no recompute: gradients relative to a
+# tensor's largest magnitude, parameters after the step absolute. Autograd
+# may sum a var's gradient contributions in another order than the
+# program's sum ops, so the gate is not bit for bit (the first card run
+# read 0.0 for both)
+FLEET_LR, FLEET_SCALE = 1e-3, 32768.0
+FLEET_GRAD_TOL, FLEET_PARAM_TOL = 1e-3, 1e-5
+# the overflow schedule: the loss scale written before each step (None:
+# as the last step left it); inf makes every gradient non-finite
+FLEET_OVERFLOW = (None, None, float("inf"), None, FLEET_SCALE, None)
+FLEET_SCALING = ("loss_scaling_0", "good_steps_0", "bad_steps_0")
+
+
+def _ernie_fleet_programs(layers, recompute=True, seq=SEQ):
+    """ERNIE at full width, ``layers`` deep, fp32 with flash attention,
+    built without its optimizer (``with_optimizer=False``) and trained
+    through ``fleet.distributed_optimizer``: LambOptimizer (FLEET_LR,
+    lamb_weight_decay 0.01, ClipGradByGlobalNorm(1.0)), AMP (the bf16
+    rewrite, dynamic loss scaling from FLEET_SCALE), recompute with one
+    checkpoint per encoder layer (its output; with ``recompute``) and the
+    LAMB strategy."""
+    from paddle_tpu_torch.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.ir import program_guard
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.optimizer import LambOptimizer
+
+    cfg = bert.BertConfig(num_hidden_layers=layers, dtype="float32",
+                          use_flash_attention=True, **ERNIE)
+    with unique_name.guard():
+        main_prog, startup, _, fetches = bert.build_pretraining_program(
+            cfg, seq_len=seq, with_optimizer=False,
+            max_predictions_per_seq=_preds(seq))
+        with program_guard(main_prog, startup):
+            strategy = fleet.DistributedStrategy()
+            strategy.amp = True
+            strategy.amp_configs = dict(
+                strategy.amp_configs, init_loss_scaling=FLEET_SCALE,
+                use_dynamic_loss_scaling=True)
+            strategy.recompute = recompute
+            strategy.recompute_configs = {
+                "checkpoints": bert.encoder_checkpoints(main_prog)}
+            strategy.lamb = True
+            opt = LambOptimizer(FLEET_LR, lamb_weight_decay=0.01,
+                                grad_clip=ClipGradByGlobalNorm(1.0))
+            fleet.distributed_optimizer(opt, strategy).minimize(
+                fetches["loss"])
+    return cfg, main_prog, startup, fetches
+
+
+class _AttnSeeds:
+    """Within the block, every seed a flash_attention op draws its
+    attention dropout with: (build-time seed attr, whether autograd
+    records, the seed: an int op by op, a seed-table slot in a compiled
+    step). Autograd records in a block_call's recompute, not in its
+    forward."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import attention_ops
+
+        self.mod, self.orig, self.calls = attention_ops, \
+            attention_ops._attn_dropout, []
+
+        def record(attrs):
+            rate, seed = self.orig(attrs)
+            self.calls.append((attrs.get("seed"), torch.is_grad_enabled(),
+                               seed))
+            return rate, seed
+
+        attention_ops._attn_dropout = record
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._attn_dropout = self.orig
+
+    def of(self, build_seed):
+        """(the forward's seed, the recompute's) of one op."""
+        fwd = [s for b, g, s in self.calls if b == build_seed and not g]
+        rec = [s for b, g, s in self.calls if b == build_seed and g]
+        if len(fwd) != 1 or len(rec) != 1:
+            raise AssertionError(f"train_ernie_fleet: op seed {build_seed} "
+                                 f"drew {len(fwd)} forward and {len(rec)} "
+                                 f"recompute seeds")
+        return fwd[0], rec[0]
+
+
+def _keep_mask(fa, dev, seed, b, s, n, hd=64):
+    """The flash forward kernel's attention-dropout keep mask [b, n, s, s]
+    at rate RATE for ``seed`` (an int or a device int64), read back
+    exactly as _mask_readback reads it: q = k = 0 gives every key a
+    positive probability, and v one-hot over a 64-key chunk makes
+    out[q, d] nonzero exactly where keep(q, chunk + d)."""
+    zero = torch.zeros(b, s, n * hd, device=dev, dtype=torch.bfloat16)
+    eye = torch.eye(hd, device=dev, dtype=torch.bfloat16)[None, :, None]
+    cols = []
+    for c in range(s // hd):
+        chunk = torch.zeros(b, s, n, hd, device=dev, dtype=torch.bfloat16)
+        chunk[:, c * hd:(c + 1) * hd] = eye
+        out, _ = fa.packed_flash_fwd(zero, zero, chunk.reshape(b, s, n * hd),
+                                     n, 1.0, False, None, RATE, seed)
+        cols.append(out.reshape(b, s, n, hd).permute(0, 2, 1, 3) != 0)
+    return torch.cat(cols, -1)
+
+
+def _masks_agree(fa, dev, fwd, rec, b, s, n):
+    """The forward's and the recompute's keep masks read back from the
+    kernel for their seeds: equal to each other and to the plain mask."""
+    from paddle_tpu_torch.core import rng
+
+    value = int(fwd) if not isinstance(fwd, torch.Tensor) else \
+        int(fwd.item())
+    m_fwd, m_rec = (_keep_mask(fa, dev, x, b, s, n) for x in (fwd, rec))
+    plain = rng.attn_keep(value, RATE, b, n, s, s, dev)
+    return dict(seed=value, bits=int(m_fwd.numel()),
+                forward_equals_recompute=bool(torch.equal(m_fwd, m_rec)),
+                equals_plain_mask=bool(torch.equal(m_fwd, plain)),
+                kept=float(m_fwd.float().mean()))
+
+
+def _flash_autograd_vs_direct(fa, dev, b, s, n, hd=64):
+    """At the step's shapes (bf16, key bias, dropout RATE, the seed a
+    device int64 as a compiled step binds it): FlashAttentionFunction's
+    dq, dk, dv against a direct packed_flash_bwd on the same saved Out
+    and Lse, bit for bit."""
+    q, k, v, do, bias = _train_attn_inputs(dev, b, s, torch.bfloat16, 11)
+    seed = torch.full((), ATTN_SEED, dtype=torch.int64, device=dev)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out, lse = fa.flash_attention(leaves[0], leaves[1], leaves[2], n,
+                                  hd ** -0.5, False, bias, RATE, seed)
+    out.backward(do)
+    want = fa.packed_flash_bwd(q, k, v, out.detach(), lse, do, n, hd ** -0.5,
+                               False, bias, RATE, seed)
+    equal = [bool(torch.equal(x.grad, w)) for x, w in zip(leaves, want)]
+    return dict(shape=f"B={b} S={s} n={n} hd={hd} bf16 bias dropout={RATE}",
+                dq_dk_dv_bitwise=equal,
+                nonzero=[bool(x.grad.abs().sum() > 0) for x in leaves])
+
+
+def _state_copy(scope):
+    from paddle_tpu_torch.core.scope import Scope
+
+    out = Scope()
+    for n, v in scope.items():
+        out.set(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    return out
+
+
+def _rows(batch, b):
+    return {k: v[:b] for k, v in batch.items()}
+
+
+def _one_step(exe, prog, feed, scope, fetch):
+    """One op-by-op step: (loss, the fetched gradients on the device, the
+    peak memory allocated in GB)."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = exe.run(prog, feed=feed, scope=scope, fetch_list=fetch,
+                  use_compiled=False, return_numpy=False)
+    torch.cuda.synchronize()
+    return float(out[0].float().reshape(-1)[0]), out[1:], \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _recompute_against_plain(dev, main_prog, loss, state, batch, b_main):
+    """The program without recompute, one op-by-op step from ``state``, at
+    the phase's batch or, where it runs out of memory, the first of the
+    smaller batches that fits; the recompute program one step from the
+    same state at that batch. Gradients within FLEET_GRAD_TOL of their
+    tensor's largest magnitude, parameters within FLEET_PARAM_TOL."""
+    from paddle_tpu_torch.core.executor import Executor
+
+    _, plain, _, _ = _ernie_fleet_programs(24, recompute=False)
+    params = [p.name for p in main_prog.all_parameters()]
+
+    def fetch(prog):
+        return [loss] + [prog.grad_var_map[p] for p in params]
+
+    oom = []
+    for b in [b_main] + [x for x in (32, 24, 16, 8) if x < b_main]:
+        exe, sc = Executor(device=dev), _state_copy(state)
+        try:
+            p_loss, p_grads, p_peak = _one_step(exe, plain, _rows(batch, b),
+                                                sc, fetch(plain))
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            oom.append(dict(batch=b, why=str(e).split(".")[0]))
+            del exe, sc
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"train_ernie_fleet: the program without "
+                             f"recompute fits no batch: {oom}")
+    p_params = {n: sc.find_var(n) for n in params}
+    del exe
+    exe2, sc2 = Executor(device=dev), _state_copy(state)
+    r_loss, r_grads, r_peak = _one_step(exe2, main_prog, _rows(batch, b),
+                                        sc2, fetch(main_prog))
+    grad_err = max(float((g.float() - w.float()).abs().max()
+                         / w.float().abs().max().clamp_min(1e-30))
+                   for g, w in zip(r_grads, p_grads))
+    param_err = max(float((sc2.find_var(n) - p_params[n]).abs().max())
+                    for n in params)
+    return dict(batch=b, plain_out_of_memory=oom, loss=r_loss,
+                loss_without_recompute=p_loss, peak_gb=r_peak,
+                peak_gb_without_recompute=p_peak,
+                grad_max_rel_err=grad_err, param_max_abs_err=param_err,
+                tolerance=f"gradients {FLEET_GRAD_TOL} of each tensor's "
+                          f"largest magnitude, parameters "
+                          f"{FLEET_PARAM_TOL} absolute")
+
+
+def _overflow_sequence(exe, prog, feed, scope, loss, use_compiled):
+    """FLEET_OVERFLOW's steps from a fresh loss-scaling state (scale
+    FLEET_SCALE, counters 0), each scale written in place before its step
+    (a compiled step reads the tensor it was built on): (scale, good, bad)
+    and the loss after every step."""
+    for n, v in zip(FLEET_SCALING, (FLEET_SCALE, 0, 0)):
+        scope.find_var(n).fill_(v)
+    seq, losses = [], []
+    for scale in FLEET_OVERFLOW:
+        if scale is not None:
+            scope.find_var(FLEET_SCALING[0]).fill_(scale)
+        out = exe.run(prog, feed=feed, scope=scope, fetch_list=[loss],
+                      use_compiled=use_compiled)
+        losses.append(_loss(out))
+        seq.append([scope.find_var(n).item() for n in FLEET_SCALING])
+    return seq, losses
+
+
+def train_ernie_fleet(dev, smi, batches=(40, 32, 24, 16), timed=4):
+    """ERNIE-large (24 layers, fp32 parameters, flash attention) trained
+    through fleet's strategy chain (_ernie_fleet_programs) on one
+    synthetic batch: b40, or the first of ``batches`` that fits. Startup
+    on the card and one warm-up step op by op (its attention seeds
+    recorded), then profile_train.timed_modes (``timed`` timed steps a
+    mode). Gates, per compiled step and op by op: 48 flash forward
+    launches (24 in the segments' forwards, 24 in their recomputes) and 24
+    backward (through FlashAttentionFunction), all on the bf16 tensor-core
+    instance, no AdamW launch, one lamb op a parameter; each leg's loss
+    falling and every parameter finite. Then: FlashAttentionFunction at
+    the step's shapes bit for bit the direct backward; the program
+    without recompute one step from the same state (_recompute_against_
+    plain): its peak memory higher, gradients and parameters within the
+    stated tolerances; the loss-scaling overflow in a compiled step of
+    the 24-layer program at 2 of the batch's rows against the CPU's op by
+    op run of the same program at 2 layers on those rows
+    (_overflow_sequence: the same (scale, good, bad) bit for bit after
+    every step, finite losses); and layer 0's attention keep mask, read
+    back from the kernel for the forward's seed and the recompute's, op
+    by op (ints) and in the compiled step (its seed-table slot): equal
+    to each other and to the plain mask."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.tools.profile_train import timed_modes
+
+    phase, layers, n = "train_ernie_fleet", 24, ERNIE["num_attention_heads"]
+    t_build = time.perf_counter()
+    cfg, main_prog, startup, fetches = _ernie_fleet_programs(layers)
+    build_s = time.perf_counter() - t_build
+    ops = main_prog.global_block().ops
+    n_params = len(main_prog.all_parameters())
+    n_lamb = sum(o.type == "lamb" for o in ops)
+    calls = [o for o in ops if o.type == "block_call"]
+    seed0 = next(o.attrs["seed"] for blk in main_prog.blocks[1:]
+                 for o in blk.ops if o.type == "flash_attention")
+    loss = fetches["loss"].name
+    exe = Executor(device=dev)
+    tried = []
+    for batch_size in batches:
+        scope = Scope()
+        exe.run(startup, scope=scope)
+        batch = bert.synthetic_pretraining_batch(
+            cfg, batch_size, SEQ, seed=0, max_predictions_per_seq=MAX_PREDS)
+        try:
+            with _AttnSeeds() as eager_seeds:
+                warm = exe.run(main_prog, feed=batch, scope=scope,
+                               fetch_list=[loss], use_compiled=False)
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            tried.append(dict(batch=batch_size, why=str(e).split(".")[0]))
+            del scope
+            gc.collect()
+            torch.cuda.empty_cache()
+    else:
+        raise AssertionError(f"{phase}: no batch size fits: {tried}")
+    modes = timed_modes(exe, main_prog, batch, scope, [loss], timed)
+    comp = modes["compiled"]
+    params = [scope.find_var(p.name) for p in main_prog.all_parameters()]
+    finite = all(bool(torch.isfinite(p).all()) for p in params)
+    exe.close()
+    del exe
+    _release()
+    autograd_check = _flash_autograd_vs_direct(fa, dev, batch_size, SEQ, n)
+    state = _state_copy(scope)
+    del scope, params
+    _release()
+    versus = _recompute_against_plain(dev, main_prog, loss, state, batch,
+                                      batch_size)
+    _release()
+    # the overflow: the 24-layer compiled step at 2 rows on the card, the
+    # 2-layer program op by op on the CPU, on the same rows
+    rows = _rows(batch, 2)
+    exe = Executor(device=dev)
+    with _AttnSeeds() as comp_seeds:
+        card_seq, card_losses = _overflow_sequence(exe, main_prog, rows,
+                                                   state, loss, True)
+    builds = exe.compiled_builds
+    exe.close()
+    del exe
+    _, cpu_prog, cpu_start, cpu_fetch = _ernie_fleet_programs(2)
+    cpu_scope = Scope()
+    cpu_exe = Executor(device="cpu")
+    cpu_exe.run(cpu_start, scope=cpu_scope)
+    cpu_seq, cpu_losses = _overflow_sequence(
+        cpu_exe, cpu_prog, rows, cpu_scope, cpu_fetch["loss"].name, False)
+    del cpu_scope, state
+    _release()
+    # layer 0's keep mask: op by op the seeds are ints; in the compiled
+    # step (recorded at its capture) the forward and the recompute bind
+    # one seed-table slot, which holds the last step's value
+    fwd_i, rec_i = eager_seeds.of(seed0)
+    slots = [s for b, _, s in comp_seeds.calls
+             if b == seed0 and isinstance(s, torch.Tensor)]
+    same_slot = len(slots) >= 2 and all(t is slots[0] for t in slots)
+    masks = dict(op_by_op=_masks_agree(fa, dev, fwd_i, rec_i, batch_size,
+                                       SEQ, n),
+                 compiled=_masks_agree(fa, dev, slots[0], slots[-1], 2, SEQ,
+                                       n),
+                 compiled_same_slot=same_slot)
+    want = {"flash_attention_fwd": 2 * layers, "flash_attention_bwd": layers}
+    emit(phase, model="ernie_large", layers=layers, dtype="float32",
+         amp="bf16, dynamic loss scaling", optimizer="lamb",
+         lr=FLEET_LR, grad_clip="global norm 1.0",
+         recompute_checkpoints=len(calls), seq=SEQ,
+         max_predictions=MAX_PREDS, batch=batch_size,
+         batches_that_did_not_fit=tried, build_s=build_s, ops=len(ops),
+         op_types=len({o.type for o in ops}), lamb_ops=n_lamb,
+         parameters=n_params, warmup_loss=_loss(warm),
+         modes=_per_mode(modes), step_ms_p50=comp["step_ms_p50"],
+         tokens_per_s=batch_size * SEQ / (comp["step_ms_p50"] / 1e3),
+         peak_gb={m: r["max_memory_allocated"] / 2 ** 30
+                  for m, r in modes.items()},
+         flash_launches_by_layout=comp["layouts"],
+         flash_launches_by_dtype=comp["dtypes"], params_finite=finite,
+         flash_autograd_vs_direct=autograd_check,
+         recompute_vs_plain=versus,
+         overflow=dict(schedule=[None if x is None else str(x)
+                                 for x in FLEET_OVERFLOW],
+                       card_rows=2, card_layers=layers, cpu_layers=2,
+                       card=card_seq, cpu=cpu_seq, card_losses=card_losses,
+                       cpu_losses=cpu_losses, compiled_builds=builds),
+         keep_masks=masks, nvidia_smi=smi,
+         note="step ms on the host clock, one synthetic batch; smoke "
+              "figures, not a benchmark")
+    _check_legs(phase, modes, first=2)
+    for m, r in modes.items():
+        if r["launches_per_step"] != want or n_lamb != n_params \
+                or len(calls) != layers:
+            raise AssertionError(f"{phase} ({m}): launches per step "
+                                 f"{r['launches_per_step']}, {n_lamb} lamb "
+                                 f"ops for {n_params} parameters, "
+                                 f"{len(calls)} segments")
+    for name in want:
+        if comp["dtypes"][name] != {"fp32_tf32x3": 0,
+                                    "bf16_wgmma": comp["launches"][name]}:
+            raise AssertionError(f"{phase}: {name} launches by instance "
+                                 f"{comp['dtypes'][name]}")
+    if not finite:
+        raise AssertionError(f"{phase}: a parameter is not finite")
+    if not (all(autograd_check["dq_dk_dv_bitwise"])
+            and all(autograd_check["nonzero"])):
+        raise AssertionError(f"{phase}: FlashAttentionFunction against the "
+                             f"direct backward: {autograd_check}")
+    if not (versus["peak_gb_without_recompute"] > versus["peak_gb"]
+            and versus["grad_max_rel_err"] <= FLEET_GRAD_TOL
+            and versus["param_max_abs_err"] <= FLEET_PARAM_TOL):
+        raise AssertionError(f"{phase}: recompute against no recompute: "
+                             f"{versus}")
+    bad_good = [(b, g) for _, g, b in card_seq]
+    if card_seq != cpu_seq or builds != 1 \
+            or bad_good != [(0, 1), (0, 2), (1, 0), (0, 0), (0, 1), (0, 2)] \
+            or not all(np.isfinite(card_losses + cpu_losses)):
+        raise AssertionError(f"{phase}: overflow sequence card {card_seq} "
+                             f"(losses {card_losses}, {builds} builds), CPU "
+                             f"{cpu_seq} (losses {cpu_losses})")
+    for where in ("op_by_op", "compiled"):
+        m = masks[where]
+        if not (m["forward_equals_recompute"] and m["equals_plain_mask"]):
+            raise AssertionError(f"{phase}: keep masks {where}: {m}")
+    if not same_slot:
+        raise AssertionError(f"{phase}: the compiled step bound layer 0's "
+                             f"forward and recompute to {slots}")
+    return dict(launches=comp["launches"], layouts=comp["layouts"],
+                dtypes=comp["dtypes"])
 
 
 def compiled_parity(dev, smi, layers=4, steps=4, batch_size=40):
@@ -4993,6 +5425,8 @@ def main():
     runs["compiled_parity"] = compiled_parity(dev, smi)
     _release()
     runs["train_ernie"] = train_ernie(dev, smi)
+    _release()
+    runs["train_ernie_fleet"] = train_ernie_fleet(dev, smi)
     _release()
     runs["bnsd_ops"] = bnsd_ops(dev)
     for seq, batch_size in LONG:

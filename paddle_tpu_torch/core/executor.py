@@ -27,6 +27,7 @@ return to the graph's pool and later ops of the step reuse them.
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -67,12 +68,18 @@ def _resolve_inputs(op: OpDesc, env: Dict[str, Any]) -> Dict[str, List[Any]]:
 
 
 def run_op(op: OpDesc, env: Dict[str, Any], step=None,
-           seed: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+           seed: Optional[torch.Tensor] = None,
+           seeds: Optional[Dict[Any, torch.Tensor]] = None,
+           autograd: bool = False) -> Dict[str, Any]:
     """Run one op's lowering against env and bind its outputs there.
     ``step`` (the global step counter) is handed to the lowering as the
     ``__step__`` attr: random ops fold it into their seed. ``seed``, a
     random op's slot of a compiled step's seed table, goes in as the
-    ``__seed__`` attr, which ``rng.op_seed`` takes instead."""
+    ``__seed__`` attr, which ``rng.op_seed`` takes instead; ``seeds``,
+    the slots of the random ops of the sub-blocks an op runs
+    (``rng.seed_slots``), as ``__seeds__``. The lowering runs under
+    ``torch.no_grad()``, or with ``autograd`` under the caller's grad
+    mode (a sub-block's ops inside a ``__vjp_grad__`` recompute)."""
     opdef = registry.get(op.type)
     if opdef.forward is None:
         raise ExecutionError(f"op '{op.type}' has no registered lowering")
@@ -82,8 +89,10 @@ def run_op(op: OpDesc, env: Dict[str, Any], step=None,
         attrs["__step__"] = step
     if seed is not None:
         attrs["__seed__"] = seed
+    if seeds is not None:
+        attrs["__seeds__"] = seeds
     try:
-        with torch.no_grad():
+        with contextlib.nullcontext() if autograd else torch.no_grad():
             outs = registry.normalize_outputs(opdef.forward(ins, attrs))
     except (ExecutionError, NotImplementedError,
             torch.cuda.OutOfMemoryError):
@@ -104,6 +113,26 @@ def run_block(block: Block, env: Dict[str, Any], step=None
               ) -> Dict[str, Any]:
     for op in block.ops:
         run_op(op, env, step=step)
+    return env
+
+
+def run_sub_block(block: Block, env: Dict[str, Any], step=None,
+                  seeds: Optional[Dict[Any, torch.Tensor]] = None,
+                  keep: Sequence[str] = ()) -> Dict[str, Any]:
+    """Run a sub-block's ops on ``env``, the call's own local env, under
+    the caller's grad mode: a ``block_call`` recomputed by its
+    ``__vjp_grad__`` builds its autograd graph here. ``seeds`` maps the
+    block's random ops to their slots of a compiled step's seed table
+    (op by op it is None, and each op folds ``step`` into its seed). A
+    var that no later op of the block reads leaves the env after its last
+    reader, unless it is in ``keep``."""
+    for op, drop in zip(block.ops, _last_readers(block, set(keep))):
+        run_op(op, env, step=step,
+               seed=seeds.get(op) if seeds else None,
+               seeds=seeds if seeds and rng.sub_blocks(op) else None,
+               autograd=True)
+        for n in drop:
+            env.pop(n, None)
     return env
 
 
@@ -159,14 +188,16 @@ class _CompiledStep:
     the scope held when it was built, a seed table, and the step captured
     (on a CUDA device) as a graph over them.
 
-    The seed table has one int64 slot per random op (``rng.seed_slots``);
+    The seed table has one int64 slot per random op, those of the
+    sub-blocks the step's ops run included (``rng.seed_slots``);
     before each step the host writes ``rng.seed_values`` at that step
     into it (through a pinned buffer, one copy), and each random op reads
-    its slot as its ``__seed__``. Optimizer ops update their state in
-    place; a persistable that a lowering writes out of place (batch
-    norm's running statistics) is copied back into the tensor the scope
-    holds at the end of the step, so the scope keeps the tensors the
-    graph reads."""
+    its slot as its ``__seed__`` (an op that runs a sub-block gets the
+    slots of the sub-block's ops as ``__seeds__``). Optimizer ops update
+    their state in place; a persistable that a lowering writes out of
+    place (batch norm's running statistics) is copied back into the
+    tensor the scope holds at the end of the step, so the scope keeps the
+    tensors the graph reads."""
 
     def __init__(self, device, ops, dead, scope, feeds, fetch_names,
                  persist):
@@ -197,7 +228,11 @@ class _CompiledStep:
         self.seed_attrs = [s for _, s in slots]
         self.seeds = torch.zeros(len(slots), dtype=torch.int64,
                                  device=device)
-        self.seed_of = {i: self.seeds[k] for k, (i, _) in enumerate(slots)}
+        # slot key (an op's index, or a sub-block's OpDesc) -> its slot
+        self.seed_of = {key: self.seeds[k]
+                        for k, (key, _) in enumerate(slots)}
+        # the ops that run sub-blocks get the sub-blocks' slots
+        self.runs_sub = {i for i, op in enumerate(ops) if rng.sub_blocks(op)}
         cuda = device.type == "cuda"
         self.seed_host = torch.zeros(len(slots), dtype=torch.int64,
                                      pin_memory=cuda) if cuda else None
@@ -209,7 +244,8 @@ class _CompiledStep:
         env.update(self.feeds)
         with registry.creating_on(self.device):
             for i, (op, drop) in enumerate(zip(self.ops, self.dead)):
-                run_op(op, env, seed=self.seed_of.get(i))
+                run_op(op, env, seed=self.seed_of.get(i),
+                       seeds=self.seed_of if i in self.runs_sub else None)
                 for n in drop:
                     env.pop(n, None)
         for n in self.written:

@@ -44,9 +44,21 @@ class OpRole:
 _DYN_SENTINEL = 509
 _DYN_SENTINEL_B = 521
 _INFER_WARNED: set = set()
+# the JSON form of a Block-valued attr: {BLOCK_REF: block index}
+BLOCK_REF = "__block__"
 
 
 def _json_attr(v):
+    """An attr value as JSON takes it. A Block (``block_call``'s
+    ``sub_block``, also inside a ``__vjp_grad__``'s ``fwd_attrs``) is
+    written as ``{"__block__": idx}``, which ``Program.from_dict`` turns
+    back into the program's block of that index."""
+    if isinstance(v, Block):
+        return {BLOCK_REF: v.idx}
+    if isinstance(v, dict):
+        return {k: _json_attr(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_json_attr(x) for x in v)
     if isinstance(v, np.ndarray):
         return v.tolist()
     if isinstance(v, np.dtype):
@@ -159,6 +171,8 @@ class OpDesc:
 
     @staticmethod
     def from_dict(d: dict) -> "OpDesc":
+        """The op of ``to_dict``, its ``__block__`` references left for
+        ``Program.from_dict`` to resolve."""
         return OpDesc(d["type"], d["inputs"], d["outputs"],
                       d.get("attrs", {}))
 
@@ -469,9 +483,11 @@ class Program:
         p = Program()
         p.random_seed = self.random_seed
         p._seed_counter = self._seed_counter
-        p.blocks = []
-        for blk in self.blocks:
-            nb = Block(p, blk.idx, blk.parent_idx)
+        p.blocks = [Block(p, blk.idx, blk.parent_idx) for blk in self.blocks]
+        # deepcopy's memo maps each block to the clone's block of its index,
+        # so a Block-valued attr points into the clone
+        memo = {id(blk): nb for blk, nb in zip(self.blocks, p.blocks)}
+        for blk, nb in zip(self.blocks, p.blocks):
             for name, var in blk.vars.items():
                 desc = copy.deepcopy(var.desc)
                 nb.vars[name] = Parameter(nb, desc, trainable=var.trainable) \
@@ -480,23 +496,18 @@ class Program:
                 if for_test and (op.is_backward_op() or op.is_optimize_op()):
                     continue
                 nop = OpDesc(op.type, op.inputs, op.outputs,
-                             copy.deepcopy(op.attrs))
+                             copy.deepcopy(op.attrs, dict(memo)))
                 if for_test and "is_test" in nop.attrs:
                     nop.attrs["is_test"] = True
                 nb.ops.append(nop)
-            p.blocks.append(nb)
         if not p.blocks:
             p.blocks = [Block(p, 0, -1)]
         if for_test:
             produced = {n for blk in self.blocks for op in blk.ops
                         for n in op.output_names()}
-            refs = set()
+            refs, seen = set(), set()
             for nb in p.blocks:
-                for op in nb.ops:
-                    refs.update(op.input_names())
-                    refs.update(op.output_names())
-                    for val in op.attrs.values():
-                        _string_refs(val, refs)
+                _collect_op_refs(nb.ops, refs, seen)
             for nb in p.blocks:
                 for name in [n for n, v in nb.vars.items()
                              if n in produced and n not in refs
@@ -513,6 +524,19 @@ class Program:
 
     def block(self, idx: int) -> Block:
         return self.blocks[idx]
+
+    def create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new block, child of the current one (or of ``parent_idx``),
+        made current (reference: ``Program.create_block``)."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        blk = Block(self, len(self.blocks), parent)
+        self.blocks.append(blk)
+        self.current_block_idx = blk.idx
+        return blk
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
 
     def to_dict(self) -> dict:
         return {
@@ -531,11 +555,51 @@ class Program:
             p.blocks.append(blk)
         if not p.blocks:
             p.blocks = [Block(p, 0, -1)]
+        for blk in p.blocks:     # every block exists: resolve references
+            for op in blk.ops:
+                op.attrs = _resolve_blocks(op.attrs, p)
         return p
 
     def __repr__(self):
         nops = sum(len(b.ops) for b in self.blocks)
         return f"Program(blocks={len(self.blocks)}, ops={nops})"
+
+
+def _resolve_blocks(val, program: "Program"):
+    """``val`` with every ``{"__block__": idx}`` replaced by the block."""
+    if isinstance(val, dict):
+        if len(val) == 1 and BLOCK_REF in val:
+            return program.block(int(val[BLOCK_REF]))
+        return {k: _resolve_blocks(v, program) for k, v in val.items()}
+    if isinstance(val, (list, tuple)):
+        return type(val)(_resolve_blocks(v, program) for v in val)
+    return val
+
+
+def _collect_op_refs(ops, refs: set, seen: set):
+    """Every var name the ops reference: their io slots and any string
+    reachable through their attr values, recursing into the sub-blocks
+    their attrs hold (reference: ``core/ir.py`` ``_collect_op_refs``)."""
+
+    def scan(val):
+        if isinstance(val, str):
+            refs.add(val)
+        elif isinstance(val, Block):
+            if id(val) not in seen:
+                seen.add(id(val))
+                _collect_op_refs(val.ops, refs, seen)
+        elif isinstance(val, dict):
+            for v in val.values():
+                scan(v)
+        elif isinstance(val, (list, tuple)):
+            for v in val:
+                scan(v)
+
+    for op in ops:
+        refs.update(op.input_names())
+        refs.update(op.output_names())
+        for val in op.attrs.values():
+            scan(val)
 
 
 def _string_refs(val, out: set):

@@ -23,9 +23,10 @@ The CUDA kernels carry the same splitmix32 in uint32
 A compiled step (``core/executor.py``, a CUDA graph on the card) cannot
 take a new host integer each step, so the seed also has a device form:
 the executor keeps a **seed table**, one int64 slot per random op of the
-program (``seed_slots``), fills it before each step from ``op_seed`` with
-the step folded in (``seed_values``) and binds each op's slot, a 0-d
-tensor, as its ``__seed__`` attr. ``op_seed`` returns that tensor when it
+program, those of its sub-blocks included (``seed_slots``), fills it
+before each step from ``op_seed`` with the step folded in
+(``seed_values``) and binds each op's slot, a 0-d tensor, as its
+``__seed__`` attr. ``op_seed`` returns that tensor when it
 is bound; ``dropout_keep`` and ``attn_keep`` take the seed as an int or as
 such a tensor and draw the same bits from either.
 """
@@ -89,48 +90,84 @@ def op_seed(attrs) -> Seed:
     return key[0] ^ key[1]
 
 
-def seed_slots(ops) -> List[Tuple[int, int]]:
-    """(op index, seed attr) of every random op of ``ops``: one slot of
-    the seed table each. An op draws random bits iff it carries a
-    ``seed`` attr (dropout, flash_attention with dropout,
+def _run_attrs(op):
+    """The attrs of what a run of ``op`` runs: its own, or for a
+    ``__vjp_grad__`` those of the forward it recomputes."""
+    return op.attrs.get("fwd_attrs") or {} \
+        if op.type == "__vjp_grad__" else op.attrs
+
+
+def sub_blocks(op) -> list:
+    """The blocks a run of ``op`` runs: its Block-valued attrs (a
+    ``block_call``'s ``sub_block``, also when a ``__vjp_grad__``
+    recomputes the call)."""
+    from .ir import Block
+
+    return [v for v in _run_attrs(op).values() if isinstance(v, Block)]
+
+
+def seed_slots(ops) -> List[Tuple[object, int]]:
+    """(key, seed attr) of every random op that a run of ``ops`` runs:
+    one slot of the seed table each. An op draws random bits iff it
+    carries a ``seed`` attr (dropout, flash_attention with dropout,
     flash_attention_grad, the random initializers), and a
-    ``__vjp_grad__`` op iff the forward it recomputes does."""
-    out = []
+    ``__vjp_grad__`` op iff the forward it recomputes does. The key of
+    ``ops[i]`` is ``i``; the key of an op of a sub-block (a
+    ``block_call``'s, reached from the call or from the ``__vjp_grad__``
+    that recomputes it) is that OpDesc itself, so a call and its
+    recompute bind the same slot and draw the same bits."""
+    out: List[Tuple[object, int]] = []
+    seen: set = set()
+
+    def walk(op):
+        for blk in sub_blocks(op):
+            for sub in blk.ops:
+                if id(sub) in seen:
+                    continue
+                seen.add(id(sub))
+                attrs = _run_attrs(sub)
+                if "seed" in attrs:
+                    out.append((sub, int(attrs["seed"] or 0)))
+                walk(sub)
+
     for i, op in enumerate(ops):
-        attrs = op.attrs.get("fwd_attrs") or {} \
-            if op.type == "__vjp_grad__" else op.attrs
+        attrs = _run_attrs(op)
         if "seed" in attrs:
             out.append((i, int(attrs["seed"] or 0)))
+        walk(op)
     return out
 
 
-def unseeded_random_ops(ops) -> List[int]:
-    """Indices of the ops of ``ops`` that draw random bits but carry no
-    ``seed`` attr: a dropout, or an op with ``dropout_prob`` > 0, not in
-    test mode (or a ``__vjp_grad__`` recomputing one). Op by op such an
-    op still gets a new seed each step (the step folded into seed 0);
-    a compiled step has no slot for it and would replay one mask. A
-    ``fusion_group`` holding such a dropout counts too: its sub-ops'
-    seeds have no slot of their own."""
-    out = []
-    for i, op in enumerate(ops):
-        if op.type == "fusion_group":
-            if any(sub["type"] == "dropout"
+def _unseeded(op) -> bool:
+    """Whether ``op`` draws random bits without a ``seed`` attr: a
+    dropout, or an op with ``dropout_prob`` > 0, not in test mode (or a
+    ``__vjp_grad__`` recomputing one); a ``fusion_group`` holding such a
+    dropout (its sub-ops' seeds have no slot of their own); an op whose
+    sub-blocks hold such an op."""
+    if op.type == "fusion_group":
+        return any(sub["type"] == "dropout"
                    and not sub["attrs"].get("is_test")
                    and float(sub["attrs"].get("dropout_prob", 0.0)
                              or 0.0) > 0
-                   for sub in op.attrs.get("sub_ops") or ()):
-                out.append(i)
-            continue
-        grad = op.type == "__vjp_grad__"
-        attrs = op.attrs.get("fwd_attrs") or {} if grad else op.attrs
-        kind = op.attrs.get("fwd_type") if grad else op.type
-        if "seed" in attrs or attrs.get("is_test"):
-            continue
-        if kind == "dropout" or float(attrs.get("dropout_prob", 0.0)
-                                      or 0.0) > 0:
-            out.append(i)
-    return out
+                   for sub in op.attrs.get("sub_ops") or ())
+    if any(_unseeded(sub) for blk in sub_blocks(op) for sub in blk.ops):
+        return True
+    attrs = _run_attrs(op)
+    kind = op.attrs.get("fwd_type") if op.type == "__vjp_grad__" \
+        else op.type
+    if "seed" in attrs or attrs.get("is_test"):
+        return False
+    return kind == "dropout" or float(attrs.get("dropout_prob", 0.0)
+                                      or 0.0) > 0
+
+
+def unseeded_random_ops(ops) -> List[int]:
+    """Indices of the ops of ``ops`` that draw random bits, themselves or
+    in a sub-block they run, through an op that carries no ``seed`` attr
+    (``_unseeded``). Op by op such an op still gets a new seed each step
+    (the step folded into seed 0); a compiled step has no slot for it and
+    would replay one mask."""
+    return [i for i, op in enumerate(ops) if _unseeded(op)]
 
 
 def seed_values(seeds, step: int) -> List[int]:

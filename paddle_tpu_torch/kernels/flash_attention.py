@@ -62,8 +62,11 @@ tensor on the inputs' device; the kernels read it through a pointer, so
 a CUDA graph that captured a launch draws the mask of whatever seed the
 tensor holds when it replays.
 
-On a CPU or meta tensor the wrappers run the plain versions below; on a
-CUDA tensor they launch the kernels or raise. The kernels read the
+Under autograd, ``flash_attention`` (``FlashAttentionFunction``) runs the
+forward and, in the backward pass, the backward kernel: the route of a
+``flash_attention`` op recomputed inside a ``block_call`` segment. On a
+CPU or meta tensor the wrappers run the plain versions below; on a CUDA
+tensor they launch the kernels or raise. The kernels read the
 tensors they are given through their strides: nothing is copied to make
 it contiguous, and a tensor the kernels cannot read (head_dim not
 contiguous, a stride or address off the alignment) raises.
@@ -460,6 +463,51 @@ def flash_bwd(q, k, v, out, lse, dout, n_heads, scale, causal, bias=None,
         return _launch_bwd(q, k, v, out, lse, dout, n_heads, scale, causal,
                            _key_bias(bias), rate, seed, layout)
     raise ValueError(f"flash backward: unsupported device {q.device}")
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``flash_fwd`` under autograd: the port's counterpart of the
+    reference's ``jax.custom_vjp`` over the packed kernel
+    (``flash_attention.py:1128-1155``). The forward runs ``flash_fwd``
+    and saves q, k, v, the key bias, out and lse; the backward runs
+    ``flash_bwd`` from them, the same kernel the ``flash_attention_grad``
+    op launches, with the seed the forward drew with (a Python int, or the
+    0-d device tensor of a compiled step's seed table, saved as it is, so
+    a replay reads the slot's value of that step). lse is an auxiliary
+    output: its cotangent is dropped. The key bias gets no gradient (the
+    op's Bias is not differentiable). On a CPU or meta tensor both
+    directions take the plain versions, as ``flash_fwd``/``flash_bwd``
+    do."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, n_heads, scale, causal, rate, seed,
+                layout):
+        out, lse = flash_fwd(q, k, v, n_heads, scale, causal, bias, rate,
+                             seed, layout)
+        seed_t = seed if isinstance(seed, torch.Tensor) else None
+        ctx.save_for_backward(q, k, v, bias, out, lse, seed_t)
+        ctx.args = (n_heads, scale, causal, rate, layout)
+        ctx.seed = seed if seed_t is None else None
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, bias, out, lse, seed_t = ctx.saved_tensors
+        n_heads, scale, causal, rate, layout = ctx.args
+        dq, dk, dv, _ = flash_bwd(
+            q, k, v, out, lse, dout.to(out.dtype).contiguous(), n_heads,
+            scale, causal, bias, rate,
+            ctx.seed if seed_t is None else seed_t, layout)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, n_heads, scale, causal, bias=None, rate=0.0,
+                    seed=0, layout="packed"):
+    """(out, lse) of ``flash_fwd`` that autograd differentiates through
+    the backward kernel (``FlashAttentionFunction``)."""
+    return FlashAttentionFunction.apply(q, k, v, bias, n_heads, scale,
+                                        causal, rate, seed, layout)
 
 
 def packed_flash_fwd(q, k, v, n_heads, scale, causal, bias=None, rate=0.0,

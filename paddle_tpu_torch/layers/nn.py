@@ -22,8 +22,9 @@ from ..parallel.api import set_logical_axes
 __all__ = ["data", "static_data", "create_parameter", "create_global_var",
            "fc", "linear", "embedding", "layer_norm", "dropout",
            "cross_entropy", "softmax_with_cross_entropy", "topk", "mean",
-           "relu", "tanh", "sigmoid", "gelu", "elementwise_add",
-           "elementwise_mul", "elementwise_div", "reduce_sum", "reduce_mean",
+           "relu", "tanh", "sigmoid", "gelu", "sqrt", "square", "clip",
+           "elementwise_add", "elementwise_mul", "elementwise_div",
+           "elementwise_max", "reduce_sum", "reduce_mean",
            "matmul", "mul",
            "reshape", "transpose", "squeeze", "unsqueeze", "slice", "gather",
            "scale", "fill_constant", "take_along_axis", "flash_attention",
@@ -233,6 +234,8 @@ def _unary(op_type):
 relu = _unary("relu")
 tanh = _unary("tanh")
 sigmoid = _unary("sigmoid")
+sqrt = _unary("sqrt")
+square = _unary("square")
 
 
 def gelu(x: Variable, approximate: bool = False, name=None) -> Variable:
@@ -351,6 +354,14 @@ def scale(x: Variable, scale: float = 1.0, bias: float = 0.0,
     return out
 
 
+def clip(x: Variable, min: float, max: float, name=None) -> Variable:
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("clip", {"X": [x]}, {"Out": [out]},
+                     {"min": min, "max": max})
+    return out
+
+
 def fill_constant(shape, dtype, value, name=None, out=None) -> Variable:
     helper = LayerHelper("fill_constant", name=name)
     if out is None:
@@ -458,6 +469,7 @@ def _binary(op_type):
 elementwise_add = _binary("elementwise_add")
 elementwise_mul = _binary("elementwise_mul")
 elementwise_div = _binary("elementwise_div")
+elementwise_max = _binary("elementwise_max")
 
 
 def conv2d(input: Variable, num_filters: int, filter_size, stride=1,

@@ -7,8 +7,8 @@ flash-attention op (``use_flash_attention``) or the unfused attention
 chain (the default, which the inference passes fuse).
 The sharding annotations on the weights are recorded (they are part of
 the program) but nothing in the port reads them: it runs on one device.
-Not in the port, and raising: ring attention / sequence parallelism, pipeline stages and data parallelism
-above 1, and the ``lamb`` optimizer.
+Not in the port, and raising: ring attention / sequence parallelism,
+pipeline stages and data parallelism above 1.
 """
 
 from __future__ import annotations
@@ -292,12 +292,10 @@ def build_pretraining_program(cfg: BertConfig, seq_len: int = 128,
 
             if optimizer_name == "adamw":
                 opt = opt_mod.AdamWOptimizer(lr, weight_decay=0.01)
-            elif optimizer_name == "adam":
-                opt = opt_mod.AdamOptimizer(lr)
+            elif optimizer_name == "lamb":
+                opt = opt_mod.LambOptimizer(lr)
             else:
-                raise NotImplementedError(
-                    f"optimizer {optimizer_name!r} is not in the port "
-                    f"(adamw, adam)")
+                opt = opt_mod.AdamOptimizer(lr)
             opt.minimize(loss)
 
     feeds = dict(src_ids=src_ids, sent_ids=sent_ids, pos_ids=pos_ids,
@@ -305,6 +303,15 @@ def build_pretraining_program(cfg: BertConfig, seq_len: int = 128,
                  mask_weight=mask_weight, nsp_labels=nsp_labels)
     fetches = dict(loss=loss, lm_loss=lm_loss, nsp_loss=nsp_loss)
     return main, startup, feeds, fetches
+
+
+def encoder_checkpoints(program) -> list:
+    """The output of each encoder layer of a program built here (the Y
+    of the layer's last layer norm), in layer order: the checkpoints of
+    one recompute segment a layer (``strategy.recompute_configs``)."""
+    return [op.outputs["Y"][0] for op in program.global_block().ops
+            if op.type == "layer_norm"
+            and op.inputs["Scale"][0].endswith("_ln2_scale")]
 
 
 def synthetic_pretraining_batch(cfg: BertConfig, batch_size: int, seq_len: int,

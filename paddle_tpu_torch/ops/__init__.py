@@ -1,7 +1,10 @@
 """Op lowerings; importing this package registers every op type of the
 decoder LM's serving programs, of the BERT/ERNIE pre-training program,
 of the ResNet classifier program, of the WMT Transformer program and of
-the inference programs the predictor's passes rewrite."""
+the inference programs the predictor's passes rewrite, and of the
+fleet training chain (loss scaling, clips, regularizers, LAMB/LARS,
+recomputed segments)."""
 
-from . import (attention_ops, extra_ops, fused_ops, lr_ops,  # noqa: F401
-               math_ops, nn_ops, optimizer_ops, quant_ops, tensor_ops)
+from . import (amp_ops, attention_ops, control_flow_ops,  # noqa: F401
+               extra_ops, fused_ops, lr_ops, math_ops, nn_ops,
+               optimizer_ops, quant_ops, tensor_ops)

@@ -19,7 +19,7 @@ from ..core import rng
 from ..core.ir import OpDesc
 from ..core.registry import (default_grad_maker, register_grad_maker,
                              register_op)
-from ..kernels.flash_attention import flash_bwd, flash_fwd
+from ..kernels.flash_attention import flash_attention, flash_bwd, flash_fwd
 from ..kernels.layer_norm import fused_layer_norm
 from ..kernels.paged_attention import paged_decode_attention
 from .bn_act import fused_batch_norm_act
@@ -87,10 +87,16 @@ def flash_attention_op(ins, attrs):
     and K/V [B,H,Sk,D]; Out comes in Q's layout. Bias, if given, is a key
     bias [B,1,1,Sk] or [B,Sk]. Attrs: causal, scale (default 1/sqrt(hd)),
     dropout_prob/is_test/seed (attention-probs dropout). Runs the flash
-    forward kernel (kernels/flash_attention.py) in either layout."""
+    forward kernel (kernels/flash_attention.py) in either layout. Under
+    autograd (the op inside a ``block_call`` segment that its
+    ``__vjp_grad__`` recomputes) it runs through
+    ``FlashAttentionFunction``, whose backward is the backward kernel;
+    otherwise its gradient is the ``flash_attention_grad`` op."""
     q, k, v, bias, n, scale, causal, layout = _flash_args(ins, attrs)
     rate, seed = _attn_dropout(attrs)
-    out, lse = flash_fwd(q, k, v, n, scale, causal, bias, rate, seed, layout)
+    fwd = flash_attention if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v)) else flash_fwd
+    out, lse = fwd(q, k, v, n, scale, causal, bias, rate, seed, layout)
     return {"Out": out, "Lse": lse}
 
 

@@ -1,5 +1,6 @@
 """Math lowerings (port of ``paddle_tpu/ops/math_ops.py``: elementwise
-:38-46, relu :90, tanh :93, sigmoid :92, gelu :141, reduce_sum and
+:38-46, relu :90, tanh :93, sigmoid :92, sqrt, square and sign :97-111,
+clip :190, isfinite :511, gelu :141, reduce_sum and
 reduce_mean :231, mean :238, matmul
 :267, matmul_v2 :285, mul :297, softmax :329, cross_entropy :343,
 softmax_with_cross_entropy :361, accuracy :448, top_k :466, fc :525).
@@ -40,6 +41,36 @@ def _ew(fn):
 register_op("elementwise_add")(_ew(torch.add))
 register_op("elementwise_mul")(_ew(torch.mul))
 register_op("elementwise_div")(_ew(torch.div))
+# the denominator of the norm clips (reference :46, ``jnp.maximum``; a tie
+# splits the gradient in halves in both)
+register_op("elementwise_max")(_ew(torch.maximum))
+
+
+def _unary(fn):
+    def lowering(ins, attrs):
+        return {"Out": fn(ins["X"][0])}
+
+    return lowering
+
+
+# the activations the clips and the L1 regularizer emit (reference
+# :97-111, ``_register_activations``)
+register_op("sqrt")(_unary(torch.sqrt))
+register_op("square")(_unary(torch.square))
+register_op("sign")(_unary(torch.sign))
+
+
+@register_op("clip")
+def clip(ins, attrs):
+    """X clamped to [min, max] (reference :190, ``jnp.clip``)."""
+    return {"Out": torch.clamp(ins["X"][0], attrs.get("min"),
+                               attrs.get("max"))}
+
+
+@register_op("isfinite", non_diff_inputs=("X",))
+def isfinite(ins, attrs):
+    """[1] bool: whether every element of X is finite (reference :511)."""
+    return {"Out": torch.isfinite(ins["X"][0]).all().reshape(1)}
 
 
 @register_op("relu")

@@ -1,6 +1,6 @@
 """Optimizer op lowerings: state updates are ops in the program (port
 of ``paddle_tpu/ops/optimizer_ops.py``: sgd :48, momentum :63, adam :140,
-adamw :167).
+adamw :167, lars_momentum :283, lamb :303).
 
 Each op names its parameter and state as both input and output. The
 port's lowerings update those tensors IN PLACE and return the same
@@ -19,6 +19,11 @@ from ..kernels.fused_adam import fused_adamw_
 
 _OPT = dict(non_diff_inputs=("Param", "Grad", "LearningRate", "Moment1",
                              "Moment2", "Beta1Pow", "Beta2Pow", "Velocity"))
+
+
+def _norm(t):
+    """The fp32 L2 norm of a whole tensor, as the reference writes it."""
+    return torch.sqrt(torch.sum(torch.square(t)))
 
 
 def _dense(g, op):
@@ -100,5 +105,54 @@ def adamw(ins, attrs):
     p, g, lr, m1, m2, b1p, b2p, b1, b2, eps = _slots(ins, attrs)
     fused_adamw_(p, g.contiguous(), m1, m2, lr, b1, b2, eps,
                  float(attrs.get("coeff", 0.01)), b1p, b2p)
+    return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
+            "Beta1PowOut": b1p, "Beta2PowOut": b2p}
+
+
+@register_op("lars_momentum", **_OPT)
+def lars_momentum(ins, attrs):
+    """Layer-wise adaptive rate scaling (reference lars_momentum_op.cc),
+    dense: local_lr = lr * lars_coeff * ||p|| / (||g|| + decay ||p|| +
+    epsilon), v' = mu v + local_lr (g + decay p), p -= v'. A zero
+    parameter norm gives local_lr 0. Plain PyTorch, as the reference
+    keeps it plain jnp."""
+    p, v, lr = ins["Param"][0], ins["Velocity"][0], ins["LearningRate"][0]
+    g = _dense(ins["Grad"][0], "lars_momentum")
+    mu = attrs.get("mu", 0.9)
+    coeff = attrs.get("lars_coeff", 0.001)
+    decay = attrs.get("lars_weight_decay", 0.0005)
+    eps = attrs.get("epsilon", 1e-9)
+    pn = _norm(p.to(torch.float32))
+    gn = _norm(g.to(torch.float32))
+    local_lr = lr * coeff * pn / (gn + decay * pn + eps)
+    v.copy_(mu * v + local_lr * (g + decay * p))
+    p.sub_(v)
+    return {"ParamOut": p, "VelocityOut": v}
+
+
+@register_op("lamb", **_OPT)
+def lamb(ins, attrs):
+    """LAMB (reference lamb_op.h), dense: Adam's moments and bias
+    corrections, r = m^ / (sqrt(v^) + epsilon) + weight_decay * p, and
+    p -= lr * (||p|| / ||r||) * r, the trust ratio taken as 1 where
+    either norm is 0. Updates its tensors in place. Plain PyTorch, as the
+    reference keeps it plain jnp."""
+    p, lr = ins["Param"][0], ins["LearningRate"][0]
+    g = _dense(ins["Grad"][0], "lamb")
+    m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
+    b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-6)
+    wd = attrs.get("weight_decay", 0.01)
+    pf, gf = p.to(torch.float32), g.to(torch.float32)
+    m1.copy_(b1 * m1 + (1 - b1) * gf)
+    m2.copy_(b2 * m2 + (1 - b2) * gf * gf)
+    r = (m1 / (1 - b1p)) / (torch.sqrt(m2 / (1 - b2p)) + eps) + wd * pf
+    r_norm, p_norm = _norm(r), _norm(pf)
+    ratio = torch.where((p_norm > 0) & (r_norm > 0), p_norm / r_norm, 1.0)
+    p.copy_((pf - lr * ratio * r).to(p.dtype))
+    b1p.mul_(b1)
+    b2p.mul_(b2)
     return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
             "Beta1PowOut": b1p, "Beta2PowOut": b2p}

@@ -1,11 +1,14 @@
 """Optimizer classes: emit optimizer ops into the program.
 
 The port of ``paddle_tpu/optimizer/__init__.py``: ``Optimizer`` (:33),
-``SGDOptimizer`` (:311), ``MomentumOptimizer`` (:321), ``AdamOptimizer``
-(:393) and ``AdamWOptimizer`` (:433). ``minimize(loss)``
-is ``append_backward`` plus one update op per parameter; the update ops
-name the parameter and its moments as both input and output, and the
-port's lowerings update them in place.
+``SGDOptimizer`` (:311), ``MomentumOptimizer`` (:321),
+``LarsMomentumOptimizer`` (:344), ``AdamOptimizer`` (:393),
+``AdamWOptimizer`` (:433) and ``LambOptimizer`` (:444). ``minimize(loss)``
+is ``append_backward`` plus, in ``apply_gradients``, the gradient clip
+(``grad_clip``, ``clip.py``), the regularization ops (``regularization``,
+or ``weight_decay`` as an L2 decay; ``regularizer.py``) and one update op
+per parameter; the update ops name the parameter and its moments as both
+input and output, and the port's lowerings update them in place.
 """
 
 from __future__ import annotations
@@ -15,14 +18,24 @@ from typing import Dict, List, Optional, Tuple
 from ..core import unique_name
 from ..core.backward import append_backward
 from ..core.ir import OpRole, Parameter, Variable, default_main_program
+from ..regularizer import append_regularization_ops
 
 
 class Optimizer:
     def __init__(self, learning_rate=0.001, parameter_list=None,
-                 name: Optional[str] = None, parameters=None):
+                 regularization=None, grad_clip=None,
+                 name: Optional[str] = None, parameters=None,
+                 weight_decay=None):
         self._learning_rate = learning_rate
         self._parameter_list = parameter_list if parameter_list is not None \
             else parameters
+        self.regularization = regularization
+        if weight_decay is not None and regularization is None \
+                and not isinstance(self, AdamWOptimizer):
+            from ..regularizer import L2Decay
+
+            self.regularization = L2Decay(weight_decay)
+        self._grad_clip = grad_clip
         self._name = name or unique_name.generate(type(self).__name__)
         self._accumulators: Dict[str, Dict[str, Variable]] = {}
         self._lr_var: Optional[Variable] = None
@@ -88,9 +101,15 @@ class Optimizer:
                                no_grad_set)
 
     def apply_gradients(self, params_grads) -> List:
+        """The clip, the regularization and the update ops of every
+        (param, grad), in the current block."""
         block = default_main_program().current_block()
         with block.program._role_guard(OpRole.Optimize):
             self._create_global_learning_rate()
+            if self._grad_clip is not None:
+                params_grads = self._grad_clip(params_grads)
+            params_grads = append_regularization_ops(params_grads,
+                                                     self.regularization)
             self._create_accumulators(block, [p for p, _ in params_grads])
             return [self._append_optimize_op(block, pg)
                     for pg in params_grads]
@@ -133,6 +152,32 @@ class MomentumOptimizer(Optimizer):
              "LearningRate": [self._lr_var]},
             {"ParamOut": [p], "VelocityOut": [v]},
             {"mu": self._momentum, "use_nesterov": self._use_nesterov})
+
+
+class LarsMomentumOptimizer(Optimizer):
+    type = "lars_momentum"
+
+    def __init__(self, learning_rate, momentum=0.9, lars_coeff=0.001,
+                 lars_weight_decay=0.0005, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._lars_coeff = lars_coeff
+        self._lars_weight_decay = lars_weight_decay
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "lars_momentum",
+            {"Param": [p], "Grad": [g], "Velocity": [v],
+             "LearningRate": [self._lr_var]},
+            {"ParamOut": [p], "VelocityOut": [v]},
+            {"mu": self._momentum, "lars_coeff": self._lars_coeff,
+             "lars_weight_decay": self._lars_weight_decay})
 
 
 class AdamOptimizer(Optimizer):
@@ -182,3 +227,16 @@ class AdamWOptimizer(AdamOptimizer):
 
     def _op_type(self):
         return "adamw", {"coeff": self._coeff, "with_decay": True}
+
+
+class LambOptimizer(AdamOptimizer):
+    type = "lamb"
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, beta1=beta1, beta2=beta2,
+                         epsilon=epsilon, **kw)
+        self._weight_decay = lamb_weight_decay
+
+    def _op_type(self):
+        return "lamb", {"weight_decay": self._weight_decay}

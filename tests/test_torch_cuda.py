@@ -1891,3 +1891,151 @@ def test_bert_base_engine_response_against_the_unbatched_run(dev, tmp_path):
             assert (got.argmax(1) == alone.argmax(1)).all()
     finally:
         engine.close(drain=True, timeout=60)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout,rate,tensor_seed", [
+    ("packed", 0.1, False), ("packed", 0.1, True), ("bnsd", 0.0, False)])
+def test_flash_autograd_function_is_the_direct_backward_bitwise(
+        dev, dtype, layout, rate, tensor_seed):
+    """``FlashAttentionFunction`` on the card: one forward launch, and in
+    the backward pass one backward launch whose dq, dk, dv equal a direct
+    ``flash_bwd`` call on the saved Out/Lse bit for bit (the same kernel
+    on the same inputs), with the seed an int or a device int64."""
+    b, s, n, hd = 2, 128, 4, 64
+    g = torch.Generator(device=dev).manual_seed(3)
+    shape = (b, n, s, hd) if layout == "bnsd" else (b, s, n * hd)
+    q, k, v, do = (torch.randn(shape, device=dev, generator=g).to(dtype)
+                   for _ in range(4))
+    kb = torch.where(torch.rand(b, s, device=dev, generator=g) < 0.2,
+                     -1e4, 0.0)
+    seed = torch.full((), 77, dtype=torch.int64, device=dev) \
+        if tensor_seed else 77
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    out, lse = fa.flash_attention(*leaves, n, 0.125, False, kb, rate, seed,
+                                  layout)
+    out.backward(do)
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_fwd"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    want = fa.flash_bwd(q, k, v, out.detach(), lse, do, n, 0.125, False, kb,
+                        rate, seed, layout)
+    for leaf, w in zip(leaves, want[:3]):
+        assert torch.equal(leaf.grad, w)
+        assert leaf.grad.abs().sum() > 0
+
+
+def _fleet_ernie(recompute=True, amp=False, dropout=0.1):
+    """ERNIE-tiny (2 layers, hidden 128, 2 heads of 64, seq 64) built
+    without its optimizer and trained through fleet: LAMB with
+    global-norm clipping, recompute at each encoder layer's output, AMP
+    with dynamic loss scaling when ``amp``."""
+    from paddle_tpu_torch import clip, optimizer
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.ir import program_guard
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          intermediate_size=512, max_position_embeddings=64,
+                          use_flash_attention=True,
+                          hidden_dropout_prob=dropout,
+                          attention_probs_dropout_prob=dropout)
+    with unique_name.guard():
+        main, startup, _, fetches = bert.build_pretraining_program(
+            cfg, seq_len=64, with_optimizer=False, max_predictions_per_seq=8)
+        with program_guard(main, startup):
+            s = fleet.DistributedStrategy()
+            s.recompute = recompute
+            s.recompute_configs = {
+                "checkpoints": bert.encoder_checkpoints(main)}
+            s.amp = amp
+            s.amp_configs = dict(s.amp_configs,
+                                 use_dynamic_loss_scaling=True)
+            s.lamb = True
+            fleet.distributed_optimizer(optimizer.LambOptimizer(
+                1e-3, grad_clip=clip.ClipGradByGlobalNorm(1.0)),
+                s).minimize(fetches["loss"])
+    scope = Scope()
+    Executor(device="cpu").run(startup, scope=scope)
+    batch = bert.synthetic_pretraining_batch(cfg, 4, 64, seed=1,
+                                             max_predictions_per_seq=8)
+    return main, dict(scope.items()), batch, fetches["loss"].name
+
+
+def _on(state, device):
+    from paddle_tpu_torch.core.scope import Scope
+
+    scope = Scope()
+    for n, v in state.items():
+        scope.set(n, v.to(device) if isinstance(v, torch.Tensor) else v)
+    return scope
+
+
+def test_recomputed_flash_and_dropout_segments_match_the_plain_program(dev):
+    """A ``block_call`` per encoder layer holding flash attention with
+    attention-probs dropout and the hidden dropouts, on the card: 2
+    forward flash launches a layer (the call and its recompute) and 1
+    backward through ``FlashAttentionFunction``, against the program
+    without recompute (``flash_attention_grad``): the loss and every
+    gradient within 1e-5 (relative to the tensor's largest magnitude;
+    autograd sums contributions in another order than the ``sum`` ops),
+    and no gradient all zero."""
+    from paddle_tpu_torch.core.executor import Executor
+
+    out = {}
+    for rc in (True, False):
+        main, state, batch, loss = _fleet_ernie(recompute=rc)
+        grads = [main.grad_var_map[p.name] for p in main.all_parameters()]
+        kernels.reset_launch_counts()
+        out[rc] = Executor(device=dev).run(
+            main, feed=batch, fetch_list=[loss] + grads,
+            scope=_on(state, dev), use_compiled=False)
+        out[(rc, "counts")] = kernels.launch_counts()
+    assert out[(True, "counts")]["flash_attention_fwd"] == 4
+    assert out[(True, "counts")]["flash_attention_bwd"] == 2
+    assert out[(False, "counts")]["flash_attention_fwd"] == 2
+    assert out[(False, "counts")]["flash_attention_bwd"] == 2
+    for g, w in zip(out[True], out[False]):
+        scale = max(float(np.abs(w).max()), 1e-30)
+        assert np.abs(g).max() > 0
+        np.testing.assert_allclose(g / scale, w / scale, rtol=0, atol=1e-5)
+
+
+def test_compiled_step_handles_an_overflow_on_the_device(dev):
+    """The fleet program with bf16 AMP and dynamic loss scaling, compiled
+    on the card: with the scale set to inf in place, two replays count
+    two bad steps and restart the counters (the scale halves: inf stays
+    inf), then good steps from 32768; (scale, good, bad) after every step
+    equal the CPU's op-by-op run bit for bit, and the losses stay
+    finite."""
+    from paddle_tpu_torch.core.executor import Executor
+
+    main, state, batch, loss = _fleet_ernie(amp=True)
+    names = sorted(n for n in state if n.split("_")[0] in ("loss", "good",
+                                                           "bad"))
+    assert len(names) == 3
+    seqs = {}
+    for device in (dev, torch.device("cpu")):
+        scope, exe = _on(state, device), Executor(device=device)
+        seq = []
+        for step, scale in enumerate([None, None, float("inf"), None,
+                                      32768.0, None]):
+            if scale is not None:
+                scope.find_var("loss_scaling_0").fill_(scale)
+            lv, = exe.run(main, feed=batch, fetch_list=[loss], scope=scope,
+                          use_compiled=device.type == "cuda")
+            assert np.isfinite(lv).all()
+            seq.append([scope.find_var(n).cpu().numpy().tolist()
+                        for n in names])
+        seqs[device.type] = seq
+        if device.type == "cuda":
+            assert exe.compiled_builds == 1
+    assert seqs["cuda"] == seqs["cpu"]
+    by_name = [dict(zip(names, s)) for s in seqs["cuda"]]
+    assert [(d["bad_steps_0"][0], d["good_steps_0"][0]) for d in by_name] == \
+        [(0, 1), (0, 2), (1, 0), (0, 0), (0, 1), (0, 2)]

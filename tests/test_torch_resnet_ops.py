@@ -422,14 +422,6 @@ def test_every_optimizer_builds_the_reference_program(optimizer):
     assert any(o.type == optimizer for o in p[0].global_block().ops)
 
 
-def test_dynamic_loss_scaling_is_refused():
-    from paddle_tpu_torch.contrib.mixed_precision import decorate
-    from paddle_tpu_torch.optimizer import MomentumOptimizer
-
-    with pytest.raises(NotImplementedError):
-        decorate(MomentumOptimizer(0.1))
-
-
 # ---------------------------------------------------------------------------
 # MSRA
 # ---------------------------------------------------------------------------
