@@ -282,6 +282,32 @@ The micro-batching inference slice adds:
                traffic and rolled one replica at a time: no request
                fails, every answer is its version's predictor output,
                both replicas end on version 2.
+The sixteenth slice (queue C's C12-C13 and the rest of A6) adds:
+   queue_c_card — right after cpu_parity_int8: the cast of a float to
+               every integer type and take_along_axis with negative and
+               out-of-range indices, each on the card bit for bit its CPU
+               result (queue_c_card).
+   flash_general_bias — the flash op's reference_general route (a
+               [B,H,Sq,Sk] or [B,1,Sq,Sk] bias: plain attention, no
+               kernel) at BERT-base's shape, fp32 and bf16, forward and
+               grad op against the CPU, the keep mask bit for bit, no
+               launch and one route count a call; a key bias on the same
+               op launches the kernel.
+   run_steps_ernie — right after train_ernie_fleet: Executor.run_steps
+               over 4 stacked batches of ERNIE-large s512 b40 equals 4
+               run() calls bit for bit from one state, with 4 times a
+               step's flash and AdamW launches; both ms a step printed.
+   train_word2vec_sparse — right after train_lenet: word2vec at its
+               published widths, 100 000 words, b1024, through SGD,
+               Momentum and lazy Adam on SelectedRows gradients
+               (train_word2vec_sparse says what each leg holds).
+   train_transformer_big_unfused — right after train_transformer_big: the
+               same row with use_flash_attention=False (no flash launch),
+               its compiled parity, card against CPU in fp32 and the
+               unfused program against the fused one at dropout 0.
+   dropout_2p32 — last: one dropout op over a bf16 [65536, 65536] tensor
+               takes the threefry branch; its kept share, and 2^20
+               positions against the CPU's bits.
 Every phase line ends with at_s, the seconds since the script started.
 Then one line with every ported kernel: ``launches_by_path`` gives each
 phase's own count (set to 0 just before the phase, read just after),
@@ -3280,7 +3306,7 @@ def train_transformer_big(dev, smi, timed=5, parity_steps=4):
     if not parity_ok:
         raise AssertionError("train_transformer_big: card and CPU disagree")
     return dict(launches=comp["launches"], layouts=comp["layouts"],
-                dtypes=comp["dtypes"])
+                dtypes=comp["dtypes"], step_ms_p50=comp["step_ms_p50"])
 
 
 def bnsd_ops(dev):
@@ -5276,6 +5302,649 @@ def infer_int8_cluster_scale(dev, cfg, int8_dir, n_int8):
     return window
 
 
+# ---------------------------------------------------------------------------
+# The sixteenth slice: queue C's casts and gathers on the card, SelectedRows
+# gradients (word2vec), Transformer-big's unfused attention, the flash op's
+# general-bias route, Executor.run_steps and dropout past 2^32
+# ---------------------------------------------------------------------------
+
+# word2vec at its published widths (models/word2vec.py: EMBED 32, HIDDEN
+# 256, 4 context words) over a 100 000-word dictionary, batch 1024; the
+# card-against-CPU legs at 5 000 words
+W2V_DICT, W2V_BATCH, W2V_CPU_DICT = 100000, 1024, 5000
+W2V_LEGS = ("sgd", "momentum", "adam_lazy")
+# Transformer-big's unfused branch against the fused one at dropout 0,
+# fp32, 2+2 layers, batch 2: both in fp32 (the fused step's flash kernel in
+# split TF32, about 2^-21 a product), so the losses agree to this
+UNFUSED_VS_FUSED_TOL = 1e-4
+# run_steps_ernie's k
+RUN_STEPS_K = 4
+# dropout_2p32: one bf16 [65536, 65536] tensor (2^32 elements), its rate,
+# and the positions read back against the CPU's bits
+DROPOUT_BIG, DROPOUT_BIG_RATE, DROPOUT_SAMPLE = (65536, 65536), 0.1, 1 << 20
+
+
+def _phase_counts():
+    from paddle_tpu_torch import kernels
+
+    return dict(launches=kernels.launch_counts(),
+                layouts=kernels.layout_counts(),
+                dtypes=kernels.dtype_counts())
+
+
+def _tensors_equal(a, b):
+    return all(torch.equal(a.find_var(n), v) for n, v in b.items()
+               if isinstance(v, torch.Tensor))
+
+
+def queue_c_card(dev):
+    """Queue C's C12 and C13 on the card: the cast of a float to every
+    integer type (NaN to 0, saturating at the type's range) and
+    take_along_axis with negative and out-of-range indices (wrapped, and
+    filled with NaN or the integer minimum), each op's card result bit
+    for bit its CPU result, dtype included, and the named values."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import registry
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    nan = float("nan")
+    casts = [([nan, 3e9, -3e9], "int32"), ([300.0, -1.0], "uint8"),
+             ([300.0], "int8"), ([nan, 1e5, -1e5, 7.9, -7.9], "int16"),
+             ([nan, 1e10, -1e10, float("inf"), -float("inf"), 2.7, -2.7],
+              "int64"), ([-0.5, 255.9, 256.0, nan], "uint8")]
+    takes = [([[1, 2, 3]], [[-1, 5]], 1), ([[1, 2, 3]], [[-3, 2, 3, -4]], 1),
+             ([[1, 2, 3], [4, 5, 6]], [[0], [-2], [2]], 0)]
+    cases, bad = [], []
+
+    def run(op, ins, attrs, slot, device):
+        out = registry.get(op).forward(
+            {k: [v.to(device)] for k, v in ins.items()}, dict(attrs))[slot]
+        return out.cpu()
+
+    for x, dt in casts:
+        for src in (torch.float32, torch.bfloat16):
+            ins = {"X": torch.tensor(x, dtype=src)}
+            attrs = {"out_dtype": dt}
+            got, want = (run("cast", ins, attrs, "Out", d)
+                         for d in (dev, "cpu"))
+            cases.append(dict(op="cast", x=x, src=str(src), dtype=dt,
+                              card=got.tolist()))
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                bad.append(cases[-1])
+    for x, idx, axis in takes:
+        for dtype in (torch.float32, torch.int32):
+            ins = {"Input": torch.tensor(x, dtype=dtype),
+                   "Index": torch.tensor(idx, dtype=torch.int32)}
+            got, want = (run("take_along_axis", ins, {"Axis": axis},
+                             "Result", d) for d in (dev, "cpu"))
+            cases.append(dict(op="take_along_axis", x=x, index=idx,
+                              axis=axis, dtype=str(dtype),
+                              card=got.tolist()))
+            if got.dtype != want.dtype or not torch.equal(
+                    torch.nan_to_num(got.float(), 12345.0),
+                    torch.nan_to_num(want.float(), 12345.0)):
+                bad.append(cases[-1])
+
+    def cast(x, dt):
+        return run("cast", {"X": torch.tensor(x)}, {"out_dtype": dt}, "Out",
+                   dev).tolist()
+
+    named = {"[nan, 3e9, -3e9] -> int32": cast([nan, 3e9, -3e9], "int32"),
+             "[300, -1] -> uint8": cast([300.0, -1.0], "uint8"),
+             "300 -> int8": cast([300.0], "int8")}
+    named_ok = named == {"[nan, 3e9, -3e9] -> int32":
+                         [0, 2147483647, -2147483648],
+                         "[300, -1] -> uint8": [255, 0],
+                         "300 -> int8": [127]}
+    emit("queue_c_card", cases=len(cases), card_equals_cpu=not bad,
+         named=named, named_values_ok=named_ok,
+         seconds=time.perf_counter() - t0)
+    if bad or not named_ok:
+        raise AssertionError(f"queue_c_card: card differs from the CPU on "
+                             f"{bad}, named {named}")
+    return _phase_counts()
+
+
+def _w2v_program(dict_size, batch, leg, sparse=True):
+    """word2vec built with_optimizer=False and the leg's optimizer
+    appended: the model's own SGD (lr 0.5), Momentum (lr 0.1, 0.9) or
+    Adam with lazy_mode (lr 1e-3). ``sparse=False`` clears the lookups'
+    is_sparse first (the dense-gradient program)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.ir import program_guard
+    from paddle_tpu_torch.models import word2vec
+
+    with unique_name.guard():
+        main_prog, startup, _, fetches = word2vec.build_word2vec_program(
+            dict_size, batch, with_optimizer=False)
+        if not sparse:
+            for op in main_prog.global_block().ops:
+                if op.type == "lookup_table_v2":
+                    op.attrs["is_sparse"] = False
+        with program_guard(main_prog, startup):
+            opt = {"sgd": lambda: optimizer.SGDOptimizer(0.5),
+                   "momentum": lambda: optimizer.MomentumOptimizer(
+                       0.1, momentum=0.9),
+                   "adam_lazy": lambda: optimizer.AdamOptimizer(
+                       1e-3, lazy_mode=True)}[leg]()
+            opt.minimize(fetches["loss"])
+    return main_prog, startup, fetches["loss"]
+
+
+def _no_dense_table_gradient(exe, main_prog, feed, scope, fetch, shape):
+    """One op-by-op step with every op's outputs inspected: the
+    non-persistable tensors of the table's shape that the step makes (a
+    dense gradient would be one). Returns their names and the fetches."""
+    from paddle_tpu_torch.core import executor as ex
+
+    persist = {v.name for v in main_prog.global_block().vars.values()
+               if v.persistable}
+    seen, inner = [], ex.run_op
+
+    def watch(op, env, **kw):
+        out = inner(op, env, **kw)
+        for n in op.output_names():
+            v = env.get(n)
+            if isinstance(v, torch.Tensor) and tuple(v.shape) == shape \
+                    and n not in persist:
+                seen.append(n)
+        return out
+
+    ex.run_op = watch
+    try:
+        out = exe.run(main_prog, feed=feed, scope=scope, fetch_list=fetch,
+                      use_compiled=False)
+    finally:
+        ex.run_op = inner
+    return seen, out
+
+
+def _scope_clone(scope, device=None):
+    from paddle_tpu_torch.core.scope import Scope
+
+    sc = Scope()
+    for n, v in scope.items():
+        sc.set(n, v.to(device or v.device, copy=True)
+               if isinstance(v, torch.Tensor) else v)
+    return sc
+
+
+def train_word2vec_sparse(dev, smi, steps=6):
+    """word2vec (models/word2vec.py, the reference's book model) at its
+    published widths over a 100 000-word dictionary, batch 1024: one
+    with_optimizer=False program, three legs (SGD as the model builds it,
+    Momentum, Adam with lazy_mode), each from one startup state on one
+    batch, ``steps`` steps op by op and ``steps`` compiled. Gates in each
+    leg: the loss falls; the compiled run equals the op-by-op one bit for
+    bit (losses and every state tensor); shared_w's gradient is a
+    SelectedRows of 4 * 1024 rows and no non-persistable [100000, 32]
+    tensor exists in a step; the rows no id touched are bit for bit
+    unchanged in the parameter and every slot; the dense-gradient program
+    (is_sparse cleared) agrees within 1e-6 after the same steps (measured
+    figure printed). Then card against CPU at a 5 000-word dictionary,
+    3 steps a leg from one state: losses and shared_w within 1e-4."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_from_numpy
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+    from paddle_tpu_torch.models import word2vec
+
+    t_phase = time.perf_counter()
+    batch = word2vec.synthetic_batch(W2V_DICT, W2V_BATCH, seed=0)
+    touched = np.unique(np.concatenate([batch[n].reshape(-1)
+                                        for n in word2vec.WORDS]))
+    untouched = torch.from_numpy(np.setdiff1d(np.arange(W2V_DICT),
+                                              touched)).to(dev)
+    feed = {n: torch.from_numpy(v).to(dev) for n, v in batch.items()}
+    legs, counts = {}, None
+    kernels.reset_launch_counts()
+    for leg in W2V_LEGS:
+        main_prog, startup, loss = _w2v_program(W2V_DICT, W2V_BATCH, leg)
+        dense_prog, _, dense_loss = _w2v_program(W2V_DICT, W2V_BATCH, leg,
+                                                 sparse=False)
+        base = Scope()
+        Executor(device=dev).run(startup, scope=base)
+        table = ["shared_w"] + [n for n, v in base.items()
+                                if isinstance(v, torch.Tensor) and
+                                tuple(v.shape) == (W2V_DICT, 32) and
+                                n != "shared_w"]
+        rec = {"slots": table}
+        runs = {}
+        for mode, prog, fl in (("eager", main_prog, loss),
+                               ("compiled", main_prog, loss),
+                               ("dense", dense_prog, dense_loss)):
+            exe, sc = Executor(device=dev), _scope_clone(base)
+            losses, ms = [], []
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = exe.run(prog, feed=feed, scope=sc, fetch_list=[fl],
+                              use_compiled=mode != "eager")
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(_loss(out))
+            runs[mode] = (sc, losses)
+            rec[f"{mode}_losses"] = losses
+            rec[f"{mode}_step_ms_p50"] = float(np.median(ms[2:]))
+            exe.close()
+        eager, comp, dense = (runs[m][0] for m in ("eager", "compiled",
+                                                   "dense"))
+        rec["compiled_parity_bitwise"] = (
+            runs["eager"][1] == runs["compiled"][1]
+            and _tensors_equal(eager, dict(comp.items())))
+        rec["untouched_rows_unchanged"] = all(
+            torch.equal(comp.find_var(n).index_select(0, untouched),
+                        base.find_var(n).index_select(0, untouched))
+            for n in table)
+        rec["sparse_vs_dense_max_abs"] = max(
+            float((comp.find_var(n).float() - dense.find_var(n).float())
+                  .abs().max()) for n, v in dense.items()
+            if isinstance(v, torch.Tensor) and n in dict(comp.items()))
+        sc = _scope_clone(base)
+        seen, out = _no_dense_table_gradient(
+            Executor(device=dev), main_prog, feed, sc,
+            [loss.name, "shared_w@GRAD"], (W2V_DICT, 32))
+        g = out[1]
+        rec["grad_is_selected_rows"] = isinstance(g, SelectedRows) and \
+            g.rows.shape == (4 * W2V_BATCH,) and g.height == W2V_DICT
+        rec["dense_table_tensors"] = seen
+        legs[leg] = rec
+        del base, runs, eager, comp, dense, sc
+        _release()
+    counts = _phase_counts()
+    # card against CPU at a 5 000-word dictionary
+    cpu_batch = word2vec.synthetic_batch(W2V_CPU_DICT, W2V_BATCH, seed=1)
+    for leg in W2V_LEGS:
+        main_prog, startup, loss = _w2v_program(W2V_CPU_DICT, W2V_BATCH,
+                                                leg)
+        sc = Scope()
+        Executor(device="cpu").run(startup, scope=sc)
+        state = _state_arrays(sc)
+        got = {}
+        for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            s2 = scope_from_numpy(state, device)
+            exe = Executor(device=device)
+            got[side] = ([_loss(exe.run(main_prog, feed=cpu_batch, scope=s2,
+                                        fetch_list=[loss]))
+                          for _ in range(3)],
+                         s2.find_var("shared_w").cpu())
+        lg, lc = got["card"][0], got["cpu"][0]
+        legs[leg]["card_vs_cpu_losses"] = [lg, lc]
+        legs[leg]["card_vs_cpu_shared_w_max_abs"] = float(
+            (got["card"][1] - got["cpu"][1]).abs().max())
+        legs[leg]["card_vs_cpu_ok"] = bool(
+            np.allclose(lg, lc, rtol=1e-4, atol=1e-4)
+            and legs[leg]["card_vs_cpu_shared_w_max_abs"] <= 1e-4)
+    emit("train_word2vec_sparse", dict_size=W2V_DICT, batch=W2V_BATCH,
+         embed=32, hidden=256, steps=steps, legs=legs,
+         launches=counts["launches"], nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase,
+         note="no hand-written kernel runs on this path; step ms on the "
+              "host clock, one synthetic batch")
+    for leg, r in legs.items():
+        ok = (r["compiled_parity_bitwise"] and r["untouched_rows_unchanged"]
+              and r["grad_is_selected_rows"] and not r["dense_table_tensors"]
+              and r["sparse_vs_dense_max_abs"] <= 1e-6
+              and r["card_vs_cpu_ok"]
+              and all(x[-1] < x[0] for x in (r["eager_losses"],
+                                             r["compiled_losses"])))
+        if not ok:
+            raise AssertionError(f"train_word2vec_sparse ({leg}): {r}")
+    return counts
+
+
+def train_transformer_big_unfused(dev, smi, flash_step_ms, timed=3):
+    """Transformer-big (the train_transformer_big row: WMT14 En-De, 6+6
+    layers at full width, b48 s256, bf16 AMP, noam) built with
+    use_flash_attention=False: attention is the unfused chain (heads
+    split, matmul, the shared causal table, softmax, dropout, matmul).
+    Startup, one warm-up step, ``timed`` timed steps a mode
+    (profile_train.timed_modes). Gates: each leg's loss falls; no flash
+    launch; one compiled step built; compiled_parity at 2+2 layers (b48,
+    3 steps, op by op twice and compiled from one state, bit for bit);
+    card against CPU at 2+2 layers, fp32, batch 2, 3 steps from one
+    state: masks bit for bit, losses within 1e-4; the unfused program
+    against the fused one at dropout 0, fp32, 2+2 layers, batch 2,
+    3 steps from one state on the card: losses within
+    UNFUSED_VS_FUSED_TOL. Prints the step ms beside
+    train_transformer_big's."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope, scope_from_numpy
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.tools.profile_train import (
+        _transformer_big, timed_modes)
+    from paddle_tpu_torch.tools.step_parity import compiled_parity
+
+    t_phase = time.perf_counter()
+    main_prog, startup, make_batch, fetch, info, _ = _transformer_big(
+        warmup_steps=WMT_WARMUP, flash=False)
+    ops = main_prog.global_block().ops
+    exe, scope = Executor(device=dev), Scope()
+    exe.run(startup, scope=scope)
+    feed = {k: torch.from_numpy(v).to(dev)
+            for k, v in make_batch(WMT_BATCH).items()}
+    warm = exe.run(main_prog, feed=feed, scope=scope, fetch_list=fetch,
+                   use_compiled=False)
+    builds = exe.compiled_builds
+    modes = timed_modes(exe, main_prog, feed, scope, fetch, timed)
+    builds = exe.compiled_builds - builds
+    exe.close()
+    del exe, scope, feed
+    comp = modes["compiled"]
+    _release()
+    rec = compiled_parity(dev, 2, WMT_SEQ, 3, WMT_BATCH,
+                          model="transformer_big", warmup_steps=WMT_WARMUP,
+                          flash=False)
+    rec.pop("last")
+    _release()
+
+    def small(flash, dropout):
+        cfg = transformer.transformer_big()
+        cfg.n_encoder_layers = cfg.n_decoder_layers = 2
+        cfg.use_flash_attention, cfg.dropout = flash, dropout
+        with unique_name.guard():
+            m, s, _, f = transformer.build_wmt_program(
+                cfg, seq_len=WMT_SEQ, warmup_steps=WMT_WARMUP)
+        return cfg, m, s, f
+
+    cfg, pmain, pstart, pf = small(False, 0.1)
+    sc = Scope()
+    Executor(device="cpu").run(pstart, scope=sc)
+    state = _state_arrays(sc)
+    masks = [o.outputs["Mask"][0] for o in pmain.global_block().ops
+             if o.type == "dropout"]
+    batch = transformer.synthetic_batch(cfg, 2, WMT_SEQ, seed=3)
+    parity = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        s2 = scope_from_numpy(state, device)
+        ex = Executor(device=device)
+        parity[side] = [ex.run(pmain, feed=batch, scope=s2,
+                               fetch_list=[pf["loss"]] + masks)
+                        for _ in range(3)]
+    loss_gpu = [_loss(o) for o in parity["card"]]
+    loss_cpu = [_loss(o) for o in parity["cpu"]]
+    masks_equal = all(np.array_equal(x, y) for a, b in zip(
+        parity["card"], parity["cpu"]) for x, y in zip(a[1:], b[1:]))
+    parity_ok = masks_equal and np.allclose(loss_gpu, loss_cpu, rtol=1e-4,
+                                            atol=1e-4)
+    vs_fused = {}
+    for flash in (False, True):
+        _, m, s, f = small(flash, 0.0)
+        s2 = scope_from_numpy(state, dev)
+        ex = Executor(device=dev)
+        vs_fused["fused" if flash else "unfused"] = [
+            _loss(ex.run(m, feed=batch, scope=s2, fetch_list=[f["loss"]]))
+            for _ in range(3)]
+    fused_ok = np.allclose(vs_fused["unfused"], vs_fused["fused"],
+                           rtol=UNFUSED_VS_FUSED_TOL,
+                           atol=UNFUSED_VS_FUSED_TOL)
+    emit("train_transformer_big_unfused", **info, ops=len(ops),
+         softmax_ops=sum(o.type == "softmax" for o in ops),
+         warmup_loss=_loss(warm), modes=_per_mode(modes),
+         step_ms_p50=comp["step_ms_p50"],
+         flash_train_transformer_big_step_ms_p50=flash_step_ms,
+         compiled_steps_built=builds, compiled_parity_2_layers=rec,
+         parity_loss_gpu=loss_gpu, parity_loss_cpu=loss_cpu,
+         parity_masks=len(masks), parity_masks_bitwise_equal=masks_equal,
+         parity_tolerance="rtol=atol=1e-4 (fp32)",
+         unfused_vs_fused_losses=vs_fused,
+         unfused_vs_fused_tolerance=UNFUSED_VS_FUSED_TOL,
+         nvidia_smi=smi, seconds=time.perf_counter() - t_phase,
+         note="step ms on the host clock, one synthetic batch")
+    _check_legs("train_transformer_big_unfused", modes)
+    for m, r in modes.items():
+        if r["launches_per_step"]:
+            raise AssertionError(f"train_transformer_big_unfused ({m}): "
+                                 f"launches {r['launches_per_step']}")
+    if builds != 1 or not (rec["losses_and_masks_bitwise_equal"]
+                           and rec["masks_new_each_step"]
+                           and rec["state_bitwise_equal_in_all_runs"]
+                           and rec["launch_counts_equal"]):
+        raise AssertionError(f"train_transformer_big_unfused: {builds} "
+                             f"builds, compiled parity {rec}")
+    if not parity_ok or not fused_ok:
+        raise AssertionError(
+            f"train_transformer_big_unfused: card {loss_gpu} against CPU "
+            f"{loss_cpu} (masks {masks_equal}); unfused against fused "
+            f"{vs_fused}")
+    return dict(launches=comp["launches"], layouts=comp["layouts"],
+                dtypes=comp["dtypes"])
+
+
+def flash_general_bias(dev, batch=32, rate=0.1):
+    """The flash_attention op's reference_general route on the card at
+    BERT-base's attention shape (12 heads of 64, S = 128, ``batch``
+    rows, packed q/k/v) with a full [B,H,Sq,Sk] and a [B,1,Sq,Sk] bias,
+    fp32 and bf16, probs dropout ``rate``: Out and Lse (forward op) and
+    the Q, K, V and Bias gradients (grad op) against the same ops on the
+    CPU (plain PyTorch there too) within rtol = atol = 1e-4 (fp32) and
+    1e-2 (bf16: both sides compute in fp32 and round once, so they may
+    differ by one bf16 ulp, 2^-8 of the value);
+    the route's keep mask (rng.attn_keep) bit for bit the CPU's; each
+    call no kernel launch and one general-route count; then a key bias
+    [B,1,1,Sk] through the same op launches the flash forward kernel
+    once and counts no general call."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import registry, rng
+
+    t0 = time.perf_counter()
+    h, hd, s = 12, 64, 128
+    attrs = {"num_heads": h, "scale": hd ** -0.5, "dropout_prob": rate,
+             "is_test": False, "seed": 77, "__step__": 5, "causal": False}
+    fwd = registry.get("flash_attention").forward
+    bwd = registry.get("flash_attention_grad").forward
+    gen = torch.Generator().manual_seed(16)
+    rows, ok = [], True
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        for heads in (h, 1):
+            q, k, v, do = (torch.randn(batch, s, h * hd, generator=gen)
+                           .to(dtype) for _ in range(4))
+            bias = torch.randn(batch, heads, s, s, generator=gen)
+            res = {}
+            for d in (dev, "cpu"):
+                kernels.reset_launch_counts()
+                ins = {"Q": [q.to(d)], "K": [k.to(d)], "V": [v.to(d)],
+                       "Bias": [bias.to(d)]}
+                f = fwd(ins, dict(attrs))
+                g = bwd(dict(ins, Out=[f["Out"]], Lse=[f["Lse"]],
+                             OutGrad=[do.to(d)]), dict(attrs))
+                res[str(d)] = (f, g, kernels.general_route_calls(),
+                               sum(kernels.launch_counts().values()))
+            (fc, gc_, calls, launched), (fr, gr, _, _) = res[str(dev)], \
+                res["cpu"]
+            pairs = {"Out": (fc["Out"], fr["Out"]),
+                     "Lse": (fc["Lse"], fr["Lse"])}
+            pairs.update({n: (gc_[n], gr[n]) for n in
+                          ("QGrad", "KGrad", "VGrad", "BiasGrad")})
+            err = {n: errors(a.cpu(), b)[0] for n, (a, b) in pairs.items()}
+            outside = {n: outside_tol(a.cpu(), b, dict(rtol=tol, atol=tol))
+                       for n, (a, b) in pairs.items()}
+            shapes_ok = tuple(gc_["BiasGrad"].shape) == tuple(bias.shape)
+            row_ok = not any(outside.values()) and calls == 2 and \
+                not launched and shapes_ok
+            ok &= row_ok
+            rows.append(dict(dtype=str(dtype), bias=list(bias.shape),
+                             max_abs_err=err, tol=f"rtol=atol={tol}",
+                             outside_tol=outside, general_calls=calls,
+                             kernel_launches=launched, ok=row_ok))
+    seed = rng.op_seed(attrs)
+    mask_equal = torch.equal(rng.attn_keep(seed, rate, batch, h, s, s,
+                                           dev).cpu(),
+                             rng.attn_keep(seed, rate, batch, h, s, s,
+                                           "cpu"))
+    kernels.reset_launch_counts()
+    key = torch.randn(batch, 1, 1, s, generator=gen).to(dev)
+    fwd({"Q": [q.to(dev)], "K": [k.to(dev)], "V": [v.to(dev)],
+         "Bias": [key]}, dict(attrs))
+    torch.cuda.synchronize()
+    key_counts = _phase_counts()
+    key_ok = key_counts["launches"]["flash_attention_fwd"] == 1 and \
+        kernels.general_route_calls() == 0
+    emit("flash_general_bias", batch=batch, heads=h, head_dim=hd, seq=s,
+         dropout=rate, rows=rows, keep_mask_bitwise_equal=mask_equal,
+         key_bias_launches=key_counts["launches"],
+         key_bias_general_calls=kernels.general_route_calls(),
+         seconds=time.perf_counter() - t0)
+    if not (ok and mask_equal and key_ok):
+        raise AssertionError(f"flash_general_bias: rows {rows}, mask "
+                             f"{mask_equal}, key bias {key_counts}")
+    return key_counts
+
+
+def run_steps_ernie(dev, smi, k=RUN_STEPS_K, batch_size=40):
+    """Executor.run_steps on ERNIE-large as train_ernie trains it (24
+    layers, bf16, s512, b40, dropout, AdamW), k = ``k``: the step's key
+    warmed (its first run op by op, its second captured), the state put
+    back, then from that one state ``k`` run() calls (k batches), the
+    state put back again, and one run_steps over the same k batches
+    stacked. Gates: the losses and one dropout mask a step, every
+    parameter and moment, and the step counter, bit for bit; the flash
+    forward, flash backward and AdamW launches of run_steps equal those
+    of the k run() calls, k times a step's (24, 24, 398). Prints the ms a
+    step of each (host clock, each ending in a synchronise)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.core.executor import STEP_COUNTER, Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import bert
+
+    t_phase = time.perf_counter()
+    cfg, main_prog, startup, fetches = _ernie_programs(24, "bfloat16")
+    n_adamw = sum(o.type == "adamw" for o in main_prog.global_block().ops)
+    mask = next(o.outputs["Mask"][0] for o in main_prog.global_block().ops
+                if o.type == "dropout")
+    fetch = [fetches["loss"].name, mask]
+    exe, scope = Executor(device=dev), Scope()
+    exe.run(startup, scope=scope)
+    batches = [bert.synthetic_pretraining_batch(
+        cfg, batch_size, SEQ, seed=i, max_predictions_per_seq=MAX_PREDS)
+        for i in range(k)]
+    start = {n: v.clone() for n, v in scope.items()
+             if isinstance(v, torch.Tensor)}
+    step0 = int(scope.find_var(STEP_COUNTER))
+
+    def restore():
+        for n, v in start.items():
+            scope.find_var(n).copy_(v)
+        scope.set(STEP_COUNTER, np.int32(step0))
+
+    for b in batches[:2]:       # the key's first run and its capture
+        exe.run(main_prog, feed=b, scope=scope, fetch_list=fetch)
+    restore()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    want = [exe.run(main_prog, feed=b, scope=scope, fetch_list=fetch)
+            for b in batches]
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    run_counts = kernels.launch_counts()
+    after_run = {n: scope.find_var(n).clone() for n in start}
+    step_run = int(scope.find_var(STEP_COUNTER))
+    restore()
+    stacked = {n: np.stack([b[n] for b in batches]) for n in batches[0]}
+    hist0 = telemetry.snapshot()["hists"].get("executor.run_steps_ms",
+                                              {}).get("count", 0)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = exe.run_steps(main_prog, feed=stacked, fetch_list=fetch, k=k,
+                        scope=scope)
+    torch.cuda.synchronize()
+    steps_ms = (time.perf_counter() - t0) * 1e3
+    counts = _phase_counts()
+    timer = telemetry.snapshot()["hists"]["executor.run_steps_ms"]
+    fetch_equal = all(np.array_equal(got[j][i], want[i][j])
+                      for i in range(k) for j in range(len(fetch)))
+    state_equal = all(torch.equal(scope.find_var(n), v)
+                      for n, v in after_run.items())
+    counter_equal = int(scope.find_var(STEP_COUNTER)) == step_run == \
+        step0 + k
+    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
+                "fused_adamw": n_adamw}
+    launches_ok = all(counts["launches"][n] == run_counts[n] == k * c
+                      for n, c in per_step.items())
+    emit("run_steps_ernie", model="ernie_large", layers=24, seq=SEQ,
+         batch=batch_size, k=k, losses_run=[_loss(w) for w in want],
+         losses_run_steps=np.asarray(got[0], np.float32).reshape(
+             -1).tolist(),
+         fetches_bitwise_equal=fetch_equal, state_bitwise_equal=state_equal,
+         state_tensors=len(after_run), step_counter_equal=counter_equal,
+         launches_run_steps=counts["launches"], launches_runs=run_counts,
+         run_ms_per_step=run_ms / k, run_steps_ms_per_step=steps_ms / k,
+         run_steps_timer_samples=timer["count"] - hist0, nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase,
+         note="host clock; run() reads its fetches back each step, "
+              "run_steps once")
+    exe.close()
+    if not (fetch_equal and state_equal and counter_equal and launches_ok
+            and n_adamw == 398 and timer["count"] == hist0 + 1):
+        raise AssertionError(
+            f"run_steps_ernie: fetches {fetch_equal}, state {state_equal}, "
+            f"counter {counter_equal}, launches {counts['launches']} "
+            f"against {run_counts}")
+    return counts
+
+
+def dropout_2p32(dev, smi):
+    """One dropout op (upscale_in_train, rate DROPOUT_BIG_RATE) over a
+    bf16 [65536, 65536] tensor, 2^32 elements: the threefry branch
+    (rng.threefry_masks counts it), the kept share within 1e-4 of
+    1 - rate, and DROPOUT_SAMPLE positions spread over the whole index
+    range, the first and the last included, whose mask equals the CPU's
+    threefry bits at the same positions and whose output equals x / (1 -
+    rate) where kept and 0 elsewhere, bit for bit. Prints the op's time
+    and its peak memory beyond x."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import registry, rng
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    x = torch.randn(DROPOUT_BIG, dtype=torch.bfloat16, device=dev)
+    n = x.numel()
+    attrs = {"dropout_prob": DROPOUT_BIG_RATE, "seed": 4242,
+             "__step__": 3, "dropout_implementation": "upscale_in_train"}
+    before = rng.threefry_masks
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    out = registry.get("dropout").forward({"X": [x]}, dict(attrs))
+    torch.cuda.synchronize()
+    op_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    took = rng.threefry_masks == before + 1
+    mask, y = out["Mask"].reshape(-1), out["Out"].reshape(-1)
+    share = float(mask.sum(dtype=torch.int64)) / n
+    pick = np.unique(np.concatenate([
+        [0, n - 1], np.random.RandomState(0).randint(
+            0, n, DROPOUT_SAMPLE - 2, dtype=np.int64)]))
+    idx = torch.from_numpy(pick)
+    cpu_keep = (rng.threefry_bits_at(rng.op_key(attrs), idx) >> 9) < \
+        rng.keep_below(DROPOUT_BIG_RATE)
+    card_keep = mask[idx.to(dev)].cpu().bool()
+    xs = x.reshape(-1)[idx.to(dev)]
+    want_y = torch.where(cpu_keep.to(dev), xs / (1.0 - DROPOUT_BIG_RATE),
+                         torch.zeros_like(xs))
+    sample_equal = torch.equal(card_keep, cpu_keep) and torch.equal(
+        y[idx.to(dev)], want_y)
+    emit("dropout_2p32", shape=list(DROPOUT_BIG), elements=n,
+         dtype="bfloat16", rate=DROPOUT_BIG_RATE, threefry_branch=took,
+         kept_share=share, sample_positions=int(len(pick)),
+         sample_bitwise_equal=sample_equal, op_seconds=op_s,
+         peak_bytes_beyond_x=int(peak), x_bytes=x.numel() * 2,
+         chunk=rng.THREEFRY_CHUNK, nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase)
+    del x, out, mask, y
+    if not (took and abs(share - (1 - DROPOUT_BIG_RATE)) <= 1e-4
+            and sample_equal):
+        raise AssertionError(f"dropout_2p32: branch {took}, kept share "
+                             f"{share}, sample equal {sample_equal}")
+    return _phase_counts()
+
+
 def infer_phases(dev):
     """The inference plane's phases over two BERT-base dirs written under
     SERVING_DIR (removed at the end): infer_bert_base,
@@ -5417,6 +6086,8 @@ def main():
     cpu_parity(cfg, params, dev)
     cpu_parity(cfg, params, dev, "int8")
     del params
+    runs["queue_c_card"] = queue_c_card(dev)
+    runs["flash_general_bias"] = flash_general_bias(dev)
     runs["train_parity"] = train_parity(dev, 2, "float32", 3, 1e-4)
     runs["train_parity_bf16"] = train_parity(dev, 2, "bfloat16", 6, 1e-2)
     runs["train_parity_24"] = train_parity(dev, 24, "float32", 4, 1e-4)
@@ -5428,6 +6099,8 @@ def main():
     _release()
     runs["train_ernie_fleet"] = train_ernie_fleet(dev, smi)
     _release()
+    runs["run_steps_ernie"] = run_steps_ernie(dev, smi)
+    _release()
     runs["bnsd_ops"] = bnsd_ops(dev)
     for seq, batch_size in LONG:
         _release()
@@ -5438,7 +6111,12 @@ def main():
     _release()
     runs["train_lenet"] = train_lenet(dev, smi)
     _release()
+    runs["train_word2vec_sparse"] = train_word2vec_sparse(dev, smi)
+    _release()
     runs["train_transformer_big"] = train_transformer_big(dev, smi)
+    _release()
+    runs["train_transformer_big_unfused"] = train_transformer_big_unfused(
+        dev, smi, runs["train_transformer_big"].pop("step_ms_p50"))
     _release()
     runs["exp_conv"] = exp_conv_phase(dev, results)
     runs["fused_ln_ops"] = fused_ln_ops(dev)
@@ -5448,6 +6126,9 @@ def main():
     runs["train_resnet50"], scope, layer_in = train_resnet50(dev, smi)
     check_conv_real_layer(dev, scope, layer_in)
     del scope, layer_in
+    _release()
+    runs["dropout_2p32"] = dropout_2p32(dev, smi)
+    _release()
 
     rep = {"flash_attention_fwd": "B=1 S=2048 n=16 hd=64 causal",
            "int8_gemm": "M=8 K=1024 N=4096 bias=True act=relu",

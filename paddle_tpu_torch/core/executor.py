@@ -28,17 +28,19 @@ return to the graph's pool and later ops of the step reuse them.
 from __future__ import annotations
 
 import contextlib
+import time
 import weakref
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from . import registry, rng
+from . import registry, rng, telemetry, trace
 from .graph import StepGraph
 from .ir import Block, OpDesc, Program, Variable, default_main_program
 from .registry import EMPTY_VAR
 from .scope import STEP_COUNTER, Scope, global_scope
+from .selected_rows import SelectedRows
 from .types import to_torch_dtype, x64_off
 
 _MISSING = object()
@@ -74,8 +76,9 @@ def run_op(op: OpDesc, env: Dict[str, Any], step=None,
     """Run one op's lowering against env and bind its outputs there.
     ``step`` (the global step counter) is handed to the lowering as the
     ``__step__`` attr: random ops fold it into their seed. ``seed``, a
-    random op's slot of a compiled step's seed table, goes in as the
-    ``__seed__`` attr, which ``rng.op_seed`` takes instead; ``seeds``,
+    random op's slots of a compiled step's seed and key tables (a pair of
+    0-d tensors), goes in as the ``__seed__`` and ``__key__`` attrs,
+    which ``rng.op_seed`` and ``rng.op_key`` take instead; ``seeds``,
     the slots of the random ops of the sub-blocks an op runs
     (``rng.seed_slots``), as ``__seeds__``. The lowering runs under
     ``torch.no_grad()``, or with ``autograd`` under the caller's grad
@@ -88,7 +91,7 @@ def run_op(op: OpDesc, env: Dict[str, Any], step=None,
     if step is not None:
         attrs["__step__"] = step
     if seed is not None:
-        attrs["__seed__"] = seed
+        attrs["__seed__"], attrs["__key__"] = seed
     if seeds is not None:
         attrs["__seeds__"] = seeds
     try:
@@ -168,6 +171,36 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
 
 
+def _fetched(v, return_numpy: bool):
+    """A fetch as the caller gets it: a numpy array (``_to_numpy``) or a
+    tensor copy. A SelectedRows comes back as a SelectedRows of such
+    copies (rows and values). The reference's op-by-op path gives a 0-d
+    object array holding the SelectedRows, and its compiled path raises
+    (a SelectedRows is no JAX type)."""
+    if isinstance(v, SelectedRows):
+        return SelectedRows(_fetched(v.rows, return_numpy),
+                            _fetched(v.values, return_numpy), v.height)
+    return _to_numpy(v) if return_numpy else v.clone()
+
+
+def _stack(values: List[Any]):
+    """Per-step fetches (tensors, or SelectedRows of tensors) stacked
+    along a new leading axis of k."""
+    if isinstance(values[0], SelectedRows):
+        return SelectedRows(torch.stack([v.rows for v in values]),
+                            torch.stack([v.values for v in values]),
+                            values[0].height)
+    return torch.stack(values)
+
+
+# host-IO op types (the reference's ``_PS_IO_TYPES``): a program holding
+# one cannot fuse k steps; the reference runs k sequential steps there
+_PS_IO_TYPES = frozenset(
+    ("send", "recv", "send_barrier", "fetch_barrier", "listen_and_serv",
+     "save", "load", "save_combine", "load_combine", "checkpoint_notify",
+     "py_func"))
+
+
 def _host_tensor(value) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value
@@ -183,17 +216,27 @@ def _feed_spec(block: Block, name: str, value):
                       else t.dtype)
 
 
+def _step_key(plan_key, feeds) -> tuple:
+    """The key of a compiled step: the plan's (op count, fetch names) and
+    each feed's (name, shape, dtype) as a step receives it."""
+    return plan_key, tuple(sorted((n, tuple(shape), dt)
+                                  for n, shape, dt in feeds))
+
+
 class _CompiledStep:
     """One key's compiled step: static feed buffers, the state tensors
     the scope held when it was built, a seed table, and the step captured
     (on a CUDA device) as a graph over them.
 
     The seed table has one int64 slot per random op, those of the
-    sub-blocks the step's ops run included (``rng.seed_slots``);
-    before each step the host writes ``rng.seed_values`` at that step
-    into it (through a pinned buffer, one copy), and each random op reads
-    its slot as its ``__seed__`` (an op that runs a sub-block gets the
-    slots of the sub-block's ops as ``__seeds__``). Optimizer ops update
+    sub-blocks the step's ops run included (``rng.seed_slots``), and a
+    key table beside it; before each step the host writes
+    ``rng.seed_values`` and ``rng.key_values`` at that step into them
+    (through a pinned buffer, one copy), and each random op reads its
+    slots as its ``__seed__`` and ``__key__`` (an op that runs a
+    sub-block gets the slots of the sub-block's ops as ``__seeds__``).
+    ``run_many`` runs k steps from stacked device feeds with the tables
+    of all k steps copied once. Optimizer ops update
     their state in place; a persistable that a lowering writes out of
     place (batch norm's running statistics) is copied back into the
     tensor the scope holds at the end of the step, so the scope keeps the
@@ -226,15 +269,17 @@ class _CompiledStep:
                       for n, (t, dt) in feeds.items()}
         slots = rng.seed_slots(ops)
         self.seed_attrs = [s for _, s in slots]
-        self.seeds = torch.zeros(len(slots), dtype=torch.int64,
-                                 device=device)
-        # slot key (an op's index, or a sub-block's OpDesc) -> its slot
-        self.seed_of = {key: self.seeds[k]
+        # row 0 the seed table, row 1 the key table
+        self.tables = torch.zeros(2, len(slots), dtype=torch.int64,
+                                  device=device)
+        self.seeds = self.tables[0]
+        # slot key (an op's index, or a sub-block's OpDesc) -> its slots
+        self.seed_of = {key: (self.tables[0, k], self.tables[1, k])
                         for k, (key, _) in enumerate(slots)}
         # the ops that run sub-blocks get the sub-blocks' slots
         self.runs_sub = {i for i, op in enumerate(ops) if rng.sub_blocks(op)}
         cuda = device.type == "cuda"
-        self.seed_host = torch.zeros(len(slots), dtype=torch.int64,
+        self.seed_host = torch.zeros(2, len(slots), dtype=torch.int64,
                                      pin_memory=cuda) if cuda else None
         self.copied: Optional[torch.cuda.Event] = None
         self.graph = StepGraph(self._step, device)
@@ -261,28 +306,54 @@ class _CompiledStep:
         now = dict(scope.items())
         return all(now.get(n) is t for n, t in self.state.items())
 
+    def _table_values(self, step: int) -> List[List[int]]:
+        return [rng.seed_values(self.seed_attrs, step),
+                rng.key_values(self.seed_attrs, step)]
+
     def _fill_seeds(self, step: int):
         if not self.seed_attrs:
             return
-        values = rng.seed_values(self.seed_attrs, step)
+        values = self._table_values(step)
         if self.seed_host is None:
-            self.seeds.copy_(torch.tensor(values, dtype=torch.int64))
+            self.tables.copy_(torch.tensor(values, dtype=torch.int64))
             return
         if self.copied is not None:   # the last step's copy has read it
             self.copied.synchronize()
         self.seed_host.numpy()[:] = values
-        self.seeds.copy_(self.seed_host, non_blocking=True)
+        self.tables.copy_(self.seed_host, non_blocking=True)
         self.copied = torch.cuda.Event()
         self.copied.record()
 
-    def run(self, feeds: Dict[str, torch.Tensor], step: int
-            ) -> List[torch.Tensor]:
-        for n, buf in self.feeds.items():
-            buf.copy_(feeds[n])
-        self._fill_seeds(step)
+    def _replay(self) -> List[Any]:
         if self.graph.graph is None:
             self.graph.capture()
         return self.graph.replay()
+
+    def run(self, feeds: Dict[str, torch.Tensor], step: int
+            ) -> List[Any]:
+        for n, buf in self.feeds.items():
+            buf.copy_(feeds[n])
+        self._fill_seeds(step)
+        return self._replay()
+
+    def run_many(self, stacked: Dict[str, torch.Tensor], step: int,
+                 k: int) -> List[List[Any]]:
+        """k steps from ``step`` on: feeds sliced from the stacked device
+        tensors and the tables of all k steps (one host-to-device copy
+        before the first) copied in on the device before each replay,
+        with nothing read back in between. Each step's fetches are
+        copied out of the static outputs on the device."""
+        tables = torch.tensor([self._table_values(step + i)
+                               for i in range(k)], dtype=torch.int64
+                              ).to(self.device) if self.seed_attrs else None
+        outs = []
+        for i in range(k):
+            for n, buf in self.feeds.items():
+                buf.copy_(stacked[n][i])
+            if tables is not None:
+                self.tables.copy_(tables[i])
+            outs.append([_fetched(v, False) for v in self._replay()])
+        return outs
 
 
 class Executor:
@@ -312,6 +383,109 @@ class Executor:
     def close(self):
         self._dead.clear()
         self._compiled.clear()
+
+    def run_steps(self, program: Optional[Program] = None,
+                  feed: Optional[Dict[str, Any]] = None,
+                  fetch_list: Optional[Sequence[Union[str, Variable]]] = None,
+                  k: Optional[int] = None, scope: Optional[Scope] = None,
+                  return_numpy: bool = True, sync_fetch: bool = True):
+        """k training steps in one call (reference ``run_steps``,
+        ``paddle_tpu/core/executor.py:430``), equal bit for bit to k
+        sequential ``run()`` calls: losses, every parameter and optimizer
+        slot, the step counter (advanced by k) and every dropout mask.
+
+        ``feed`` is stacked: every entry has a leading [k, ...] axis,
+        slice i being step i's feed; k is inferred from it when not
+        given, and the reference's errors are raised for a bad k or a
+        feed that is not stacked. Fetches come back stacked [k, ...]
+        (numpy with ``return_numpy`` and ``sync_fetch``, else device
+        tensors; a fetched SelectedRows as a SelectedRows of stacked
+        rows and values).
+
+        The stacked feeds go to the device once. Until the (program,
+        scope, per-step feed shapes, fetch names) key has a compiled
+        step, steps run as ``run()`` runs them (the first op by op, the
+        second builds the step); the rest replay the compiled step
+        (``_CompiledStep.run_many``: per-step slices and seed/key tables
+        copied on the device, nothing read back between steps), and the
+        fetches are read back once. The span ``executor.run_steps`` and
+        the timer ``executor.run_steps_ms`` (one sample a call, covering
+        k steps) are written as the reference writes them. A program
+        with a host-IO op raises: the reference's fallback to k
+        sequential runs comes with those ops (ROADMAP A9)."""
+        if program is None:
+            program = default_main_program()
+        if scope is None:
+            scope = global_scope()
+        feed = dict(feed or {})
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in (fetch_list or [])]
+        if k is None:
+            if not feed:
+                raise ExecutionError(
+                    "run_steps needs k= when there are no feeds to infer "
+                    "the step count from")
+            k = int(np.shape(next(iter(feed.values())))[0])
+        k = int(k)
+        if k < 1:
+            raise ExecutionError(f"run_steps: k must be >= 1, got {k}")
+        for name, v in feed.items():
+            shape = tuple(np.shape(v))
+            if len(shape) < 1 or shape[0] != k:
+                raise ExecutionError(
+                    f"run_steps: feed '{name}' must be stacked [k, ...] "
+                    f"with k={k}; got shape {shape} — stack per-step "
+                    f"batches along a new leading axis (np.stack)")
+        io = sorted({op.type for blk in program.blocks for op in blk.ops}
+                    & _PS_IO_TYPES)
+        if io:
+            raise NotImplementedError(
+                f"run_steps over a program with host-IO ops {io}: the "
+                f"reference runs k sequential steps there, which comes "
+                f"with those ops (ROADMAP A9)")
+        t0 = time.perf_counter()
+        with trace.span("executor.run_steps", k=k):
+            block = program.global_block()
+            stacked = {}
+            for n, v in feed.items():
+                t, dt = _feed_spec(block, n, v)
+                stacked[n] = t.to(device=self.device, dtype=dt)
+            rows: List[List[Any]] = []
+            while len(rows) < k:
+                i = len(rows)
+                compiled = self._built_step(program, scope, fetch_names,
+                                            stacked)
+                if compiled is None:
+                    out = self.run(program, {n: t[i] for n, t in
+                                             stacked.items()},
+                                   fetch_names, scope, return_numpy=False)
+                    rows.append([_fetched(v, False) for v in out])
+                    continue
+                step = int(scope.find_var(STEP_COUNTER) or 0)
+                rows += compiled.run_many({n: t[i:] for n, t in
+                                           stacked.items()}, step, k - i)
+                scope.set(STEP_COUNTER, np.int32(step + k - i))
+            out = [_stack([r[j] for r in rows])
+                   for j in range(len(fetch_names))]
+            if return_numpy and sync_fetch:
+                out = [_fetched(v, True) for v in out]
+        telemetry.observe("executor.run_steps_ms",
+                          (time.perf_counter() - t0) * 1e3, kind="timer")
+        return out
+
+    def _built_step(self, program, scope, fetch_names, stacked):
+        """The compiled step ``run()`` would replay for one step of these
+        stacked feeds, or None where it has none built yet (or the scope
+        no longer holds its tensors)."""
+        block = program.global_block()
+        plan_key = (len(block.ops), tuple(fetch_names))
+        steps = self._compiled.get(program, {}).get(scope, {})
+        key = _step_key(plan_key, ((n, t.shape[1:], t.dtype)
+                                   for n, t in stacked.items()))
+        compiled = steps.get(key)
+        if isinstance(compiled, _CompiledStep) and compiled.holds(scope):
+            return compiled
+        return None
 
     def run(self, program: Optional[Program] = None,
             feed: Optional[Dict[str, Any]] = None,
@@ -365,8 +539,8 @@ class Executor:
         if use_compiled:
             steps = self._compiled.setdefault(
                 program, weakref.WeakKeyDictionary()).setdefault(scope, {})
-            key = (plan_key, tuple(sorted(
-                (n, tuple(t.shape), dt) for n, (t, dt) in feeds.items())))
+            key = _step_key(plan_key, ((n, t.shape, dt)
+                                       for n, (t, dt) in feeds.items()))
             compiled = steps.get(key)
             if compiled is _SEEN:
                 compiled = steps[key] = _CompiledStep(
@@ -380,8 +554,7 @@ class Executor:
         if compiled is not None:
             out = compiled.run({n: t for n, (t, _) in feeds.items()}, step)
             scope.set(STEP_COUNTER, np.int32(step + 1))
-            return [_to_numpy(v) if return_numpy else v.clone()
-                    for v in out]
+            return [_fetched(v, return_numpy) for v in out]
 
         env: Dict[str, Any] = dict(scope.items())
         env.update({n: t.to(device=self.device, dtype=dt)
@@ -402,7 +575,7 @@ class Executor:
             if n not in env:
                 raise ExecutionError(f"fetch target '{n}' was not produced")
             v = env[n]
-            if return_numpy:
-                v = _to_numpy(v)
+            if return_numpy or isinstance(v, SelectedRows):
+                v = _fetched(v, return_numpy)
             out.append(v)
         return out

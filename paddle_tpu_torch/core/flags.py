@@ -17,9 +17,10 @@ overridable via the environment (``FLAGS_<name>=...``) at import.
 
 ``exec_steps_per_dispatch`` and ``pallas_kv_chunk_tokens`` keep the
 reference's names and defaults so that the tuner's search space is the
-reference's, but nothing in the port reads them: K-step fused dispatch
-is ROADMAP A6/A9, and the CUDA paged-attention kernel's chunk is fixed
-at 128 tokens. ``core/tuner.py`` refuses a profile that moves either.
+reference's, but nothing in the port reads them: ``Executor.run_steps``
+exists, but the flag's readers, ``train_from_dataset`` and
+``hapi.Model.fit``, are ROADMAP A9 and A11; and the CUDA paged-attention
+kernel's chunk is fixed at 128 tokens. ``core/tuner.py`` refuses a profile that moves either.
 """
 
 from __future__ import annotations
@@ -313,9 +314,10 @@ define_flag("metrics_window_s", 60.0,
 #    (see the module docstring) -------------------------------------------
 
 define_flag("exec_steps_per_dispatch", 1,
-            "K-step fused execution in the reference (its executor's "
-            "run_steps); the port has no reader (ROADMAP A6/A9), so the "
-            "tuner refuses a profile that moves it off 1")
+            "K-step fused execution in the reference; the port has "
+            "Executor.run_steps, but the flag's readers (train_from_dataset, "
+            "hapi.Model.fit) are ROADMAP A9/A11, so the tuner refuses a "
+            "profile that moves it off 1")
 define_flag("pallas_kv_chunk_tokens", 1024,
             "KV tokens a chunk of the reference's Pallas paged-attention "
             "kernel; the CUDA kernel's chunk is fixed at 128 tokens, so "

@@ -192,9 +192,9 @@ def _vjp_grad_lowering(ins: Dict[str, List[Any]], attrs: Dict[str, Any]):
 
     The forward lowering is re-run on detached inputs (the floating-point
     ones of differentiable slots marked ``requires_grad``) with the
-    runtime ``__step__`` (or, in a compiled step, the ``__seed__`` slot,
-    and the ``__seeds__`` slots of a sub-block's ops) threaded into its
-    attrs, so a stochastic forward (dropout) recomputes the mask the
+    runtime ``__step__`` (or, in a compiled step, the ``__seed__`` and
+    ``__key__`` slots, and the ``__seeds__`` slots of a sub-block's ops)
+    threaded into its attrs, so a stochastic forward (dropout) recomputes the mask the
     forward op drew. The forward of a ``block_call`` runs its sub-block
     here under autograd: its generic gradient is segment recompute.
     Missing cotangents count as zeros, integer outputs are skipped, and
@@ -202,7 +202,7 @@ def _vjp_grad_lowering(ins: Dict[str, List[Any]], attrs: Dict[str, Any]):
     shape and dtype (float32 for an integer input)."""
     fwd_def = get(attrs["fwd_type"])
     fwd_attrs = dict(attrs["fwd_attrs"])
-    for k in ("__step__", "__seed__", "__seeds__"):
+    for k in ("__step__", "__seed__", "__key__", "__seeds__"):
         if k in attrs:
             fwd_attrs[k] = attrs[k]
     non_diff = set(fwd_def.non_diff_inputs)

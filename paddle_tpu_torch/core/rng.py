@@ -20,6 +20,17 @@ same masks in either package:
 The CUDA kernels carry the same splitmix32 in uint32
 (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``).
 
+The splitmix lattice is a uint32 element index, so it would alias past
+2^32 elements. There the reference's dropout takes
+``jax.random.bernoulli(key, 1 - p, shape)`` instead
+(``paddle_tpu/ops/nn_ops.py:476-489``), and so does the port's
+(``THREEFRY_MIN``, ``threefry_keep``): threefry2x32 under the op's full
+two-word key over the element's 64-bit flat index (hi, lo), as this
+jax's partitionable threefry draws bits, the two output words xored,
+the top 23 bits made a uniform float in [0, 1), kept where it is below
+float32(1 - p). It is computed in chunks of the flat index, so its
+temporaries stay a bounded size whatever the tensor's.
+
 A compiled step (``core/executor.py``, a CUDA graph on the card) cannot
 take a new host integer each step, so the seed also has a device form:
 the executor keeps a **seed table**, one int64 slot per random op of the
@@ -28,7 +39,11 @@ before each step from ``op_seed`` with the step folded in
 (``seed_values``) and binds each op's slot, a 0-d tensor, as its
 ``__seed__`` attr. ``op_seed`` returns that tensor when it
 is bound; ``dropout_keep`` and ``attn_keep`` take the seed as an int or as
-such a tensor and draw the same bits from either.
+such a tensor and draw the same bits from either. The same step fills a
+second table beside it with each slot's full key (``key_values``: the
+two words packed in one int64), bound as ``__key__``, which
+``op_key`` returns and the threefry branch reads; the first table, and
+so every splitmix mask, is unchanged by it.
 """
 
 from __future__ import annotations
@@ -72,6 +87,28 @@ def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
 
 
 Seed = Union[int, torch.Tensor]
+
+
+def op_key(attrs):
+    """The full threefry key (k0, k1) of a random op in this run: the
+    op's ``seed`` attr as ``PRNGKey``, the ``__step__`` folded in, as
+    Python integers; or, where the executor bound the op's slot of its
+    key table (``__key__``, a 0-d int64 tensor holding ``pack_key`` of
+    that key), the two words as 0-d tensors read from it."""
+    bound = attrs.get("__key__")
+    if bound is not None:
+        return (bound >> 32) & M32, bound & M32
+    key = prng_key(int(attrs.get("seed", 0) or 0))
+    step = attrs.get("__step__")
+    if step is not None:
+        key = fold_in(key, int(step))
+    return key
+
+
+def pack_key(key: Tuple[int, int]) -> int:
+    """(k0, k1) as one signed int64: k0 the high word."""
+    v = (int(key[0]) << 32) | int(key[1])
+    return v - (1 << 64) if v >= (1 << 63) else v
 
 
 def op_seed(attrs) -> Seed:
@@ -180,6 +217,16 @@ def seed_values(seeds, step: int) -> List[int]:
     return [done[s] for s in seeds]
 
 
+def key_values(seeds, step: int) -> List[int]:
+    """The key table's values at ``step``: ``pack_key`` of each seed
+    attr's key with the step folded in."""
+    done: Dict[int, int] = {}
+    for s in seeds:
+        if s not in done:
+            done[s] = pack_key(op_key({"seed": s, "__step__": step}))
+    return [done[s] for s in seeds]
+
+
 def _golden(seed: Seed):
     """seed * GOLDEN in uint32, for an int or an int tensor seed (an
     int64 product that wraps keeps the right low 32 bits)."""
@@ -209,10 +256,10 @@ def dropout_keep(shape, seed: Seed, rate: float, device) -> torch.Tensor:
     n = 1
     for d in shape:
         n *= int(d)
-    if n >= (1 << 32):
+    if n >= THREEFRY_MIN:
         raise NotImplementedError(
-            "dropout over 2^32 or more elements takes the reference's "
-            "threefry branch, which the port does not carry")
+            "the splitmix lattice is uint32: dropout over 2^32 or more "
+            "elements takes the threefry branch (threefry_keep)")
     lin = torch.arange(n, dtype=torch.int64, device=device)
     h = splitmix32(lin ^ _golden(seed))
     return (h >= keep_threshold(rate)).reshape(tuple(shape))
@@ -231,3 +278,70 @@ def attn_keep(seed: Seed, rate: float, b: int, n: int, sq: int, sk: int,
     lin = (qi[:, None] * sk + ki[None, :]) & M32
     x = splitmix32(lin[None] ^ ((seed2 * GOLDEN) & M32)[:, None, None])
     return (x >= keep_threshold(rate)).reshape(b, n, sq, sk)
+
+
+# the element count from which the dropout op draws threefry bits
+THREEFRY_MIN = 1 << 32
+# elements a chunk of ``threefry_keep`` handles: its int64 temporaries
+# are a few times 8 bytes each of these
+THREEFRY_CHUNK = 1 << 26
+# dropout ops that took the threefry branch since the last reset
+threefry_masks = 0
+
+
+def _rotl_t(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def threefry2x32_t(key, x0: torch.Tensor, x1: torch.Tensor):
+    """``threefry2x32`` over int64 tensors of uint32 values: the two
+    output words of the block for every (x0, x1). key words are ints or
+    0-d int64 tensors."""
+    k0, k1 = key
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + k0) & M32
+    x1 = (x1 + k1) & M32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl_t(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & M32
+    return x0, x1
+
+
+def threefry_bits_at(key, idx: torch.Tensor) -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (uint32, partitionable threefry)
+    at the flat positions ``idx`` (int64) of any shape: threefry2x32 of
+    (idx >> 32, idx & M32) under key, the two words xored. int64 values
+    in [0, 2^32)."""
+    b0, b1 = threefry2x32_t(key, idx >> 32, idx & M32)
+    return b0 ^ b1
+
+
+def keep_below(rate: float) -> int:
+    """Keep iff bits >> 9 < this: ``jax.random.uniform`` makes the float
+    (bits >> 9) * 2^-23 exactly, and bernoulli keeps it where it is below
+    float32(1 - rate); that is the integer compare with
+    ceil(float32(1 - rate) * 2^23)."""
+    import math
+
+    import numpy as np
+
+    return int(math.ceil(float(np.float32(1.0 - float(rate))) * (1 << 23)))
+
+
+def threefry_keep(key, rate: float, start: int, stop: int, device
+                  ) -> torch.Tensor:
+    """bool keep mask of ``jax.random.bernoulli(key, 1 - rate, shape)``
+    over the flat positions [start, stop) of the shape, computed in
+    chunks of ``THREEFRY_CHUNK`` positions. key words are ints or 0-d
+    int64 tensors on ``device``."""
+    out = torch.empty(stop - start, dtype=torch.bool, device=device)
+    below = keep_below(rate)
+    for lo in range(start, stop, THREEFRY_CHUNK):
+        hi = min(lo + THREEFRY_CHUNK, stop)
+        idx = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        out[lo - start:hi - start] = (threefry_bits_at(key, idx) >> 9) \
+            < below
+    return out

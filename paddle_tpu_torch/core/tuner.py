@@ -29,9 +29,10 @@ live config surface (port of ``paddle_tpu/core/tuner.py``).
   touched.
 
 The one divergence from the reference: ``exec_steps_per_dispatch`` and
-``pallas_kv_chunk_tokens`` have no reader in the port (K-step dispatch is
-ROADMAP A6/A9; the CUDA paged-attention kernel's chunk is fixed at 128
-tokens) and ZeRO is ROADMAP A8, so ``apply_profile`` and
+``pallas_kv_chunk_tokens`` have no reader in the port (``Executor.run_steps``
+exists, but the flag's readers, ``train_from_dataset`` and
+``hapi.Model.fit``, are ROADMAP A9 and A11; the CUDA paged-attention
+kernel's chunk is fixed at 128 tokens) and ZeRO is ROADMAP A8, so ``apply_profile`` and
 ``OnlineTrial.start`` raise ``ProfileError`` for a profile or candidate
 that moves either flag off its default or asks for ``zero_stage > 0``,
 instead of setting a flag that nothing reads. The offline search still
@@ -727,7 +728,8 @@ def load_profile(path: str) -> Dict[str, Any]:
 # flags of the reference's search space that nothing in the port reads,
 # with the only value each may take here (its default), and why
 UNREAD_FLAGS = {
-    "exec_steps_per_dispatch": (1, "K-step fused dispatch is ROADMAP A6/A9"),
+    "exec_steps_per_dispatch": (1, "its readers (train_from_dataset, "
+                                   "hapi) are ROADMAP A9/A11"),
     "pallas_kv_chunk_tokens": (1024, "the CUDA paged-attention kernel's "
                                      "chunk is fixed at 128 tokens"),
 }

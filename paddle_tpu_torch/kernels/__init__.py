@@ -37,6 +37,8 @@ MODULES = {"flash_attention_fwd": flash_attention,
            "layer_norm": layer_norm,
            "conv_bn_relu": conv_bn_relu}
 _COUNTER = {"flash_attention_bwd": "bwd_launches"}
+# the snapshot key of the flash op's general-route calls
+GENERAL = "flash_general_route"
 
 
 def launch_counts() -> Dict[str, int]:
@@ -72,13 +74,21 @@ _SPLITS = {"launches_by_layout": flash_attention,
            "launches_by_instance": int8_gemm}
 
 
+def general_route_calls() -> int:
+    """Calls of the flash op's reference_general route (plain PyTorch,
+    no kernel): its count beside the launch counters."""
+    return flash_attention.general_calls
+
+
 def snapshot_counts() -> Dict:
     """Every launch counter, totals (by kernel name) and splits (by
-    (split, key)), in one flat dict."""
+    (split, key)), and the general route's calls (``GENERAL``), in one
+    flat dict."""
     snap: Dict = dict(launch_counts())
     for attr, mod in _SPLITS.items():
         for key, n in getattr(mod, attr).items():
             snap[(attr, key)] = n
+    snap[GENERAL] = flash_attention.general_calls
     return snap
 
 
@@ -92,7 +102,9 @@ def add_counts(delta: Dict):
     """Add a ``count_delta`` to the counters: the launches of a replayed
     CUDA graph, which no wrapper sees."""
     for k, n in delta.items():
-        if isinstance(k, tuple):
+        if k == GENERAL:
+            flash_attention.general_calls += n
+        elif isinstance(k, tuple):
             getattr(_SPLITS[k[0]], k[0])[k[1]] += n
         else:
             attr = _COUNTER.get(k, "launches")
@@ -102,5 +114,6 @@ def add_counts(delta: Dict):
 def reset_launch_counts():
     for name, mod in MODULES.items():
         setattr(mod, _COUNTER.get(name, "launches"), 0)
+    flash_attention.general_calls = 0
     flash_attention.reset_layout_counts()
     int8_gemm.reset_instance_counts()

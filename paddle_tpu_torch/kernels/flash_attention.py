@@ -62,6 +62,17 @@ tensor on the inputs' device; the kernels read it through a pointer, so
 a CUDA graph that captured a launch draws the mask of whatever seed the
 tensor holds when it replays.
 
+A bias that is not a key bias ([B,H,Sq,Sk], [B,1,Sq,Sk] or any other
+shape that broadcasts to [B,n,Sq,Sk]) takes the reference's
+``reference_general`` route (``flash_attention.py:1479-1495``, :1642):
+``general_fwd`` / ``general_bwd``, plain attention in PyTorch with the
+full bias, an fp32 softmax and the same position-keyed probs dropout.
+That is the reference's own choice of route by the bias's shape, not a
+fallback from the kernels: no kernel takes such a bias, and a key bias
+on a CUDA tensor still launches the kernel or raises. The route counts
+its calls in ``general_calls``, a plain integer beside the launch
+counters.
+
 Under autograd, ``flash_attention`` (``FlashAttentionFunction``) runs the
 forward and, in the backward pass, the backward kernel: the route of a
 ``flash_attention`` op recomputed inside a ``block_call`` segment. On a
@@ -83,6 +94,7 @@ from . import _build
 
 launches = 0       # forward kernel launches since the last reset
 bwd_launches = 0   # backward kernel launches since the last reset
+general_calls = 0  # calls of the reference_general route (no kernel)
 LAYOUTS = ("packed", "bnsd")
 # the same launches split by the layout they read
 launches_by_layout = dict.fromkeys(LAYOUTS, 0)
@@ -250,6 +262,62 @@ def plain_flash_bwd(q, k, v, out, lse, dout, n_heads, scale, causal,
     dk = torch.matmul(ds.transpose(-1, -2), qh)
     return (_unheads(dq.to(q.dtype), layout), _unheads(dk.to(q.dtype), layout),
             _unheads(dv.to(q.dtype), layout), dbias)
+
+
+def _general(q, k, v, n_heads, scale, causal, bias, rate, seed, layout):
+    """(out, lse) of plain attention with a full bias, the reference's
+    ``reference_attention`` on its general route: fp32 scores q k^T *
+    scale + bias (bias broadcast to [B,n,Sq,Sk]), causal keys above the
+    bottom-right-aligned diagonal at NEG_INF, an fp32 softmax, the probs
+    times the dropout keep/(1 - rate) mask, p v in fp32, cast to q's
+    dtype. lse is the true log-sum-exp of the biased scores [B,n,Sq],
+    fp32: the reference returns zeros on this route
+    (``flash_attention.py:1661``); the port keeps the true value, as its
+    kernels do (ROADMAP's list of the reference's faults). Runs under
+    the caller's grad mode."""
+    b, n, sq, sk, _ = _geometry("general attention", q, k, n_heads, layout)
+    qh, kh, vh = (_heads(t, n, layout) for t in (q, k, v))
+    s = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    s = s + bias.float()
+    if causal:
+        rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        cols = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(cols > rows, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.softmax(s, dim=-1)
+    mult = _keep_scale(b, n, sq, sk, rate, seed, q.device)
+    if mult is not None:
+        p = p * mult
+    out = torch.matmul(p, vh.float()).to(q.dtype)
+    return _unheads(out, layout), lse
+
+
+def general_fwd(q, k, v, n_heads, scale, causal, bias, rate=0.0, seed=0,
+                layout="packed"):
+    """The reference_general route's forward, on any device: (out in q's
+    layout, lse [B,n,Sq]). Under autograd (a recomputed segment) its
+    gradient is autograd's. Counts one call."""
+    global general_calls
+    general_calls += 1
+    return _general(q, k, v, n_heads, scale, causal, bias, rate, seed,
+                    layout)
+
+
+def general_bwd(q, k, v, dout, n_heads, scale, causal, bias, rate=0.0,
+                seed=0, layout="packed"):
+    """(dq, dk, dv, dbias) of ``general_fwd``: the forward recomputed
+    under autograd (the reference's vjp on this route) and differentiated
+    with the cotangent dout of out. dq/dk/dv come in the inputs' dtype
+    and layout, dbias in the bias's own shape and dtype (summed over the
+    dims it was broadcast along). Counts one call."""
+    global general_calls
+    general_calls += 1
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias)]
+    with torch.enable_grad():
+        out, _ = _general(*leaves[:3], n_heads, scale, causal, leaves[3],
+                          rate, seed, layout)
+        return tuple(torch.autograd.grad(
+            out, leaves, dout.to(out.dtype).reshape(out.shape)))
 
 
 def plain_packed_flash_fwd(q, k, v, n_heads, scale, causal, bias=None,

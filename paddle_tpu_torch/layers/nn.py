@@ -7,7 +7,7 @@ program."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -29,7 +29,7 @@ __all__ = ["data", "static_data", "create_parameter", "create_global_var",
            "reshape", "transpose", "squeeze", "unsqueeze", "slice", "gather",
            "scale", "fill_constant", "take_along_axis", "flash_attention",
            "conv2d", "pool2d", "batch_norm", "accuracy", "softmax", "cast",
-           "one_hot", "label_smooth"]
+           "one_hot", "label_smooth", "concat"]
 
 
 def _pair(v):
@@ -576,6 +576,13 @@ def softmax(input: Variable, axis: int = -1, use_cudnn: bool = False,
     out = helper.create_variable_for_type_inference(input.dtype)
     helper.append_op("softmax", {"X": [input]}, {"Out": [out]},
                      {"axis": axis})
+    return out
+
+
+def concat(input: List[Variable], axis: int = 0, name=None) -> Variable:
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op("concat", {"X": input}, {"Out": [out]}, {"axis": axis})
     return out
 
 

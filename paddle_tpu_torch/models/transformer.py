@@ -12,12 +12,16 @@ source key-padding bias, decoder self-attention causal with no bias, and
 encoder-decoder cross-attention (q from the decoder, k and v from the
 encoder output) with the source key-padding bias.
 
+With ``use_flash_attention=False`` attention is the unfused chain
+instead: heads split to [B,n,S,hd], ``matmul`` with alpha 1/sqrt(hd),
+the shared additive causal table (a non-trainable parameter
+``causal_mask_{seq}``, one a program) and the key bias added, ``softmax``,
+``dropout`` (upscale_in_train), ``matmul``, heads merged; no flash op
+runs.
+
 The tensor-parallel annotations on the weights are recorded (they are
 part of the program) but nothing in the port reads them: it runs on one
-device. Not in the port, and raising: the unfused attention chain
-(``use_flash_attention=False``: matmul, softmax, dropout, matmul on
-[B,n,S,hd] heads with an additive causal table), which needs
-``transpose2``.
+device.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ class TransformerConfig:
     dropout: float = 0.1
     label_smooth_eps: float = 0.1
     weight_sharing: bool = True  # tgt embedding == output projection
-    # the packed flash-attention op; the unfused chain is not in the port
+    # the packed flash-attention op, or the unfused matmul/softmax chain
     use_flash_attention: bool = True
 
     def __post_init__(self):
@@ -97,25 +101,66 @@ def _dense(x, d_out, name, cfg, act=None, tp_spec=None):
     return out
 
 
+def _causal_bias(seq):
+    """The additive [1,1,S,S] upper-triangle mask of the unfused branch:
+    -1e9 above the diagonal. The parameter ``causal_mask_{seq}`` is
+    deduplicated by name, so every decoder layer shares one table, and
+    its unsqueezed variable is cached once a program."""
+    from ..core.ir import default_main_program
+
+    prog = default_main_program()
+    cache = getattr(prog, "_causal_bias_cache", None)
+    if cache is None:
+        cache = prog._causal_bias_cache = {}
+    if seq not in cache:
+        tri = np.triu(np.full((seq, seq), -1e9, np.float32), k=1)
+        causal_var = layers.create_parameter(
+            [seq, seq], "float32",
+            attr=ParamAttr(name=f"causal_mask_{seq}",
+                           initializer=NumpyArrayInitializer(tri),
+                           trainable=False))
+        causal_var.stop_gradient = True
+        cache[seq] = layers.unsqueeze(causal_var, [0, 1])
+    return cache[seq]
+
+
 def _mha(q_in, kv_in, attn_bias, cfg, name, is_test=False, causal=False):
     """Multi-head attention, q_in is kv_in for self-attention: three
-    projections (column-parallel annotations), the packed flash op on
-    their [B,S,d] outputs, the output projection (row-parallel). The
-    bias is a key-padding bias [B,1,1,Sk] or None; causal=True is the
-    decoder's triangle, inside the kernel."""
-    if not cfg.use_flash_attention:
-        raise NotImplementedError(
-            "the unfused attention branch (matmul/softmax/dropout/matmul "
-            "on [B,n,S,hd] heads, with an additive causal table) needs "
-            "transpose2, which is not in the port: set use_flash_attention")
+    projections (column-parallel annotations), attention, the output
+    projection (row-parallel). The bias is a key-padding bias [B,1,1,Sk]
+    or None; causal=True is the decoder's triangle. With
+    ``use_flash_attention`` attention is the packed flash op on the
+    projections' [B,S,d] outputs (the triangle inside the kernel);
+    without it, the unfused chain on [B,n,S,hd] heads (the triangle an
+    additive table, ``_causal_bias``)."""
     d, n = cfg.d_model, cfg.n_head
     hd = d // n
     q = _dense(q_in, d, f"{name}_q", cfg, tp_spec=(None, "mp"))
     k = _dense(kv_in, d, f"{name}_k", cfg, tp_spec=(None, "mp"))
     v = _dense(kv_in, d, f"{name}_v", cfg, tp_spec=(None, "mp"))
-    ctx = layers.flash_attention(
-        q, k, v, bias=attn_bias, causal=causal, scale=hd ** -0.5,
-        num_heads=n, dropout_rate=cfg.dropout, is_test=is_test)
+
+    if cfg.use_flash_attention:
+        ctx = layers.flash_attention(
+            q, k, v, bias=attn_bias, causal=causal, scale=hd ** -0.5,
+            num_heads=n, dropout_rate=cfg.dropout, is_test=is_test)
+        return _dense(ctx, d, f"{name}_o", cfg, tp_spec=("mp", None))
+
+    def split_heads(t):
+        t = layers.reshape(t, [0, 0, n, hd])
+        return layers.transpose(t, [0, 2, 1, 3])  # [B,n,S,hd]
+
+    q, k, v = split_heads(q), split_heads(k), split_heads(v)
+    scores = layers.matmul(q, k, transpose_y=True, alpha=hd ** -0.5)
+    if causal:
+        scores = scores + _causal_bias(int(q.shape[2]))
+    if attn_bias is not None:
+        scores = scores + attn_bias
+    probs = layers.softmax(scores)
+    probs = layers.dropout(probs, cfg.dropout, is_test=is_test,
+                           dropout_implementation="upscale_in_train")
+    ctx = layers.matmul(probs, v)
+    ctx = layers.transpose(ctx, [0, 2, 1, 3])
+    ctx = layers.reshape(ctx, [0, 0, d])
     return _dense(ctx, d, f"{name}_o", cfg, tp_spec=("mp", None))
 
 

@@ -23,9 +23,12 @@ _NON_DIFF = dict(non_diff_inputs=("X", "Scale", "FoundInfinite",
 @register_op("check_finite_and_unscale", **_NON_DIFF)
 def check_finite_and_unscale(ins, attrs):
     """Out = X * (1 / Scale) for every X; FoundInfinite [1] is true iff an
-    element of any X is inf or nan."""
+    element of any X is inf or nan (false for an empty X list)."""
     inv = 1.0 / ins["Scale"][0]
     xs = ins["X"]
+    if not xs:
+        return {"Out": [], "FoundInfinite": torch.zeros(
+            1, dtype=torch.bool, device=inv.device)}
     finite = torch.stack([torch.isfinite(x).all() for x in xs])
     return {"Out": [x * inv.to(x.dtype) for x in xs],
             "FoundInfinite": (~finite.all()).reshape(1)}

@@ -19,7 +19,8 @@ from ..core import rng
 from ..core.ir import OpDesc
 from ..core.registry import (default_grad_maker, register_grad_maker,
                              register_op)
-from ..kernels.flash_attention import flash_attention, flash_bwd, flash_fwd
+from ..kernels.flash_attention import (flash_attention, flash_bwd, flash_fwd,
+                                      general_bwd, general_fwd)
 from ..kernels.layer_norm import fused_layer_norm
 from ..kernels.paged_attention import paged_decode_attention
 from .bn_act import fused_batch_norm_act
@@ -38,24 +39,22 @@ def _attn_dropout(attrs):
 def _key_bias(bias, b, sk):
     """The [B,Sk] key-bias normal form of a flash_attention Bias, as the
     reference's ``_dispatch_plan`` derives it: a 4-D bias [B|1,1,1,Sk|1]
-    broadcasts to [B,1,1,Sk], a 2-D one is a key bias. Any other bias takes
-    the reference's ``reference_general`` route (plain attention with a
-    full [B,H,Sq,Sk]-broadcast bias, not a kernel), which the port does
-    not carry."""
+    broadcasts to [B,1,1,Sk], a 2-D one is a key bias. Any other bias
+    gives None: the reference's ``reference_general`` route (plain
+    attention with the full [B,H,Sq,Sk]-broadcast bias, not a kernel)."""
     if bias.dim() == 4 and bias.shape[1] == 1 and bias.shape[2] == 1:
         return torch.broadcast_to(bias, (b, 1, 1, sk)).reshape(b, sk)
     if bias.dim() == 2:
         return torch.broadcast_to(bias, (b, sk))
-    raise NotImplementedError(
-        "flash_attention in the port takes a key bias ([B,1,1,Sk] or "
-        f"[B,Sk]); a {tuple(bias.shape)} bias takes the reference's "
-        "reference_general route, which is not ported")
+    return None
 
 
 def _flash_args(ins, attrs):
-    """(q, k, v, key bias [B,Sk] or None, heads, scale, causal, layout) of
-    a flash_attention op or its grad op: packed [B,S,n*hd] q/k/v with a
-    head_dim or num_heads attr, or [B,H,S,D] ("bnsd") q/k/v."""
+    """(q, k, v, bias, general, heads, scale, causal, layout) of a
+    flash_attention op or its grad op: packed [B,S,n*hd] q/k/v with a
+    head_dim or num_heads attr, or [B,H,S,D] ("bnsd") q/k/v. bias is the
+    key bias [B,Sk] (or None), or, with ``general``, the op's own Bias
+    for the reference_general route."""
     q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
     bias = ins["Bias"][0] if ins.get("Bias") else None
     if q.dim() == 4:
@@ -70,12 +69,15 @@ def _flash_args(ins, attrs):
     else:
         raise ValueError(f"flash_attention takes 3-D (packed) or 4-D "
                          f"([B,H,S,D]) q, got {tuple(q.shape)}")
+    general = False
     if bias is not None:
-        bias = _key_bias(bias, q.shape[0], sk)
+        kb = _key_bias(bias, q.shape[0], sk)
+        general = kb is None
+        bias = bias if general else kb
     scale = attrs.get("scale")
     scale = float(scale) if scale is not None else hd ** -0.5
-    return (q.contiguous(), k.contiguous(), v.contiguous(), bias, n, scale,
-            bool(attrs.get("causal", False)), layout)
+    return (q.contiguous(), k.contiguous(), v.contiguous(), bias, general,
+            n, scale, bool(attrs.get("causal", False)), layout)
 
 
 @register_op("flash_attention", non_diff_inputs=("Bias",))
@@ -91,9 +93,18 @@ def flash_attention_op(ins, attrs):
     autograd (the op inside a ``block_call`` segment that its
     ``__vjp_grad__`` recomputes) it runs through
     ``FlashAttentionFunction``, whose backward is the backward kernel;
-    otherwise its gradient is the ``flash_attention_grad`` op."""
-    q, k, v, bias, n, scale, causal, layout = _flash_args(ins, attrs)
+    otherwise its gradient is the ``flash_attention_grad`` op. Any
+    other bias ([B,H,Sq,Sk], [B,1,Sq,Sk]) takes the reference's
+    ``reference_general`` route (``general_fwd``: plain attention, no
+    kernel, its Lse the true log-sum-exp where the reference gives
+    zeros)."""
+    q, k, v, bias, general, n, scale, causal, layout = _flash_args(ins,
+                                                                   attrs)
     rate, seed = _attn_dropout(attrs)
+    if general:
+        out, lse = general_fwd(q, k, v, n, scale, causal, bias, rate, seed,
+                               layout)
+        return {"Out": out, "Lse": lse}
     fwd = flash_attention if torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v)) else flash_fwd
     out, lse = fwd(q, k, v, n, scale, causal, bias, rate, seed, layout)
@@ -131,12 +142,18 @@ def _flash_attention_grad_maker(op, out_grads, in_grads):
              skip_infer_shape=True)
 def flash_attention_grad_op(ins, attrs):
     """d(Q,K,V,Bias) of flash_attention from the saved (Out, Lse),
-    through the flash backward kernel: the forward never runs again. The
-    port has this one route for every shape of either layout. BiasGrad
-    comes in the Bias's shape."""
-    q, k, v, bias, n, scale, causal, layout = _flash_args(ins, attrs)
+    through the flash backward kernel: the forward never runs again. A
+    bias that is not a key bias takes the forward's reference_general
+    route (``general_bwd``: the forward recomputed under autograd, as the
+    reference's vjp does there). BiasGrad comes in the Bias's shape."""
+    q, k, v, bias, general, n, scale, causal, layout = _flash_args(ins,
+                                                                   attrs)
     out, lse, do = ins["Out"][0], ins["Lse"][0], ins["OutGrad"][0]
     rate, seed = _attn_dropout(attrs)
+    if general:
+        dq, dk, dv, dbias = general_bwd(q, k, v, do, n, scale, causal, bias,
+                                        rate, seed, layout)
+        return {"QGrad": dq, "KGrad": dk, "VGrad": dv, "BiasGrad": dbias}
     dq, dk, dv, dbias = flash_bwd(
         q, k, v, out.contiguous(), lse.contiguous(),
         do.to(out.dtype).reshape(out.shape).contiguous(), n, scale, causal,

@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 from ..core import registry
 from ..core.registry import register_op
-from .tensor_ops import _take_index
+from .tensor_ops import take_index
 
 
 @register_op("fused_embedding_eltwise_layernorm", non_diff_inputs=("Ids",))
@@ -26,7 +26,7 @@ def fused_embedding_eltwise_layernorm(ins, attrs):
     eps = float(attrs.get("epsilon", 1e-5))
     acc = None
     for ids, emb in zip(ins["Ids"], ins["Embs"]):
-        idx, _ = _take_index(ids, emb.shape[0])
+        idx, _ = take_index(ids, emb.shape[0])
         v = torch.index_select(emb, 0, idx).reshape(
             tuple(ids.shape) + tuple(emb.shape[1:]))
         acc = v if acc is None else acc + v

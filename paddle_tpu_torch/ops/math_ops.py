@@ -57,14 +57,28 @@ def _unary(fn):
 # :97-111, ``_register_activations``)
 register_op("sqrt")(_unary(torch.sqrt))
 register_op("square")(_unary(torch.square))
-register_op("sign")(_unary(torch.sign))
+
+
+@register_op("sign")
+def sign(ins, attrs):
+    """``jnp.sign``: NaN stays NaN and a zero keeps its sign, where
+    ``torch.sign`` gives +0 for both. The kept NaN and zero carry no
+    gradient, as sign's derivative is 0 everywhere."""
+    x = ins["X"][0]
+    if not x.is_floating_point():
+        return {"Out": torch.sign(x)}
+    keep = (x == 0) | torch.isnan(x)
+    return {"Out": torch.where(keep, x.detach(), torch.sign(x))}
 
 
 @register_op("clip")
 def clip(ins, attrs):
-    """X clamped to [min, max] (reference :190, ``jnp.clip``)."""
-    return {"Out": torch.clamp(ins["X"][0], attrs.get("min"),
-                               attrs.get("max"))}
+    """X clamped to [min, max] (reference :190, ``jnp.clip``); with
+    neither bound, X itself."""
+    lo, hi = attrs.get("min"), attrs.get("max")
+    if lo is None and hi is None:
+        return {"Out": ins["X"][0]}
+    return {"Out": torch.clamp(ins["X"][0], lo, hi)}
 
 
 @register_op("isfinite", non_diff_inputs=("X",))
@@ -244,6 +258,9 @@ def top_k(ins, attrs):
     reference is."""
     x = ins["X"][0]
     k = int(attrs.get("k", 1))
+    if k > x.shape[-1]:
+        raise ValueError(f"top_k: k ({k}) is larger than the last axis "
+                         f"({x.shape[-1]})")
     order = None
     if x.is_floating_point():
         order = torch.sort(torch.signbit(x).to(torch.uint8), dim=-1,

@@ -42,8 +42,10 @@ def dropout(ins, attrs):
     """Seed assigned at build; the run folds in the global step, so masks
     differ per step but stay reproducible. The keep mask is the
     reference's splitmix32 hash over the element lattice
-    (``core/rng.dropout_keep``), bit for bit. upscale_in_train divides
-    the kept values by 1 - p in x's dtype."""
+    (``core/rng.dropout_keep``), bit for bit; from ``rng.THREEFRY_MIN``
+    (2^32) elements, where that lattice would alias, the reference's
+    threefry ``bernoulli`` (``_threefry_dropout``). upscale_in_train
+    divides the kept values by 1 - p in x's dtype."""
     x = ins["X"][0]
     p = float(attrs.get("dropout_prob", 0.5))
     impl = attrs.get("dropout_implementation", "upscale_in_train")
@@ -51,6 +53,8 @@ def dropout(ins, attrs):
         out = x if impl == "upscale_in_train" else x * (1.0 - p)
         return {"Out": out, "Mask": torch.ones(x.shape, dtype=torch.uint8,
                                                device=x.device)}
+    if x.numel() >= rng.THREEFRY_MIN and x.device.type != "meta":
+        return _threefry_dropout(x, p, impl, rng.op_key(attrs))
     if x.device.type == "meta":
         keep = torch.empty(x.shape, dtype=torch.bool, device=x.device)
     else:
@@ -58,6 +62,27 @@ def dropout(ins, attrs):
     kept = x / (1.0 - p) if impl == "upscale_in_train" else x
     return {"Out": torch.where(keep, kept, torch.zeros_like(kept)),
             "Mask": keep.to(torch.uint8)}
+
+
+def _threefry_dropout(x, p, impl, key):
+    """The dropout of a tensor of 2^32 or more elements: the threefry keep
+    mask (``rng.threefry_keep``) and the output, chunk by chunk of the
+    flat index, into Out and Mask allocated once, so that beside them
+    only one chunk's temporaries exist. Each chunk's output is the small
+    path's expression on that chunk, bit for bit."""
+    rng.threefry_masks += 1
+    flat = x.reshape(-1)
+    out = torch.empty_like(flat)
+    mask = torch.empty(flat.shape, dtype=torch.uint8, device=x.device)
+    n = flat.numel()
+    for lo in range(0, n, rng.THREEFRY_CHUNK):
+        hi = min(lo + rng.THREEFRY_CHUNK, n)
+        keep = rng.threefry_keep(key, p, lo, hi, x.device)
+        xc = flat[lo:hi]
+        kept = xc / (1.0 - p) if impl == "upscale_in_train" else xc
+        out[lo:hi] = torch.where(keep, kept, torch.zeros_like(kept))
+        mask[lo:hi] = keep
+    return {"Out": out.reshape(x.shape), "Mask": mask.reshape(x.shape)}
 
 
 @register_op("label_smooth", non_diff_inputs=("PriorDist",))

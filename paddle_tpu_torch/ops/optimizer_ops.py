@@ -5,9 +5,18 @@ adamw :167, lars_momentum :283, lamb :303).
 Each op names its parameter and state as both input and output. The
 port's lowerings update those tensors IN PLACE and return the same
 tensors: the counterpart of the reference's buffer donation, under which
-XLA reuses the donated buffers. Gradients are dense; the SelectedRows
-branches (adam's ``lazy_mode``, sparse sgd and momentum) are not in the
-port.
+XLA reuses the donated buffers.
+
+A SelectedRows gradient (``embedding(is_sparse=True)``) takes the
+reference's sparse branches: ``sgd`` and ``momentum`` update the touched
+rows, as do ``adam`` and ``adamw`` under ``lazy_mode`` (the reference's
+``_sparse_adam``, SparseAdamFunctor); every other optimizer, and
+non-lazy Adam(W), densifies it first (the reference's ``_dense_grad``).
+A row update merges duplicate rows first (``core/selected_rows.py``
+``write_slots``), gathers the touched rows of the parameter and state,
+computes them with the dense branch's arithmetic and writes them back
+with ``index_copy_``; untouched rows are not read or written, and no
+[V, D] gradient exists.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows, write_slots
 from ..kernels.fused_adam import fused_adamw_
 
 _OPT = dict(non_diff_inputs=("Param", "Grad", "LearningRate", "Moment1",
@@ -26,37 +36,65 @@ def _norm(t):
     return torch.sqrt(torch.sum(torch.square(t)))
 
 
-def _dense(g, op):
-    if not isinstance(g, torch.Tensor):
-        raise NotImplementedError(
-            f"{op} with a SelectedRows gradient is not in the port")
-    return g
+def _dense(g):
+    """The gradient as a dense tensor (a SelectedRows densified)."""
+    return g.to_dense() if isinstance(g, SelectedRows) else g
+
+
+def _put(t, rows, new, old, live):
+    """Write the touched rows back in place; a slot that is not live
+    writes its row's old value."""
+    live = live.reshape((-1,) + (1,) * (new.dim() - 1))
+    t.index_copy_(0, rows, torch.where(live, new, old).to(t.dtype))
 
 
 @register_op("sgd", **_OPT)
 def sgd(ins, attrs):
-    """p -= lr * g (reference sgd_op.cc, dense branch)."""
-    p, lr = ins["Param"][0], ins["LearningRate"][0]
-    g = _dense(ins["Grad"][0], "sgd")
+    """p -= lr * g (reference sgd_op.cc); a SelectedRows g updates its
+    rows, duplicates summed first (so a row gets the dense branch's
+    bits)."""
+    p, lr, g = ins["Param"][0], ins["LearningRate"][0], ins["Grad"][0]
+    if isinstance(g, SelectedRows):
+        rows, vals, live = write_slots(g)
+        p_r = p.index_select(0, rows)
+        _put(p, rows, p_r - lr.to(p.dtype) * vals.to(p.dtype), p_r, live)
+        return {"ParamOut": p}
     p.sub_(lr.to(p.dtype) * g.to(p.dtype))
     return {"ParamOut": p}
 
 
 @register_op("momentum", **_OPT)
 def momentum(ins, attrs):
-    """MomentumFunctor (reference momentum_op.h), dense branch:
+    """MomentumFunctor (reference momentum_op.h):
     v' = mu v + g, then p -= lr v' or, with ``use_nesterov``,
     p -= (g + mu v') lr; an ``l2_decay`` regularization adds
-    regularization_coeff * p to g first."""
+    regularization_coeff * p to g first. A SelectedRows g updates the
+    velocity and parameter of its rows only: an untouched velocity does
+    not decay (the reference's sparse kernel)."""
     p, v, lr = ins["Param"][0], ins["Velocity"][0], ins["LearningRate"][0]
-    g = _dense(ins["Grad"][0], "momentum").to(p.dtype)
+    g = ins["Grad"][0]
     lr = lr.to(p.dtype)
     mu = float(attrs.get("mu", 0.9))
     rd = float(attrs.get("regularization_coeff", 0.0))
-    if attrs.get("regularization_method", "") == "l2_decay" and rd:
+    l2 = attrs.get("regularization_method", "") == "l2_decay" and rd
+    nesterov = attrs.get("use_nesterov", False)
+    if isinstance(g, SelectedRows):
+        rows, vals, live = write_slots(g)
+        p_r, v_r = p.index_select(0, rows), v.index_select(0, rows)
+        g_r = vals.to(p.dtype)
+        if l2:
+            g_r = g_r + rd * p_r
+        v_new = v_r * mu + g_r
+        p_new = p_r - (g_r + mu * v_new) * lr if nesterov \
+            else p_r - lr * v_new
+        _put(v, rows, v_new, v_r, live)
+        _put(p, rows, p_new, p_r, live)
+        return {"ParamOut": p, "VelocityOut": v}
+    g = g.to(p.dtype)
+    if l2:
         g = g + rd * p
     v.mul_(mu).add_(g)
-    if attrs.get("use_nesterov", False):
+    if nesterov:
         p.sub_((g + mu * v) * lr)
     else:
         p.sub_(lr * v)
@@ -64,14 +102,35 @@ def momentum(ins, attrs):
 
 
 def _slots(ins, attrs):
-    if attrs.get("lazy_mode", False):
-        raise NotImplementedError(
-            "adam/adamw lazy_mode (SelectedRows grads) is not in the port")
     return (ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0],
             ins["Moment1"][0], ins["Moment2"][0], ins["Beta1Pow"][0],
             ins["Beta2Pow"][0], float(attrs.get("beta1", 0.9)),
             float(attrs.get("beta2", 0.999)),
             float(attrs.get("epsilon", 1e-8)))
+
+
+def _sparse_adam(ins, attrs, coeff=0.0):
+    """Row-wise Adam(W) on a SelectedRows gradient (the reference's
+    ``_sparse_adam``, SparseAdamFunctor's lazy_mode,
+    operators/optimizers/adam_op.h:404): the touched rows' moments and
+    parameter are gathered, updated with the dense branch's arithmetic
+    and written back; ``coeff`` adds AdamW's decoupled decay
+    lr * coeff * p. Untouched rows keep their moments (no decay)."""
+    p, g, lr, m1, m2, b1p, b2p, b1, b2, eps = _slots(ins, attrs)
+    rows, vals, live = write_slots(g)
+    m1_r, m2_r, p_r = (t.index_select(0, rows) for t in (m1, m2, p))
+    gf = vals.to(m1.dtype)
+    m1_new = torch.add(m1_r * b1, gf, alpha=1.0 - b1)
+    m2_new = torch.addcmul(m2_r * b2, gf, gf, value=1.0 - b2)
+    lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
+    step = lr_t * m1_new / (torch.sqrt(m2_new) + eps)
+    pf = p_r.float()
+    if coeff:
+        step = step + lr * coeff * pf
+    _put(m1, rows, m1_new, m1_r, live)
+    _put(m2, rows, m2_new, m2_r, live)
+    _put(p, rows, pf - step, p_r, live)
+    return _outs(p, m1, m2, b1p, b2p, b1, b2)
 
 
 def _outs(p, m1, m2, b1p, b2p, b1, b2):
@@ -84,9 +143,14 @@ def _outs(p, m1, m2, b1p, b2p, b1, b2):
 @register_op("adam", **_OPT)
 def adam(ins, attrs):
     """AdamFunctor (reference: operators/optimizers/adam_op.h), plain
-    PyTorch: the reference has no Adam kernel either."""
+    PyTorch: the reference has no Adam kernel either. With
+    ``lazy_mode`` a SelectedRows gradient takes ``_sparse_adam``;
+    otherwise it is densified."""
+    if attrs.get("lazy_mode", False) and isinstance(ins["Grad"][0],
+                                                    SelectedRows):
+        return _sparse_adam(ins, attrs)
     p, g, lr, m1, m2, b1p, b2p, b1, b2, eps = _slots(ins, attrs)
-    gf = g.to(m1.dtype)
+    gf = _dense(g).to(m1.dtype)
     m1.mul_(b1).add_(gf, alpha=1.0 - b1)
     m2.mul_(b2).addcmul_(gf, gf, value=1.0 - b2)
     lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
@@ -99,11 +163,19 @@ def adam(ins, attrs):
 def adamw(ins, attrs):
     """Adam with decoupled weight decay ``coeff``. With decay the update
     and both beta-power updates are one launch of the AdamW kernel
-    (``kernels/fused_adam.py``): on the card there is no other route."""
-    if not attrs.get("with_decay", True):
+    (``kernels/fused_adam.py``): on the card there is no other route for
+    a dense gradient. With ``lazy_mode`` a SelectedRows gradient takes
+    the row-wise ``_sparse_adam``, as in the reference; otherwise it is
+    densified."""
+    decay = attrs.get("with_decay", True)
+    if attrs.get("lazy_mode", False) and isinstance(ins["Grad"][0],
+                                                    SelectedRows):
+        return _sparse_adam(ins, attrs, float(attrs.get("coeff", 0.01))
+                            if decay else 0.0)
+    if not decay:
         return adam(ins, attrs)
     p, g, lr, m1, m2, b1p, b2p, b1, b2, eps = _slots(ins, attrs)
-    fused_adamw_(p, g.contiguous(), m1, m2, lr, b1, b2, eps,
+    fused_adamw_(p, _dense(g).contiguous(), m1, m2, lr, b1, b2, eps,
                  float(attrs.get("coeff", 0.01)), b1p, b2p)
     return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
             "Beta1PowOut": b1p, "Beta2PowOut": b2p}
@@ -117,7 +189,7 @@ def lars_momentum(ins, attrs):
     parameter norm gives local_lr 0. Plain PyTorch, as the reference
     keeps it plain jnp."""
     p, v, lr = ins["Param"][0], ins["Velocity"][0], ins["LearningRate"][0]
-    g = _dense(ins["Grad"][0], "lars_momentum")
+    g = _dense(ins["Grad"][0])
     mu = attrs.get("mu", 0.9)
     coeff = attrs.get("lars_coeff", 0.001)
     decay = attrs.get("lars_weight_decay", 0.0005)
@@ -138,7 +210,7 @@ def lamb(ins, attrs):
     either norm is 0. Updates its tensors in place. Plain PyTorch, as the
     reference keeps it plain jnp."""
     p, lr = ins["Param"][0], ins["LearningRate"][0]
-    g = _dense(ins["Grad"][0], "lamb")
+    g = _dense(ins["Grad"][0])
     m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
     b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
     b1 = attrs.get("beta1", 0.9)

@@ -21,7 +21,10 @@ import numpy as np
 import torch
 
 from ..core import rng
-from ..core.registry import creation_device, register_op
+from ..core.ir import OpDesc
+from ..core.registry import (creation_device, default_grad_maker,
+                             register_grad_maker, register_op)
+from ..core.selected_rows import SelectedRows, concat as concat_rows
 from ..core.types import to_torch_dtype, x64_off
 
 
@@ -104,9 +107,24 @@ def truncated_gaussian_random(ins, attrs):
 def cast(ins, attrs):
     """To ``out_dtype`` (or ``dtype``); 64-bit targets become 32-bit, as
     in the reference with x64 off."""
-    dtype = to_torch_dtype(attrs.get("out_dtype", attrs.get("dtype",
-                                                            "float32")))
-    return {"Out": ins["X"][0].to(x64_off(dtype))}
+    dtype = x64_off(to_torch_dtype(attrs.get("out_dtype", attrs.get(
+        "dtype", "float32"))))
+    return {"Out": convert(ins["X"][0], dtype)}
+
+
+def convert(x, dtype):
+    """``x`` in ``dtype`` as XLA's convert gives it: a float going to an
+    integer type saturates at the type's range and NaN becomes 0 (a
+    plain ``.to`` leaves both to the hardware: on x86 3e9 -> int32 is
+    the int32 minimum). The bounds are taken in float64, which holds
+    every bound of the 32-bit and smaller types exactly; all on the
+    device, with no host read."""
+    if not x.is_floating_point() or dtype.is_floating_point \
+            or dtype == torch.bool:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    xd = x.double().clamp(info.min, info.max)
+    return torch.where(torch.isnan(xd), 0.0, xd).to(dtype)
 
 
 @register_op("scale")
@@ -182,7 +200,7 @@ def slice_op(ins, attrs):
     return {"Out": out}
 
 
-def _take_index(index, n):
+def take_index(index, n):
     """(indices clamped into [0, n), which of them are in range) of a
     ``jnp.take`` index over an axis of ``n``: a negative index in [-n, 0)
     wraps to index + n, anything else outside [0, n) is out of range.
@@ -194,7 +212,7 @@ def _take_index(index, n):
     return idx.clamp(0, max(n - 1, 0)), valid
 
 
-def _take_fill(dtype):
+def take_fill(dtype):
     """``jnp.take``'s fill for an out-of-range index: NaN for floats, the
     least value of a signed integer type, the largest of an unsigned one,
     True for bool."""
@@ -208,20 +226,20 @@ def _take_fill(dtype):
 
 def _fill_invalid(out, valid, axis):
     """``out`` (the taken slices along ``axis``) with the slices of
-    out-of-range indices replaced by ``_take_fill``."""
+    out-of-range indices replaced by ``take_fill``."""
     shape = [1] * out.dim()
     shape[axis] = -1
-    return torch.where(valid.reshape(shape), out, _take_fill(out.dtype))
+    return torch.where(valid.reshape(shape), out, take_fill(out.dtype))
 
 
 @register_op("gather", non_diff_inputs=("Index",))
 def gather(ins, attrs):
     """jnp.take(x, index, axis): out shape is x.shape[:axis] +
     index.shape + x.shape[axis+1:]. As there, a negative index wraps and
-    an out-of-range one takes the fill value (``_take_fill``)."""
+    an out-of-range one takes the fill value (``take_fill``)."""
     x, index = ins["X"][0], ins["Index"][0]
     axis = int(attrs.get("axis", 0)) % x.dim()
-    idx, valid = _take_index(index, x.shape[axis])
+    idx, valid = take_index(index, x.shape[axis])
     flat = _fill_invalid(torch.index_select(x, axis, idx), valid, axis)
     return {"Out": flat.reshape(tuple(x.shape[:axis]) + tuple(index.shape)
                                 + tuple(x.shape[axis + 1:]))}
@@ -261,11 +279,11 @@ class _Lookup(torch.autograd.Function):
 @register_op("lookup_table_v2", non_diff_inputs=("Ids",))
 def lookup_table_v2(ins, attrs):
     """Embedding lookup; rows of padding_idx come out as zeros. Ids index
-    as ``jnp.take`` does (``_take_index``: negative ids wrap, out-of-range
+    as ``jnp.take`` does (``take_index``: negative ids wrap, out-of-range
     ids take the fill). The gradient sums each row in the ids' order
     (``_Lookup``)."""
     w, ids = ins["W"][0], ins["Ids"][0]
-    out = _Lookup.apply(w, *_take_index(ids, w.shape[0])).reshape(
+    out = _Lookup.apply(w, *take_index(ids, w.shape[0])).reshape(
         tuple(ids.shape) + tuple(w.shape[1:]))
     pad = int(attrs.get("padding_idx", -1))
     if pad >= 0:
@@ -273,10 +291,71 @@ def lookup_table_v2(ins, attrs):
     return {"Out": out}
 
 
+@register_grad_maker("lookup_table_v2")
+def _lookup_table_v2_grad_maker(op, out_grads, in_grads):
+    """The generic gradient (``_Lookup``'s dense one) or, with
+    ``is_sparse``, one ``lookup_table_sparse_grad`` op emitting a
+    SelectedRows, as the reference's maker does (lookup_table_op.cc's
+    SelectedRows grad kernel)."""
+    if not bool(op.attrs.get("is_sparse", False)):
+        return default_grad_maker(op, out_grads, in_grads)
+    og = (out_grads.get("Out") or [None])[0]
+    wg = (in_grads.get("W") or [None])[0]
+    if og is None or wg is None:
+        return []
+    return [OpDesc("lookup_table_sparse_grad",
+                   {"Ids": list(op.inputs["Ids"]),
+                    "W": list(op.inputs["W"]), "OutGrad": [og]},
+                   {"WGrad": [wg]},
+                   {"padding_idx": int(op.attrs.get("padding_idx", -1))})]
+
+
+@register_op("lookup_table_sparse_grad", skip_infer_shape=True,
+             non_diff_inputs=("Ids", "W", "OutGrad"))
+def lookup_table_sparse_grad(ins, attrs):
+    """d(lookup)/dW as a SelectedRows: rows the looked-up ids, values the
+    incoming cotangents in W's dtype; no [V, D] buffer. Rows of
+    padding_idx get zero values. An id out of range (``take_index``)
+    gets the sentinel row V, which every consumer drops, where the
+    reference's scatter drops it."""
+    ids = ins["Ids"][0].reshape(-1)
+    w, og = ins["W"][0], ins["OutGrad"][0]
+    height = w.shape[0]
+    idx, valid = take_index(ids, height)
+    vals = og.reshape(ids.shape[0], og.shape[-1]).to(w.dtype)
+    pad = int(attrs.get("padding_idx", -1))
+    if pad >= 0:
+        vals = vals * (ids != pad)[:, None].to(vals.dtype)
+    return {"WGrad": SelectedRows(torch.where(valid, idx, height), vals,
+                                  height)}
+
+
+@register_op("lookup_table", non_diff_inputs=("Ids",))
+def lookup_table(ins, attrs):
+    """The fluid 1.x lookup: a trailing dim of 1 on Ids is squeezed,
+    then as ``lookup_table_v2``."""
+    w, ids = ins["W"][0], ins["Ids"][0]
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ids = ids.squeeze(-1)
+    return lookup_table_v2({"W": [w], "Ids": [ids]}, attrs)
+
+
+@register_op("concat")
+def concat(ins, attrs):
+    return {"Out": torch.cat(ins["X"], dim=int(attrs.get("axis", 0)))}
+
+
 @register_op("sum")
 def sum_op(ins, attrs):
-    """Multi-input add: the gradient-accumulation op."""
+    """Multi-input add: the gradient-accumulation op. With its
+    SelectedRows branch (sum_op.cc): SelectedRows inputs alone
+    concatenate; a mix with dense inputs densifies them."""
     xs = [x for x in ins["X"] if x is not None]
+    if any(isinstance(x, SelectedRows) for x in xs):
+        if all(isinstance(x, SelectedRows) for x in xs):
+            return {"Out": concat_rows(xs)}
+        xs = [x.to_dense() if isinstance(x, SelectedRows) else x
+              for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

@@ -71,7 +71,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 ERNIE = dict(vocab_size=18000, hidden_size=1024, num_attention_heads=16,
              intermediate_size=4096)
@@ -119,18 +119,37 @@ def traced(run, reps, top_n=14):
     kernels, device ms by kernel class, int32 fill kernels (ms and
     count: a captured paged-attention or AdamW launch zeroes its own
     ticket in the graph with such a fill, ``torch.zeros`` of one int32)
-    and the launches of each MARKERS counter seen in the trace."""
+    and the launches of each MARKERS counter seen in the trace.
+
+    The profiler takes a warm-up step first (traced and discarded: a few
+    small kernels, not a run, so the launch counters see only the
+    counted runs), so the runs start with the device tracing already
+    recording: two of five full chip_smoke runs without it lost the
+    device record of one of the 18 flash forwards of Transformer-big's
+    op-by-op step, whose launch counter and device busy time show it
+    ran."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps,
+                                   repeat=1)) as prof:
+        warm = torch.zeros(1024, device="cuda")
+        for _ in range(64):
+            warm.add_(1.0)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / reps * 1e3
+        prof.step()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            run()
+            if i == reps - 1:
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) / reps * 1e3
+            prof.step()
+    # the schedule's step annotation has a device-side span over the
+    # whole step: not a kernel
     rows = [(e.key, e.self_device_time_total / reps / 1e3, e.count / reps)
             for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU and e.self_device_time_total]
+            if e.device_type != DeviceType.CPU and e.self_device_time_total
+            and not e.key.startswith("ProfilerStep")]
     rows.sort(key=lambda r: -r[1])
     by_class = defaultdict(float)
     for k, ms, _ in rows:
@@ -313,15 +332,17 @@ def _resnet50():
         info, RESNET_BATCH
 
 
-def _transformer_big(layers=None, warmup_steps=4000):
+def _transformer_big(layers=None, warmup_steps=4000, flash=True):
     """(program, startup, batch(size, seed), fetches [loss, learning
     rate], model fields, tokens a step) of Transformer-big at b48 s256,
     bf16 AMP, ``layers`` encoder and decoder layers each (6 by default),
-    noam over ``warmup_steps``."""
+    noam over ``warmup_steps``; ``flash=False`` builds the unfused
+    attention branch."""
     from paddle_tpu_torch.core import unique_name
     from paddle_tpu_torch.models import transformer
 
     cfg = transformer.transformer_big()
+    cfg.use_flash_attention = flash
     if layers:
         cfg.n_encoder_layers = cfg.n_decoder_layers = layers
     with unique_name.guard():
@@ -336,7 +357,7 @@ def _transformer_big(layers=None, warmup_steps=4000):
     info = {"model": "transformer_big", "layers": [cfg.n_encoder_layers,
                                                    cfg.n_decoder_layers],
             "batch": WMT_BATCH, "seq": WMT_SEQ, "dtype": "bf16 AMP",
-            "warmup_steps": warmup_steps}
+            "warmup_steps": warmup_steps, "flash_attention": flash}
     return main_prog, startup, batch, [fetches["loss"], lr], info, \
         WMT_BATCH * WMT_SEQ
 

@@ -44,13 +44,14 @@ def _nondeterministic_sources(main_prog, names):
 
 
 def compiled_parity(dev, layers, seq, steps, batch_size=None, seed=5,
-                    model="ernie_large", warmup_steps=4000):
+                    model="ernie_large", warmup_steps=4000, flash=True):
     """The record described in the module docstring, for ERNIE-large at
     ``seq`` (batch ``batch_size``, the cell's by default), ``layers``
     deep, or for Transformer-big (``model="transformer_big"``: ``layers``
     encoder and decoder layers each, noam over ``warmup_steps``; its
-    sequence is always s256, so ``seq`` is not read), over ``steps``
-    steps on one synthetic batch made from ``seed``.
+    sequence is always s256, so ``seq`` is not read; ``flash=False``
+    takes its unfused attention branch), over ``steps`` steps on one
+    synthetic batch made from ``seed``.
     ``losses_and_masks_bitwise_equal``, ``masks_new_each_step``,
     ``state_bitwise_equal_in_all_runs`` and ``launch_counts_equal`` are
     booleans; ``max_state_diff`` and ``max_eager_spread`` give, for each
@@ -66,7 +67,7 @@ def compiled_parity(dev, layers, seq, steps, batch_size=None, seed=5,
 
     if model == "transformer_big":
         main_prog, startup, make_batch, fetch, info, _ = _transformer_big(
-            layers, warmup_steps)
+            layers, warmup_steps, flash)
     else:
         main_prog, startup, make_batch, fetch, info, _ = _ernie(seq, layers)
     batch_size = batch_size or info["batch"]

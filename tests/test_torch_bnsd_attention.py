@@ -235,10 +235,29 @@ def test_4d_flash_ops_match_the_reference(bias_shape, causal):
 
 
 def test_4d_flash_op_refuses_a_full_bias():
-    ins, _ = _op_inputs(None, 0)
-    ins["Bias"] = np.zeros((2, H, 96, 128), np.float32)
-    with pytest.raises(NotImplementedError, match="reference_general"):
-        _pt_op("flash_attention", ins, ATTRS)
+    """A full [B,H,Sq,Sk] bias takes the reference's reference_general
+    route in both packages (no kernel): Out and the grads as there, the
+    general route counted once a call."""
+    from paddle_tpu_torch.kernels import flash_attention as pfa
+
+    ins, do = _op_inputs(None, 0)
+    ins["Bias"] = np.random.RandomState(3).randn(2, H, 96, 128).astype(
+        np.float32)
+    before = pfa.general_calls
+    jf = _jax_op("flash_attention", ins, ATTRS)
+    pf = _pt_op("flash_attention", ins, ATTRS)
+    _close(pf["Out"][0], jf["Out"][0], what="Out")
+    g_ins = dict(ins, OutGrad=do)
+    jg = _jax_op("flash_attention_grad",
+                 dict(g_ins, Out=np.asarray(jf["Out"][0]),
+                      Lse=np.asarray(jf["Lse"][0])), ATTRS)
+    pg = _pt_op("flash_attention_grad",
+                dict(g_ins, Out=pf["Out"][0], Lse=pf["Lse"][0]), ATTRS)
+    assert set(pg) == set(jg)
+    for slot in jg:
+        assert tuple(pg[slot][0].shape) == tuple(jg[slot][0].shape), slot
+        _close(pg[slot][0], jg[slot][0], TOL, slot)
+    assert pfa.general_calls == before + 2
 
 
 # ---------------------------------------------------------------------------

@@ -45,6 +45,7 @@ from paddle_tpu_torch.core import unique_name as pt_names
 from paddle_tpu_torch.core.executor import Executor
 from paddle_tpu_torch.core.ir import OpDesc as POpDesc
 from paddle_tpu_torch.core.scope import scope_from_numpy
+from paddle_tpu_torch.core.selected_rows import SelectedRows
 
 torch.set_num_threads(2)
 
@@ -257,11 +258,24 @@ def test_large_batch_update_matches_reference(kind, attrs, zero_param):
 
 
 def test_sparse_gradients_stay_refused():
-    ins = {k: [torch.from_numpy(v)] for k, v in
-           _opt_state(np.random.RandomState(0), "lamb", False).items()}
-    ins["Grad"] = [object()]
-    with pytest.raises(NotImplementedError):
-        pt_registry.get("lamb").forward(ins, {})
+    """LAMB has no SelectedRows branch in either package: a sparse
+    gradient is densified (the reference's ``_dense_grad``), so it
+    updates as its dense form does."""
+    rng = np.random.RandomState(0)
+    state = dict(_opt_state(rng, "lamb", False), Grad=_f(rng, 6, 5))
+    outs = []
+    for sparse in (False, True):
+        ins = {k: [torch.from_numpy(v.copy())] for k, v in state.items()}
+        g = ins["Grad"][0]
+        if sparse:      # every row, twice, in halves
+            rows = torch.arange(g.shape[0]).repeat(2)
+            ins["Grad"] = [SelectedRows(rows, torch.cat([g / 2, g / 2]),
+                                        g.shape[0])]
+        outs.append(pt_registry.get("lamb").forward(ins, {}))
+    for slot in outs[0]:
+        np.testing.assert_allclose(outs[1][slot].numpy(),
+                                   outs[0][slot].numpy(), rtol=1e-6,
+                                   atol=1e-7, err_msg=slot)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,11 @@ served bucket, and within 1e-5 of the unbatched run. The int8 serving
 path: the int8 GEMM at BERT-base's shapes, the static int8_matmul
 through ``torch._int_mm`` (M and N padded) bit for bit equal to the
 CPU's exact path, and a small int8 BERT (weight-only and static) through
-the predictor's CUDA graph.
+the predictor's CUDA graph. Queue C's C12 and C13 (the saturating cast,
+take_along_axis's wrapped and filled indices) bit for bit the CPU's; the
+flash op's general-bias route against the CPU with no kernel launch;
+``run_steps`` equal to k ``run()`` calls bit for bit; the threefry dropout
+mask (from an int key and from a key-table slot) the CPU's mask.
 Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -2039,3 +2043,162 @@ def test_compiled_step_handles_an_overflow_on_the_device(dev):
     by_name = [dict(zip(names, s)) for s in seqs["cuda"]]
     assert [(d["bad_steps_0"][0], d["good_steps_0"][0]) for d in by_name] == \
         [(0, 1), (0, 2), (1, 0), (0, 0), (0, 1), (0, 2)]
+
+
+# ---------------------------------------------------------------------------
+# queue C's C12 and C13, the general-bias flash route, run_steps and the
+# threefry dropout mask on the card
+# ---------------------------------------------------------------------------
+
+C12_CARD = [([float("nan"), 3e9, -3e9], "int32", [0, 2147483647, -2147483648]),
+            ([300.0, -1.0], "uint8", [255, 0]), ([300.0], "int8", [127]),
+            ([float("nan"), 1e5, -1e5, 7.9, -7.9], "int16",
+             [0, 32767, -32768, 7, -7]),
+            ([float("nan"), 1e10, float("-inf"), 2.7], "int64",
+             [0, 2147483647, -2147483648, 2])]
+
+
+@pytest.mark.parametrize("src", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x,dtype,want", C12_CARD)
+def test_c12_cast_saturates_on_the_card_as_on_the_cpu(dev, src, x, dtype,
+                                                      want):
+    from paddle_tpu_torch.core import registry
+
+    cast = registry.get("cast").forward
+    t = torch.tensor(x, dtype=src)
+    got = cast({"X": [t.to(dev)]}, {"out_dtype": dtype})["Out"].cpu()
+    cpu = cast({"X": [t]}, {"out_dtype": dtype})["Out"]
+    assert got.dtype == cpu.dtype and torch.equal(got, cpu)
+    if src == torch.float32:
+        assert got.tolist() == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("x,idx,axis", [
+    ([[1, 2, 3]], [[-1, 5]], 1), ([[1, 2, 3]], [[-3, 2, 3, -4]], 1),
+    ([[1, 2, 3], [4, 5, 6]], [[0], [-2], [2]], 0)])
+def test_c13_take_along_axis_on_the_card_as_on_the_cpu(dev, dtype, x, idx,
+                                                       axis):
+    from paddle_tpu_torch.core import registry
+
+    op = registry.get("take_along_axis").forward
+    ins = {"Input": torch.tensor(x, dtype=dtype),
+           "Index": torch.tensor(idx, dtype=torch.int32)}
+    got = op({k: [v.to(dev)] for k, v in ins.items()},
+             {"Axis": axis})["Result"].cpu()
+    cpu = op({k: [v] for k, v in ins.items()}, {"Axis": axis})["Result"]
+    assert got.dtype == cpu.dtype
+    assert torch.equal(torch.nan_to_num(got.float(), 7.5),
+                       torch.nan_to_num(cpu.float(), 7.5))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("heads", [4, 1])
+def test_general_bias_route_on_the_card(dev, dtype, tol, heads):
+    """A [B,H,Sq,Sk] or [B,1,Sq,Sk] bias: the flash op and its grad op on
+    the card against the CPU within rtol = atol = ``tol``, no kernel
+    launch, one general-route call each; a key bias on the same op
+    launches the kernel."""
+    from paddle_tpu_torch.core import registry
+
+    g = torch.Generator().manual_seed(3)
+    b, s, h, hd = 2, 96, 4, 64
+    q, k, v, do = (torch.randn(b, s, h * hd, generator=g).to(dtype)
+                   for _ in range(4))
+    bias = torch.randn(b, heads, s, s, generator=g)
+    attrs = {"num_heads": h, "dropout_prob": 0.1, "is_test": False,
+             "seed": 5, "__step__": 2, "causal": True}
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        kernels.reset_launch_counts()
+        ins = {"Q": [q.to(d)], "K": [k.to(d)], "V": [v.to(d)],
+               "Bias": [bias.to(d)]}
+        f = registry.get("flash_attention").forward(ins, dict(attrs))
+        gr = registry.get("flash_attention_grad").forward(
+            dict(ins, Out=[f["Out"]], Lse=[f["Lse"]], OutGrad=[do.to(d)]),
+            dict(attrs))
+        res[d.type] = (f, gr, kernels.general_route_calls(),
+                       sum(kernels.launch_counts().values()))
+    (fc, gc, calls, launched), (fr, gr, _, _) = res["cuda"], res["cpu"]
+    assert calls == 2 and launched == 0
+    for a, w in [(fc["Out"], fr["Out"]), (fc["Lse"], fr["Lse"])] + [
+            (gc[n], gr[n]) for n in ("QGrad", "KGrad", "VGrad", "BiasGrad")]:
+        torch.testing.assert_close(a.cpu().float(), w.float(), rtol=tol,
+                                   atol=tol)
+    assert tuple(gc["BiasGrad"].shape) == tuple(bias.shape)
+    kernels.reset_launch_counts()
+    registry.get("flash_attention").forward(
+        {"Q": [q.to(dev)], "K": [k.to(dev)], "V": [v.to(dev)],
+         "Bias": [bias[:, :1, :1, :].to(dev).contiguous()]}, dict(attrs))
+    assert fa.launches == 1 and kernels.general_route_calls() == 0
+
+
+def test_run_steps_equals_k_runs_on_the_card(dev):
+    """ERNIE-tiny with dropout and AdamW: run_steps over 4 stacked batches
+    equals 4 run() calls bit for bit (losses, masks, every state tensor,
+    the step counter), its AdamW and flash launches 4 times a step's."""
+    from paddle_tpu_torch.core.executor import STEP_COUNTER, Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.models import bert
+
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128,
+                          num_hidden_layers=2, num_attention_heads=2,
+                          intermediate_size=512, max_position_embeddings=64,
+                          use_flash_attention=True)
+    with unique_name.guard():
+        main, startup, _, fetches = bert.build_pretraining_program(
+            cfg, seq_len=64, optimizer_name="adamw",
+            max_predictions_per_seq=8)
+    mask = next(o.outputs["Mask"][0] for o in main.global_block().ops
+                if o.type == "dropout")
+    fetch = [fetches["loss"].name, mask]
+    batches = [bert.synthetic_pretraining_batch(
+        cfg, 4, 64, seed=i, max_predictions_per_seq=8) for i in range(4)]
+    exe, seq = Executor(device=dev), Scope()
+    exe.run(startup, scope=seq)
+    fused = Scope()
+    for n, t in seq.items():
+        fused.set(n, t.clone() if isinstance(t, torch.Tensor) else t)
+    kernels.reset_launch_counts()
+    want = [exe.run(main, feed=b, fetch_list=fetch, scope=seq)
+            for b in batches]
+    runs = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    got = Executor(device=dev).run_steps(
+        main, feed={n: np.stack([b[n] for b in batches])
+                    for n in batches[0]}, fetch_list=fetch, scope=fused)
+    assert kernels.launch_counts() == runs
+    for i in range(4):
+        for j in range(2):
+            assert np.array_equal(got[j][i], want[i][j])
+    for n, t in seq.items():
+        if isinstance(t, torch.Tensor):
+            assert torch.equal(fused.find_var(n), t), n
+    assert int(fused.find_var(STEP_COUNTER)) == int(seq.find_var(
+        STEP_COUNTER))
+
+
+def test_threefry_dropout_mask_on_the_card_is_the_cpu_mask(dev, monkeypatch):
+    """The threefry branch (the threshold lowered so that a small tensor
+    takes it) on the card: mask and output bit for bit the CPU's, from an
+    int key and from a key-table slot (a 0-d int64 tensor)."""
+    from paddle_tpu_torch.core import registry
+
+    monkeypatch.setattr(rng, "THREEFRY_MIN", 1 << 12)
+    monkeypatch.setattr(rng, "THREEFRY_CHUNK", 1 << 13)
+    x = torch.randn(37, 1000, generator=torch.Generator().manual_seed(1)
+                    ).to(torch.bfloat16)
+    attrs = {"dropout_prob": 0.3, "seed": 17, "__step__": 9}
+    op = registry.get("dropout").forward
+    cpu = op({"X": [x]}, dict(attrs))
+    key = torch.tensor(rng.key_values([17], 9)[0], device=dev)
+    for extra in ({}, {"__key__": key}):
+        got = op({"X": [x.to(dev)]}, dict(attrs, **extra))
+        assert torch.equal(got["Mask"].cpu(), cpu["Mask"])
+        assert torch.equal(got["Out"].cpu(), cpu["Out"])
+    idx = torch.arange(0, 1 << 34, (1 << 34) // 4096, dtype=torch.int64)
+    k = rng.op_key(attrs)
+    assert torch.equal(rng.threefry_bits_at(k, idx.to(dev)).cpu(),
+                       rng.threefry_bits_at(k, idx))

@@ -358,3 +358,82 @@ def test_c9_rows_without_a_visible_key_match_the_reference(dtype, with_bias,
         np.testing.assert_allclose(g.float().numpy(), f32(w), rtol=tol,
                                    atol=tol, err_msg=name)
     assert not grads[0][..., :e, :].float().any()   # dq 0 on those rows
+
+
+# C11-C14: each case runs the same numpy inputs through the reference's
+# lowering and the port's; values, shapes and dtypes exact.
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_c11_sign_keeps_nan_and_the_sign_of_zero(dtype):
+    x = np.array([np.nan, -0.0, 0.0, -2.5, 3.0, -np.inf], np.float32)
+    want = np.asarray(jnp.sign(jnp.asarray(x, dtype)), np.float32)
+    got = pt_registry.get("sign").forward(
+        {"X": [torch.from_numpy(x).to(getattr(torch, dtype))]}, {})["Out"]
+    got = got.float().numpy()
+    np.testing.assert_array_equal(got, want)
+    num = ~np.isnan(want)   # a NaN's sign bit carries nothing
+    np.testing.assert_array_equal(np.signbit(got[num]), np.signbit(want[num]))
+
+
+C12_CASES = [
+    (np.array([np.nan, 3e9, -3e9], np.float32), "int32"),
+    (np.array([300.0, -1.0], np.float32), "uint8"),
+    (np.array([300.0], np.float32), "int8"),
+    (np.array([np.nan, 1e5, -1e5, 7.9, -7.9], np.float32), "int16"),
+    (np.array([np.nan, 1e10, -1e10, np.inf, -np.inf, 2.7, -2.7],
+              np.float32), "int64"),
+    (np.array([-0.5, 255.9, 256.0, np.nan], np.float32), "uint8"),
+]
+
+
+@pytest.mark.parametrize("x,dtype", C12_CASES)
+def test_c12_cast_of_a_float_to_an_integer_saturates(x, dtype):
+    got, want = _both_ops("cast", {"X": x}, {"out_dtype": dtype})
+    _same(got["Out"][0], want["Out"][0])
+
+
+def test_c12_the_named_values():
+    def cast(x, dt):
+        return _pt_op("cast", {"X": np.asarray(x, np.float32)},
+                      {"out_dtype": dt})["Out"][0].numpy()
+
+    np.testing.assert_array_equal(cast([np.nan, 3e9, -3e9], "int32"),
+                                  [0, 2147483647, -2147483648])
+    np.testing.assert_array_equal(cast([300, -1], "uint8"), [255, 0])
+    np.testing.assert_array_equal(cast([300], "int8"), [127])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("index,axis", [
+    ([[-1, 5]], 1), ([[-3, 2, 3, -4]], 1), ([[0], [-2], [2]], 0)])
+def test_c13_take_along_axis_wraps_and_fills(dtype, index, axis):
+    x = np.array([[1, 2, 3]], dtype) if axis == 1 else \
+        np.array([[1, 2, 3], [4, 5, 6]], dtype)
+    ins = {"Input": x, "Index": np.asarray(index, np.int32)}
+    got, want = _both_ops("take_along_axis", ins, {"Axis": axis})
+    _same(got["Result"][0], want["Result"][0])
+
+
+def test_c14_clip_with_neither_bound_returns_x():
+    x = np.array([-3.0, 0.5, np.inf], np.float32)
+    got, want = _both_ops("clip", {"X": x}, {})
+    _same(got["Out"][0], want["Out"][0])
+    _same(got["Out"][0], x)
+
+
+def test_c14_check_finite_and_unscale_of_no_x_finds_nothing():
+    scale = np.array([4.0], np.float32)
+    want = jax_registry.get("check_finite_and_unscale").forward(
+        {"X": [], "Scale": [jnp.asarray(scale)]}, {})
+    got = pt_registry.get("check_finite_and_unscale").forward(
+        {"X": [], "Scale": [torch.from_numpy(scale)]}, {})
+    assert got["Out"] == [] and list(want["Out"]) == []
+    _same(got["FoundInfinite"].numpy(), np.asarray(want["FoundInfinite"]))
+
+
+def test_c14_top_k_past_the_axis_raises_in_both():
+    x = np.ones((2, 3), np.float32)
+    with pytest.raises(ValueError):
+        _jax_op("top_k", {"X": x}, {"k": 4})
+    with pytest.raises(ValueError):
+        _pt_op("top_k", {"X": x}, {"k": 4})

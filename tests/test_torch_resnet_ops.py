@@ -42,6 +42,7 @@ from paddle_tpu.models import resnet as jresnet
 
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.core import registry as pt_registry
+from paddle_tpu_torch.core.selected_rows import SelectedRows
 from paddle_tpu_torch.core import unique_name as pt_names
 from paddle_tpu_torch.core.executor import Executor
 from paddle_tpu_torch.core.ir import OpDesc as POpDesc
@@ -326,10 +327,15 @@ def test_optimizer_op_matches_reference_and_updates_in_place(case):
         np.testing.assert_allclose(got[slot].numpy(), np.asarray(w),
                                    rtol=1e-6, atol=1e-6, err_msg=slot)
         assert got[slot] is tins[slot[:-len("Out")]][0]
+    # the same gradient as a SelectedRows of every row, in reverse order:
+    # the row update gives the dense result
     sparse = _as_lists(ins, _to_torch)
-    sparse["Grad"] = [object()]      # a SelectedRows gradient
-    with pytest.raises(NotImplementedError):
-        pt_registry.get(op_type).forward(sparse, dict(attrs))
+    rows = torch.arange(15, -1, -1)
+    sparse["Grad"] = [SelectedRows(rows, sparse["Grad"][0][rows], 16)]
+    got = pt_registry.get(op_type).forward(sparse, dict(attrs))
+    for slot, w in want.items():
+        np.testing.assert_allclose(got[slot].numpy(), np.asarray(w),
+                                   rtol=1e-6, atol=1e-6, err_msg=slot)
 
 
 # ---------------------------------------------------------------------------

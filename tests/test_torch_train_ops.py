@@ -289,9 +289,14 @@ def test_optimizer_op_matches_reference_and_updates_in_place(op_type):
                                    rtol=1e-6, atol=1e-6, err_msg=slot)
     for slot in ("Param", "Moment1", "Moment2", "Beta1Pow", "Beta2Pow"):
         assert got[slot + "Out"] is tins[slot][0]
-    with pytest.raises(NotImplementedError):
-        pt_registry.get(op_type).forward(_as_lists(ins, _t),
-                                         dict(attrs, lazy_mode=True))
+    # lazy_mode with a dense gradient is the dense update, in both
+    want = jax_registry.get(op_type).forward(_as_lists(ins, lambda x: x),
+                                             dict(attrs, lazy_mode=True))
+    got = pt_registry.get(op_type).forward(_as_lists(ins, _t),
+                                           dict(attrs, lazy_mode=True))
+    for slot, w in want.items():
+        np.testing.assert_allclose(got[slot].numpy(), np.asarray(w),
+                                   rtol=1e-6, atol=1e-6, err_msg=slot)
 
 
 # ---------------------------------------------------------------------------

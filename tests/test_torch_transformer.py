@@ -87,11 +87,21 @@ def test_full_width_builds_the_reference_program(base, amp):
 
 
 def test_unfused_attention_is_not_in_the_port():
-    cfg = _cfg(ptr, True)
-    cfg.use_flash_attention = False
-    with pt_names.guard(), pytest.raises(NotImplementedError,
-                                         match="transpose"):
-        ptr.build_wmt_program(cfg, seq_len=SEQ)
+    """The unfused branch builds the reference's program: no flash op,
+    one shared causal table (its training is held in
+    ``test_torch_transformer_unfused.py``)."""
+    progs = []
+    for mod, names in ((jtr, jax_names), (ptr, pt_names)):
+        cfg = _cfg(mod, True)
+        cfg.use_flash_attention = False
+        with names.guard():
+            progs.append(mod.build_wmt_program(cfg, seq_len=SEQ))
+    (jmain, jstart, _, _), (pmain, pstart, _, _) = progs
+    assert _json(pmain) == _json(jmain) and _json(pstart) == _json(jstart)
+    ops = [o.type for o in pmain.global_block().ops]
+    assert "flash_attention" not in ops and ops.count("softmax") == 6
+    assert [p.name for p in pmain.all_parameters()
+            if p.name.startswith("causal_mask")] == [f"causal_mask_{SEQ}"]
 
 
 def _lr_name(main):
