@@ -23,6 +23,26 @@ temporary at once, so ``Executor.run`` computes each var's last reader
 once per program and drops a non-persistable, non-fetched var from the
 env right after it, in either path: inside a capture the freed blocks
 return to the graph's pool and later ops of the step reuse them.
+
+Telemetry, with the reference's names: the spans ``executor.run`` (or
+``executor.run_steps``), ``executor.feed``, ``executor.dispatch`` and
+``executor.fetch`` of a sampled run; the counters ``runs_compiled`` /
+``runs_interpreted``, ``cache_hits`` / ``cache_misses`` (a key's first
+run), ``feed_host_bytes`` / ``fetch_host_bytes``, ``fused_dispatches``
+/ ``fused_steps``; the port's compile is a step's capture:
+``executor.compiles``, ``compile_ms`` and a ``compile`` record whose
+cause names the components of the step's key that changed
+(``_KEY_COMPONENTS``); the timers ``interpret_ms`` (op by op),
+``run_ms`` / ``run_steps_ms`` (replays) and their split into
+``device_ms`` (CUDA events around the replay, read once they have
+completed: the host never waits for them) and ``host_dispatch_ms``.
+A capture books a cost record (``core/costmodel.py``) when cost capture
+is on, every replay its flops; an allocation failure raises
+``costmodel.OutOfMemoryError`` after its forensics record; every run
+ticks the SLO watchdog and the goodput ledger. ``FLAGS_verify_program``
+runs the static verifier once a (program, op count) before its run. Op
+ranges for the profiler (``profiler.RecordEvent``) open only while it
+records.
 """
 
 from __future__ import annotations
@@ -35,7 +55,9 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from . import registry, rng, telemetry, trace
+from . import costmodel, goodput, incidents, registry, rng, telemetry, trace
+from .. import profiler as _prof
+from .flags import flag as _flag
 from .graph import StepGraph
 from .ir import Block, OpDesc, Program, Variable, default_main_program
 from .registry import EMPTY_VAR
@@ -95,7 +117,9 @@ def run_op(op: OpDesc, env: Dict[str, Any], step=None,
     if seeds is not None:
         attrs["__seeds__"] = seeds
     try:
-        with contextlib.nullcontext() if autograd else torch.no_grad():
+        with contextlib.nullcontext() if autograd else torch.no_grad(), \
+                _prof.RecordEvent(op.type) if _prof.active() \
+                else contextlib.nullcontext():
             outs = registry.normalize_outputs(opdef.forward(ins, attrs))
     except (ExecutionError, NotImplementedError,
             torch.cuda.OutOfMemoryError):
@@ -223,6 +247,136 @@ def _step_key(plan_key, feeds) -> tuple:
                                   for n, shape, dt in feeds))
 
 
+# the components of a compiled step's identity, in order: the program,
+# its op count (the port's program version), the scope, and the parts of
+# ``_step_key``; the recompile cause names the ones that changed
+_KEY_COMPONENTS = ("program", "program_version", "scope", "feed_names",
+                   "fetch_names", "feed_shapes", "feed_dtypes")
+
+_UIDS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _uid(obj) -> int:
+    """A small per-process id of a program or scope (the reference's
+    ``uid``), stable while the object lives."""
+    uid = _UIDS.get(obj)
+    if uid is None:
+        uid = _UIDS[obj] = len(_UIDS) + 1
+    return uid
+
+
+def _cause_key(program, scope, key) -> tuple:
+    (n_ops, fetch_names), feeds = key
+    return (_uid(program), n_ops, _uid(scope),
+            tuple(n for n, _, _ in feeds), fetch_names,
+            tuple(shape for _, shape, _ in feeds),
+            tuple(str(dt) for _, _, dt in feeds))
+
+
+def _recompile_cause(key: tuple, cached_keys) -> str:
+    """Why a capture happened: the components in which the new key
+    differs from the nearest key captured before (most components
+    equal), or ``first_compile``."""
+    if not cached_keys:
+        return "first_compile"
+    best, best_n = None, -1
+    for k in cached_keys:
+        n = sum(1 for a, b in zip(k, key) if a == b)
+        if n > best_n:
+            best, best_n = k, n
+    changed = [comp for comp, a, b in zip(_KEY_COMPONENTS, best, key)
+               if a != b]
+    return ",".join(changed) if changed else "unknown"
+
+
+def _values(env, names) -> List[Any]:
+    return [env[n] for n in names if n != EMPTY_VAR and n in env]
+
+
+def meta_count(ops, dead, env: Dict[str, Any], seed_of=None,
+               runs_sub=()) -> tuple:
+    """(flops, bytes, GEMM dtype) of one step of ``ops`` over ``env``,
+    run on meta tensors of the same shapes (``costmodel.count_ops``):
+    every tensor of ``env`` and of ``seed_of`` (a compiled step's seed
+    and key slots) becomes a meta tensor, every op runs through
+    ``run_op``, and each op's input and output bytes are summed."""
+    def meta(v):
+        return torch.empty_like(v, device="meta") \
+            if isinstance(v, torch.Tensor) else v
+
+    start = {n: meta(v) for n, v in env.items()}
+    seeds = {k: (meta(a), meta(b)) for k, (a, b) in (seed_of or {}).items()}
+
+    def run(each):
+        menv = dict(start)
+        with registry.creating_on("meta"):
+            for i, (op, drop) in enumerate(zip(ops, dead)):
+                each(_values(menv, op.input_names()))
+                run_op(op, menv, seed=seeds.get(i),
+                       seeds=seeds if i in runs_sub else None)
+                each(_values(menv, op.output_names()))
+                for n in drop:
+                    menv.pop(n, None)
+
+    return costmodel.count_ops(run)
+
+
+# runs whose device time is still on the card: (start event, end event,
+# the run's wall ms), read once they have completed
+_pending_device: List[tuple] = []
+
+
+def _observe_split(device_ms: float, run_ms: float):
+    telemetry.observe("executor.device_ms", device_ms, kind="timer")
+    telemetry.observe("executor.host_dispatch_ms",
+                      max(0.0, run_ms - device_ms), kind="timer")
+
+
+def _settle_device(wait: bool = True):
+    """Observe ``executor.device_ms`` and ``host_dispatch_ms`` of the
+    runs whose end events have completed (all of them with ``wait``,
+    which synchronises on each: never on the hot path)."""
+    while _pending_device:
+        start, end, run_ms = _pending_device[0]
+        if wait:
+            end.synchronize()
+        elif not end.query():
+            return
+        _pending_device.pop(0)
+        _observe_split(start.elapsed_time(end), run_ms)
+
+
+telemetry.add_settler(_settle_device)
+
+
+class _DeviceClock:
+    """The device time of the work inside the block: CUDA events around
+    it on the card (``value``: the pair, read later by
+    ``_settle_device``), the host's wall around it elsewhere (``value``:
+    ms; the CPU runs it synchronously)."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.value = None
+
+    def __enter__(self):
+        if self.cuda:
+            self._events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            self._events[0].record()
+        else:
+            self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self._events[1].record()
+            self.value = self._events
+        else:
+            self.value = (time.perf_counter() - self._t0) * 1e3
+        return False
+
+
 class _CompiledStep:
     """One key's compiled step: static feed buffers, the state tensors
     the scope held when it was built, a seed table, and the step captured
@@ -269,6 +423,10 @@ class _CompiledStep:
                       for n, (t, dt) in feeds.items()}
         slots = rng.seed_slots(ops)
         self.seed_attrs = [s for _, s in slots]
+        self.cost: Optional[costmodel.ProgramCost] = None
+        # allocator statistics around the graph capture (cost level full)
+        self.measure_memory = False
+        self.capture_memory: Optional[Dict[str, int]] = None
         # row 0 the seed table, row 1 the key table
         self.tables = torch.zeros(2, len(slots), dtype=torch.int64,
                                   device=device)
@@ -325,9 +483,22 @@ class _CompiledStep:
         self.copied.record()
 
     def _replay(self) -> List[Any]:
-        if self.graph.graph is None:
-            self.graph.capture()
+        if self.graph.graph is None and self.device.type == "cuda":
+            with _prof.RecordEvent("executor::compile"):
+                if self.measure_memory:
+                    _, self.capture_memory = costmodel.memory_around(
+                        self.graph.capture, self.device)
+                else:
+                    self.graph.capture()
         return self.graph.replay()
+
+    def meta_cost(self) -> tuple:
+        """(flops, bytes, GEMM dtype) of one step, from a run of its
+        lowerings on meta tensors (``meta_count``)."""
+        env: Dict[str, Any] = dict(self.state)
+        env.update(self.feeds)
+        return meta_count(self.ops, self.dead, env, self.seed_of,
+                          self.runs_sub)
 
     def run(self, feeds: Dict[str, torch.Tensor], step: int
             ) -> List[Any]:
@@ -356,6 +527,23 @@ class _CompiledStep:
         return outs
 
 
+def program_cost(program: Program, feed: Dict[str, Any],
+                 fetch_list: Sequence[Union[str, Variable]],
+                 scope: Scope) -> tuple:
+    """(flops, bytes, GEMM dtype) of one compiled step of ``program`` over
+    ``feed`` and ``scope``'s state, with nothing run on a device: the
+    count the executor's cost capture of that step records
+    (``_CompiledStep.meta_cost``)."""
+    block = program.global_block()
+    fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                   for f in fetch_list]
+    persist = {v.name for v in block.vars.values() if v.persistable}
+    dead = _last_readers(block, persist | set(fetch_names))
+    feeds = {n: _feed_spec(block, n, v) for n, v in feed.items()}
+    return _CompiledStep(torch.device("meta"), list(block.ops), dead, scope,
+                         feeds, fetch_names, persist).meta_cost()
+
+
 class Executor:
     """User-facing run loop (reference: ``Executor``,
     ``paddle_tpu/core/executor.py:276``): ``run(program, feed,
@@ -379,10 +567,83 @@ class Executor:
         self._compiled = weakref.WeakKeyDictionary()
         # compiled steps built (on a CUDA device: graphs captured)
         self.compiled_builds = 0
+        # the cause keys of the steps built, for the recompile cause
+        self._cause_keys: List[tuple] = []
+        # program -> op count verified (FLAGS_verify_program)
+        self._verified = weakref.WeakKeyDictionary()
 
     def close(self):
         self._dead.clear()
         self._compiled.clear()
+
+    def _maybe_verify(self, program, feed, fetch_names, scope):
+        """FLAGS_verify_program: run the static verifier
+        (``core/verify.py``) once per (program, version: its op count)
+        before the program's first run, so a corrupt program raises a
+        typed, located ProgramVerifyError."""
+        if not _flag("verify_program"):
+            return
+        n_ops = sum(len(b.ops) for b in program.blocks)
+        if self._verified.get(program) == n_ops:
+            return
+        from .verify import verify_program
+
+        verify_program(program, feed_names=set(feed or ()),
+                       fetch_names=fetch_names, scope=scope,
+                       context="executor pre-run gate")
+        self._verified[program] = n_ops
+
+    def _build_step(self, program, scope, key, block, dead, feeds,
+                    fetch_names, persist) -> "_CompiledStep":
+        """A new compiled step for ``key``: counted as a compile, with the
+        cause of the recompile, and (cost capture on) its allocator
+        statistics taken around the graph capture."""
+        compiled = _CompiledStep(self.device, list(block.ops), dead, scope,
+                                 feeds, fetch_names, persist)
+        compiled.measure_memory = self.device.type == "cuda" and \
+            costmodel.capture_mode() == "full"
+        compiled.cause_key = _cause_key(program, scope, key)
+        compiled.cause = _recompile_cause(compiled.cause_key,
+                                          self._cause_keys)
+        self._cause_keys.append(compiled.cause_key)
+        self.compiled_builds += 1
+        return compiled
+
+    def _after_compile(self, program, block, compiled, key, outs,
+                       compile_ms: float):
+        """Account a compiled step's first run (its capture): the compile
+        counters and event, and, with cost capture on, its cost record
+        and the persistable split of its state."""
+        if costmodel.capture_mode() != "off":
+            mem = compiled.capture_memory
+            if mem is not None:
+                mem = dict(mem, out_bytes=sum(costmodel._nbytes(o)
+                                              for o in outs))
+            label = f"p{_uid(program)}v{len(block.ops)}"
+            compiled.cost = costmodel.capture(
+                compiled.meta_cost, key_id=costmodel.key_id_for(
+                    compiled.cause_key), kind="executor", program=label,
+                device=self.device, memory=mem)
+            names = list(compiled.state)
+            pb, ob = costmodel.split_persistable_bytes(
+                block, names, [compiled.state[n] for n in names])
+            costmodel.record_model_bytes(pb, ob)
+        costmodel.book_dispatch(compiled.cost)
+        (n_ops, fetch_names), feeds = key
+        n_steps = sum(isinstance(c, _CompiledStep)
+                      for steps in self._compiled.values()
+                      for by_key in steps.values() for c in by_key.values())
+        telemetry.counter_add("executor.compiles", 1)
+        telemetry.counter_add("executor.compile_ms", round(compile_ms, 3))
+        telemetry.gauge_set("executor.cache_size", n_steps)
+        telemetry.event(
+            "compile", "executor", round(compile_ms, 3),
+            {"cause": compiled.cause, "cache_size": n_steps,
+             "program": _uid(program), "program_version": n_ops,
+             "feed_names": [n for n, _, _ in feeds],
+             "fetch_names": list(fetch_names),
+             "feed_shapes": [list(sh) for _, sh, _ in feeds],
+             "steps_per_dispatch": 1})
 
     def run_steps(self, program: Optional[Program] = None,
                   feed: Optional[Dict[str, Any]] = None,
@@ -410,7 +671,9 @@ class Executor:
         copied on the device, nothing read back between steps), and the
         fetches are read back once. The span ``executor.run_steps`` and
         the timer ``executor.run_steps_ms`` (one sample a call, covering
-        k steps) are written as the reference writes them. A program
+        k steps; its device split when all k were replays) are written as
+        the reference writes them, and the step's cost record books k
+        steps. A program
         with a host-IO op raises: the reference's fallback to k
         sequential runs comes with those ops (ROADMAP A9)."""
         if program is None:
@@ -443,13 +706,21 @@ class Executor:
                 f"run_steps over a program with host-IO ops {io}: the "
                 f"reference runs k sequential steps there, which comes "
                 f"with those ops (ROADMAP A9)")
+        self._maybe_verify(program, feed, fetch_names, scope)
+        feed_host_bytes = sum(v.nbytes for v in feed.values()
+                              if isinstance(v, np.ndarray))
+        if feed_host_bytes:
+            telemetry.counter_add("executor.feed_host_bytes",
+                                  int(feed_host_bytes))
         t0 = time.perf_counter()
-        with trace.span("executor.run_steps", k=k):
+        device = None
+        with trace.span("executor.run_steps", program=_uid(program), k=k):
             block = program.global_block()
             stacked = {}
-            for n, v in feed.items():
-                t, dt = _feed_spec(block, n, v)
-                stacked[n] = t.to(device=self.device, dtype=dt)
+            with trace.span("executor.feed", feeds=len(feed)):
+                for n, v in feed.items():
+                    t, dt = _feed_spec(block, n, v)
+                    stacked[n] = t.to(device=self.device, dtype=dt)
             rows: List[List[Any]] = []
             while len(rows) < k:
                 i = len(rows)
@@ -462,15 +733,29 @@ class Executor:
                     rows.append([_fetched(v, False) for v in out])
                     continue
                 step = int(scope.find_var(STEP_COUNTER) or 0)
-                rows += compiled.run_many({n: t[i:] for n, t in
-                                           stacked.items()}, step, k - i)
+                telemetry.counter_add("executor.runs_compiled", 1)
+                telemetry.counter_add("executor.cache_hits", 1)
+                with trace.span("executor.dispatch", compiled=True,
+                                k=k - i), _DeviceClock(self.device) as clock:
+                    rows += compiled.run_many({n: t[i:] for n, t in
+                                               stacked.items()}, step, k - i)
+                # the device split only when every step was a replay: the
+                # run() calls above did their own
+                device = clock.value if i == 0 else None
                 scope.set(STEP_COUNTER, np.int32(step + k - i))
-            out = [_stack([r[j] for r in rows])
-                   for j in range(len(fetch_names))]
-            if return_numpy and sync_fetch:
-                out = [_fetched(v, True) for v in out]
-        telemetry.observe("executor.run_steps_ms",
-                          (time.perf_counter() - t0) * 1e3, kind="timer")
+                telemetry.counter_add("executor.fused_dispatches", 1)
+                telemetry.counter_add("executor.fused_steps", k - i)
+                costmodel.book_dispatch(compiled.cost, steps=k - i)
+            with trace.span("executor.fetch", sync=return_numpy and
+                            sync_fetch):
+                out = [_stack([r[j] for r in rows])
+                       for j in range(len(fetch_names))]
+                if return_numpy and sync_fetch:
+                    out = [_fetched(v, True) for v in out]
+        self._account("executor.run_steps_ms", device,
+                      (time.perf_counter() - t0) * 1e3)
+        incidents.tick()
+        goodput.tick()
         return out
 
     def _built_step(self, program, scope, fetch_names, stacked):
@@ -521,9 +806,57 @@ class Executor:
             program = default_main_program()
         if scope is None:
             scope = global_scope()
-        block = program.global_block()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
+        self._maybe_verify(program, feed, fetch_names, scope)
+        feed_host_bytes = sum(v.nbytes for v in (feed or {}).values()
+                              if isinstance(v, np.ndarray))
+        if feed_host_bytes:
+            telemetry.counter_add("executor.feed_host_bytes",
+                                  int(feed_host_bytes))
+        t0 = time.perf_counter()
+        try:
+            with trace.span("executor.run", program=_uid(program)):
+                out, timer, device = self._run(
+                    program, feed, fetch_names, scope, return_numpy,
+                    use_compiled, t0)
+        except torch.OutOfMemoryError as e:
+            raise costmodel.oom_forensics(
+                f"p{_uid(program)}v{len(program.global_block().ops)}", e,
+                where="executor.dispatch") from e
+        if return_numpy:
+            fetch_bytes = sum(v.nbytes for v in out
+                              if isinstance(v, np.ndarray))
+            if fetch_bytes:
+                telemetry.counter_add("executor.fetch_host_bytes",
+                                      int(fetch_bytes))
+        self._account(timer, device, (time.perf_counter() - t0) * 1e3)
+        incidents.tick()
+        goodput.tick()
+        return out
+
+    @staticmethod
+    def _account(timer: Optional[str], device, run_ms: float):
+        """One run's timer (``executor.interpret_ms`` op by op,
+        ``executor.run_ms`` or ``run_steps_ms`` for replays) and, given a
+        replay's ``_DeviceClock`` value, its device / host split. CUDA
+        events are read once they have completed (at a later run,
+        ``goodput.breakdown`` or ``flush``): the host never waits for the
+        card here."""
+        if timer is None:
+            return
+        telemetry.observe(timer, run_ms, kind="timer")
+        if isinstance(device, tuple):
+            _pending_device.append(device + (run_ms,))
+            _settle_device(wait=False)
+        elif device is not None:
+            _observe_split(device, run_ms)
+
+    def _run(self, program, feed, fetch_names, scope, return_numpy,
+             use_compiled, t0):
+        """One run: (fetches, the timer and device clock value for
+        ``_account``: none for a key's first run and its capture)."""
+        block = program.global_block()
         step = scope.find_var(STEP_COUNTER)
         step = 0 if step is None else int(step)
         persist = {v.name for v in block.vars.values() if v.persistable}
@@ -533,9 +866,13 @@ class Executor:
         if dead is None:
             dead = plans[plan_key] = _last_readers(block,
                                                    persist | set(fetch_names))
-        feeds = {n: _feed_spec(block, n, v) for n, v in (feed or {}).items()}
+        with trace.span("executor.feed", feeds=len(feed or {})):
+            feeds = {n: _feed_spec(block, n, v)
+                     for n, v in (feed or {}).items()}
+        telemetry.counter_add("executor.runs_compiled" if use_compiled
+                              else "executor.runs_interpreted", 1)
 
-        compiled = None
+        compiled, built = None, False
         if use_compiled:
             steps = self._compiled.setdefault(
                 program, weakref.WeakKeyDictionary()).setdefault(scope, {})
@@ -543,24 +880,39 @@ class Executor:
                                        for n, (t, dt) in feeds.items()))
             compiled = steps.get(key)
             if compiled is _SEEN:
-                compiled = steps[key] = _CompiledStep(
-                    self.device, list(block.ops), dead, scope, feeds,
-                    fetch_names, persist)
-                self.compiled_builds += 1
+                compiled = steps[key] = self._build_step(
+                    program, scope, key, block, dead, feeds, fetch_names,
+                    persist)
+                built = True
             elif compiled is not None and not compiled.holds(scope):
                 compiled = None
+            elif compiled is not None:
+                telemetry.counter_add("executor.cache_hits", 1)
             if compiled is None:
                 steps[key] = _SEEN
+                telemetry.counter_add("executor.cache_misses", 1)
         if compiled is not None:
-            out = compiled.run({n: t for n, (t, _) in feeds.items()}, step)
+            with trace.span("executor.dispatch", compiled=True), \
+                    _DeviceClock(self.device) as clock, \
+                    _prof.RecordEvent("executor::run"):
+                out = compiled.run({n: t for n, (t, _) in feeds.items()},
+                                   step)
             scope.set(STEP_COUNTER, np.int32(step + 1))
-            return [_fetched(v, return_numpy) for v in out]
+            with trace.span("executor.fetch", sync=return_numpy):
+                fetched = [_fetched(v, return_numpy) for v in out]
+            if built:
+                self._after_compile(program, block, compiled, key, out,
+                                    (time.perf_counter() - t0) * 1e3)
+                return fetched, None, None
+            costmodel.book_dispatch(compiled.cost)
+            return fetched, "executor.run_ms", clock.value
 
         env: Dict[str, Any] = dict(scope.items())
         env.update({n: t.to(device=self.device, dtype=dt)
                     for n, (t, dt) in feeds.items()})
         feeds.clear()   # the env holds the only reference to each feed
-        with registry.creating_on(self.device):
+        with trace.span("executor.dispatch", compiled=False), \
+                registry.creating_on(self.device):
             for op, drop in zip(block.ops, dead):
                 run_op(op, env, step=step)
                 for n in drop:
@@ -571,11 +923,13 @@ class Executor:
                 scope.set(name, env[name])
         scope.set(STEP_COUNTER, np.int32(step + 1))
         out = []
-        for n in fetch_names:
-            if n not in env:
-                raise ExecutionError(f"fetch target '{n}' was not produced")
-            v = env[n]
-            if return_numpy or isinstance(v, SelectedRows):
-                v = _fetched(v, return_numpy)
-            out.append(v)
-        return out
+        with trace.span("executor.fetch", sync=return_numpy):
+            for n in fetch_names:
+                if n not in env:
+                    raise ExecutionError(
+                        f"fetch target '{n}' was not produced")
+                v = env[n]
+                if return_numpy or isinstance(v, SelectedRows):
+                    v = _fetched(v, return_numpy)
+                out.append(v)
+        return out, (None if use_compiled else "executor.interpret_ms"), None

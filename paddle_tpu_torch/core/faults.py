@@ -29,7 +29,7 @@ registry re-reads the spec flag on use, so ``configure`` (or
 ``flags.set_flags``) takes effect mid-run; an empty spec keeps
 ``maybe_fail`` at a dict lookup. The registry's lock is a plain
 ``threading.Lock`` (the reference's lockdep-checked locks are ROADMAP
-A10).
+A10b).
 """
 
 from __future__ import annotations

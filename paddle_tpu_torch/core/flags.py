@@ -6,7 +6,10 @@ and inference planes read: the ``FLAGS_decode_*`` entries behind
 ``predictor_cache_capacity``, ``verify_passes``, ``ckpt_verify``, the
 ``router_*``, ``serving_model_poll_s`` and ``cluster_max_restarts``
 entries of the router and the cluster controller, the fault-injection,
-tracing and metrics-window entries, the SLO watchdog's and the incident
+tracing and metrics-window entries, the observability plane's entries
+(the run-log sink's ``telemetry_*``, ``cost_capture``,
+``device_peak_*``, ``goodput_publish_s``, ``profiler_max_events``, the
+flight recorder's ``blackbox_*`` and the executor's ``verify_program``), the SLO watchdog's and the incident
 records' entries (core/incidents.py), the ``scaler_*`` entries of the
 scale policy (distributed/scaler.py), the ``tuner_*`` entries of the
 autotuner (core/tuner.py), the typed bucket-list parser, ``snapshot``
@@ -308,6 +311,77 @@ define_flag("trace_sample_rate", 0.0,
 define_flag("metrics_window_s", 60.0,
             "rolling window of the live metrics (telemetry.windowed, "
             "prometheus_text, /metrics), in seconds")
+
+# -- the observability plane (core/telemetry.py, costmodel.py, goodput.py,
+#    incidents.py, profiler.py; the executor's verifier gate) -------------
+
+define_flag("telemetry_path", "",
+            "path of the structured-telemetry JSONL run log (core/"
+            "telemetry.py); empty disables the sink. The PT_TELEMETRY_LOG "
+            "env var is an alias with lower precedence. Render with "
+            "tools/perf_report.py")
+define_flag("telemetry_buffer_lines", 64,
+            "JSONL sink line-batching: records buffer in memory and are "
+            "written as one batched write once this many lines are "
+            "pending (or telemetry_flush_s elapses, or flush_sink() is "
+            "called); 1 restores write-through. Sink write failures are "
+            "counted in telemetry.dropped_records, never raised into the "
+            "instrumented thread")
+define_flag("telemetry_flush_s", 0.25,
+            "max seconds a buffered JSONL record waits before the sink "
+            "flushes it (inline on the next emit + a lazy daemon flusher "
+            "thread); flush also happens at exit and on path change")
+define_flag("cost_capture", "auto",
+            "per-capture cost/memory capture level (core/costmodel.py): "
+            "'off' disables; 'cost' counts the step's flops once per "
+            "capture key by running its lowerings on meta tensors under "
+            "FlopCounterMode, and its bytes from each op's meta shapes; "
+            "'full' adds the peak/argument/temp bytes of the CUDA-graph "
+            "capture from torch.cuda.memory_stats; 'auto' (default) "
+            "behaves as 'cost' when the run is instrumented (telemetry "
+            "sink or metrics server active) and 'off' otherwise. On the "
+            "CPU a memory analysis that is unavailable is counted "
+            "(costmodel.unavailable); on a CUDA device a failed capture "
+            "raises")
+define_flag("device_peak_flops", 0.0,
+            "peak dense flops/s of one device for the live MFU gauge "
+            "and roofline verdicts (core/costmodel.py); <= 0 uses the "
+            "built-in device table keyed on the device name and the "
+            "dtype of the program's GEMM operands")
+define_flag("device_peak_bw", 0.0,
+            "peak memory bytes/s of one device for the roofline ridge "
+            "point (core/costmodel.py); <= 0 uses the built-in device "
+            "table")
+define_flag("goodput_publish_s", 2.0,
+            "seconds between goodput-ledger publishes on the executor "
+            "hot path (goodput.* counters + the goodput.ratio gauge "
+            "refreshed on /metrics while the run is live)")
+define_flag("profiler_max_events", 1_000_000,
+            "ring-buffer bound on the profiler's host-span store — long "
+            "runs overwrite the oldest spans instead of growing host "
+            "memory without limit; drops are counted in the "
+            "profiler.events_dropped telemetry counter")
+define_flag("blackbox_max_records", 2048,
+            "bound on the always-on flight-recorder ring "
+            "(core/incidents.py): the last this-many telemetry records / "
+            "trace spans / decode-router events are kept in memory — "
+            "independent of any JSONL sink — and bundled into every "
+            "kind:'incident' dump; 0 disables the recorder entirely "
+            "(incident dumps then carry an empty ring)")
+define_flag("blackbox_seconds", 120.0,
+            "time horizon of the flight-recorder ring: a snapshot taken "
+            "for an incident dump drops records older than this many "
+            "seconds even when the ring's record bound has not evicted "
+            "them yet")
+define_flag("verify_program", False,
+            "static program verification gate (core/verify.py): every "
+            "program an Executor runs is checked once per (program, "
+            "version) — structural integrity (vars exist, ops "
+            "registered, required attrs), dataflow (def-before-use, "
+            "dangling reads vs the actual feed/scope), write-write "
+            "hazards — raising a typed ProgramVerifyError before the "
+            "first run instead of an opaque error inside a lowering. "
+            "Cheap pure-Python checks only")
 
 
 # -- knobs of the reference's search space with no reader in the port

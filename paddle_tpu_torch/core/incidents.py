@@ -1,6 +1,11 @@
-"""SLO watchdog and incident records (port of
-``paddle_tpu/core/incidents.py`` :143-679).
+"""Flight recorder, SLO watchdog and incident records (port of
+``paddle_tpu/core/incidents.py``).
 
+* **Flight recorder** (:class:`FlightRecorder`): an always-on bounded
+  ring of the most recent telemetry records, installed as telemetry's
+  tap, so it sees every record whether or not a JSONL sink is configured
+  (``FLAGS_blackbox_max_records``, pruned to ``FLAGS_blackbox_seconds``
+  when a snapshot is taken).
 * **Rules** (:class:`Rule`): one metric of the rolling telemetry window
   (``telemetry.windowed``: a counter's delta or rate, a histogram
   percentile, a gauge), a window, a threshold (absolute, or a ratio of a
@@ -12,22 +17,20 @@
   the ``slo.<rule>_firing`` gauge (what ``SLOScalerPolicy`` reads),
   counts ``slo.trips`` and files an incident. ``arm`` / ``disarm`` /
   ``armed`` / ``tick`` (throttled to ``FLAGS_slo_eval_s``, inert while
-  disarmed) / ``start_watchdog`` / ``stop_watchdog`` / ``health`` /
-  ``reset``, with ``FLAGS_slo_watchdog`` on / off / auto.
+  disarmed; the executor, the decode engine's step loop, the
+  micro-batching engine's batch loop and the router's probe loop call
+  it) / ``start_watchdog`` / ``stop_watchdog`` / ``health`` / ``reset``,
+  with ``FLAGS_slo_watchdog`` on / off / auto (auto: armed while a
+  serving HTTP server, a metrics server or a router runs).
 * **Records**: ``report_incident`` (rate-limited by
   ``FLAGS_incident_rate_limit_s`` unless ``rate_limit=False``, as the
-  cluster controller's ``replica_death`` record is) and
-  ``report_scale_event`` (one ``kind:"scale"`` record a world-size
-  transition, never rate-limited, counted as ``incidents.scale_events``).
-  Both land in the port's in-memory telemetry event ring
-  (``telemetry.recent_events``).
-
-Not ported (ROADMAP A10): the flight recorder, which taps every record of
-the reference's run-log sink, and the attachments an incident carries
-there (the HBM ledger of ``core/costmodel``, the recent trace ids, the
-goodput breakdown) and the sink flush. An incident here embeds the most
-recent ``FLAGS_incident_ring_records`` events of the telemetry ring
-instead of the recorder's snapshot.
+  cluster controller's ``replica_death`` record is) writes one
+  ``kind:"incident"`` record bundling the flight recorder's snapshot,
+  the recently active trace ids (``trace.recent_trace_ids``), the memory
+  ledger (``costmodel.ledger``), the goodput breakdown and the counters,
+  then flushes the sink: ``tools/incident_report.py`` renders it.
+  ``report_scale_event`` writes one ``kind:"scale"`` record a world-size
+  transition, never rate-limited, counted as ``incidents.scale_events``.
 """
 
 from __future__ import annotations
@@ -35,10 +38,74 @@ from __future__ import annotations
 import json
 import threading
 import time
+from collections import deque
 from typing import Any, Dict, List, Optional
 
 from . import flags as _flags
 from . import telemetry
+
+# -- the flight recorder -----------------------------------------------------
+
+
+class FlightRecorder:
+    """Always-on bounded ring of recent telemetry records. Its plain lock
+    is never held while calling out, so feeding it from inside the
+    telemetry registry's lock cannot deadlock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._ring: deque = deque(maxlen=2048)
+        self._maxlen = 2048
+        self.dropped = 0
+
+    def record(self, rec: Dict[str, Any]):
+        """Append one record (telemetry's tap: cheap, never raises)."""
+        limit = int(_flags.flag("blackbox_max_records"))
+        if limit <= 0:
+            return
+        with self._lock:
+            if limit != self._maxlen:
+                self._ring = deque(self._ring, maxlen=limit)
+                self._maxlen = limit
+            if len(self._ring) == self._maxlen:
+                self.dropped += 1
+            self._ring.append(rec)
+
+    def snapshot(self, window_s: Optional[float] = None,
+                 limit: Optional[int] = None,
+                 now: Optional[float] = None) -> List[Dict[str, Any]]:
+        """Recent records, oldest first: those of the last ``window_s``
+        seconds (default FLAGS_blackbox_seconds), the newest ``limit``
+        of them."""
+        if window_s is None:
+            window_s = float(_flags.flag("blackbox_seconds"))
+        if now is None:
+            now = time.time()
+        cut = now - max(window_s, 0.0)
+        with self._lock:
+            recs = list(self._ring)
+        out = [r for r in recs
+               if isinstance(r.get("ts"), (int, float)) and r["ts"] >= cut]
+        if limit is not None and limit > 0 and len(out) > limit:
+            out = out[-limit:]
+        return out
+
+    def __len__(self):
+        with self._lock:
+            return len(self._ring)
+
+    def clear(self):
+        with self._lock:
+            self._ring.clear()
+            self.dropped = 0
+
+
+_recorder = FlightRecorder()
+
+
+def flight_recorder() -> FlightRecorder:
+    return _recorder
+
 
 _RULE_KINDS = ("counter", "hist", "gauge")
 _DIRECTIONS = ("above", "below")
@@ -136,8 +203,8 @@ class Rule:
 def default_rules() -> List[Rule]:
     """The reference's built-in rule set; the queue thresholds come from
     the admission flags when the set is built. The rules on metrics the
-    port does not publish (``cost.live_mfu``, the Pallas fallbacks,
-    ``ckpt.verify_failures``) stay in the set and never see data."""
+    port does not publish (the Pallas fallbacks, ``ckpt.verify_failures``)
+    stay in the set and never see data."""
     serving_q = max(1, int(_flags.flag("serving_max_queue_depth")))
     decode_q = max(1, int(_flags.flag("decode_max_queue_depth")))
     return [
@@ -392,11 +459,13 @@ def report_incident(source: str, name: str, value=None,
                     legacy_kind: Optional[str] = None,
                     now: Optional[float] = None,
                     rate_limit: bool = True) -> Optional[str]:
-    """File one ``kind:"incident"`` event (rate-limited by
+    """File one ``kind:"incident"`` record (rate-limited by
     FLAGS_incident_rate_limit_s unless ``rate_limit=False``, which leaves
-    the window's bookkeeping untouched). ``legacy_kind`` first records
-    the original event under that kind, never rate-limited. Returns the
-    incident id, or None when rate-limited."""
+    the window's bookkeeping untouched) bundling the flight recorder's
+    snapshot, the recent trace ids, the memory ledger, the goodput
+    breakdown and the counters, then flush the sink. ``legacy_kind``
+    first writes the original record under that kind (``oom``), never
+    rate-limited. Returns the incident id, or None when rate-limited."""
     if now is None:
         now = time.time()
     if legacy_kind:
@@ -416,14 +485,19 @@ def report_incident(source: str, name: str, value=None,
     if not allowed:
         telemetry.counter_quiet("incidents.rate_limited")
         return None
-    cap = int(_flags.flag("incident_ring_records"))
-    ring = telemetry.recent_events()
+    from . import costmodel, goodput, trace
+
     attrs: Dict[str, Any] = {
         "id": incident_id,
         "source": source,
         "trip_ts": round(now, 6),
         "context": dict(context or {}),
-        "ring": ring[-cap:] if cap > 0 else [],
+        "ring": _recorder.snapshot(
+            limit=int(_flags.flag("incident_ring_records")), now=now),
+        "ring_dropped": _recorder.dropped,
+        "ledger": costmodel.ledger(),
+        "traces": trace.recent_trace_ids(),
+        "goodput": goodput.breakdown(),
         "counters": telemetry.counters(),
     }
     if rule is not None:
@@ -431,6 +505,8 @@ def report_incident(source: str, name: str, value=None,
     telemetry.counter_add("incidents.reported", 1, source=source,
                           incident=name)
     telemetry.event("incident", name, value, attrs)
+    # the process may be about to die (an OOM, a wedged replica)
+    telemetry.flush_sink()
     with _incident_lock:
         _last_incident[0] = {"id": incident_id, "source": source,
                              "name": name, "ts": round(now, 3),
@@ -457,6 +533,7 @@ def report_scale_event(source: str, event: str, old_world: int,
                           event=event)
     telemetry.event("scale", f"{source}.{event}",
                     int(new_world) - int(old_world), payload)
+    telemetry.flush_sink()
 
 
 def last_incident() -> Optional[Dict[str, Any]]:
@@ -473,6 +550,7 @@ def health() -> Dict[str, Any]:
         "incidents_reported": int(c.get("incidents.reported", 0)),
         "incidents_rate_limited": int(c.get("incidents.rate_limited", 0)),
         "slo_trips": int(c.get("slo.trips", 0)),
+        "blackbox_records": len(_recorder),
     }
     with _state_lock:
         wd = _watchdog
@@ -485,8 +563,10 @@ def health() -> Dict[str, Any]:
 
 
 def reset():
-    """Clear the watchdog and the incident bookkeeping (tests)."""
+    """Clear the recorder, the watchdog and the incident bookkeeping
+    (tests)."""
     global _watchdog
+    _recorder.clear()
     with _state_lock:
         _watchdog = None
     _armed[0] = False
@@ -495,3 +575,8 @@ def reset():
         _last_incident_ts[0] = float("-inf")
         _last_incident[0] = None
         _incident_seq[0] = 0
+
+
+# the flight recorder's tap: every telemetry record lands in the ring,
+# whether or not a JSONL sink is configured
+telemetry.set_blackbox(_recorder.record)

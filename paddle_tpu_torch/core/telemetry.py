@@ -1,28 +1,58 @@
-"""In-process telemetry: counters, gauges, histograms, timers and events
-(port of ``paddle_tpu/core/telemetry.py``).
+"""In-process telemetry: counters, gauges, histograms, timers, events
+and the JSONL run-log sink (port of ``paddle_tpu/core/telemetry.py``).
 
 Cumulative counters and gauges, histograms with percentile summaries and
 fixed log-spaced bucket counts (``timer`` records milliseconds), a
 snapshot, the rolling-window view (``windowed``: counter deltas and
 rates, histogram percentiles over the last ``FLAGS_metrics_window_s``)
-and its Prometheus text exposition (``prometheus_text``, what the
-serving plane's ``/metrics`` answers), with the reference's metric
-names: ``pt_<name>_total``, ``pt_<name>_rate``, gauges, summaries and
-``pt_<name>_bucket`` series.
+and its Prometheus text exposition (``prometheus_text``), with the
+reference's metric names: ``pt_<name>_total``, ``pt_<name>_rate``,
+gauges, summaries and ``pt_<name>_bucket`` series.
 
-``event`` keeps the most recent records (trace spans, injected faults)
-in a bounded in-memory ring, ``recent_events``. Keyword attributes of
-``counter_add`` / ``observe`` are accepted for the reference's call
-shape and not stored. Not in the port yet (ROADMAP A10): the JSONL
-run-log sink (``configure``, ``flush_sink``) and the metrics server.
+Every ``counter_add`` / ``counter_set`` / ``gauge_set`` / ``observe`` /
+``timer`` / ``event`` call becomes one record of the reference's run-log
+schema::
+
+    {"ts": <unix seconds>, "kind": <str>, "name": <str>,
+     "value": <number|null>, "attrs": {<str>: <json>}}
+
+(``counter``: value = the new cumulative, attrs.delta = the increment
+and the caller's keyword attributes; ``gauge``; ``timer`` / ``hist``:
+the sample, rounded to 4 places; ``event`` records keep their kind:
+``span``, ``compile``, ``cost``, ``oom``, ``incident``, ``fault``,
+``scale``, ``tuner``; ``snapshot`` and ``profiler_summary`` at
+``flush``), so ``tools/perf_report.py``, ``mem_report.py``,
+``incident_report.py`` and ``trace_view.py`` read the port's logs
+unchanged. Records go to:
+
+* the flight-recorder tap (``set_blackbox``; ``core/incidents.py``
+  installs its ring), always, whether or not a sink is configured;
+* the JSONL sink, when ``FLAGS_telemetry_path`` (or, below it, the
+  ``PT_TELEMETRY_LOG`` env var) names a file: lines buffer in memory and
+  are written in one batch once ``FLAGS_telemetry_buffer_lines`` are
+  pending, every ``FLAGS_telemetry_flush_s`` (inline on the next record
+  and from a lazy daemon flusher), on ``flush_sink()`` / ``flush()``, on
+  a path change and at exit (``flush`` is registered with ``atexit``: a
+  final ``snapshot`` record and the profiler's summary rows). A failing
+  sink never raises into the instrumented thread; its lost records are
+  counted in ``telemetry.dropped_records``.
+
+``event`` records (not the metric updates) are also kept in a bounded
+in-memory ring, ``recent_events``. ``start_metrics_server(port)`` serves
+``GET /metrics`` (Prometheus text), ``/healthz`` and ``/varz`` (snapshot
+and window as JSON) from any process.
 """
 
 from __future__ import annotations
 
+import atexit
 import bisect
 import contextlib
+import json
 import math
+import os
 import re
+import sys
 import threading
 import time
 from collections import deque
@@ -34,6 +64,31 @@ _HIST_SAMPLE_CAP = 4096
 _WIN_BUCKET_CAP = 3600
 _WIN_SAMPLE_CAP = 8192
 _EVENT_CAP = 4096
+
+# the flight-recorder tap (core/incidents.py installs it): every record is
+# handed to it, sink or no sink; it must be cheap and never raise
+_blackbox = [None]
+
+
+def set_blackbox(fn):
+    _blackbox[0] = fn
+
+
+# settlers: callables that land measurements still pending on the device
+# (the executor's CUDA events) before a reader sums them
+_settlers: list = []
+
+
+def add_settler(fn):
+    if fn not in _settlers:
+        _settlers.append(fn)
+
+
+def settle():
+    """Land the pending device timings (``goodput.breakdown`` and
+    ``flush`` call it; the executor's hot path never waits for them)."""
+    for fn in list(_settlers):
+        fn()
 
 #: Fixed log-spaced histogram bucket upper bounds, 4 per decade from 1e-3
 #: to 1e7: the reference's, so bucket series from either package add up.
@@ -99,42 +154,179 @@ class _Registry:
         self._win: Dict[str, deque] = {}   # counter -> [[second, delta]]
         self._win_samples: Dict[str, deque] = {}   # hist -> (ts, value)
         self._events: deque = deque(maxlen=_EVENT_CAP)
+        self._file = None
+        self._path: Optional[str] = None
+        self._sink_warned = False
+        self._buf: List[str] = []          # pending JSONL lines
+        self._last_flush = 0.0
+        self._flusher_started = False
 
-    def counter_add(self, name: str, delta=1):
+    # -- the sink ----------------------------------------------------------
+    @staticmethod
+    def _resolve_path() -> Optional[str]:
+        path = _flags.flag("telemetry_path")
+        if not path:
+            path = os.environ.get("PT_TELEMETRY_LOG", "")
+        return path or None
+
+    def _sink(self):
+        """The sink file (under the lock). Follows flag and env changes:
+        a new path flushes the buffer into the old file, closes it and
+        opens the new one; an empty path closes the sink."""
+        path = self._resolve_path()
+        if path != self._path:
+            if self._file is not None:
+                self._flush_buf_locked()
+                try:
+                    self._file.close()
+                except OSError:
+                    pass
+                self._file = None
+            self._buf.clear()
+            self._path = path
+            if path:
+                try:
+                    self._file = open(path, "a")
+                    self._last_flush = time.time()
+                except OSError as e:
+                    if not self._sink_warned:
+                        self._sink_warned = True
+                        print(f"[telemetry] cannot open sink {path!r}: {e}",
+                              file=sys.stderr)
+                    self._path = None
+        return self._file
+
+    def _drop_locked(self, n: int):
+        """Count records lost to a failing sink, in memory only (a
+        counter_add here would recurse into emit)."""
+        self._counters["telemetry.dropped_records"] = \
+            self._counters.get("telemetry.dropped_records", 0) + n
+
+    def _flush_buf_locked(self):
+        """Write the pending lines as one write + flush; a failing file
+        system is counted, never raised."""
+        if not self._buf or self._file is None:
+            return
+        batch, self._buf = self._buf, []
+        self._last_flush = time.time()
+        try:
+            self._file.write("\n".join(batch) + "\n")
+            self._file.flush()
+        except (OSError, ValueError):
+            self._drop_locked(len(batch))
+
+    def _ensure_flusher_locked(self):
+        """A lazy daemon thread that flushes the buffer every
+        FLAGS_telemetry_flush_s, so an idle process still lands its
+        records."""
+        if self._flusher_started:
+            return
+        self._flusher_started = True
+
+        def loop():
+            while True:
+                time.sleep(max(0.05, float(_flags.flag("telemetry_flush_s"))))
+                with self._lock:
+                    self._flush_buf_locked()
+
+        threading.Thread(target=loop, name="pt-telemetry-flush",
+                         daemon=True).start()
+
+    def flush_sink(self):
         with self._lock:
-            val = self._counters.get(name, 0) + delta
-            self._counters[name] = val
-            dq = self._win.setdefault(name, deque(maxlen=_WIN_BUCKET_CAP))
-            sec = int(time.time())
-            if dq and dq[-1][0] == sec:
-                dq[-1][1] += delta
-            else:
-                dq.append([sec, delta])
+            self._flush_buf_locked()
+
+    def enabled(self) -> bool:
+        return self._resolve_path() is not None
+
+    def configure(self, path: Optional[str]):
+        _flags.set_flags({"telemetry_path": path or ""})
+        with self._lock:
+            self._sink()
+
+    def emit(self, kind: str, name: str, value=None,
+             attrs: Optional[Dict[str, Any]] = None):
+        """One schema record to the flight-recorder tap and, when a sink
+        is configured, to the JSONL buffer. Serialisation and write
+        failures are counted, never raised."""
+        bb = _blackbox[0]
+        with self._lock:
+            f = self._sink()
+            if f is None and bb is None:
+                return
+            rec = {"ts": time.time(), "kind": kind, "name": name,
+                   "value": value, "attrs": attrs or {}}
+            if bb is not None:
+                try:
+                    bb(rec)
+                except Exception:   # noqa: BLE001 - the tap never raises
+                    pass
+            if f is None:
+                return
+            try:
+                self._buf.append(json.dumps(rec, default=str))
+            except (ValueError, TypeError):
+                self._drop_locked(1)
+                return
+            if len(self._buf) >= max(1, int(_flags.flag(
+                    "telemetry_buffer_lines"))) or rec["ts"] - \
+                    self._last_flush >= float(_flags.flag(
+                        "telemetry_flush_s")):
+                self._flush_buf_locked()
+            self._ensure_flusher_locked()
+
+    # -- metrics -----------------------------------------------------------
+    def _count_locked(self, name: str, delta):
+        val = self._counters.get(name, 0) + delta
+        self._counters[name] = val
+        dq = self._win.setdefault(name, deque(maxlen=_WIN_BUCKET_CAP))
+        sec = int(time.time())
+        if dq and dq[-1][0] == sec:
+            dq[-1][1] += delta
+        else:
+            dq.append([sec, delta])
         return val
 
-    def gauge_set(self, name: str, value):
+    def counter_add(self, name: str, delta=1, **attrs):
+        with self._lock:
+            val = self._count_locked(name, delta)
+        self.emit("counter", name, val, {"delta": delta, **attrs})
+        return val
+
+    def counter_quiet(self, name: str, delta=1):
+        with self._lock:
+            return self._count_locked(name, delta)
+
+    def counter_set(self, name: str, value, **attrs):
+        with self._lock:
+            self._counters[name] = value
+        self.emit("counter", name, value, {"set": True, **attrs})
+
+    def gauge_set(self, name: str, value, **attrs):
         with self._lock:
             self._gauges[name] = value
+        self.emit("gauge", name, value, attrs)
 
-    def observe(self, name: str, value):
+    def observe(self, name: str, value, kind: str = "hist", **attrs):
         with self._lock:
             self._hists.setdefault(name, _Hist()).observe(value)
             self._win_samples.setdefault(
                 name, deque(maxlen=_WIN_SAMPLE_CAP)).append(
                     (time.time(), float(value)))
+        self.emit(kind, name, round(float(value), 4), attrs)
 
     def event(self, kind: str, name: str, value, attrs):
         with self._lock:
             self._events.append({"ts": time.time(), "kind": kind,
                                  "name": name, "value": value,
                                  "attrs": dict(attrs or {})})
+        self.emit(kind, name, value, attrs)
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
             return {"counters": dict(self._counters),
                     "gauges": dict(self._gauges),
                     "hists": {n: h.summary() for n, h in self._hists.items()}}
-
     def windowed(self, window_s: Optional[float] = None,
                  now: Optional[float] = None) -> Dict[str, Any]:
         """Counter deltas and per-second rates, current gauges and
@@ -220,6 +412,7 @@ class _Registry:
         return "\n".join(lines) + "\n"
 
     def reset(self):
+        """Clear the in-memory aggregates (tests); the sink stays."""
         with self._lock:
             self._counters.clear()
             self._gauges.clear()
@@ -227,6 +420,26 @@ class _Registry:
             self._win.clear()
             self._win_samples.clear()
             self._events.clear()
+
+    def flush(self):
+        """A final ``snapshot`` record and the profiler's summary rows,
+        then the buffer to disk (registered with atexit)."""
+        if not self.enabled():
+            return
+        settle()
+        # the profiler's rows first: its drop accounting calls back into
+        # this registry, so never hold both locks
+        try:
+            from .. import profiler as _prof
+
+            prof_rows = _prof.summarize()
+        except Exception:   # noqa: BLE001 - a flush at exit never raises
+            prof_rows = {}
+        self.emit("snapshot", "telemetry", None, self.snapshot())
+        for name, row in prof_rows.items():
+            self.emit("profiler_summary", name, row.get("total_us"),
+                      {k: v for k, v in row.items() if k != "total_us"})
+        self.flush_sink()
 
 
 def _prom_name(name: str) -> str:
@@ -239,17 +452,106 @@ def _prom_num(v) -> str:
     return str(v)
 
 
+# live MetricsServer count: costmodel's 'auto' capture level treats a
+# process that started a scrape surface as instrumented
+_metrics_servers = [0]
+_metrics_servers_lock = threading.Lock()
+
+
+def metrics_server_active() -> bool:
+    return _metrics_servers[0] > 0
+
+
+class MetricsServer:
+    """A stdlib HTTP scrape surface over the live registry: ``/metrics``
+    (Prometheus text), ``/healthz`` and ``/varz`` (snapshot and rolling
+    window as JSON). Starting one arms the SLO watchdog plane
+    (``incidents.arm``, under FLAGS_slo_watchdog 'auto'); ``shutdown``
+    disarms it."""
+
+    def __init__(self, registry: "_Registry", host: str = "127.0.0.1",
+                 port: int = 0):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        reg = registry
+
+        class _Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, fmt, *args):
+                pass
+
+            def _send(self, code, body: bytes, ctype: str):
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                path = self.path.split("?", 1)[0]
+                if path == "/metrics":
+                    self._send(200, reg.prometheus_text().encode(),
+                               "text/plain; version=0.0.4; charset=utf-8")
+                elif path == "/healthz":
+                    self._send(200, b'{"status": "ok"}', "application/json")
+                elif path == "/varz":
+                    body = json.dumps({"snapshot": reg.snapshot(),
+                                       "window": reg.windowed()},
+                                      default=str).encode()
+                    self._send(200, body, "application/json")
+                else:
+                    self._send(404, b'{"error": "no route"}',
+                               "application/json")
+
+        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self._httpd.daemon_threads = True
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="pt-metrics-http", daemon=True)
+        self._thread.start()
+        with _metrics_servers_lock:
+            _metrics_servers[0] += 1
+        from . import incidents
+
+        incidents.arm()
+
+    @property
+    def host(self) -> str:
+        return self._httpd.server_address[0]
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def shutdown(self):
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5)
+        with _metrics_servers_lock:
+            _metrics_servers[0] = max(0, _metrics_servers[0] - 1)
+        from . import incidents
+
+        incidents.disarm()
+
+
 _REG = _Registry()
 
 
 def counter_add(name: str, delta=1, **attrs):
-    return _REG.counter_add(name, delta)
+    return _REG.counter_add(name, delta, **attrs)
 
 
 def counter_quiet(name: str, delta=1):
-    """An increment that records no event (the reference keeps these out
-    of its run log: span counts, sink failures)."""
-    return _REG.counter_add(name, delta)
+    """An increment that writes no record (span counts, sink failures)."""
+    return _REG.counter_quiet(name, delta)
+
+
+def counter_set(name: str, value, **attrs):
+    return _REG.counter_set(name, value, **attrs)
 
 
 def counter_get(name: str):
@@ -264,7 +566,7 @@ def counters() -> Dict[str, Any]:
 
 
 def gauge_set(name: str, value, **attrs):
-    _REG.gauge_set(name, value)
+    _REG.gauge_set(name, value, **attrs)
 
 
 def gauges() -> Dict[str, Any]:
@@ -273,22 +575,23 @@ def gauges() -> Dict[str, Any]:
 
 
 def observe(name: str, value, kind: str = "hist", **attrs):
-    _REG.observe(name, value)
+    _REG.observe(name, value, kind=kind, **attrs)
 
 
 @contextlib.contextmanager
 def timer(name: str, **attrs):
-    """Observe the wall time of the block, in ms, under ``name``."""
+    """Observe the wall time of the block, in ms, as a ``timer`` record."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        _REG.observe(name, (time.perf_counter() - t0) * 1e3)
+        _REG.observe(name, (time.perf_counter() - t0) * 1e3, kind="timer",
+                     **attrs)
 
 
 def event(kind: str, name: str, value=None, attrs=None):
-    """Record one event (a finished trace span, an injected fault) in the
-    bounded in-memory ring."""
+    """One record of ``kind`` (a finished trace span, a compile, an
+    injected fault, an incident), also kept in the in-memory ring."""
     _REG.event(kind, name, value, attrs)
 
 
@@ -311,5 +614,36 @@ def prometheus_text(window_s: Optional[float] = None) -> str:
     return _REG.prometheus_text(window_s)
 
 
+def enabled() -> bool:
+    """Whether a JSONL sink is configured."""
+    return _REG.enabled()
+
+
+def configure(path: Optional[str]):
+    """Point the JSONL sink at ``path`` (None or '' closes it): sets
+    FLAGS_telemetry_path, which wins over PT_TELEMETRY_LOG."""
+    _REG.configure(path)
+
+
+def flush_sink():
+    """Write the buffered lines now."""
+    _REG.flush_sink()
+
+
+def flush():
+    _REG.flush()
+
+
 def reset():
     _REG.reset()
+
+
+def start_metrics_server(port: int = 0,
+                         host: str = "127.0.0.1") -> MetricsServer:
+    """Serve GET /metrics, /healthz and /varz from this process's live
+    registry on ``host:port`` (0: an ephemeral port). Returns the
+    started server (``.url``, ``.shutdown()``)."""
+    return MetricsServer(_REG, host=host, port=port)
+
+
+atexit.register(flush)

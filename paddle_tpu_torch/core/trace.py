@@ -16,16 +16,21 @@ one id.
   default); children and remote continuations never re-roll.
 * Off costs one ContextVar read and one flag lookup: ``span()`` returns a
   shared no-op context manager.
-* A finished sampled span counts ``trace.spans`` and is recorded as a
-  ``span`` event (``telemetry.recent_events("span")``): value = duration
-  in ms, attrs = trace, span, parent, start, pid, tid and the caller's.
+* A finished sampled span counts ``trace.spans`` and is emitted as a
+  ``kind:"span"`` telemetry record (to the run-log sink when one is
+  configured, the flight recorder, and ``telemetry.recent_events``):
+  value = duration in ms, attrs = trace, span, parent, start, pid, tid
+  and the caller's; ``tools/trace_view.py`` merges the logs of several
+  processes into one chrome://tracing file.
+* ``record(name, parent, start_s, end_s)`` emits a span timed after the
+  fact under a context captured earlier, possibly on another thread.
+* Every finished span notes its trace id in a bounded ring;
+  ``recent_trace_ids(window_s)`` names the traces live around a moment,
+  which an incident record attaches (core/incidents.py).
 
-Not in the port yet: the run-log sink that writes spans to JSONL and the
-incident pipeline's ring of recently active trace ids (ROADMAP A10), and
-the reference's cross-process header propagation (``inject`` /
-``extract`` / ``span_from``) and retroactive ``record``, whose callers
-are the PS RPC transport (A9) and the micro-batching engine's batch
-worker (its queue-wait and batch spans, A10).
+Not in the port yet: the reference's cross-process header propagation
+(``inject`` / ``extract`` / ``span_from``), whose caller is the PS RPC
+transport (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ import random
 import re
 import threading
 import time
-from typing import Any, Dict, Optional
+from collections import deque
+from typing import Any, Dict, List, Optional
 
 from . import flags as _flags
 from . import telemetry
@@ -60,6 +66,33 @@ class SpanContext:
 _ctx: "contextvars.ContextVar[Optional[SpanContext]]" = \
     contextvars.ContextVar("pt_trace_ctx", default=None)
 _rng = random.Random()   # urandom-seeded; ids need uniqueness, not secrecy
+
+# (finish ts, trace id) of each finished sampled span, for the incident
+# pipeline's "active traces"
+_recent_lock = threading.Lock()
+_recent_traces: deque = deque(maxlen=256)
+
+
+def _note_trace(trace_id: str):
+    with _recent_lock:
+        _recent_traces.append((time.time(), trace_id))
+
+
+def recent_trace_ids(window_s: float = 120.0,
+                     now: Optional[float] = None) -> List[str]:
+    """Unique trace ids whose spans finished within the last
+    ``window_s`` seconds, newest first."""
+    if now is None:
+        now = time.time()
+    cut = now - max(window_s, 0.0)
+    with _recent_lock:
+        items = list(_recent_traces)
+    out, seen = [], set()
+    for ts, tid in reversed(items):
+        if ts >= cut and tid not in seen:
+            seen.add(tid)
+            out.append(tid)
+    return out
 
 def _new_id() -> str:
     return f"{_rng.getrandbits(64):016x}"
@@ -124,6 +157,7 @@ class _Span:
         if et is not None:
             attrs["error"] = et.__name__
         telemetry.counter_quiet("trace.spans")
+        _note_trace(self.ctx.trace_id)
         telemetry.event("span", self.name, round(dur_ms, 4), attrs)
         return False
 
@@ -136,6 +170,12 @@ def _sampled_root() -> bool:
 
 
 # -- the public surface ------------------------------------------------------
+
+def current() -> Optional[SpanContext]:
+    """The active sampled span context of this thread, if any (the
+    parent a later ``record`` takes)."""
+    return _ctx.get()
+
 
 def span(name: str, **attrs):
     """Open a span. Inside an active trace: a child. Outside: a root,
@@ -160,3 +200,25 @@ def root_span(name: str, trace_id: Optional[str] = None,
         return _NULL
     tid = _clean_trace_id(trace_id) if trace_id else _new_id()
     return _Span(name, SpanContext(tid, _new_id()), None, attrs)
+
+
+def record(name: str, parent: Optional[SpanContext], start_s: float,
+           end_s: float, **attrs) -> Optional[SpanContext]:
+    """Emit a completed span under ``parent`` (a context captured
+    earlier, possibly on another thread), from ``start_s`` to ``end_s``
+    (epoch seconds). Returns its context, or None (and no record)
+    without a parent."""
+    if parent is None:
+        return None
+    ctx = SpanContext(parent.trace_id, _new_id())
+    rec_attrs = {"trace": ctx.trace_id, "span": ctx.span_id,
+                 "parent": parent.span_id, "start": round(start_s, 6),
+                 "pid": os.getpid(),
+                 "tid": threading.current_thread().name}
+    if attrs:
+        rec_attrs.update(attrs)
+    telemetry.counter_quiet("trace.spans")
+    _note_trace(ctx.trace_id)
+    telemetry.event("span", name, round((end_s - start_s) * 1e3, 4),
+                    rec_attrs)
+    return ctx

@@ -39,7 +39,7 @@ instead of setting a flag that nothing reads. The offline search still
 ranks those knobs, as the reference does. A profile's
 ``fingerprints.pallas_kernels`` (the reference's key) holds the hash of
 the port's CUDA kernel sources. ``telemetry.event`` records go to the
-port's in-memory event ring until the run-log sink exists (ROADMAP A10).
+run-log sink when one is configured, and to the in-memory event ring.
 
 Counters: ``tuner.trials`` / ``promotions`` / ``rollbacks`` /
 ``constraint_rejections`` / ``candidates`` / ``profiles_loaded`` /

@@ -14,7 +14,7 @@ The policy only decides. ``ClusterController.autoscale_tick`` /
 ``scale_to`` (serving/cluster.py) execute a serving-fleet decision; the
 reference's training-side executor (``ElasticRunner``) is not in the
 port. The fleet observatory that writes ``fleet.queue_frac`` in the
-reference (``core/fleetobs``) is ROADMAP A10: with ``fleet=None``,
+reference (``core/fleetobs``) is ROADMAP A10b: with ``fleet=None``,
 ``gather_signals`` reads that gauge from telemetry, as the reference
 does, and whoever drives the fleet writes it.
 

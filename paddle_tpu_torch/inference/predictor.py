@@ -25,9 +25,17 @@ static-quant ``int8_matmul``'s weight is laid out column-major there
 (``quant_ops.column_major``). The predictor runs on
 ``cuda:0`` unless ``AnalysisConfig(device=...)`` or ``device=`` asks for
 another device (``"cpu"``: the tests, and the card's CPU reference); with
-neither and no CUDA it raises. The reference's per-signature
-cost/memory records (``core/costmodel``, ``predictor.py:245-266``) wait
-for ROADMAP A10.
+neither and no CUDA it raises.
+
+With cost capture on (``core/costmodel.py``, ``FLAGS_cost_capture``),
+each new signature gets a cost record (its flops and bytes from a run
+of the block on meta tensors; at level ``full`` on the card, the
+allocator's peak around its graph capture), ``_last_cost`` is the
+record of the most recent run (the micro-batching engine publishes each
+warmed bucket's as ``mem.serving.bucket<B>_peak_bytes``), and the
+weights are booked once as the ledger's ``mem.param_bytes``. An
+allocation failure in a run raises ``costmodel.OutOfMemoryError`` after
+its forensics record.
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ import numpy as np
 import torch
 
 from .. import io
-from ..core import registry, telemetry
-from ..core.executor import (_feed_spec, _last_readers, _to_numpy, run_op)
+from ..core import costmodel, registry, telemetry
+from ..core.executor import (_feed_spec, _last_readers, _to_numpy,
+                             meta_count, run_op)
 from ..core.flags import flag as _flag
 from ..core.graph import StepGraph
 from ..core.ir import Program
@@ -156,6 +165,9 @@ class _Entry:
                       for n, shape, dt in sig}
         self.graph = StepGraph(self._step, pred.device, pool=pool)
         self.ran = False
+        # allocator statistics around the graph capture (cost level full)
+        self.measure_memory = False
+        self.capture_memory: Optional[Dict[str, int]] = None
 
     def _step(self) -> List[torch.Tensor]:
         pred = self.pred
@@ -175,8 +187,17 @@ class _Entry:
             return [_to_numpy(o) for o in self.graph.replay()]
         outs = [_to_numpy(o) for o in self._step()]
         self.ran = True
-        self.graph.capture()
+        if self.measure_memory:
+            _, self.capture_memory = costmodel.memory_around(
+                self.graph.capture, self.pred.device)
+        else:
+            self.graph.capture()
         return outs
+
+    def meta_cost(self) -> tuple:
+        env: Dict[str, Any] = dict(self.pred._params)
+        env.update(self.feeds)
+        return meta_count(self.pred._ops, self.pred._dead, env)
 
 
 class AnalysisPredictor:
@@ -213,6 +234,11 @@ class AnalysisPredictor:
         self._dead = _last_readers(block, persist | set(self.fetch_names))
         self._staged: Dict[str, np.ndarray] = {}
         self._last_outputs: Optional[Dict[str, Any]] = None
+        # per-signature cost records (core/costmodel.py); the record of
+        # the most recent run
+        self._cost_records: Dict[tuple, Any] = {}
+        self._last_cost: Any = None
+        self._params_booked = False
         self._cache: "OrderedDict[tuple, _Entry]" = OrderedDict()
         self._pool = torch.cuda.graph_pool_handle() \
             if self.device.type == "cuda" else None
@@ -298,10 +324,35 @@ class AnalysisPredictor:
             host[n] = t.to(dt)
         sig = tuple((n, tuple(host[n].shape), str(host[n].dtype)[6:])
                     for n in self.feed_names)
+        capture = costmodel.capture_mode()
         with _RUN_LOCK:
             entry, is_new = self._entry(sig)
+            if is_new:
+                entry.measure_memory = self.device.type == "cuda" and \
+                    capture == "full"
             t0 = time.perf_counter()
-            outs = entry(host)
+            try:
+                outs = entry(host)
+            except torch.OutOfMemoryError as e:
+                raise costmodel.oom_forensics(
+                    f"predictor{list(sig)}"[:200], e,
+                    where="predictor.run") from e
+        if is_new and capture != "off":
+            rows = sig[0][1][0] if sig and sig[0][1] else 0
+            mem = entry.capture_memory
+            if mem is not None:
+                mem = dict(mem, out_bytes=sum(o.nbytes for o in outs))
+            self._cost_records[sig] = costmodel.capture(
+                entry.meta_cost, key_id=costmodel.key_id_for(sig),
+                kind="predictor", program=f"rows{rows}",
+                device=self.device, memory=mem)
+            if not self._params_booked:
+                # the frozen weights are this process's parameters
+                self._params_booked = True
+                costmodel.record_model_bytes(
+                    sum(costmodel._nbytes(v)
+                        for v in self._params.values()), 0)
+        self._last_cost = self._cost_records.get(sig)
         if is_new:
             # as in the executor, the compile time is the first run's
             ms = round((time.perf_counter() - t0) * 1e3, 3)

@@ -59,7 +59,7 @@ Two replica backends share every path:
 ``device=None`` means the card (``cuda``; raising without CUDA), as in
 every entry point of the port; tests pass ``"cpu"``.
 
-Not in the port yet: the fleet observatory (ROADMAP A10), whose
+Not in the port yet: the fleet observatory (ROADMAP A10b), whose
 ``fleet.queue_frac`` the reference's autoscaler reads; here the policy
 reads that gauge from telemetry and whoever drives the fleet writes it.
 """

@@ -70,7 +70,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..core import faults, telemetry
+from ..core import faults, incidents, telemetry
 from ..core import flags as _flags
 from ..core.executor import run_block
 from ..core.graph import StepGraph
@@ -623,6 +623,8 @@ class DecodeEngine:
                 if not isinstance(e, Exception):
                     raise
             telemetry.gauge_set("decode.active_slots", len(self._active))
+            # the SLO watchdog evaluates its rules on the step cadence
+            incidents.tick()
 
     def _admit(self):
         """Seat queued requests into free slots at the step boundary. With

@@ -21,11 +21,14 @@ Telemetry: ``serving.requests`` / ``batches`` / ``batched_rows`` /
 ``handler_errors`` / ``warmup_compiles`` / ``swaps`` counters, the
 ``serving.batch_fill`` histogram, the ``serving.request_ms`` /
 ``batch_ms`` / ``warmup_ms`` / ``swap_ms`` timers and the
-``serving.queue_depth`` gauge. The locks are plain ``threading.Lock``s
-(the reference's lockdep-checked ones are ROADMAP A10), and so are the
-reference's SLO watchdog tick, the per-bucket cost records of
-``/v1/stats`` and the retroactive queue-wait/batch spans of a sampled
-trace.
+``serving.queue_depth`` gauge, all in the run log when a sink is
+configured. The batch loop calls the SLO watchdog's ``incidents.tick``.
+With cost capture on, each warmed bucket's footprint is published as
+the ``mem.serving.bucket<B>_peak_bytes`` gauge and in the ``memory``
+section of ``/v1/stats`` (with the composed ledger). The locks are
+plain ``threading.Lock``s (the reference's lockdep-checked ones are
+ROADMAP A10b), and the retroactive queue-wait/batch spans of a sampled
+trace are not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..core import faults, telemetry
+from ..core import costmodel, faults, incidents, telemetry
 from ..core import flags as _flags
 from ..core.flags import flag as _flag
 from .admission import (AdmissionQueue, EngineClosedError, InferenceRequest,
@@ -114,6 +117,8 @@ class ServingEngine:
         # never routes to a cold replica
         self.health = HealthState()
         self.version = int(version)
+        # each warmed bucket's cost record (cost capture on)
+        self._bucket_costs: Dict[int, Any] = {}
 
     @property
     def feed_names(self) -> List[str]:
@@ -199,6 +204,17 @@ class ServingEngine:
         out["kernels"] = kernels.launch_counts()
         out["kernel_layouts"] = kernels.layout_counts()
         out["kernel_dtypes"] = kernels.dtype_counts()
+        if self._bucket_costs:
+            # each warmed bucket's footprint and the composed ledger
+            out["memory"] = {
+                "buckets": {str(b): {
+                    "peak_bytes": rec.peak_bytes,
+                    "temp_bytes": rec.temp_bytes,
+                    "arg_bytes": rec.arg_bytes,
+                    "flops": rec.flops,
+                    "roofline": rec.roofline()}
+                    for b, rec in sorted(self._bucket_costs.items())},
+                "ledger": costmodel.ledger()}
         return out
 
     # -- lifecycle -----------------------------------------------------------
@@ -220,11 +236,14 @@ class ServingEngine:
         """Run every bucket once with zero feeds, so the first real
         request never pays a capture. Returns the fresh predictor
         entries (``serving.warmup_compiles``)."""
-        return self._warm(self.predictor, locked=True)
+        fresh, costs = self._warm(self.predictor, locked=True)
+        self._publish_bucket_costs(costs)
+        return fresh
 
-    def _warm(self, predictor, locked: bool = False, config=None) -> int:
+    def _warm(self, predictor, locked: bool = False, config=None):
         """Run every bucket of ``config`` (the engine's by default)
-        through ``predictor`` once; the fresh entries made. ``locked``
+        through ``predictor`` once: (the fresh entries made, each bucket's
+        cost record). ``locked``
         guards runs of the live predictor with the infer lock; a swap
         candidate is private until the flip, and warming it unlocked
         keeps the old one serving."""
@@ -233,8 +252,9 @@ class ServingEngine:
         for n, (shape, _dtype) in specs.items():
             if any(d is None or d < 0 for d in shape[1:]):
                 telemetry.counter_add("serving.warmup_skipped", 1)
-                return 0   # non-batch dynamic dims: nothing to build
+                return 0, {}   # non-batch dynamic dims: nothing to build
         before = telemetry.counter_get("predictor.compiles")
+        costs = {}
         with telemetry.timer("serving.warmup_ms"):
             for b in config.buckets:
                 feed = {n: np.zeros((b,) + tuple(shape[1:]), dtype=dtype)
@@ -244,10 +264,26 @@ class ServingEngine:
                         predictor.run(feed)
                 else:
                     predictor.run(feed)
+                if predictor._last_cost is not None:
+                    costs[b] = predictor._last_cost
         fresh = telemetry.counter_get("predictor.compiles") - before
         if fresh:
             telemetry.counter_add("serving.warmup_compiles", fresh)
-        return int(fresh)
+        return int(fresh), costs
+
+    def _publish_bucket_costs(self, costs: Dict[int, Any]):
+        """The warmed buckets' footprints on the ledger: the
+        ``mem.serving.bucket<B>_peak_bytes`` gauges (level full: the peak
+        needs the capture's allocator statistics) and /v1/stats'
+        ``memory`` section."""
+        if not costs:
+            return
+        self._bucket_costs = dict(costs)
+        for b, rec in costs.items():
+            if rec.peak_bytes:
+                telemetry.gauge_set(f"mem.serving.bucket{b}_peak_bytes",
+                                    int(rec.peak_bytes))
+        costmodel.refresh_ledger()
 
     def swap_predictor(self, predictor, version: Optional[int] = None,
                        warmup: bool = True, config=None) -> int:
@@ -272,14 +308,16 @@ class ServingEngine:
                     f"fetches")
             with ReadyGate(self.health, SWAPPING), \
                     telemetry.timer("serving.swap_ms"):
-                fresh = self._warm(predictor, locked=False, config=config) \
-                    if warmup else 0
+                fresh, costs = self._warm(predictor, locked=False,
+                                          config=config) \
+                    if warmup else (0, {})
                 with self._infer_lock:
                     self.predictor = predictor
                     if config is not None:
                         self.config = config
                     if version is not None:
                         self.version = int(version)
+                self._publish_bucket_costs(costs)
             telemetry.counter_add("serving.swaps", 1)
             return fresh
 
@@ -306,6 +344,7 @@ class ServingEngine:
                                           self.config.batch_timeout_ms)
             if taken is None:
                 return
+            incidents.tick()
             _sig, batch = taken
             if not batch:
                 continue

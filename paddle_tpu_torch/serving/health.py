@@ -16,7 +16,7 @@ server maps readiness to ``/healthz`` (200 ``{"status": "ok"}`` / 503
 ``{"status": "starting"|"swapping"|"draining"|"stopped"}``) and liveness
 to ``/livez``. State flips are announced on the ``serving.ready`` gauge
 (0/1) and counted in ``serving.health_transitions``. The lock is a plain
-``threading.Lock`` (lockdep is ROADMAP A10).
+``threading.Lock`` (lockdep is ROADMAP A10b).
 """
 
 from __future__ import annotations

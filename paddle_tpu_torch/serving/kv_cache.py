@@ -7,7 +7,9 @@ and frees them at retirement, so continuous batching churns requests
 through the same tensors with no device alloc/free. Page 0 is a
 reserved scratch page: the ops route padded prompt positions and empty
 decode slots there, so a masked write never touches a live request's
-page. The pool's bytes are reported as ``mem.serving.kv_*`` gauges.
+page. The pool's bytes are the ``mem.serving.kv_pool_bytes``,
+``kv_used_bytes`` and ``kv_high_water_bytes`` gauges, and the pool is a
+resident part of the memory ledger (``costmodel.ledger``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Any, Dict, List
 
 import torch
 
-from ..core import faults, telemetry
+from ..core import costmodel, faults, telemetry
 from .admission import KVCacheExhaustedError
 
 
@@ -46,6 +48,8 @@ class KVPagePool:
         self._page_bytes = self.pool_bytes // self.num_pages
         telemetry.gauge_set("mem.serving.kv_pool_bytes", self.pool_bytes)
         telemetry.gauge_set("mem.serving.kv_used_bytes", 0)
+        telemetry.gauge_set("mem.serving.kv_high_water_bytes", 0)
+        costmodel.refresh_ledger()
 
     def make_arrays(self, device) -> Dict[str, Any]:
         """Zeroed fp32 pool tensors on ``device``, keyed by the programs'
@@ -91,9 +95,12 @@ class KVPagePool:
             self._lent.update(pages)
             used = self.capacity_pages - len(self._free)
             self._high_water_pages = max(self._high_water_pages, used)
+            hw = self._high_water_pages
         telemetry.counter_add("decode.kv_pages_allocated", n)
         telemetry.gauge_set("mem.serving.kv_used_bytes",
                             used * self._page_bytes)
+        telemetry.gauge_set("mem.serving.kv_high_water_bytes",
+                            hw * self._page_bytes)
         return pages
 
     def free(self, pages: List[int]):

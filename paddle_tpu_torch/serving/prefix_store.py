@@ -36,9 +36,10 @@ The hashing is the reference's byte for byte (blake2b, 16-byte digest,
 over the parent hash, ``|`` and the comma-joined decimal tokens), so
 ``prefix_chain_hash`` gives the same affinity key in either package.
 ``kv.prefix_lookup`` faults inject at ``lookup`` (core/faults.py). The
-reference also books the saved bytes in its HBM ledger and takes its lock
-through the lock-order checker; the port has neither yet (ROADMAP A10)
-and uses a plain lock.
+saved bytes are the ``mem.serving.kv_prefix_saved_bytes`` gauge, which
+the memory ledger reports (``costmodel.ledger``). The reference takes
+its lock through the lock-order checker; the port has none yet (ROADMAP
+A10b) and uses a plain lock.
 """
 
 from __future__ import annotations

@@ -8,6 +8,7 @@
     python -m paddle_tpu_torch.serving.replica --decode-model-dir DIR \
         [--role unified|prefill|decode] [--prefill-urls URL[,URL]] \
         [--prefix-cache] [--journal-url URL] [--device cuda|cpu] ...
+    ... [--telemetry-log PATH]
 
 The predictor replica (``run_replica``) serves the newest verified
 version under a published-models root (``checkpoint.publish_model``
@@ -39,8 +40,10 @@ PT_FAULT_SPEC / PT_FAULT_SEED from its environment, so a chaos run arms
 ``decode.step`` / ``replica.swap`` in every replica without code
 changes.
 
-Not in the port yet: the JSONL run log (``--telemetry-log``; ROADMAP
-A10), which is refused with a message that names its item.
+``--telemetry-log PATH`` points the process's JSONL run-log sink at
+PATH (``telemetry.configure``): the engines' counters, timers and
+gauges with their attributes, the sampled spans, and the incidents
+land there, and a graceful exit flushes it with a final snapshot.
 """
 
 from __future__ import annotations
@@ -81,9 +84,12 @@ def run_decode_replica(args) -> int:
     """One generative replica: DecodeEngine over a decoder-LM servable dir
     behind the HTTP server, with the PT_REPLICA_READY / SIGTERM-drain
     contract."""
+    from ..core import telemetry
     from .decode import DecodeConfig, decode_engine_from_dir
     from .server import ServingHTTPServer
 
+    if args.telemetry_log:
+        telemetry.configure(args.telemetry_log)
     config = None
     if args.role != "unified" or args.prefill_urls or args.prefix_cache:
         config = DecodeConfig(role=args.role,
@@ -114,6 +120,7 @@ def run_decode_replica(args) -> int:
     finally:
         engine.close(drain=True, timeout=30)
         server.shutdown()
+        telemetry.flush()
     return 0
 
 
@@ -123,10 +130,13 @@ def run_replica(args) -> int:
     behind the HTTP server, with the PT_REPLICA_READY / SIGTERM-drain
     contract."""
     from .. import checkpoint as ckpt
+    from ..core import telemetry
     from ..inference import AnalysisConfig, create_predictor
     from .engine import ServingConfig, ServingEngine
     from .server import ServingHTTPServer
 
+    if args.telemetry_log:
+        telemetry.configure(args.telemetry_log)
     version = 0
     watcher = None
     if args.model_root:
@@ -181,6 +191,7 @@ def run_replica(args) -> int:
     finally:
         engine.close(drain=True, timeout=30)
         server.shutdown()
+        telemetry.flush()
     return 0
 
 
@@ -233,11 +244,10 @@ def main(argv=None) -> int:
                     help="router endpoint the replica posts session "
                          "journals to (ROUTER_URL/v1/session/journal); "
                          "empty disables journaling")
-    ap.add_argument("--telemetry-log", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--telemetry-log", default="",
+                    help="JSONL run-log path of this process (the "
+                         "telemetry sink; render with tools/perf_report.py)")
     args = ap.parse_args(argv)
-    if args.telemetry_log:
-        ap.error("--telemetry-log: the JSONL run-log sink is not in the "
-                 "port yet (ROADMAP A10)")
     if args.decode_model_dir:
         return run_decode_replica(args)
     return run_replica(args)

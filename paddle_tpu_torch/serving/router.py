@@ -53,9 +53,9 @@ or unified replica is ready. Each handle keeps a ring of its successful
 The router arms the SLO watchdog when it starts and its probe loop calls
 ``incidents.tick()`` (core/incidents.py), as the reference's does.
 
-Locks are plain ``threading.Lock`` (lockdep is ROADMAP A10). Not in the
+Locks are plain ``threading.Lock`` (lockdep is ROADMAP A10b). Not in the
 port yet: the fleet observatory (``attach_fleet`` / ``fleet`` raise
-naming ROADMAP A10, and ``pick`` runs without straggler exclusion).
+naming ROADMAP A10b, and ``pick`` runs without straggler exclusion).
 """
 
 from __future__ import annotations
@@ -335,19 +335,19 @@ class Router:
         with self._lock:
             return self._trial
 
-    # -- fleet observatory (ROADMAP A10) -------------------------------------
+    # -- fleet observatory (ROADMAP A10b) ------------------------------------
     def attach_fleet(self, aggregator):
         """The reference wires a fleet aggregator here so ``pick`` skips
         flagged stragglers: ``core/fleetobs`` is not in the port yet."""
         raise NotImplementedError(
             "Router.attach_fleet: the fleet observatory (core/fleetobs, "
             "straggler exclusion, /fleet/*) is not in the port yet "
-            "(ROADMAP A10)")
+            "(ROADMAP A10b)")
 
     def fleet(self):
         raise NotImplementedError(
             "Router.fleet: core/fleetobs is not in the port yet "
-            "(ROADMAP A10)")
+            "(ROADMAP A10b)")
 
     # -- balancing -----------------------------------------------------------
     def pick(self, exclude=()) -> Optional[ReplicaHandle]:

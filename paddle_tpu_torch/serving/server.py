@@ -56,8 +56,12 @@ a decoder-LM servable dir -> warmed DecodeEngine -> started server;
 ``LocalClient`` is the in-process twin of /v1/infer. ``device=None``
 means ``cuda:0`` (raising without CUDA); tests pass ``device="cpu"``.
 
-Not in the port yet: the SLO watchdog (``incidents``) and the ``health``
-section of ``/v1/stats`` (ROADMAP A10).
+The SLO watchdog (``core/incidents.py``): ``start()`` arms it (under
+FLAGS_slo_watchdog 'auto') and ``shutdown()`` disarms it; the engines'
+loops evaluate the rules through ``incidents.tick()``, and ``/v1/stats``
+carries its ``health`` section. The reference's ``serve`` also starts
+the watchdog's own thread, which evaluates while the replica idles; here
+evaluation rides the engines' ticks.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from ..core import flags as _flags
-from ..core import telemetry, trace
+from ..core import incidents, telemetry, trace
 from .admission import (DeadlineExceededError, EngineClosedError,
                         KVCacheExhaustedError, ServerOverloadedError)
 from .engine import ServingConfig, ServingEngine
@@ -153,6 +157,7 @@ class _Handler(BaseHTTPRequestHandler):
                 if self.server.engine is not None else {}
             if self.server.decode_engine is not None:
                 stats["decode"] = self.server.decode_engine.stats()
+            stats["health"] = incidents.health()
             self._reply(200, stats)
         elif self.path == "/metrics":
             body = telemetry.prometheus_text().encode()
@@ -373,6 +378,7 @@ class ServingHTTPServer:
 
     def start(self) -> "ServingHTTPServer":
         if self._thread is None:
+            incidents.arm()
             self._thread = threading.Thread(
                 target=self._httpd.serve_forever,
                 name="pt-torch-serving-http", daemon=True)
@@ -385,6 +391,7 @@ class ServingHTTPServer:
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+        incidents.disarm()
 
 
 def serve(model_dir: str, host: str = "127.0.0.1", port: int = 0,

@@ -158,11 +158,22 @@ def test_process_replica_sigkill_resumes_bitwise(lm_dir, reference_ids):
         restarts0 == 1
 
 
-def test_replica_refuses_what_is_not_ported(lm_dir, capsys):
-    with pytest.raises(SystemExit):
-        pt_replica.main(["--decode-model-dir", lm_dir,
-                         "--telemetry-log", "run.jsonl"])
-    assert "A10" in capsys.readouterr().err
+def test_replica_refuses_what_is_not_ported(lm_dir, tmp_path):
+    # --telemetry-log is ported: the replica points its run-log sink at
+    # the path before it loads the model (here a dir that holds none)
+    log = tmp_path / "replica.jsonl"
+    try:
+        with pytest.raises(FileNotFoundError, match="__model__.json"):
+            pt_replica.main(["--model-dir", lm_dir, "--device", "cpu",
+                             "--telemetry-log", str(log)])
+        assert pt_telemetry.enabled()
+        pt_telemetry.counter_add("replica.log_probe", 1, probe=True)
+        pt_telemetry.flush_sink()
+        recs = [json.loads(line) for line in log.read_text().splitlines()]
+        assert recs[-1]["name"] == "replica.log_probe"
+        assert recs[-1]["attrs"] == {"delta": 1, "probe": True}
+    finally:
+        pt_telemetry.configure(None)
     with pytest.raises(FileNotFoundError, match="__model__.json"):
         pt_replica.main(["--model-dir", lm_dir, "--device", "cpu"])
     with pytest.raises(ValueError, match="models root"):

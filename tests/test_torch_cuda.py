@@ -2202,3 +2202,86 @@ def test_threefry_dropout_mask_on_the_card_is_the_cpu_mask(dev, monkeypatch):
     k = rng.op_key(attrs)
     assert torch.equal(rng.threefry_bits_at(k, idx.to(dev)).cpu(),
                        rng.threefry_bits_at(k, idx))
+
+
+def _card_mlp(dev):
+    """A small fc program with SGD (no random op: no seed-table copy) and
+    a CPU-free executor on the card."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.core.executor import Executor
+
+    main, startup = ptt.Program(), ptt.Program()
+    with ptt.program_guard(main, startup):
+        x = layers.data("x", [256], stop_gradient=True)
+        loss = layers.mean(layers.fc(layers.fc(x, 512, act="relu"), 8))
+        optimizer.SGDOptimizer(0.01).minimize(loss)
+    exe, scope = Executor(device=dev), ptt.Scope()
+    exe.run(startup, scope=scope, use_compiled=False)
+    feed = {"x": np.random.RandomState(0).randn(64, 256).astype(np.float32)}
+    return exe, scope, main, loss, feed
+
+
+def test_device_ms_is_read_after_the_run_without_a_synchronize(
+        dev, monkeypatch):
+    """A compiled step's executor.device_ms comes from CUDA events read
+    once they have completed: the runs call no synchronize (fetches left
+    on the device), and goodput.breakdown lands every pending timing, the
+    device part within each run's wall."""
+    from paddle_tpu_torch.core import goodput
+
+    exe, scope, main, loss, feed = _card_mlp(dev)
+    for _ in range(2):      # the key's first run and its capture
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+    telemetry.reset()
+    calls = []
+    real_sync, real_ev_sync = torch.cuda.synchronize, torch.cuda.Event.synchronize
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: calls.append("device") or
+                        real_sync(*a, **k))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda self: calls.append("event") or
+                        real_ev_sync(self))
+    for _ in range(8):
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+    assert calls == []
+    hists = telemetry.snapshot()["hists"]
+    assert hists["executor.run_ms"]["count"] == 8
+    assert hists.get("executor.device_ms", {}).get("count", 0) <= 8
+    goodput.breakdown()
+    hists = telemetry.snapshot()["hists"]
+    assert hists["executor.device_ms"]["count"] == 8
+    assert hists["executor.host_dispatch_ms"]["count"] == 8
+    assert hists["executor.device_ms"]["min"] > 0
+
+
+def test_a_cost_capture_that_fails_on_the_card_raises(dev, monkeypatch):
+    """On a CUDA device a cost capture that cannot count its step raises
+    at the capture (no counted fallback); costmodel.unavailable stays 0.
+    Level full fills the capture's allocator figures."""
+    from paddle_tpu_torch.core import costmodel, flags
+    from paddle_tpu_torch.core.executor import _CompiledStep
+
+    flags.set_flags({"cost_capture": "full"})
+    try:
+        costmodel.reset()
+        exe, scope, main, loss, feed = _card_mlp(dev)
+        for _ in range(2):
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        (rec,) = costmodel.programs()
+        assert rec.source == "captured" and rec.flops > 0
+        assert rec.peak_bytes >= rec.arg_bytes > 0 and rec.out_bytes == 4
+        exe2, scope2, main2, loss2, feed2 = _card_mlp(dev)
+        exe2.run(main2, feed=feed2, fetch_list=[loss2], scope=scope2)
+
+        def broken(self):
+            raise RuntimeError("a lowering with no meta kernel")
+
+        monkeypatch.setattr(_CompiledStep, "meta_cost", broken)
+        with pytest.raises(RuntimeError, match="no meta kernel"):
+            exe2.run(main2, feed=feed2, fetch_list=[loss2], scope=scope2)
+        assert telemetry.counter_get("costmodel.unavailable") == 0
+    finally:
+        flags.set_flags({"cost_capture": "auto"})
+        costmodel.reset()

@@ -247,19 +247,27 @@ def test_no_silent_cpu_fallback(monkeypatch):
         pt_decode.resolve_device("cuda:0")
 
 
-def test_paths_outside_the_slice_raise(capsys):
+def test_paths_outside_the_slice_raise(tmp_path):
     # prefill tiers over HTTP are ported (test_torch_serving_http.py,
     # test_torch_cluster.py): prefill_urls is kept, not refused
     assert pt_decode.DecodeConfig(prefill_urls="http://h:1").prefill_urls \
         == ["http://h:1"]
-    # the replica's JSONL run log and the router's fleet observatory are
-    # not (ROADMAP A10)
+    # the replica's JSONL run log is ported: --telemetry-log configures
+    # the sink before the engine loads (here from a dir that is absent)
+    from paddle_tpu_torch.core import telemetry
     from paddle_tpu_torch.serving import replica, router
 
-    with pytest.raises(SystemExit):
-        replica.main(["--decode-model-dir", "lm", "--telemetry-log",
-                      "run.jsonl"])
-    assert "A10" in capsys.readouterr().err
+    log = tmp_path / "run.jsonl"
+    try:
+        with pytest.raises(FileNotFoundError):
+            replica.main(["--decode-model-dir", str(tmp_path / "lm"),
+                          "--device", "cpu", "--telemetry-log", str(log)])
+        assert telemetry.enabled()
+        telemetry.flush_sink()
+        assert log.exists()
+    finally:
+        telemetry.configure(None)
+    # the router's fleet observatory is not (ROADMAP A10b)
     with pytest.raises(NotImplementedError, match="A10"):
         router.Router().attach_fleet(object())
 
