@@ -321,6 +321,39 @@ The seventeenth slice (the observability plane) adds:
                against a fresh meta count, the report tools over the log,
                an OOM, and device_profile's attribution against the launch
                counters (observe_train_ernie says what each gate holds).
+The eighteenth slice (the math and tensor op glue, the RNN, sequence
+and beam-search ops, the recurrent book models and VGG16) adds, last:
+   ops_glue_card — every op type the slice registers, each case of
+               paddle_tpu_torch/tools/glue_cases.py (the reference sweep's
+               shapes and ranges, NaN, +-0, +-inf, integer division by
+               zero, out-of-range and negative indices, ties) run through
+               the port on the card and on the CPU: integer and bool
+               outputs bit for bit, floats within glue_cases.CARD_TOL
+               of their family, the worst error of each family printed; randint in
+               range on the card.
+   train_seq2seq — seq2seq at Seq2SeqConfig's width (vocabularies 10000,
+               embed 256, hidden 512, fp32, Adam lr 1e-3), batch 64,
+               lengths 32, from synthetic_translation_batch seed 0:
+               timed_modes op by op and compiled over 20 timed steps on
+               one batch (step ms p50, peak GB, a falling loss in each
+               leg); card against CPU at batch 4, 3 steps from one state,
+               losses within 1e-4.
+   decode_seq2seq — 64 rows decoded from train_seq2seq's trained state,
+               greedy and beam (K = 4, max_len 32): ms a decode and rows/s;
+               beam at K = 1 without length penalty equal to greedy bit for
+               bit; card against CPU on 8 rows: equal ids, or the first
+               step where the choices part at a CPU margin within 1e-4.
+   train_sentiment — both nets at build_sentiment_program's widths, batch
+               128: timed_modes (5 timed steps, one batch), and card
+               against CPU over 5 steps, each from the CPU's state before
+               it, losses within 1e-5; the CPU's loss falls.
+   train_vgg16 — build_vgg_program's 10 classes and 3x32x32 at batch 128
+               and the reference test's lr 3e-4 (at build_vgg_program's 0.01
+               random images drive the loss up, on the CPU as well):
+               timed_modes (12 timed steps, one batch), finite losses, the
+               mean of a leg's last three below that of its first three;
+               card against CPU at batch 4, 2 steps each from the CPU's
+               state, within 1e-4.
 Every phase line ends with at_s, the seconds since the script started.
 Then one line with every ported kernel: ``launches_by_path`` gives each
 phase's own count (set to 0 just before the phase, read just after),
@@ -6386,6 +6419,396 @@ def observe_serve_int8(dev, cfg, model_dir, want_ids, want_launches):
                 int8_instances=int8_instances)
 
 
+def _glue_tensor(v):
+    """A case's numpy input as the feeds hold it: int64 as int32, float64
+    as float32."""
+    a = np.array(v, copy=True)
+    if a.dtype == np.int64:
+        a = a.astype(np.int32)
+    elif a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(a)
+
+
+def _glue_diff(got, want, tol):
+    """(agrees, worst finite abs error) of a card output against the
+    CPU's: shape and dtype equal; integers and bools bit for bit; floats
+    with NaN and the infinities where the CPU has them, the rest within
+    rtol = atol = tol."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False, float("inf")
+    if not want.is_floating_point():
+        return bool(torch.equal(got, want)), 0.0
+    g, w = got.double(), want.double()
+    fin = torch.isfinite(w)
+    same_special = torch.equal(torch.isnan(g), torch.isnan(w)) and \
+        torch.equal(torch.where(fin, 0.0, g.nan_to_num(0.0)),
+                    torch.where(fin, 0.0, w.nan_to_num(0.0)))
+    err = float((g - w)[fin].abs().max()) if bool(fin.any()) else 0.0
+    ok = same_special and bool(torch.allclose(g[fin], w[fin], rtol=tol,
+                                              atol=tol))
+    return ok, err
+
+
+def ops_glue_card(dev):
+    """Every op type this slice registers on the card against the CPU:
+    each case of ``tools/glue_cases.py`` through the port's lowering on
+    the card and on the CPU from the same inputs (a case the CPU refuses
+    must raise the same exception type on the card); randint's draw in
+    [low, high) and int32. Prints the cases, ops and the worst error of
+    each family; any disagreement raises."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.tools import glue_cases
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+
+    def run(op, ins, attrs, device):
+        t = {k: [None if v is None else _glue_tensor(v).to(device)
+                 for v in vs] for k, vs in ins.items()}
+        out = registry.normalize_outputs(registry.get(op).forward(
+            t, dict(attrs)))
+        return {k: [v.cpu() for v in vs] for k, vs in out.items()}
+
+    worst, bad, raised, ops = {}, [], 0, set()
+    for case in sorted(glue_cases.CASES):
+        op = case.split("[")[0]
+        ops.add(op)
+        fam = glue_cases.family(op)
+        ins, attrs = glue_cases.CASES[case](glue_cases.rng(case))
+        try:
+            want = run(op, ins, attrs, "cpu")
+        except Exception as e:                      # noqa: BLE001
+            try:
+                run(op, ins, attrs, dev)
+                bad.append(dict(case=case, why="card ran where the CPU "
+                                f"raised {type(e).__name__}"))
+            except type(e):
+                raised += 1
+            except Exception as e2:                 # noqa: BLE001
+                bad.append(dict(case=case, why=f"{type(e2).__name__} on "
+                                f"the card, {type(e).__name__} on the CPU"))
+            continue
+        got = run(op, ins, attrs, dev)
+        for slot, vals in want.items():
+            for i, w in enumerate(vals):
+                ok, err = _glue_diff(got[slot][i], w,
+                                     glue_cases.CARD_TOL[fam])
+                worst[fam] = max(worst.get(fam, 0.0), err)
+                if not ok:
+                    bad.append(dict(case=case, slot=f"{slot}[{i}]",
+                                    err=err))
+    ri = run("randint", {}, {"shape": [4096], "low": -3, "high": 7,
+                             "seed": 8}, dev)["Out"][0]
+    ops.add("randint")
+    randint_ok = ri.dtype == torch.int32 and int(ri.min()) == -3 and \
+        int(ri.max()) == 6
+    emit("ops_glue_card", cases=len(glue_cases.CASES), ops=len(ops),
+         cpu_refusals_matched=raised, worst_abs_err_by_family=worst,
+         tolerance_by_family=glue_cases.CARD_TOL, randint_ok=randint_ok,
+         disagreements=bad[:20], seconds=time.perf_counter() - t0)
+    if bad or not randint_ok or len(ops) != 104:
+        raise AssertionError(f"ops_glue_card: {len(bad)} disagreements "
+                             f"{bad[:5]}, randint_ok {randint_ok}, "
+                             f"{len(ops)} op types")
+    return _phase_counts()
+
+
+def _feed_on(batch, device):
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def _host_state(scope):
+    return {n: v.to("cpu", copy=True) if isinstance(v, torch.Tensor) else v
+            for n, v in scope.items()}
+
+
+def _scope_on(state, device):
+    from paddle_tpu_torch.core.scope import Scope
+
+    sc = Scope()
+    for n, v in state.items():
+        sc.set(n, v.to(device, copy=True) if isinstance(v, torch.Tensor)
+               else v)
+    return sc
+
+
+def _losses_from(prog, state, device, feeds, fetch, chained=True,
+                 ref_states=None):
+    """Losses of ``prog`` over ``feeds`` on ``device`` from ``state``;
+    with ``chained`` False each step starts from ``ref_states[i]``. Also
+    the host state before each step."""
+    from paddle_tpu_torch.core.executor import Executor
+
+    exe = Executor(device=device)
+    sc = _scope_on(state, device)
+    losses, states = [], []
+    for i, feed in enumerate(feeds):
+        if not chained:
+            sc = _scope_on(ref_states[i], device)
+        states.append(_host_state(sc))
+        losses.append(_loss(exe.run(prog, feed=feed, scope=sc,
+                                    fetch_list=fetch)))
+    exe.close()
+    return losses, states, sc
+
+
+def _card_vs_cpu(prog, state, dev, feeds, fetch, chained):
+    """(CPU losses, card losses, the card's last scope): the CPU first,
+    then the card from the same state (chained), or each card step from
+    the CPU's state before it."""
+    cpu, states, _ = _losses_from(prog, state, torch.device("cpu"), feeds,
+                                  fetch)
+    card, _, sc = _losses_from(prog, state, dev, feeds, fetch, chained,
+                               states)
+    return cpu, card, sc
+
+
+def train_seq2seq(dev, smi, batch_size=64, seq=32, timed=20):
+    """seq2seq at Seq2SeqConfig's full width: startup on the card, one
+    warm-up step, timed_modes (``timed`` steps op by op and compiled on
+    one batch, each leg from the warm-up's state: a falling loss, step
+    ms, peak memory); card against CPU at batch 4, 3 steps from the
+    startup state, losses within 1e-4. Returns the launch counts and the
+    compiled leg's scope (the trained state) for decode_seq2seq."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import seq2seq
+    from paddle_tpu_torch.tools.profile_train import timed_modes
+
+    t_phase = time.perf_counter()
+    cfg = seq2seq.Seq2SeqConfig()
+    with unique_name.guard():
+        main_prog, startup, _, fetches = seq2seq.build_seq2seq_program(
+            cfg, seq, seq, batch_size=batch_size, lr=1e-3)
+    with unique_name.guard():
+        small, _, _, _ = seq2seq.build_seq2seq_program(cfg, seq, seq,
+                                                       batch_size=4,
+                                                       lr=1e-3)
+    exe, scope = Executor(device=dev), Scope()
+    exe.run(startup, scope=scope)
+    state = _host_state(scope)
+    batch = seq2seq.synthetic_translation_batch(cfg, batch_size, seq, seq,
+                                                seed=0)
+    feed = _feed_on(batch, dev)
+    fetch = [fetches["loss"]]
+    warm = _loss(exe.run(main_prog, feed=feed, scope=scope,
+                         fetch_list=fetch, use_compiled=False))
+    modes = timed_modes(exe, main_prog, feed, scope, fetch, timed)
+    exe.close()
+    small_feeds = [seq2seq.synthetic_translation_batch(cfg, 4, seq, seq,
+                                                       seed=s)
+                   for s in range(3)]
+    cpu, card, _ = _card_vs_cpu(small, state, dev, small_feeds,
+                                [fetches["loss"].name], chained=True)
+    ok = np.allclose(card, cpu, rtol=1e-4, atol=1e-4)
+    tokens = int(batch["tgt_mask"].sum())
+    emit("train_seq2seq", model="seq2seq", batch=batch_size, src_len=seq,
+         tgt_len=seq, vocab=cfg.tgt_vocab_size, hidden=cfg.hidden_size,
+         embed=cfg.embed_dim, ops=len(main_prog.global_block().ops),
+         warmup_loss=warm, modes=_per_mode(modes),
+         step_ms_p50={m: r["step_ms_p50"] for m, r in modes.items()},
+         peak_gb={m: r["max_memory_allocated"] / 1e9
+                  for m, r in modes.items()},
+         target_tokens_per_s={m: tokens / (r["step_ms_p50"] / 1e3)
+                              for m, r in modes.items()},
+         parity_batch=4, parity_loss_gpu=card, parity_loss_cpu=cpu,
+         parity_tolerance="rtol=atol=1e-4", nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase)
+    _check_legs("train_seq2seq", modes)
+    if not ok:
+        raise AssertionError(f"train_seq2seq: card {card} and CPU {cpu} "
+                             f"disagree")
+    comp = modes["compiled"]
+    return dict(launches=comp["launches"], layouts=comp["layouts"],
+                dtypes=comp["dtypes"]), cfg, scope
+
+
+def _first_parting(card, cpu):
+    """The first step at which the card's and the CPU's choices differ,
+    the rows that differ there and the CPU's margins on them; None if
+    they never part."""
+    for t, ((cc, _), (pc, margin)) in enumerate(zip(card, cpu)):
+        rows = (cc != pc).reshape(cc.shape[0], -1).any(dim=1)
+        if bool(rows.any()):
+            return dict(step=t, rows=rows.nonzero().reshape(-1).tolist(),
+                        cpu_margin=float(margin[rows].max()))
+    return None
+
+
+def decode_seq2seq(dev, cfg, scope, rows=64, beam=4, max_len=32, reps=3):
+    """Greedy and beam decoding of ``rows`` sources from the trained
+    state on the card: ms a decode and rows/s; beam at K = 1 with no
+    length penalty equals greedy bit for bit; on 8 rows card against
+    CPU, the ids equal or the first step where the choices part at a
+    CPU margin (top two logits, or neighbouring candidates among the
+    K + 1 best) within 1e-4."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import seq2seq
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    src = seq2seq.synthetic_translation_batch(cfg, rows, max_len, max_len,
+                                              seed=1)
+    ids, mask = src["src_ids"], src["src_mask"]
+    timing, outs = {}, {}
+    for name, fn in (("greedy", lambda: seq2seq.greedy_decode(
+            cfg, scope, ids, mask, max_len=max_len)),
+                     ("beam", lambda: seq2seq.beam_search_decode(
+                         cfg, scope, ids, mask, beam_size=beam,
+                         max_len=max_len))):
+        outs[name] = fn()                           # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        timing[name] = dict(ms=ms, rows_per_s=rows / (ms / 1e3))
+    k1 = seq2seq.beam_search_decode(cfg, scope, ids, mask, beam_size=1,
+                                    max_len=max_len, length_penalty=0.0)
+    k1_equal = bool(np.array_equal(k1, outs["greedy"]))
+    cpu_scope = _scope_on(_host_state(scope), "cpu")
+    parity = {}
+    for name, kw in (("greedy", {}), ("beam", {"beam_size": beam})):
+        fn = seq2seq.greedy_decode if name == "greedy" else \
+            seq2seq.beam_search_decode
+        tr_card, tr_cpu = [], []
+        got = fn(cfg, scope, ids[:8], mask[:8], max_len=max_len,
+                 trace=tr_card, **kw)
+        want = fn(cfg, cpu_scope, ids[:8], mask[:8], max_len=max_len,
+                  trace=tr_cpu, **kw)
+        part = _first_parting(tr_card, tr_cpu)
+        parity[name] = dict(ids_equal=bool(np.array_equal(got, want)),
+                            parting=part)
+        parity[name]["ok"] = parity[name]["ids_equal"] if part is None \
+            else part["cpu_margin"] <= 1e-4
+    emit("decode_seq2seq", rows=rows, beam=beam, max_len=max_len,
+         timing=timing, beam1_equals_greedy=k1_equal, cpu_parity_rows=8,
+         cpu_parity=parity, eos_rows_greedy=int(
+             (outs["greedy"] == 2).any(axis=1).sum()),
+         seconds=time.perf_counter() - t_phase)
+    if not k1_equal or not all(p["ok"] for p in parity.values()):
+        raise AssertionError(f"decode_seq2seq: beam K=1 equals greedy "
+                             f"{k1_equal}, card against CPU {parity}")
+    return _phase_counts()
+
+
+def train_sentiment(dev, smi, batch_size=128, timed=5, steps=5):
+    """Both understand_sentiment nets at build_sentiment_program's widths
+    (vocabulary 500, 16 steps, embed 32, the stacked LSTM's hidden 64 in
+    three layers, the conv net's 32 filters of window 3), Adam lr 0.02:
+    timed_modes over one batch; card against CPU over ``steps`` steps on
+    one batch, each from the CPU's state before it, losses within 1e-5,
+    and the CPU's loss falling."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import sentiment
+    from paddle_tpu_torch.tools.profile_train import timed_modes
+
+    from paddle_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    nets, problems = {}, []
+    for net in ("stacked_lstm", "conv"):
+        with unique_name.guard():
+            main_prog, startup, _, fetches = \
+                sentiment.build_sentiment_program(net=net,
+                                                  batch_size=batch_size)
+        exe, scope = Executor(device=dev), Scope()
+        exe.run(startup, scope=scope)
+        state = _host_state(scope)
+        batch = sentiment.synthetic_batch(batch_size, seed=0)
+        fetch = [fetches["loss"]]
+        modes = timed_modes(exe, main_prog, _feed_on(batch, dev), scope,
+                            fetch, timed)
+        exe.close()
+        cpu, card, _ = _card_vs_cpu(main_prog, state, dev,
+                                    [batch] * steps, [fetches["loss"].name],
+                                    chained=False)
+        ok = np.allclose(card, cpu, rtol=1e-5, atol=1e-5)
+        falls = cpu[-1] < cpu[0]
+        nets[net] = dict(ops=len(main_prog.global_block().ops),
+                         modes=_per_mode(modes),
+                         step_ms_p50={m: r["step_ms_p50"]
+                                      for m, r in modes.items()},
+                         peak_gb={m: r["max_memory_allocated"] / 1e9
+                                  for m, r in modes.items()},
+                         parity_loss_gpu=card, parity_loss_cpu=cpu,
+                         parity_max_abs=float(np.max(np.abs(
+                             np.subtract(card, cpu)))),
+                         cpu_loss_falls=bool(falls))
+        _check_legs(f"train_sentiment[{net}]", modes)
+        if not ok or not falls:
+            problems.append(net)
+    emit("train_sentiment", batch=batch_size, nets=nets,
+         parity_tolerance="rtol=atol=1e-5, each step from the CPU's state",
+         nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+    if problems:
+        raise AssertionError(f"train_sentiment: card and CPU disagree or "
+                             f"the loss does not fall: {problems}")
+    return _phase_counts()
+
+
+def train_vgg16(dev, smi, batch_size=128, timed=12, lr=3e-4):
+    """VGG16 (build_vgg_program's 10 classes, 3x32x32) at ``batch_size``,
+    Adam at the reference test's ``lr``: startup, timed_modes over one
+    batch (step ms, peak memory), finite losses with the mean of each
+    leg's last three below its first three (dropout makes single steps
+    noisy, as the reference's test_vgg16_trains says); card against CPU
+    at batch 4, 2 steps each from the CPU's state, within 1e-4."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import vision_extra
+    from paddle_tpu_torch.tools.profile_train import timed_modes
+
+    t_phase = time.perf_counter()
+    with unique_name.guard():
+        main_prog, startup, _, fetches = vision_extra.build_vgg_program(
+            batch_size=batch_size, lr=lr)
+    with unique_name.guard():
+        small, _, _, _ = vision_extra.build_vgg_program(batch_size=4, lr=lr)
+    exe, scope = Executor(device=dev), Scope()
+    exe.run(startup, scope=scope)
+    state = _host_state(scope)
+    batch = vision_extra.synthetic_batch(batch_size, seed=0)
+    fetch = [fetches["loss"]]
+    modes = timed_modes(exe, main_prog, _feed_on(batch, dev), scope, fetch,
+                        timed)
+    exe.close()
+    trend = {m: (float(np.mean(r["losses"][:3])),
+                 float(np.mean(r["losses"][-3:]))) for m, r in modes.items()}
+    finite = all(np.all(np.isfinite(r["losses"])) for r in modes.values())
+    cpu, card, _ = _card_vs_cpu(
+        small, state, dev, [vision_extra.synthetic_batch(4, seed=s)
+                            for s in range(2)],
+        [fetches["loss"].name], chained=False)
+    ok = np.allclose(card, cpu, rtol=1e-4, atol=1e-4)
+    emit("train_vgg16", model="vgg16", batch=batch_size, lr=lr,
+         ops=len(main_prog.global_block().ops), modes=_per_mode(modes),
+         step_ms_p50={m: r["step_ms_p50"] for m, r in modes.items()},
+         peak_gb={m: r["max_memory_allocated"] / 1e9
+                  for m, r in modes.items()},
+         images_per_s={m: batch_size / (r["step_ms_p50"] / 1e3)
+                       for m, r in modes.items()},
+         loss_mean_first3_last3=trend, parity_batch=4,
+         parity_loss_gpu=card, parity_loss_cpu=cpu,
+         parity_tolerance="rtol=atol=1e-4, each step from the CPU's state",
+         nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+    if not finite or not all(b < a for a, b in trend.values()) or not ok:
+        raise AssertionError(f"train_vgg16: finite {finite}, loss trend "
+                             f"{trend}, card {card} against CPU {cpu}")
+    comp = modes["compiled"]
+    return dict(launches=comp["launches"], layouts=comp["layouts"],
+                dtypes=comp["dtypes"])
+
+
 def infer_phases(dev):
     """The inference plane's phases over two BERT-base dirs written under
     SERVING_DIR (removed at the end): infer_bert_base,
@@ -6576,6 +6999,15 @@ def main():
     del scope, layer_in
     _release()
     runs["dropout_2p32"] = dropout_2p32(dev, smi)
+    _release()
+    runs["ops_glue_card"] = ops_glue_card(dev)
+    runs["train_seq2seq"], s2s_cfg, s2s_scope = train_seq2seq(dev, smi)
+    runs["decode_seq2seq"] = decode_seq2seq(dev, s2s_cfg, s2s_scope)
+    del s2s_scope
+    _release()
+    runs["train_sentiment"] = train_sentiment(dev, smi)
+    _release()
+    runs["train_vgg16"] = train_vgg16(dev, smi)
     _release()
 
     rep = {"flash_attention_fwd": "B=1 S=2048 n=16 hd=64 causal",

@@ -185,10 +185,13 @@ class OpDesc:
 class Variable:
     """Python handle to a VarDesc in a Block (reference: framework.py:924).
 
-    ``a + b``, ``a * b`` and ``a / b`` inside a program build append
-    ``elementwise_add`` / ``elementwise_mul`` / ``elementwise_div`` ops
-    to the variable's block; a Python scalar operand becomes a
-    ``fill_constant`` var."""
+    The arithmetic operators inside a program build append elementwise
+    ops to the variable's block (``a - b`` an ``elementwise_sub``,
+    ``a ** b`` an ``elementwise_pow``, ...); a Python scalar operand
+    becomes a ``fill_constant`` var. ``-a`` is a ``scale`` by -1, ``a @
+    b`` a ``matmul``, the comparisons are ``less_than`` and its kin,
+    ``a[...]`` a ``slice`` and ``a.astype(t)`` a ``cast``, as in the
+    reference (``paddle_tpu/core/ir.py:235-300``)."""
 
     def __init__(self, block: "Block", desc: VarDesc):
         self.block = block
@@ -218,6 +221,11 @@ class Variable:
     def stop_gradient(self, v: bool):
         self.desc.stop_gradient = v
 
+    def astype(self, dtype) -> "Variable":
+        from .. import layers
+
+        return layers.cast(self, dtype)
+
     def _binary(self, other, op, reverse=False):
         from .. import layers
 
@@ -227,6 +235,12 @@ class Variable:
         return self._binary(other, "elementwise_add")
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elementwise_sub")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elementwise_sub", reverse=True)
 
     def __mul__(self, other):
         return self._binary(other, "elementwise_mul")
@@ -238,6 +252,41 @@ class Variable:
 
     def __rtruediv__(self, other):
         return self._binary(other, "elementwise_div", reverse=True)
+
+    def __pow__(self, other):
+        return self._binary(other, "elementwise_pow")
+
+    def __neg__(self):
+        from .. import layers
+
+        return layers.scale(self, scale=-1.0)
+
+    def __matmul__(self, other):
+        from .. import layers
+
+        return layers.matmul(self, other)
+
+    def _cmp(self, other, op):
+        from .. import layers
+
+        return layers._compare(self, other, op)
+
+    def __lt__(self, other):
+        return self._cmp(other, "less_than")
+
+    def __le__(self, other):
+        return self._cmp(other, "less_equal")
+
+    def __gt__(self, other):
+        return self._cmp(other, "greater_than")
+
+    def __ge__(self, other):
+        return self._cmp(other, "greater_equal")
+
+    def __getitem__(self, idx):
+        from .. import layers
+
+        return layers._getitem(self, idx)
 
     def __repr__(self):
         return (f"Variable(name={self.name}, shape={self.shape}, "

@@ -1,9 +1,10 @@
-"""Op-emitting layer functions — the subset of ``paddle_tpu/layers/nn.py``
-the decoder LM's, the BERT/ERNIE pre-training, the ResNet classifier, the
-LeNet and the WMT Transformer programs are built from.
-Each function creates output vars and appends ops with the same types,
-slots and attrs as the reference, so the two packages build the same
-program."""
+"""Op-emitting layer functions: the subset of ``paddle_tpu/layers/nn.py``
+the ported programs are built from (the decoder LM, BERT/ERNIE
+pre-training, ResNet, LeNet, the WMT Transformer, word2vec, seq2seq,
+sentiment and VGG16), with every hand-written wrapper of the math,
+tensor, RNN and sequence ops. Each function creates output vars and
+appends ops with the same types, slots and attrs as the reference, so
+the two packages build the same program."""
 
 from __future__ import annotations
 
@@ -21,15 +22,26 @@ from ..parallel.api import set_logical_axes
 
 __all__ = ["data", "static_data", "create_parameter", "create_global_var",
            "fc", "linear", "embedding", "layer_norm", "dropout",
-           "cross_entropy", "softmax_with_cross_entropy", "topk", "mean",
+           "cross_entropy", "softmax_with_cross_entropy",
+           "sigmoid_cross_entropy_with_logits", "square_error_cost",
+           "topk", "mean", "l2_normalize",
            "relu", "tanh", "sigmoid", "gelu", "sqrt", "square", "clip",
-           "elementwise_add", "elementwise_mul", "elementwise_div",
-           "elementwise_max", "reduce_sum", "reduce_mean",
-           "matmul", "mul",
+           "exp", "log", "rsqrt", "abs", "floor", "ceil", "round",
+           "reciprocal", "softplus", "softsign", "silu", "swish", "cos",
+           "erf", "sign", "logsigmoid", "leaky_relu", "log_softmax",
+           "elementwise_add", "elementwise_sub", "elementwise_mul",
+           "elementwise_div", "elementwise_pow", "elementwise_max",
+           "elementwise_min", "elementwise_mod",
+           "equal", "not_equal", "less_than", "greater_than",
+           "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+           "reduce_prod", "matmul", "mul",
            "reshape", "transpose", "squeeze", "unsqueeze", "slice", "gather",
+           "split", "stack", "flatten", "expand", "where", "argmax",
+           "zeros", "ones", "zeros_like", "ones_like",
            "scale", "fill_constant", "take_along_axis", "flash_attention",
            "conv2d", "pool2d", "batch_norm", "accuracy", "softmax", "cast",
-           "one_hot", "label_smooth", "concat"]
+           "one_hot", "label_smooth", "concat",
+           "lstm_unit_layer", "gru_layer", "sequence_mask", "sequence_pool"]
 
 
 def _pair(v):
@@ -232,10 +244,26 @@ def _unary(op_type):
 
 
 relu = _unary("relu")
-tanh = _unary("tanh")
 sigmoid = _unary("sigmoid")
+tanh = _unary("tanh")
+exp = _unary("exp")
+log = _unary("log")
 sqrt = _unary("sqrt")
+rsqrt = _unary("rsqrt")
 square = _unary("square")
+abs = _unary("abs")
+floor = _unary("floor")
+ceil = _unary("ceil")
+round = _unary("round")
+reciprocal = _unary("reciprocal")
+softplus = _unary("softplus")
+softsign = _unary("softsign")
+silu = _unary("silu")
+swish = _unary("swish")
+cos = _unary("cos")
+erf = _unary("erf")
+sign = _unary("sign")
+logsigmoid = _unary("logsigmoid")
 
 
 def gelu(x: Variable, approximate: bool = False, name=None) -> Variable:
@@ -246,28 +274,43 @@ def gelu(x: Variable, approximate: bool = False, name=None) -> Variable:
     return out
 
 
-def reduce_sum(input: Variable, dim=None, keep_dim: bool = False,
-               name=None) -> Variable:
-    helper = LayerHelper("reduce_sum", name=name)
-    out = helper.create_variable_for_type_inference(input.dtype)
-    if dim is not None and not isinstance(dim, (list, tuple)):
-        dim = [dim]
-    helper.append_op("reduce_sum", {"X": [input]}, {"Out": [out]},
-                     {"dim": dim, "keep_dim": keep_dim,
-                      "reduce_all": dim is None})
+def leaky_relu(x, alpha=0.02, name=None):
+    helper = LayerHelper("leaky_relu", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("leaky_relu", {"X": [x]}, {"Out": [out]},
+                     {"alpha": alpha})
     return out
 
 
-def reduce_mean(input: Variable, dim=None, keep_dim: bool = False,
-                name=None) -> Variable:
-    helper = LayerHelper("reduce_mean", name=name)
+def log_softmax(input, axis=-1, name=None):
+    helper = LayerHelper("log_softmax", name=name)
     out = helper.create_variable_for_type_inference(input.dtype)
-    if dim is not None and not isinstance(dim, (list, tuple)):
-        dim = [dim]
-    helper.append_op("reduce_mean", {"X": [input]}, {"Out": [out]},
-                     {"dim": dim, "keep_dim": keep_dim,
-                      "reduce_all": dim is None})
+    helper.append_op("log_softmax", {"X": [input]}, {"Out": [out]},
+                     {"axis": axis})
     return out
+
+
+def _reduce_layer(op_type):
+    def fn(input: Variable, dim=None, keep_dim: bool = False,
+           name=None) -> Variable:
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(input.dtype)
+        if dim is not None and not isinstance(dim, (list, tuple)):
+            dim = [dim]
+        helper.append_op(op_type, {"X": [input]}, {"Out": [out]},
+                         {"dim": dim, "keep_dim": keep_dim,
+                          "reduce_all": dim is None})
+        return out
+
+    fn.__name__ = op_type
+    return fn
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+reduce_prod = _reduce_layer("reduce_prod")
 
 
 def matmul(x: Variable, y: Variable, transpose_x: bool = False,
@@ -290,7 +333,8 @@ def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
     return out
 
 
-def reshape(x: Variable, shape, name=None) -> Variable:
+def reshape(x: Variable, shape, actual_shape=None, inplace=False,
+            name=None) -> Variable:
     helper = LayerHelper("reshape2", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     xshape = helper.create_variable_for_type_inference(x.dtype, True)
@@ -345,13 +389,13 @@ def gather(input: Variable, index: Variable, name=None) -> Variable:
 
 
 def scale(x: Variable, scale: float = 1.0, bias: float = 0.0,
-          bias_after_scale: bool = True, name=None) -> Variable:
+          bias_after_scale: bool = True, act=None, name=None) -> Variable:
     helper = LayerHelper("scale", name=name)
     out = helper.create_variable_for_type_inference(x.dtype)
     helper.append_op("scale", {"X": [x]}, {"Out": [out]},
                      {"scale": scale, "bias": bias,
                       "bias_after_scale": bias_after_scale})
-    return out
+    return helper.append_activation(out, act)
 
 
 def clip(x: Variable, min: float, max: float, name=None) -> Variable:
@@ -440,7 +484,7 @@ def _elementwise_binary(x, y, op_type, reverse=False):
     trailing broadcast (axis -1)."""
     if not isinstance(x, Variable) and isinstance(y, Variable):
         x, y = y, x
-        if op_type == "elementwise_div":
+        if op_type in ("elementwise_sub", "elementwise_div"):
             reverse = not reverse
     helper = LayerHelper(op_type)
     y = _to_var(y, x)
@@ -467,9 +511,45 @@ def _binary(op_type):
 
 
 elementwise_add = _binary("elementwise_add")
+elementwise_sub = _binary("elementwise_sub")
 elementwise_mul = _binary("elementwise_mul")
 elementwise_div = _binary("elementwise_div")
+elementwise_pow = _binary("elementwise_pow")
 elementwise_max = _binary("elementwise_max")
+elementwise_min = _binary("elementwise_min")
+elementwise_mod = _binary("elementwise_mod")
+
+
+def _compare(x, y, op_type):
+    """A comparison of x with y (a Python scalar becomes a fill_constant
+    of x's dtype): a bool var (reference ``layers/nn.py:479``)."""
+    helper = LayerHelper(op_type)
+    y = _to_var(y, x)
+    out = helper.create_variable_for_type_inference("bool", True)
+    helper.append_op(op_type, {"X": [x], "Y": [y]}, {"Out": [out]}, {})
+    return out
+
+
+def equal(x, y, name=None):
+    return _compare(x, y, "equal")
+
+
+def not_equal(x, y, name=None):
+    return _compare(x, y, "not_equal")
+
+
+def less_than(x, y, name=None):
+    return _compare(x, y, "less_than")
+
+
+def greater_than(x, y, name=None):
+    return _compare(x, y, "greater_than")
+
+
+def l2_normalize(x, axis=-1, epsilon=1e-12, name=None):
+    sq = reduce_sum(elementwise_mul(x, x), dim=[axis], keep_dim=True)
+    norm = sqrt(elementwise_max(sq, fill_constant([1], x.dtype, epsilon)))
+    return elementwise_div(x, norm)
 
 
 def conv2d(input: Variable, num_filters: int, filter_size, stride=1,
@@ -611,4 +691,220 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     out = helper.create_variable_for_type_inference(label.dtype)
     helper.append_op("label_smooth", {"X": [label]}, {"Out": [out]},
                      {"epsilon": epsilon})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("sigmoid_cross_entropy_with_logits",
+                     {"X": [x], "Label": [label]}, {"Out": [out]}, {})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("square_error_cost", {"Input": [input], "Label": [label]},
+                     {"Out": [out]}, {})
+    return out
+
+
+def split(input: Variable, num_or_sections, dim: int = -1, name=None):
+    helper = LayerHelper("split", name=name)
+    if isinstance(num_or_sections, int):
+        n, sections = num_or_sections, None
+    else:
+        n, sections = len(num_or_sections), list(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(input.dtype)
+            for _ in range(n)]
+    helper.append_op("split", {"X": [input]}, {"Out": outs},
+                     {"axis": dim, "num": 0 if sections else n,
+                      "sections": sections or []})
+    return outs
+
+
+def stack(x: List[Variable], axis: int = 0, name=None) -> Variable:
+    helper = LayerHelper("stack", name=name)
+    out = helper.create_variable_for_type_inference(x[0].dtype)
+    helper.append_op("stack", {"X": x}, {"Y": [out]}, {"axis": axis})
+    return out
+
+
+def flatten(x: Variable, axis: int = 1, name=None) -> Variable:
+    helper = LayerHelper("flatten2", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    xshape = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op("flatten2", {"X": [x]},
+                     {"Out": [out], "XShape": [xshape]}, {"axis": axis})
+    return out
+
+
+def _getitem(var: Variable, idx):
+    """``var[idx]`` as one slice op (reference ``layers/nn.py:628``): an
+    int index takes one position and drops the axis, a slice its range
+    (a step is not read), an Ellipsis anchors what follows to the
+    trailing axes. None (a new axis) raises."""
+    if not isinstance(idx, tuple):
+        idx = (idx,)
+    ndim = len(var.shape or ())
+    axis_of = []
+    ell = next((k for k, s in enumerate(idx) if s is Ellipsis), None)
+    for k in range(len(idx)):
+        if ell is None or k < ell:
+            axis_of.append(k)
+        elif k == ell:
+            axis_of.append(None)
+        else:
+            axis_of.append(ndim - (len(idx) - k))
+    int_max = int(np.iinfo(np.int32).max)
+    axes, starts, ends, decrease = [], [], [], []
+    for k, s in enumerate(idx):
+        i = axis_of[k]
+        if s is Ellipsis:
+            continue
+        if isinstance(s, int):
+            axes.append(i)
+            starts.append(s)
+            ends.append(s + 1 if s != -1 else int_max)
+            decrease.append(i)
+        elif s is None:
+            raise NotImplementedError("newaxis indexing not supported yet")
+        else:
+            if s.start is None and s.stop is None:
+                continue
+            axes.append(i)
+            starts.append(s.start or 0)
+            ends.append(s.stop if s.stop is not None else int_max)
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(var.dtype)
+    helper.append_op("slice", {"Input": [var]}, {"Out": [out]},
+                     {"axes": axes, "starts": starts, "ends": ends,
+                      "decrease_axis": decrease})
+    return out
+
+
+def zeros(shape, dtype="float32", name=None):
+    return fill_constant(shape, dtype, 0.0, name=name)
+
+
+def ones(shape, dtype="float32", name=None):
+    return fill_constant(shape, dtype, 1.0, name=name)
+
+
+def zeros_like(x, name=None):
+    helper = LayerHelper("zeros_like", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fill_zeros_like", {"X": [x]}, {"Out": [out]}, {})
+    return out
+
+
+def ones_like(x, name=None):
+    helper = LayerHelper("ones_like", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("fill_any_like", {"X": [x]}, {"Out": [out]},
+                     {"value": 1.0, "dtype": -1})
+    return out
+
+
+def expand(x: Variable, expand_times, name=None) -> Variable:
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("expand", {"X": [x]}, {"Out": [out]},
+                     {"expand_times": list(expand_times)})
+    return out
+
+
+def where(condition, x, y, name=None):
+    helper = LayerHelper("where", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("where", {"Condition": [condition], "X": [x], "Y": [y]},
+                     {"Out": [out]}, {})
+    return out
+
+
+def argmax(x, axis=-1, name=None):
+    helper = LayerHelper("arg_max", name=name)
+    out = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("arg_max", {"X": [x]}, {"Out": [out]}, {"axis": axis})
+    return out
+
+
+def lstm_unit_layer(input, hidden_size, param_attr=None, bias_attr=None,
+                    h0=None, c0=None, is_reverse=False, seq_length=None,
+                    name=None):
+    """A padded LSTM over [B, S, D] (the reference's ``dynamic_lstm``
+    with the LoD as an optional ``seq_length``; ``ops/rnn_ops.py``):
+    (Out [B, S, H], LastH, LastC). The recurrent weight is named
+    ``<name>_wh_<k>``."""
+    helper = LayerHelper("lstm", name=name)
+    d = int(input.shape[-1])
+    wx = helper.create_parameter(param_attr or ParamAttr(),
+                                 [d, 4 * hidden_size], input.dtype)
+    wh = helper.create_parameter(
+        ParamAttr(name=unique_name.generate((name or "lstm") + "_wh")),
+        [hidden_size, 4 * hidden_size], input.dtype)
+    b = helper.create_parameter(bias_attr or ParamAttr(), [4 * hidden_size],
+                                input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    last_h = helper.create_variable_for_type_inference(input.dtype)
+    last_c = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"Input": [input], "WeightX": [wx], "WeightH": [wh], "Bias": [b]}
+    if h0 is not None:
+        inputs["H0"] = [h0]
+    if c0 is not None:
+        inputs["C0"] = [c0]
+    if seq_length is not None:
+        inputs["SequenceLength"] = [seq_length]
+    helper.append_op("lstm", inputs,
+                     {"Out": [out], "LastH": [last_h], "LastC": [last_c]},
+                     {"is_reverse": is_reverse})
+    return out, last_h, last_c
+
+
+def gru_layer(input, hidden_size, param_attr=None, bias_attr=None, h0=None,
+              is_reverse=False, seq_length=None, name=None):
+    """A padded GRU over [B, S, D] (the reference's ``dynamic_gru``):
+    (Out [B, S, H], LastH)."""
+    helper = LayerHelper("gru", name=name)
+    d = int(input.shape[-1])
+    wx = helper.create_parameter(param_attr or ParamAttr(),
+                                 [d, 3 * hidden_size], input.dtype)
+    wh = helper.create_parameter(
+        ParamAttr(name=unique_name.generate((name or "gru") + "_wh")),
+        [hidden_size, 3 * hidden_size], input.dtype)
+    b = helper.create_parameter(bias_attr or ParamAttr(), [3 * hidden_size],
+                                input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    last_h = helper.create_variable_for_type_inference(input.dtype)
+    inputs = {"Input": [input], "WeightX": [wx], "WeightH": [wh], "Bias": [b]}
+    if h0 is not None:
+        inputs["H0"] = [h0]
+    if seq_length is not None:
+        inputs["SequenceLength"] = [seq_length]
+    helper.append_op("gru", inputs, {"Out": [out], "LastH": [last_h]},
+                     {"is_reverse": is_reverse})
+    return out, last_h
+
+
+def sequence_mask(x, maxlen, dtype="int64", name=None):
+    helper = LayerHelper("sequence_mask", name=name)
+    out = helper.create_variable_for_type_inference(dtype, True)
+    helper.append_op("sequence_mask", {"X": [x]}, {"Y": [out]},
+                     {"maxlen": int(maxlen), "out_dtype": dtype})
+    return out
+
+
+def sequence_pool(input, pool_type="sum", lod=None, name=None):
+    """Pool a (flat values, offsets) pair per sequence; ``lod`` is the
+    offsets tensor."""
+    if lod is None:
+        raise ValueError("sequence_pool requires lod= (the explicit "
+                         "offsets tensor; see ops/sequence_ops.py)")
+    helper = LayerHelper("sequence_pool", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    idx = helper.create_variable_for_type_inference("int32", True)
+    helper.append_op("sequence_pool", {"X": [input], "Lod": [lod]},
+                     {"Out": [out], "MaxIndex": [idx]},
+                     {"pooltype": pool_type.upper()})
     return out

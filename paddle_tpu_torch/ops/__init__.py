@@ -1,10 +1,12 @@
 """Op lowerings; importing this package registers every op type of the
 decoder LM's serving programs, of the BERT/ERNIE pre-training program,
 of the ResNet classifier program, of the WMT Transformer program and of
-the inference programs the predictor's passes rewrite, and of the
-fleet training chain (loss scaling, clips, regularizers, LAMB/LARS,
-recomputed segments)."""
+the inference programs the predictor's passes rewrite, of the fleet
+training chain (loss scaling, clips, regularizers, LAMB/LARS,
+recomputed segments), and every op type of the reference's math,
+tensor, RNN, sequence and beam-search modules."""
 
-from . import (amp_ops, attention_ops, control_flow_ops,  # noqa: F401
-               extra_ops, fused_ops, lr_ops, math_ops, nn_ops,
-               optimizer_ops, quant_ops, tensor_ops)
+from . import (amp_ops, attention_ops, beam_search_ops,  # noqa: F401
+               control_flow_ops, extra_ops, fused_ops, lr_ops, math_ops,
+               nn_ops, optimizer_ops, quant_ops, rnn_ops, sequence_ops,
+               tensor_ops)

@@ -1,9 +1,8 @@
-"""Math lowerings (port of ``paddle_tpu/ops/math_ops.py``: elementwise
-:38-46, relu :90, tanh :93, sigmoid :92, sqrt, square and sign :97-111,
-clip :190, isfinite :511, gelu :141, reduce_sum and
-reduce_mean :231, mean :238, matmul
-:267, matmul_v2 :285, mul :297, softmax :329, cross_entropy :343,
-softmax_with_cross_entropy :361, accuracy :448, top_k :466, fc :525).
+"""Math lowerings: every op type of ``paddle_tpu/ops/math_ops.py``
+(elementwise :38-46, the comparisons and logical ops :60-75, the
+activations :88-111, softplus through minimum :124-206, the reductions
+:211-231, mean, the norms, the matmul family, softmax, the losses,
+accuracy, top_k, arg_max/arg_min, argsort, isfinite, fc).
 
 The matrix products stay ``torch.matmul``, as the JAX package left them
 to XLA; fp32 products run in full fp32 on the card (TF32 off), bf16
@@ -293,3 +292,387 @@ def accuracy(ins, attrs):
             "Correct": num.reshape(1),
             "Total": torch.full((1,), total, dtype=torch.int32,
                                 device=indices.device)}
+
+
+# -- the rest of the reference's math ops -------------------------------------
+
+def _promoted(x, y):
+    """x and y in their promoted dtype, as ``jnp``'s binary ufuncs take
+    them (an int32 X with a float32 Y is float32)."""
+    dt = torch.result_type(x, y)
+    return x.to(dt), y.to(dt)
+
+
+def _pow(x, y):
+    """``jnp.power``. Integer powers take jax's six rounds of binary
+    exponentiation (``_pow_int_int``): the exponent's low six bits, so a
+    negative exponent gives 0 for |x| > 1 where ``torch.pow`` raises, and
+    products wrap. A float X with an integer Y keeps X's dtype."""
+    if x.is_floating_point() or y.is_floating_point():
+        if x.is_floating_point() and not y.is_floating_point():
+            return torch.pow(x, y.to(x.dtype))
+        return torch.pow(*_promoted(x, y))
+    x, y = _promoted(x, y)
+    if x.dtype == torch.bool:
+        x, y = x.to(torch.int32), y.to(torch.int32)
+    acc = torch.where((x == 0) & (y != 0), torch.zeros_like(x),
+                      torch.ones_like(x))
+    for bit in range(6):
+        acc = torch.where(((y >> bit) & 1).bool(), acc * x, acc)
+        x = x * x
+    return acc
+
+
+def _int_divisor(y):
+    """y with 0 and -1 replaced by 1: the divisions that XLA defines and
+    C++ traps on (x / 0, INT_MIN / -1) are taken apart."""
+    return torch.where((y == 0) | (y == -1), torch.ones_like(y), y)
+
+
+def _fmod(x, y):
+    """The C remainder, exact as XLA's. A float is taken in float64,
+    where the remainder of two float32 values is exact and so rounds to
+    itself: torch's vectorised float32 fmod gives NaN once x / y
+    overflows (-1e30 over 1e-30)."""
+    if x.is_floating_point() and x.dtype != torch.float64:
+        return torch.fmod(x.double(), y.double()).to(x.dtype)
+    return torch.fmod(x, y)
+
+
+def _mod(x, y):
+    """``jnp.mod``: the remainder takes the divisor's sign (the C
+    remainder, corrected as jnp corrects it; ``torch.remainder`` computes
+    x - y * floor(x / y) and rounds otherwise). An integer divisor of 0
+    gives 0, as jnp's (it divides by 1 there)."""
+    x, y = _promoted(x, y)
+    if not x.is_floating_point():
+        y = _int_divisor(y)
+    trunc = _fmod(x, y)
+    plus = (trunc != 0) & ((trunc < 0) != (y < 0))
+    return torch.where(plus, trunc + y, trunc)
+
+
+def _round_away(d):
+    """``lax.round``'s default: halves away from zero (``torch.round``
+    rounds them to even)."""
+    t = torch.trunc(d)
+    return t + torch.where((d - t).abs() >= 0.5, torch.sign(d),
+                           torch.zeros_like(d))
+
+
+def _floordiv(x, y):
+    """``jnp.floor_divide``. Integers: XLA's truncating quotient (x / 0
+    is -1, INT_MIN / -1 is INT_MIN) less one where the signs differ and
+    XLA's remainder (x % 0 is x) is not 0. Floats: CPython's
+    float_divmod as jnp takes it, so x / 0 and inf / y are NaN."""
+    x, y = _promoted(x, y)
+    if x.is_floating_point():
+        mod = _fmod(x, y)
+        div = (x - mod) / y
+        ind = (mod != 0) & (torch.sign(y) != torch.sign(mod))
+        return _round_away(torch.where(ind, div - 1, div))
+    ys = _int_divisor(y)
+    q = torch.where(y == 0, torch.full_like(x, -1),
+                    torch.where(y == -1, 0 - x,
+                                torch.div(x, ys, rounding_mode="trunc")))
+    r = torch.where(y == 0, x, torch.where(y == -1, torch.zeros_like(x),
+                                           _fmod(x, ys)))
+    return torch.where((torch.sign(x) != torch.sign(y)) & (r != 0), q - 1, q)
+
+
+register_op("elementwise_sub")(_ew(torch.sub))
+register_op("elementwise_min")(_ew(torch.minimum))
+register_op("elementwise_pow")(_ew(_pow))
+register_op("elementwise_mod")(_ew(_mod))
+register_op("elementwise_floordiv")(_ew(_floordiv))
+
+
+def _cmp(fn):
+    """A comparison or logical op: numpy broadcasting, the ``axis`` attr
+    ignored (reference :60-75)."""
+    def lowering(ins, attrs):
+        return {"Out": fn(ins["X"][0], ins["Y"][0])}
+
+    return lowering
+
+
+for _name, _fn in (("equal", torch.eq), ("not_equal", torch.ne),
+                   ("less_than", torch.lt), ("less_equal", torch.le),
+                   ("greater_than", torch.gt), ("greater_equal", torch.ge),
+                   ("logical_and", torch.logical_and),
+                   ("logical_or", torch.logical_or),
+                   ("logical_xor", torch.logical_xor)):
+    register_op(_name, non_diff_inputs=("X", "Y"))(_cmp(_fn))
+
+
+@register_op("logical_not", non_diff_inputs=("X",))
+def logical_not(ins, attrs):
+    return {"Out": torch.logical_not(ins["X"][0])}
+
+
+def _int_same(fn):
+    """An activation that jnp leaves an integer X unchanged by (floor,
+    ceil, round)."""
+    def run(x):
+        return fn(x) if x.is_floating_point() else x.clone()
+
+    return run
+
+
+def _log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -torch.logaddexp(-x, torch.zeros_like(x))
+
+
+for _name, _fn in (
+        ("relu6", lambda x: torch.clamp(x, 0, 6)),
+        ("exp", torch.exp), ("log", torch.log), ("log2", torch.log2),
+        ("rsqrt", torch.rsqrt), ("abs", torch.abs),
+        ("floor", _int_same(torch.floor)), ("ceil", _int_same(torch.ceil)),
+        ("round", _int_same(torch.round)),   # halves to even, as jnp
+        ("reciprocal", torch.reciprocal),
+        ("softsign", lambda x: x / (1 + torch.abs(x))),
+        ("silu", lambda x: x * torch.sigmoid(x)),
+        # the reference's swish is silu: its beta attr is not read (:107)
+        ("swish", lambda x: x * torch.sigmoid(x)),
+        # (sin is extra_ops' in the reference, which registers it last)
+        ("cos", torch.cos), ("erf", torch.erf),
+        ("logsigmoid", _log_sigmoid)):
+    register_op(_name)(_unary(_fn))
+
+
+@register_op("softplus")
+def softplus(ins, attrs):
+    """(1/beta) log(1 + exp(beta x)), x itself where beta x > threshold
+    (reference :124)."""
+    x = ins["X"][0]
+    beta = float(attrs.get("beta", 1.0) or 1.0)
+    threshold = float(attrs.get("threshold", 20.0) or 20.0)
+    bx = beta * x
+    return {"Out": torch.where(bx > threshold, x,
+                               torch.logaddexp(bx, torch.zeros_like(bx))
+                               / beta)}
+
+
+@register_op("leaky_relu")
+def leaky_relu(ins, attrs):
+    x = ins["X"][0]
+    return {"Out": torch.where(x >= 0, x, attrs.get("alpha", 0.02) * x)}
+
+
+@register_op("elu")
+def elu(ins, attrs):
+    x = ins["X"][0]
+    neg = torch.where(x > 0, torch.zeros_like(x), x)
+    return {"Out": torch.where(x > 0, x,
+                               attrs.get("alpha", 1.0) * torch.expm1(neg))}
+
+
+@register_op("hard_sigmoid")
+def hard_sigmoid(ins, attrs):
+    x = ins["X"][0]
+    return {"Out": torch.clamp(x * attrs.get("slope", 0.2)
+                               + attrs.get("offset", 0.5), 0.0, 1.0)}
+
+
+@register_op("hard_swish")
+def hard_swish(ins, attrs):
+    x = ins["X"][0]
+    t = attrs.get("threshold", 6.0)
+    return {"Out": x * torch.clamp(x + attrs.get("offset", 3.0), 0.0, t)
+            / attrs.get("scale", 6.0)}
+
+
+@register_op("pow")
+def pow_op(ins, attrs):
+    """X ** factor: an integer X with a float factor is float32, with an
+    integer factor an integer power, as ``x ** factor`` is in jnp."""
+    x, factor = ins["X"][0], attrs.get("factor", 1.0)
+    if not x.is_floating_point() and isinstance(factor, int):
+        return {"Out": _pow(x, torch.full_like(x, factor))}
+    return {"Out": x ** factor}
+
+
+@register_op("maximum")
+def maximum(ins, attrs):
+    return {"Out": torch.maximum(ins["X"][0], ins["Y"][0])}
+
+
+@register_op("minimum")
+def minimum(ins, attrs):
+    return {"Out": torch.minimum(ins["X"][0], ins["Y"][0])}
+
+
+def _reduce_dims(x, attrs):
+    """The axes a reduce op takes: every one with reduce_all or no dim,
+    none for dim=[] (jnp's axis=())."""
+    dims = attrs.get("dim")
+    if attrs.get("reduce_all", False) or dims is None:
+        return tuple(range(x.dim()))
+    return tuple(int(d) % max(x.dim(), 1) for d in dims)
+
+
+def _reduction(kind):
+    def lowering(ins, attrs):
+        x = ins["X"][0]
+        keep = bool(attrs.get("keep_dim", False))
+        dims = _reduce_dims(x, attrs)
+        if kind in ("amax", "amin") and any(x.shape[d] == 0 for d in dims):
+            raise ValueError(f"reduce_{kind[1:]}: zero-size array to a "
+                             f"reduction with no identity")
+        if not dims:    # jnp's axis=(): any/all give bool, prod an int32
+            if kind in ("any", "all"):
+                out = x != 0
+            elif kind == "prod" and x.dtype == torch.bool:
+                out = x.to(torch.int32)
+            else:
+                out = x.clone()
+        elif kind in ("any", "all"):
+            out = getattr(torch, kind)(x, dim=dims, keepdim=keep)
+        elif kind == "prod":
+            out = x
+            for d in sorted(dims, reverse=True):
+                out = out.prod(d, keepdim=keep)
+            if not x.is_floating_point():   # jnp.prod: int32 (x64 off)
+                out = out.to(torch.int32)
+        else:   # NaN wins, as in jnp.max / jnp.min
+            out = getattr(torch, kind)(x, dim=dims, keepdim=keep)
+        return {"Out": out}
+
+    return lowering
+
+
+for _name, _kind in (("reduce_max", "amax"), ("reduce_min", "amin"),
+                     ("reduce_prod", "prod"), ("reduce_any", "any"),
+                     ("reduce_all", "all")):
+    register_op(_name)(_reduction(_kind))
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(ins, attrs):
+    x = ins["X"][0]
+    return {"Out": torch.square(x).sum().reshape(1)}
+
+
+@register_op("p_norm")
+def p_norm(ins, attrs):
+    """``jnp.linalg.norm``: a vector norm over ``axis``; with no axis a
+    vector norm of a 1-D X and a matrix norm of a 2-D one, as numpy
+    (and ``torch.linalg.norm``) read ``ord``."""
+    axis = attrs.get("axis", None)
+    return {"Out": torch.linalg.norm(ins["X"][0],
+                                     ord=attrs.get("porder", 2.0), dim=axis,
+                                     keepdim=bool(attrs.get("keepdim",
+                                                            False)))}
+
+
+@register_op("bmm")
+def bmm(ins, attrs):
+    return {"Out": torch.matmul(ins["X"][0], ins["Y"][0])}
+
+
+@register_op("dot")
+def dot(ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    return {"Out": (x * y).sum(dim=-1, keepdim=True)}
+
+
+@register_op("log_softmax")
+def log_softmax(ins, attrs):
+    """Step by step as ``jax.nn.log_softmax``: the max taken off (no
+    gradient through it), then the log of the sum of exponentials."""
+    x = ins["X"][0]
+    axis = int(attrs.get("axis", -1))
+    shifted = x - x.amax(dim=axis, keepdim=True).detach()
+    return {"Out": shifted - torch.log(torch.exp(shifted).sum(
+        dim=axis, keepdim=True))}
+
+
+@register_op("sigmoid_cross_entropy_with_logits", non_diff_inputs=("Label",))
+def sigmoid_cross_entropy_with_logits(ins, attrs):
+    x, label = ins["X"][0], ins["Label"][0]
+    return {"Out": torch.logaddexp(x, torch.zeros_like(x)) - x * label}
+
+
+@register_op("huber_loss", non_diff_inputs=("Y",))
+def huber_loss(ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    d = attrs.get("delta", 1.0)
+    r = y - x
+    a = torch.abs(r)
+    return {"Out": torch.where(a <= d, 0.5 * r * r, d * (a - 0.5 * d)),
+            "Residual": r}
+
+
+@register_op("square_error_cost", non_diff_inputs=("Label",))
+def square_error_cost(ins, attrs):
+    d = ins["Input"][0] - ins["Label"][0]
+    return {"Out": d * d}
+
+
+@register_op("smooth_l1_loss", non_diff_inputs=("Y",))
+def smooth_l1_loss(ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    sigma2 = attrs.get("sigma", 1.0) ** 2
+    d = x - y
+    a = torch.abs(d)
+    diff = torch.where(a < 1.0 / sigma2, 0.5 * d * d * sigma2,
+                       a - 0.5 / sigma2)
+    return {"Out": diff.sum(dim=-1, keepdim=True), "Diff": diff}
+
+
+@register_op("kldiv_loss", non_diff_inputs=("Target",))
+def kldiv_loss(ins, attrs):
+    x, t = ins["X"][0], ins["Target"][0]
+    loss = torch.where(t > 0, t * (torch.log(t) - x), 0.0)
+    red = attrs.get("reduction", "mean")
+    if red == "mean":
+        loss = loss.mean()
+    elif red == "sum":
+        loss = loss.sum()
+    elif red == "batchmean":
+        loss = loss.sum() / x.shape[0]
+    return {"Loss": loss}
+
+
+register_op("top_k_v2", non_diff_inputs=("X",))(top_k)
+
+
+def _arg(fn, x, axis):
+    """torch.argmax/argmin as jnp's: NaN counts as the extreme, the
+    first index wins a tie, bool compares as 0/1; int32 (x64 off)."""
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    return fn(x, dim=axis).to(torch.int32)
+
+
+@register_op("arg_max", non_diff_inputs=("X",))
+def arg_max(ins, attrs):
+    axis = int(attrs.get("axis", -1))
+    out = _arg(torch.argmax, ins["X"][0], axis)
+    if attrs.get("keepdims", False):
+        out = out.unsqueeze(axis)
+    return {"Out": out}
+
+
+@register_op("arg_min", non_diff_inputs=("X",))
+def arg_min(ins, attrs):
+    return {"Out": _arg(torch.argmin, ins["X"][0],
+                        int(attrs.get("axis", -1)))}
+
+
+@register_op("argsort", non_diff_inputs=("X",))
+def argsort(ins, attrs):
+    """A stable sort, as jnp's: equal values (0 and -0 among them) keep
+    their order both ways, NaN sorts as the largest. Indices int32."""
+    x = ins["X"][0]
+    axis = int(attrs.get("axis", -1))
+    idx = torch.sort(x, dim=axis,
+                     descending=bool(attrs.get("descending", False)),
+                     stable=True)[1]
+    return {"Out": torch.gather(x, axis, idx), "Indices": idx.to(torch.int32)}
+
+
+@register_op("isfinite_v2", non_diff_inputs=("X",))
+def isfinite_v2(ins, attrs):
+    return {"Out": torch.isfinite(ins["X"][0])}

@@ -1,10 +1,6 @@
-"""Tensor creation and manipulation lowerings (port of
-``paddle_tpu/ops/tensor_ops.py``: fill_constant :57, uniform_random :75,
-gaussian_random :87, truncated_gaussian_random :99, cast :138, scale :146,
-reshape2 :156, transpose2 :177, squeeze2 :233, unsqueeze2 :244, slice :283, gather :314,
-lookup_table_v2 :337, sum :423; and for the WMT Transformer assign_value
-:66, one_hot :402, one_hot_v2 :415, increment :550; assign :124, the
-fake-quant ops' straight-through gradient).
+"""Tensor creation and manipulation lowerings: every op type of
+``paddle_tpu/ops/tensor_ops.py`` (fill_constant :57 through
+fill_constant_batch_size_like :556).
 
 The random initializers draw from a ``torch.Generator`` seeded with the
 op's seed as ``core/rng.op_seed`` derives it: the same distributions as
@@ -25,7 +21,7 @@ from ..core.ir import OpDesc
 from ..core.registry import (creation_device, default_grad_maker,
                              register_grad_maker, register_op)
 from ..core.selected_rows import SelectedRows, concat as concat_rows
-from ..core.types import to_torch_dtype, x64_off
+from ..core.types import convert_dtype, to_torch_dtype, x64_off
 
 
 def _shape_of(attrs):
@@ -394,3 +390,330 @@ def increment(ins, attrs):
     x = ins["X"][0]
     step = float(attrs.get("step", 1.0))
     return {"Out": x + (step if x.is_floating_point() else int(step))}
+
+
+# -- the rest of the reference's tensor ops -----------------------------------
+
+@register_op("randint", capturable=False)
+def randint(ins, attrs):
+    """Integers uniform in [low, high) from the op's seed (the same
+    distribution as the reference, not its bits), int32 for int64."""
+    dev = creation_device()
+    dtype = x64_off(to_torch_dtype(attrs.get("dtype", "int64")))
+    if dev.type == "meta":
+        return {"Out": torch.empty(_shape_of(attrs), dtype=dtype,
+                                   device=dev)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rng.op_seed(attrs))
+    return {"Out": torch.randint(int(attrs.get("low", 0)),
+                                 int(attrs.get("high", 100)),
+                                 _shape_of(attrs), generator=gen,
+                                 device=dev, dtype=dtype)}
+
+
+@register_op("share_data")
+def share_data(ins, attrs):
+    return {"Out": ins["X"][0]}
+
+
+@register_op("reshape")
+def reshape(ins, attrs):
+    x = ins["X"][0]
+    return {"Out": x.reshape([x.shape[i] if d == 0 else d
+                              for i, d in enumerate(attrs["shape"])])}
+
+
+@register_op("transpose")
+def transpose(ins, attrs):
+    return {"Out": ins["X"][0].permute([int(a) for a in attrs["axis"]])}
+
+
+def _along(x, axis, sl):
+    return x[(slice(None),) * axis + (sl,)]
+
+
+@register_op("split")
+def split(ins, attrs):
+    """``jnp.split``: at the cumulative ``sections`` (the last one
+    implied), or into ``num`` equal parts. A section of -1 is not
+    inferred: it makes a piece's size negative, which jnp refuses, and
+    so does this."""
+    x = ins["X"][0]
+    axis = int(attrs.get("axis", 0)) % x.dim()
+    n = x.shape[axis]
+    sections = attrs.get("sections")
+    if sections:
+        bounds = [0] + np.cumsum(sections)[:-1].tolist() + [n]
+    else:
+        num = int(attrs.get("num", 0))
+        if num <= 0 or n % num:
+            raise ValueError(f"split: {n} does not divide into {num} "
+                             f"equal parts")
+        bounds = list(range(0, n + 1, n // num))
+    sizes = np.diff(bounds)
+    if (sizes < 0).any():
+        raise ValueError(f"split: sizes must be nonnegative, got "
+                         f"{sizes.tolist()}")
+    return {"Out": [_along(x, axis, slice(int(a), int(b)))
+                    for a, b in zip(bounds[:-1], bounds[1:])]}
+
+
+@register_op("stack")
+def stack(ins, attrs):
+    return {"Y": torch.stack(ins["X"], dim=int(attrs.get("axis", 0)))}
+
+
+@register_op("unstack")
+def unstack(ins, attrs):
+    return {"Y": list(torch.unbind(ins["X"][0],
+                                   dim=int(attrs.get("axis", 0))))}
+
+
+@register_op("flatten2")
+def flatten2(ins, attrs):
+    x = ins["X"][0]
+    axis = int(attrs.get("axis", 1))
+    lead = math.prod(x.shape[:axis]) if axis > 0 else 1
+    return {"Out": x.reshape(lead, -1), "XShape": _xshape(x)}
+
+
+@register_op("flatten_contiguous_range")
+def flatten_contiguous_range(ins, attrs):
+    x = ins["X"][0]
+    start = int(attrs.get("start_axis", 1)) % max(x.dim(), 1)
+    stop = int(attrs.get("stop_axis", -1)) % max(x.dim(), 1)
+    return {"Out": x.reshape(tuple(x.shape[:start]) + (-1,)
+                             + tuple(x.shape[stop + 1:])),
+            "XShape": _xshape(x)}
+
+
+def _strided(x, axis, start, end, step):
+    """``x[start:end:step]`` along ``axis`` with Python's clamping of the
+    bounds; a negative step walks back (torch slices only forward)."""
+    n = x.shape[axis]
+    lo, hi, st = slice(start, end, step).indices(n)
+    if st > 0:
+        return _along(x, axis, slice(lo, hi, st))
+    count = len(range(lo, hi, st))
+    if not count:
+        return _along(x, axis, slice(0, 0))
+    last = lo + (count - 1) * st
+    return _along(x.flip(axis), axis, slice(n - 1 - lo, n - last, -st))
+
+
+@register_op("strided_slice")
+def strided_slice(ins, attrs):
+    x = ins["Input"][0]
+    for a, s, e, st in zip(attrs["axes"], attrs["starts"], attrs["ends"],
+                           attrs["strides"]):
+        x = _strided(x, int(a) % x.dim(), s, e, st)
+    return {"Out": x}
+
+
+@register_op("gather_nd", non_diff_inputs=("Index",))
+def gather_nd(ins, attrs):
+    """X at the last axis of Index, as jnp's integer-array indexing takes
+    it: a negative index wraps once, then every index is clamped into
+    range. An index still out of range after the wrap passes no
+    gradient, as the scatter that transposes jnp's gather drops it."""
+    x, index = ins["X"][0], ins["Index"][0]
+    idx = []
+    valid = torch.ones(index.shape[:-1], dtype=torch.bool,
+                       device=index.device)
+    for i in range(index.shape[-1]):
+        n = x.shape[i]
+        k = index[..., i].long()
+        k = torch.where(k < 0, k + n, k)
+        valid = valid & (k >= 0) & (k < n)
+        idx.append(k.clamp(0, max(n - 1, 0)))
+    out = x[tuple(idx)]
+    valid = valid.reshape(tuple(valid.shape)
+                          + (1,) * (out.dim() - valid.dim()))
+    return {"Out": torch.where(valid, out, out.detach())}
+
+
+@register_op("scatter", non_diff_inputs=("Ids",))
+def scatter(ins, attrs):
+    """Rows of X replaced by (``overwrite``) or added to by Updates at
+    Ids, as ``x.at[ids]`` on the CPU: a negative id wraps once, an id
+    still out of range is dropped, and among equal ids the last update
+    wins (overwrite) or all are summed in their order. The winner is
+    found by a max over positions, so no write order of the card's
+    decides it."""
+    x, upd = ins["X"][0], ins["Updates"][0]
+    n = x.shape[0]
+    ids = ins["Ids"][0].reshape(-1).long()
+    ids = torch.where(ids < 0, ids + n, ids)
+    tgt = torch.where((ids >= 0) & (ids < n), ids, n)    # n: dropped
+    upd = upd.reshape((ids.shape[0],) + tuple(x.shape[1:])).to(x.dtype)
+    if attrs.get("overwrite", True):
+        pos = torch.arange(ids.shape[0], device=ids.device)
+        last = torch.full((n + 1,), -1, dtype=torch.int64,
+                          device=ids.device).scatter_reduce(
+            0, tgt, pos, "amax")[:n]
+        hit = (last >= 0).reshape((n,) + (1,) * (x.dim() - 1))
+        return {"Out": torch.where(hit, upd.index_select(0, last.clamp(0)),
+                                   x)}
+    padded = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
+    return {"Out": padded.index_add(0, tgt, upd)[:n]}
+
+
+def int32_values(values, device):
+    """An int32 vector of host ints made by fills on ``device``, with no
+    host-to-device copy, so a compiled step can capture it."""
+    if not values:
+        return torch.zeros(0, dtype=torch.int32, device=device)
+    return torch.cat([torch.full((1,), int(v), dtype=torch.int32,
+                                 device=device) for v in values])
+
+
+@register_op("shape", non_diff_inputs=("Input",))
+def shape_op(ins, attrs):
+    """X's shape as int32, as the reference's."""
+    x = ins["Input"][0]
+    return {"Out": int32_values(list(x.shape), x.device)}
+
+
+@register_op("fill_zeros_like")
+def fill_zeros_like(ins, attrs):
+    return {"Out": torch.zeros_like(ins["X"][0])}
+
+
+def _fill_value(value, dtype):
+    """``value`` converted to ``dtype`` as XLA converts it (a float to an
+    integer type truncates and saturates)."""
+    if dtype.is_floating_point:
+        return float(value)
+    return convert(torch.tensor(float(value), dtype=torch.float64),
+                   dtype).item()
+
+
+@register_op("fill_any_like")
+def fill_any_like(ins, attrs):
+    x = ins["X"][0]
+    dtype = attrs.get("dtype")
+    dt = x.dtype if dtype in (None, -1) else x64_off(to_torch_dtype(dtype))
+    return {"Out": torch.full(x.shape, _fill_value(attrs.get("value", 0.0),
+                                                   dt),
+                              dtype=dt, device=x.device)}
+
+
+def _tile(x, reps):
+    """``np.tile``: a shorter ``reps`` is padded with leading ones."""
+    reps = [int(r) for r in reps]
+    reps = [1] * (x.dim() - len(reps)) + reps
+    if len(reps) > x.dim():
+        x = x.reshape((1,) * (len(reps) - x.dim()) + tuple(x.shape))
+    return x.repeat(reps)
+
+
+@register_op("expand")
+def expand(ins, attrs):
+    return {"Out": _tile(ins["X"][0], attrs["expand_times"])}
+
+
+@register_op("expand_v2")
+def expand_v2(ins, attrs):
+    x = ins["X"][0]
+    shape = list(attrs["shape"])
+    shape = [x.shape[i - (len(shape) - x.dim())] if d == -1 else d
+             for i, d in enumerate(shape)]
+    return {"Out": torch.broadcast_to(x, shape)}
+
+
+@register_op("tile")
+def tile(ins, attrs):
+    return {"Out": _tile(ins["X"][0], attrs["repeat_times"])}
+
+
+def _range_arg(attrs, ins, name, slot, default):
+    """A bound of ``range``: the attr, else the input tensor, read on the
+    host as the numpy scalar of its dtype (jnp.arange takes the
+    concrete value to numpy). jnp.arange refuses anything but a scalar,
+    the [1] tensors ``layers.range`` makes among them, and so does
+    this."""
+    if name in attrs:
+        return attrs[name]
+    vals = ins.get(slot)
+    if not vals or vals[0] is None:
+        return default
+    v = vals[0]
+    if v.dim() != 0:
+        raise ValueError(f"range: arguments must be scalars; got {name} "
+                         f"of shape {list(v.shape)}")
+    return v.detach().cpu().numpy()
+
+
+@register_op("range", skip_infer_shape=True, capturable=False,
+             non_diff_inputs=("Start", "End", "Step"))
+def range_op(ins, attrs):
+    """``jnp.arange`` with a step, which is ``np.arange``: the length
+    and values numpy gives (``torch.arange`` can count a float step
+    otherwise). The length depends on the bounds' values, so tensor
+    bounds are read on the host and the op is not capturable."""
+    dtype = np.dtype(convert_dtype(attrs.get("dtype", "int64")))
+    out = np.arange(_range_arg(attrs, ins, "start", "Start", 0),
+                    _range_arg(attrs, ins, "end", "End", 0),
+                    _range_arg(attrs, ins, "step", "Step", 1), dtype=dtype)
+    return {"Out": torch.from_numpy(out).to(
+        device=creation_device(), dtype=x64_off(to_torch_dtype(dtype)))}
+
+
+@register_op("where", non_diff_inputs=("Condition",))
+def where(ins, attrs):
+    cond = ins["Condition"][0]
+    if cond.dtype != torch.bool:
+        cond = cond != 0
+    return {"Out": torch.where(cond, ins["X"][0], ins["Y"][0])}
+
+
+@register_op("cumsum")
+def cumsum(ins, attrs):
+    """Running sum along ``axis`` (``flatten``: of X flattened), from the
+    end with ``reverse``; an integer or bool X sums in int32 (x64 off)."""
+    x = ins["X"][0]
+    axis = int(attrs.get("axis", -1))
+    if attrs.get("flatten", False):
+        x, axis = x.reshape(-1), 0
+    if attrs.get("reverse", False):
+        out = torch.cumsum(x.flip(axis), dim=axis).flip(axis)
+    else:
+        out = torch.cumsum(x, dim=axis)
+    if not x.is_floating_point():
+        out = out.to(torch.int32)
+    return {"Out": out}
+
+
+@register_op("pad")
+def pad(ins, attrs):
+    """Constant padding, ``paddings`` as (before, after) per axis from
+    the first."""
+    x = ins["X"][0]
+    p = [int(v) for v in attrs["paddings"]]
+    flat = []
+    for i in reversed(range(x.dim())):
+        flat += [p[2 * i], p[2 * i + 1]]
+    return {"Out": torch.nn.functional.pad(
+        x, flat, value=_fill_value(attrs.get("pad_value", 0.0), x.dtype))}
+
+
+@register_op("tril_triu")
+def tril_triu(ins, attrs):
+    x = ins["X"][0]
+    k = int(attrs.get("diagonal", 0))
+    return {"Out": torch.tril(x, k) if attrs.get("lower", True)
+            else torch.triu(x, k)}
+
+
+@register_op("fill_constant_batch_size_like", non_diff_inputs=("Input",))
+def fill_constant_batch_size_like(ins, attrs):
+    """``shape`` with the dim at output_dim_idx taken from Input's dim at
+    input_dim_idx, filled with ``value``."""
+    x = ins["Input"][0]
+    shape = [int(d) for d in attrs["shape"]]
+    shape[int(attrs.get("output_dim_idx", 0))] = \
+        x.shape[int(attrs.get("input_dim_idx", 0))]
+    dtype = _dtype_of(attrs)
+    return {"Out": torch.full(shape, _fill_value(attrs.get("value", 0.0),
+                                                 dtype),
+                              dtype=dtype, device=x.device)}

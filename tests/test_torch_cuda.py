@@ -38,7 +38,11 @@ the predictor's CUDA graph. Queue C's C12 and C13 (the saturating cast,
 take_along_axis's wrapped and filled indices) bit for bit the CPU's; the
 flash op's general-bias route against the CPU with no kernel launch;
 ``run_steps`` equal to k ``run()`` calls bit for bit; the threefry dropout
-mask (from an int key and from a key-table slot) the CPU's mask.
+mask (from an int key and from a key-table slot) the CPU's mask. The
+math, tensor, RNN, sequence and beam-search ops of every case of
+``tools/glue_cases.py`` on the card against the CPU, a small seq2seq
+training step and its two decoders against the CPU, and the LSTM op in
+a captured CUDA graph.
 Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -2285,3 +2289,133 @@ def test_a_cost_capture_that_fails_on_the_card_raises(dev, monkeypatch):
     finally:
         flags.set_flags({"cost_capture": "auto"})
         costmodel.reset()
+
+
+# -- the math, tensor, RNN, sequence and beam-search ops ----------------------
+
+def _glue_cases():
+    from paddle_tpu_torch.tools import glue_cases
+
+    return glue_cases
+
+
+def _glue_run(op, ins, attrs, device):
+    from paddle_tpu_torch.core import registry
+
+    def t(v):
+        a = np.array(v, copy=True)
+        a = a.astype({np.dtype(np.int64): np.int32,
+                      np.dtype(np.float64): np.float32}.get(a.dtype,
+                                                            a.dtype))
+        return torch.from_numpy(a).to(device)
+
+    out = registry.normalize_outputs(registry.get(op).forward(
+        {k: [None if v is None else t(v) for v in vs]
+         for k, vs in ins.items()}, dict(attrs)))
+    return {k: [v.cpu() for v in vs] for k, vs in out.items()}
+
+
+def test_glue_ops_on_the_card_as_on_the_cpu(dev):
+    """Every case of the glue table on the card and on the CPU: integer
+    and bool outputs bit for bit, floats within their family's
+    ``CARD_TOL``, NaN and the infinities where the CPU has them; a case
+    the CPU refuses raises the same type on the card."""
+    g = _glue_cases()
+    bad = []
+    for case in sorted(g.CASES):
+        op = case.split("[")[0]
+        ins, attrs = g.CASES[case](g.rng(case))
+        tol = g.CARD_TOL[g.family(op)]
+        try:
+            want = _glue_run(op, ins, attrs, "cpu")
+        except Exception as e:                      # noqa: BLE001
+            with pytest.raises(type(e)):
+                _glue_run(op, ins, attrs, dev)
+            continue
+        got = _glue_run(op, ins, attrs, dev)
+        for slot, vals in want.items():
+            for i, w in enumerate(vals):
+                x = got[slot][i]
+                if x.shape != w.shape or x.dtype != w.dtype:
+                    bad.append((case, slot, "shape/dtype"))
+                elif not w.is_floating_point():
+                    if not torch.equal(x, w):
+                        bad.append((case, slot, "bits"))
+                elif not torch.allclose(x, w, rtol=tol, atol=tol,
+                                        equal_nan=True):
+                    bad.append((case, slot, float(
+                        (x - w).abs().nan_to_num(0.0).max())))
+    assert not bad, bad[:10]
+
+
+def test_lstm_op_replays_in_a_cuda_graph(dev):
+    """The lstm op reads no length on the host, so a captured graph
+    replays it: the replay equals the eager run bit for bit, lengths and
+    all."""
+    g = _glue_cases()
+    ins, _ = g.CASES["lstm[len=True,rev=True,h0=True,proj=False]"](
+        g.rng("graph"))
+    from paddle_tpu_torch.core import registry
+
+    t = {k: [torch.from_numpy(np.asarray(v[0])).to(dev)]
+         for k, v in ins.items()}
+    fwd = registry.get("lstm").forward
+    eager = fwd(t, {"is_reverse": True})["Out"].clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fwd(t, {"is_reverse": True})
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fwd(t, {"is_reverse": True})["Out"]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+
+
+def test_seq2seq_step_and_decoders_on_the_card_as_on_the_cpu(dev):
+    """One small seq2seq program: 3 training steps (op by op, then
+    compiled) on the card and the CPU from one state within 1e-4, then
+    greedy and beam decoding from the trained states: the same ids, and
+    beam at K = 1 without length penalty equals greedy on the card."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import seq2seq
+
+    cfg = seq2seq.Seq2SeqConfig(src_vocab_size=64, tgt_vocab_size=48,
+                                embed_dim=32, hidden_size=64)
+    with unique_name.guard():
+        main, startup, _, fetches = seq2seq.build_seq2seq_program(
+            cfg, 9, 7, batch_size=8, lr=1e-2)
+    cpu = Scope()
+    Executor(device="cpu").run(startup, scope=cpu)
+    card = Scope()
+    for n, v in cpu.items():
+        card.set(n, v.to(dev, copy=True) if isinstance(v, torch.Tensor)
+                 else v)
+    losses = {}
+    for name, sc, device in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        exe = Executor(device=device)
+        losses[name] = [float(np.asarray(exe.run(
+            main, feed=seq2seq.synthetic_translation_batch(cfg, 8, 9, 7,
+                                                           seed=s),
+            fetch_list=[fetches["loss"].name], scope=sc,
+            use_compiled=s > 0)[0]).reshape(-1)[0]) for s in range(3)]
+    np.testing.assert_allclose(losses["card"], losses["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    src = seq2seq.synthetic_translation_batch(cfg, 5, 9, 7, seed=9)
+    for fn, kw in ((seq2seq.greedy_decode, {}),
+                   (seq2seq.beam_search_decode, {"beam_size": 3})):
+        got = fn(cfg, card, src["src_ids"], src["src_mask"], max_len=7,
+                 **kw)
+        want = fn(cfg, cpu, src["src_ids"], src["src_mask"], max_len=7,
+                  **kw)
+        np.testing.assert_array_equal(got, want)
+    greedy = seq2seq.greedy_decode(cfg, card, src["src_ids"],
+                                   src["src_mask"], max_len=7)
+    k1 = seq2seq.beam_search_decode(cfg, card, src["src_ids"],
+                                    src["src_mask"], beam_size=1, max_len=7,
+                                    length_penalty=0.0)
+    np.testing.assert_array_equal(k1, greedy)

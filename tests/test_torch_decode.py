@@ -274,7 +274,13 @@ def test_paths_outside_the_slice_raise(tmp_path):
 
 def test_import_loads_neither_jax_nor_paddle_tpu():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
-            "paddle_tpu_torch.models.decoder_lm, paddle_tpu_torch.kernels\n"
+            "paddle_tpu_torch.models.decoder_lm, paddle_tpu_torch.kernels, "
+            "paddle_tpu_torch.layers, paddle_tpu_torch.ops.rnn_ops, "
+            "paddle_tpu_torch.ops.sequence_ops, "
+            "paddle_tpu_torch.ops.beam_search_ops, "
+            "paddle_tpu_torch.models.seq2seq, "
+            "paddle_tpu_torch.models.sentiment, "
+            "paddle_tpu_torch.models.vision_extra\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'paddle_tpu' "
             "or m.startswith('paddle_tpu.'))\n"

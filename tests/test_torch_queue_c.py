@@ -437,3 +437,71 @@ def test_c14_top_k_past_the_axis_raises_in_both():
         _jax_op("top_k", {"X": x}, {"k": 4})
     with pytest.raises(ValueError):
         _pt_op("top_k", {"X": x}, {"k": 4})
+
+
+# -- C15: Variable's operators -------------------------------------------------
+
+def _c15_program(pkg, L, expr):
+    """One program per package: x [2, 3] and y [2, 3] float32 fed, one
+    expression of Variable operators on them, fetched."""
+    main, startup = pkg.Program(), pkg.Program()
+    with pkg.program_guard(main, startup):
+        x = L.static_data("x", [2, 3])
+        y = L.static_data("y", [2, 3])
+        w = L.static_data("w", [3, 4])
+        out = expr(x, y, w)
+    return main, out
+
+
+C15_EXPRS = {
+    "sub": lambda x, y, w: x - y,
+    "rsub_scalar": lambda x, y, w: 1.0 - x,
+    "sub_scalar": lambda x, y, w: x - 2.5,
+    "pow": lambda x, y, w: x ** y,
+    "pow_scalar": lambda x, y, w: x ** 2.0,
+    "neg": lambda x, y, w: -x,
+    "matmul": lambda x, y, w: x @ w,
+    "lt": lambda x, y, w: x < y,
+    "le": lambda x, y, w: x <= y,
+    "gt": lambda x, y, w: x > 0.5,
+    "ge": lambda x, y, w: x >= y,
+    "getitem_int": lambda x, y, w: x[1],
+    "getitem_slice": lambda x, y, w: x[:, 1:],
+    "getitem_last": lambda x, y, w: x[-1],
+    "getitem_ellipsis": lambda x, y, w: x[..., 0],
+    "astype": lambda x, y, w: (x * 3.0).astype("int32"),
+    "masked_bias": lambda x, y, w: (1.0 - y) * (-1e9) + x * y,
+}
+
+
+@pytest.mark.parametrize("name", sorted(C15_EXPRS))
+def test_c15_variable_operators_build_and_run_as_the_reference(name):
+    """``x - y``, ``1.0 - x``, ``x ** y``, ``-x``, ``x @ w``, the four
+    comparisons, ``x[...]`` and ``astype``: the same program JSON in both
+    packages and the same fetched value (the port's Variable had only +,
+    * and /, so ``1.0 - mask`` raised TypeError)."""
+    import json
+
+    from paddle_tpu.core import unique_name as jax_names
+    from paddle_tpu_torch.core import unique_name as pt_names
+
+    expr = C15_EXPRS[name]
+    with jax_names.guard():
+        jmain, jout = _c15_program(pt, jlayers, expr)
+    with pt_names.guard():
+        pmain, pout = _c15_program(ptt, players, expr)
+    assert json.loads(json.dumps(pmain.to_dict())) == \
+        json.loads(json.dumps(jmain.to_dict()))
+    rng = np.random.RandomState(15)
+    feed = {"x": rng.rand(2, 3).astype(np.float32) + 0.5,
+            "y": np.round(rng.rand(2, 3)).astype(np.float32),
+            "w": rng.randn(3, 4).astype(np.float32)}
+    want, = pt.Executor(pt.CPUPlace()).run(
+        jmain, feed=feed, fetch_list=[jout], scope=pt.Scope(),
+        use_compiled=False)
+    got, = Executor(device="cpu").run(pmain, feed=feed,
+                                      fetch_list=[pout.name],
+                                      scope=ptt.Scope())
+    want = np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
