@@ -73,8 +73,9 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                and on the CPU from one scope_from_numpy state and on one
                batch: the same dropout masks bit for bit and the losses
                within rtol = atol = 1e-4 for fp32 at 2 layers (3 steps) and
-               at all 24 layers (2 steps: its CPU leg is the slowest of
-               the script), within 1e-2 for bf16 at 2 layers
+               at 12 layers (2 steps: its CPU leg is the slowest of the
+               script; 24 layers before the control-flow phases needed the
+               time), within 1e-2 for bf16 at 2 layers
                (6 steps). Every flash launch of the fp32 legs runs the
                split-TF32 instance, of the bf16 leg the bf16 one.
 6. train_ernie — ERNIE-large as the reference's benchmark trains it (24
@@ -87,7 +88,7 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                leg from the warm-up's state. In each leg finite losses,
                the last below the leg's first two (without a learning-rate
                warm-up AdamW's first steps overshoot at this depth: the
-               24-layer train_parity leg shows the same rise on the CPU);
+               deep train_parity leg shows the same rise on the CPU);
                the flash and AdamW kernels found by name in its traced
                step as often as its launch counters say; exactly
                24 flash forward, 24 flash backward and 398 AdamW launches
@@ -354,6 +355,37 @@ and beam-search ops, the recurrent book models and VGG16) adds, last:
                mean of a leg's last three below that of its first three;
                card against CPU at batch 4, 2 steps each from the CPU's
                state, within 1e-4.
+The CRF, fused-RNN and control-flow slice adds, after them (no kernel
+               of the port runs on these paths; ops_glue_card above also
+               holds the CRF, fused-RNN and tensor-array cases):
+   train_srl — label_semantic_roles at the book's widths (words 44068 x
+               32, predicates 3162 x 32, marks 2 x 5, fc and two LSTMs of
+               512, 59 tags, linear_chain_crf), b64 sentences of 8-64
+               tokens, Adam lr 1e-3 (the book test's 0.01 makes the loss
+               jump at the second step on the CPU too): timed_modes (3
+               timed steps), the loss falling in each leg; card against
+               CPU at batch 4 over 3 steps, each from the CPU's state,
+               within 1e-5.
+   decode_srl — crf_decoding of 64 sentences with the trained
+               transition through the forward-only program, compiled:
+               ms and rows/s; the paths equal the CPU's wherever a row's
+               Viterbi margin exceeds 1e-5, the smallest margins printed.
+   train_srl_gradient_merge — the same model through fleet's gradient
+               merge (k_steps 4, avg) on the 4 micro-batches of 16 of a
+               b64 batch, compiled: the step runs uncaptured (design (b):
+               conditional_block reads its predicate on the host), counted
+               and named; the three non-firing steps leave every
+               parameter and moment bit for bit; after the fourth the
+               parameters are within 1e-5 of one Adam step on the whole
+               batch (elements whose whole-batch gradient is below 1e-6,
+               where Adam's step amplifies the sums' rounding, within lr,
+               printed).
+   control_flow_card — the DynamicRNN tanh cell at b128, 64 steps,
+               hidden 64: op by op and compiled from one state bit for
+               bit, the compiled step captured into a CUDA graph (step ms
+               of each); cond with a gradient, a dynamic and a bounded
+               while_loop, static_loop, IfElse and the rank-table layers,
+               card against CPU.
 Every phase line ends with at_s, the seconds since the script started.
 Then one line with every ported kernel: ``launches_by_path`` gives each
 phase's own count (set to 0 just before the phase, read just after),
@@ -6420,14 +6452,11 @@ def observe_serve_int8(dev, cfg, model_dir, want_ids, want_launches):
 
 
 def _glue_tensor(v):
-    """A case's numpy input as the feeds hold it: int64 as int32, float64
-    as float32."""
-    a = np.array(v, copy=True)
-    if a.dtype == np.int64:
-        a = a.astype(np.int32)
-    elif a.dtype == np.float64:
-        a = a.astype(np.float32)
-    return torch.from_numpy(a)
+    """A case's input as the op gets it (``glue_cases.as_tensor``): int64
+    as int32, float64 as float32, a ``BF16`` input as bfloat16."""
+    from paddle_tpu_torch.tools import glue_cases
+
+    return glue_cases.as_tensor(v)
 
 
 def _glue_diff(got, want, tol):
@@ -6450,8 +6479,16 @@ def _glue_diff(got, want, tol):
     return ok, err
 
 
+# the op types of the glue cases: the math, tensor, RNN, sequence and
+# beam-search ops (104, randint among them), the CRF ops (4), the fused
+# RNN ops (5) and the tensor-array, rank-table and split/merge ops (8)
+GLUE_OP_TYPES = 104 + 4 + 5 + 8
+
+
 def ops_glue_card(dev):
-    """Every op type this slice registers on the card against the CPU:
+    """Every op type of the glue cases (the math, tensor, RNN, sequence,
+    beam-search, CRF, fused-RNN and tensor-array ops) on the card against
+    the CPU:
     each case of ``tools/glue_cases.py`` through the port's lowering on
     the card and on the CPU from the same inputs (a case the CPU refuses
     must raise the same exception type on the card); randint's draw in
@@ -6508,7 +6545,7 @@ def ops_glue_card(dev):
          cpu_refusals_matched=raised, worst_abs_err_by_family=worst,
          tolerance_by_family=glue_cases.CARD_TOL, randint_ok=randint_ok,
          disagreements=bad[:20], seconds=time.perf_counter() - t0)
-    if bad or not randint_ok or len(ops) != 104:
+    if bad or not randint_ok or len(ops) != GLUE_OP_TYPES:
         raise AssertionError(f"ops_glue_card: {len(bad)} disagreements "
                              f"{bad[:5]}, randint_ok {randint_ok}, "
                              f"{len(ops)} op types")
@@ -6809,6 +6846,366 @@ def train_vgg16(dev, smi, batch_size=128, timed=12, lr=3e-4):
                 dtypes=comp["dtypes"])
 
 
+# -- label_semantic_roles, gradient merge and control flow ------------------
+
+SRL_LR = 1e-3
+# 100 x Adam's epsilon: below it a first Adam step amplifies the gradient's
+# rounding (train_srl_gradient_merge)
+ADAM_EPS_GUARD = 1e-6
+
+
+def _srl_programs(batch_size=-1, seq=64, lr=SRL_LR, merge=0):
+    """label_semantic_roles at the book's widths (``SRLConfig()``): the
+    training program (Adam at ``lr``; with ``merge`` = k through fleet's
+    gradient merge of k steps, avg) and the forward-only one."""
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import srl
+    from paddle_tpu_torch.optimizer import AdamOptimizer
+
+    cfg = srl.SRLConfig()
+    with unique_name.guard():
+        if not merge:
+            main_prog, startup, _, fetches = srl.build_srl_program(
+                cfg, seq_len=seq, batch_size=batch_size, lr=lr)
+        else:
+            from paddle_tpu_torch.core.ir import program_guard
+
+            main_prog, startup, _, fetches = srl.build_srl_program(
+                cfg, seq_len=seq, batch_size=batch_size,
+                with_optimizer=False)
+            with program_guard(main_prog, startup):
+                s = fleet.DistributedStrategy()
+                s.gradient_merge = True
+                s.gradient_merge_configs = {"k_steps": merge, "avg": True}
+                fleet.distributed_optimizer(AdamOptimizer(lr), s).minimize(
+                    fetches["loss"])
+    with unique_name.guard():
+        infer, _, _, infer_fetches = srl.build_srl_program(
+            cfg, seq_len=seq, batch_size=batch_size, with_optimizer=False)
+    return cfg, main_prog, startup, fetches, infer, infer_fetches
+
+
+def train_srl(dev, smi, batch_size=64, seq=64, timed=3):
+    """label_semantic_roles at the book's widths (words 44068 x 32,
+    predicates 3162 x 32, marks 2 x 5, fc and two LSTMs of 512, 59 tags)
+    on b64 sentences of 8-64 tokens, Adam lr 1e-3 (at the book test's
+    0.01 the loss jumps at the second step on the CPU too): timed_modes
+    op by op and compiled (step ms, busy and idle share, peak), the loss
+    falling in each leg; card against CPU at b4 over 3 steps, each from
+    the CPU's state, losses within 1e-5. Returns the launch counts, the
+    startup state and the compiled leg's scope."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.models import srl
+    from paddle_tpu_torch.tools.profile_train import timed_modes
+
+    from paddle_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    cfg, main_prog, startup, fetches, _, _ = _srl_programs()
+    exe, scope = Executor(device=dev), Scope()
+    exe.run(startup, scope=scope)
+    state = _host_state(scope)
+    batch = srl.synthetic_batch(cfg, batch_size, seq, seed=0)
+    fetch = [fetches["loss"]]
+    modes = timed_modes(exe, main_prog, _feed_on(batch, dev), scope, fetch,
+                        timed)
+    exe.close()
+    small = [srl.synthetic_batch(cfg, 4, seq, seed=s) for s in range(3)]
+    cpu, card, _ = _card_vs_cpu(main_prog, state, dev, small,
+                                [fetches["loss"].name], chained=False)
+    ok = np.allclose(card, cpu, rtol=1e-5, atol=1e-5)
+    tokens = int(batch["length"].sum())
+    emit("train_srl", model="label_semantic_roles", batch=batch_size,
+         seq=seq, tokens=tokens, lr=SRL_LR,
+         ops=len(main_prog.global_block().ops), modes=_per_mode(modes),
+         step_ms_p50={m: r["step_ms_p50"] for m, r in modes.items()},
+         device_idle_share={m: r["device_idle_share"]
+                            for m, r in modes.items()},
+         device_busy_ms={m: r["device_busy_ms"] for m, r in modes.items()},
+         peak_gb={m: r["max_memory_allocated"] / 1e9
+                  for m, r in modes.items()},
+         tokens_per_s={m: tokens / (r["step_ms_p50"] / 1e3)
+                       for m, r in modes.items()},
+         parity_batch=4, parity_loss_gpu=card, parity_loss_cpu=cpu,
+         parity_tolerance="rtol=atol=1e-5, each step from the CPU's state",
+         nvidia_smi=smi, seconds=time.perf_counter() - t_phase)
+    _check_legs("train_srl", modes)
+    if not ok:
+        raise AssertionError(f"train_srl: card {card} and CPU {cpu} "
+                             f"disagree")
+    return _phase_counts(), cfg, state, scope
+
+
+def _viterbi_margins(em, trans, length, path):
+    """Each row's Viterbi margin along its decoded ``path``: the smallest
+    gap between the best and the second-best score of a choice the path
+    made (a back-pointer at each position after the first, the last
+    tag), from the emissions [B, S, T] and transition [T + 2, T] in
+    float64 on the host. A row whose margin is tiny may part on another
+    device at a near tie."""
+    em, w = em.double(), trans.double()
+    start, stop, tr = w[0], w[1], w[2:]
+    b, s, _ = em.shape
+    alpha = start[None] + em[:, 0]
+    margins = torch.full((b,), float("inf"), dtype=torch.float64)
+
+    def gap(x):
+        top = torch.topk(x, 2, dim=-1).values
+        return top[..., 0] - top[..., 1]
+
+    for t in range(1, s):
+        cand = alpha[:, :, None] + tr[None]
+        live = t < length
+        tag = path[:, t].long()
+        choice = gap(cand.gather(2, tag[:, None, None].expand(
+            -1, cand.shape[1], 1))[..., 0])
+        margins = torch.where(live, torch.minimum(margins, choice), margins)
+        alpha = torch.where(live[:, None], cand.amax(1) + em[:, t], alpha)
+    last = gap(alpha + stop[None])
+    return torch.where(length > 0, torch.minimum(margins, last),
+                       torch.full_like(margins, float("inf")))
+
+
+def decode_srl(dev, cfg, scope, rows=64, seq=64, reps=3):
+    """crf_decoding of ``rows`` sentences with the trained transition, on
+    the card through the forward-only program (compiled: ms a decode and
+    rows/s) and on the CPU from the same state: the paths bit for bit
+    wherever a row's Viterbi margin (``_viterbi_margins``) exceeds 1e-5,
+    0 past each length. Prints the smallest margins."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.models import srl
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    _, _, _, _, infer, f = _srl_programs()
+    batch = srl.synthetic_batch(cfg, rows, seq, seed=7)
+    emission = [op for op in infer.global_block().ops
+                if op.type == "crf_decoding"][0].inputs["Emission"][0]
+    fetch = [f["decode"].name, emission]
+    exe = Executor(device=dev)
+    feed = _feed_on(batch, dev)
+    for _ in range(2):                   # op by op, then the capture
+        exe.run(infer, feed=feed, fetch_list=fetch, scope=scope)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        card_path, _ = exe.run(infer, feed=feed, fetch_list=fetch,
+                               scope=scope)
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    exe.close()
+    cpu_scope = _scope_on(_host_state(scope), "cpu")
+    cpu_path, em = Executor(device="cpu").run(infer, feed=batch,
+                                              fetch_list=fetch,
+                                              scope=cpu_scope)
+    margins = _viterbi_margins(torch.from_numpy(em),
+                               cpu_scope.find_var("srl_crf_trans"),
+                               torch.from_numpy(batch["length"]),
+                               torch.from_numpy(cpu_path))
+    parted = [int(i) for i in np.nonzero((card_path != cpu_path).any(1))[0]]
+    valid = np.arange(seq)[None, :] < batch["length"][:, None]
+    ok = all(float(margins[i]) <= 1e-5 for i in parted) and \
+        not card_path[~valid].any()
+    order = torch.argsort(margins)[:5].tolist()
+    emit("decode_srl", rows=rows, seq=seq, ms=ms,
+         rows_per_s=rows / (ms / 1e3), rows_parted=parted,
+         margins_of_parted=[float(margins[i]) for i in parted],
+         smallest_margins={int(i): float(margins[i]) for i in order},
+         margin_tolerance=1e-5, paths_equal=not parted,
+         seconds=time.perf_counter() - t_phase)
+    if not ok:
+        raise AssertionError(f"decode_srl: rows {parted} part from the CPU "
+                             f"at margins {[float(margins[i]) for i in parted]}")
+    return _phase_counts()
+
+
+def train_srl_gradient_merge(dev, smi, state, batch_size=64, seq=64, k=4):
+    """The same model through fleet with gradient merge (k_steps 4, avg)
+    on the 4 micro-batches of 16 of one b64 batch, compiled (the
+    conditional_block decides on the host, so the step runs uncaptured:
+    design (b), counted by executor.uncaptured_steps and named in its
+    compile record), from the startup state: the three steps that do not
+    fire leave every parameter, moment and beta power bit for bit; after
+    the fourth, every parameter is within 1e-5 of one plain Adam step on
+    the whole b64 batch, except elements whose whole-batch gradient is
+    below 1e-6 (Adam's step lr g / (|g| + 1e-8) amplifies the rounding of
+    the gradient's sums there: one element at |g| 4.0e-8 lands 1.2e-5
+    off), which are printed and held within lr."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.models import srl
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    cfg, plain, _, pf, _, _ = _srl_programs()
+    _, merged, startup, mf, _, _ = _srl_programs(merge=k)
+    batch = srl.synthetic_batch(cfg, batch_size, seq, seed=3)
+    micro = [{n: v[i * (batch_size // k):(i + 1) * (batch_size // k)]
+              for n, v in batch.items()} for i in range(k)]
+    # the merge program's own state (accumulators, counter) beside the
+    # model's startup state
+    sc0 = _scope_on({}, dev)
+    Executor(device=dev).run(startup, scope=sc0)
+    start = dict(_host_state(sc0), **state)
+    exe, sc = Executor(device=dev), _scope_on(start, dev)
+    before_uncaptured = telemetry.counter_get("executor.uncaptured_steps") \
+        or 0
+    trained = [n for n in state if isinstance(state[n], torch.Tensor)]
+    unchanged, step_ms = [], []
+    for i, mb in enumerate(micro):
+        prev = _host_state(sc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(merged, feed=_feed_on(mb, dev), fetch_list=[mf["loss"]],
+                scope=sc)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i < k - 1:
+            now = _host_state(sc)
+            unchanged.append(all(torch.equal(now[n], prev[n])
+                                 for n in trained))
+    steps = [c for by in exe._compiled[merged].values()
+             for c in by.values() if hasattr(c, "host_op")]
+    design = "b: uncaptured" if steps and steps[0].host_op and \
+        steps[0].graph.graph is None else "captured"
+    got = _host_state(sc)
+    ref = _scope_on(state, dev)
+    params = [p.name for p in plain.all_parameters()]
+    grads = Executor(device=dev).run(
+        plain, feed=_feed_on(batch, dev),
+        fetch_list=[pf["loss"]] + [f"{n}@GRAD" for n in params], scope=ref,
+        use_compiled=False, return_numpy=False)[1:]
+    want = _host_state(ref)
+    errs = {n: float((got[n] - want[n]).abs().max()) for n in params}
+    worst = max(errs.values())
+    # Adam's first step is lr g / (|g| + eps): where the whole-batch |g|
+    # is within 100 eps the step turns the last bits of the gradient's
+    # sums (four micro-batch products against one) into up to lr, so
+    # those elements are counted and held within lr, the rest to 1e-5
+    over, bad = {}, []
+    for n, g in zip(params, grads):
+        d = (got[n] - want[n]).abs()
+        g = g.cpu().abs()
+        hit = d > 1e-5
+        if bool(hit.any()):
+            over[n] = dict(count=int(hit.sum()),
+                           grad_abs=sorted(float(x) for x in g[hit][:8]),
+                           param_err=sorted(float(x) for x in d[hit][:8]))
+            if bool((hit & (g >= ADAM_EPS_GUARD)).any()) or \
+                    float(d.max()) > SRL_LR:
+                bad.append(n)
+    uncaptured = (telemetry.counter_get("executor.uncaptured_steps") or 0) \
+        - before_uncaptured
+    emit("train_srl_gradient_merge", k_steps=k, avg=True,
+         micro_batch=batch_size // k, design=design,
+         host_op=steps[0].host_op if steps else None,
+         uncaptured_steps=uncaptured, step_ms=step_ms,
+         non_firing_steps_bit_equal=unchanged,
+         firing_step_max_abs_err=worst, tolerance=1e-5,
+         tolerance_where_grad_below=[ADAM_EPS_GUARD, SRL_LR],
+         elements_over_tolerance=over,
+         worst_param=max(errs, key=errs.get), nvidia_smi=smi,
+         seconds=time.perf_counter() - t_phase)
+    if not all(unchanged) or bad or design == "captured":
+        raise AssertionError(f"train_srl_gradient_merge: unchanged "
+                             f"{unchanged}, firing step off by {worst} "
+                             f"({over}), {design}")
+    return _phase_counts()
+
+
+def control_flow_card(dev, batch_size=128, seq=64, hidden=64, dim=32,
+                      steps=3):
+    """The DynamicRNN tanh cell of tests/test_dynamic_rnn.py at the
+    sentiment model's widths (b128, 64 steps, hidden 64, inputs 32),
+    SGD: ``steps`` steps op by op and compiled from one state, losses,
+    outputs and parameters bit for bit, the compiled step captured into
+    a CUDA graph (step ms of each); then cond with a gradient, a dynamic
+    while_loop, a bounded while_loop with a gradient, static_loop and
+    IfElse (``tools/control_flow_cases.py``), each card against CPU:
+    integers bit for bit, floats within 1e-5."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.tools import control_flow_cases as cfc
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    P = cfc.port()
+    main_prog, startup, fetch = cfc.build(
+        P, lambda P: cfc.dynamic_rnn(P, S=seq, D=dim, H=hidden))
+    sc = Scope()
+    Executor(device="cpu").run(startup, scope=sc)
+    state = _host_state(sc)
+    r = np.random.RandomState(0)
+    feed = {"x": r.randn(batch_size, seq, dim).astype(np.float32),
+            "len": r.randint(1, seq + 1, (batch_size,)).astype(np.int64),
+            "label": r.randn(batch_size, hidden).astype(np.float32)}
+    names = [v.name for v in fetch]
+    legs, ms = {}, {}
+    for mode in (False, True):
+        exe, scope = Executor(device=dev), _scope_on(state, dev)
+        outs, times = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(exe.run(main_prog, feed=_feed_on(feed, dev),
+                                fetch_list=names, scope=scope,
+                                use_compiled=mode))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        legs[mode] = (outs, _host_state(scope))
+        ms[mode] = times
+        if mode:
+            built = [c for by in exe._compiled[main_prog].values()
+                     for c in by.values() if hasattr(c, "graph")]
+            captured = bool(built) and built[0].graph.graph is not None
+        exe.close()
+    drnn_equal = all(np.array_equal(a, b)
+                     for oa, ob in zip(legs[False][0], legs[True][0])
+                     for a, b in zip(oa, ob)) and all(
+        torch.equal(legs[False][1][n], legs[True][1][n])
+        for n in legs[False][1] if isinstance(legs[False][1][n],
+                                              torch.Tensor))
+    losses = [float(o[2].reshape(-1)[0]) for o in legs[False][0]]
+    cases = {}
+    for case in ("cond_grad[true]", "cond_grad[false]", "while_dynamic[3]",
+                 "while_bounded[ran]", "static_loop_grad", "if_else",
+                 "cond_nan_branch[negative]", "rank_table"):
+        builder, cfeed = cfc.FEEDS[case]
+        prog, st, f = cfc.build(P, builder)
+        csc = Scope()
+        Executor(device="cpu").run(st, scope=csc)
+        cstate = _host_state(csc)
+        fn = [v.name for v in f]
+        want = Executor(device="cpu").run(prog, feed=cfeed, fetch_list=fn,
+                                          scope=_scope_on(cstate, "cpu"))
+        got = Executor(device=dev).run(prog, feed=cfeed, fetch_list=fn,
+                                       scope=_scope_on(cstate, dev),
+                                       use_compiled=False)
+        agree = all(a.shape == b.shape and a.dtype == b.dtype and (
+            np.allclose(a, b, rtol=1e-5, atol=1e-5) if
+            np.issubdtype(b.dtype, np.floating) else np.array_equal(a, b))
+            for a, b in zip(got, want))
+        cases[case] = agree
+    emit("control_flow_card", drnn=dict(
+        batch=batch_size, steps_per_seq=seq, hidden=hidden, inputs=dim,
+        ops=len(main_prog.global_block().ops), losses=losses,
+        compiled_equals_op_by_op=drnn_equal, graph_captured=captured,
+        step_ms_op_by_op=ms[False], step_ms_compiled=ms[True]),
+        cases_card_equals_cpu=cases, tolerance="rtol=atol=1e-5, "
+        "integers bit for bit", seconds=time.perf_counter() - t_phase)
+    if not drnn_equal or not captured or not all(cases.values()) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"control_flow_card: DynamicRNN compiled = op "
+                             f"by op {drnn_equal}, captured {captured}, "
+                             f"losses {losses}; cases {cases}")
+    return _phase_counts()
+
+
 def infer_phases(dev):
     """The inference plane's phases over two BERT-base dirs written under
     SERVING_DIR (removed at the end): infer_bert_base,
@@ -6957,9 +7354,10 @@ def main():
     runs["flash_general_bias"] = flash_general_bias(dev)
     runs["train_parity"] = train_parity(dev, 2, "float32", 3, 1e-4)
     runs["train_parity_bf16"] = train_parity(dev, 2, "bfloat16", 6, 1e-2)
-    # the 24-layer and seq-2048 legs at 2 steps: their CPU halves are the
+    # the deep and seq-2048 legs at 2 steps, the deep one at 12 layers
+    # (24 before the control-flow phases came): their CPU halves are the
     # slowest of the script, and the whole must end within its time limit
-    runs["train_parity_24"] = train_parity(dev, 24, "float32", 2, 1e-4)
+    runs["train_parity_12"] = train_parity(dev, 12, "float32", 2, 1e-4)
     runs["train_parity_long"] = train_parity(dev, 2, "float32", 2, 1e-4,
                                              seq=LONG[0][0], batch_size=1)
     runs["compiled_parity"] = compiled_parity(dev, smi)
@@ -7008,6 +7406,15 @@ def main():
     runs["train_sentiment"] = train_sentiment(dev, smi)
     _release()
     runs["train_vgg16"] = train_vgg16(dev, smi)
+    _release()
+    runs["train_srl"], srl_cfg, srl_state, srl_scope = train_srl(dev, smi)
+    runs["decode_srl"] = decode_srl(dev, srl_cfg, srl_scope)
+    del srl_scope
+    _release()
+    runs["train_srl_gradient_merge"] = train_srl_gradient_merge(
+        dev, smi, srl_state)
+    _release()
+    runs["control_flow_card"] = control_flow_card(dev)
     _release()
 
     rep = {"flash_attention_fwd": "B=1 S=2048 n=16 hd=64 causal",

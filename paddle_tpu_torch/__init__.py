@@ -21,6 +21,7 @@ build, ``append_backward``, optimizer ops) run step by step by
 from __future__ import annotations
 
 from . import ops  # noqa: F401  (registers every op lowering)
+from .core.backward import gradients  # noqa: F401
 from .core.executor import Executor  # noqa: F401
 from .core.ir import (Program, default_main_program,  # noqa: F401
                       default_startup_program, program_guard)
@@ -28,4 +29,4 @@ from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 
 __all__ = ["Program", "program_guard", "default_main_program",
            "default_startup_program", "Executor", "Scope", "global_scope",
-           "scope_guard"]
+           "scope_guard", "gradients"]

@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+import warnings
 import weakref
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -163,6 +164,30 @@ def run_sub_block(block: Block, env: Dict[str, Any], step=None,
     return env
 
 
+def _analyze_block(block: Block):
+    """(external reads, writes) of a block in a stable order (reference:
+    ``paddle_tpu/core/executor.py:148``): the names its ops read before
+    any op of it writes them, and every name written."""
+    produced: set = set()
+    ext_reads: list = []
+    writes: list = []
+    seen_r: set = set()
+    seen_w: set = set()
+    for op in block.ops:
+        for n in op.input_names():
+            if n != EMPTY_VAR and n not in produced and n not in seen_r:
+                ext_reads.append(n)
+                seen_r.add(n)
+        for n in op.output_names():
+            if n == EMPTY_VAR:
+                continue
+            produced.add(n)
+            if n not in seen_w:
+                writes.append(n)
+                seen_w.add(n)
+    return ext_reads, writes
+
+
 def _last_readers(block: Block, keep: set) -> List[List[str]]:
     """For each op of the block, the vars that no later op reads and
     that are not in ``keep``: read or written there for the last time,
@@ -177,6 +202,48 @@ def _last_readers(block: Block, keep: set) -> List[List[str]]:
         if n not in keep:
             dead[i].append(n)
     return dead
+
+
+# the truncation guards of the running compiled step: (flag, message)
+# pairs collected instead of read (``truncation_guard``)
+_GUARDS: List[List[tuple]] = []
+
+
+def truncation_guard(flag: torch.Tensor, message: str):
+    """A bounded loop's check that it ran to its end: ``flag`` (a 0-d bool
+    tensor) true means the result is wrong for this input. Op by op it is
+    read and raises RuntimeError(message), as the reference raises on
+    concrete values. In a compiled step it is not read: the step keeps
+    the flag, and the executor reads it with the fetches and warns with
+    ``message`` (``_CompiledStep.check_guards``)."""
+    if _GUARDS:
+        _GUARDS[-1].append((flag, message))
+    elif flag.device.type != "meta" and bool(flag):
+        raise RuntimeError(message)
+
+
+def host_decider(ops) -> Optional[str]:
+    """The type of the first op of ``ops`` (or of the sub-blocks and
+    programs they run, or the forward a ``__vjp_grad__`` recomputes) that
+    decides on the host (its registry entry's ``decides_on_host``:
+    ``conditional_block``, ``cond``, ``while``, ``print``, a
+    ``while_loop`` without ``grad_max_iters``); None if there is none. A
+    compiled step that holds one runs uncaptured."""
+    for op in ops:
+        attrs = rng._run_attrs(op)
+        kind = op.attrs.get("fwd_type") if op.type == "__vjp_grad__" \
+            else op.type
+        decides = registry.get(kind).decides_on_host
+        if decides(attrs) if callable(decides) else decides:
+            return kind
+        inner = [blk.ops for blk in rng.sub_blocks(op)]
+        if kind == "run_program" and attrs.get("program") is not None:
+            inner.append(attrs["program"].global_block().ops)
+        for sub in inner:
+            found = host_decider(sub)
+            if found:
+                return found
+    return None
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -394,7 +461,17 @@ class _CompiledStep:
     their state in place; a persistable that a lowering writes out of
     place (batch norm's running statistics) is copied back into the
     tensor the scope holds at the end of the step, so the scope keeps the
-    tensors the graph reads."""
+    tensors the graph reads.
+
+    A step holding an op that decides on the host (``host_decider``:
+    ``conditional_block``, ``cond``, ``while``, ``print``, an unbounded
+    ``while_loop``) is not captured: the same step, with its static
+    buffers, seed table and write-back, runs uncaptured on the device on
+    every run, counted by ``executor.uncaptured_steps``, and its
+    ``compile`` record names the op (``uncaptured``). The truncation flags
+    of its bounded loops (``truncation_guard``) are copied to the host
+    after each run without a wait and read once that copy has completed
+    (``check_guards``), at the latest with the next run's fetches."""
 
     def __init__(self, device, ops, dead, scope, feeds, fetch_names,
                  persist):
@@ -440,17 +517,33 @@ class _CompiledStep:
         self.seed_host = torch.zeros(2, len(slots), dtype=torch.int64,
                                      pin_memory=cuda) if cuda else None
         self.copied: Optional[torch.cuda.Event] = None
+        self.host_op = host_decider(ops)
+        # the bounded loops' truncation flags of the last step, stacked,
+        # with their messages; and the host copies still to be read
+        self.guard_flags: Optional[torch.Tensor] = None
+        self.guard_messages: List[str] = []
+        self.pending_guards: List[tuple] = []
         self.graph = StepGraph(self._step, device)
 
     def _step(self) -> List[torch.Tensor]:
         env: Dict[str, Any] = dict(self.state)
         env.update(self.feeds)
-        with registry.creating_on(self.device):
-            for i, (op, drop) in enumerate(zip(self.ops, self.dead)):
-                run_op(op, env, seed=self.seed_of.get(i),
-                       seeds=self.seed_of if i in self.runs_sub else None)
-                for n in drop:
-                    env.pop(n, None)
+        guards: List[tuple] = []
+        _GUARDS.append(guards)
+        try:
+            with registry.creating_on(self.device):
+                for i, (op, drop) in enumerate(zip(self.ops, self.dead)):
+                    run_op(op, env, seed=self.seed_of.get(i),
+                           seeds=self.seed_of if i in self.runs_sub
+                           else None)
+                    for n in drop:
+                        env.pop(n, None)
+                if guards:
+                    self.guard_flags = torch.stack(
+                        [f.reshape(()).bool() for f, _ in guards])
+                    self.guard_messages = [m for _, m in guards]
+        finally:
+            _GUARDS.pop()
         for n in self.written:
             if env.get(n) is not self.state[n]:
                 self.state[n].copy_(env[n])
@@ -483,14 +576,41 @@ class _CompiledStep:
         self.copied.record()
 
     def _replay(self) -> List[Any]:
-        if self.graph.graph is None and self.device.type == "cuda":
+        if self.graph.graph is None and self.device.type == "cuda" \
+                and self.host_op is None:
             with _prof.RecordEvent("executor::compile"):
                 if self.measure_memory:
                     _, self.capture_memory = costmodel.memory_around(
                         self.graph.capture, self.device)
                 else:
                     self.graph.capture()
-        return self.graph.replay()
+        outs = self.graph.replay()
+        if self.host_op is not None:
+            telemetry.counter_add("executor.uncaptured_steps", 1,
+                                  op=self.host_op)
+        if self.guard_flags is not None:
+            if self.device.type == "cuda":
+                host = torch.empty(self.guard_flags.shape, dtype=torch.bool,
+                                   pin_memory=True)
+                host.copy_(self.guard_flags, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                host, done = self.guard_flags.clone(), None
+            self.pending_guards.append((host, done))
+        return outs
+
+    def check_guards(self):
+        """Warn with the message of each truncation flag set in a run whose
+        host copy has completed (never waits for the card)."""
+        while self.pending_guards:
+            host, done = self.pending_guards[0]
+            if done is not None and not done.query():
+                return
+            self.pending_guards.pop(0)
+            for hit, message in zip(host.tolist(), self.guard_messages):
+                if hit:
+                    warnings.warn(message, stacklevel=3)
 
     def meta_cost(self) -> tuple:
         """(flops, bytes, GEMM dtype) of one step, from a run of its
@@ -636,14 +756,15 @@ class Executor:
         telemetry.counter_add("executor.compiles", 1)
         telemetry.counter_add("executor.compile_ms", round(compile_ms, 3))
         telemetry.gauge_set("executor.cache_size", n_steps)
-        telemetry.event(
-            "compile", "executor", round(compile_ms, 3),
-            {"cause": compiled.cause, "cache_size": n_steps,
-             "program": _uid(program), "program_version": n_ops,
-             "feed_names": [n for n, _, _ in feeds],
-             "fetch_names": list(fetch_names),
-             "feed_shapes": [list(sh) for _, sh, _ in feeds],
-             "steps_per_dispatch": 1})
+        record = {"cause": compiled.cause, "cache_size": n_steps,
+                  "program": _uid(program), "program_version": n_ops,
+                  "feed_names": [n for n, _, _ in feeds],
+                  "fetch_names": list(fetch_names),
+                  "feed_shapes": [list(sh) for _, sh, _ in feeds],
+                  "steps_per_dispatch": 1}
+        if compiled.host_op is not None:
+            record["uncaptured"] = compiled.host_op
+        telemetry.event("compile", "executor", round(compile_ms, 3), record)
 
     def run_steps(self, program: Optional[Program] = None,
                   feed: Optional[Dict[str, Any]] = None,
@@ -752,6 +873,8 @@ class Executor:
                        for j in range(len(fetch_names))]
                 if return_numpy and sync_fetch:
                     out = [_fetched(v, True) for v in out]
+            if compiled is not None:
+                compiled.check_guards()
         self._account("executor.run_steps_ms", device,
                       (time.perf_counter() - t0) * 1e3)
         incidents.tick()
@@ -900,6 +1023,7 @@ class Executor:
             scope.set(STEP_COUNTER, np.int32(step + 1))
             with trace.span("executor.fetch", sync=return_numpy):
                 fetched = [_fetched(v, return_numpy) for v in out]
+            compiled.check_guards()
             if built:
                 self._after_compile(program, block, compiled, key, out,
                                     (time.perf_counter() - t0) * 1e3)

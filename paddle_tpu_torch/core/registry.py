@@ -52,6 +52,10 @@ class OpDef:
     # (one that draws through a torch.Generator seeded on the host): a
     # compiled step that holds it raises
     capturable: bool = True
+    # True (or a predicate of the op's attrs) for a lowering that reads a
+    # predicate on the host to decide what runs: a compiled step that
+    # holds it runs uncaptured (executor.host_decider)
+    decides_on_host: Any = False
 
 
 _REGISTRY: Dict[str, OpDef] = {}
@@ -71,7 +75,8 @@ def _recorded(op_type: str, fn: LoweringFn) -> LoweringFn:
 
 def register_op(type: str, *, grad_maker: Optional[GradMakerFn] = None,
                 skip_infer_shape: bool = False, non_diff_inputs: tuple = (),
-                required_attrs: tuple = (), capturable: bool = True):
+                required_attrs: tuple = (), capturable: bool = True,
+                decides_on_host=False):
     """Decorator registering a forward lowering for ``type``."""
 
     def deco(fn: LoweringFn) -> LoweringFn:
@@ -81,6 +86,7 @@ def register_op(type: str, *, grad_maker: Optional[GradMakerFn] = None,
         od.non_diff_inputs = tuple(non_diff_inputs)
         od.required_attrs = tuple(required_attrs)
         od.capturable = capturable
+        od.decides_on_host = decides_on_host
         if grad_maker is not None:
             od.grad_maker = grad_maker
         return fn

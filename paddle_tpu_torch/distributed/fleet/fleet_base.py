@@ -4,25 +4,23 @@ reference fleet/base/fleet_base.py :125 init, :544 distributed_optimizer,
 
 ``DistributedOptimizer`` wraps the user's optimizer in the strategy's
 meta-optimizers in the reference's order (the LARS/LAMB swap, recompute,
-AMP), builds the backward, inserts the gradient allreduce (nothing at one
-rank) and applies the update. ``gradient_merge`` (ROADMAP A7, with the
-control-flow ops), ``dgc``, ``localsgd`` and ``sharding`` (A8, with data
-parallelism) are not in the port and raise, as does a world of more than
-one worker."""
+AMP, gradient merge), builds the backward, inserts the gradient allreduce
+(nothing at one rank) and applies the update. ``dgc``, ``localsgd`` and
+``sharding`` (ROADMAP A8, with data parallelism) are not in the port and
+raise, as does a world of more than one worker."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 from .distributed_strategy import DistributedStrategy
-from .meta_optimizers import (AMPOptimizer, RecomputeOptimizer,
-                              insert_grad_allreduce,
+from .meta_optimizers import (AMPOptimizer, GradientMergeOptimizer,
+                              RecomputeOptimizer, insert_grad_allreduce,
                               maybe_swap_large_batch_optimizer)
 from .role_maker import PaddleCloudRoleMaker, RoleMakerBase
 
 # strategy flag -> the ROADMAP item that would bring it to the port
-_NOT_PORTED = {"gradient_merge": "A7", "dgc": "A8", "localsgd": "A8",
-               "sharding": "A8"}
+_NOT_PORTED = {"dgc": "A8", "localsgd": "A8", "sharding": "A8"}
 
 
 class Fleet:
@@ -78,7 +76,8 @@ class Fleet:
 
 class DistributedOptimizer:
     """The meta-optimizer chain over ``inner`` (reference order,
-    strategy_compiler.py: the LARS/LAMB swap, recompute, AMP)."""
+    strategy_compiler.py: the LARS/LAMB swap, recompute, AMP, gradient
+    merge)."""
 
     def __init__(self, fleet_obj: Fleet, inner, strategy: DistributedStrategy):
         on = [k for k in _NOT_PORTED if getattr(strategy, k)]
@@ -98,6 +97,10 @@ class DistributedOptimizer:
                 inner, strategy.recompute_configs.get("checkpoints", []))
         if strategy.amp:
             inner = AMPOptimizer(inner, strategy.amp_configs)
+        if strategy.gradient_merge:
+            inner = GradientMergeOptimizer(
+                inner, strategy.gradient_merge_configs.get("k_steps", 1),
+                strategy.gradient_merge_configs.get("avg", True))
         self.inner = inner
 
     def minimize(self, loss, startup_program=None, parameter_list=None,

@@ -14,9 +14,17 @@ optimizer and rewrites the program.
 * recompute (:207-293): the forward ops between checkpoints become
   ``block_call`` segments (``ops/control_flow_ops.py``), which the
   backward recomputes;
+* gradient merge (:299-365): each gradient is summed into a persistable
+  ``@GradAcc``; a counter, ``elementwise_mod`` and ``equal`` give the
+  fire flag; a ``conditional_block`` scales the accumulators (with
+  ``avg``), runs the inner optimizer's update and zeroes them. The
+  update ops write their state in place, and the ``conditional_block``
+  runs its sub-block only where the flag holds (it decides on the host),
+  so a step that does not fire leaves every parameter and moment as it
+  was;
 * the LARS/LAMB swap (:647-663).
 
-Gradient merge, DGC, LocalSGD and sharding are not in the port
+DGC, LocalSGD and sharding are not in the port
 (``fleet_base.DistributedOptimizer`` refuses them).
 """
 
@@ -167,6 +175,88 @@ def _segment_external_io(ops: List[OpDesc], block: Block,
         n for op in ops for n in op.output_names())
         if n in later_reads]
     return reads, outs
+
+
+class GradientMergeOptimizer:
+    """Accumulate the gradients of ``k_steps`` micro-batches, then run the
+    inner optimizer's update on their sum (divided by k with ``avg``)
+    inside a ``conditional_block`` (reference: optimizer.py:5025)."""
+
+    def __init__(self, inner, k_steps: int = 1, avg: bool = True):
+        self.inner = inner
+        self.k_steps = int(k_steps)
+        self.avg = avg
+
+    def backward(self, loss, **kw):
+        return self.inner.backward(loss, **kw)
+
+    def minimize(self, loss, **kw):
+        pg = self.backward(loss, **kw)
+        ops = self.apply_gradients(pg)
+        return ops, pg
+
+    def apply_gradients(self, params_grads):
+        k = self.k_steps
+        if k <= 1:
+            return self.inner.apply_gradients(params_grads)
+        program = default_main_program()
+        block = program.global_block()
+        with program._role_guard(OpRole.Optimize):
+            acc_pg = []
+            for p, g in params_grads:
+                acc = L.create_global_var(list(p.shape), 0.0, "float32",
+                                          persistable=True,
+                                          name=f"{p.name}@GradAcc")
+                block.append_op("sum", {"X": [acc, g]}, {"Out": [acc]}, {})
+                acc_pg.append((p, block.var(acc.name)))
+            counter = L.create_global_var([1], 0.0, "float32",
+                                          persistable=True,
+                                          name=unique_name.generate("gm_step"))
+            block.append_op("increment", {"X": [counter]}, {"Out": [counter]},
+                            {"step": 1.0})
+            kvar = L.fill_constant([1], "float32", float(k))
+            rem = block.create_var(name=unique_name.generate("gm_rem"),
+                                   stop_gradient=True)
+            block.append_op("elementwise_mod", {"X": [counter], "Y": [kvar]},
+                            {"Out": [rem]}, {"axis": -1})
+            zero = L.fill_constant([1], "float32", 0.0)
+            fire = block.create_var(name=unique_name.generate("gm_fire"),
+                                    dtype="bool", stop_gradient=True)
+            block.append_op("equal", {"X": [rem], "Y": [zero]},
+                            {"Out": [fire]}, {})
+
+            # the update sub-block: scale, the inner update, reset
+            sub = program.create_block(parent_idx=0)
+            try:
+                scaled_pg = []
+                for p, acc in acc_pg:
+                    if self.avg:
+                        sub.append_op("scale", {"X": [acc]}, {"Out": [acc]},
+                                      {"scale": 1.0 / k})
+                    scaled_pg.append((p, acc))
+                self.inner.apply_gradients(scaled_pg)
+                for p, acc in acc_pg:
+                    sub.append_op("scale", {"X": [acc]}, {"Out": [acc]},
+                                  {"scale": 0.0})
+            finally:
+                program.rollback()
+
+            reads, _ = _segment_external_io(sub.ops, sub, set())
+            reads = list(dict.fromkeys(reads))
+            written = list(dict.fromkeys(
+                n for op in sub.ops for n in op.output_names()))
+            # every output also passes through the branch not taken
+            io_names = list(dict.fromkeys(reads + written))
+            block.append_op(
+                "conditional_block",
+                {"Cond": [fire], "X": io_names},
+                {"Out": written},
+                {"sub_block": sub, "input_names": io_names,
+                 "output_names": written})
+        return []
+
+    def __getattr__(self, item):
+        return getattr(self.inner, item)
 
 
 class RecomputeOptimizer:

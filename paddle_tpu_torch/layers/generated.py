@@ -87,6 +87,7 @@ TABLE = [
     ("beam_search_decode", "beam_search_decode",
      ["Ids", "Scores", "ParentIdx"],
      ["SentenceIds", "SentenceScores"], "SentenceIds"),
+    ("array_read", "array_read", ["X", "I"], ["Out"]),
     ("sequence_concat", "sequence_concat", ["X", "Lod"],
      ["Out", "OutLod"], "Out"),
     ("sequence_conv", "sequence_conv", ["X", "Filter"], ["Out"]),
@@ -109,6 +110,18 @@ TABLE = [
 for _row in TABLE:
     _register(_row[0], generate_layer_fn(_row[1], _row[2], _row[3],
                                          _row[4] if len(_row) > 4 else None))
+
+
+def _aw(x, i, array, name=None):
+    """array_write: the stacked array with slot ``i`` set to ``x``."""
+    helper = LayerHelper("array_write", name=name)
+    out = helper.create_variable_for_type_inference(array.dtype)
+    helper.append_op("array_write", {"X": [array], "I": [i], "V": [x]},
+                     {"Out": [out]}, {})
+    return out
+
+
+_register("array_write", _aw)
 
 
 # --- the reference's aliases from its paddle.tensor / nn.functional -----

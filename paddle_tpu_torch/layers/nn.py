@@ -41,7 +41,9 @@ __all__ = ["data", "static_data", "create_parameter", "create_global_var",
            "scale", "fill_constant", "take_along_axis", "flash_attention",
            "conv2d", "pool2d", "batch_norm", "accuracy", "softmax", "cast",
            "one_hot", "label_smooth", "concat",
-           "lstm_unit_layer", "gru_layer", "sequence_mask", "sequence_pool"]
+           "lstm_unit_layer", "gru_layer", "sequence_mask", "sequence_pool",
+           "linear_chain_crf", "crf_decoding", "ctc_greedy_decoder",
+           "edit_distance", "increment"]
 
 
 def _pair(v):
@@ -907,4 +909,91 @@ def sequence_pool(input, pool_type="sum", lod=None, name=None):
     helper.append_op("sequence_pool", {"X": [input], "Lod": [lod]},
                      {"Out": [out], "MaxIndex": [idx]},
                      {"pooltype": pool_type.upper()})
+    return out
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None, name=None):
+    """The CRF's negative log-likelihood [B, 1] of emissions ``input``
+    [B, S, T] against ``label`` [B, S] (``length`` [B] optional); creates
+    the [T + 2, T] transition parameter (rows 0 and 1 the start and stop
+    weights)."""
+    helper = LayerHelper("linear_chain_crf", name=name)
+    t = int(input.shape[-1])
+    trans = helper.create_parameter(param_attr or ParamAttr(),
+                                    [t + 2, t], "float32")
+    ll = helper.create_variable_for_type_inference("float32")
+    alpha = helper.create_variable_for_type_inference("float32", True)
+    ee = helper.create_variable_for_type_inference("float32", True)
+    te = helper.create_variable_for_type_inference("float32", True)
+    ins = {"Emission": [input], "Transition": [trans], "Label": [label]}
+    if length is not None:
+        ins["Length"] = [length]
+    helper.append_op("linear_chain_crf", ins,
+                     {"LogLikelihood": [ll], "Alpha": [alpha],
+                      "EmissionExps": [ee], "TransitionExps": [te]}, {})
+    return ll
+
+
+def crf_decoding(input, param_attr, label=None, length=None, name=None):
+    """The Viterbi path [B, S] int64 under the transition parameter that
+    ``param_attr`` names, the one ``linear_chain_crf`` created (with
+    ``label``: the 0/1 mask of where the path equals it)."""
+    helper = LayerHelper("crf_decoding", name=name)
+    t = int(input.shape[-1])
+    trans = helper.create_parameter(param_attr, [t + 2, t], "float32")
+    out = helper.create_variable_for_type_inference("int64", True)
+    ins = {"Emission": [input], "Transition": [trans]}
+    if label is not None:
+        ins["Label"] = [label]
+    if length is not None:
+        ins["Length"] = [length]
+    helper.append_op("crf_decoding", ins, {"ViterbiPath": [out]}, {})
+    return out
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, padding_value=0,
+                       name=None):
+    """Greedy CTC decoding: ``arg_max`` over the last axis, then
+    ``ctc_align`` (repeats merged, ``blank`` dropped). Returns (ids
+    [B, S] left-packed, lengths [B, 1])."""
+    helper = LayerHelper("ctc_greedy_decoder", name=name)
+    am = helper.create_variable_for_type_inference("int64", True)
+    helper.append_op("arg_max", {"X": [input]}, {"Out": [am]},
+                     {"axis": -1, "keepdims": False})
+    out = helper.create_variable_for_type_inference("int64", True)
+    ln = helper.create_variable_for_type_inference("int32", True)
+    ins = {"Input": [am]}
+    if input_length is not None:
+        ins["InputLength"] = [input_length]
+    helper.append_op("ctc_align", ins,
+                     {"Output": [out], "OutputLength": [ln]},
+                     {"blank": int(blank),
+                      "padding_value": int(padding_value)})
+    return out, ln
+
+
+def edit_distance(input, label, normalized=True, input_length=None,
+                  label_length=None, name=None):
+    """Levenshtein distance of each row of ``input`` to ``label``: returns
+    (distance [B, 1] float32, the row count [1])."""
+    helper = LayerHelper("edit_distance", name=name)
+    out = helper.create_variable_for_type_inference("float32", True)
+    sn = helper.create_variable_for_type_inference("int64", True)
+    ins = {"Hyps": [input], "Refs": [label]}
+    if input_length is not None:
+        ins["HypsLength"] = [input_length]
+    if label_length is not None:
+        ins["RefsLength"] = [label_length]
+    helper.append_op("edit_distance", ins,
+                     {"Out": [out], "SequenceNum": [sn]},
+                     {"normalized": bool(normalized)})
+    return out, sn
+
+
+def increment(x: Variable, value: float = 1.0, in_place: bool = True
+              ) -> Variable:
+    """x + value; with ``in_place`` the op writes the sum under x's name."""
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op("increment", {"X": [x]}, {"Out": [out]}, {"step": value})
     return out

@@ -4,9 +4,10 @@ of the ResNet classifier program, of the WMT Transformer program and of
 the inference programs the predictor's passes rewrite, of the fleet
 training chain (loss scaling, clips, regularizers, LAMB/LARS,
 recomputed segments), and every op type of the reference's math,
-tensor, RNN, sequence and beam-search modules."""
+tensor, RNN, sequence, beam-search, CRF, fused-RNN and control-flow
+modules."""
 
 from . import (amp_ops, attention_ops, beam_search_ops,  # noqa: F401
-               control_flow_ops, extra_ops, fused_ops, lr_ops, math_ops,
-               nn_ops, optimizer_ops, quant_ops, rnn_ops, sequence_ops,
-               tensor_ops)
+               control_flow_ops, crf_ops, extra_ops, fused_ops,
+               fused_rnn_ops, lr_ops, math_ops, nn_ops, optimizer_ops,
+               quant_ops, rnn_ops, sequence_ops, tensor_ops)

@@ -135,10 +135,14 @@ class AdmissionQueue:
                     f"serving queue full ({self.max_depth} requests "
                     f"waiting) — retry later")
             self._items.append(req)
-            depth = len(self._items)
+            # the depth gauge is written under the lock, so a taker that
+            # empties the queue right after cannot be overwritten by this
+            # older depth (a stale 1 tripped the queue-depth SLO rule on
+            # an idle queue)
+            telemetry.gauge_set(f"{self.metric_prefix}.queue_depth",
+                                len(self._items))
             self._cond.notify_all()
         telemetry.counter_add(f"{self.metric_prefix}.requests", 1)
-        telemetry.gauge_set(f"{self.metric_prefix}.queue_depth", depth)
         return req
 
     def poll(self, max_n: int) -> List[InferenceRequest]:
@@ -149,8 +153,8 @@ class AdmissionQueue:
             self._fail_expired(time.monotonic())
             while self._items and len(out) < max_n:
                 out.append(self._items.pop(0))
-            depth = len(self._items)
-        telemetry.gauge_set(f"{self.metric_prefix}.queue_depth", depth)
+            telemetry.gauge_set(f"{self.metric_prefix}.queue_depth",
+                                len(self._items))
         return out
 
     def _fail_expired(self, now: float):
@@ -219,9 +223,9 @@ class AdmissionQueue:
                     continue   # closed, other-signature work remains
                 self._cond.wait(None if sig is None
                                 else max(0.0, flush_t - now))
-            depth = len(self._items)
+            telemetry.gauge_set(f"{self.metric_prefix}.queue_depth",
+                                len(self._items))
             self._cond.notify_all()
-        telemetry.gauge_set(f"{self.metric_prefix}.queue_depth", depth)
         return sig, batch
 
     def close(self, drain: bool = True):

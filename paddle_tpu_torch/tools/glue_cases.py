@@ -1,15 +1,17 @@
-"""Seeded cases for the math, tensor, sequence, beam-search and RNN ops:
-for each op type, inputs and attrs that reach its edges (NaN, +-0,
-+-inf, integer division by zero and INT_MIN / -1, negative and
-out-of-range indices, ties, duplicate scatter ids, empty sequences, rows
-past the last offset) beside the shapes and ranges of the reference's
-sweep tables. The CPU tests run them through both packages; on the card,
+"""Seeded cases for the math, tensor, sequence, beam-search, RNN, CRF,
+fused-RNN and tensor-array ops: for each op type, inputs and attrs that
+reach its edges (NaN, +-0, +-inf, integer division by zero and INT_MIN /
+-1, negative and out-of-range indices, ties, duplicate scatter ids, empty
+sequences, rows past the last offset; for the CRF a tie in Viterbi, a
+length of 0, a length equal to S, S = 1 and bf16 emissions) beside the
+shapes and ranges of the reference's sweep tables. The CPU tests run them through both packages; on the card,
 chip_smoke's ``ops_glue_card`` runs each through the port on the card and
 on the CPU.
 
 ``CASES`` maps "op[variant]" to a function of a ``numpy.random.RandomState``
-giving (inputs {slot: [array or None, ...]}, attrs). ``rng(name)`` is the
-state a case is drawn from. ``family(op)`` names an op's family and
+giving (inputs {slot: [array or None, ...]}, attrs); an input wrapped in
+``BF16`` is a float32 array of bf16 values that goes in as bfloat16
+(``as_tensor``). ``rng(name)`` is the state a case is drawn from. ``family(op)`` names an op's family and
 ``CARD_TOL`` the float tolerance of each family on the card against the
 CPU (the card's transcendental functions round 1-2 ulp from the CPU's,
 its sums and products accumulate in another order)."""
@@ -26,7 +28,14 @@ I32_MIN, I32_MAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
 
 CARD_TOL = {"elementwise": 1e-5, "activation": 1e-5, "reduction": 1e-4,
             "matmul": 1e-4, "loss": 1e-5, "tensor": 1e-6, "sequence": 1e-5,
-            "rnn": 1e-4, "beam": 1e-5}
+            "rnn": 1e-4, "beam": 1e-5, "crf": 1e-4, "fused_rnn": 1e-4,
+            "array": 0.0}
+_CRF = ("linear_chain_crf", "crf_decoding", "ctc_align", "edit_distance")
+_FUSED_RNN = ("fusion_lstm", "fusion_gru", "attention_lstm",
+              "fusion_seqconv_eltadd_relu", "fusion_seqexpand_concat_fc")
+_ARRAY = ("array_read", "array_write", "lod_rank_table", "split_lod_tensor",
+          "merge_lod_tensor", "shrink_rnn_memory", "lod_tensor_to_array",
+          "array_to_lod_tensor")
 _LOSSES = ("sigmoid_cross_entropy_with_logits", "huber_loss",
            "square_error_cost", "smooth_l1_loss", "kldiv_loss")
 _TENSOR = ("share_data", "reshape", "transpose", "split", "stack", "unstack",
@@ -38,6 +47,12 @@ _TENSOR = ("share_data", "reshape", "transpose", "split", "stack", "unstack",
 
 def family(op):
     """The family of an op type, the key of its float tolerance."""
+    if op in _CRF:
+        return "crf"
+    if op in _FUSED_RNN:
+        return "fused_rnn"
+    if op in _ARRAY:
+        return "array"
     if op.startswith("sequence_"):
         return "sequence"
     if op in ("lstm", "gru"):
@@ -60,6 +75,31 @@ def family(op):
 
 def rng(name):
     return np.random.RandomState(sum(map(ord, name)) % (2 ** 31))
+
+
+class BF16:
+    """A case input that goes in as bfloat16: ``values`` is float32 and
+    holds bf16 values exactly (its low 16 bits are 0)."""
+
+    def __init__(self, values):
+        bits = np.asarray(values, np.float32).view(np.uint32)
+        self.values = (bits & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def as_tensor(v):
+    """A case input as the op gets it: int64 as int32 and float64 as
+    float32 (64-bit types are off in the reference), a ``BF16`` as a
+    bfloat16 tensor."""
+    import torch
+
+    if isinstance(v, BF16):
+        return torch.from_numpy(v.values.copy()).to(torch.bfloat16)
+    a = np.array(v, copy=True)
+    if a.dtype == np.int64:
+        a = a.astype(np.int32)
+    elif a.dtype == np.float64:
+        a = a.astype(np.float32)
+    return torch.from_numpy(a)
 
 
 def _u(r, shape, lo=-1.0, hi=1.0):
@@ -582,3 +622,182 @@ for _kind in ("lstm", "gru"):
             lambda r, k=_kind, sl=_sl, rev=_rev, h0=_h0, pj=_proj: (
                 rnn_ins(r, k, seq_len=sl, h0=h0, projected=pj),
                 {"is_reverse": rev}))
+
+
+# -- the CRF family: ragged lengths with a 0 and an S, S = 1, Viterbi
+#    ties (equal emissions, tied transitions), bf16 emissions -------------
+
+def crf_ins(r, lengths, s, t=3, *, ties=False, bf16=False, label=True):
+    """linear_chain_crf / crf_decoding inputs: Emission [B, S, T] (all
+    equal with ``ties``), Transition [T + 2, T] (on a grid of 0.5 with
+    ``ties``), Label [B, S], Length [B] (None: no Length input)."""
+    b = 2 if lengths is None else len(lengths)
+    e = np.zeros((b, s, t), np.float32) if ties else _u(r, (b, s, t), -2, 2)
+    w = _ties(r, (t + 2, t)) if ties else _u(r, (t + 2, t))
+    ins = {"Emission": [BF16(e) if bf16 else e], "Transition": [w]}
+    if label:
+        ins["Label"] = [r.randint(0, t, (b, s)).astype(np.int64)]
+    if lengths is not None:
+        ins["Length"] = [np.array(lengths, np.int64)]
+    return ins
+
+
+for _name, _lens, _s, _kw in (("ragged", [5, 3, 0, 1], 5, {}),
+                              ("full", None, 4, {}),
+                              ("s1", [1, 0], 1, {}),
+                              ("ties", [4, 2, 4], 4, {"ties": True}),
+                              ("bf16", [6, 6, 2], 6, {"bf16": True})):
+    CASES[f"linear_chain_crf[{_name}]"] = (
+        lambda r, ln=_lens, s=_s, kw=_kw: (crf_ins(r, ln, s, **kw), {}))
+    CASES[f"crf_decoding[{_name}]"] = (
+        lambda r, ln=_lens, s=_s, kw=_kw: (
+            crf_ins(r, ln, s, label=False, **kw), {}))
+CASES["crf_decoding[label]"] = lambda r: (crf_ins(r, [5, 3, 0], 5), {})
+CASES.update({
+    "ctc_align[reference]": lambda r: (
+        {"Input": [np.array([[0, 1, 1, 0, 2, 2, 0, 3],
+                             [1, 1, 2, 0, 0, 3, 3, 0]], np.int32)],
+         "InputLength": [np.array([8, 6], np.int64)]},
+        {"blank": 0, "padding_value": -1}),
+    "ctc_align[ragged]": lambda r: (
+        {"Input": [r.randint(0, 4, (4, 7)).astype(np.int64)],
+         "InputLength": [np.array([7, 3, 0, 1], np.int32)]},
+        {"blank": 2}),
+    "ctc_align[no_length]": lambda r: (
+        {"Input": [r.randint(0, 3, (3, 6)).astype(np.int32)]},
+        {"blank": 0, "padding_value": 9}),
+    "edit_distance[ragged]": lambda r: (
+        {"Hyps": [r.randint(1, 5, (4, 6)).astype(np.int64)],
+         "Refs": [r.randint(1, 5, (4, 5)).astype(np.int64)],
+         "HypsLength": [np.array([6, 4, 0, 1], np.int64)],
+         "RefsLength": [np.array([5, 5, 2, 0], np.int64)]},
+        {"normalized": False}),
+    "edit_distance[normalized_ref0]": lambda r: (
+        {"Hyps": [r.randint(1, 4, (3, 5)).astype(np.int32)],
+         "Refs": [r.randint(1, 4, (3, 4)).astype(np.int32)],
+         "HypsLength": [np.array([5, 2, 3], np.int32)],
+         "RefsLength": [np.array([4, 0, 1], np.int32)]},
+        {"normalized": True}),
+    "edit_distance[no_length]": lambda r: (
+        {"Hyps": [r.randint(0, 3, (2, 4)).astype(np.int32)],
+         "Refs": [r.randint(0, 3, (2, 6)).astype(np.int32)]},
+        {"normalized": True}),
+})
+
+
+# -- the fused RNN ops: with and without lengths (a 0 and an S among
+#    them), reversed, with H0 / C0, other activations ------------------
+
+def fused_ins(r, kind, *, seq_len=False, h0=False, b=3, s=5, m=4, h=6):
+    """fusion_lstm (G = 4) or fusion_gru (G = 3) inputs: X [b, s, m],
+    WeightX, WeightH and Bias, SequenceLength [s, 2, 0] on request, H0
+    (and C0) on request."""
+    g = 4 if kind == "fusion_lstm" else 3
+    ins = {"X": [_u(r, (b, s, m))],
+           "WeightX": [_u(r, (m, g * h), -0.5, 0.5)],
+           "WeightH": [_u(r, (h, g * h), -0.5, 0.5)],
+           "Bias": [_u(r, (g * h,), -0.2, 0.2)]}
+    if seq_len:
+        ins["SequenceLength"] = [np.array([s, 2, 0][:b], np.int32)]
+    if h0:
+        ins["H0"] = [_u(r, (b, h))]
+        if kind == "fusion_lstm":
+            ins["C0"] = [_u(r, (b, h))]
+    return ins
+
+
+def attention_lstm_ins(r, *, scalar=True, seq_len=True, b=3, s=4, m=4,
+                       d=3):
+    ins = {"X": [_u(r, (b, s, m))], "C0": [_u(r, (b, d), -0.5, 0.5)],
+           "H0": [_u(r, (b, d), -0.5, 0.5)],
+           "AttentionWeight": [_u(r, (m + d, 1), -0.6, 0.6)],
+           "AttentionBias": [np.array([0.1], np.float32)],
+           "LSTMWeight": [_u(r, (d + m, 4 * d), -0.5, 0.5)],
+           "LSTMBias": [_u(r, (4 * d,), -0.2, 0.2)]}
+    if scalar:
+        ins["AttentionScalar"] = [np.array([1.3], np.float32)]
+        ins["AttentionScalarBias"] = [np.array([0.05], np.float32)]
+    if seq_len:
+        ins["SequenceLength"] = [np.array([s, 2, 0][:b], np.int32)]
+    return ins
+
+
+for _kind in ("fusion_lstm", "fusion_gru"):
+    for _sl, _rev, _h0 in ((False, False, False), (True, True, True),
+                           (True, False, False), (False, True, True)):
+        CASES[f"{_kind}[len={_sl},rev={_rev},h0={_h0}]"] = (
+            lambda r, k=_kind, sl=_sl, rev=_rev, h0=_h0: (
+                fused_ins(r, k, seq_len=sl, h0=h0), {"is_reverse": rev}))
+CASES.update({
+    "fusion_lstm[relu_identity]": lambda r: (
+        fused_ins(r, "fusion_lstm", seq_len=True),
+        {"gate_activation": "sigmoid", "cell_activation": "relu",
+         "candidate_activation": "identity"}),
+    "fusion_lstm[peepholes]": lambda r: (
+        fused_ins(r, "fusion_lstm"), {"use_peepholes": True}),
+    "fusion_gru[origin_mode]": lambda r: (
+        fused_ins(r, "fusion_gru", seq_len=True, h0=True),
+        {"origin_mode": True}),
+    "fusion_gru[relu]": lambda r: (
+        fused_ins(r, "fusion_gru"), {"activation": "relu",
+                                     "origin_mode": True}),
+    "attention_lstm[scalar]": lambda r: (attention_lstm_ins(r), {}),
+    "attention_lstm[no_scalar]": lambda r: (
+        attention_lstm_ins(r, scalar=False), {}),
+    "attention_lstm[no_length]": lambda r: (
+        attention_lstm_ins(r, seq_len=False), {}),
+    "fusion_seqconv_eltadd_relu[window3]": lambda r: (
+        {"X": [_u(r, (2, 5, 3))], "Filter": [_u(r, (9, 4), -0.5, 0.5)],
+         "Bias": [_u(r, (4,), -0.2, 0.2)]},
+        {"contextLength": 3, "contextStart": -1, "contextStride": 1}),
+    "fusion_seqconv_eltadd_relu[forward]": lambda r: (
+        {"X": [_u(r, (2, 4, 2))], "Filter": [_u(r, (4, 3))],
+         "Bias": [_u(r, (3,))]}, {"contextStart": 1}),
+    "fusion_seqexpand_concat_fc[relu]": lambda r: (
+        {"X": [_u(r, (2, 3, 3)), _u(r, (2, 2))],
+         "FCWeight": [_u(r, (5, 4), -0.5, 0.5)],
+         "FCBias": [_u(r, (4,), -0.2, 0.2)]}, {"fc_activation": "relu"}),
+    "fusion_seqexpand_concat_fc[two_rows_no_bias]": lambda r: (
+        {"X": [_u(r, (3, 2, 2)), _u(r, (3, 1)), _u(r, (3, 3))],
+         "FCWeight": [_u(r, (6, 2))]}, {}),
+})
+
+
+# -- the tensor-array, rank-table and split/merge ops ------------------
+
+CASES.update({
+    "array_read[sweep]": lambda r: (
+        {"X": [_u(r, (4, 2, 3))], "I": [np.array([2], np.int64)]}, {}),
+    "array_read[int]": lambda r: (
+        {"X": [r.randint(-9, 9, (3, 4)).astype(np.int32)],
+         "I": [np.array(0, np.int32)]}, {}),
+    "array_write[sweep]": lambda r: (
+        {"X": [_u(r, (4, 2, 3))], "I": [np.array([3], np.int32)],
+         "V": [_u(r, (2, 3))]}, {}),
+    "lod_rank_table[ties]": lambda r: (
+        {"X": [np.array([3, 5, 3, 0, 5, 1], np.int64)]}, {}),
+    "lod_rank_table[column]": lambda r: (
+        {"X": [np.array([[2], [7], [4]], np.int32)]}, {}),
+    "split_lod_tensor[rows]": lambda r: (
+        {"X": [_u(r, (4, 3))],
+         "Mask": [np.array([[1], [0], [1], [0]], np.int32)]}, {}),
+    "split_lod_tensor[3d_bool]": lambda r: (
+        {"X": [_u(r, (3, 2, 2))],
+         "Mask": [np.array([True, True, False])]}, {}),
+    "merge_lod_tensor[rows]": lambda r: (
+        {"InTrue": [_u(r, (4, 3))], "InFalse": [_u(r, (4, 3))],
+         "Mask": [np.array([[0], [1], [1], [0]], np.float32)]}, {}),
+    "shrink_rnn_memory[step2]": lambda r: (
+        {"X": [_u(r, (4, 3))],
+         "RankTable": [np.array([5, 3, 2, 1], np.int32),
+                       np.array([1, 0, 3, 2], np.int32)],
+         "I": [np.array([2], np.int64)]}, {}),
+    "lod_tensor_to_array[ragged]": lambda r: (
+        {"X": [_u(r, (3, 4, 2))],
+         "RankTable": [np.array([4, 2, 0], np.int32),
+                       np.array([2, 0, 1], np.int32)]}, {}),
+    "array_to_lod_tensor[ragged]": lambda r: (
+        {"X": [_u(r, (4, 3, 2))],
+         "RankTable": [np.array([4, 2, 0], np.int32),
+                       np.array([2, 0, 1], np.int32)]}, {}),
+})

@@ -42,7 +42,10 @@ mask (from an int key and from a key-table slot) the CPU's mask. The
 math, tensor, RNN, sequence and beam-search ops of every case of
 ``tools/glue_cases.py`` on the card against the CPU, a small seq2seq
 training step and its two decoders against the CPU, and the LSTM op in
-a captured CUDA graph.
+a captured CUDA graph. The CRF's cost, gradients and Viterbi paths
+against the CPU; a DynamicRNN training step captured and bit for bit
+its op-by-op run; a gradient-merge step (uncaptured: conditional_block
+decides on the host) against one whole-batch Adam step.
 Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -2301,16 +2304,10 @@ def _glue_cases():
 
 def _glue_run(op, ins, attrs, device):
     from paddle_tpu_torch.core import registry
-
-    def t(v):
-        a = np.array(v, copy=True)
-        a = a.astype({np.dtype(np.int64): np.int32,
-                      np.dtype(np.float64): np.float32}.get(a.dtype,
-                                                            a.dtype))
-        return torch.from_numpy(a).to(device)
+    from paddle_tpu_torch.tools.glue_cases import as_tensor
 
     out = registry.normalize_outputs(registry.get(op).forward(
-        {k: [None if v is None else t(v) for v in vs]
+        {k: [None if v is None else as_tensor(v).to(device) for v in vs]
          for k, vs in ins.items()}, dict(attrs)))
     return {k: [v.cpu() for v in vs] for k, vs in out.items()}
 
@@ -2419,3 +2416,151 @@ def test_seq2seq_step_and_decoders_on_the_card_as_on_the_cpu(dev):
                                     src["src_mask"], beam_size=1, max_len=7,
                                     length_penalty=0.0)
     np.testing.assert_array_equal(k1, greedy)
+
+
+# -- the CRF ops, control flow and gradient merge ------------------------------
+
+def test_crf_forward_backward_and_viterbi_on_the_card_as_on_the_cpu(dev):
+    """linear_chain_crf's cost, Alpha and gradients (through the generic
+    vjp) within 1e-5 of the CPU's, and crf_decoding's paths bit for bit,
+    at the SRL model's 59 tags over 64 steps with ragged lengths (0 and
+    64 among them) and on the glue table's tie case."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.tools.glue_cases import as_tensor, crf_ins
+
+    r = np.random.RandomState(5)
+    lengths = [64, 0, 1, 37, 64, 12, 50, 8]
+    cases = [crf_ins(r, lengths, 64, t=59),
+             crf_ins(r, [4, 2, 4], 4, ties=True)]
+    for ins in cases:
+        on = {d: {k: [as_tensor(v).to(d) for v in vs]
+                  for k, vs in ins.items()} for d in ("cpu", dev)}
+        outs = {d: registry.get("linear_chain_crf").forward(on[d], {})
+                for d in on}
+        for slot in ("LogLikelihood", "Alpha"):
+            torch.testing.assert_close(outs[dev][slot].cpu(),
+                                       outs["cpu"][slot], rtol=1e-5,
+                                       atol=1e-5)
+        g = {}
+        for d in on:
+            pins = {f"In__{k}": v for k, v in on[d].items()}
+            pins["OG__LogLikelihood"] = [torch.ones_like(
+                outs[d]["LogLikelihood"])]
+            g[d] = registry.get("__vjp_grad__").forward(
+                pins, {"fwd_type": "linear_chain_crf", "fwd_attrs": {}})
+        for slot in ("IG__Emission", "IG__Transition"):
+            torch.testing.assert_close(g[dev][slot][0].cpu(),
+                                       g["cpu"][slot][0], rtol=1e-5,
+                                       atol=1e-5)
+        dec = {d: registry.get("crf_decoding").forward(
+            {k: v for k, v in on[d].items() if k != "Label"},
+            {})["ViterbiPath"] for d in on}
+        assert torch.equal(dec[dev].cpu(), dec["cpu"])
+
+
+def test_dynamic_rnn_compiled_step_is_captured_and_equals_op_by_op(dev):
+    """The DynamicRNN tanh cell (tools/control_flow_cases.py) trained 3
+    SGD steps op by op and compiled from one state: losses, outputs and
+    parameters bit for bit, and the compiled step a captured graph."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.tools import control_flow_cases as cfc
+
+    main, startup, fetch = cfc.build(
+        cfc.port(), lambda P: cfc.dynamic_rnn(P, S=16, D=8, H=16))
+    cpu = Scope()
+    Executor(device="cpu").run(startup, scope=cpu)
+    r = np.random.RandomState(1)
+    feed = {"x": r.randn(32, 16, 8).astype(np.float32),
+            "len": r.randint(0, 17, (32,)).astype(np.int64),
+            "label": r.randn(32, 16).astype(np.float32)}
+    legs = {}
+    for mode in (False, True):
+        sc = Scope()
+        for n, v in cpu.items():
+            sc.set(n, v.to(dev, copy=True) if isinstance(v, torch.Tensor)
+                   else v)
+        exe = Executor(device=dev)
+        outs = [exe.run(main, feed=feed, fetch_list=fetch, scope=sc,
+                        use_compiled=mode) for _ in range(3)]
+        legs[mode] = (outs, {n: v.cpu() for n, v in sc.items()
+                             if isinstance(v, torch.Tensor)})
+        if mode:
+            step, = [c for by in exe._compiled[main].values()
+                     for c in by.values() if hasattr(c, "graph")]
+            assert step.host_op is None and step.graph.graph is not None
+    for a, b in zip(legs[False][0], legs[True][0]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    for n, v in legs[False][1].items():
+        assert torch.equal(v, legs[True][1][n]), n
+
+
+def test_gradient_merge_fires_on_the_card_as_a_whole_batch_step(dev):
+    """A classifier through fleet's gradient merge (k 4, avg) on the
+    card, compiled (the step runs uncaptured: conditional_block decides
+    on the host): the three non-firing steps leave every parameter and
+    moment bit for bit, the fourth lands within 1e-5 of one Adam step on
+    the four micro-batches together."""
+    from paddle_tpu_torch import layers, optimizer
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.ir import Program, program_guard
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.distributed import fleet
+
+    def build(merge):
+        main, startup = Program(), Program()
+        with unique_name.guard(), program_guard(main, startup):
+            x = layers.data("x", [16])
+            label = layers.data("label", [1], dtype="int64")
+            logits = layers.fc(layers.fc(x, 32, act="tanh"), 5)
+            loss = layers.mean(layers.softmax_with_cross_entropy(logits,
+                                                                 label))
+            opt = optimizer.AdamOptimizer(0.05)
+            if merge:
+                s = fleet.DistributedStrategy()
+                s.gradient_merge = True
+                s.gradient_merge_configs = {"k_steps": 4, "avg": True}
+                opt = fleet.distributed_optimizer(opt, s)
+            opt.minimize(loss)
+        return main, startup, loss
+
+    merged, startup, loss = build(True)
+    plain, _, ploss = build(False)
+    cpu = Scope()
+    Executor(device="cpu").run(startup, scope=cpu)
+
+    def on_card():
+        sc = Scope()
+        for n, v in cpu.items():
+            sc.set(n, v.to(dev, copy=True) if isinstance(v, torch.Tensor)
+                   else v)
+        return sc
+
+    r = np.random.RandomState(2)
+    micro = [{"x": r.randn(8, 16).astype(np.float32),
+              "label": r.randint(0, 5, (8, 1)).astype(np.int64)}
+             for _ in range(4)]
+    exe, sc = Executor(device=dev), on_card()
+    params = [p.name for p in plain.all_parameters()]
+    trained = [n for n, v in cpu.items() if isinstance(v, torch.Tensor)
+               and "@GradAcc" not in n and not n.startswith("gm_step")]
+    for i, feed in enumerate(micro):
+        before = {n: sc.find_var(n).cpu() for n in trained}
+        exe.run(merged, feed=feed, fetch_list=[loss], scope=sc)
+        if i < 3:
+            for n in trained:
+                assert torch.equal(sc.find_var(n).cpu(), before[n]), n
+    ref = on_card()
+    Executor(device=dev).run(
+        plain, feed={k: np.concatenate([m[k] for m in micro])
+                     for k in micro[0]},
+        fetch_list=[ploss], scope=ref, use_compiled=False)
+    for n in params:
+        torch.testing.assert_close(sc.find_var(n).cpu(),
+                                   ref.find_var(n).cpu(), rtol=1e-5,
+                                   atol=1e-5)
+    step, = [c for by in exe._compiled[merged].values() for c in by.values()
+             if hasattr(c, "graph")]
+    assert step.host_op == "conditional_block" and step.graph.graph is None

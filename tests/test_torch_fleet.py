@@ -26,9 +26,10 @@ dynamic loss scaling), ``contrib.mixed_precision.decorate`` and
   after 4 steps) and the loss-scaling state (scale, good and bad steps)
   bit for bit after every step. The port's compiled step gives its
   op-by-op run's losses and state bit for bit.
-* The refusals: gradient merge, DGC, LocalSGD and sharding, a fleet of
-  two workers, a launcher's world of two trainers and the gradient
-  allreduce over two ranks raise NotImplementedError.
+* The refusals: DGC, LocalSGD and sharding, a fleet of two workers, a
+  launcher's world of two trainers and the gradient allreduce over two
+  ranks raise NotImplementedError. (Gradient merge is in the port:
+  ``tests/test_torch_gradient_merge.py``.)
 """
 
 import json
@@ -294,12 +295,11 @@ def test_ernie_fleet_chain_builds_and_trains_as_the_reference():
 # what the port refuses
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("flag", ["gradient_merge", "dgc", "localsgd",
-                                  "sharding"])
+@pytest.mark.parametrize("flag", ["dgc", "localsgd", "sharding"])
 def test_strategies_outside_the_port_raise(flag):
     s = pfleet.DistributedStrategy()
     setattr(s, flag, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A[78]"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         pfleet.distributed_optimizer(popt.SGDOptimizer(0.1), s)
 
 
