@@ -16,6 +16,13 @@ serving: ``io.save_inference_model`` -> ``inference.create_predictor``
 cluster controller's rolling swap. Training: the models' programs (IR
 build, ``append_backward``, optimizer ops) run step by step by
 ``core.executor.Executor`` over a ``core.scope.Scope``.
+
+The imperative mode and the 2.0 API run the same lowerings eagerly:
+``dygraph`` (``guard(place)``, ``VarBase``, torch autograd), ``nn``,
+``optimizer`` (``step()`` through a cached micro-program) with
+``optimizer.lr``, ``amp.auto_cast``, ``reader.DataLoader``, ``metric``,
+``hapi.Model`` and ``vision``. Like the executor, a guard runs on the
+card unless given ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -26,7 +33,19 @@ from .core.executor import Executor  # noqa: F401
 from .core.ir import (Program, default_main_program,  # noqa: F401
                       default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
+from .core.ir import in_dygraph_mode  # noqa: F401
+from . import amp, dygraph, metric, nn, optimizer, reader  # noqa: F401
+from . import hapi, tensor, vision  # noqa: F401
+from .reader import DataLoader  # noqa: F401
+from .tensor import to_tensor  # noqa: F401
 
 __all__ = ["Program", "program_guard", "default_main_program",
            "default_startup_program", "Executor", "Scope", "global_scope",
-           "scope_guard", "gradients"]
+           "scope_guard", "gradients", "in_dygraph_mode", "to_tensor",
+           "DataLoader", "summary"]
+
+
+def summary(net, input_size, dtypes=None):
+    """paddle.summary: the per-layer table of a dygraph Layer
+    (``hapi/model_summary.py``)."""
+    return hapi.summary(net, input_size, dtypes=dtypes)

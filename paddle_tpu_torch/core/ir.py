@@ -708,3 +708,12 @@ def device_guard(device: Optional[str] = None):
 
 def current_device() -> Optional[str]:
     return _current_device
+
+
+# the imperative mode switch (reference :793): the active dygraph Tracer,
+# or None in static mode
+_dygraph_tracer_holder = [None]
+
+
+def in_dygraph_mode() -> bool:
+    return _dygraph_tracer_holder[0] is not None

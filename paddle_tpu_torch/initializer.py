@@ -2,7 +2,7 @@
 uniform_random, gaussian_random, truncated_gaussian_random, assign_value)
 to the var's startup block (port of ``paddle_tpu/initializer.py``:
 Constant, Uniform, Normal, TruncatedNormal, Xavier, MSRA,
-NumpyArrayInitializer :147 and the two defaults).
+Bilinear :118, NumpyArrayInitializer :147 and the two defaults).
 """
 
 from __future__ import annotations
@@ -110,6 +110,32 @@ class MSRA(Initializer):
             Uniform(-limit, limit, self.seed)(var, block)
         else:
             Normal(0.0, math.sqrt(2.0 / fi), self.seed)(var, block)
+
+
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel for a transposed-conv weight
+    [C_out, C_in, H, W] (reference: initializer.py Bilinear :118): every
+    channel pair gets the separable (1 - |x/f - c|)(1 - |y/f - c|); the
+    [H, W] kernel is one ``assign_value`` broadcast by ``broadcast_to``."""
+
+    def __call__(self, var, block):
+        shape = var.shape
+        if len(shape) != 4:
+            raise ValueError(
+                f"Bilinear initializer needs a 4-D conv weight, got "
+                f"shape {tuple(shape)}")
+        h, w = int(shape[2]), int(shape[3])
+        f = math.ceil(w / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        kernel = ((1 - np.abs(xx / f - c)) * (1 - np.abs(yy / f - c))
+                  ).astype(dtype_name(var.dtype))
+        tmp = block.create_var(name=f"{var.name}@bilinear_kernel",
+                               shape=(1, 1, h, w), dtype=str(kernel.dtype))
+        NumpyArrayInitializer(kernel.reshape(1, 1, h, w))(tmp, block)
+        block.append_op("broadcast_to", {"X": [tmp.name]},
+                        {"Out": [var.name]},
+                        {"shape": [int(d) for d in shape]})
 
 
 class NumpyArrayInitializer(Initializer):

@@ -56,6 +56,8 @@ def generate_layer_fn(op_type, in_slots, out_slots, primary=None, doc=""):
 # (name, op_type, input slots, output slots[, primary]): the reference's
 # rows whose op types the port registers
 TABLE = [
+    ("brelu", "brelu", ["X"], ["Out"]),
+    ("hard_shrink", "hard_shrink", ["X"], ["Out"]),
     ("hard_sigmoid", "hard_sigmoid", ["X"], ["Out"]),
     ("hard_swish", "hard_swish", ["X"], ["Out"]),
     ("logical_not", "logical_not", ["X"], ["Out"]),
@@ -77,11 +79,22 @@ TABLE = [
     ("gaussian_random", "gaussian_random", [], ["Out"]),
     ("fill_constant_batch_size_like", "fill_constant_batch_size_like",
      ["Input"], ["Out"]),
+    ("pad2d", "pad2d", ["X"], ["Out"]),
+    ("lrn", "lrn", ["X"], ["Out", "MidOut"], "Out"),
+    ("margin_rank_loss", "margin_rank_loss", ["Label", "X1", "X2"],
+     ["Out", "Activated"], "Out"),
     ("huber_loss", "huber_loss", ["X", "Y"], ["Out", "Residual"], "Out"),
     ("kldiv_loss", "kldiv_loss", ["X", "Target"], ["Loss"]),
     ("lstm", "lstm",
      ["Input", "WeightX", "WeightH", "Bias", "H0", "C0", "SequenceLength"],
      ["Out", "LastH", "LastC"], "Out"),
+    ("gru_unit", "gru_unit", ["Input", "HiddenPrev", "Weight", "Bias"],
+     ["Hidden", "ResetHiddenPrev", "Gate"], "Hidden"),
+    ("lstm_unit", "lstm_unit", ["X", "C_prev"], ["H", "C"], "H"),
+    ("warpctc", "warpctc", ["Logits", "Label", "LogitsLength", "LabelLength"],
+     ["Loss", "WarpCTCGrad"], "Loss"),
+    ("bilinear_tensor_product", "bilinear_tensor_product",
+     ["X", "Y", "Weight", "Bias"], ["Out"]),
     ("beam_search", "beam_search", ["pre_ids", "pre_scores", "scores"],
      ["selected_ids", "selected_scores", "parent_idx"], "selected_ids"),
     ("beam_search_decode", "beam_search_decode",

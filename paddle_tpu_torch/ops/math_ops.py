@@ -70,14 +70,48 @@ def sign(ins, attrs):
     return {"Out": torch.where(keep, x.detach(), torch.sign(x))}
 
 
+class _TieClamp(torch.autograd.Function):
+    """``torch.clamp`` with ``jnp.clip``'s gradient, which splits a tie:
+    d/dx min(max(x, lo), hi) is ([x > lo] + [x == lo] / 2) *
+    ([m < hi] + [m == hi] / 2) for m = max(x, lo), and 0 at NaN
+    (``torch.clamp`` passes the whole gradient at a bound and at NaN)."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.lo, ctx.hi = lo, hi
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.lo, ctx.hi
+        w = torch.ones_like(x)
+        if lo is not None:
+            w = (x > lo).to(x.dtype) + 0.5 * (x == lo).to(x.dtype)
+            x = torch.clamp(x, min=lo)
+        if hi is not None:
+            w = w * ((x < hi).to(x.dtype) + 0.5 * (x == hi).to(x.dtype))
+        return g * w, None, None
+
+
+def tie_clip(x, lo=None, hi=None):
+    """x clamped to [lo, hi] (either may be None); a float x gets
+    ``jnp.clip``'s gradient (``_TieClamp``)."""
+    if not x.is_floating_point():
+        return torch.clamp(x, lo, hi)
+    return _TieClamp.apply(x, lo, hi)
+
+
 @register_op("clip")
 def clip(ins, attrs):
-    """X clamped to [min, max] (reference :190, ``jnp.clip``); with
-    neither bound, X itself."""
+    """X clamped to [min, max] (reference :190, ``jnp.clip``, whose
+    gradient is half at a bound: ``tie_clip``); with neither bound, X
+    itself."""
     lo, hi = attrs.get("min"), attrs.get("max")
     if lo is None and hi is None:
         return {"Out": ins["X"][0]}
-    return {"Out": torch.clamp(ins["X"][0], lo, hi)}
+    return {"Out": tie_clip(ins["X"][0], lo, hi)}
 
 
 @register_op("isfinite", non_diff_inputs=("X",))
@@ -425,7 +459,7 @@ def _log_sigmoid(x):
 
 
 for _name, _fn in (
-        ("relu6", lambda x: torch.clamp(x, 0, 6)),
+        ("relu6", lambda x: tie_clip(x, 0.0, 6.0)),
         ("exp", torch.exp), ("log", torch.log), ("log2", torch.log2),
         ("rsqrt", torch.rsqrt), ("abs", torch.abs),
         ("floor", _int_same(torch.floor)), ("ceil", _int_same(torch.ceil)),
@@ -471,15 +505,15 @@ def elu(ins, attrs):
 @register_op("hard_sigmoid")
 def hard_sigmoid(ins, attrs):
     x = ins["X"][0]
-    return {"Out": torch.clamp(x * attrs.get("slope", 0.2)
-                               + attrs.get("offset", 0.5), 0.0, 1.0)}
+    return {"Out": tie_clip(x * attrs.get("slope", 0.2)
+                            + attrs.get("offset", 0.5), 0.0, 1.0)}
 
 
 @register_op("hard_swish")
 def hard_swish(ins, attrs):
     x = ins["X"][0]
     t = attrs.get("threshold", 6.0)
-    return {"Out": x * torch.clamp(x + attrs.get("offset", 3.0), 0.0, t)
+    return {"Out": x * tie_clip(x + attrs.get("offset", 3.0), 0.0, t)
             / attrs.get("scale", 6.0)}
 
 

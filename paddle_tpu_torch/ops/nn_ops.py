@@ -1,6 +1,8 @@
 """Neural-net lowerings (port of ``paddle_tpu/ops/nn_ops.py``: conv2d
-:32, pool2d :93, batch_norm :378, layer_norm :401, dropout :453,
-label_smooth :543)."""
+:32, conv2d_transpose :58, pool2d :93, hierarchical_sigmoid :285,
+batch_norm :378, sync_batch_norm :386, layer_norm :401, group_norm :430,
+dropout :453, interpolate :496, pad2d :517, prelu :532, label_smooth
+:543)."""
 
 from __future__ import annotations
 
@@ -229,3 +231,210 @@ def batch_norm(ins, attrs):
         + bias.reshape(bshape).to(x.dtype)
     return {"Y": y, "MeanOut": mean_out, "VarianceOut": var_out,
             "SavedMean": saved_mean, "SavedVariance": saved_var}
+
+
+# -- the 2.0 nn layers' op types ----------------------------------------------
+
+def _lax_pads(attrs, k, d):
+    """The (lo, hi) padding of the stride-1 conv over the dilated input
+    for one spatial dim, where the reference's conv2d_transpose gives one
+    of its own: none for VALID. None for explicit paddings (the caller
+    takes k - 1 - p); SAME raises ValueError, as the reference's
+    lhs-dilated conv does."""
+    algo = attrs.get("padding_algorithm", "EXPLICIT")
+    if algo == "VALID":
+        return 0, 0
+    if algo == "SAME":
+        raise ValueError("conv2d_transpose takes explicit paddings or "
+                         "VALID, not SAME")
+    return None
+
+
+@register_op("conv2d_transpose")
+def conv2d_transpose(ins, attrs):
+    """Transposed conv with paddle's IOHW filter [in_c, out_c/groups, kh,
+    kw], as the reference computes it (:58): the input dilated by the
+    strides (zeros between rows and columns), padded by k - 1 - p on each
+    side (a negative pad crops), then a stride-1 conv with the per-group
+    transposed, spatially flipped filter and the dilations."""
+    x, w = ins["Input"][0], ins["Filter"][0]
+    strides = [int(s) for s in attrs.get("strides", [1, 1])]
+    dilations = [int(d) for d in attrs.get("dilations", [1, 1])]
+    groups = int(attrs.get("groups", 1))
+    in_c, out_pg, kh, kw = w.shape
+    pads = []
+    explicit = _explicit_pads({"paddings": attrs.get("paddings", [0, 0])},
+                              x, (kh, kw), strides, dilations)
+    for i, (k, d) in enumerate(((kh, dilations[0]), (kw, dilations[1]))):
+        lp = _lax_pads(attrs, k, d)
+        if lp is None:
+            lo, hi = explicit[i]
+            lp = (k - 1 - lo, k - 1 - hi)
+        pads.append(lp)
+    n, c, h, wd = x.shape
+    sh, sw = strides
+    xd = x.new_zeros((n, c, (h - 1) * sh + 1, (wd - 1) * sw + 1))
+    xd[:, :, ::sh, ::sw] = x
+    xd = F.pad(xd, (pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
+    w_t = w.reshape(groups, in_c // groups, out_pg, kh, kw) \
+        .transpose(1, 2).reshape(groups * out_pg, in_c // groups, kh, kw) \
+        .flip(2, 3)
+    return {"Output": F.conv2d(xd, w_t, dilation=dilations, groups=groups)}
+
+
+@register_op("hierarchical_sigmoid", non_diff_inputs=("Label", "PathTable",
+                                                      "PathCode"))
+def hierarchical_sigmoid(ins, attrs):
+    """Hierarchical softmax over the default complete binary tree
+    (row ((c + C) >> (i + 1)) - 1 of W and bit ((c + C) >> i) & 1 at
+    level i, for label c of C classes) or a custom tree (PathTable /
+    PathCode, -1 ends a path): Out [B, 1] is the sum over the path of
+    softplus(pre) - bit * pre, PreOut the pre-activations (0 past the
+    path's end)."""
+    x, w = ins["X"][0], ins["W"][0]
+    label = ins["Label"][0].reshape(-1).long()
+    bias = (ins.get("Bias") or [None])[0]
+    path = (ins.get("PathTable") or [None])[0]
+    code = (ins.get("PathCode") or [None])[0]
+    if path is None:
+        c = int(attrs["num_classes"])
+        max_len = int(math.floor(math.log2(max(c - 1, 1)))) + 1
+        lc = label + c
+        i = torch.arange(max_len, device=x.device)
+        idx = (lc[:, None] >> (i[None, :] + 1)) - 1
+        bit = (lc[:, None] >> i[None, :]) & 1
+    else:
+        idx, bit = path.long(), code.long()
+    valid = idx >= 0
+    idx_c = torch.where(valid, idx, torch.zeros_like(idx))
+    pre = torch.einsum("bd,bld->bl", x, w[idx_c])
+    if bias is not None:
+        pre = pre + bias.reshape(-1)[idx_c]
+    cost = F.softplus(pre) - bit.to(pre.dtype) * pre
+    cost = torch.where(valid, cost, torch.zeros_like(cost))
+    return {"Out": cost.sum(dim=1, keepdim=True),
+            "PreOut": torch.where(valid, pre, torch.zeros_like(pre))}
+
+
+@register_op("sync_batch_norm")
+def sync_batch_norm(ins, attrs):
+    """batch_norm with statistics summed over the data-parallel ranks. At
+    world size 1 it is ``batch_norm`` exactly, as the reference's lowering
+    is outside an SPMD region (:386); the collective form (ROADMAP A8)
+    raises in a process group of more than one rank."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "sync_batch_norm across ranks is not in the port yet "
+            "(ROADMAP A8); at world size 1 it is batch_norm")
+    return batch_norm(ins, attrs)
+
+
+@register_op("group_norm")
+def group_norm(ins, attrs):
+    """Normalise each of ``groups`` channel groups over its channels and
+    spatial dims, in x's dtype; Mean and Variance are [N, groups]."""
+    x = ins["X"][0]
+    scale = ins["Scale"][0] if ins.get("Scale") else None
+    bias = ins["Bias"][0] if ins.get("Bias") else None
+    g = int(attrs.get("groups", 1))
+    eps = float(attrs.get("epsilon", 1e-5))
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    axes = tuple(range(2, xg.dim()))
+    mean = xg.mean(dim=axes, keepdim=True)
+    var = ((xg - mean) ** 2).mean(dim=axes, keepdim=True)
+    y = ((xg - mean) / torch.sqrt(var + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    return {"Y": y, "Mean": mean.reshape(n, g),
+            "Variance": var.reshape(n, g)}
+
+
+def _resize_weights(size_in, size_out, dtype, device):
+    """``jax.image.resize``'s linear weight matrix [in, out] for one dim
+    (``compute_weight_mat``, antialiased: the triangle kernel widens by
+    in / out when shrinking), columns normalised to sum 1, zero for a
+    sample outside the input."""
+    inv_scale = size_in / size_out
+    kernel_scale = max(inv_scale, 1.0)
+    sample = (torch.arange(size_out, dtype=torch.float32, device=device)
+              + 0.5) * inv_scale - 0.5
+    src = torch.arange(size_in, dtype=torch.float32, device=device)
+    dist = torch.abs(sample[None, :] - src[:, None]) / kernel_scale
+    wts = torch.clamp(1.0 - dist, min=0.0)
+    total = wts.sum(dim=0, keepdim=True)
+    eps = torch.finfo(torch.float32).eps
+    wts = torch.where(torch.abs(total) > 1000.0 * eps,
+                      wts / torch.where(total != 0, total,
+                                        torch.ones_like(total)),
+                      torch.zeros_like(wts))
+    inside = (sample >= -0.5) & (sample <= size_in - 0.5)
+    return torch.where(inside[None, :], wts, torch.zeros_like(wts)).to(dtype)
+
+
+@register_op("interpolate")
+@register_op("nearest_interp")
+@register_op("bilinear_interp")
+def interpolate(ins, attrs):
+    """Resize H and W to out_h/out_w (or the input's times scale/scale_h/
+    scale_w) as ``jax.image.resize`` does in the reference (:496):
+    "nearest" takes row floor((i + 0.5) * in / out); otherwise linear with
+    half-pixel centres and antialiasing, applied per dim as a weight
+    matrix. ``align_corners`` is read by neither."""
+    x = ins["X"][0]
+    out_h = int(attrs.get("out_h", 0) or 0)
+    out_w = int(attrs.get("out_w", 0) or 0)
+    scale = attrs.get("scale", 0) or 0
+    scale_h = attrs.get("scale_h", scale) or 0
+    scale_w = attrs.get("scale_w", scale) or 0
+    if not out_h and scale_h:
+        out_h = int(x.shape[2] * scale_h)
+    if not out_w and scale_w:
+        out_w = int(x.shape[3] * scale_w)
+    nearest = "nearest" in attrs.get("interp_method", "nearest")
+    y = x
+    for dim, size_out in ((2, out_h), (3, out_w)):
+        size_in = x.shape[dim]
+        if size_in == size_out:
+            continue
+        if nearest:
+            idx = torch.floor((torch.arange(size_out, dtype=torch.float32,
+                                            device=x.device) + 0.5)
+                              * size_in / size_out).long()
+            y = y.index_select(dim, idx)
+        else:
+            wm = _resize_weights(size_in, size_out, x.dtype, x.device)
+            y = torch.movedim(torch.movedim(y, dim, -1) @ wm, -1, dim)
+    return {"Out": y.to(x.dtype)}
+
+
+@register_op("pad2d")
+def pad2d(ins, attrs):
+    """Pad H and W by paddings [top, bottom, left, right]: constant
+    (pad_value), reflect, edge / replicate or circular."""
+    x = ins["X"][0]
+    p = [int(v) for v in attrs["paddings"]]
+    mode = attrs.get("mode", "constant")
+    pad = (p[2], p[3], p[0], p[1])
+    if mode == "constant":
+        return {"Out": F.pad(x, pad, value=float(attrs.get("pad_value",
+                                                             0.0)))}
+    tmode = {"reflect": "reflect", "edge": "replicate",
+             "replicate": "replicate", "circular": "circular"}[mode]
+    return {"Out": F.pad(x, pad, mode=tmode)}
+
+
+@register_op("prelu")
+def prelu(ins, attrs):
+    """x where x > 0, else alpha * x: one alpha ("all") or one per channel
+    along axis 1 ("channel")."""
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    if attrs.get("mode", "all") == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return {"Out": torch.where(x > 0, x, x * alpha)}

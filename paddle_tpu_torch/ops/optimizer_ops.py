@@ -1,6 +1,7 @@
 """Optimizer op lowerings: state updates are ops in the program (port
 of ``paddle_tpu/ops/optimizer_ops.py``: sgd :48, momentum :63, adam :140,
-adamw :167, lars_momentum :283, lamb :303).
+adamw :167, adagrad :211, adamax :223, adadelta :241, rmsprop :257,
+lars_momentum :283, lamb :303, ftrl :331, decayed_adagrad :350).
 
 Each op names its parameter and state as both input and output. The
 port's lowerings update those tensors IN PLACE and return the same
@@ -228,3 +229,116 @@ def lamb(ins, attrs):
     b2p.mul_(b2)
     return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2,
             "Beta1PowOut": b1p, "Beta2PowOut": b2p}
+
+
+# -- the rest of the 2.0 optimizers (reference :211-360), dense: a
+# SelectedRows gradient is densified first, as the reference's _dense_grad
+# does. Each updates its parameter and state in place.
+
+_OPT2 = dict(non_diff_inputs=_OPT["non_diff_inputs"] + (
+    "Moment", "InfNorm", "AvgSquaredGrad", "AvgSquaredUpdate", "MeanSquare",
+    "MeanGrad", "SquaredAccumulator", "LinearAccumulator"))
+
+
+@register_op("adagrad", **_OPT2)
+def adagrad(ins, attrs):
+    """m' = m + g^2, p -= lr g / (sqrt(m') + epsilon)."""
+    p, mom, lr = ins["Param"][0], ins["Moment"][0], ins["LearningRate"][0]
+    g = _dense(ins["Grad"][0])
+    eps = attrs.get("epsilon", 1e-6)
+    mom.copy_(mom + g * g)
+    p.copy_(p - lr * g / (torch.sqrt(mom) + eps))
+    return {"ParamOut": p, "MomentOut": mom}
+
+
+@register_op("adamax", **_OPT2)
+def adamax(ins, attrs):
+    """m' = b1 m + (1 - b1) g, u' = max(b2 u, |g|),
+    p -= lr / (1 - Beta1Pow) * m' / (u' + epsilon). Beta1Pow is read and
+    not advanced, as in the reference (the op has no Beta1PowOut)."""
+    p, lr = ins["Param"][0], ins["LearningRate"][0]
+    g = _dense(ins["Grad"][0])
+    m, inf, b1p = ins["Moment"][0], ins["InfNorm"][0], ins["Beta1Pow"][0]
+    b1 = attrs.get("beta1", 0.9)
+    b2 = attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    m.copy_(b1 * m + (1 - b1) * g)
+    inf.copy_(torch.maximum(b2 * inf, torch.abs(g)))
+    p.copy_(p - lr / (1 - b1p) * m / (inf + eps))
+    return {"ParamOut": p, "MomentOut": m, "InfNormOut": inf}
+
+
+@register_op("adadelta", **_OPT2)
+def adadelta(ins, attrs):
+    """E[g^2]' = rho E[g^2] + (1 - rho) g^2,
+    u = sqrt(E[du^2] + eps) / sqrt(E[g^2]' + eps) * g, p -= u,
+    E[du^2]' = rho E[du^2] + (1 - rho) u^2 (no learning rate)."""
+    p = ins["Param"][0]
+    g = _dense(ins["Grad"][0])
+    avg_sq, avg_upd = ins["AvgSquaredGrad"][0], ins["AvgSquaredUpdate"][0]
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    avg_sq.copy_(rho * avg_sq + (1 - rho) * g * g)
+    upd = torch.sqrt(avg_upd + eps) / torch.sqrt(avg_sq + eps) * g
+    avg_upd.copy_(rho * avg_upd + (1 - rho) * upd * upd)
+    p.copy_(p - upd)
+    return {"ParamOut": p, "AvgSquaredGradOut": avg_sq,
+            "AvgSquaredUpdateOut": avg_upd}
+
+
+@register_op("rmsprop", **_OPT2)
+def rmsprop(ins, attrs):
+    """ms' = rho ms + (1 - rho) g^2 (centered: minus mg'^2, mg' = rho mg +
+    (1 - rho) g), mom' = mu mom + lr g / sqrt(ms' (- mg'^2) + eps),
+    p -= mom'."""
+    p, lr = ins["Param"][0], ins["LearningRate"][0]
+    g = _dense(ins["Grad"][0])
+    ms, mom = ins["MeanSquare"][0], ins["Moment"][0]
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    mu = attrs.get("momentum", 0.0)
+    ms.copy_(rho * ms + (1 - rho) * g * g)
+    outs = {"ParamOut": p, "MeanSquareOut": ms, "MomentOut": mom}
+    if attrs.get("centered", False):
+        mg = ins["MeanGrad"][0]
+        mg.copy_(rho * mg + (1 - rho) * g)
+        denom = ms - mg * mg + eps
+        outs["MeanGradOut"] = mg
+    else:
+        denom = ms + eps
+    mom.copy_(mu * mom + lr * g / torch.sqrt(denom))
+    p.copy_(p - mom)
+    return outs
+
+
+@register_op("decayed_adagrad", **_OPT2)
+def decayed_adagrad(ins, attrs):
+    """m' = decay m + (1 - decay) g^2, p -= lr g / (sqrt(m') + epsilon)."""
+    p, mom, lr = ins["Param"][0], ins["Moment"][0], ins["LearningRate"][0]
+    g = _dense(ins["Grad"][0])
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    mom.copy_(decay * mom + (1 - decay) * g * g)
+    p.copy_(p - lr * g / (torch.sqrt(mom) + eps))
+    return {"ParamOut": p, "MomentOut": mom}
+
+
+@register_op("ftrl", **_OPT2)
+def ftrl(ins, attrs):
+    """FTRL-proximal in the reference's formulas: n' = n + g^2,
+    sigma = (n'^-power - n^-power) / lr, z' = z + g - sigma p,
+    p = (clip(z', -l1, l1) - z') / (n'^-power / lr + 2 l2)."""
+    p, lr = ins["Param"][0], ins["LearningRate"][0]
+    g = _dense(ins["Grad"][0])
+    sq, lin = ins["SquaredAccumulator"][0], ins["LinearAccumulator"][0]
+    l1 = float(attrs.get("l1", 0.0))
+    l2 = float(attrs.get("l2", 0.0))
+    power = float(attrs.get("lr_power", -0.5))
+    new_sq = sq + g * g
+    sigma = (new_sq ** -power - sq ** -power) / lr
+    lin.copy_(lin + g - sigma * p)
+    pre = torch.clamp(lin, -l1, l1) - lin
+    denom = new_sq ** -power / lr + 2 * l2
+    p.copy_(pre / denom)
+    sq.copy_(new_sq)
+    return {"ParamOut": p, "SquaredAccumOut": sq, "LinearAccumOut": lin}

@@ -3,7 +3,9 @@ fused-RNN and tensor-array ops: for each op type, inputs and attrs that
 reach its edges (NaN, +-0, +-inf, integer division by zero and INT_MIN /
 -1, negative and out-of-range indices, ties, duplicate scatter ids, empty
 sequences, rows past the last offset; for the CRF a tie in Viterbi, a
-length of 0, a length equal to S, S = 1 and bf16 emissions) beside the
+length of 0, a length equal to S, S = 1 and bf16 emissions; for the 2.0
+API's op types ties at their thresholds, every padding mode, empty and
+full selections) beside the
 shapes and ranges of the reference's sweep tables. The CPU tests run them through both packages; on the card,
 chip_smoke's ``ops_glue_card`` runs each through the port on the card and
 on the CPU.
@@ -29,7 +31,7 @@ I32_MIN, I32_MAX = np.iinfo(np.int32).min, np.iinfo(np.int32).max
 CARD_TOL = {"elementwise": 1e-5, "activation": 1e-5, "reduction": 1e-4,
             "matmul": 1e-4, "loss": 1e-5, "tensor": 1e-6, "sequence": 1e-5,
             "rnn": 1e-4, "beam": 1e-5, "crf": 1e-4, "fused_rnn": 1e-4,
-            "array": 0.0}
+            "array": 0.0, "norm": 1e-4, "optimizer": 1e-5}
 _CRF = ("linear_chain_crf", "crf_decoding", "ctc_align", "edit_distance")
 _FUSED_RNN = ("fusion_lstm", "fusion_gru", "attention_lstm",
               "fusion_seqconv_eltadd_relu", "fusion_seqexpand_concat_fc")
@@ -37,12 +39,18 @@ _ARRAY = ("array_read", "array_write", "lod_rank_table", "split_lod_tensor",
           "merge_lod_tensor", "shrink_rnn_memory", "lod_tensor_to_array",
           "array_to_lod_tensor")
 _LOSSES = ("sigmoid_cross_entropy_with_logits", "huber_loss",
-           "square_error_cost", "smooth_l1_loss", "kldiv_loss")
+           "square_error_cost", "smooth_l1_loss", "kldiv_loss", "bce_loss",
+           "margin_rank_loss", "hierarchical_sigmoid", "warpctc")
+_NORMS = ("instance_norm", "group_norm", "sync_batch_norm", "lrn")
+_OPTIMIZERS = ("adagrad", "adamax", "adadelta", "rmsprop",
+               "decayed_adagrad", "ftrl")
 _TENSOR = ("share_data", "reshape", "transpose", "split", "stack", "unstack",
            "flatten2", "flatten_contiguous_range", "strided_slice",
            "gather_nd", "scatter", "shape", "fill_zeros_like",
            "fill_any_like", "expand", "expand_v2", "tile", "range", "where",
-           "pad", "tril_triu", "fill_constant_batch_size_like")
+           "pad", "tril_triu", "fill_constant_batch_size_like", "eye",
+           "flip", "roll", "index_select", "masked_select", "pixel_shuffle",
+           "pad2d", "broadcast_to")
 
 
 def family(op):
@@ -55,18 +63,24 @@ def family(op):
         return "array"
     if op.startswith("sequence_"):
         return "sequence"
-    if op in ("lstm", "gru"):
+    if op in ("lstm", "gru", "gru_unit", "lstm_unit"):
         return "rnn"
+    if op in _NORMS:
+        return "norm"
+    if op in _OPTIMIZERS:
+        return "optimizer"
     if op in ("beam_search", "gather_tree", "beam_search_decode"):
         return "beam"
     if op.startswith("reduce_") or op in ("squared_l2_norm", "p_norm",
                                           "cumsum"):
         return "reduction"
-    if op in ("bmm", "dot"):
+    if op in ("bmm", "dot", "bilinear_tensor_product", "conv2d_transpose",
+              "interpolate"):
         return "matmul"
     if op in _LOSSES:
         return "loss"
-    if op.startswith("elementwise_") or op in ("maximum", "minimum"):
+    if op.startswith("elementwise_") or op in ("maximum", "minimum",
+                                                "linspace"):
         return "elementwise"
     if op in _TENSOR:
         return "tensor"
@@ -801,3 +815,242 @@ CASES.update({
          "RankTable": [np.array([4, 2, 0], np.int32),
                        np.array([2, 0, 1], np.int32)]}, {}),
 })
+
+
+# -- the op types of the 2.0 API (nn, nn.functional, tensor, the 2.0
+# optimizers): edges, ties at thresholds, out-of-range indices, empty and
+# full selections, every padding mode and layout variant -------------------
+
+_API_ACT = ("sin", "selu", "brelu", "thresholded_relu", "tanh_shrink",
+            "softshrink", "hard_shrink")
+for _op in _API_ACT:
+    CASES[f"{_op}[edge]"] = lambda r: ({"X": [EDGE.reshape(3, 4)]}, {})
+    CASES[f"{_op}[range]"] = lambda r: ({"X": [_u(r, (4, 5), -6, 6)]}, {})
+
+_OPT_SHAPE = (3, 4)
+
+
+def _opt_ins(r, **state):
+    """Param, Grad, LearningRate and the named state (each "pos" for a
+    positive array, "any" for any sign, a float for a [1] fill)."""
+    ins = {"Param": [_u(r, _OPT_SHAPE)], "Grad": [_u(r, _OPT_SHAPE)],
+           "LearningRate": [np.array([0.05], np.float32)]}
+    for slot, kind in state.items():
+        if kind == "pos":
+            ins[slot] = [_u(r, _OPT_SHAPE, 0.01, 1.0)]
+        elif kind == "any":
+            ins[slot] = [_u(r, _OPT_SHAPE)]
+        else:
+            ins[slot] = [np.array([kind], np.float32)]
+    return ins
+
+
+CASES.update({
+    "selu[attrs]": lambda r: ({"X": [_u(r, (3, 4), -3, 3)]},
+                              {"scale": 1.5, "alpha": 0.5}),
+    "brelu[bounds]": lambda r: (
+        {"X": [np.array([-1.0, 0.0, 0.5, 2.0, 3.0, NAN], np.float32)]},
+        {"t_min": 0.0, "t_max": 2.0}),
+    "thresholded_relu[at]": lambda r: (
+        {"X": [np.array([0.5, 1.0, 1.5, -1.0], np.float32)]},
+        {"threshold": 1.0}),
+    "softshrink[at]": lambda r: (
+        {"X": [np.array([-0.5, 0.5, 0.7, -0.7, 0.0], np.float32)]},
+        {"lambda": 0.5}),
+    "hard_shrink[at]": lambda r: (
+        {"X": [np.array([-0.5, 0.5, 0.7, -0.7, -0.0], np.float32)]},
+        {"threshold": 0.5}),
+    "eye[square]": lambda r: ({}, {"num_rows": 4, "dtype": "float32"}),
+    "eye[rect_int]": lambda r: ({}, {"num_rows": 2, "num_columns": 5,
+                                     "dtype": "int64"}),
+    "linspace[basic]": lambda r: (
+        {"Start": [np.array([-1.5], np.float32)],
+         "Stop": [np.array([2.0], np.float32)]}, {"num": 7}),
+    "linspace[one]": lambda r: (
+        {"Start": [np.array([3.0], np.float32)],
+         "Stop": [np.array([9.0], np.float32)]}, {"num": 1}),
+    "linspace[descending]": lambda r: (
+        {"Start": [np.array([1.0], np.float32)],
+         "Stop": [np.array([-1.0], np.float32)]}, {"num": 5}),
+    "index_select[basic]": lambda r: (
+        {"X": [_u(r, (4, 3))], "Index": [np.array([2, 0, 2], np.int64)]},
+        {"dim": 0}),
+    "index_select[wrap_and_range]": lambda r: (
+        {"X": [_u(r, (3, 5))],
+         "Index": [np.array([-1, -5, 4, 5, -6], np.int64)]}, {"dim": 1}),
+    "index_select[int]": lambda r: (
+        {"X": [np.arange(12, dtype=np.int32).reshape(3, 4)],
+         "Index": [np.array([3, 9, -1], np.int32)]}, {"dim": 1}),
+    "index_select[empty]": lambda r: (
+        {"X": [_u(r, (3, 2))], "Index": [np.zeros((0,), np.int32)]},
+        {"dim": 0}),
+    "flip[axes]": lambda r: ({"X": [_u(r, (2, 3, 4))]}, {"axis": [0, 2]}),
+    "flip[int]": lambda r: ({"X": [np.arange(6, dtype=np.int32)]},
+                            {"axis": [0]}),
+    "roll[flat]": lambda r: ({"X": [_u(r, (3, 4))]}, {"shifts": [5]}),
+    "roll[axes]": lambda r: ({"X": [_u(r, (3, 4))]},
+                             {"shifts": [-1, 6], "axis": [0, 1]}),
+    "bce_loss[basic]": lambda r: (
+        {"X": [_u(r, (4, 3), 0.05, 0.95)],
+         "Label": [(r.rand(4, 3) > 0.5).astype(np.float32)]}, {}),
+    "bce_loss[saturated]": lambda r: (
+        {"X": [np.array([0.0, 1.0, 1e-20, 1.0 - 1e-9], np.float32)],
+         "Label": [np.array([1.0, 0.0, 1.0, 0.0], np.float32)]}, {}),
+    "margin_rank_loss[basic]": lambda r: (
+        {"X1": [_u(r, (5, 1))], "X2": [_u(r, (5, 1))],
+         "Label": [np.sign(_u(r, (5, 1))).astype(np.float32)]},
+        {"margin": 0.1}),
+    "margin_rank_loss[ties]": lambda r: (
+        {"X1": [np.array([[1.0], [0.5], [NAN]], np.float32)],
+         "X2": [np.array([[1.0], [0.4], [0.0]], np.float32)],
+         "Label": [np.array([[1.0], [-1.0], [1.0]], np.float32)]},
+        {"margin": 0.0}),
+    "instance_norm[affine]": lambda r: (
+        {"X": [_u(r, (2, 3, 4, 5), -2, 2)], "Scale": [_u(r, (3,))],
+         "Bias": [_u(r, (3,))]}, {"epsilon": 1e-5}),
+    "instance_norm[plain_const]": lambda r: (
+        {"X": [np.ones((2, 2, 3, 3), np.float32)]}, {}),
+    "gru_unit[basic]": lambda r: (
+        {"Input": [_u(r, (3, 12))], "HiddenPrev": [_u(r, (3, 4))],
+         "Weight": [_u(r, (4, 12))], "Bias": [_u(r, (1, 12))]}, {}),
+    "lstm_unit[forget_bias]": lambda r: (
+        {"X": [_u(r, (3, 16), -3, 3)], "C_prev": [_u(r, (3, 4))]},
+        {"forget_bias": 1.0}),
+    "warpctc[full]": lambda r: (
+        {"Logits": [_u(r, (2, 6, 5), -2, 2)],
+         "Label": [np.array([[1, 2, 2], [3, 1, 4]], np.int32)]},
+        {"blank": 0}),
+    "warpctc[lengths]": lambda r: (
+        {"Logits": [_u(r, (3, 7, 4), -2, 2)],
+         "Label": [np.array([[1, 1, 2], [3, 0, 0], [2, 3, 1]], np.int32)],
+         "LogitsLength": [np.array([7, 4, 6], np.int64)],
+         "LabelLength": [np.array([3, 1, 2], np.int64)]}, {"blank": 0}),
+    "masked_select[basic]": lambda r: (
+        {"X": [_u(r, (3, 4))], "Mask": [r.rand(3, 4) > 0.5]}, {}),
+    "masked_select[none]": lambda r: (
+        {"X": [_u(r, (2, 3))], "Mask": [np.zeros((2, 3), bool)]}, {}),
+    "masked_select[all_nan]": lambda r: (
+        {"X": [EDGE.reshape(3, 4)], "Mask": [np.ones((3, 4), bool)]}, {}),
+    "pixel_shuffle[r2]": lambda r: ({"X": [_u(r, (2, 8, 3, 2))]},
+                                    {"upscale_factor": 2}),
+    "lrn[basic]": lambda r: ({"X": [_u(r, (2, 6, 3, 3))]},
+                             {"n": 5, "alpha": 1e-2, "beta": 0.75,
+                              "k": 1.0}),
+    "lrn[even_n]": lambda r: ({"X": [_u(r, (1, 4, 2, 2))]},
+                              {"n": 2, "alpha": 0.1, "beta": 0.5,
+                               "k": 2.0}),
+    "bilinear_tensor_product[bias]": lambda r: (
+        {"X": [_u(r, (3, 4))], "Y": [_u(r, (3, 5))],
+         "Weight": [_u(r, (2, 4, 5))], "Bias": [_u(r, (1, 2))]}, {}),
+    "bilinear_tensor_product[plain]": lambda r: (
+        {"X": [_u(r, (2, 3))], "Y": [_u(r, (2, 3))],
+         "Weight": [_u(r, (4, 3, 3))]}, {}),
+    "conv2d_transpose[basic]": lambda r: (
+        {"Input": [_u(r, (2, 3, 4, 4))], "Filter": [_u(r, (3, 2, 3, 3))]},
+        {"strides": [1, 1], "paddings": [0, 0]}),
+    "conv2d_transpose[stride_pad]": lambda r: (
+        {"Input": [_u(r, (1, 2, 3, 5))], "Filter": [_u(r, (2, 3, 3, 2))]},
+        {"strides": [2, 3], "paddings": [1, 0]}),
+    "conv2d_transpose[groups_pads4]": lambda r: (
+        {"Input": [_u(r, (1, 4, 4, 4))], "Filter": [_u(r, (4, 1, 3, 3))]},
+        {"strides": [2, 2], "paddings": [0, 1, 1, 2], "groups": 2}),
+    "conv2d_transpose[dilation]": lambda r: (
+        {"Input": [_u(r, (1, 2, 5, 5))], "Filter": [_u(r, (2, 2, 3, 3))]},
+        {"strides": [1, 1], "paddings": [1, 1], "dilations": [2, 2]}),
+    "conv2d_transpose[same]": lambda r: (
+        {"Input": [_u(r, (1, 2, 4, 4))], "Filter": [_u(r, (2, 3, 3, 3))]},
+        {"strides": [2, 2], "padding_algorithm": "SAME"}),
+    "conv2d_transpose[valid]": lambda r: (
+        {"Input": [_u(r, (1, 2, 4, 4))], "Filter": [_u(r, (2, 3, 2, 2))]},
+        {"strides": [1, 1], "padding_algorithm": "VALID"}),
+    "hierarchical_sigmoid[default]": lambda r: (
+        {"X": [_u(r, (4, 3))], "W": [_u(r, (5, 3))],
+         "Label": [np.array([0, 5, 3, 2], np.int64)],
+         "Bias": [_u(r, (5, 1))]}, {"num_classes": 6}),
+    "hierarchical_sigmoid[custom]": lambda r: (
+        {"X": [_u(r, (2, 3))], "W": [_u(r, (4, 3))],
+         "Label": [np.array([0, 1], np.int64)],
+         "PathTable": [np.array([[0, 2, -1], [1, 3, 0]], np.int64)],
+         "PathCode": [np.array([[1, 0, 0], [0, 1, 1]], np.int64)]},
+        {"num_classes": 5}),
+    "sync_batch_norm[train]": lambda r: (
+        {"X": [_u(r, (4, 3, 2, 2), -2, 2)], "Scale": [_u(r, (3,))],
+         "Bias": [_u(r, (3,))], "Mean": [_u(r, (3,))],
+         "Variance": [_u(r, (3,), 0.5, 1.5)]},
+        {"momentum": 0.9, "epsilon": 1e-5, "is_test": False}),
+    "sync_batch_norm[test]": lambda r: (
+        {"X": [_u(r, (2, 3, 2, 2))], "Scale": [_u(r, (3,))],
+         "Bias": [_u(r, (3,))], "Mean": [_u(r, (3,))],
+         "Variance": [_u(r, (3,), 0.5, 1.5)]}, {"is_test": True}),
+    "group_norm[affine]": lambda r: (
+        {"X": [_u(r, (2, 6, 3, 2), -2, 2)], "Scale": [_u(r, (6,))],
+         "Bias": [_u(r, (6,))]}, {"groups": 3, "epsilon": 1e-5}),
+    "interpolate[nearest_up]": lambda r: (
+        {"X": [_u(r, (1, 2, 3, 4))]},
+        {"out_h": 7, "out_w": 8, "interp_method": "nearest"}),
+    "interpolate[nearest_down]": lambda r: (
+        {"X": [_u(r, (1, 2, 6, 5))]},
+        {"out_h": 4, "out_w": 2, "interp_method": "nearest"}),
+    "interpolate[bilinear_up]": lambda r: (
+        {"X": [_u(r, (2, 1, 3, 4))]},
+        {"scale": 2.0, "interp_method": "bilinear"}),
+    "interpolate[bilinear_down]": lambda r: (
+        {"X": [_u(r, (1, 2, 8, 6))]},
+        {"out_h": 3, "out_w": 4, "interp_method": "bilinear"}),
+    "pad2d[constant]": lambda r: (
+        {"X": [_u(r, (1, 2, 3, 3))]},
+        {"paddings": [1, 0, 2, 1], "mode": "constant", "pad_value": -0.5}),
+    "pad2d[reflect]": lambda r: (
+        {"X": [_u(r, (1, 2, 3, 4))]},
+        {"paddings": [2, 1, 0, 3], "mode": "reflect"}),
+    "pad2d[edge]": lambda r: (
+        {"X": [_u(r, (1, 1, 2, 3))]},
+        {"paddings": [1, 2, 2, 0], "mode": "edge"}),
+    "pad2d[circular]": lambda r: (
+        {"X": [_u(r, (1, 1, 3, 3))]},
+        {"paddings": [1, 1, 2, 2], "mode": "circular"}),
+    "prelu[all]": lambda r: (
+        {"X": [EDGE.reshape(3, 4)], "Alpha": [np.array([0.25],
+                                                       np.float32)]},
+        {"mode": "all"}),
+    "prelu[channel]": lambda r: (
+        {"X": [_u(r, (2, 3, 2, 2))], "Alpha": [_u(r, (3,))]},
+        {"mode": "channel"}),
+    "broadcast_to[shape]": lambda r: ({"X": [_u(r, (1, 3, 1))]},
+                                      {"shape": [2, 3, 4]}),
+    "adagrad[basic]": lambda r: (_opt_ins(r, Moment="pos"),
+                                 {"epsilon": 1e-6}),
+    "adamax[basic]": lambda r: (
+        _opt_ins(r, Moment="any", InfNorm="pos", Beta1Pow=0.81),
+        {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}),
+    "adadelta[basic]": lambda r: (
+        _opt_ins(r, AvgSquaredGrad="pos", AvgSquaredUpdate="pos"),
+        {"rho": 0.95, "epsilon": 1e-6}),
+    "rmsprop[plain]": lambda r: (
+        _opt_ins(r, MeanSquare="pos", Moment="any"),
+        {"decay": 0.9, "epsilon": 1e-6, "momentum": 0.5}),
+    "rmsprop[centered]": lambda r: (
+        _opt_ins(r, MeanSquare="pos", Moment="any", MeanGrad="any"),
+        {"decay": 0.9, "epsilon": 1e-6, "momentum": 0.0,
+         "centered": True}),
+    "decayed_adagrad[basic]": lambda r: (_opt_ins(r, Moment="pos"),
+                                         {"decay": 0.9, "epsilon": 1e-6}),
+    "ftrl[l1_l2]": lambda r: (
+        _opt_ins(r, SquaredAccumulator="pos", LinearAccumulator="any"),
+        {"l1": 0.01, "l2": 0.1, "lr_power": -0.5}),
+    "ftrl[zero_state]": lambda r: (
+        dict(_opt_ins(r, LinearAccumulator="any"),
+             SquaredAccumulator=[np.zeros(_OPT_SHAPE, np.float32)]),
+        {"l1": 0.0, "l2": 0.0, "lr_power": -0.5}),
+})
+
+# the op types of the 2.0 API, by family
+API_OPS = ("sin", "selu", "brelu", "thresholded_relu", "tanh_shrink",
+           "softshrink", "hard_shrink", "eye", "linspace", "index_select",
+           "flip", "roll", "bce_loss", "margin_rank_loss", "instance_norm",
+           "gru_unit", "lstm_unit", "warpctc", "masked_select",
+           "pixel_shuffle", "lrn", "bilinear_tensor_product",
+           "conv2d_transpose", "hierarchical_sigmoid", "sync_batch_norm",
+           "group_norm", "interpolate", "pad2d", "prelu", "broadcast_to",
+           "adagrad", "adamax", "adadelta", "rmsprop", "decayed_adagrad",
+           "ftrl")

@@ -45,7 +45,12 @@ training step and its two decoders against the CPU, and the LSTM op in
 a captured CUDA graph. The CRF's cost, gradients and Viterbi paths
 against the CPU; a DynamicRNN training step captured and bit for bit
 its op-by-op run; a gradient-merge step (uncaptured: conditional_block
-decides on the host) against one whole-batch Adam step.
+decides on the host) against one whole-batch Adam step. The imperative
+mode: eager MultiHeadAttention at S=128 under a key-padding bias runs one
+bnsd flash forward and one bnsd backward launch, its output and
+gradients the CPU's within 2e-5 (no_grad: the forward alone); eager
+AdamW steps launch one kernel per parameter tensor through the captured
+micro-program, the CPU's within 1e-5; ``auto_cast`` runs bf16 matmuls.
 Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -2564,3 +2569,129 @@ def test_gradient_merge_fires_on_the_card_as_a_whole_batch_step(dev):
     step, = [c for by in exe._compiled[merged].values() for c in by.values()
              if hasattr(c, "graph")]
     assert step.host_op == "conditional_block" and step.graph.graph is None
+
+
+# -- the imperative mode (dygraph) on the card --------------------------------
+
+def _eager_mha(device, state=None, grad=True, b=2, s=128, d=256, heads=4):
+    """MultiHeadAttention run eagerly on ``device`` under a key-padding
+    bias [B,1,1,S] (the flash kernels' key-bias route): its state, output,
+    input and parameter gradients, and the launch counts of the run."""
+    from paddle_tpu_torch import dygraph, nn
+
+    r = np.random.RandomState(1)
+    x = r.randn(b, s, d).astype(np.float32)
+    lens = np.array([s, s // 2 + 3])[:b]
+    bias = np.where(np.arange(s)[None] < lens[:, None], 0.0,
+                    -1e4).astype(np.float32).reshape(b, 1, 1, s)
+    cot = r.randn(b, s, d).astype(np.float32)
+    with dygraph.guard(device):
+        np.random.seed(0)
+        mha = nn.MultiHeadAttention(d, heads)
+        if state is not None:
+            mha.set_state_dict(state)
+        start = {k: v.numpy() for k, v in mha.state_dict().items()}
+        xv = dygraph.VarBase(x, stop_gradient=not grad)
+        kernels.reset_launch_counts()
+        if grad:
+            out = mha(xv, attn_mask=dygraph.VarBase(bias))
+            (out * dygraph.VarBase(cot)).sum().backward()
+        else:
+            with dygraph.no_grad():
+                out = mha(xv, attn_mask=dygraph.VarBase(bias))
+        torch.cuda.synchronize()
+        counts, layouts = kernels.launch_counts(), kernels.layout_counts()
+        grads = {n: p.gradient() for n, p in mha.named_parameters()}
+        return start, out.numpy(), xv.gradient(), grads, counts, layouts
+
+
+def test_eager_mha_runs_the_bnsd_flash_kernels_under_autograd(dev):
+    """Eager MultiHeadAttention at S=128 under autograd: one bnsd flash
+    forward and one bnsd backward launch (FlashAttentionFunction), its
+    output and every gradient within 2e-5 of the same Layer on the CPU
+    (the plain versions, weights copied)."""
+    cpu = _eager_mha("cpu")
+    card = _eager_mha(dev, cpu[0])
+    assert card[4]["flash_attention_fwd"] == 1
+    assert card[4]["flash_attention_bwd"] == 1
+    assert card[5]["flash_attention_fwd"] == {"packed": 0, "bnsd": 1}
+    assert card[5]["flash_attention_bwd"] == {"packed": 0, "bnsd": 1}
+    np.testing.assert_allclose(card[1], cpu[1], rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(card[2], cpu[2], rtol=2e-5, atol=2e-5)
+    for k, w in cpu[3].items():
+        np.testing.assert_allclose(card[3][k], w, rtol=2e-5, atol=2e-5,
+                                   err_msg=k)
+
+
+def test_eager_mha_without_gradients_runs_the_forward_kernel_alone(dev):
+    cpu = _eager_mha("cpu", grad=False)
+    card = _eager_mha(dev, cpu[0], grad=False)
+    assert card[4]["flash_attention_fwd"] == 1
+    assert card[4]["flash_attention_bwd"] == 0
+    np.testing.assert_allclose(card[1], cpu[1], rtol=2e-5, atol=2e-5)
+
+
+def _eager_adamw(device, state=None, steps=4):
+    from paddle_tpu_torch import dygraph, nn, optimizer
+
+    r = np.random.RandomState(2)
+    xs = [r.randn(8, 32).astype(np.float32) for _ in range(steps)]
+    with dygraph.guard(device):
+        np.random.seed(0)
+        net = nn.Sequential(nn.Linear(32, 64), nn.GELU(), nn.Linear(64, 4))
+        if state is not None:
+            net.set_state_dict(state)
+        start = {k: v.numpy() for k, v in net.state_dict().items()}
+        sched = optimizer.lr.LinearWarmup(1e-2, 2, 0.0, 1e-2)
+        opt = optimizer.AdamW(learning_rate=sched,
+                              parameters=net.parameters())
+        per_step, losses = [], []
+        for x in xs:
+            loss = (net(dygraph.VarBase(x)) ** 2.0).mean()
+            loss.backward()
+            before = kernels.launch_counts()["fused_adamw"]
+            opt.step()
+            torch.cuda.synchronize()
+            per_step.append(kernels.launch_counts()["fused_adamw"] - before)
+            opt.clear_grad()
+            sched.step()
+            losses.append(float(loss))
+        return start, losses, per_step, {
+            k: v.numpy() for k, v in net.state_dict().items()}
+
+
+def test_eager_adamw_steps_launch_one_kernel_per_parameter(dev):
+    """``step()`` runs the cached micro-program of adamw ops (op by op,
+    then captured and replayed): one AdamW launch per parameter tensor
+    every step, the rate following the scheduler, the losses and the
+    parameters within 1e-5 of the same steps on the CPU."""
+    cpu = _eager_adamw("cpu")
+    card = _eager_adamw(dev, cpu[0])
+    assert card[2] == [4, 4, 4, 4]
+    np.testing.assert_allclose(card[1], cpu[1], rtol=1e-5, atol=1e-6)
+    for k, w in cpu[3].items():
+        np.testing.assert_allclose(card[3][k], w, rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+
+
+def test_eager_auto_cast_runs_bf16_matmuls_on_the_card(dev):
+    from paddle_tpu_torch import amp, dygraph, nn
+
+    x = np.random.RandomState(3).randn(16, 32).astype(np.float32)
+    outs = []
+    for device in ("cpu", dev):
+        with dygraph.guard(device):
+            np.random.seed(0)
+            lin = nn.Linear(32, 8, bias_attr=False)
+            if outs:
+                lin.set_state_dict(outs[0][2])
+            xv = dygraph.VarBase(x, stop_gradient=False)
+            with amp.auto_cast():
+                y = lin(xv)
+            y.astype("float32").sum().backward()
+            outs.append((y.astype("float32").numpy(), xv.gradient(),
+                         {k: v.numpy() for k, v in
+                          lin.state_dict().items()}, y._tensor.dtype))
+    assert outs[1][3] == torch.bfloat16 == outs[0][3]
+    np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(outs[1][1], outs[0][1], rtol=1e-2, atol=1e-2)

@@ -30,6 +30,7 @@ import pytest
 import paddle_tpu as pt
 from paddle_tpu import layers as ref_layers
 from paddle_tpu import profiler as ref_prof
+from paddle_tpu.core import costmodel as ref_costmodel
 from paddle_tpu.core import flags as ref_flags
 from paddle_tpu.core import goodput as ref_goodput
 from paddle_tpu.core import telemetry as ref_tm
@@ -37,6 +38,7 @@ import paddle_tpu_torch as ptt
 from paddle_tpu_torch import layers as pt_layers
 from paddle_tpu_torch import optimizer as pt_opt
 from paddle_tpu_torch import profiler as pt_prof
+from paddle_tpu_torch.core import costmodel as pt_costmodel
 from paddle_tpu_torch.core import flags as pt_flags
 from paddle_tpu_torch.core import goodput as pt_goodput
 from paddle_tpu_torch.core import telemetry as pt_tm
@@ -47,12 +49,25 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 X = np.random.RandomState(0).randn(4, 16).astype(np.float32)
 
 
-@pytest.fixture(autouse=True)
-def _fresh():
-    for tm, fl in ((ref_tm, ref_flags), (pt_tm, pt_flags)):
+def _isolate():
+    """Both packages' telemetry, flags and cost ledgers as a fresh process
+    has them. ``costmodel.reset`` also clears the live-MFU gauge's
+    once-a-second throttle (``_last_mfu_set``), which is process-wide:
+    without it, a test that dispatched a captured program less than a
+    second before (an earlier test of this file or of another file on the
+    same worker) keeps ``cost.live_mfu`` out of the next log, and the two
+    packages' memcost sections differ by that key."""
+    for tm, fl, cm in ((ref_tm, ref_flags, ref_costmodel),
+                       (pt_tm, pt_flags, pt_costmodel)):
         tm.configure(None)
         tm.reset()
+        cm.reset()
         fl.set_flags({"trace_sample_rate": 1.0})
+
+
+@pytest.fixture(autouse=True)
+def _fresh():
+    _isolate()
     yield
     for tm, fl in ((ref_tm, ref_flags), (pt_tm, pt_flags)):
         tm.configure(None)
@@ -159,6 +174,22 @@ def _perf_json(log):
 
 
 def test_perf_report_reads_both_logs_to_the_same_sections(tmp_path):
+    _perf_report_sections(tmp_path)
+
+
+def test_isolation_clears_a_live_mfu_gauge_set_just_before(tmp_path):
+    """The port's gauge set a moment ago by an earlier test (its throttle
+    stamped later than this test's runs) must not keep ``cost.live_mfu``
+    out of the port's log once the fixture's isolation ran: the perf
+    report sections agree. Without ``costmodel.reset`` the memcost
+    sections differ (the failure of the original test, intermittent
+    where the earlier dispatch came less than a second before)."""
+    pt_costmodel._last_mfu_set[0] = __import__("time").time() + 3600.0
+    _isolate()
+    _perf_report_sections(tmp_path)
+
+
+def _perf_report_sections(tmp_path):
     logs = {}
     for name, tm, fl, gp, build in (
             ("ref", ref_tm, ref_flags, ref_goodput, _ref_mlp),
