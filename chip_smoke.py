@@ -393,13 +393,20 @@ The CRF, fused-RNN and control-flow slice adds, after them (no kernel
                trained eagerly at s128 b64 through hapi.Model.fit (AdamW
                1e-4 under LinearWarmup over 100 steps, Accuracy; the
                key-padding mask an additive [B,1,1,128] bias), then
-               evaluate and predict on 64 rows and 4 more steps under
+               evaluate and predict on 64 rows; then, counted apart as
+               the path dygraph_bert_base_amp, 4 more steps under
                amp.auto_cast: step ms, one traced step's busy ms and idle
                share, peak GB, the sink's hapi.step_ms, and every timed
                step's launches (12 bnsd flash forward, 12 bnsd backward
-               under autograd, one AdamW a parameter tensor: 196); each
-               leg's loss falls.
-   dygraph_parity — the same network at 2 layers, b4: 3 eager AdamW
+               under autograd, one AdamW a parameter tensor: 196), each
+               path's totals; each leg's loss falls (the fit of the one
+               batch it repeats).
+   dygraph_parity — the eager MultiHeadAttention at the main path's
+               shape (b64, 12 heads of 64, S=128, fp32, key-padding bias)
+               on the card and the CPU: output and input and parameter
+               gradients within 2e-5 of the tensor's scale, one bnsd
+               forward and one bnsd backward launch (not counted in the
+               path). Then the same network at 2 layers, b4: 3 eager AdamW
                steps on the card and the CPU (losses and parameters
                within 1e-4, dropout masks bit for bit), eager against
                static on the card (the Layers built under program_guard,
@@ -7233,12 +7240,18 @@ def control_flow_card(dev, batch_size=128, seq=64, hidden=64, dim=32,
 # -- the imperative mode (dygraph) and the 2.0 API ---------------------------
 
 DY_SEQ, DY_BATCH = 128, 64
-# the rate climbs from 0 to 1e-4 over 1000 steps, of which the phase
-# runs its first 14 (BERT's own recipe warms up over 10 000): Adam's
-# first steps move every weight by the rate, and on an H100 one step at
-# 5e-5 took the fresh post-LN network's loss from 0.92 to 10.0, one at
-# 1e-5 from 0.75 to 3.67
+# the rate climbs from 0 to 1e-4 over 100 steps, of which the phase runs
+# its first 14 fit steps (BERT's own recipe warms up over 10 000): Adam's
+# first steps move every weight by about the rate, and a warm-up over 2
+# or 10 steps (a first step at 5e-5 or 1e-5) made the fresh post-LN
+# network's loss jump after that step on the card
 DY_LR_WARMUP = 100
+# the eager MultiHeadAttention's output and gradients, card against CPU:
+# max |card - CPU| <= DY_MHA_TOL * max(1, max |CPU|) for each tensor, a
+# bias gradient's max taken with its weight's (the parameter gradients
+# sum 8192 tokens, so the bound scales with them; k_proj's bias gradient
+# is 0 up to rounding, since a key bias shifts a query's scores alike)
+DY_MHA_TOL = 2e-5
 DYGRAPH_DIR = Path(__file__).resolve().parent / "build" / "torch_dygraph"
 
 
@@ -7346,12 +7359,16 @@ def dygraph_bert_base(dev, smi, warmup=2, timed=8, amp_steps=4):
     Accuracy, on one batch of seeded synthetic rows (taken every step, so
     the loss falls within the leg) whose key-padding mask reaches
     src_mask as an additive [B,1,1,128] bias (the flash kernels' key-bias
-    route). Then evaluate and predict on 64 rows, and 4 more steps under
-    amp.auto_cast (bf16 matmuls). Each leg: step ms (p50, range), one
-    traced step's busy ms and idle share, peak GB, its launches a step
-    (12 bnsd flash forward, 12 bnsd backward, one AdamW launch per
-    parameter tensor, every timed step) and a falling loss; the sink's
-    hapi.step_ms."""
+    route). Then evaluate and predict on 64 rows: with the fp32 leg, the
+    path dygraph_bert_base. Then 4 more steps under amp.auto_cast (bf16
+    matmuls), counted apart as the path dygraph_bert_base_amp. Each leg:
+    step ms (p50, range), one traced step's busy ms and idle share, peak
+    GB, its launches a step (12 bnsd flash forward, 12 bnsd backward, one
+    AdamW launch per parameter tensor, every timed step) and a falling
+    loss: the fit of the one batch the leg repeats. Each path's launch
+    counts: its steps' (fit and traced), evaluate's and predict's 12
+    forwards each, all bnsd. The sink's hapi.step_ms. Returns both
+    paths' counts."""
     from paddle_tpu_torch import dygraph, kernels, reader
     from paddle_tpu_torch.core import telemetry
     from paddle_tpu_torch.tools.dygraph_bert import synthetic_rows
@@ -7369,35 +7386,53 @@ def dygraph_bert_base(dev, smi, warmup=2, timed=8, amp_steps=4):
             model, sched, n_params = _dy_model(dev)
             fp32 = _dy_leg(model, sched, n_params, rows, warmup, timed,
                            False)
-            counts = _phase_counts()
             hapi_ms = telemetry.snapshot()["hists"]["hapi.step_ms"]
             ev_rows = _dy_dataset(reader, rows, np.arange(DY_BATCH))
             ev = model.evaluate(ev_rows, batch_size=DY_BATCH, verbose=0)
             pred = model.predict(ev_rows, batch_size=DY_BATCH,
                                  stack_outputs=True)[0]
+            torch.cuda.synchronize()
+            counts = _phase_counts()
+            kernels.reset_launch_counts()
             bf16 = _dy_leg(model, sched, n_params, rows, 0, amp_steps,
                            True)
+            torch.cuda.synchronize()
+            amp_counts = _phase_counts()
             del model
     finally:
         telemetry.flush()
         telemetry.configure(None)
+    # a leg's steps: its fit steps and the traced train_batch
+    want = {"dygraph_bert_base": (counts, warmup + timed + 1, 2),
+            "dygraph_bert_base_amp": (amp_counts, amp_steps + 1, 0)}
+    totals = {p: {"flash_attention_fwd": 12 * (steps + extra),
+                  "flash_attention_bwd": 12 * steps,
+                  "fused_adamw": n_params * steps}
+              for p, (_, steps, extra) in want.items()}
     emit("dygraph_bert_base", model="bert_base_2.0_nn", layers=12,
          seq=DY_SEQ, batch=DY_BATCH, lr_warmup_steps=DY_LR_WARMUP,
          fp32=fp32, amp_bf16=bf16,
          hapi_step_ms={k: hapi_ms[k] for k in ("count", "p50", "min",
                                                "max")},
          evaluate=ev, predict_shape=list(pred.shape),
-         flash_launches_by_layout=counts["layouts"],
+         launches={p: c["launches"] for p, (c, _, _) in want.items()},
+         launches_want=totals,
+         flash_launches_by_layout={p: c["layouts"]
+                                   for p, (c, _, _) in want.items()},
+         flash_launches_by_dtype={p: c["dtypes"]
+                                  for p, (c, _, _) in want.items()},
          seconds=time.perf_counter() - t0, nvidia_smi=smi)
-    if counts["layouts"]["flash_attention_bwd"]["bnsd"] == 0 or \
-            counts["layouts"]["flash_attention_bwd"]["packed"] != 0:
-        raise AssertionError(f"dygraph_bert_base: flash by layout "
-                             f"{counts['layouts']}")
+    for p, (c, _, _) in want.items():
+        got = {k: c["launches"][k] for k in totals[p]}
+        if got != totals[p] or any(c["layouts"][k]["packed"] for k in (
+                "flash_attention_fwd", "flash_attention_bwd")):
+            raise AssertionError(f"{p}: launches {got}, want {totals[p]}; "
+                                 f"flash by layout {c['layouts']}")
     if pred.shape != (DY_BATCH, 2) or not np.all(np.isfinite(pred)) or \
             not np.isfinite(ev["eval_loss"]):
         raise AssertionError(f"dygraph_bert_base: evaluate {ev}, predict "
                              f"{pred.shape}")
-    return counts
+    return counts, amp_counts
 
 
 def _dy_train(device, state, rows, steps, dropout, layers=2):
@@ -7475,25 +7510,73 @@ def _dy_static(dev, state, rows, steps, layers=2):
     return losses
 
 
-def dygraph_parity(dev, layers=2, batch=4, steps=3):
-    """The network at 2 layers, b4: trained 3 AdamW steps eagerly on the
-    card and on the CPU from one state (fp32, TF32 off), losses and every
-    parameter within 1e-4, the dropout masks bit for bit (each eager
-    dropout seeded from numpy's global RNG, seeded alike); eager against
-    static on the card (the same Layers built under program_guard, the
-    same weights, dropout 0), losses within 1e-5; save_dygraph on the
-    card and load_dygraph on the CPU give the parameters bit for bit."""
+def _dy_mha(device, state=None, d=768, heads=12):
+    """One eager MultiHeadAttention (d_model 768, 12 heads of 64) forward
+    and backward on ``device`` at the main path's shape (b64, S=128,
+    fp32) under its key-padding bias [B,1,1,S], a seeded cotangent on the
+    output: (state, {output, input and parameter gradients})."""
     from paddle_tpu_torch import dygraph, nn
+    from paddle_tpu_torch.tools.dygraph_bert import synthetic_rows
+
+    r = np.random.RandomState(4)
+    x = r.randn(DY_BATCH, DY_SEQ, d).astype(np.float32)
+    cot = r.randn(DY_BATCH, DY_SEQ, d).astype(np.float32)
+    bias = synthetic_rows(DY_BATCH, DY_SEQ, seed=4)[2]
+    with dygraph.guard(device):
+        np.random.seed(4)
+        mha = nn.MultiHeadAttention(d, heads)
+        if state is not None:
+            mha.set_state_dict(state)
+        start = {k: v.numpy() for k, v in mha.state_dict().items()}
+        xv = dygraph.VarBase(x, stop_gradient=False)
+        out = mha(xv, attn_mask=dygraph.VarBase(bias))
+        (out * dygraph.VarBase(cot)).sum().backward()
+        got = {"out": out.numpy(), "x_grad": xv.gradient()}
+        got.update({f"{n}_grad": p.gradient()
+                    for n, p in mha.named_parameters()})
+    return start, got
+
+
+def dygraph_parity(dev, layers=2, batch=4, steps=3):
+    """First the eager MultiHeadAttention at the main path's shape (b64,
+    12 heads of 64, S=128, fp32, the key-padding bias) forward and
+    backward on the card and on the CPU from one state: its output and
+    its input, q/k/v and output-projection gradients within DY_MHA_TOL of
+    the CPU's (the plain versions), its card run one bnsd flash forward
+    and one bnsd backward launch (a comparison: not counted in the path).
+    Then the path: the network at 2 layers, b4, trained 3 AdamW steps
+    eagerly on the card and on the CPU from one state (fp32, TF32 off),
+    losses and every parameter within 1e-4, the dropout masks bit for bit
+    (each eager dropout seeded from numpy's global RNG, seeded alike);
+    eager against static on the card (the same Layers built under
+    program_guard, the same weights, dropout 0), losses within 1e-5;
+    save_dygraph on the card and load_dygraph on the CPU give the
+    parameters bit for bit."""
+    from paddle_tpu_torch import dygraph, kernels, nn
     from paddle_tpu_torch.tools.dygraph_bert import (bert_classifier,
                                                       synthetic_rows)
 
     t0 = time.perf_counter()
+    mha_start, mha_cpu = _dy_mha("cpu")
+    kernels.reset_launch_counts()
+    mha_card = _dy_mha(dev, mha_start)[1]
+    torch.cuda.synchronize()
+    mha_layouts = kernels.layout_counts()
+    mha_err = {k: float(np.max(np.abs(mha_card[k] - v)))
+               for k, v in mha_cpu.items()}
+    mha_bound = {k: DY_MHA_TOL * max(1.0, *(
+        float(np.max(np.abs(mha_cpu[n])))
+        for n in {k, k.replace(".bias_", ".weight_")}))
+        for k in mha_cpu}
+    mha_ok = all(mha_err[k] <= mha_bound[k] for k in mha_cpu) and all(
+        mha_layouts[k] == {"packed": 0, "bnsd": 1}
+        for k in ("flash_attention_fwd", "flash_attention_bwd"))
     rows = synthetic_rows(batch * steps, DY_SEQ, seed=1)
     with dygraph.guard("cpu"):
         np.random.seed(1)
         state = {k: v.numpy() for k, v in
                  bert_classifier(nn, layers=layers).state_dict().items()}
-    kernels_before = _phase_counts()["launches"]
+    kernels.reset_launch_counts()
     card = _dy_train(dev, state, rows, steps, 0.1, layers)
     cpu = _dy_train("cpu", state, rows, steps, 0.1, layers)
     loss_err = float(np.max(np.abs(np.subtract(card[0], cpu[0]))))
@@ -7513,20 +7596,29 @@ def dygraph_parity(dev, layers=2, batch=4, steps=3):
         cpu_net.set_state_dict(loaded)
         reload_equal = all(np.array_equal(v.numpy(), card[1][k])
                            for k, v in cpu_net.state_dict().items())
-    emit("dygraph_parity", layers=layers, batch=batch, steps=steps,
+    torch.cuda.synchronize()
+    counts = _phase_counts()
+    emit("dygraph_parity", mha_shape=[DY_BATCH, 12, DY_SEQ, 64],
+         mha_max_abs_err=mha_err, mha_bound=mha_bound,
+         mha_launches_by_layout=mha_layouts,
+         mha_tolerance=f"max|card-CPU| <= {DY_MHA_TOL} * max(1, max|CPU|)"
+                       ", a bias gradient's with its weight's",
+         layers=layers, batch=batch, steps=steps,
          loss_card=card[0], loss_cpu=cpu[0], loss_abs_err=loss_err,
          param_abs_err=param_err, dropout_masks=len(card[2]),
          masks_bitwise_equal=masks_equal, eager_losses=eager,
          static_losses=static, eager_static_abs_err=static_err,
          save_card_load_cpu_bitwise=reload_equal,
          tolerance={"card_cpu": 1e-4, "eager_static": 1e-5},
-         seconds=time.perf_counter() - t0)
+         launches=counts["launches"], seconds=time.perf_counter() - t0)
+    if not mha_ok:
+        raise AssertionError(f"dygraph_parity: eager MultiHeadAttention "
+                             f"card against CPU {mha_err} (bounds "
+                             f"{mha_bound}), flash by layout {mha_layouts}")
     if not (loss_err <= 1e-4 and param_err <= 1e-4 and masks_equal
             and static_err <= 1e-5 and reload_equal):
         raise AssertionError("dygraph_parity: card, CPU and static disagree")
-    after = _phase_counts()["launches"]
-    return dict(_phase_counts(), launches={
-        k: after[k] - kernels_before[k] for k in after})
+    return counts
 
 
 def fit_vision_zoo(dev, smi, batch=64, steps=5):
@@ -7806,7 +7898,8 @@ def main():
     _release()
     runs["control_flow_card"] = control_flow_card(dev)
     _release()
-    runs["dygraph_bert_base"] = dygraph_bert_base(dev, smi)
+    runs["dygraph_bert_base"], runs["dygraph_bert_base_amp"] = \
+        dygraph_bert_base(dev, smi)
     _release()
     runs["dygraph_parity"] = dygraph_parity(dev)
     _release()
