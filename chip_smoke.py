@@ -73,10 +73,10 @@ prints one JSON line; any failure raises and the exit code is non-zero.
                and on the CPU from one scope_from_numpy state and on one
                batch: the same dropout masks bit for bit and the losses
                within rtol = atol = 1e-4 for fp32 at 2 layers (3 steps) and
-               at 6 layers (2 steps: its CPU leg is the slowest of the
-               script; 24 layers, then 12, before later phases needed the
-               time), within 1e-2 for bf16 at 2 layers
-               (3 steps). Every flash launch of the fp32 legs runs the
+               at 4 layers (2 steps: its CPU leg is the slowest of the
+               script; 24 layers, then 12, then 6, before later phases
+               needed the time), within 1e-2 for bf16 at 2 layers
+               (2 steps; 6, then 3, before). Every flash launch of the fp32 legs runs the
                split-TF32 instance, of the bf16 leg the bf16 one.
 6. train_ernie — ERNIE-large as the reference's benchmark trains it (24
                layers, bf16 params, packed flash attention with probs
@@ -106,8 +106,9 @@ The long-context and [B,H,S,D] slice adds, in the order they run:
                shapes (B=40 at S=512, 256, 128; Sq=512 Sk=256; causal; B=4
                S=2048; fp32), compared, the first four timed, and bit for
                bit equal to the packed layout on the same values.
-7. train_parity_long — train_parity at seq 2048, batch 1, 2 layers, fp32,
-               2 steps (position table widened to the sequence).
+7. train_parity_long — train_parity at seq 2048, batch 1, 1 layer (2
+               before to_static_bert_base came), fp32, 2 steps (position
+               table widened to the sequence).
 8. bnsd_ops  — a program with a 4-D layers.flash_attention ([40,16,512,64]
                bf16 q/k/v parameters, [B,1,1,S] key bias, dropout 0.1),
                append_backward, 3 Executor.run steps: one bnsd flash forward
@@ -154,26 +155,27 @@ runs replay it) adds, in the order they run:
                a falling loss, no hand-written kernel; card against CPU at
                batch 16, fp32: losses within 1e-4.
 The fleet slice adds, right after train_ernie:
-   train_ernie_fleet — ERNIE-large at full width (24 layers, fp32
+   train_ernie_fleet — ERNIE-large at full width (12 layers since
+               to_static_bert_base came, 24 before; fp32
                parameters, flash attention) built with
                build_pretraining_program(with_optimizer=False) and trained
                through fleet.distributed_optimizer: LambOptimizer (lr
                1e-3, lamb_weight_decay 0.01, ClipGradByGlobalNorm(1.0)),
                strategy.amp (the bf16 rewrite, dynamic loss scaling from
                32768), strategy.recompute (one checkpoint per encoder
-               layer: 24 block_call segments) and strategy.lamb; b40 (or
+               layer: 12 block_call segments) and strategy.lamb; b40 (or
                the first of 32, 24, 16 that fits), one warm-up step, 4
-               timed steps a mode. Gates: 48 flash forward launches a step
-               (each segment's forward and its recompute) and 24 backward
+               timed steps a mode. Gates: 24 flash forward launches a step
+               (each segment's forward and its recompute) and 12 backward
                (through FlashAttentionFunction), all bf16_wgmma, no AdamW,
-               398 lamb ops; each leg's loss falling, every parameter
+               one lamb op a parameter; each leg's loss falling, every parameter
                finite; FlashAttentionFunction's dq, dk, dv at the step's
                shapes bit for bit a direct backward call; the program
                without recompute one step from the same state (at b40, or
                the largest batch it fits, its out-of-memory errors
                printed): its peak memory higher, gradients within 1e-3 of
                each tensor's largest magnitude and parameters within 1e-5;
-               a loss-scaling overflow in a compiled step (the 24-layer
+               a loss-scaling overflow in a compiled step (the 12-layer
                program at 2 of the batch's rows, the scale set to inf for
                two steps, then 32768): (scale, good, bad) after every
                step bit for bit the CPU's run of the 2-layer program on
@@ -401,6 +403,23 @@ The CRF, fused-RNN and control-flow slice adds, after them (no kernel
                under autograd, one AdamW a parameter tensor: 196), each
                path's totals; each leg's loss falls (the fit of the one
                batch it repeats).
+   to_static_bert_base — the same network's forward under @to_static
+               (one run_program op: a forward and a backward CUDA graph
+               replayed), from the weights dygraph_bert_base left, on its
+               batch: 2 untimed steps (trace, then warm-up and capture)
+               and 10 timed ones (step ms, one traced step's busy ms and
+               idle share, peak GB, 12 / 12 / 196 launches of the bnsd
+               flash forward, backward and AdamW every timed step, no
+               uncaptured run, the loss falls); the replay against the
+               block run op by op on the card (logits and gradients bit
+               for bit); 3 AdamW steps eager against @to_static at
+               dropout 0 (losses within 1e-6, parameters within 2e-5);
+               under auto_cast a fresh trace records bf16 matmuls and its
+               replays return the fp32 program's logits bit for bit, as
+               the reference's replay runs no cast. The kernels line has
+               both flash kernels at this path's shape (B=64, 12 heads of
+               64, S=128, fp32, key bias, no dropout) against their plain
+               versions and SDPA (check_flash_to_static).
    dygraph_parity — the eager MultiHeadAttention at the main path's
                shape (b64, 12 heads of 64, S=128, fp32, key-padding bias)
                on the card and the CPU: output and input and parameter
@@ -2691,6 +2710,10 @@ def train_ernie(dev, smi, phase="train_ernie", seq=SEQ,
 # program's sum ops, so the gate is not bit for bit (the first card run
 # read 0.0 for both)
 FLEET_LR, FLEET_SCALE = 1e-3, 32768.0
+# the depth of the phase's program: 24, ERNIE-large's, until the script's
+# later phases needed the time (a slow host ended the whole run at 1177 s
+# of its 1200)
+FLEET_LAYERS = 12
 FLEET_GRAD_TOL, FLEET_PARAM_TOL = 1e-3, 1e-5
 # the overflow schedule: the loss scale written before each step (None:
 # as the last step left it); inf makes every gradient non-finite
@@ -2859,7 +2882,7 @@ def _recompute_against_plain(dev, main_prog, loss, state, batch, b_main):
     tensor's largest magnitude, parameters within FLEET_PARAM_TOL."""
     from paddle_tpu_torch.core.executor import Executor
 
-    _, plain, _, _ = _ernie_fleet_programs(24, recompute=False)
+    _, plain, _, _ = _ernie_fleet_programs(FLEET_LAYERS, recompute=False)
     params = [p.name for p in main_prog.all_parameters()]
 
     def fetch(prog):
@@ -2918,21 +2941,23 @@ def _overflow_sequence(exe, prog, feed, scope, loss, use_compiled):
 
 
 def train_ernie_fleet(dev, smi, batches=(40, 32, 24, 16), timed=4):
-    """ERNIE-large (24 layers, fp32 parameters, flash attention) trained
+    """ERNIE-large at FLEET_LAYERS of its 24 layers (fp32 parameters,
+    flash attention) trained
     through fleet's strategy chain (_ernie_fleet_programs) on one
     synthetic batch: b40, or the first of ``batches`` that fits. Startup
     on the card and one warm-up step op by op (its attention seeds
     recorded), then profile_train.timed_modes (``timed`` timed steps a
-    mode). Gates, per compiled step and op by op: 48 flash forward
-    launches (24 in the segments' forwards, 24 in their recomputes) and 24
-    backward (through FlashAttentionFunction), all on the bf16 tensor-core
+    mode). Gates, per compiled step and op by op: 2 * FLEET_LAYERS flash
+    forward launches (one in each segment's forward, one in its
+    recompute) and FLEET_LAYERS backward (through FlashAttentionFunction),
+    all on the bf16 tensor-core
     instance, no AdamW launch, one lamb op a parameter; each leg's loss
     falling and every parameter finite. Then: FlashAttentionFunction at
     the step's shapes bit for bit the direct backward; the program
     without recompute one step from the same state (_recompute_against_
     plain): its peak memory higher, gradients and parameters within the
     stated tolerances; the loss-scaling overflow in a compiled step of
-    the 24-layer program at 2 of the batch's rows against the CPU's op by
+    the program at 2 of the batch's rows against the CPU's op by
     op run of the same program at 2 layers on those rows
     (_overflow_sequence: the same (scale, good, bad) bit for bit after
     every step, finite losses); and layer 0's attention keep mask, read
@@ -2945,7 +2970,8 @@ def train_ernie_fleet(dev, smi, batches=(40, 32, 24, 16), timed=4):
     from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.tools.profile_train import timed_modes
 
-    phase, layers, n = "train_ernie_fleet", 24, ERNIE["num_attention_heads"]
+    phase, layers, n = "train_ernie_fleet", FLEET_LAYERS, \
+        ERNIE["num_attention_heads"]
     t_build = time.perf_counter()
     cfg, main_prog, startup, fetches = _ernie_fleet_programs(layers)
     build_s = time.perf_counter() - t_build
@@ -2990,8 +3016,8 @@ def train_ernie_fleet(dev, smi, batches=(40, 32, 24, 16), timed=4):
     versus = _recompute_against_plain(dev, main_prog, loss, state, batch,
                                       batch_size)
     _release()
-    # the overflow: the 24-layer compiled step at 2 rows on the card, the
-    # 2-layer program op by op on the CPU, on the same rows
+    # the overflow: the compiled step at 2 rows on the card, the 2-layer
+    # program op by op on the CPU, on the same rows
     rows = _rows(batch, 2)
     exe = Executor(device=dev)
     with _AttnSeeds() as comp_seeds:
@@ -4135,6 +4161,104 @@ def check_flash_bert_infer(dev, results):
             input_copies=reps), kernel, sdpa))
         del sets
     torch.cuda.empty_cache()
+
+
+def check_flash_to_static(dev, results):
+    """Both flash kernels as the @to_static BERT-base step runs them:
+    bnsd, 12 heads of 64, S = 128, B = 64, fp32 (split TF32), the [B,S]
+    key bias of ragged lengths, no dropout (the 2.0 network drops the
+    attention's output): against their plain versions, timed beside
+    SDPA's forward and backward, with their bounds."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    b, n, hd, s = DY_BATCH, 12, 64, DY_SEQ
+    g = torch.Generator(device=dev).manual_seed(64)
+    q, k, v, do = (torch.randn(b, n, s, hd, device=dev, generator=g)
+                   for _ in range(4))
+    lens = torch.randint(s // 2, s + 1, (b, 1), device=dev, generator=g)
+    bias = torch.where(torch.arange(s, device=dev)[None, :] < lens, 0.0,
+                       -1e4)
+    scale = hd ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, n, scale, False, bias, 0.0, 0, "bnsd")
+    r_out, r_lse = fa.plain_flash_fwd(q, k, v, n, scale, False, bias, 0.0,
+                                      0, "bnsd")
+    got = fa.flash_bwd(q, k, v, r_out, r_lse, do, n, scale, False, bias,
+                       0.0, 0, "bnsd")
+    ref = fa.plain_flash_bwd(q, k, v, r_out, r_lse, do, n, scale, False,
+                             bias, 0.0, 0, "bnsd")
+    torch.cuda.synchronize()
+    tol = TRAIN_TOL[torch.float32]
+    err = {"out": errors(out, r_out)[0], "lse": errors(lse, r_lse)[0]}
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        err[name] = errors(a, r)[0]
+        if not torch.allclose(a, r, **tol):
+            raise AssertionError(f"flash backward @to_static {name}: "
+                                 f"{errors(a, r)}")
+    if not (torch.allclose(out, r_out, **tol)
+            and torch.allclose(lse, r_lse, rtol=1e-5, atol=1e-4)):
+        raise AssertionError(f"flash forward @to_static: {err}")
+    fwd, bwd = _time_flash_nodrop(fa, q, k, v, do, bias, n, scale, r_out,
+                                  r_lse)
+    shape = (f"B={b} S={s} n={n} hd={hd} bias fp32 bnsd (@to_static "
+             f"BERT-base)")
+    for name, keys, timing in (
+            ("flash_attention_fwd", ("out", "lse"), fwd),
+            ("flash_attention_bwd", ("dq", "dk", "dv"), bwd)):
+        results.append(dict(name=name, shape=shape, instance="fp32_tf32x3",
+                            max_abs_err=max(err[k_] for k_ in keys),
+                            max_rel_err=None,
+                            errors={k_: err[k_] for k_ in keys}, **timing))
+
+
+def _time_flash_nodrop(fa, q, k, v, do, bias, n, scale, out, lse):
+    """(forward, backward) timings of the bnsd fp32 kernels without
+    dropout under a [B,S] key bias: kernel ms, plain ms, SDPA's ms (its
+    backward through autograd, its device time from torch.profiler: it
+    does not capture), the bound at the split-TF32 rate (the CUDA-core
+    bound beside it) and the device-only times."""
+    import torch.nn.functional as F
+
+    b, _, s, hd = q.shape
+    mask = bias[:, None, None, :]
+    q4, k4, v4 = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                        scale=scale)
+
+    def kfwd(i):
+        return fa.flash_fwd(q, k, v, n, scale, False, bias, 0.0, 0, "bnsd")
+
+    def kbwd(i):
+        return fa.flash_bwd(q, k, v, out, lse, do, n, scale, False, bias,
+                            0.0, 0, "bnsd")
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              scale=scale)
+
+    def sdpa_bwd(i):
+        return torch.autograd.grad(o4, (q4, k4, v4), do, retain_graph=True)
+
+    nb, pairs, heads = q.numel() * 4, s * s, b * n
+    rows = []
+    for kern, plain, lib, io, flops, graph in (
+            (kfwd, lambda i: fa.plain_flash_fwd(q, k, v, n, scale, False,
+                                                bias, 0.0, 0, "bnsd"),
+             sdpa, 4 * nb + bias.numel() * 4 + lse.numel() * 4,
+             heads * 2 * 2 * pairs * hd, True),
+            (kbwd, lambda i: fa.plain_flash_bwd(q, k, v, out, lse, do, n,
+                                                scale, False, bias, 0.0, 0,
+                                                "bnsd"),
+             sdpa_bwd, 8 * nb + lse.numel() * 4 + bias.numel() * 4,
+             heads * 5 * 2 * pairs * hd, False)):
+        row = dict(ms=events_ms(kern, 20), plain_ms=events_ms(plain, 3),
+                   library_ms=events_ms(lib, 20))
+        row["bound_ms"], row["bound_by"] = bound_ms(io, flops,
+                                                    TF32X3_FLOPS_PER_S)
+        row["bound_ms_cuda_cores"] = bound_ms(io, flops)[0]
+        with_device_ms(row, kern, (lambda: lib(0)) if not graph else lib,
+                       library_graph=graph)
+        rows.append(row)
+    return rows
 
 
 def _infer_counts():
@@ -7368,7 +7492,8 @@ def dygraph_bert_base(dev, smi, warmup=2, timed=8, amp_steps=4):
     loss: the fit of the one batch the leg repeats. Each path's launch
     counts: its steps' (fit and traced), evaluate's and predict's 12
     forwards each, all bnsd. The sink's hapi.step_ms. Returns both
-    paths' counts."""
+    paths' counts and the network's state after them (to_static_bert_base
+    starts from it)."""
     from paddle_tpu_torch import dygraph, kernels, reader
     from paddle_tpu_torch.core import telemetry
     from paddle_tpu_torch.tools.dygraph_bert import synthetic_rows
@@ -7398,6 +7523,8 @@ def dygraph_bert_base(dev, smi, warmup=2, timed=8, amp_steps=4):
                            True)
             torch.cuda.synchronize()
             amp_counts = _phase_counts()
+            state = {k: v._tensor.detach().clone()
+                     for k, v in model.network.state_dict().items()}
             del model
     finally:
         telemetry.flush()
@@ -7432,7 +7559,7 @@ def dygraph_bert_base(dev, smi, warmup=2, timed=8, amp_steps=4):
             not np.isfinite(ev["eval_loss"]):
         raise AssertionError(f"dygraph_bert_base: evaluate {ev}, predict "
                              f"{pred.shape}")
-    return counts, amp_counts
+    return counts, amp_counts, state
 
 
 def _dy_train(device, state, rows, steps, dropout, layers=2):
@@ -7621,6 +7748,264 @@ def dygraph_parity(dev, layers=2, batch=4, steps=3):
     return counts
 
 
+# -- @to_static: the 2.0 BERT-base's forward as one program --------------------
+
+TS_TIMED, TS_UNTIMED = 10, 2
+# replay against the block run op by op on the card: the same lowerings
+# and kernels on the same inputs, the same seeds (the replay's seed
+# table holds what the op-by-op run computes at step 0)
+TS_REPLAY_TOL = 0.0
+# eager against @to_static, 3 AdamW steps at dropout 0 from one state:
+# the same lowerings (eager ops through trace_op, the replay through
+# run_op) on the card; PR 20's card-vs-CPU spread (9.5e-7 in the losses,
+# 1.5e-5 in the parameters) is the scale
+TS_EAGER_TOL = {"loss": 1e-6, "param": 2e-5}
+
+
+def _ts_net(nn, state, dropout):
+    """The full-width network with ``dropout``, its weights ``state``."""
+    from paddle_tpu_torch.tools.dygraph_bert import BERT_BASE, bert_classifier
+
+    np.random.seed(0)
+    net = bert_classifier(nn, **dict(BERT_BASE, dropout=dropout))
+    net.set_state_dict(state)
+    return net
+
+
+def _ts_opt(optimizer, net):
+    """AdamW (weight decay 0.01) at dygraph_bert_base's rate: 1e-4 after a
+    LinearWarmup over DY_LR_WARMUP steps from 0 (a new optimizer's first
+    steps at a fixed 1e-5 made the post-LN network's loss jump from 0.2
+    to 3.9 in a probe run, eager and @to_static alike)."""
+    sched = optimizer.lr.LinearWarmup(1e-4, DY_LR_WARMUP, 0.0, 1e-4)
+    return optimizer.AdamW(learning_rate=sched, parameters=net.parameters(),
+                           weight_decay=0.01), sched
+
+
+def _ts_step(net, opt, sched, loss_fn, batch):
+    """One training step of the 2.0 loop: forward, loss, backward, AdamW,
+    clear, the rate's step; the loss tensor."""
+    loss = loss_fn(net(*batch[:3]), batch[3])
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    sched.step()
+    return loss
+
+
+def _ts_timed(dev, state, batch):
+    """The timed leg: the network (dropout 0.1) with its forward under
+    @to_static, AdamW (_ts_opt), TS_UNTIMED untimed steps (the first
+    traces and captures), then TS_TIMED timed ones between synchronizes,
+    their launches each, then one step traced by torch.profiler."""
+    from paddle_tpu_torch import dygraph, kernels, nn, optimizer
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.tools.profile_train import traced
+
+    net = _ts_net(nn, state, 0.1)
+    net.forward = dygraph.to_static(net.forward)
+    opt, sched = _ts_opt(optimizer, net)
+    loss_fn = nn.CrossEntropyLoss()
+    uncaptured = telemetry.counter_get("executor.uncaptured_steps") or 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    untimed_ms, ms, launches, losses = [], [], [], []
+    for i in range(TS_UNTIMED + TS_TIMED):
+        torch.cuda.synchronize()
+        c0 = kernels.launch_counts()
+        t0 = time.perf_counter()
+        loss = _ts_step(net, opt, sched, loss_fn, batch)
+        torch.cuda.synchronize()
+        (untimed_ms if i < TS_UNTIMED else ms).append(
+            (time.perf_counter() - t0) * 1e3)
+        c1 = kernels.launch_counts()
+        launches.append({k: c1[k] - c0[k] for k in c1})
+        losses.append(float(loss.numpy()))
+    trace = traced(lambda: _ts_step(net, opt, sched, loss_fn, batch), 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    uncaptured = (telemetry.counter_get("executor.uncaptured_steps") or 0) \
+        - uncaptured
+    n_params = len(net.parameters())
+    return net, dict(
+        untimed_ms=untimed_ms, step_ms_p50=float(np.median(ms)),
+        step_ms_range=[min(ms), max(ms)], losses=losses, peak_gb=peak,
+        device_busy_ms=trace["device_busy_ms"],
+        traced_wall_ms=trace["traced_wall_ms"],
+        device_idle_share=trace["device_idle_share"],
+        traced_launches=trace["traced_launches"],
+        top_kernels=trace["top_kernels"][:6],
+        launches_per_step=launches[TS_UNTIMED:],
+        parameter_tensors=n_params, uncaptured_steps=uncaptured,
+        traces=len(net.forward._cache))
+
+
+def _ts_replay_vs_uncaptured(net, batch):
+    """One forward and backward of the timed leg's network through the
+    graph replay and through the block run op by op on the card, from the
+    same parameters: the largest |difference| of the logits and of every
+    parameter gradient."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.ops.control_flow_ops import run_program_graphs
+
+    loss_fn, got = nn.CrossEntropyLoss(), []
+    for graphs in (True, False):
+        with run_program_graphs(graphs):
+            logits = net(*batch[:3])
+            loss_fn(logits, batch[3]).backward()
+        got.append((logits._tensor.detach().clone(),
+                    {n: p._tensor.grad.clone()
+                     for n, p in net.named_parameters()}))
+        net.clear_gradients()
+    (l1, g1), (l2, g2) = got
+    return {"logits": float((l1 - l2).abs().max()),
+            "grads": max(float((g1[k] - g2[k]).abs().max()) for k in g1)}
+
+
+def _ts_eager_vs_static(dev, state, batch, steps=3):
+    """3 AdamW steps (_ts_opt, dropout 0) of the eager network and of its
+    @to_static twin from one state on the card: both losses, the largest
+    |difference| of the parameters after them, and the twin."""
+    from paddle_tpu_torch import dygraph, nn, optimizer
+
+    runs = []
+    for static in (False, True):
+        net = _ts_net(nn, state, 0.0)
+        if static:
+            net.forward = dygraph.to_static(net.forward)
+        opt, sched = _ts_opt(optimizer, net)
+        loss_fn = nn.CrossEntropyLoss()
+        losses = [float(_ts_step(net, opt, sched, loss_fn, batch).numpy())
+                  for _ in range(steps)]
+        runs.append((losses, net))
+    (le, eager), (ls, static) = runs
+    se = dict(eager.named_parameters())
+    param_err = max(float((p._tensor - se[n]._tensor).detach().abs().max())
+                    for n, p in static.named_parameters())
+    del eager
+    return le, ls, param_err, static
+
+
+def _ts_amp(net, batch):
+    """The @to_static twin (dropout 0, eval) without grads: its replay
+    without auto_cast, a fresh @to_static of the same forward traced and
+    called twice under auto_cast, and the eager forward under auto_cast.
+    The reference applies AMP only in trace_op, so the trace's matmuls are
+    bf16 while every replay is the fp32 program."""
+    from paddle_tpu_torch import amp, dygraph
+    from paddle_tpu_torch.dygraph import jit
+
+    net.eval()
+    with dygraph.no_grad():
+        fp32 = net(*batch[:3])._tensor.clone()
+        fresh = dygraph.to_static(net.forward._fn_original)
+        with amp.auto_cast():
+            calls = [fresh(*batch[:3])._tensor.clone() for _ in range(2)]
+            jit.ProgramTranslator.get_instance().enable(False)
+            try:
+                eager = net(*batch[:3])._tensor.clone()
+            finally:
+                jit.ProgramTranslator.get_instance().enable(True)
+    blk = fresh.main_program.global_block()
+    mm = [blk.var(op.output("Out")[0]).dtype for op in blk.ops
+          if op.type == "matmul_v2"]
+    return dict(
+        replay_dtypes=[str(c.dtype) for c in calls],
+        traced_matmul_dtypes=sorted({str(d) for d in mm}),
+        matmuls=len(mm),
+        replay_equals_fp32=all(torch.equal(c, fp32) for c in calls),
+        eager_amp_vs_fp32=float((eager.float() - fp32).abs().max()))
+
+
+def to_static_bert_base(dev, smi, state):
+    """The 2.0 BERT-base's forward under @to_static on the card, at full
+    width (12 layers, d_model 768, 12 heads, ffn 3072, s128, b64, fp32,
+    dropout 0.1, AdamW as dygraph_bert_base's: _ts_opt), from the weights
+    dygraph_bert_base left (its
+    state_dict), on its batch of seeded rows. The forward is one
+    run_program op replaying a forward CUDA graph, and its backward a
+    backward graph. Four legs:
+    1. timed: TS_UNTIMED untimed steps (the first traces the forward
+       eagerly, then warms up and captures both graphs), TS_TIMED timed
+       ones: step ms p50 and range, one traced step's busy ms and idle
+       share, peak GB, the capture step's ms, losses (the fit of the one
+       batch, falling), every timed step's launches (12 bnsd flash
+       forward and 12 bnsd backward from the replays, 196 AdamW from the
+       optimizer's captured micro-program), no uncaptured run;
+    2. replay against the block run op by op on the card: logits and
+       every parameter gradient, TS_REPLAY_TOL;
+    3. eager against @to_static at dropout 0: 3 AdamW steps from one
+       state, losses and parameters within TS_EAGER_TOL;
+    4. AMP: under auto_cast a fresh trace records bf16 matmuls, and both
+       calls return the fp32 program's logits bit for bit (the reference's
+       replay runs no cast), where the eager auto_cast forward differs.
+    The path's launch counts are the timed leg's (its untimed and traced
+    steps included)."""
+    from paddle_tpu_torch import dygraph, kernels
+    from paddle_tpu_torch.tools.dygraph_bert import synthetic_rows
+
+    t0 = time.perf_counter()
+    rows = synthetic_rows(DY_BATCH, DY_SEQ, seed=0)
+    with dygraph.guard(dev):
+        batch = [dygraph.VarBase(a) for a in rows]
+        kernels.reset_launch_counts()
+        net, timed = _ts_timed(dev, state, batch)
+        torch.cuda.synchronize()
+        counts = _phase_counts()
+        kernels.reset_launch_counts()
+        replay_err = _ts_replay_vs_uncaptured(net, batch)
+        del net
+        _release()
+        le, ls, param_err, twin = _ts_eager_vs_static(dev, state, batch)
+        amp_leg = _ts_amp(twin, batch)
+        del twin
+    want = {"flash_attention_fwd": 12, "flash_attention_bwd": 12,
+            "fused_adamw": timed["parameter_tensors"]}
+    steps = TS_UNTIMED + TS_TIMED + 1
+    # the trace's eager forward, one forward replay a step, one backward
+    # replay a step, one AdamW launch a parameter a step
+    totals = {"flash_attention_fwd": 12 * (steps + 1),
+              "flash_attention_bwd": 12 * steps,
+              "fused_adamw": timed["parameter_tensors"] * steps}
+    loss_err = float(np.max(np.abs(np.subtract(le, ls))))
+    emit("to_static_bert_base", model="bert_base_2.0_nn_to_static",
+         layers=12, seq=DY_SEQ, batch=DY_BATCH,
+         lr=f"1e-4 after LinearWarmup over {DY_LR_WARMUP} steps from 0",
+         timed=timed,
+         replay_vs_uncaptured=replay_err, replay_tolerance=TS_REPLAY_TOL,
+         eager_losses=le, static_losses=ls, eager_static_loss_err=loss_err,
+         eager_static_param_err=param_err, eager_tolerance=TS_EAGER_TOL,
+         amp=amp_leg, launches=counts["launches"], launches_want=totals,
+         flash_launches_by_layout=counts["layouts"],
+         flash_launches_by_dtype=counts["dtypes"],
+         seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    bad = [s for s in timed["launches_per_step"]
+           if any(s[k] != v for k, v in want.items())]
+    got = {k: counts["launches"][k] for k in totals}
+    if bad or got != totals or timed["uncaptured_steps"] or \
+            timed["traces"] != 1:
+        raise AssertionError(f"to_static_bert_base: launches a step "
+                             f"{bad[:1]}, want {want}; path {got}, want "
+                             f"{totals}; uncaptured "
+                             f"{timed['uncaptured_steps']}")
+    head, tail = timed["losses"][:2], timed["losses"][-2:]
+    if not np.mean(tail) < np.mean(head) or \
+            not np.all(np.isfinite(timed["losses"])):
+        raise AssertionError(f"to_static_bert_base: loss does not fall "
+                             f"{timed['losses']}")
+    if max(replay_err.values()) > TS_REPLAY_TOL:
+        raise AssertionError(f"to_static_bert_base: replay against the "
+                             f"uncaptured block {replay_err}")
+    if loss_err > TS_EAGER_TOL["loss"] or param_err > TS_EAGER_TOL["param"]:
+        raise AssertionError(f"to_static_bert_base: eager {le} against "
+                             f"static {ls}, parameters {param_err}")
+    if not (amp_leg["replay_equals_fp32"]
+            and amp_leg["replay_dtypes"] == ["torch.float32"] * 2
+            and amp_leg["traced_matmul_dtypes"] == ["bfloat16"]
+            and amp_leg["eager_amp_vs_fp32"] > 1e-4):
+        raise AssertionError(f"to_static_bert_base: AMP replay {amp_leg}")
+    return counts
+
+
 def fit_vision_zoo(dev, smi, batch=64, steps=5):
     """The 2.0 zoo through hapi.Model: mobilenet_v2() (scale 1.0, 1000
     classes) on FakeData 3x224x224 (ToTensor + Normalize) at b64, 5 fit
@@ -7782,6 +8167,7 @@ def main():
     check_layer_norm(dev, results)
     check_conv(dev, results)
     check_flash_bert_infer(dev, results)
+    check_flash_to_static(dev, results)
     static_int_mm = check_int8_bert_base(dev, results)
     emit("kernels", results=results, dropout_mask=mask_check,
          int8_static_int_mm=static_int_mm,
@@ -7835,12 +8221,13 @@ def main():
     runs["train_parity"] = train_parity(dev, 2, "float32", 3, 1e-4)
     # the CPU halves of the parity legs are the slowest of the script on a
     # slow host (a run whose host built the sources in 35 s, not 22, ended
-    # at 1248 s), and the whole must end within its time limit: the bf16
-    # leg at 3 steps (6 before the dygraph phases came), the deep and
-    # seq-2048 legs at 2 steps, the deep one at 6 layers (24, then 12)
-    runs["train_parity_bf16"] = train_parity(dev, 2, "bfloat16", 3, 1e-2)
-    runs["train_parity_6"] = train_parity(dev, 6, "float32", 2, 1e-4)
-    runs["train_parity_long"] = train_parity(dev, 2, "float32", 2, 1e-4,
+    # at 1248 s, and one in PR 21 at 1177 s), and the whole must end
+    # within its time limit: the bf16 leg at 2 steps (6, then 3), the deep
+    # and seq-2048 legs at 2 steps, the deep one at 4 layers (24, then 12,
+    # then 6), the seq-2048 one at 1 layer (2 before to_static_bert_base)
+    runs["train_parity_bf16"] = train_parity(dev, 2, "bfloat16", 2, 1e-2)
+    runs["train_parity_4"] = train_parity(dev, 4, "float32", 2, 1e-4)
+    runs["train_parity_long"] = train_parity(dev, 1, "float32", 2, 1e-4,
                                              seq=LONG[0][0], batch_size=1)
     runs["compiled_parity"] = compiled_parity(dev, smi)
     _release()
@@ -7898,8 +8285,11 @@ def main():
     _release()
     runs["control_flow_card"] = control_flow_card(dev)
     _release()
-    runs["dygraph_bert_base"], runs["dygraph_bert_base_amp"] = \
+    runs["dygraph_bert_base"], runs["dygraph_bert_base_amp"], dy_state = \
         dygraph_bert_base(dev, smi)
+    _release()
+    runs["to_static_bert_base"] = to_static_bert_base(dev, smi, dy_state)
+    del dy_state
     _release()
     runs["dygraph_parity"] = dygraph_parity(dev)
     _release()

@@ -22,7 +22,9 @@ The imperative mode and the 2.0 API run the same lowerings eagerly:
 ``optimizer`` (``step()`` through a cached micro-program) with
 ``optimizer.lr``, ``amp.auto_cast``, ``reader.DataLoader``, ``metric``,
 ``hapi.Model`` and ``vision``. Like the executor, a guard runs on the
-card unless given ``"cpu"``.
+card unless given ``"cpu"``. ``jit.to_static`` captures a 2.0 function
+as one program, replayed as CUDA graphs on the card; ``static`` is the
+2.0 static-graph namespace.
 """
 
 from __future__ import annotations
@@ -36,13 +38,17 @@ from .core.scope import Scope, global_scope, scope_guard  # noqa: F401
 from .core.ir import in_dygraph_mode  # noqa: F401
 from . import amp, dygraph, metric, nn, optimizer, reader  # noqa: F401
 from . import hapi, tensor, vision  # noqa: F401
+from . import static  # noqa: F401
+from .static import disable_static, enable_static  # noqa: F401
+from .dygraph import jit  # noqa: F401
 from .reader import DataLoader  # noqa: F401
 from .tensor import to_tensor  # noqa: F401
 
 __all__ = ["Program", "program_guard", "default_main_program",
            "default_startup_program", "Executor", "Scope", "global_scope",
            "scope_guard", "gradients", "in_dygraph_mode", "to_tensor",
-           "DataLoader", "summary"]
+           "DataLoader", "summary", "static", "jit", "enable_static",
+           "disable_static"]
 
 
 def summary(net, input_size, dtypes=None):

@@ -58,6 +58,7 @@ import torch
 
 from . import costmodel, goodput, incidents, registry, rng, telemetry, trace
 from .. import profiler as _prof
+from .compiler import program_of
 from .flags import flag as _flag
 from .graph import StepGraph
 from .ir import Block, OpDesc, Program, Variable, default_main_program
@@ -220,6 +221,33 @@ def truncation_guard(flag: torch.Tensor, message: str):
         _GUARDS[-1].append((flag, message))
     elif flag.device.type != "meta" and bool(flag):
         raise RuntimeError(message)
+
+
+def copy_guards(flags: torch.Tensor) -> tuple:
+    """Start a copy of a step's stacked truncation flags to the host
+    without a wait: (host tensor, the event the copy completes at, or None
+    on the CPU)."""
+    if flags.device.type != "cuda":
+        return flags.clone(), None
+    host = torch.empty(flags.shape, dtype=torch.bool, pin_memory=True)
+    host.copy_(flags, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def warn_guards(pending: List[tuple], messages: List[str]):
+    """Warn with the message of each flag set in the copies of
+    ``pending`` (``copy_guards``) that have completed, oldest first; the
+    rest stay for a later call."""
+    while pending:
+        host, done = pending[0]
+        if done is not None and not done.query():
+            return
+        pending.pop(0)
+        for hit, message in zip(host.tolist(), messages):
+            if hit:
+                warnings.warn(message, stacklevel=4)
 
 
 def host_decider(ops) -> Optional[str]:
@@ -589,28 +617,13 @@ class _CompiledStep:
             telemetry.counter_add("executor.uncaptured_steps", 1,
                                   op=self.host_op)
         if self.guard_flags is not None:
-            if self.device.type == "cuda":
-                host = torch.empty(self.guard_flags.shape, dtype=torch.bool,
-                                   pin_memory=True)
-                host.copy_(self.guard_flags, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            else:
-                host, done = self.guard_flags.clone(), None
-            self.pending_guards.append((host, done))
+            self.pending_guards.append(copy_guards(self.guard_flags))
         return outs
 
     def check_guards(self):
         """Warn with the message of each truncation flag set in a run whose
         host copy has completed (never waits for the card)."""
-        while self.pending_guards:
-            host, done = self.pending_guards[0]
-            if done is not None and not done.query():
-                return
-            self.pending_guards.pop(0)
-            for hit, message in zip(host.tolist(), self.guard_messages):
-                if hit:
-                    warnings.warn(message, stacklevel=3)
+        warn_guards(self.pending_guards, self.guard_messages)
 
     def meta_cost(self) -> tuple:
         """(flops, bytes, GEMM dtype) of one step, from a run of its
@@ -797,6 +810,7 @@ class Executor:
         steps. A program
         with a host-IO op raises: the reference's fallback to k
         sequential runs comes with those ops (ROADMAP A9)."""
+        program = program_of(program)
         if program is None:
             program = default_main_program()
         if scope is None:
@@ -924,7 +938,9 @@ class Executor:
         gives the op-by-op path's results bit for bit. Fetches of a
         compiled step come from its static outputs: copied to the host
         with ``return_numpy``, cloned without it. ``use_compiled=False``
-        runs every step op by op."""
+        runs every step op by op. A ``CompiledProgram`` runs its
+        Program."""
+        program = program_of(program)
         if program is None:
             program = default_main_program()
         if scope is None:

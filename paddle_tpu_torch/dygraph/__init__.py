@@ -8,11 +8,11 @@ JSON manifest at ``<path>.pdparams`` or ``.pdopt`` and the arrays in
 ``<path>.pdparams.npz``), so each package loads the other's files.
 
 A guard takes its device as the executor does: ``guard()`` runs on the
-card, ``guard("cpu")`` on the CPU.
+card, ``guard("cpu")`` on the CPU. ``@to_static``, ``TracedLayer`` and
+``jit.save`` / ``jit.load`` are ``jit.py``.
 
-Not ported yet (ROADMAP A11, A8): ``@to_static`` and ``TracedLayer``
-(``dygraph/jit.py``) and ``DataParallel`` (``dygraph/parallel.py``);
-their names raise ``NotImplementedError`` naming the item.
+Not ported yet (ROADMAP A8): ``DataParallel`` (``dygraph/parallel.py``);
+its names raise ``NotImplementedError`` naming the item.
 """
 
 from __future__ import annotations
@@ -29,11 +29,15 @@ from ..core.ir import _dygraph_tracer_holder, in_dygraph_mode
 from .layers import Layer
 from .tracer import Tracer, get_tracer, grad, trace_fn, trace_op
 from .varbase import ParamBase, VarBase, to_variable
+from . import jit  # noqa: F401
+from .jit import (ProgramTranslator, TracedLayer, declarative,  # noqa: F401
+                  to_static)
 
 __all__ = [
     "Layer", "Tracer", "VarBase", "ParamBase", "to_variable", "guard",
     "enable_dygraph", "disable_dygraph", "enabled", "no_grad", "grad",
-    "trace_op", "trace_fn", "save_dygraph", "load_dygraph",
+    "trace_op", "trace_fn", "save_dygraph", "load_dygraph", "jit",
+    "to_static", "declarative", "TracedLayer", "ProgramTranslator",
 ]
 
 
@@ -149,9 +153,7 @@ _NN_ALIASES = ("BatchNorm", "Conv2D", "Conv2DTranspose", "Dropout",
                "Embedding", "Flatten", "GroupNorm", "GRUCell",
                "LayerList", "LayerNorm", "Linear", "LSTMCell",
                "ParameterList", "Sequential")
-_NOT_PORTED = {"jit": "A11", "to_static": "A11", "declarative": "A11",
-               "TracedLayer": "A11", "ProgramTranslator": "A11",
-               "DataParallel": "A8", "ParallelStrategy": "A8",
+_NOT_PORTED = {"DataParallel": "A8", "ParallelStrategy": "A8",
                "prepare_context": "A8"}
 
 

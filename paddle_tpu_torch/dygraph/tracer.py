@@ -2,7 +2,10 @@
 
 The port of ``paddle_tpu/dygraph/tracer.py``: ``trace_op`` (:130),
 ``trace_fn`` (:204), ``run_backward`` (:246) and ``grad`` (:346), with
-the AMP hook ``_maybe_autocast`` (:97).
+the AMP hook ``_maybe_autocast`` (:97) and the ``@to_static`` capture
+hook ``_maybe_capture`` (:195): an op is recorded into an active capture
+after it has run, without the casts ``_maybe_autocast`` put around it,
+as the reference records it.
 
 The reference takes a ``jax.vjp`` closure of the op's lowering in the
 same forward pass and replays the closures in reverse tape order. Here
@@ -143,14 +146,27 @@ def trace_op(op_type: str, inputs: Dict[str, Any],
                       else v._tensor) for v in vals]
     with torch.enable_grad() if record else torch.no_grad():
         outs = registry.normalize_outputs(forward(ins, attrs))
-    return {slot: [None if t is None else VarBase._wrap(t) for t in vals]
-            for slot, vals in outs.items()}
+    out_vars = {slot: [None if t is None else VarBase._wrap(t)
+                       for t in vals] for slot, vals in outs.items()}
+    _maybe_capture(op_type, norm, attrs, out_vars)
+    return out_vars
+
+
+def _maybe_capture(op_type, norm_inputs, attrs, out_vars):
+    """Record the op that has just run into an active ``@to_static``
+    capture (``jit.capture_op``), as the reference's tracer does after
+    running it."""
+    from . import jit
+
+    if jit._capture_stack:
+        jit.capture_op(op_type, norm_inputs, attrs, out_vars)
 
 
 def trace_fn(fn, *inputs) -> VarBase:
     """Run an ad-hoc one-output torch function over VarBases (the
     VarBase methods and operators), recorded as ``trace_op`` records an
-    op."""
+    op; a capture records it as a ``__jax_fn__`` op holding the
+    closure."""
     tracer = get_tracer()
     vbs = [v if isinstance(v, VarBase) else VarBase(v) for v in inputs]
     record = tracer is not None and tracer.has_grad and \
@@ -158,7 +174,10 @@ def trace_fn(fn, *inputs) -> VarBase:
     args = [v._tensor if record and not v.stop_gradient
             else v._tensor.detach() for v in vbs]
     with torch.enable_grad() if record else torch.no_grad():
-        return VarBase._wrap(fn(*args))
+        out = VarBase._wrap(fn(*args))
+    _maybe_capture("__jax_fn__", {"X": vbs},
+                   {"fn": lambda *a, _f=fn: (_f(*a),)}, {"Out": [out]})
+    return out
 
 
 # ---------------------------------------------------------------------------

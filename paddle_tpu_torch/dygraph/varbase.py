@@ -51,11 +51,15 @@ def as_tensor(value, device=None) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value if device is None else value.to(device)
     arr = np.asarray(value)
+    # np.ascontiguousarray would give a 0-d value one dimension: copy
+    # with np.array, which keeps the shape
     if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+        t = torch.from_numpy(np.array(arr.view(np.int16), order="C")
+                             ).view(torch.bfloat16)
     else:
-        arr = np.ascontiguousarray(arr)
-        t = torch.from_numpy(arr.copy() if not arr.flags.writeable else arr)
+        if not (arr.flags.c_contiguous and arr.flags.writeable):
+            arr = np.array(arr, order="C")
+        t = torch.from_numpy(arr)
         t = t.to(x64_off(t.dtype))
     return t.to(device if device is not None else _device())
 
@@ -192,6 +196,18 @@ class VarBase:
                 f"the truth value of a tensor with {self._tensor.numel()} "
                 f"elements is ambiguous — use .any()/.all() or compare "
                 f"reductions")
+        from .jit import _capture_stack
+
+        if _capture_stack:
+            import warnings
+
+            warnings.warn(
+                "bool(tensor) inside a @to_static trace freezes this "
+                "branch into the captured program (the if was not "
+                "rewritable — e.g. it contains return/break, or the "
+                "condition is consumed outside an if). Data-dependent "
+                "branches need a rewritable `if` or an explicit "
+                "layers.cond.", stacklevel=2)
         return bool(self._tensor.reshape(-1)[0].item())
 
     # -- autograd ------------------------------------------------------------

@@ -294,6 +294,47 @@ def load_persistables(executor=None, dirname: str = "", main_program=None,
                      scope=scope)
 
 
+def save(program: Program, model_path: str, scope: Optional[Scope] = None):
+    """2.0 ``paddle.static.save`` (reference ``io.py:356``): parameters
+    to ``<model_path>.pdparams.npz``, the other persistables (optimizer
+    state) to ``.pdopt.npz``, the program's JSON to ``.pdmodel``; the
+    reference's files, so either package loads the other's."""
+    scope = global_scope() if scope is None else scope
+    params = {v.name: _to_numpy(scope.find_var(v.name))
+              for v in _select_vars(program, predicate=is_parameter)
+              if scope.find_var(v.name) is not None}
+    others = {v.name: _to_numpy(scope.find_var(v.name))
+              for v in _select_vars(program, predicate=is_persistable)
+              if not is_parameter(v) and scope.find_var(v.name) is not None}
+    os.makedirs(os.path.dirname(os.path.abspath(model_path)), exist_ok=True)
+    atomic_savez(model_path + ".pdparams.npz",
+                 **{_encode_name(k): v for k, v in params.items()})
+    atomic_savez(model_path + ".pdopt.npz",
+                 **{_encode_name(k): v for k, v in others.items()})
+    atomic_write_json(model_path + ".pdmodel", program.to_dict())
+
+
+def load(program: Program, model_path: str, executor=None,
+         scope: Optional[Scope] = None):
+    """2.0 ``paddle.static.load`` (reference ``io.py:375``): every array
+    of ``<model_path>.pdparams.npz`` and ``.pdopt.npz`` into ``scope``,
+    as the program declares the var's dtype where it does, on the
+    executor's device (CPU without one)."""
+    scope = global_scope() if scope is None else scope
+    device = executor.device if executor is not None else "cpu"
+    block = program.global_block()
+    for suffix in (".pdparams.npz", ".pdopt.npz"):
+        path = model_path + suffix
+        if os.path.exists(path):
+            with np.load(path) as z:
+                for k in z.files:
+                    name = _decode_name(k)
+                    a = np.asarray(z[k])
+                    dtype = block.var(name).dtype \
+                        if block.has_var(name) else a.dtype
+                    scope.set(name, _to_tensor(a, dtype, device))
+
+
 # ---------------------------------------------------------------------------
 # inference model export (reference: io.py save_inference_model)
 # ---------------------------------------------------------------------------

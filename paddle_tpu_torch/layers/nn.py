@@ -66,12 +66,12 @@ def data(name: str, shape: Sequence[int], dtype="float32",
         lod_level=lod_level)
 
 
-def static_data(name: str, shape: Sequence[int],
-                dtype="float32") -> Variable:
+def static_data(name: str, shape: Sequence[int], dtype="float32",
+                lod_level: int = 0) -> Variable:
     """paddle.static.data — a var fed at run time, shape given in full
     (may contain -1)."""
-    return default_main_program().global_block().create_var(
-        name=name, shape=list(shape), dtype=dtype, stop_gradient=True)
+    return data(name, shape, dtype, append_batch_size=False,
+                lod_level=lod_level)
 
 
 def create_parameter(shape, dtype="float32", name=None, attr=None,

@@ -34,10 +34,14 @@ branch, or one trip of a loop."""
 
 from __future__ import annotations
 
+import contextlib
+import weakref
+
 import torch
 
-from ..core.registry import (creation_device, default_grad_maker,
-                             register_grad_maker, register_op)
+from ..core.registry import (creating_on, creation_device,
+                             default_grad_maker, register_grad_maker,
+                             register_op)
 
 
 def _run(blk, env, attrs, keep):
@@ -307,16 +311,138 @@ def merge_lod_tensor(ins, attrs):
 @register_op("run_program", skip_infer_shape=True,
              required_attrs=("program",))
 def run_program(ins, attrs):
-    """A Program run as one op: X are its feeds (``feed_names``), Params
-    its parameters (``param_names``), Out its ``fetch_names``. Its global
-    block runs in an env of those values under the caller's grad mode, so
-    the generic vjp grad op differentiates it; nothing is cached. The
-    ``program`` attr is a Program object, which does not serialise."""
-    env = dict(zip(attrs.get("param_names", ()), ins.get("Params") or []))
-    env.update(zip(attrs.get("feed_names", ()), ins.get("X") or []))
+    """A Program run as one op (the dygraph -> static bridge of
+    ``@to_static``): X are its feeds (``feed_names``), Params its
+    parameters (``param_names``), Out its ``fetch_names``; the
+    ``program`` attr is a Program object, which does not serialise.
+    Random ops draw the bits of step 0 unless a ``__step__`` is given, as
+    the reference's jitted call does.
+
+    On the CPU, on meta tensors and under an outer CUDA-graph capture
+    (the reference's "already under an outer jit trace") the global
+    block runs op by op in an env of those values under the caller's
+    grad mode, so autograd differentiates it. On a CUDA device the block
+    replays CUDA graphs cached for each key of its inputs' shapes, dtypes
+    and grad flags (``core.graph.BlockGraphs``: a forward graph and,
+    under autograd, a backward graph); a block holding an op that cannot
+    be captured (not ``capturable``, or deciding on the host) runs op by
+    op on the device instead, each run counted in
+    ``executor.uncaptured_steps`` with the op named
+    (``run_program_graphs(False)`` runs it so on request, uncounted). A
+    bounded loop's truncation warns, as the reference's jitted call
+    does."""
+    prog = attrs["program"]
+    feed_names = list(attrs.get("feed_names", ()))
+    param_names = list(attrs.get("param_names", ()))
     fetch = list(attrs.get("fetch_names", ()))
-    _run(attrs["program"].global_block(), env, attrs, fetch)
+    feeds, params = list(ins.get("X") or []), list(ins.get("Params") or [])
+    device = next((t.device for t in feeds + params), None)
+    if device is not None and device.type == "cuda" and _GRAPHS[-1] and \
+            not torch.cuda.is_current_stream_capturing():
+        from ..core import telemetry
+        from ..core.graph import replay
+
+        state = _program_state(prog)
+        if state["uncapturable"] is None:
+            train = torch.is_grad_enabled() and any(
+                t.requires_grad for t in feeds + params)
+            key = (tuple(feed_names), tuple(param_names), tuple(fetch),
+                   train, device, tuple((tuple(t.shape), t.dtype,
+                                         t.requires_grad)
+                                        for t in feeds + params))
+            graphs = state["graphs"].get(key)
+            if graphs is None:
+                from ..core.graph import BlockGraphs
+
+                graphs = state["graphs"][key] = BlockGraphs(
+                    prog.global_block(), feeds, params, fetch, feed_names,
+                    param_names, device, train)
+            return {"Out": replay(graphs, feeds, params)}
+        telemetry.counter_add("executor.uncaptured_steps", 1,
+                              op=state["uncapturable"])
+    env = dict(zip(param_names, params))
+    env.update(zip(feed_names, feeds))
+    with creating_on(creation_device() if device is None else device):
+        _run_op_by_op(prog.global_block(), env, attrs, fetch)
     return {"Out": [env[n] for n in fetch]}
+
+
+# whether run_program replays CUDA graphs on a CUDA device (the default);
+# off, its block runs op by op there too (``run_program_graphs``)
+_GRAPHS = [True]
+
+
+@contextlib.contextmanager
+def run_program_graphs(enabled: bool):
+    """Within the block, ``run_program`` on a CUDA device replays its
+    graphs (True) or runs its block op by op, uncounted (False): the
+    replay checks hold one against the other."""
+    _GRAPHS.append(bool(enabled))
+    try:
+        yield
+    finally:
+        _GRAPHS.pop()
+
+
+# per Program: the op a CUDA graph cannot replay (or None) and the
+# BlockGraphs of each key; kept beside the Program, not in it, so that
+# copying a program that holds a run_program op copies no graph
+_PROGRAM_STATE = weakref.WeakKeyDictionary()
+
+
+def _program_state(prog):
+    state = _PROGRAM_STATE.get(prog)
+    if state is None:
+        state = _PROGRAM_STATE[prog] = {
+            "uncapturable": _uncapturable(prog.global_block().ops),
+            "graphs": {}}
+    return state
+
+
+def _uncapturable(ops):
+    """The first op of ``ops`` (or of what they run) that a CUDA graph
+    cannot replay: one deciding on the host (``executor.host_decider``)
+    or one whose registry entry is not ``capturable``; None if none is."""
+    from ..core import registry
+    from ..core.executor import host_decider
+    from ..core.rng import _run_attrs, sub_blocks
+
+    found = host_decider(ops)
+    if found:
+        return found
+    for op in ops:
+        if not registry.get(op.type).capturable:
+            return op.type
+        inner = [blk.ops for blk in sub_blocks(op)]
+        program = _run_attrs(op).get("program")
+        if op.type == "run_program" and program is not None:
+            inner.append(program.global_block().ops)
+        for sub in inner:
+            found = _uncapturable(sub)
+            if found:
+                return found
+    return None
+
+
+def _run_op_by_op(block, env, attrs, keep):
+    """Run the block op by op (step 0 unless ``__step__`` is given); the
+    truncation flags of its bounded loops are read after the run and
+    warned on."""
+    import warnings
+
+    from ..core.executor import _GUARDS, run_sub_block
+
+    step = attrs.get("__step__")
+    guards = []
+    _GUARDS.append(guards)
+    try:
+        run_sub_block(block, env, step=0 if step is None else step,
+                      seeds=attrs.get("__seeds__"), keep=keep)
+    finally:
+        _GUARDS.pop()
+    for flag, message in guards:
+        if flag.device.type != "meta" and bool(flag):
+            warnings.warn(message, stacklevel=3)
 
 
 def _rank_table(ins):

@@ -520,11 +520,22 @@ def hard_swish(ins, attrs):
 @register_op("pow")
 def pow_op(ins, attrs):
     """X ** factor: an integer X with a float factor is float32, with an
-    integer factor an integer power, as ``x ** factor`` is in jnp."""
+    integer factor an integer power, as ``x ** factor`` is in jnp; a
+    float X takes IEEE pow's values at -0 and -inf (C20)."""
     x, factor = ins["X"][0], attrs.get("factor", 1.0)
     if not x.is_floating_point() and isinstance(factor, int):
         return {"Out": _pow(x, torch.full_like(x, factor))}
-    return {"Out": x ** factor}
+    out = x ** factor
+    if x.is_floating_point() and factor in (0.5, -0.5):
+        # torch takes these as sqrt and rsqrt; IEEE pow (jnp's) gives
+        # +0 and +inf at -0 and -inf for 0.5, +inf and +0 for -0.5
+        zero, ninf = x == 0, x == float("-inf")
+        if factor == 0.5:
+            out = torch.where(zero, 0.0, torch.where(ninf, float("inf"), out))
+        else:
+            out = torch.where(zero, float("inf"),
+                              torch.where(ninf, 0.0, out))
+    return {"Out": out}
 
 
 @register_op("maximum")

@@ -669,12 +669,14 @@ def where(ins, attrs):
 
 @register_op("cumsum")
 def cumsum(ins, attrs):
-    """Running sum along ``axis`` (``flatten``: of X flattened), from the
-    end with ``reverse``; an integer or bool X sums in int32 (x64 off)."""
+    """Running sum along ``axis`` (``flatten`` or an axis of None: of X
+    flattened, as ``jnp.cumsum``), from the end with ``reverse``; an
+    integer or bool X sums in int32 (x64 off)."""
     x = ins["X"][0]
-    axis = int(attrs.get("axis", -1))
-    if attrs.get("flatten", False):
+    axis = attrs.get("axis", -1)
+    if attrs.get("flatten", False) or axis is None:
         x, axis = x.reshape(-1), 0
+    axis = int(axis)
     if attrs.get("reverse", False):
         out = torch.cumsum(x.flip(axis), dim=axis).flip(axis)
     else:

@@ -51,6 +51,10 @@ bnsd flash forward and one bnsd backward launch, its output and
 gradients the CPU's within 2e-5 (no_grad: the forward alone); eager
 AdamW steps launch one kernel per parameter tensor through the captured
 micro-program, the CPU's within 1e-5; ``auto_cast`` runs bf16 matmuls.
+``@to_static``: a small MLP's and a 2-layer BERT's graph replays equal
+their block run op by op on the card bit for bit; a block holding an
+unbounded ``while_loop`` runs uncaptured, counted; the launch counters
+count replays only.
 Marked ``cuda``: they skip where torch.cuda is unavailable.
 
 This file imports neither jax nor paddle_tpu, so on a machine with the
@@ -2695,3 +2699,161 @@ def test_eager_auto_cast_runs_bf16_matmuls_on_the_card(dev):
     assert outs[1][3] == torch.bfloat16 == outs[0][3]
     np.testing.assert_allclose(outs[1][0], outs[0][0], rtol=1e-2, atol=1e-2)
     np.testing.assert_allclose(outs[1][1], outs[0][1], rtol=1e-2, atol=1e-2)
+
+
+# -- @to_static on the card: run_program's CUDA graphs --------------------------
+
+def _static_mlp(device, state=None):
+    from paddle_tpu_torch import dygraph, nn
+
+    class MLP(dygraph.Layer):
+        def __init__(self):
+            super().__init__()
+            self.l1 = nn.Linear(32, 64)
+            self.l2 = nn.Linear(64, 8)
+
+        @dygraph.to_static
+        def forward(self, x):
+            return self.l2(nn.functional.gelu(self.l1(x)))
+
+    np.random.seed(0)
+    net = MLP()
+    if state is not None:
+        net.set_state_dict(state)
+    return net
+
+
+def _replay_and_uncaptured(net, make_inputs, loss_of, calls=2):
+    """The same calls through the graph replay and through the block run
+    op by op on the card (each from the same parameters, gradients
+    cleared): per call the fetches and every parameter gradient."""
+    from paddle_tpu_torch.ops.control_flow_ops import run_program_graphs
+
+    runs = []
+    for graphs in (True, False):
+        got = []
+        with run_program_graphs(graphs):
+            for i in range(calls):
+                out = net(*make_inputs(i))
+                loss_of(out).backward()
+                got.append((out.numpy(), {n: p.gradient() for n, p in
+                                          net.named_parameters()}))
+                net.clear_gradients()
+        runs.append(got)
+    return runs
+
+
+def _assert_runs_equal(runs, tol):
+    for (o1, g1), (o2, g2) in zip(*runs):
+        np.testing.assert_allclose(o1, o2, rtol=tol, atol=tol)
+        for k in g1:
+            np.testing.assert_allclose(g1[k], g2[k], rtol=tol, atol=tol,
+                                       err_msg=k)
+
+
+def test_to_static_mlp_replay_equals_the_uncaptured_block(dev):
+    """A @to_static MLP on the card: the forward and backward graph
+    replays give the fetches and parameter gradients of the same block
+    run op by op on the card, bit for bit, call after call (new inputs
+    copied into the graph's feed buffers)."""
+    from paddle_tpu_torch import dygraph
+
+    xs = np.random.RandomState(5).randn(3, 16, 32).astype(np.float32)
+    with dygraph.guard(dev):
+        net = _static_mlp(dev)
+        runs = _replay_and_uncaptured(
+            net, lambda i: [dygraph.VarBase(xs[i])],
+            lambda out: (out * out).mean(), calls=3)
+        _assert_runs_equal(runs, 0)
+
+
+def test_to_static_bert_replay_equals_the_uncaptured_block(dev):
+    """A 2-layer bert_classifier (d_model 128, 2 heads of 64, s128,
+    key-padding bias, dropout 0.1) under @to_static: logits and every
+    parameter gradient of the graph replays equal the block run op by op
+    on the card (the same dropout masks: the replay's seed table holds
+    the seeds the op by op run folds at step 0)."""
+    from paddle_tpu_torch import dygraph, nn
+    from paddle_tpu_torch.tools.dygraph_bert import (bert_classifier,
+                                                      synthetic_rows)
+
+    rows = synthetic_rows(8, 128, vocab=500, seed=6)
+    with dygraph.guard(dev):
+        np.random.seed(1)
+        net = bert_classifier(nn, vocab=500, max_pos=128, d_model=128,
+                              heads=2, ffn=256, layers=2)
+        net.forward = dygraph.to_static(net.forward)
+        loss_fn = nn.CrossEntropyLoss()
+        lbl = dygraph.VarBase(rows[3][:4])
+        runs = _replay_and_uncaptured(
+            net, lambda i: [dygraph.VarBase(a[4 * (i % 2):4 * (i % 2) + 4])
+                            for a in rows[:3]],
+            lambda out: loss_fn(out, lbl))
+        _assert_runs_equal(runs, 0)
+
+
+def test_run_program_counts_an_uncaptured_block_with_an_unbounded_loop(dev):
+    """A block holding a while_loop without grad_max_iters (it reads its
+    predicate on the host) runs op by op on the card, each run counted in
+    executor.uncaptured_steps and the op named."""
+    from paddle_tpu_torch import dygraph, layers, program_guard
+    from paddle_tpu_torch.core import unique_name
+    from paddle_tpu_torch.core.ir import Program
+    from paddle_tpu_torch.ops.control_flow_ops import _program_state
+
+    main = Program()
+    with unique_name.guard(), program_guard(main, Program()):
+        x0 = layers.static_data("x0", [2])
+        (xf,) = layers.while_loop(lambda x: layers.reduce_sum(x) < 100.0,
+                                  lambda x: [x * 2.0], [x0])
+        out = layers.reduce_sum(xf)
+    attrs = {"program": main, "feed_names": ["x0"], "param_names": [],
+             "fetch_names": [out.name]}
+    before = telemetry.counter_get("executor.uncaptured_steps") or 0
+    with dygraph.guard(dev):
+        got = [float(dygraph.trace_op(
+            "run_program", {"X": [dygraph.VarBase(np.full(2, v, np.float32))],
+                            "Params": []}, attrs)["Out"][0])
+            for v in (1.0, 3.0)]
+    after = telemetry.counter_get("executor.uncaptured_steps") or 0
+    assert got == [128.0, 192.0]
+    assert after - before == 2
+    assert _program_state(main)["uncapturable"] == "while_loop"
+    assert not _program_state(main)["graphs"]
+
+
+def test_to_static_launch_counts_count_replays_only(dev):
+    """A @to_static MultiHeadAttention at S=128 under a key-padding bias:
+    once traced and captured, each call adds one bnsd flash forward and
+    its backward one bnsd backward launch (the graphs' own counts, added
+    per replay); the warm-up and the captures add none."""
+    from paddle_tpu_torch import dygraph, nn
+    from paddle_tpu_torch.ops.control_flow_ops import _program_state
+
+    b, s, d = 2, 128, 256
+    x = np.random.RandomState(7).randn(b, s, d).astype(np.float32)
+    bias = np.zeros((b, 1, 1, s), np.float32)
+    bias[1, ..., s // 2:] = -1e4
+    with dygraph.guard(dev):
+        np.random.seed(0)
+        mha = nn.MultiHeadAttention(d, 4)
+        f = dygraph.to_static(lambda q, m: mha(q, attn_mask=m))
+        xv = dygraph.VarBase(x, stop_gradient=False)
+        mv = dygraph.VarBase(bias)
+        kernels.reset_launch_counts()
+        f(xv, mv).sum().backward()
+        torch.cuda.synchronize()
+        first = kernels.launch_counts()
+        graphs, = _program_state(f.main_program)["graphs"].values()
+        kernels.reset_launch_counts()
+        for _ in range(3):
+            f(xv, mv).sum().backward()
+        torch.cuda.synchronize()
+        later = kernels.launch_counts()
+    # the first call: the trace's eager forward and one replay of each
+    assert (first["flash_attention_fwd"], first["flash_attention_bwd"]) == \
+        (2, 1)
+    assert graphs.fwd_delta.get("flash_attention_fwd") == 1
+    assert graphs.bwd_delta.get("flash_attention_bwd") == 1
+    assert (later["flash_attention_fwd"], later["flash_attention_bwd"]) == \
+        (3, 3)

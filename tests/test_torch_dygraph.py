@@ -279,8 +279,8 @@ def test_default_place_is_the_card():
             pass
 
 
-@pytest.mark.parametrize("name,item", [("to_static", "A11"),
-                                       ("TracedLayer", "A11"),
+@pytest.mark.parametrize("name,item", [("ParallelStrategy", "A8"),
+                                       ("prepare_context", "A8"),
                                        ("DataParallel", "A8")])
 def test_not_ported_names_raise_naming_their_item(name, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -146,13 +146,14 @@ def test_every_op_type_of_the_five_modules_is_registered():
     """The port registers every op type of the reference's math, tensor,
     RNN, sequence and beam-search modules: 151, 104 of them new; 208 op
     types in all with the CRF, fused-RNN and control-flow ops that came
-    after them, and 247 with the 2.0 API's 36 and three aliases
-    (``tests/test_torch_api_ops.py``)."""
+    after them, 247 with the 2.0 API's 36 and three aliases
+    (``tests/test_torch_api_ops.py``), and 248 with ``@to_static``'s
+    closure op ``__jax_fn__``."""
     ours = [op for m in MODULES for op in ref_ops(m)]
     assert len(ours) == 151 and len(set(ours) - EARLIER) == 104
     missing = [op for op in ours if pt_registry.lookup(op) is None]
     assert not missing, missing
-    assert len(pt_registry.registered_ops()) == 208 + 36 + 3
+    assert len(pt_registry.registered_ops()) == 208 + 36 + 3 + 1
     # the new ops a CUDA graph cannot replay as they ran: range's length
     # is read from its bounds, randint draws from a host-seeded generator
     new_uncapturable = sorted(op for op in set(ours) - EARLIER

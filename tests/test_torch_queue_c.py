@@ -25,6 +25,11 @@ drifted from it.
 * C8: ``scale`` casts the bias to X's dtype first (int32 [0..3], scale
   0.5, bias 1.5 gives float32 [1, 1.5, 2, 2.5]); ``top_k`` ranks +0.0
   before -0.0 ([0, -0, 0] gives [[0, 2, 1]]).
+* C19: a 0-d value makes a 0-d VarBase, and a Python number beside a
+  0-d VarBase keeps the result 0-d (a [1] VarBase stays [1]).
+* C20: ``pow`` takes IEEE pow's values at -0 and -inf for factors 0.5
+  and -0.5 (torch's sqrt and rsqrt did not).
+* C21: ``cumsum`` with ``axis=None`` sums X flattened.
 Each is exact against the reference: values, shapes and dtypes.
 """
 
@@ -505,3 +510,132 @@ def test_c15_variable_operators_build_and_run_as_the_reference(name):
     want = np.asarray(want)
     assert got.shape == want.shape and got.dtype == want.dtype
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# -- C19: 0-d VarBases --------------------------------------------------------
+
+def _c19_values(pkg, device=None):
+    """The 0-d values C19 covers, made in ``pkg``'s dygraph mode: their
+    shapes and values."""
+    dy = pkg.dygraph
+    with dy.guard(*(() if device is None else (device,))):
+        made = {
+            "VarBase(np.float32(3))": dy.VarBase(np.float32(3)),
+            "VarBase(np.array(2.5))": dy.VarBase(np.array(2.5)),
+            "VarBase(int)": dy.VarBase(7),
+            "VarBase(bf16 0-d)": dy.VarBase(
+                np.array(1.5, dtype=ml_dtypes.bfloat16)),
+            "to_tensor(1.5)": pkg.tensor.to_tensor(1.5),
+            "to_variable(np.float32(3))": dy.to_variable(np.float32(3)),
+        }
+        return {k: (v.shape, np.asarray(v.numpy(), np.float64))
+                for k, v in made.items()}
+
+
+def test_c19_a_0d_value_stays_0d_in_varbase_and_as_tensor():
+    """A 0-d value makes a 0-d VarBase (np.ascontiguousarray gave it one
+    dimension), as in the reference: shapes and values equal."""
+    from paddle_tpu_torch.dygraph.varbase import as_tensor
+
+    want, got = _c19_values(pt), _c19_values(ptt, "cpu")
+    for k in want:
+        assert got[k][0] == want[k][0] == [], (k, got[k], want[k])
+        np.testing.assert_array_equal(got[k][1], want[k][1])
+    assert as_tensor(1.5, "cpu").shape == torch.Size([])
+    assert as_tensor(np.array(1.5, ml_dtypes.bfloat16), "cpu").shape == \
+        torch.Size([])
+
+
+C19_EXPRS = {
+    "s * 2.0": lambda s: s * 2.0,
+    "1.0 - s": lambda s: 1.0 - s,
+    "s / 3": lambda s: s / 3,
+    "s ** 2": lambda s: s ** 2,
+}
+
+
+def _c19_run(pkg, expr, device=None):
+    dy = pkg.dygraph
+    with dy.guard(*(() if device is None else (device,))):
+        x = dy.to_variable(np.arange(6, dtype=np.float32).reshape(2, 3))
+        s = x.sum()
+        one = dy.to_variable(np.array([1.5], np.float32))
+        out, kept = expr(s), expr(one)
+        try:
+            2 ** s
+            rpow = None
+        except TypeError as e:
+            rpow = type(e)
+        return (out.shape, out.numpy(), kept.shape, kept.numpy(), rpow)
+
+
+@pytest.mark.parametrize("name", sorted(C19_EXPRS))
+def test_c19_scalar_operands_keep_a_0d_result_0d(name):
+    """With s = x.sum() (shape []), a Python number on either side keeps
+    the result 0-d, and a [1] VarBase stays [1], as in the reference.
+    ``2 ** s`` raises TypeError in both packages: neither VarBase has
+    ``__rpow__``."""
+    want = _c19_run(pt, C19_EXPRS[name])
+    got = _c19_run(ptt, C19_EXPRS[name], "cpu")
+    assert got[0] == want[0] == [] and got[2] == want[2] == [1]
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-6)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-6)
+    assert got[4] is want[4] is TypeError
+
+
+# -- C20: pow at -0 and -inf ----------------------------------------------------
+
+C20_X = [-0.0, 0.0, -np.inf, np.inf, np.nan, -1.0, 4.0]
+C20_FACTORS = (0.5, -0.5, 2, 3, 0, -1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_c20_pow_takes_ieee_pow_at_negative_zero_and_infinity(dtype):
+    """``pow`` over [-0, 0, -inf, inf, nan, -1, 4] with factors 0.5,
+    -0.5, 2, 3, 0, -1: the reference's values bit for bit, the sign of
+    every zero included, NaN where it is NaN (its sign bit is not
+    compared) (torch took 0.5 as sqrt and -0.5 as rsqrt:
+    [-0, nan] and [-inf, nan] at [-0, -inf]). An integer X keeps its
+    integer power (factors 2 and 3, int32)."""
+    npdt = ml_dtypes.bfloat16 if dtype == "bfloat16" else np.float32
+    x = np.array(C20_X, npdt)
+    tx = torch.from_numpy(x.view(np.int16)).view(torch.bfloat16) \
+        if dtype == "bfloat16" else torch.from_numpy(x)
+    for factor in C20_FACTORS:
+        want = np.asarray(jax_registry.get("pow").forward(
+            {"X": [jnp.asarray(x)]}, {"factor": factor})["Out"],
+            np.float32)
+        got = pt_registry.get("pow").forward(
+            {"X": [tx]}, {"factor": factor})["Out"].float().numpy()
+        np.testing.assert_array_equal(got, want, err_msg=str(factor))
+        num = ~np.isnan(want)
+        assert np.array_equal(np.signbit(got[num]), np.signbit(want[num])), \
+            factor
+    # an integer X keeps its integer power
+    xi = np.array([-3, -1, 0, 2, 5], np.int32)
+    for factor in (2, 3):
+        want = np.asarray(jax_registry.get("pow").forward(
+            {"X": [jnp.asarray(xi)]}, {"factor": factor})["Out"])
+        got = pt_registry.get("pow").forward(
+            {"X": [torch.from_numpy(xi)]}, {"factor": factor})["Out"].numpy()
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+# -- C21: cumsum over axis None -------------------------------------------------
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.bool_])
+def test_c21_cumsum_of_axis_none_sums_x_flattened(dtype, reverse):
+    """``axis=None`` gives the running sum of X flattened (jnp.cumsum's
+    None), from the end with ``reverse``; ``flatten=True`` gives the
+    same; an integer or bool X sums in int32. Values, shapes and dtypes
+    equal to the reference's."""
+    x = (np.random.RandomState(21).randn(3, 4) * 4).astype(dtype)
+    for attrs in ({"axis": None, "reverse": reverse},
+                  {"axis": 0, "flatten": True, "reverse": reverse}):
+        want = np.asarray(_jax_op("cumsum", {"X": x}, attrs)["Out"][0])
+        got = _pt_op("cumsum", {"X": x}, attrs)["Out"][0].numpy()
+        assert got.shape == want.shape == (12,), attrs
+        assert got.dtype == want.dtype, (attrs, got.dtype, want.dtype)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
