@@ -297,9 +297,10 @@ The sixteenth slice (queue C's C12-C13 and the rest of A6) adds:
                launch and one route count a call; a key bias on the same
                op launches the kernel.
    run_steps_ernie — right after train_ernie_fleet: Executor.run_steps
-               over 4 stacked batches of ERNIE-large s512 b40 equals 4
-               run() calls bit for bit from one state, with 4 times a
-               step's flash and AdamW launches; both ms a step printed.
+               over 4 stacked batches of ERNIE-large s512 b40 (12 of its
+               24 layers, RUN_STEPS_LAYERS) equals 4 run() calls bit for
+               bit from one state, with 4 times a step's flash and AdamW
+               launches; both ms a step printed.
    train_word2vec_sparse — right after train_lenet: word2vec at its
                published widths, 100 000 words, b1024, through SGD,
                Momentum and lazy Adam on SelectedRows gradients
@@ -319,7 +320,8 @@ The seventeenth slice (the observability plane) adds:
                phases' requests over HTTP, then its run log after SIGTERM
                (observe_serve_int8 says what it holds).
    observe_train_ernie — right after run_steps_ernie: ERNIE-large s512
-               b40 compiled with the run-log sink off and on (cost capture
+               b40 (12 of its 24 layers, OBSERVE_LAYERS) compiled with
+               the run-log sink off and on (cost capture
                full, every span, a goodput window), the capture's flops
                against a fresh meta count, the report tools over the log,
                an OOM, and device_profile's attribution against the launch
@@ -334,6 +336,24 @@ and beam-search ops, the recurrent book models and VGG16) adds, last:
                outputs bit for bit, floats within glue_cases.CARD_TOL
                of their family, the worst error of each family printed; randint in
                range on the card.
+   linalg_extra_card — right after ops_glue_card: the linalg_ops and
+               extra_ops slice's programs (tools/linalg_extra_cases.py)
+               at the widths of the port's models, each op by op and as
+               one compiled step, bit for bit, captured with no
+               uncaptured run (but inverse): BERT-base's masked-LM loss by logsumexp + nll_loss
+               over [8192, 30522] logits and its gradient against
+               softmax_with_cross_entropy's (1e-5); cos_sim of two
+               [4096, 256] towers and auc streamed over 16 batches, the
+               stat vars the CPU's bit for bit, the AUC within 1e-6 of
+               the CPU's and of metric.Auc; scatter_nd of 8192 ids with
+               repeats and out-of-range ones into ERNIE-large's [18000,
+               1024] embedding, equal over three runs and within fp32
+               rounding of a float64 sum, and shard_index for 4 shards;
+               kthvalue, median and mode over [8192, 768] activations with
+               ties against the CPU; cholesky of [256, 64, 64] with one
+               member not positive definite (NaN fill on the device);
+               inverse of the same, whose step runs uncaptured (inv_ex
+               cannot be captured), counted. No port kernel on this path.
    train_seq2seq — seq2seq at Seq2SeqConfig's width (vocabularies 10000,
                embed 256, hidden 512, fp32, Adam lr 1e-3), batch 64,
                lengths 32, from synthetic_translation_batch seed 0:
@@ -5552,6 +5572,9 @@ W2V_LEGS = ("sgd", "momentum", "adam_lazy")
 UNFUSED_VS_FUSED_TOL = 1e-4
 # run_steps_ernie's k
 RUN_STEPS_K = 4
+# run_steps_ernie's depth: 12 of ERNIE-large's 24 layers (24 before the
+# linalg_extra_card phase took its seconds)
+RUN_STEPS_LAYERS = 12
 # dropout_2p32: one bf16 [65536, 65536] tensor (2^32 elements), its rate,
 # and the positions read back against the CPU's bits
 DROPOUT_BIG, DROPOUT_BIG_RATE, DROPOUT_SAMPLE = (65536, 65536), 0.1, 1 << 20
@@ -6027,16 +6050,18 @@ def flash_general_bias(dev, batch=32, rate=0.1):
 
 
 def run_steps_ernie(dev, smi, k=RUN_STEPS_K, batch_size=40):
-    """Executor.run_steps on ERNIE-large as train_ernie trains it (24
-    layers, bf16, s512, b40, dropout, AdamW), k = ``k``: the step's key
+    """Executor.run_steps on ERNIE-large as train_ernie trains it (bf16,
+    s512, b40, dropout, AdamW; RUN_STEPS_LAYERS of its 24 layers), k =
+    ``k``: the step's key
     warmed (its first run op by op, its second captured), the state put
     back, then from that one state ``k`` run() calls (k batches), the
     state put back again, and one run_steps over the same k batches
     stacked. Gates: the losses and one dropout mask a step, every
     parameter and moment, and the step counter, bit for bit; the flash
     forward, flash backward and AdamW launches of run_steps equal those
-    of the k run() calls, k times a step's (24, 24, 398). Prints the ms a
-    step of each (host clock, each ending in a synchronise)."""
+    of the k run() calls, k times a step's (one a layer each, and 14 +
+    16 a layer AdamW). Prints the ms a step of each (host clock, each
+    ending in a synchronise)."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.core import telemetry
     from paddle_tpu_torch.core.executor import STEP_COUNTER, Executor
@@ -6044,7 +6069,8 @@ def run_steps_ernie(dev, smi, k=RUN_STEPS_K, batch_size=40):
     from paddle_tpu_torch.models import bert
 
     t_phase = time.perf_counter()
-    cfg, main_prog, startup, fetches = _ernie_programs(24, "bfloat16")
+    layers = RUN_STEPS_LAYERS
+    cfg, main_prog, startup, fetches = _ernie_programs(layers, "bfloat16")
     n_adamw = sum(o.type == "adamw" for o in main_prog.global_block().ops)
     mask = next(o.outputs["Mask"][0] for o in main_prog.global_block().ops
                 if o.type == "dropout")
@@ -6095,11 +6121,11 @@ def run_steps_ernie(dev, smi, k=RUN_STEPS_K, batch_size=40):
                       for n, v in after_run.items())
     counter_equal = int(scope.find_var(STEP_COUNTER)) == step_run == \
         step0 + k
-    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
-                "fused_adamw": n_adamw}
+    per_step = {"flash_attention_fwd": layers,
+                "flash_attention_bwd": layers, "fused_adamw": n_adamw}
     launches_ok = all(counts["launches"][n] == run_counts[n] == k * c
                       for n, c in per_step.items())
-    emit("run_steps_ernie", model="ernie_large", layers=24, seq=SEQ,
+    emit("run_steps_ernie", model="ernie_large", layers=layers, seq=SEQ,
          batch=batch_size, k=k, losses_run=[_loss(w) for w in want],
          losses_run_steps=np.asarray(got[0], np.float32).reshape(
              -1).tolist(),
@@ -6113,7 +6139,8 @@ def run_steps_ernie(dev, smi, k=RUN_STEPS_K, batch_size=40):
               "run_steps once")
     exe.close()
     if not (fetch_equal and state_equal and counter_equal and launches_ok
-            and n_adamw == 398 and timer["count"] == hist0 + 1):
+            and n_adamw == 14 + 16 * layers
+            and timer["count"] == hist0 + 1):
         raise AssertionError(
             f"run_steps_ernie: fetches {fetch_equal}, state {state_equal}, "
             f"counter {counter_equal}, launches {counts['launches']} "
@@ -6184,6 +6211,9 @@ def dropout_2p32(dev, smi):
 # slots queue one, and the admission bound of 256 rejects none)
 OBSERVE_DIR = Path(__file__).resolve().parent / "build" / "torch_observe"
 OBSERVE_TIMED = 6
+# observe_train_ernie's depth: 12 of ERNIE-large's 24 layers (24 before
+# the linalg_extra_card phase took its seconds)
+OBSERVE_LAYERS = 12
 OBSERVE_OVERHEAD = 1.03
 OBSERVE_RULE = [{"name": "decode_queue", "metric": "decode.queue_depth",
                  "kind": "gauge", "threshold": 0.5, "direction": "above",
@@ -6217,7 +6247,8 @@ def _read_log(path):
 
 
 def observe_train_ernie(dev, smi, batch_size=40, timed=OBSERVE_TIMED):
-    """The observability plane over ERNIE-large s512 b40 (24 layers,
+    """The observability plane over ERNIE-large s512 b40 (OBSERVE_LAYERS of
+    its 24 layers,
     bf16, flash, dropout 0.1, AdamW), compiled. From one state: leg A,
     ``timed`` replays with the sink off; leg B, on a fresh Executor with
     the run-log sink on, cost capture ``full``, every root span sampled
@@ -6231,8 +6262,9 @@ def observe_train_ernie(dev, smi, batch_size=40, timed=OBSERVE_TIMED):
     one compile, cache hits = compiled runs - 1, the memcost, goodput
     and tracing sections; a fill_constant of 2^40 floats raising
     costmodel.OutOfMemoryError with one oom record, the next ERNIE step
-    finite; device_profile over 3 op-by-op steps attributing 24 flash
-    forward, 24 flash backward and 398 AdamW kernels a step to their op
+    finite; device_profile over 3 op-by-op steps attributing one flash
+    forward and one flash backward a layer and every AdamW kernel (14 +
+    16 a layer) a step to their op
     types, equal to the launch counters; costmodel.unavailable 0."""
     from paddle_tpu_torch import kernels, layers, profiler
     from paddle_tpu_torch.core import costmodel, flags, goodput, telemetry
@@ -6246,7 +6278,8 @@ def observe_train_ernie(dev, smi, batch_size=40, timed=OBSERVE_TIMED):
     OBSERVE_DIR.mkdir(parents=True, exist_ok=True)
     log = OBSERVE_DIR / "observe_train_ernie.jsonl"
     log.unlink(missing_ok=True)
-    cfg, main_prog, startup, fetches = _ernie_programs(24, "bfloat16")
+    cfg, main_prog, startup, fetches = _ernie_programs(OBSERVE_LAYERS,
+                                                       "bfloat16")
     fetch = [fetches["loss"].name]
     n_adamw = sum(o.type == "adamw" for o in main_prog.global_block().ops)
     scope = Scope()
@@ -6332,7 +6365,8 @@ def observe_train_ernie(dev, smi, batch_size=40, timed=OBSERVE_TIMED):
         flags.apply(prior)
     unavailable = telemetry.counter_get("costmodel.unavailable")
     # a fresh meta count of the same program, built anew
-    _, fresh_prog, _, fresh_fetches = _ernie_programs(24, "bfloat16")
+    _, fresh_prog, _, fresh_fetches = _ernie_programs(OBSERVE_LAYERS,
+                                                  "bfloat16")
     t0 = time.perf_counter()
     fresh = program_cost(fresh_prog, batch, [fresh_fetches["loss"].name],
                          scope)
@@ -6367,13 +6401,14 @@ def observe_train_ernie(dev, smi, batch_size=40, timed=OBSERVE_TIMED):
                   "flash_attention_bwd": traced("flash_attention_grad",
                                                 "flash_attention_bwd"),
                   "fused_adamw": traced("adamw", "fused_adamw")}
-    per_step = {"flash_attention_fwd": 24, "flash_attention_bwd": 24,
-                "fused_adamw": n_adamw}
+    per_step = {"flash_attention_fwd": OBSERVE_LAYERS,
+                "flash_attention_bwd": OBSERVE_LAYERS, "fused_adamw": n_adamw}
     a_p50, b_p50 = _pct(a_ms, 0.5), _pct(b_ms, 0.5)
     phases_sum = breakdown["productive_ms"] + sum(
         breakdown["phases"].values())
     compiled_runs = 1 + timed
-    emit("observe_train_ernie", model="ernie_large", layers=24, seq=SEQ,
+    emit("observe_train_ernie", model="ernie_large", layers=OBSERVE_LAYERS,
+         seq=SEQ,
          batch=batch_size, timed_steps=timed,
          leg_a_step_ms_p50=a_p50, leg_b_step_ms_p50=b_p50,
          leg_a_step_ms=a_ms, leg_b_step_ms=b_ms,
@@ -6636,8 +6671,9 @@ def _glue_diff(got, want, tol):
 
 # the op types of the glue cases: the math, tensor, RNN, sequence and
 # beam-search ops (104, randint among them), the CRF ops (4), the fused
-# RNN ops (5) and the tensor-array, rank-table and split/merge ops (8)
-GLUE_OP_TYPES = 104 + 4 + 5 + 8 + 36
+# RNN ops (5), the tensor-array, rank-table and split/merge ops (8), the
+# 2.0 API's (36), and linalg_ops' and extra_ops' (64)
+GLUE_OP_TYPES = 104 + 4 + 5 + 8 + 36 + 64
 
 
 def ops_glue_card(dev):
@@ -6705,6 +6741,294 @@ def ops_glue_card(dev):
                              f"{bad[:5]}, randint_ok {randint_ok}, "
                              f"{len(ops)} op types")
     return _phase_counts()
+
+
+def _compiled_leg(dev, prog, fetch, feed, scope, timed=0,
+                  return_numpy=True):
+    """``prog`` run as its compiled step on a fresh executor: the key's
+    first run goes op by op, its second builds the step (captured and
+    replayed, or run uncaptured where an op decides on the host), then
+    ``timed`` more runs (host ms each, synchronised). Returns (first
+    outputs, second outputs, captured, uncaptured runs, ms)."""
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.core.executor import Executor
+
+    exe = Executor(device=dev)
+    u0 = telemetry.counter_get("executor.uncaptured_steps")
+
+    def run():
+        return exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
+                       use_compiled=True, return_numpy=return_numpy)
+
+    first, second = run(), run()
+    ms = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    built = [c for by in exe._compiled[prog].values() for c in by.values()
+             if hasattr(c, "graph")]
+    captured = bool(built) and built[0].graph.graph is not None
+    uncaptured = telemetry.counter_get("executor.uncaptured_steps") - u0
+    exe.close()
+    return first, second, captured, uncaptured, ms
+
+
+def _same(a, b):
+    """Outputs equal bit for bit (shape, dtype, NaN where NaN), numpy or
+    torch."""
+    def one(x, y):
+        if isinstance(x, torch.Tensor):
+            if x.shape != y.shape or x.dtype != y.dtype:
+                return False
+            if x.is_floating_point():
+                return bool(((x == y) | (torch.isnan(x) & torch.isnan(y)))
+                            .all())
+            return bool(torch.equal(x, y))
+        x, y = np.asarray(x), np.asarray(y)
+        return x.shape == y.shape and x.dtype == y.dtype and \
+            np.array_equal(x, y, equal_nan=np.issubdtype(y.dtype,
+                                                         np.floating))
+    return len(a) == len(b) and all(one(x, y) for x, y in zip(a, b))
+
+
+def _rel_to_max(got, want):
+    """max |got - want| over max |want|, ignoring NaN."""
+    if isinstance(got, torch.Tensor):
+        d = (got - want).abs().nan_to_num(0.0)
+        return float(d.max() / want.abs().nan_to_num(0.0).max()
+                     .clamp(min=1e-30))
+    got, want = np.asarray(got), np.asarray(want)
+    return float(np.nanmax(np.abs(got - want))
+                 / max(float(np.nanmax(np.abs(want))), 1e-30))
+
+
+def linalg_extra_card(dev, vocab=30522, mlm_rows=64 * 128,
+                      towers=(4096, 256), auc_batches=16,
+                      table=(18000, 1024), n_ids=8192, act=(8192, 768),
+                      mats=(256, 64), nshards=4):
+    """The linalg_ops / extra_ops slice on the card at the widths of the
+    port's models (``tools/linalg_extra_cases.py``). Each leg runs op by
+    op and as one compiled step on a fresh executor, the two bit for
+    bit, the step captured into a CUDA graph with no uncaptured run (but
+    the inverse leg, below):
+    - mlm: BERT-base's masked-LM loss by logsumexp + nll_loss over
+      [b64 x s128, 30522] logits (about 1 GB, drawn on the card) and its
+      gradient, against softmax_with_cross_entropy's program on the same
+      logits (loss within 1e-5 relative, gradient within 1e-5 of its
+      largest magnitude); 5 runs of the captured step timed with only the
+      loss fetched;
+    - ctr: cos_sim of two [4096, 256] towers and auc (4095 thresholds)
+      streamed over 16 batches compiled, over the same batches op by op
+      and on the CPU: the stat vars bit for bit, the AUC within 1e-6 of
+      the CPU's and of metric.Auc in numpy;
+    - embedding: scatter_nd of 8192 ids (repeats, ids past the table,
+      negative ones) into ERNIE-large's [18000, 1024] table, equal over
+      three runs and within fp32 rounding of a float64 CPU sum (2^-20 of
+      each row's absolute sum), and shard_index for 4 shards bit for bit
+      the CPU's;
+    - order statistics: kthvalue, median and mode along the last axis of
+      [8192, 768] activations with ties, bit for bit the CPU's;
+    - cholesky of [256, 64, 64], member 1 not positive definite: its
+      factor NaN on and below the diagonal and 0 above, filled on the
+      device inside the captured step; within 1e-4 of the CPU's
+      (relative to the largest magnitude);
+    - inverse of the same: within 1e-4 of the CPU's; ``inv_ex`` cannot
+      be captured on CUDA, so the op decides on the host and its compiled
+      step runs uncaptured, counted once a run.
+    Prints each leg's errors, flags and seconds and the peak memory; no
+    port kernel runs here (launch counts 0)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.core import telemetry
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.metric import Auc
+    from paddle_tpu_torch.tools import control_flow_cases as cfc
+    from paddle_tpu_torch.tools import linalg_extra_cases as lec
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    P = cfc.port()
+    legs, problems = {}, []
+
+    def names(f):
+        return [v.name for v in f]
+
+    def op_by_op(prog, fetch, feed, device=dev, return_numpy=True):
+        return Executor(device=device).run(
+            prog, feed=feed, fetch_list=fetch, scope=Scope(),
+            use_compiled=False, return_numpy=return_numpy)
+
+    def gate(leg, ok, what):
+        if not ok:
+            problems.append(f"{leg}: {what}")
+
+    def compiled(leg, prog, fetch, feed, want, uncaptured=0, **kw):
+        first, second, captured, unc, _ = _compiled_leg(
+            dev, prog, fetch, feed, Scope(), **kw)
+        equal = _same(first, want) and _same(second, want)
+        legs[leg].update(captured=captured, uncaptured_runs=unc,
+                         compiled_equals_op_by_op=equal)
+        gate(leg, captured == (uncaptured == 0) and unc == uncaptured
+             and equal, f"captured {captured}, uncaptured {unc}, equal "
+             f"{equal}")
+
+    # -- mlm: BERT-base's masked-LM loss -----------------------------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    feed = {"logits": torch.randn(mlm_rows, vocab, device=dev,
+                                  generator=gen) * 2.0,
+            "label": torch.randint(0, vocab, (mlm_rows, 1), device=dev,
+                                   generator=gen)}
+    prog, _, fetch = cfc.build(P, lambda P: lec.mlm_nll(P, mlm_rows, vocab))
+    want = op_by_op(prog, names(fetch), feed, return_numpy=False)
+    ce_prog, _, ce_fetch = cfc.build(
+        P, lambda P: lec.mlm_softmax_ce(P, mlm_rows, vocab))
+    ce = op_by_op(ce_prog, names(ce_fetch), feed, return_numpy=False)
+    loss_rel = abs(float(want[0]) - float(ce[0])) / abs(float(ce[0]))
+    grad_rel = _rel_to_max(want[1], ce[1])
+    legs["mlm"] = dict(rows=mlm_rows, vocab=vocab, loss=float(want[0]),
+                       loss_softmax_ce=float(ce[0]), loss_rel_err=loss_rel,
+                       grad_err_rel_to_max=grad_rel)
+    gate("mlm", loss_rel <= 1e-5 and grad_rel <= 1e-5,
+         "against softmax_with_cross_entropy")
+    del ce
+    compiled("mlm", prog, names(fetch), feed, want, return_numpy=False)
+    # the step timed with only the loss fetched
+    ms = _compiled_leg(dev, prog, names(fetch)[:1], feed, Scope(),
+                       timed=5)[-1]
+    legs["mlm"].update(step_ms=ms, step_ms_p50=float(np.median(ms)),
+                       seconds=time.perf_counter() - t0)
+    del feed, want
+
+    # -- ctr: cos_sim towers and a streamed auc -----------------------------
+    t0 = time.perf_counter()
+    n, d = towers
+    feeds = lec.ctr_feeds(n, d, auc_batches)
+    prog, startup, fetch = cfc.build(P, lambda P: lec.ctr_auc(P, n, d))
+    runs = {}
+    for mode in ("cpu", "op_by_op", "compiled"):
+        device = "cpu" if mode == "cpu" else dev
+        exe, scope = Executor(device=device), Scope()
+        exe.run(startup, scope=scope)
+        u0 = telemetry.counter_get("executor.uncaptured_steps")
+        out = [exe.run(prog, feed=f, fetch_list=names(fetch), scope=scope,
+                       use_compiled=mode == "compiled") for f in feeds]
+        if mode == "compiled":
+            built = [c for by in exe._compiled[prog].values()
+                     for c in by.values() if hasattr(c, "graph")]
+            captured = bool(built) and built[0].graph.graph is not None
+            unc = telemetry.counter_get("executor.uncaptured_steps") - u0
+        exe.close()
+        runs[mode] = out
+    metric = Auc(num_thresholds=4095)
+    for f in feeds:
+        q, t = f["query"].astype(np.float64), f["item"].astype(np.float64)
+        cos = (q * t).sum(1) / np.maximum(
+            np.linalg.norm(q, axis=1) * np.linalg.norm(t, axis=1), 1e-12)
+        p = (cos * 0.5 + 0.5).astype(np.float32)
+        metric.update(np.stack([1 - p, p], 1), f["click"])
+    last = {m: r[-1] for m, r in runs.items()}
+    stats_equal = _same(last["compiled"][1:], last["cpu"][1:]) and \
+        _same(last["op_by_op"][1:], last["cpu"][1:])
+    equal = all(_same(a, b) for a, b in zip(runs["compiled"],
+                                            runs["op_by_op"]))
+    auc_card = float(last["compiled"][0])
+    auc_err_cpu = abs(auc_card - float(last["cpu"][0]))
+    auc_err_metric = abs(auc_card - metric.accumulate())
+    legs["ctr"] = dict(rows=n, width=d, batches=auc_batches,
+                       auc=auc_card, auc_metric=metric.accumulate(),
+                       auc_err_cpu=auc_err_cpu,
+                       auc_err_metric=auc_err_metric,
+                       stats_equal_cpu_bitwise=stats_equal,
+                       counted=float(last["compiled"][1].sum()
+                                     + last["compiled"][2].sum()),
+                       captured=captured, uncaptured_runs=unc,
+                       compiled_equals_op_by_op=equal,
+                       seconds=time.perf_counter() - t0)
+    gate("ctr", stats_equal and auc_err_cpu <= 1e-6 and
+         auc_err_metric <= 1e-6 and captured and unc == 0 and equal,
+         "stat vars, AUC or capture")
+    del feeds, runs
+
+    # -- embedding: scatter_nd and shard_index at ERNIE-large's table -------
+    t0 = time.perf_counter()
+    rows, width = table
+    feed = lec.embedding_feed(n_ids, rows, width)
+    prog, _, fetch = cfc.build(P, lambda P: lec.embedding_scatter(
+        P, n_ids, rows, width, nshards))
+    feed_dev = _feed_on(feed, dev)
+    want = op_by_op(prog, names(fetch), feed_dev)
+    again = op_by_op(prog, names(fetch), feed_dev)
+    cpu = op_by_op(prog, names(fetch), feed, device="cpu")
+    ref64 = lec.scatter_nd_float64(feed["ids"], feed["rows"], rows)
+    abs64 = lec.scatter_nd_float64(feed["ids"], np.abs(feed["rows"]), rows)
+    err = np.abs(want[0].astype(np.float64) - ref64)
+    within = bool((err <= abs64 * 2.0 ** -20).all())
+    legs["embedding"] = dict(table=[rows, width], ids=n_ids,
+                             repeated_rows=int(n_ids - np.unique(
+                                 feed["ids"]).size),
+                             dropped=int(((feed["ids"] >= rows) |
+                                          (feed["ids"] < -rows)).sum()),
+                             max_abs_err_float64=float(err.max()),
+                             within_fp32_rounding=within,
+                             repeat_runs_bitwise=_same(again, want),
+                             shards_equal_cpu=_same(want[1:], cpu[1:]))
+    gate("embedding", within and _same(again, want) and
+         _same(want[1:], cpu[1:]), "scatter_nd or shard_index")
+    compiled("embedding", prog, names(fetch), feed_dev, want)
+    legs["embedding"]["seconds"] = time.perf_counter() - t0
+    del feed, feed_dev, want, again, cpu, ref64, abs64, err
+
+    # -- order statistics over BERT-base activations with ties --------------
+    t0 = time.perf_counter()
+    feed = lec.order_stats_feed(*act)
+    prog, _, fetch = cfc.build(P, lambda P: lec.order_stats(P, *act))
+    want = op_by_op(prog, names(fetch), _feed_on(feed, dev))
+    cpu = op_by_op(prog, names(fetch), feed, device="cpu")
+    legs["order_stats"] = dict(shape=list(act),
+                               equal_cpu_bitwise=_same(want, cpu))
+    gate("order_stats", _same(want, cpu), "card against CPU")
+    compiled("order_stats", prog, names(fetch), _feed_on(feed, dev), want)
+    legs["order_stats"]["seconds"] = time.perf_counter() - t0
+
+    # -- cholesky and inverse ------------------------------------------------
+    b, m = mats
+    feed = lec.linalg_feed(b, m, bad=1)
+    for op in ("cholesky", "inverse"):
+        t0 = time.perf_counter()
+        prog, _, fetch = cfc.build(P, lambda P: lec.linalg(P, b, m, op))
+        want = op_by_op(prog, names(fetch), _feed_on(feed, dev))
+        cpu = op_by_op(prog, names(fetch), feed, device="cpu")
+        err = _rel_to_max(want[0], cpu[0])
+        legs[op] = dict(shape=[b, m, m], not_pd_member=1,
+                        err_rel_to_max_cpu=err)
+        ok = err <= 1e-4
+        if op == "cholesky":
+            low = np.tril(np.ones((m, m), bool))
+            fill = bool(np.isnan(want[0][1][low]).all() and
+                        (want[0][1][~low] == 0).all() and
+                        np.isfinite(np.delete(want[0], 1, axis=0)).all())
+            legs[op]["nan_fill"] = fill
+            ok = ok and fill
+        gate(op, ok, f"error {err} or NaN fill")
+        # a step holding inverse runs uncaptured: its second run
+        compiled(op, prog, names(fetch), _feed_on(feed, dev), want,
+                 uncaptured=int(op == "inverse"))
+        legs[op]["seconds"] = time.perf_counter() - t0
+
+    counts = _phase_counts()
+    launched = {k: v for k, v in counts["launches"].items() if v}
+    emit("linalg_extra_card", legs=legs, port_kernel_launches=launched,
+         peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+         seconds=time.perf_counter() - t_phase)
+    if problems or launched:
+        raise AssertionError(f"linalg_extra_card: {problems}; port kernel "
+                             f"launches {launched}")
+    return counts
 
 
 def _feed_on(batch, device):
@@ -8268,6 +8592,9 @@ def main():
     runs["dropout_2p32"] = dropout_2p32(dev, smi)
     _release()
     runs["ops_glue_card"] = ops_glue_card(dev)
+    _release()
+    runs["linalg_extra_card"] = linalg_extra_card(dev)
+    _release()
     runs["train_seq2seq"], s2s_cfg, s2s_scope = train_seq2seq(dev, smi)
     runs["decode_seq2seq"] = decode_seq2seq(dev, s2s_cfg, s2s_scope)
     del s2s_scope

@@ -9,8 +9,6 @@ the primary one, as the reference's ``generate_layer_fn`` does."""
 
 from __future__ import annotations
 
-from ..core import unique_name
-from ..core.ir import default_main_program
 from ..layer_helper import LayerHelper
 
 __all__ = []
@@ -60,8 +58,11 @@ TABLE = [
     ("hard_shrink", "hard_shrink", ["X"], ["Out"]),
     ("hard_sigmoid", "hard_sigmoid", ["X"], ["Out"]),
     ("hard_swish", "hard_swish", ["X"], ["Out"]),
+    ("mish", "mish", ["X"], ["Out"]),
+    ("stanh", "stanh", ["X"], ["Out"]),
     ("logical_not", "logical_not", ["X"], ["Out"]),
     ("isfinite", "isfinite", ["X"], ["Out"]),
+    ("reverse", "reverse", ["X"], ["Out"]),
     ("reduce_all", "reduce_all", ["X"], ["Out"]),
     ("reduce_any", "reduce_any", ["X"], ["Out"]),
     ("logical_and", "logical_and", ["X", "Y"], ["Out"]),
@@ -72,19 +73,28 @@ TABLE = [
     ("elementwise_floordiv", "elementwise_floordiv", ["X", "Y"], ["Out"]),
     ("gather_nd", "gather_nd", ["X", "Index"], ["Out"]),
     ("scatter", "scatter", ["X", "Ids", "Updates"], ["Out"]),
+    ("scatter_nd", "scatter_nd", ["Index", "Updates"], ["Out"]),
+    ("multiplex", "multiplex", ["X", "Ids"], ["Out"]),
     ("gather_tree", "gather_tree", ["Ids", "Parents"], ["Out"]),
     ("shape", "shape", ["Input"], ["Out"]),
+    ("size", "size", ["Input"], ["Out"]),
+    ("diag", "diag", ["Diagonal"], ["Out"]),
     ("strided_slice", "strided_slice", ["Input"], ["Out"]),
+    ("pad_constant_like", "pad_constant_like", ["X", "Y"], ["Out"]),
+    ("expand_as", "expand_as", ["X", "target_tensor"], ["Out"]),
+    ("shard_index", "shard_index", ["X"], ["Out"]),
     ("uniform_random", "uniform_random", [], ["Out"]),
     ("gaussian_random", "gaussian_random", [], ["Out"]),
     ("fill_constant_batch_size_like", "fill_constant_batch_size_like",
      ["Input"], ["Out"]),
     ("pad2d", "pad2d", ["X"], ["Out"]),
     ("lrn", "lrn", ["X"], ["Out", "MidOut"], "Out"),
+    ("rank_loss", "rank_loss", ["Label", "Left", "Right"], ["Out"]),
     ("margin_rank_loss", "margin_rank_loss", ["Label", "X1", "X2"],
      ["Out", "Activated"], "Out"),
     ("huber_loss", "huber_loss", ["X", "Y"], ["Out", "Residual"], "Out"),
     ("kldiv_loss", "kldiv_loss", ["X", "Target"], ["Loss"]),
+    ("log_loss", "log_loss", ["Predicted", "Labels"], ["Loss"]),
     ("lstm", "lstm",
      ["Input", "WeightX", "WeightH", "Bias", "H0", "C0", "SequenceLength"],
      ["Out", "LastH", "LastC"], "Out"),
@@ -118,6 +128,7 @@ TABLE = [
      ["Out", "OutLength"], "Out"),
     ("sequence_softmax", "sequence_softmax", ["X", "Lod"], ["Out"]),
     ("sequence_unpad", "sequence_unpad", ["X", "Length"], ["Out"]),
+    ("unbind", "unbind", ["X"], ["Out"]),
 ]
 
 for _row in TABLE:
@@ -137,51 +148,24 @@ def _aw(x, i, array, name=None):
 _register("array_write", _aw)
 
 
-# --- the reference's aliases from its paddle.tensor / nn.functional -----
+# --- the reference's aliases: its paddle.tensor and nn.functional names
+# that fluid.layers also carries (the same callables) ----------------------
 
-def _static_op(op_type, ins, attrs, out_slot="Out"):
-    """One op with one output var named after the op and slot, as the
-    reference's functional ``_op`` appends it in a static program."""
-    block = default_main_program().current_block()
-    out = block.create_var(name=unique_name.generate(
-        f"{op_type}.{out_slot.lower()}"))
-    block.append_op(op_type, ins, {out_slot: [out]}, dict(attrs))
-    return out
+def _install_aliases():
+    from .. import tensor as _tensor
+    from ..nn import functional as _F
 
-
-def argsort(x, axis=-1, descending=False):
-    return _static_op("argsort", {"X": [x]},
-                      {"axis": axis, "descending": descending},
-                      out_slot="Indices")
-
-
-def cumsum(x, axis=-1):
-    return _static_op("cumsum", {"X": [x]}, {"axis": axis})
+    for name in ("argsort", "cumsum", "eye", "linspace", "pow", "argmin",
+                 "triu", "unique", "unbind", "unstack", "gather_tree"):
+        if name not in globals() and hasattr(_tensor, name):
+            _register(name, getattr(_tensor, name))
+    for name in ("elu", "relu6", "selu", "softshrink", "thresholded_relu",
+                 "pixel_shuffle", "mse_loss", "group_norm", "pad"):
+        if name not in globals() and hasattr(_F, name):
+            _register(name, getattr(_F, name))
 
 
-def pow(x, y):
-    if isinstance(y, (int, float)):
-        return _static_op("pow", {"X": [x]}, {"factor": float(y)})
-    return _static_op("elementwise_pow", {"X": [x], "Y": [y]}, {})
-
-
-def argmin(x, axis=None):
-    if axis is None:
-        x = _static_op("reshape2", {"X": [x]}, {"shape": [-1]})
-        axis = 0
-    return _static_op("arg_min", {"X": [x]}, {"axis": axis})
-
-
-def elu(x, alpha=1.0, name=None):
-    return _static_op("elu", {"X": x}, {"alpha": alpha})
-
-
-def relu6(x, name=None):
-    return _static_op("relu6", {"X": x}, {"threshold": 6.0})
-
-
-for _fn in (argsort, cumsum, pow, argmin, elu, relu6):
-    _register(_fn.__name__, _fn)
+_install_aliases()
 
 
 # --- hand compositions over layers (the reference writes them so) -------
@@ -200,6 +184,11 @@ def _compose():
 
     _register("has_nan", has_nan)
     _register("has_inf", has_inf)
+
+    def rank(input, name=None):
+        return L.fill_constant([1], "int32", len(input.shape or ()))
+
+    _register("rank", rank)
 
     def range_(start, end, step, dtype="int64", name=None):
         def as_var(v):
@@ -274,10 +263,58 @@ def _compose():
 
     _register("mean_iou", mean_iou)
 
+    def case(pred_fn_pairs, default=None, name=None):
+        """Nested ``cond`` over the ordered (pred, fn) pairs; without a
+        default the last pair's fn runs both ways."""
+        from .control_flow import cond as _cond
+
+        def build(pairs):
+            (pred, fn) = pairs[0]
+            if len(pairs) == 1:
+                if default is None:
+                    return _cond(pred, fn, fn)
+                return _cond(pred, fn, default)
+            return _cond(pred, fn, lambda: build(pairs[1:]))
+
+        return build(list(pred_fn_pairs))
+
+    _register("case", case)
+
+    def switch_case(branch_index, branch_fns, default=None, name=None):
+        """``case`` on branch_index == i (int64 constants), in the order
+        of the sorted keys."""
+        items = sorted(branch_fns.items()) if isinstance(branch_fns, dict) \
+            else list(branch_fns)
+        pairs = [(L.equal(branch_index,
+                          L.fill_constant([1], "int64", float(i))), fn)
+                 for i, fn in items]
+        return case(pairs, default=default)
+
+    _register("switch_case", switch_case)
+
     def array_length(array, name=None):
         return L.slice(globals()["shape"](array), [0], [0], [1])
 
     _register("array_length", array_length)
+
+    def prelu(x, mode="all", param_attr=None, name=None):
+        """A learnable slope: one ('all'), one a channel ('channel') or
+        one an element ('element')."""
+        helper = LayerHelper("prelu", name=name)
+        if mode == "all":
+            shape = [1]
+        elif mode == "channel":
+            shape = [int(x.shape[1])]
+        else:
+            shape = [int(d) for d in x.shape[1:]]
+        alpha = helper.create_parameter(param_attr, shape, x.dtype)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op("prelu", {"X": [x], "Alpha": [alpha]},
+                         {"Out": [out]}, {"mode": mode})
+        return out
+
+    if "prelu" not in globals():
+        _register("prelu", prelu)
 
     def soft_relu(x, threshold=40.0, name=None):
         return L.log(1.0 + L.exp(L.clip(x, -float(threshold),

@@ -39,7 +39,8 @@ __all__ = ["data", "static_data", "create_parameter", "create_global_var",
            "split", "stack", "flatten", "expand", "where", "argmax",
            "zeros", "ones", "zeros_like", "ones_like",
            "scale", "fill_constant", "take_along_axis", "flash_attention",
-           "conv2d", "pool2d", "batch_norm", "accuracy", "softmax", "cast",
+           "conv2d", "conv2d_transpose", "pool2d", "batch_norm",
+           "instance_norm", "cos_sim", "auc", "accuracy", "softmax", "cast",
            "one_hot", "label_smooth", "concat",
            "lstm_unit_layer", "gru_layer", "sequence_mask", "sequence_pool",
            "linear_chain_crf", "crf_decoding", "ctc_greedy_decoder",
@@ -582,6 +583,34 @@ def conv2d(input: Variable, num_filters: int, filter_size, stride=1,
     return helper.append_activation(out, act)
 
 
+def conv2d_transpose(input: Variable, num_filters: int, filter_size,
+                     stride=1, padding=0, dilation=1, groups: int = 1,
+                     param_attr=None, bias_attr=None, act=None,
+                     name=None) -> Variable:
+    """A transposed NCHW conv with an [C_in, num_filters / groups, kh, kw]
+    filter (Xavier by default), then an optional bias on the channel axis
+    and an activation (reference ``paddle_tpu/layers/nn.py:156``)."""
+    helper = LayerHelper("conv2d_transpose", name=name)
+    c_in = input.shape[1]
+    fsize = _pair(filter_size)
+    w = helper.create_parameter(
+        param_attr, [c_in, num_filters // groups, fsize[0], fsize[1]],
+        input.dtype, default_initializer=Xavier())
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op("conv2d_transpose", {"Input": [input], "Filter": [w]},
+                     {"Output": [out]},
+                     {"strides": _pair(stride), "paddings": _pair(padding),
+                      "dilations": _pair(dilation), "groups": groups})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        pre = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", {"X": [out], "Y": [b]},
+                         {"Out": [pre]}, {"axis": 1})
+        out = pre
+    return helper.append_activation(out, act)
+
+
 def pool2d(input: Variable, pool_size=2, pool_type: str = "max",
            pool_stride=None, pool_padding=0, global_pooling: bool = False,
            ceil_mode: bool = False, exclusive: bool = True,
@@ -988,6 +1017,59 @@ def edit_distance(input, label, normalized=True, input_length=None,
                      {"Out": [out], "SequenceNum": [sn]},
                      {"normalized": bool(normalized)})
     return out, sn
+
+
+def cos_sim(X, Y, name=None):
+    """Row-wise cosine similarity of X and Y (the cos_sim op; its XNorm
+    and YNorm are created and not returned)."""
+    helper = LayerHelper("cos_sim", name=name)
+    out = helper.create_variable_for_type_inference(X.dtype)
+    xn = helper.create_variable_for_type_inference(X.dtype)
+    yn = helper.create_variable_for_type_inference(X.dtype)
+    helper.append_op("cos_sim", {"X": [X], "Y": [Y]},
+                     {"Out": [out], "XNorm": [xn], "YNorm": [yn]}, {})
+    return out
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    """Per-(N, C) normalisation with a [C] scale (ones) and bias."""
+    helper = LayerHelper("instance_norm", name=name)
+    c = int(input.shape[1])
+    scale = helper.create_parameter(param_attr or ParamAttr(), [c],
+                                    input.dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr or ParamAttr(), [c],
+                                   input.dtype, is_bias=True)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    sm = helper.create_variable_for_type_inference(input.dtype, True)
+    sv = helper.create_variable_for_type_inference(input.dtype, True)
+    helper.append_op("instance_norm",
+                     {"X": [input], "Scale": [scale], "Bias": [bias]},
+                     {"Y": [out], "SavedMean": [sm], "SavedVariance": [sv]},
+                     {"epsilon": epsilon})
+    return out
+
+
+def auc(input, label, num_thresholds=4095, name=None):
+    """Streaming AUC: the auc op over two persistable float32 stat vars
+    of num_thresholds + 1 buckets, zeroed by the startup program and
+    updated in place each run. Returns (auc, [stat_pos, stat_neg])."""
+    helper = LayerHelper("auc", name=name)
+    pos = create_global_var([num_thresholds + 1], 0.0, "float32",
+                            persistable=True,
+                            name=unique_name.generate("auc_stat_pos"))
+    neg = create_global_var([num_thresholds + 1], 0.0, "float32",
+                            persistable=True,
+                            name=unique_name.generate("auc_stat_neg"))
+    out = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op("auc",
+                     {"Predict": [input], "Label": [label],
+                      "StatPos": [pos], "StatNeg": [neg]},
+                     {"AUC": [out], "StatPosOut": [pos],
+                      "StatNegOut": [neg]},
+                     {"num_thresholds": num_thresholds})
+    return out, [pos, neg]
 
 
 def increment(x: Variable, value: float = 1.0, in_place: bool = True

@@ -4,8 +4,9 @@ of the ResNet classifier program, of the WMT Transformer program and of
 the inference programs the predictor's passes rewrite, of the fleet
 training chain (loss scaling, clips, regularizers, LAMB/LARS,
 recomputed segments), every op type of the reference's math, tensor,
-RNN, sequence, beam-search, CRF, fused-RNN and control-flow modules, and
-the op types the 2.0 API (``nn``, ``tensor``, the 2.0 optimizers) calls."""
+RNN, sequence, beam-search, CRF, fused-RNN, control-flow, linalg and
+extra modules, and the op types the 2.0 API (``nn``, ``tensor``, the 2.0
+optimizers) calls."""
 
 from . import (amp_ops, attention_ops, beam_search_ops,  # noqa: F401
                control_flow_ops, crf_ops, extra_ops, extra_ops2, extra_ops4,

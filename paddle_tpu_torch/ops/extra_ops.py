@@ -1,9 +1,17 @@
 """Lowerings the reference keeps in ``paddle_tpu/ops/extra_ops.py``:
-take_along_axis :251, and the 2.0 API's tail: sin :30, selu :56, brelu
-:77, thresholded_relu :86, tanh_shrink :95, softshrink :103, hard_shrink
-:113, eye :133, linspace :145, index_select :183, flip :200, roll :208,
-bce_loss :325, margin_rank_loss :355, instance_norm :386 and
-broadcast_to :220 (with its alias expand_as_v2)."""
+every op type of it but ``diag_v2``, which the reference's
+``linalg_ops`` registers after it (``linalg_ops.py`` here). The unary
+table :19-35, atan2 :38, the activations :46-125, eye :133, linspace
+:145, meshgrid :160, index_select :183, index_sample :191, flip :200,
+roll :208, broadcast_to :220 (with its alias expand_as_v2), unbind :230,
+kron :240, take_along_axis :251, put_along_axis :260, cos_sim :283,
+dist :298, the losses :314-383, instance_norm :386, norm :412 and auc
+:427.
+
+No lowering reads a tensor on the host. Repeated indices of
+``put_along_axis`` resolve as on the CPU with no write order of the
+card deciding them: ``assign`` keeps the last update, ``add`` sums in
+order (``tensor_ops.ordered_index_sum``)."""
 
 from __future__ import annotations
 
@@ -12,7 +20,7 @@ import torch
 from ..core.registry import creation_device, register_op
 from ..core.types import to_torch_dtype, x64_off
 from .math_ops import tie_clip
-from .tensor_ops import take_fill
+from .tensor_ops import ordered_index_sum, take_fill, unstack
 
 
 @register_op("take_along_axis", non_diff_inputs=("Index",))
@@ -229,3 +237,284 @@ def broadcast_to(ins, attrs):
         shape = ins["Y"][0].shape
     return {"Out": torch.broadcast_to(x, tuple(int(s) for s in shape))
             .contiguous()}
+
+
+# -- the unary table and atan2 (reference :19-43) -----------------------------
+
+def _log10(x):
+    """``jnp.log10``: log(x) / log(10) in x's dtype."""
+    return torch.log(x) / torch.log(torch.full((), 10.0, dtype=x.dtype,
+                                               device=x.device))
+
+
+_UNARY = {"asin": torch.asin, "acos": torch.acos, "atan": torch.atan,
+          "sinh": torch.sinh, "cosh": torch.cosh, "tan": torch.tan,
+          "expm1": torch.expm1, "log1p": torch.log1p, "log10": _log10,
+          "atanh": torch.atanh,
+          "asinh": torch.asinh, "acosh": torch.acosh}
+
+
+def _unary(fn):
+    """An elementwise lowering; an integer X in float32, as jnp's."""
+    def lowering(ins, attrs):
+        x = ins["X"][0]
+        return {"Out": fn(x if x.is_floating_point() else x.float())}
+
+    return lowering
+
+
+for _name, _fn in _UNARY.items():
+    register_op(_name)(_unary(_fn))
+
+
+@register_op("trunc")
+def trunc(ins, attrs):
+    """``jnp.trunc``: an integer X comes back as it is."""
+    x = ins["X"][0]
+    return {"Out": torch.trunc(x) if x.is_floating_point() else x}
+
+
+@register_op("atan2")
+def atan2(ins, attrs):
+    """arctan2(X1, X2); integers in float32."""
+    x1, x2 = ins["X1"][0], ins["X2"][0]
+    if not x1.is_floating_point():
+        x1 = x1.float()
+    if not x2.is_floating_point():
+        x2 = x2.float()
+    return {"Out": torch.atan2(x1, x2)}
+
+
+def _softplus(x):
+    """``jax.nn.softplus``, i.e. logaddexp(x, 0)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+@register_op("mish")
+def mish(ins, attrs):
+    x = ins["X"][0]
+    return {"Out": x * torch.tanh(_softplus(x))}
+
+
+@register_op("celu")
+def celu(ins, attrs):
+    x = ins["X"][0]
+    a = float(attrs.get("alpha", 1.0))
+    return {"Out": torch.where(x > 0, x, a * (torch.exp(x / a) - 1.0))}
+
+
+@register_op("stanh")
+def stanh(ins, attrs):
+    x = ins["X"][0]
+    a = float(attrs.get("scale_a", 0.67))
+    b = float(attrs.get("scale_b", 1.7159))
+    return {"Out": b * torch.tanh(a * x)}
+
+
+# -- tensor manipulation (reference :160-280) ---------------------------------
+
+@register_op("meshgrid")
+def meshgrid(ins, attrs):
+    """The 'ij' grids of the 1-D inputs, each in its own dtype (where
+    ``torch.meshgrid`` wants one dtype for all)."""
+    xs = ins["X"]
+    shape = [x.numel() for x in xs]
+    outs = []
+    for i, x in enumerate(xs):
+        view = [1] * len(xs)
+        view[i] = -1
+        outs.append(x.reshape(view).expand(shape).contiguous())
+    return {"Out": outs}
+
+
+@register_op("index_sample", non_diff_inputs=("Index",))
+def index_sample(ins, attrs):
+    """take_along_axis on axis 1 (the fill for an out-of-range index,
+    as ``take_along_axis``)."""
+    return {"Out": take_along_axis(
+        {"Input": ins["X"], "Index": ins["Index"]}, {"Axis": 1})["Result"]}
+
+
+@register_op("unbind")
+def unbind(ins, attrs):
+    return {"Out": unstack(ins, attrs)["Y"]}
+
+
+@register_op("kron")
+def kron(ins, attrs):
+    return {"Out": torch.kron(ins["X"][0], ins["Y"][0])}
+
+
+@register_op("put_along_axis", non_diff_inputs=("Index",))
+def put_along_axis(ins, attrs):
+    """Input with Value written at Index along ``Axis`` (every other dim
+    at Index's own positions), as ``x.at[...]`` on the CPU: an index
+    wraps once if negative, one still outside the axis (or a position
+    past Input's extent on another dim) is dropped. ``Reduce`` 'assign'
+    (the default) keeps the last of repeated positions, found by a max
+    over positions; 'add' sums them in order. Value broadcasts to
+    Index's shape and takes Input's dtype."""
+    x, idx, v = ins["Input"][0], ins["Index"][0], ins["Value"][0]
+    axis = int(attrs.get("Axis", 0)) % x.dim()
+    reduce = attrs.get("Reduce", "assign")
+    n = x.shape[axis]
+    idx = idx.long()
+    idx = torch.where(idx < 0, idx + n, idx)
+    valid = (idx >= 0) & (idx < n)
+    lin = torch.zeros(idx.shape, dtype=torch.int64, device=idx.device)
+    for d in range(x.dim()):
+        if d == axis:
+            c = idx
+        else:
+            shape = [1] * idx.dim()
+            shape[d] = idx.shape[d]
+            c = torch.arange(idx.shape[d], device=idx.device).reshape(shape)
+            valid = valid & (c < x.shape[d])
+        lin = lin * x.shape[d] + c
+    total = x.numel()
+    tgt = torch.where(valid, lin, total).reshape(-1)
+    vals = torch.broadcast_to(v, idx.shape).to(x.dtype).reshape(-1)
+    flat = x.reshape(-1)
+    if reduce == "add":
+        return {"Result": (flat + ordered_index_sum(vals, tgt, total))
+                .reshape(x.shape)}
+    pos = torch.arange(tgt.shape[0], device=tgt.device)
+    last = torch.full((total + 1,), -1, dtype=torch.int64,
+                      device=tgt.device).scatter_reduce(
+        0, tgt, pos, "amax")[:total]
+    out = torch.where(last >= 0, vals.index_select(0, last.clamp(0)), flat)
+    return {"Result": out.reshape(x.shape)}
+
+
+# -- similarity, distance and losses (reference :283-383) --------------------
+
+@register_op("cos_sim")
+def cos_sim(ins, attrs):
+    """Row-wise cosine similarity in float32 (Y [1, D] broadcasts), the
+    product of the norms floored at 1e-12; Out in X's dtype, XNorm and
+    YNorm [N, 1] float32."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xf = x.float()
+    yf = torch.broadcast_to(y, x.shape).float()
+    xn = torch.sqrt((xf * xf).sum(dim=-1, keepdim=True))
+    yn = torch.sqrt((yf * yf).sum(dim=-1, keepdim=True))
+    out = (xf * yf).sum(dim=-1, keepdim=True) / \
+        torch.clamp(xn * yn, min=1e-12)
+    return {"Out": out.to(x.dtype), "XNorm": xn, "YNorm": yn}
+
+
+@register_op("dist")
+def dist(ins, attrs):
+    """The p-norm of X - Y in float32, a 0-d: max |d| at p = inf, the
+    count of non-zeros at p = 0."""
+    x, y = ins["X"][0], ins["Y"][0]
+    p = float(attrs.get("p", 2.0))
+    d = (x - y).reshape(-1).float()
+    if p == float("inf"):
+        out = torch.abs(d).max()
+    elif p == 0:
+        out = (d != 0).sum().float()
+    else:
+        out = (torch.abs(d) ** p).sum() ** (1.0 / p)
+    return {"Out": out.reshape(())}
+
+
+@register_op("log_loss", non_diff_inputs=("Labels",))
+def log_loss(ins, attrs):
+    pred, label = ins["Predicted"][0], ins["Labels"][0]
+    eps = float(attrs.get("epsilon", 1e-4))
+    return {"Loss": -label * torch.log(pred + eps)
+            - (1.0 - label) * torch.log(1.0 - pred + eps)}
+
+
+@register_op("hinge_loss", non_diff_inputs=("Labels",))
+def hinge_loss(ins, attrs):
+    """max(0, 1 - (2 label - 1) logits), with jnp.maximum's gradient (half
+    at the tie)."""
+    logits, label = ins["Logits"][0], ins["Labels"][0]
+    return {"Loss": tie_clip(1.0 - (2.0 * label - 1.0) * logits, 0.0)}
+
+
+@register_op("rank_loss", non_diff_inputs=("Label",))
+def rank_loss(ins, attrs):
+    """softplus(left - right) - label * (left - right)."""
+    label, left, right = ins["Label"][0], ins["Left"][0], ins["Right"][0]
+    d = left - right
+    return {"Out": _softplus(d) - label * d}
+
+
+@register_op("nll_loss", non_diff_inputs=("Label",))
+def nll_loss(ins, attrs):
+    """-X[i, label[i]] over [N, C] log-probabilities, reduced by
+    ``reduction`` ('mean', 'sum', else none); Total_weight is N as
+    float32. A label outside [0, C) takes ``take_along_axis``'s fill
+    (NaN), as in the reference. The reference's lowering drops a
+    ``Weight`` input and a non-default ``ignore_index``, either of which
+    would change the result, so both raise NotImplementedError here."""
+    x, label = ins["X"][0], ins["Label"][0]
+    if ins.get("Weight") and ins["Weight"][0] is not None:
+        raise NotImplementedError("nll_loss: a Weight input is dropped by "
+                                  "the reference's lowering")
+    if int(attrs.get("ignore_index", -100)) != -100:
+        raise NotImplementedError("nll_loss: ignore_index is dropped by "
+                                  "the reference's lowering")
+    reduction = attrs.get("reduction", "mean")
+    picked = -take_along_axis({"Input": [x],
+                               "Index": [label.reshape(-1, 1)]},
+                              {"Axis": 1})["Result"][:, 0]
+    total = torch.full((), float(picked.numel()), dtype=torch.float32,
+                       device=x.device)
+    if reduction == "mean":
+        out = picked.mean()
+    elif reduction == "sum":
+        out = picked.sum()
+    else:
+        out = picked
+    return {"Out": out, "Total_weight": total}
+
+
+@register_op("norm")
+def norm(ins, attrs):
+    """l2_normalize along ``axis``: X / sqrt(sum(X^2) + epsilon), the sum
+    in float32; Norm float32."""
+    x = ins["X"][0]
+    axis = int(attrs.get("axis", -1))
+    eps = float(attrs.get("epsilon", 1e-10))
+    nrm = torch.sqrt(torch.square(x.float()).sum(dim=axis, keepdim=True)
+                     + eps)
+    return {"Out": (x / nrm).to(x.dtype), "Norm": nrm}
+
+
+# -- the streaming AUC (reference :427) --------------------------------------
+
+@register_op("auc", non_diff_inputs=("Predict", "Label", "StatPos",
+                                     "StatNeg"))
+def auc(ins, attrs):
+    """ROC AUC over ``num_thresholds`` buckets of Predict[:, -1]: this
+    batch's positive and negative counts added to StatPos and StatNeg
+    (returned as StatPosOut, StatNegOut), the area by trapezoids from the
+    top bucket down, 0 when either class is empty. A bucket is
+    int(p * num_thresholds) clipped to [0, num_thresholds], with NaN in
+    bucket 0 (clipped in float first, so an overflowing product lands at
+    an end, as the reference's saturating conversion puts it). Counts are
+    whole numbers in float32, exact in any order below 2^24."""
+    pred, label = ins["Predict"][0], ins["Label"][0].reshape(-1)
+    stat_pos, stat_neg = ins["StatPos"][0], ins["StatNeg"][0]
+    num_t = int(attrs.get("num_thresholds", 4095))
+    scaled = pred[:, -1].float() * num_t
+    bucket = torch.where(torch.isnan(scaled), 0.0,
+                         scaled.clamp(0, num_t)).to(torch.int64)
+    is_pos = (label > 0).to(stat_pos.dtype)
+    stat_pos = stat_pos + torch.zeros_like(stat_pos).index_add(
+        0, bucket, is_pos)
+    stat_neg = stat_neg + torch.zeros_like(stat_neg).index_add(
+        0, bucket, 1.0 - is_pos)
+    tot_pos = torch.cumsum(stat_pos.flip(0), 0)
+    tot_neg = torch.cumsum(stat_neg.flip(0), 0)
+    zero = tot_pos.new_zeros(1)
+    area = ((tot_neg - torch.cat([zero, tot_neg[:-1]]))
+            * (torch.cat([zero, tot_pos[:-1]]) + tot_pos) / 2.0).sum()
+    denom = tot_pos[-1] * tot_neg[-1]
+    value = torch.where(denom > 0, area / torch.clamp(denom, min=1.0), 0.0)
+    return {"AUC": value.float().reshape(()), "StatPosOut": stat_pos,
+            "StatNegOut": stat_neg}

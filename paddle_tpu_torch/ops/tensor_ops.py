@@ -243,9 +243,9 @@ def gather(ins, attrs):
 
 class _Lookup(torch.autograd.Function):
     """Rows of ``w`` gathered by the flat int64 ``ids``, with a gradient
-    that sums each row's cotangents in a fixed order: the ids sorted
-    stably, then one float32 segment sum a row (``segment_reduce``), cast
-    to the table's dtype. Two runs, op by op or replayed from a CUDA
+    that sums each row's cotangents in a fixed order
+    (``ordered_index_sum``: the ids sorted stably, then one float32
+    segment sum a row, cast to the table's dtype). Two runs, op by op or replayed from a CUDA
     graph, give the same bits. The gradient autograd derives from a
     gather (``index_add_``) and ``F.embedding``'s both sum with atomics on
     the card when rows repeat, in a run-dependent order; no step of this
@@ -260,16 +260,9 @@ class _Lookup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         ids, valid = ctx.saved_tensors
-        dtype = dy.dtype
         # an out-of-range id took the fill and gets no gradient
-        dy = torch.where(valid[:, None], dy.float(), 0.0)
-        order = torch.sort(ids, stable=True)[1]
-        counts = torch.zeros(ctx.rows, dtype=torch.int64,
-                             device=ids.device).index_add_(
-            0, ids, torch.ones_like(ids))
-        dw = torch.segment_reduce(dy.index_select(0, order), "sum",
-                                  lengths=counts, unsafe=True)
-        return dw.to(dtype), None, None
+        return ordered_index_sum(dy, torch.where(valid, ids, ctx.rows),
+                                 ctx.rows), None, None
 
 
 @register_op("lookup_table_v2", non_diff_inputs=("Ids",))
@@ -556,6 +549,25 @@ def scatter(ins, attrs):
                                    x)}
     padded = torch.cat([x, x.new_zeros((1,) + tuple(x.shape[1:]))])
     return {"Out": padded.index_add(0, tgt, upd)[:n]}
+
+
+def ordered_index_sum(values, target, n):
+    """``values`` [M, ...] summed into ``n`` rows by ``target`` [M]
+    (int64 in [0, n]; n marks a dropped row), each row's values in their
+    order: a stable sort by target, then one float32 segment sum a row,
+    cast to the values' dtype. ``index_add_`` sums floats with atomics on
+    the card, in an order that changes run to run; integers it sums
+    exactly, so they take it. No step reads the device from the host."""
+    if not values.is_floating_point():
+        out = values.new_zeros((n + 1,) + tuple(values.shape[1:]))
+        return out.index_add(0, target, values)[:n]
+    order = torch.sort(target, stable=True)[1]
+    counts = torch.zeros(n + 1, dtype=torch.int64,
+                         device=target.device).index_add_(
+        0, target, torch.ones_like(target))
+    sums = torch.segment_reduce(values.index_select(0, order).float(), "sum",
+                                lengths=counts, unsafe=True)
+    return sums[:n].to(values.dtype)
 
 
 def int32_values(values, device):

@@ -53,8 +53,30 @@ _TENSOR = ("share_data", "reshape", "transpose", "split", "stack", "unstack",
            "pad2d", "broadcast_to")
 
 
+# the op types of the reference's linalg_ops and extra_ops that come with
+# LINALG_EXTRA_OPS, by family (the rest are activations)
+_LE_MATMUL = ("addmm", "mv", "trace", "inverse", "cholesky", "cross",
+              "kron", "dist", "cos_sim", "norm")
+_LE_REDUCTION = ("logsumexp", "frobenius_norm", "l1_norm", "cumprod",
+                 "median", "auc")
+_LE_TENSOR = ("multiplex", "expand_as", "pad_constant_like", "shard_index",
+              "reverse", "size", "scatter_nd", "diag", "diag_v2",
+              "histogram", "bincount", "isinf", "isnan", "isinf_v2",
+              "isnan_v2", "rank", "kthvalue", "mode", "searchsorted",
+              "meshgrid", "index_sample", "unbind", "put_along_axis")
+_LE_LOSS = ("log_loss", "hinge_loss", "rank_loss", "nll_loss")
+
+
 def family(op):
     """The family of an op type, the key of its float tolerance."""
+    if op in _LE_MATMUL:
+        return "matmul"
+    if op in _LE_REDUCTION:
+        return "reduction"
+    if op in _LE_TENSOR:
+        return "tensor"
+    if op in _LE_LOSS:
+        return "loss"
     if op in _CRF:
         return "crf"
     if op in _FUSED_RNN:
@@ -1054,3 +1076,386 @@ API_OPS = ("sin", "selu", "brelu", "thresholded_relu", "tanh_shrink",
            "group_norm", "interpolate", "pad2d", "prelu", "broadcast_to",
            "adagrad", "adamax", "adadelta", "rmsprop", "decayed_adagrad",
            "ftrl")
+
+
+# -- the reference's linalg_ops (34) and extra_ops (30 more) -----------------
+
+LINALG_OPS = ("addmm", "cross", "mv", "trace", "inverse", "cholesky",
+              "logsumexp", "frobenius_norm", "l1_norm", "multiplex", "minus",
+              "expand_as", "pad_constant_like", "shard_index", "reverse",
+              "size", "scatter_nd", "diag", "diag_v2", "histogram",
+              "bincount", "isinf", "isnan", "isinf_v2", "isnan_v2", "rank",
+              "cumprod", "kthvalue", "median", "mode", "searchsorted",
+              "lgamma", "digamma", "frac")
+EXTRA_UNARY = ("asin", "acos", "atan", "sinh", "cosh", "tan", "expm1",
+               "log1p", "log10", "trunc", "atanh", "asinh", "acosh")
+EXTRA_OPS = EXTRA_UNARY + (
+    "atan2", "mish", "celu", "stanh", "meshgrid", "index_sample", "unbind",
+    "kron", "put_along_axis", "cos_sim", "dist", "log_loss", "hinge_loss",
+    "rank_loss", "nll_loss", "norm", "auc")
+LINALG_EXTRA_OPS = LINALG_OPS + EXTRA_OPS
+
+
+def _spd(r, b, n, bad=()):
+    """b symmetric positive definite n x n matrices; those in ``bad``
+    have a negative eigenvalue (not positive definite)."""
+    a = r.randn(b, n, n)
+    m = a @ a.transpose(0, 2, 1) / n + np.eye(n)
+    for i in bad:
+        m[i] -= 3.0 * np.eye(n)
+    return m.astype(np.float32)
+
+
+_EVEN = np.array([1, 4, 3, 2], np.float32)
+_MODE_TIES = np.array([3, 1, 3, 1, 2], np.float32)
+_SIGNED_ZEROS = np.array([[0.0, -0.0, 1.0, 1.0, -0.0],
+                          [NAN, NAN, 2.0, 2.0, NAN]], np.float32)
+
+CASES.update({
+    "addmm[alpha_beta]": lambda r: (
+        {"Input": [_u(r, (3, 5))], "X": [_u(r, (3, 4))],
+         "Y": [_u(r, (4, 5))]}, {"Alpha": 0.5, "Beta": 2.0}),
+    "addmm[broadcast]": lambda r: (
+        {"Input": [_u(r, (5,))], "X": [_u(r, (3, 4))],
+         "Y": [_u(r, (4, 5))]}, {}),
+    "cross[dim]": lambda r: ({"X": [_u(r, (3, 4))], "Y": [_u(r, (3, 4))]},
+                             {"dim": 0}),
+    "cross[default_dim]": lambda r: (
+        {"X": [_u(r, (2, 3, 3))], "Y": [_u(r, (2, 3, 3))]}, {"dim": -100}),
+    "cross[no_axis_of_3]": lambda r: (
+        {"X": [_u(r, (2, 4))], "Y": [_u(r, (2, 4))]}, {}),
+    "mv[basic]": lambda r: ({"X": [_u(r, (5, 4))], "Vec": [_u(r, (4,))]},
+                            {}),
+    "trace[offset]": lambda r: ({"Input": [_u(r, (4, 5))]}, {"offset": 1}),
+    "trace[axes_neg_offset]": lambda r: (
+        {"Input": [_u(r, (2, 3, 4))]},
+        {"offset": -1, "axis1": 2, "axis2": 1}),
+    "trace[int32]": lambda r: (
+        {"Input": [r.randint(-5, 5, (4, 4)).astype(np.int32)]}, {}),
+    "inverse[batch]": lambda r: ({"Input": [_spd(r, 3, 4)]}, {}),
+    "inverse[singular]": lambda r: (
+        {"Input": [np.array([[[1, 2], [2, 4]], [[2, 1], [1, 2]]],
+                            np.float32)]}, {}),
+    "cholesky[lower]": lambda r: ({"X": [_spd(r, 3, 4)]}, {}),
+    "cholesky[upper]": lambda r: ({"X": [_spd(r, 2, 3)]}, {"upper": True}),
+    "cholesky[not_pd]": lambda r: ({"X": [_spd(r, 3, 4, bad=(1,))]}, {}),
+    "cholesky[asymmetric]": lambda r: (
+        {"X": [_spd(r, 2, 3) + np.triu(_u(r, (3, 3)), 1)]}, {}),
+    "logsumexp[axis]": lambda r: ({"X": [_u(r, (3, 6), -3, 3)]},
+                                  {"axis": [1], "keepdim": False}),
+    "logsumexp[keepdim_int_axis]": lambda r: (
+        {"X": [_u(r, (3, 4, 2))]}, {"axis": 1, "keepdim": True}),
+    "logsumexp[reduce_all]": lambda r: ({"X": [_u(r, (3, 4))]},
+                                        {"axis": [0], "reduce_all": True}),
+    "logsumexp[axis_none]": lambda r: ({"X": [_u(r, (3, 4))]}, {}),
+    "logsumexp[edge]": lambda r: (
+        {"X": [np.array([[-INF, -INF, -INF], [INF, 1.0, 2.0],
+                         [NAN, 0.0, 1.0], [-1e30, 0.0, 80.0]],
+                        np.float32)]}, {"axis": [1]}),
+    "logsumexp[bf16]": lambda r: ({"X": [BF16(_u(r, (3, 8), -4, 4))]},
+                                  {"axis": [-1]}),
+    "frobenius_norm[dim]": lambda r: ({"X": [_u(r, (3, 4))]},
+                                      {"dim": [1], "keep_dim": True}),
+    "frobenius_norm[reduce_all]": lambda r: (
+        {"X": [_u(r, (3, 4))]}, {"dim": [0, 1], "reduce_all": True}),
+    "frobenius_norm[dim_zero_is_all]": lambda r: ({"X": [_u(r, (3, 4))]},
+                                                  {"dim": 0}),
+    "frobenius_norm[zeros]": lambda r: (
+        {"X": [np.zeros((2, 3), np.float32)]}, {}),
+    "l1_norm[edge]": lambda r: ({"X": [EDGE.reshape(3, 4)]}, {}),
+    "l1_norm[zeros]": lambda r: (
+        {"X": [np.array([0.0, -0.0, 1.5, -2.0], np.float32)]}, {}),
+    "l1_norm[int32]": lambda r: (
+        {"X": [np.array([-3, 0, 4], np.int32)]}, {}),
+    "multiplex[basic]": lambda r: (
+        {"X": [_u(r, (4, 5)), _u(r, (4, 5))],
+         "Ids": [np.array([[1], [0], [1], [0]], np.int32)]}, {}),
+    "multiplex[wrap_clamp]": lambda r: (
+        {"X": [_u(r, (2, 3)), _u(r, (2, 3))],
+         "Ids": [np.array([[3], [-1]], np.int32)]}, {}),
+    "multiplex[three_far]": lambda r: (
+        {"X": [_u(r, (4, 2, 2)) for _ in range(3)],
+         "Ids": [np.array([[-7], [2], [9], [-3]], np.int32)]}, {}),
+    "minus[basic]": lambda r: ({"X": [EDGE.reshape(3, 4)],
+                                "Y": [_u(r, (3, 4))]}, {}),
+    "expand_as[target]": lambda r: (
+        {"X": [_u(r, (1, 3))], "target_tensor": [_u(r, (4, 6))]}, {}),
+    "expand_as[y_slot_int]": lambda r: (
+        {"X": [np.arange(4, dtype=np.int32).reshape(2, 2)],
+         "Y": [_u(r, (2, 4))]}, {}),
+    "pad_constant_like[value]": lambda r: (
+        {"X": [_u(r, (3, 4))], "Y": [_u(r, (2, 3))]}, {"pad_value": -0.5}),
+    "pad_constant_like[int_trunc]": lambda r: (
+        {"X": [_u(r, (3, 4))], "Y": [np.ones((2, 3), np.int32)]},
+        {"pad_value": -1.7}),
+    "pad_constant_like[larger_y]": lambda r: (
+        {"X": [_u(r, (2, 3))], "Y": [_u(r, (3, 3))]}, {}),
+    "shard_index[basic]": lambda r: (
+        {"X": [np.array([[1], [6], [11], [15]], np.int32)]},
+        {"index_num": 20, "nshards": 2, "shard_id": 1, "ignore_value": -1}),
+    "shard_index[negative_uneven]": lambda r: (
+        {"X": [np.array([[-3], [0], [5], [13], [19], [20]], np.int32)]},
+        {"index_num": 19, "nshards": 4, "shard_id": 0,
+         "ignore_value": -7}),
+    "reverse[axes]": lambda r: ({"X": [_u(r, (3, 4, 2))]},
+                                {"axis": [0, 2]}),
+    "reverse[int_axis]": lambda r: (
+        {"X": [np.arange(6, dtype=np.int32).reshape(2, 3)]}, {"axis": -1}),
+    "size[3d]": lambda r: ({"Input": [_u(r, (2, 3, 4))]}, {}),
+    "size[int_empty]": lambda r: (
+        {"Input": [np.zeros((0, 3), np.int32)]}, {}),
+    "scatter_nd[dups_out_of_range]": lambda r: (
+        {"Index": [np.array([[1], [1], [5], [-1], [0], [-9]], np.int32)],
+         "Updates": [_u(r, (6, 3))]}, {"shape": [4, 3]}),
+    "scatter_nd[2d_index]": lambda r: (
+        {"Index": [np.array([[[0, 1], [2, 2]], [[0, 1], [3, 0]]],
+                            np.int32)],
+         "Updates": [_u(r, (2, 2, 5))]}, {"shape": [3, 3, 5]}),
+    "scatter_nd[int]": lambda r: (
+        {"Index": [np.array([[0], [2], [0]], np.int32)],
+         "Updates": [np.array([1, 2, 3], np.int32)]}, {"shape": [4]}),
+    "scatter_nd[bf16]": lambda r: (
+        {"Index": [np.array([[1], [1], [0]], np.int32)],
+         "Updates": [BF16(_u(r, (3, 4)))]}, {"shape": [2, 4]}),
+    "diag[vector]": lambda r: ({"Diagonal": [_u(r, (4,))]}, {}),
+    "diag[matrix_flattened]": lambda r: (
+        {"Diagonal": [np.arange(4, dtype=np.int32).reshape(2, 2)]}, {}),
+    "diag_v2[offset]": lambda r: ({"X": [_u(r, (3,))]}, {"offset": 1}),
+    "diag_v2[padding]": lambda r: ({"X": [_u(r, (3,))]},
+                                   {"offset": -1, "padding_value": 2.5}),
+    "diag_v2[int_float_padding]": lambda r: (
+        {"X": [np.array([1, 2, 3], np.int32)]},
+        {"offset": 0, "padding_value": 1.5}),
+    "diag_v2[matrix]": lambda r: ({"X": [_u(r, (3, 5))]}, {"offset": 2}),
+    "diag_v2[matrix_neg]": lambda r: ({"X": [_u(r, (4, 3))]},
+                                      {"offset": -1}),
+    "histogram[range]": lambda r: ({"X": [EDGE]},
+                                   {"bins": 5, "min": -3, "max": 3}),
+    "histogram[data_range]": lambda r: ({"X": [_u(r, (4, 5))]},
+                                        {"bins": 7}),
+    "histogram[constant]": lambda r: (
+        {"X": [np.full((5,), 2.0, np.float32)]}, {"bins": 4}),
+    "histogram[equal_bounds]": lambda r: (
+        {"X": [np.array([0.6, 1.0, 1.4, 2.0], np.float32)]},
+        {"bins": 3, "min": 1.0, "max": 1.0}),
+    "histogram[int32]": lambda r: (
+        {"X": [np.array([1, 2, 3, 10, 11, 15, 19, 25], np.int32)]},
+        {"bins": 8}),
+    "histogram[default_bins]": lambda r: ({"X": [_u(r, (50,))]},
+                                          {"min": -0.5, "max": 0.5}),
+    "bincount[negative_and_past]": lambda r: (
+        {"X": [np.array([-3, 0, 1, 1, 7, 2, 4], np.int32)]},
+        {"minlength": 4}),
+    "bincount[weights]": lambda r: (
+        {"X": [np.array([[1, 1], [3, 0]], np.int32)],
+         "Weights": [_u(r, (2, 2))]}, {"minlength": 5}),
+    "bincount[no_minlength]": lambda r: (
+        {"X": [np.array([1, 2], np.int32)]}, {}),
+    "isinf[edge]": lambda r: ({"X": [EDGE]}, {}),
+    "isinf[finite]": lambda r: ({"X": [_u(r, (3, 4))]}, {}),
+    "isnan[edge]": lambda r: ({"X": [EDGE]}, {}),
+    "isnan[int]": lambda r: ({"X": [np.arange(3, dtype=np.int32)]}, {}),
+    "isinf_v2[edge]": lambda r: ({"X": [EDGE.reshape(3, 4)]}, {}),
+    "isnan_v2[edge]": lambda r: ({"X": [EDGE.reshape(4, 3)]}, {}),
+    "isnan_v2[bf16]": lambda r: ({"X": [BF16(EDGE)]}, {}),
+    "rank[3d]": lambda r: ({"Input": [_u(r, (2, 3, 4))]}, {}),
+    "rank[scalar]": lambda r: ({"Input": [np.float32(1.0)]}, {}),
+    "cumprod[zeros]": lambda r: (
+        {"X": [np.array([[1.5, 0, 2, 3], [0, 0, 2, -1]], np.float32)]},
+        {"dim": 1}),
+    "cumprod[edge]": lambda r: ({"X": [EDGE.reshape(3, 4)]}, {"dim": 0}),
+    "cumprod[int32]": lambda r: (
+        {"X": [np.arange(1, 7, dtype=np.int32).reshape(2, 3)]}, {"dim": -1}),
+    "kthvalue[ties]": lambda r: ({"X": [_ties(r, (4, 7))]}, {"k": 3}),
+    "kthvalue[edge_keepdim]": lambda r: (
+        {"X": [np.stack([EDGE, EDGE[::-1]])]},
+        {"k": 2, "axis": 1, "keepdim": True}),
+    "kthvalue[signed_zeros_axis0]": lambda r: (
+        {"X": [_SIGNED_ZEROS.T.copy()]}, {"k": 2, "axis": 0}),
+    "kthvalue[k_out_of_range]": lambda r: ({"X": [_u(r, (2, 3))]},
+                                           {"k": 4}),
+    "kthvalue[bf16]": lambda r: ({"X": [BF16(_u(r, (3, 6)))]}, {"k": 4}),
+    "median[even]": lambda r: ({"X": [_EVEN]}, {}),
+    "median[axis_edge]": lambda r: ({"X": [EDGE.reshape(3, 4)]},
+                                    {"axis": 1}),
+    "median[ties_keepdim]": lambda r: ({"X": [_ties(r, (4, 6))]},
+                                       {"axis": 0, "keepdim": True}),
+    "median[all_keepdim]": lambda r: ({"X": [_u(r, (3, 5))]},
+                                      {"keepdim": True}),
+    "median[int32]": lambda r: (
+        {"X": [np.array([[1, 4, 3, 2], [7, 7, 0, 1]], np.int32)]},
+        {"axis": -1}),
+    "mode[ties]": lambda r: ({"X": [_MODE_TIES]}, {}),
+    "mode[rows]": lambda r: ({"X": [_ties(r, (5, 8))]}, {"axis": 1}),
+    "mode[signed_zeros_nan]": lambda r: ({"X": [_SIGNED_ZEROS]},
+                                         {"axis": -1, "keepdim": True}),
+    "mode[axis0]": lambda r: ({"X": [_ties(r, (6, 3))]}, {"axis": 0}),
+    "searchsorted[left]": lambda r: (
+        {"SortedSequence": [np.array([1, 3, 5, 7], np.float32)],
+         "Values": [np.array([[2, 6], [1, 7]], np.float32)]}, {}),
+    "searchsorted[right_edge]": lambda r: (
+        {"SortedSequence": [np.array([-INF, -1, 0, 0, 1, INF, NAN],
+                                     np.float32)],
+         "Values": [EDGE]}, {"right": True}),
+    "searchsorted[left_edge]": lambda r: (
+        {"SortedSequence": [np.array([-INF, -1, 0, 0, 1, INF, NAN],
+                                     np.float32)],
+         "Values": [EDGE]}, {}),
+    "searchsorted[rows]": lambda r: (
+        {"SortedSequence": [np.sort(_ties(r, (3, 6)), axis=1)],
+         "Values": [_ties(r, (3, 4))]}, {"right": True}),
+    "searchsorted[int32]": lambda r: (
+        {"SortedSequence": [np.array([0, 2, 2, 9], np.int32)],
+         "Values": [np.array([-1, 2, 3, 10], np.int32)]},
+        {"out_int32": True}),
+    "lgamma[edge]": lambda r: ({"X": [EDGE]}, {}),
+    "lgamma[negative]": lambda r: ({"X": [_u(r, (3, 4), -4, 4)]}, {}),
+    "digamma[edge]": lambda r: ({"X": [EDGE]}, {}),
+    "digamma[positive]": lambda r: ({"X": [_u(r, (3, 4), 0.1, 6)]}, {}),
+    "digamma[negative_ints]": lambda r: (
+        {"X": [np.array([-1.0, -2.0, -2.5, -0.5], np.float32)]}, {}),
+    "frac[edge]": lambda r: ({"X": [EDGE]}, {}),
+    "frac[int32]": lambda r: ({"X": [np.array([-3, 4], np.int32)]}, {}),
+})
+
+_UNARY_RANGE = {"asin": (-1.2, 1.2), "acos": (-1.2, 1.2), "atan": (-5, 5),
+                "sinh": (-5, 5), "cosh": (-5, 5), "tan": (-1.4, 1.4),
+                "expm1": (-5, 5), "log1p": (-1.5, 5), "log10": (-1, 1e3),
+                "trunc": (-5, 5), "atanh": (-1.2, 1.2), "asinh": (-5, 5),
+                "acosh": (0.5, 5)}
+for _op, (_lo, _hi) in _UNARY_RANGE.items():
+    CASES[f"{_op}[range]"] = lambda r, lo=_lo, hi=_hi: (
+        {"X": [_u(r, (3, 4), lo, hi)]}, {})
+    CASES[f"{_op}[edge]"] = lambda r: ({"X": [EDGE]}, {})
+CASES.update({
+    "trunc[int32]": lambda r: ({"X": [np.array([-3, 4], np.int32)]}, {}),
+    "log10[int32]": lambda r: (
+        {"X": [np.array([1, 10, 1000, 7], np.int32)]}, {}),
+    "expm1[bf16]": lambda r: ({"X": [BF16(_u(r, (4,), -2, 2))]}, {}),
+    "atan2[quadrants]": lambda r: (
+        {"X1": [np.array([0.0, -0.0, 0.0, -0.0, 1, -1, INF, NAN],
+                         np.float32)],
+         "X2": [np.array([0.0, 0.0, -0.0, -0.0, -INF, INF, INF, 1],
+                         np.float32)]}, {}),
+    "atan2[range]": lambda r: ({"X1": [_u(r, (3, 4))],
+                                "X2": [_u(r, (3, 4))]}, {}),
+    "mish[edge]": lambda r: ({"X": [EDGE]}, {}),
+    "mish[range]": lambda r: ({"X": [_u(r, (3, 4), -25, 25)]}, {}),
+    "mish[bf16]": lambda r: ({"X": [BF16(_u(r, (8,), -4, 4))]}, {}),
+    "celu[alpha]": lambda r: ({"X": [EDGE]}, {"alpha": 0.5}),
+    "celu[default]": lambda r: ({"X": [_u(r, (3, 4), -3, 3)]}, {}),
+    "stanh[default]": lambda r: ({"X": [EDGE]}, {}),
+    "stanh[scales]": lambda r: ({"X": [_u(r, (3, 4), -3, 3)]},
+                                {"scale_a": 2.0, "scale_b": 0.5}),
+    "meshgrid[three]": lambda r: (
+        {"X": [_u(r, (3,)), np.arange(2, dtype=np.int32), _u(r, (4,))]},
+        {}),
+    "index_sample[basic]": lambda r: (
+        {"X": [_u(r, (3, 5))],
+         "Index": [np.array([[0, 4], [1, 1], [3, 2]], np.int32)]}, {}),
+    "index_sample[out_of_range]": lambda r: (
+        {"X": [_u(r, (3, 4))],
+         "Index": [np.array([[0, 3], [-1, 9], [-5, 2]], np.int32)]}, {}),
+    "index_sample[int]": lambda r: (
+        {"X": [np.arange(12, dtype=np.int32).reshape(3, 4)],
+         "Index": [np.array([[5], [0], [-2]], np.int32)]}, {}),
+    "unbind[axis1]": lambda r: ({"X": [_u(r, (3, 4))]}, {"axis": 1}),
+    "unbind[axis0_int]": lambda r: (
+        {"X": [np.arange(6, dtype=np.int32).reshape(2, 3)]}, {}),
+    "kron[2d]": lambda r: ({"X": [_u(r, (2, 3))], "Y": [_u(r, (3, 2))]},
+                           {}),
+    "kron[ranks]": lambda r: ({"X": [_u(r, (2,))], "Y": [_u(r, (2, 3))]},
+                              {}),
+    "put_along_axis[assign_last_wins]": lambda r: (
+        {"Input": [_u(r, (4,))], "Index": [np.array([1, 1, 1], np.int32)],
+         "Value": [np.array([5, 6, 7], np.float32)]}, {"Axis": 0}),
+    "put_along_axis[assign_wrap_drop]": lambda r: (
+        {"Input": [_u(r, (4,))], "Index": [np.array([1, 5, -1], np.int32)],
+         "Value": [np.array([5, 6, 7], np.float32)]}, {"Axis": 0}),
+    "put_along_axis[add_dups]": lambda r: (
+        {"Input": [_u(r, (3, 4))],
+         "Index": [np.array([[1, 1], [0, 5], [-1, 2]], np.int32)],
+         "Value": [_u(r, (3, 2))]}, {"Axis": 1, "Reduce": "add"}),
+    "put_along_axis[scalar_value_axis0]": lambda r: (
+        {"Input": [_u(r, (3, 4))],
+         "Index": [np.array([[2, 0, 0, 1]], np.int32)],
+         "Value": [np.array(9.0, np.float32)]}, {"Axis": 0}),
+    "put_along_axis[int]": lambda r: (
+        {"Input": [np.zeros((2, 3), np.int32)],
+         "Index": [np.array([[0, 0], [2, -1]], np.int32)],
+         "Value": [np.array([[1, 2], [3, 4]], np.int32)]},
+        {"Axis": 1, "Reduce": "add"}),
+    "cos_sim[pairs]": lambda r: ({"X": [_u(r, (4, 6))],
+                                 "Y": [_u(r, (4, 6))]}, {}),
+    "cos_sim[broadcast_zero_row]": lambda r: (
+        {"X": [np.concatenate([np.zeros((1, 3), np.float32),
+                               _u(r, (3, 3))])], "Y": [_u(r, (1, 3))]},
+        {}),
+    "cos_sim[bf16]": lambda r: ({"X": [BF16(_u(r, (3, 8)))],
+                                 "Y": [BF16(_u(r, (3, 8)))]}, {}),
+    "dist[p2]": lambda r: ({"X": [_u(r, (3, 4))], "Y": [_u(r, (3, 4))]},
+                           {}),
+    "dist[p_inf_broadcast]": lambda r: (
+        {"X": [_u(r, (3, 4))], "Y": [_u(r, (4,))]}, {"p": INF}),
+    "dist[p0]": lambda r: (
+        {"X": [np.array([1, 2, 3, 0], np.float32)],
+         "Y": [np.array([1, 0, 3, -0.0], np.float32)]}, {"p": 0.0}),
+    "dist[p3]": lambda r: ({"X": [_u(r, (5,))], "Y": [_u(r, (5,))]},
+                           {"p": 3.0}),
+    "log_loss[basic]": lambda r: (
+        {"Predicted": [_u(r, (5, 1), 0.0, 1.0)],
+         "Labels": [(r.rand(5, 1) > 0.5).astype(np.float32)]}, {}),
+    "log_loss[epsilon]": lambda r: (
+        {"Predicted": [np.array([[0.0], [1.0], [0.5]], np.float32)],
+         "Labels": [np.array([[0.0], [1.0], [1.0]], np.float32)]},
+        {"epsilon": 1e-6}),
+    "hinge_loss[ties]": lambda r: (
+        {"Logits": [np.array([[1.0], [-1.0], [0.3], [2.0]], np.float32)],
+         "Labels": [np.array([[0.0], [1.0], [1.0], [0.0]], np.float32)]},
+        {}),
+    "hinge_loss[range]": lambda r: (
+        {"Logits": [_u(r, (5, 1), -2, 2)],
+         "Labels": [(r.rand(5, 1) > 0.5).astype(np.float32)]}, {}),
+    "rank_loss[basic]": lambda r: (
+        {"Label": [(r.rand(5, 1) > 0.5).astype(np.float32)],
+         "Left": [_u(r, (5, 1), -3, 3)], "Right": [_u(r, (5, 1), -3, 3)]},
+        {}),
+    "rank_loss[large]": lambda r: (
+        {"Label": [np.array([[1.0], [0.0], [0.5]], np.float32)],
+         "Left": [np.array([[40.0], [-40.0], [0.0]], np.float32)],
+         "Right": [np.array([[-40.0], [40.0], [0.0]], np.float32)]}, {}),
+    "nll_loss[mean]": lambda r: (
+        {"X": [_u(r, (4, 5), -3, 0)],
+         "Label": [np.array([0, 4, 2, 2], np.int32)]}, {}),
+    "nll_loss[sum_out_of_range]": lambda r: (
+        {"X": [_u(r, (4, 3), -3, 0)],
+         "Label": [np.array([0, 2, 5, -1], np.int32)]},
+        {"reduction": "sum"}),
+    "nll_loss[none]": lambda r: (
+        {"X": [_u(r, (3, 4), -3, 0)],
+         "Label": [np.array([[1], [3], [0]], np.int32)]},
+        {"reduction": "none", "ignore_index": -100}),
+    "norm[axis]": lambda r: ({"X": [_u(r, (3, 4))]}, {"axis": 1}),
+    "norm[zeros_eps]": lambda r: (
+        {"X": [np.zeros((2, 3), np.float32)]}, {"axis": 0,
+                                                "epsilon": 1e-6}),
+    "norm[bf16]": lambda r: ({"X": [BF16(_u(r, (3, 8)))]}, {"axis": -1}),
+    "auc[edge]": lambda r: (
+        {"Predict": [np.stack([1 - EDGE, EDGE], 1)],
+         "Label": [(np.arange(12) % 2).reshape(-1, 1).astype(np.int32)],
+         "StatPos": [np.zeros(8, np.float32)],
+         "StatNeg": [np.zeros(8, np.float32)]}, {"num_thresholds": 7}),
+    "auc[stream]": lambda r: (
+        {"Predict": [np.stack([1 - _p, _p], 1) for _p in
+                     [_u(r, (64,), 0, 1)]],
+         "Label": [(r.rand(64, 1) > 0.6).astype(np.int32)],
+         "StatPos": [r.randint(0, 5, 201).astype(np.float32)],
+         "StatNeg": [r.randint(0, 5, 201).astype(np.float32)]},
+        {"num_thresholds": 200}),
+    "auc[one_class]": lambda r: (
+        {"Predict": [np.stack([1 - _p, _p], 1) for _p in
+                     [_u(r, (16,), 0, 1)]],
+         "Label": [np.ones((16, 1), np.int32)],
+         "StatPos": [np.zeros(4096, np.float32)],
+         "StatNeg": [np.zeros(4096, np.float32)]}, {}),
+})

@@ -33,9 +33,9 @@ def test_every_api_op_type_is_registered_with_a_case():
     covered = {c.split("[")[0] for c in CASES}
     assert covered == set(API_OPS)
     assert all(pt_registry.lookup(op) is not None for op in API_OPS)
-    # with the three interpolate aliases and expand_as_v2, and
-    # @to_static's closure op __jax_fn__
-    assert len(pt_registry.registered_ops()) == 208 + 36 + 3 + 1
+    # with the three interpolate aliases and expand_as_v2, @to_static's
+    # closure op __jax_fn__, and the 64 of linalg_ops and extra_ops
+    assert len(pt_registry.registered_ops()) == 208 + 36 + 3 + 1 + 64
     assert pt_registry.lookup("__jax_fn__") is not None
 
 

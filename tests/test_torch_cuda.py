@@ -2857,3 +2857,129 @@ def test_to_static_launch_counts_count_replays_only(dev):
     assert graphs.bwd_delta.get("flash_attention_bwd") == 1
     assert (later["flash_attention_fwd"], later["flash_attention_bwd"]) == \
         (3, 3)
+
+
+# -- the linalg_ops / extra_ops slice (tools/linalg_extra_cases.py) ----------
+
+def _lec_leg(dev, builder, feed, cpu=True):
+    """A leg's program op by op on the card (and on the CPU), then as a
+    compiled step on a fresh executor: (card outputs, CPU outputs,
+    compiled outputs of the captured run, captured, uncaptured runs)."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.tools import control_flow_cases as cfc
+
+    prog, _, fetch = cfc.build(cfc.port(), builder)
+    names = [v.name for v in fetch]
+    dfeed = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in feed.items()}
+    card = Executor(device=dev).run(prog, feed=dfeed, fetch_list=names,
+                                    scope=Scope(), use_compiled=False)
+    host = Executor(device="cpu").run(prog, feed=feed, fetch_list=names,
+                                      scope=Scope(), use_compiled=False) \
+        if cpu else None
+    exe, scope = Executor(device=dev), Scope()
+    u0 = telemetry.counter_get("executor.uncaptured_steps")
+    for _ in range(2):
+        comp = exe.run(prog, feed=dfeed, fetch_list=names, scope=scope,
+                       use_compiled=True)
+    built = [c for by in exe._compiled[prog].values() for c in by.values()
+             if hasattr(c, "graph")]
+    captured = bool(built) and built[0].graph.graph is not None
+    exe.close()
+    return (card, host, comp, captured,
+            telemetry.counter_get("executor.uncaptured_steps") - u0)
+
+
+def _same(a, b):
+    return all(np.array_equal(x, y, equal_nan=np.issubdtype(
+        np.asarray(y).dtype, np.floating)) for x, y in zip(a, b))
+
+
+def test_linalg_extra_mlm_loss_captured_against_softmax_ce(dev):
+    """logsumexp + nll_loss over [1024, 30522] logits (BERT-base's
+    vocabulary, 8 of the card leg's 64 rows of 128): the captured step
+    equals op by op bit for bit; loss and gradient against
+    softmax_with_cross_entropy's within 1e-5."""
+    from paddle_tpu_torch.tools import linalg_extra_cases as lec
+
+    feed = lec.mlm_feed(1024, 30522)
+    card, _, comp, captured, unc = _lec_leg(
+        dev, lambda P: lec.mlm_nll(P, 1024, 30522), feed, cpu=False)
+    ce, _, _, _, _ = _lec_leg(
+        dev, lambda P: lec.mlm_softmax_ce(P, 1024, 30522), feed, cpu=False)
+    assert captured and unc == 0 and _same(comp, card)
+    assert abs(float(card[0]) - float(ce[0])) <= 1e-5 * abs(float(ce[0]))
+    assert np.abs(card[1] - ce[1]).max() <= 1e-5 * np.abs(ce[1]).max()
+
+
+def test_linalg_extra_scatter_nd_is_fixed_order_at_the_ernie_table(dev):
+    """scatter_nd of 2048 ids with repeats and out-of-range ones into
+    [18000, 1024]: three card runs bit for bit, within fp32 rounding of
+    a float64 sum; shard_index the CPU's bit for bit; captured."""
+    from paddle_tpu_torch.tools import linalg_extra_cases as lec
+
+    feed = lec.embedding_feed(2048, 18000, 1024)
+    card, host, comp, captured, unc = _lec_leg(
+        dev, lambda P: lec.embedding_scatter(P, 2048, 18000, 1024, 4), feed)
+    again, _, _, _, _ = _lec_leg(
+        dev, lambda P: lec.embedding_scatter(P, 2048, 18000, 1024, 4), feed,
+        cpu=False)
+    assert captured and unc == 0 and _same(comp, card) and _same(again, card)
+    assert _same(card[1:], host[1:])
+    ref = lec.scatter_nd_float64(feed["ids"], feed["rows"], 18000)
+    mag = lec.scatter_nd_float64(feed["ids"], np.abs(feed["rows"]), 18000)
+    assert (np.abs(card[0] - ref) <= mag * 2.0 ** -20).all()
+
+
+def test_linalg_extra_order_stats_and_linalg_against_the_cpu(dev):
+    """kthvalue, median and mode over [1024, 768] activations with ties
+    bit for bit the CPU's; cholesky of [32, 64, 64] with a member not
+    positive definite: NaN fill inside the captured step, within 1e-4 of
+    the CPU's; inverse of the same within 1e-4, its compiled step
+    uncaptured (inv_ex cannot be captured) and counted."""
+    from paddle_tpu_torch.tools import linalg_extra_cases as lec
+
+    card, host, comp, captured, unc = _lec_leg(
+        dev, lambda P: lec.order_stats(P, 1024, 768),
+        lec.order_stats_feed(1024, 768))
+    assert captured and unc == 0 and _same(comp, card) and _same(card, host)
+    feed = lec.linalg_feed(32, 64, 1)
+    for op in ("cholesky", "inverse"):
+        card, host, comp, captured, unc = _lec_leg(
+            dev, lambda P: lec.linalg(P, 32, 64, op), feed)
+        assert _same(comp, card)
+        assert (captured, unc) == ((True, 0) if op == "cholesky"
+                                   else (False, 1)), op
+        fin = ~np.isnan(host[0])
+        assert np.abs(card[0][fin] - host[0][fin]).max() <= \
+            1e-4 * np.abs(host[0][fin]).max()
+    card, _, _, _, _ = _lec_leg(
+        dev, lambda P: lec.linalg(P, 32, 64, "cholesky"), feed, cpu=False)
+    low = np.tril(np.ones((64, 64), bool))
+    assert np.isnan(card[0][1][low]).all() and (card[0][1][~low] == 0).all()
+
+
+def test_linalg_extra_streamed_auc_stats_equal_the_cpu(dev):
+    """cos_sim + auc over 4 batches of [4096, 256] towers, compiled on
+    the card: the stat vars the CPU's bit for bit, the AUC within
+    1e-6."""
+    from paddle_tpu_torch.core.executor import Executor
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.tools import control_flow_cases as cfc
+    from paddle_tpu_torch.tools import linalg_extra_cases as lec
+
+    prog, startup, fetch = cfc.build(cfc.port(),
+                                     lambda P: lec.ctr_auc(P, 4096, 256))
+    names = [v.name for v in fetch]
+    feeds = lec.ctr_feeds(4096, 256, 4)
+    outs = {}
+    for device in ("cpu", dev):
+        exe, scope = Executor(device=device), Scope()
+        exe.run(startup, scope=scope)
+        outs[str(device)] = [exe.run(prog, feed=f, fetch_list=names,
+                                     scope=scope) for f in feeds][-1]
+        exe.close()
+    cpu, card = outs["cpu"], outs[str(dev)]
+    assert _same(card[1:], cpu[1:])
+    assert abs(float(card[0]) - float(cpu[0])) <= 1e-6

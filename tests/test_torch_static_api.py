@@ -210,9 +210,11 @@ def test_static_save_and_load_across_the_packages(tmp_path, direction):
         np.testing.assert_array_equal(got[name], a)
 
 
-A7_NAMES = ("conv2d_transpose", "conv3d", "conv3d_transpose", "data_norm",
-            "group_norm", "instance_norm", "nce", "prelu", "row_conv",
-            "spectral_norm", "case", "switch_case")
+# the six whose op types are not registered yet (conv2d_transpose,
+# group_norm, instance_norm, prelu, case and switch_case are held against
+# the reference in tests/test_torch_extra_ops.py)
+A7_NAMES = ("conv3d", "conv3d_transpose", "data_norm", "nce", "row_conv",
+            "spectral_norm")
 
 
 @pytest.mark.parametrize("name", A7_NAMES)
